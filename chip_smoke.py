@@ -1,0 +1,564 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (node2vec_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # the full run, one card
+    python3 chip_smoke.py --quick    # build + kernel checks at small shapes only
+
+Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
+
+1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
+2. build: every kernel in node2vec_torch/csrc with nvcc (sm_90a), timed;
+3. kernel checks on the card, each kernel's wrapper against its plain
+   PyTorch version on the same inputs:
+   - K1 dense_walk on the smoke graph at (p, q) = (0.25, 4) and (1, 1),
+     131,072 walkers: unit weights and power-of-two p, q make every partial
+     sum exact, so the paths must be bit-equal;
+   - K2 sgns_grads, K3 adagrad_accumulate, K4 adagrad_apply: one step at
+     V = 131,072, D = 128, S = 64, window 5, L1 = 21, at the main path's
+     batch and at B = 8192; rtol 1e-4, atol 1e-6, because fp32 atomics
+     reorder the sums;
+4. edge cases the main path does not reach (K1 at P = 8 .. 256 with sinks,
+   dead lanes and general weights; the SGNS step at other shapes), and a
+   small reference: the Quickstart on the karate graph with device="cuda"
+   (in 64-walker chunks) and device="cpu" gives bit-equal walks;
+5. the main path: ``Node2Vec(device="cuda")`` through preprocess_input_graph
+   -> random_walk -> fit -> embedding on the dense-engine graph (131,072
+   vertices, 2,097,152 drawn undirected unit-weight edges, numpy seed 0),
+   p = 0.25, q = 4, num_walks 10, walk_length 20, dim 128, window 5,
+   negative 5, min_count 10, max_iter cut to 1 epoch; launch counts are
+   reset just before and read just after, and every kernel must have run;
+6. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
+   walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1: held-out
+   link-prediction AUC >= 0.60, and the same-label minus no-shared-label
+   mean cosine >= 0.05;
+7. the ``kernels`` line (times, bounds, launches, errors), then the last
+   line ``{"ok": true, "device": {...}}``.
+
+Exits non-zero, printing no result, when CUDA is missing or any phase fails.
+Imports neither jax nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from node2vec_torch import Node2Vec, _build
+from node2vec_torch.constants import Node2VecParams, Word2VecParams
+from node2vec_torch.datasets import (
+    holdout_link_prediction,
+    label_cosine_gap,
+    synthetic_multilabel,
+    train_embeddings,
+)
+from node2vec_torch.eval import walk_transition_pvalue
+from node2vec_torch.graph import build_graph, from_edge_arrays
+from node2vec_torch.models import skipgram as sg
+from node2vec_torch.models.vocab import build_vocab_from_counts
+from node2vec_torch.walk import WalkEngine, dense
+
+# NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12  # CUDA-core fp32; also used for the 32-bit integer compares
+RTOL, ATOL = 1e-4, 1e-6
+
+SOURCES = {
+    "dense_walk": ("node2vec_torch/csrc/dense_walk.cu",
+                   "node2vec_tpu/walk/dense.py:85 (+ experiments/pallas_step.py:106)"),
+    "sgns_grads": ("node2vec_torch/csrc/sgns.cu", "node2vec_tpu/models/skipgram.py:344"),
+    "adagrad_accumulate": ("node2vec_torch/csrc/adagrad.cu",
+                           "node2vec_tpu/models/skipgram.py:463"),
+    "adagrad_apply": ("node2vec_torch/csrc/adagrad.cu", "node2vec_tpu/models/skipgram.py:469"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean device time of fn() over ``reps`` calls (CUDA events).  A spin
+    kernel holds the stream while the calls are enqueued, so a kernel shorter
+    than its host-side launch cost is timed on the device, not at the rate
+    the host launches it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def smoke_edges(n_vertices: int, n_edges: int, seed: int = 0):
+    """The dense-engine ER graph of experiments/pallas_step.py:32-38."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_vertices, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_vertices, n_edges).astype(np.int32)
+    keep = src != dst
+    return src[keep], dst[keep]
+
+
+# --------------------------------------------------------------------------- #
+# kernel checks
+# --------------------------------------------------------------------------- #
+
+
+def check_dense_walk(graph, n_walkers: int, walk_length: int, results: dict) -> None:
+    dev = torch.device("cuda")
+    packed = torch.from_numpy(
+        dense.build_padded_adjacency(graph.indptr, graph.indices, graph.weights)
+    ).to(dev)
+    p_cols = packed.shape[1] // 2
+    starts = (torch.arange(n_walkers, dtype=torch.int32, device=dev) % graph.n_vertices)
+    for p, q in ((0.25, 4.0), (1.0, 1.0)):
+        kw = dict(walk_length=walk_length, return_param=p, inout_param=q)
+        got = dense.dense_walk_chunk(packed, starts, 0, 0, **kw)
+        want = dense.dense_walk_chunk_plain(packed, starts, 0, 0, **kw)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        n_diff = int((got != want).sum())
+        ms = time_ms(lambda: dense.dense_walk_chunk(packed, starts, 0, 0, **kw))
+        plain_ms = time_ms(lambda: dense.dense_walk_chunk_plain(packed, starts, 0, 0, **kw),
+                           reps=2, warmup=1)
+        # bytes: one 2P*4 B row per live walker-step, starts read, paths written;
+        # ops: P^2 membership compares per biased step (steps >= 1)
+        live = int((got[:, :-1] >= 0).sum())
+        biased = 0 if (p, q) == (1.0, 1.0) else int((got[:, 1:-1] >= 0).sum())
+        n_bytes = live * 2 * p_cols * 4 + n_walkers * 4 + got.numel() * 4
+        b_ms, b_by = bound_ms(n_bytes, biased * p_cols * p_cols)
+        emit({"phase": "check", "kernel": "dense_walk", "p": p, "q": q,
+              "walkers": n_walkers, "P": p_cols, "bit_equal": n_diff == 0,
+              "entries_differing": n_diff, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": b_ms, "bound_by": b_by})
+        require(n_diff == 0, f"dense_walk differs from its plain version at p={p} q={q}")
+        if (p, q) == (0.25, 4.0):  # the main path's setting
+            results["dense_walk"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def _close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+    require(ok, f"{name}: max abs err {err} outside rtol {RTOL} atol {ATOL}")
+    return err
+
+
+def check_sgns(n_vertices: int, n_walks: int, length: int, dim: int, window: int,
+               n_neg: int, record: bool, results: dict) -> None:
+    """K2, K3, K4 each against its plain version on the same inputs."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    emb_in = torch.from_numpy(rng.normal(0, 0.1, (n_vertices, dim)).astype(np.float32)).to(dev)
+    emb_out = torch.from_numpy(rng.normal(0, 0.1, (n_vertices, dim)).astype(np.float32)).to(dev)
+    acc_in = torch.from_numpy(rng.random(n_vertices).astype(np.float32)).to(dev)
+    acc_out = torch.from_numpy(rng.random(n_vertices).astype(np.float32)).to(dev)
+    walks_np = rng.integers(0, n_vertices, (n_walks, length)).astype(np.int32)
+    dead = rng.integers(length // 2, length + 1, n_walks)  # some walks end early
+    walks_np[np.arange(length)[None, :] >= dead[:, None]] = -1
+    walks = torch.from_numpy(walks_np).to(dev)
+    counts = np.bincount(walks_np[walks_np >= 0], minlength=n_vertices)
+    vocab = build_vocab_from_counts(counts, min_count=2)
+    mask = torch.from_numpy(vocab.mask).to(dev)
+    b_sh = torch.from_numpy(rng.integers(1, window + 1, (n_walks, length)).astype(np.int32)).to(dev)
+    r1 = torch.from_numpy(rng.random(n_neg).astype(np.float32)).to(dev)
+    r2 = torch.from_numpy(rng.random(n_neg).astype(np.float32)).to(dev)
+    noise = (torch.from_numpy(vocab.ns_alias).to(dev), torch.from_numpy(vocab.ns_prob).to(dev))
+    neg = sg.negative_ids(r1, r2, *noise)
+    kw = dict(window=window, negatives=5)
+    lr = 0.05
+
+    # K2.  d_no [S, D] sums B*L1 signed terms, so an entry near zero carries
+    # the rounding of large partial sums: it is held to rtol of its largest
+    # entry; every other output elementwise
+    got = sg.sgns_grads(emb_in, emb_out, walks, mask, b_sh, neg, **kw)
+    want = sg.sgns_grads_plain(emb_in, emb_out, walks, mask, b_sh, neg, **kw)
+    errs = [_close(f"sgns_grads[{k}]", g, w) for k, g, w in
+            zip(("g_in", "g_out", "loss"), (got[0], got[1], got[3]), (want[0], want[1], want[3]))]
+    d_no_err = float((got[2] - want[2]).abs().max())
+    d_no_scale = float(want[2].abs().max())
+    require(d_no_err <= RTOL * d_no_scale,
+            f"sgns_grads[d_no]: max abs err {d_no_err} > rtol {RTOL} * max |d_no| {d_no_scale}")
+    errs.append(d_no_err)
+    g_in, g_out, d_no, _ = want
+    walks_flat = walks.reshape(-1)
+    k2_ms = time_ms(lambda: sg.sgns_grads(emb_in, emb_out, walks, mask, b_sh, neg, **kw))
+    k2_plain = time_ms(lambda: sg.sgns_grads_plain(emb_in, emb_out, walks, mask, b_sh, neg, **kw),
+                       reps=3, warmup=1)
+
+    # K3 on the plain K2 outputs
+    a_in, a_out = acc_in.clone(), acc_out.clone()
+    sg.adagrad_accumulate(a_in, a_out, g_in, g_out, d_no, walks_flat, neg)
+    p_in, p_out = acc_in.clone(), acc_out.clone()
+    sg.adagrad_accumulate_plain(p_in, p_out, g_in, g_out, d_no, walks_flat, neg)
+    k3_err = max(_close("adagrad_accumulate[acc_in]", a_in, p_in),
+                 _close("adagrad_accumulate[acc_out]", a_out, p_out))
+    k3_ms = time_ms(lambda: sg.adagrad_accumulate(
+        a_in, a_out, g_in, g_out, d_no, walks_flat, neg))
+    s_in, s_out = acc_in.clone(), acc_out.clone()
+    k3_plain = time_ms(lambda: sg.adagrad_accumulate_plain(
+        s_in, s_out, g_in, g_out, d_no, walks_flat, neg))
+
+    # K4 on the plain K3 outputs
+    t_in, t_out = emb_in.clone(), emb_out.clone()
+    sg.adagrad_apply(t_in, t_out, p_in, p_out, g_in, g_out, d_no, walks_flat, neg, lr)
+    q_in, q_out = emb_in.clone(), emb_out.clone()
+    sg.adagrad_apply_plain(q_in, q_out, p_in, p_out, g_in, g_out, d_no, walks_flat, neg, lr)
+    k4_err = max(_close("adagrad_apply[emb_in]", t_in, q_in),
+                 _close("adagrad_apply[emb_out]", t_out, q_out))
+    k4_ms = time_ms(lambda: sg.adagrad_apply(
+        t_in, t_out, p_in, p_out, g_in, g_out, d_no, walks_flat, neg, lr))
+    k4_plain = time_ms(lambda: sg.adagrad_apply_plain(
+        q_in, q_out, p_in, p_out, g_in, g_out, d_no, walks_flat, neg, lr))
+
+    # the whole step, kernels against plain versions, from the same state and
+    # draws: tables, accumulators and loss elementwise
+    b_state = [t.clone() for t in (emb_in, emb_out, acc_in, acc_out)]
+    p_state = [t.clone() for t in (emb_in, emb_out, acc_in, acc_out)]
+    loss_k = sg.sgns_walk_step(*b_state, walks, b_sh, r1, r2, lr, *noise, mask, **kw)
+    loss_p = sg.sgns_walk_step_plain(*p_state, walks, b_sh, r1, r2, lr, *noise, mask, **kw)
+    step_err = max(_close(f"step[{k}]", a, b) for k, a, b in zip(
+        ("emb_in", "emb_out", "acc_in", "acc_out", "loss"), (*b_state, loss_k), (*p_state, loss_p)))
+    emit({"phase": "check", "kernel": "sgns_walk_step (K2+K3+K4)", "B": n_walks,
+          "max_abs_err": step_err, "rtol": RTOL, "atol": ATOL})
+
+    # library yardsticks: index_add_ of the same (precomputed) row updates —
+    # the scatter half of K3 and K4, timed, never used by the port
+    rows = torch.where(walks_flat >= 0, walks_flat, 0).long()
+    valid = (walks_flat >= 0).float()
+    sq_in = (g_in * g_in).mean(-1) * valid
+    sq_out = torch.cat([(g_out * g_out).mean(-1) * valid, (d_no * d_no).mean(-1)])
+    rows_out = torch.cat([rows, neg.long()])
+    k3_lib = time_ms(lambda: (s_in.index_add_(0, rows, sq_in),
+                              s_out.index_add_(0, rows_out, sq_out)))
+    upd_in = -lr * g_in * torch.rsqrt(p_in[rows] + 1e-12)[:, None]
+    upd_out = torch.cat([-lr * g_out * torch.rsqrt(p_out[rows] + 1e-12)[:, None],
+                         -lr * d_no * torch.rsqrt(p_out[neg.long()] + 1e-12)[:, None]])
+    k4_lib = time_ms(lambda: (t_in.index_add_(0, rows, upd_in),
+                              t_out.index_add_(0, rows_out, upd_out)))
+
+    # bounds, from this run's data
+    # K2 reads every position's two rows and writes every position's grads;
+    # K3/K4 need only the valid positions' grads (walks >= 0) and touch each
+    # distinct accumulator entry / table row once
+    n_rows = n_walks * length
+    n_valid = int((walks_flat >= 0).sum())
+    u_in = int(torch.unique(rows[walks_flat >= 0]).numel())
+    u_out = int(torch.unique(torch.cat([rows[walks_flat >= 0], neg.long()])).numel())
+    grads_bytes = (2 * n_rows + n_neg) * dim * 4
+    k2_bytes = 2 * n_rows * dim * 4 + n_neg * dim * 4 + 2 * n_rows * 4 + grads_bytes
+    k2_ops = 6 * n_rows * dim * (n_neg + 2 * window)
+    valid_grads = (2 * n_valid + n_neg) * dim * 4
+    k3_bytes = valid_grads + n_rows * 4 + n_neg * 4 + 8 * (u_in + u_out)
+    k4_bytes = valid_grads + n_rows * 4 + n_neg * 4 + 4 * (u_in + u_out) + 8 * dim * (u_in + u_out)
+    rec = {
+        "sgns_grads": (max(errs), k2_ms, k2_plain, bound_ms(k2_bytes, k2_ops), None),
+        "adagrad_accumulate": (k3_err, k3_ms, k3_plain,
+                               bound_ms(k3_bytes, 2 * (2 * n_valid + n_neg) * dim), k3_lib),
+        "adagrad_apply": (k4_err, k4_ms, k4_plain,
+                          bound_ms(k4_bytes, 3 * (2 * n_valid + n_neg) * dim), k4_lib),
+    }
+    for name, (err, ms, plain_ms, (b_ms, b_by), lib_ms) in rec.items():
+        emit({"phase": "check", "kernel": name, "B": n_walks, "L1": length, "D": dim,
+              "S": n_neg, "V": n_vertices, "max_abs_err": err, "rtol": RTOL, "atol": ATOL,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": lib_ms})
+        if record:
+            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def edge_cases() -> None:
+    """Cases the main path does not reach, each against the plain version:
+    K1 at P = 8 .. 256 on weights {0.5, 1, 2} with sinks and dead lanes
+    (bit-equal), K1 on general weights (chi-square against the analytic
+    p/q distribution, p-value > 1e-4), and the SGNS step at other walk
+    lengths, widths and windows (the tolerances of check_sgns)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    n = 600
+    for max_deg in (5, 12, 30, 100, 250):
+        deg = rng.integers(1, max_deg + 1, n - 20)  # the last 20 vertices are sinks
+        deg[0] = max_deg
+        src = np.repeat(np.arange(n - 20), deg).astype(np.int32)
+        dst = rng.integers(0, n, len(src)).astype(np.int32)
+        w = rng.choice(np.float32([0.5, 1.0, 2.0]), len(src))
+        g = from_edge_arrays(src, dst, w, n_vertices=n, directed=True)
+        packed = torch.from_numpy(
+            dense.build_padded_adjacency(g.indptr, g.indices, g.weights)).to(dev)
+        starts = torch.arange(n, dtype=torch.int32, device=dev).repeat(3)
+        starts[::13] = -1
+        for p, q in ((0.25, 4.0), (4.0, 0.25), (1.0, 1.0)):
+            kw = dict(walk_length=30, return_param=p, inout_param=q)
+            got = dense.dense_walk_chunk(packed, starts, 1000, 99, **kw)
+            want = dense.dense_walk_chunk_plain(packed, starts, 1000, 99, **kw)
+            n_diff = int((got != want).sum())
+            require(n_diff == 0, f"dense_walk differs at P={packed.shape[1] // 2} p={p} q={q}")
+        emit({"phase": "edge_case", "kernel": "dense_walk", "P": packed.shape[1] // 2,
+              "sink_ended_walks": int((got[:, -1] < 0).sum()), "bit_equal": True})
+
+    src = np.array([0, 0, 1, 1, 1, 2, 2, 3], dtype=np.int32)
+    dst = np.array([1, 2, 0, 2, 3, 0, 1, 1], dtype=np.int32)
+    w = np.array([1.0, 1.0, 1.0, 2.0, 1.5, 1, 1, 1], dtype=np.float32) * np.float32(1.3)
+    g = from_edge_arrays(src, dst, w, directed=True)
+    p, q = 0.5, 2.0
+    walks = WalkEngine(g, Node2VecParams(num_walks=20000, walk_length=2, return_param=p,
+                                         inout_param=q), device="cuda").run(
+        seed=11, start_vertices=np.array([0], np.int32))
+    pval = walk_transition_pvalue(g, walks, 0, 1, p, q)
+    emit({"phase": "edge_case", "kernel": "dense_walk", "general_weights_chi2_pvalue": pval})
+    require(pval is not None and pval > 1e-4, f"chi-square p-value {pval}")
+
+    for n_walks, length, dim, window in ((256, 81, 128, 5), (64, 21, 256, 10), (96, 11, 100, 5)):
+        check_sgns(4096, n_walks, length, dim, window, 64, False, {})
+
+
+# --------------------------------------------------------------------------- #
+# pipeline phases
+# --------------------------------------------------------------------------- #
+
+
+def small_reference() -> None:
+    """Quickstart on karate: the card's walks equal the CPU plain path's."""
+    edges = np.array([
+        (0, 1), (0, 2), (0, 3), (0, 4), (0, 5), (0, 6), (0, 7), (0, 8), (0, 10),
+        (0, 11), (0, 12), (0, 13), (0, 17), (0, 19), (0, 21), (0, 31), (1, 2),
+        (1, 3), (1, 7), (1, 13), (1, 17), (1, 19), (1, 21), (1, 30), (2, 3),
+        (2, 7), (2, 8), (2, 9), (2, 13), (2, 27), (2, 28), (2, 32), (3, 7),
+        (3, 12), (3, 13), (4, 6), (4, 10), (5, 6), (5, 10), (5, 16), (6, 16),
+        (8, 30), (8, 32), (8, 33), (9, 33), (13, 33), (14, 32), (14, 33),
+        (15, 32), (15, 33), (18, 32), (18, 33), (19, 33), (20, 32), (20, 33),
+        (22, 32), (22, 33), (23, 25), (23, 27), (23, 29), (23, 32), (23, 33),
+        (24, 25), (24, 27), (24, 31), (25, 31), (26, 29), (26, 33), (27, 33),
+        (28, 31), (28, 33), (29, 32), (29, 33), (30, 32), (30, 33), (31, 32),
+        (31, 33), (32, 33),
+    ], dtype=np.int32)
+    walks = {}
+    for device, chunk in (("cuda", 64), ("cpu", 1 << 17)):  # gid_base > 0 on the card
+        n2v = Node2Vec(n2v_params={"num_walks": 10, "walk_length": 20, "walker_chunk": chunk,
+                                   "return_param": 0.25, "inout_param": 4.0},
+                       w2v_params={"min_count": 1}, device=device)
+        n2v.preprocess_input_graph((edges[:, 0], edges[:, 1]), directed=False)
+        walks[device] = n2v.random_walk()
+    equal = bool((walks["cuda"] == walks["cpu"]).all())
+    emit({"phase": "small_reference", "graph": "karate", "walks": list(walks["cuda"].shape),
+          "walks_bit_equal_cuda_vs_cpu": equal})
+    require(equal, "karate walks differ between the card and the CPU plain path")
+
+
+def main_path(src, dst, max_iter: int) -> dict:
+    n2v = Node2Vec(
+        n2v_params={"num_walks": 10, "walk_length": 20, "return_param": 0.25,
+                    "inout_param": 4.0},
+        w2v_params={"vector_size": 128, "window_size": 5, "negative": 5,
+                    "min_count": 10, "max_iter": max_iter},
+        random_seed=0,
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    graph = n2v.preprocess_input_graph((src, dst), indexed=True, directed=False)
+    t1 = time.perf_counter()
+    walks = n2v.random_walk()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    model = n2v.fit()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    names, vectors = n2v.embedding(as_frame=False)
+    t4 = time.perf_counter()
+    launches = {k: int(_build.launches[k]) for k in _build.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+
+    deg = np.diff(graph.indptr)
+    steps = int((walks[:, 1:] >= 0).sum())
+    p = model.params
+    n_walks, length = walks.shape
+    from node2vec_torch.models.word2vec import _effective_batch
+
+    batch = _effective_batch(p.batch_walks, n_walks)
+    n_batches = -(-n_walks // batch)
+    pairs = sg.pairs_per_batch(batch, length - 1, p.window_size) * n_batches * max_iter
+    out = {
+        "phase": "main_path", "max_iter_cut_to": max_iter,
+        "n_vertices": graph.n_vertices, "n_edges": graph.n_edges,
+        "max_degree": int(deg.max()),
+        "P": int(n2v._walk_engine().packed_adj.shape[1] // 2),
+        "walks": [int(n_walks), int(length)], "walk_steps": steps,
+        "batch_walks": batch, "n_batches": n_batches,
+        "preprocess_s": t1 - t0, "walk_s": t2 - t1, "fit_s": t3 - t2,
+        "embedding_s": t4 - t3,
+        "walk_steps_per_s": steps / (t2 - t1),
+        "sgns_pair_updates_per_s": pairs / (t3 - t2),
+        "epoch_losses": model.losses,
+        "peak_device_memory_bytes": int(peak),
+        "launches": launches,
+        "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+    }
+    emit(out)
+    # what came out is right
+    require(walks.shape == (10 * graph.n_vertices, 21), f"walk corpus shape {walks.shape}")
+    require(bool((walks[:, 0] >= 0).all()), "a start vertex is missing")
+    rng = np.random.default_rng(0)
+    for w in rng.integers(0, n_walks, 2000):
+        path = walks[w][walks[w] >= 0]
+        for a, b in zip(path[:-1], path[1:]):
+            lo, hi = graph.indptr[a], graph.indptr[a + 1]
+            require(b in graph.indices[lo:hi], f"walk {w} steps {a}->{b}, not an edge")
+    require(vectors.shape == (graph.n_vertices, 128), f"vectors shape {vectors.shape}")
+    require(bool(np.isfinite(vectors).all()), "non-finite embedding values")
+    require(all(np.isfinite(x) for x in model.losses), "non-finite loss")
+    require(launches["dense_walk"] == -(-n_walks // 131072),
+            f"dense_walk launched {launches['dense_walk']} times")
+    for k in ("sgns_grads", "adagrad_accumulate", "adagrad_apply"):
+        require(launches[k] == n_batches * max_iter, f"{k} launched {launches[k]} times")
+    require(all(v > 0 for v in launches.values()), f"a kernel never ran: {launches}")
+    breakdown(n2v)
+    return out
+
+
+def breakdown(n2v: Node2Vec) -> None:
+    """Device time by kernel and the idle share of the walk and fit stages,
+    from torch.profiler over a second run of each (launch counts of the main
+    path were read before)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for stage, fn in (("random_walk", n2v.random_walk), ("fit", n2v.fit)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            if dev_us > 0 and getattr(ev, "device_type", None) != torch.autograd.DeviceType.CPU:
+                by_name[ev.key[:80]] = dev_us / 1e3
+        busy = sum(by_name.values())
+        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+        emit({"phase": "breakdown", "stage": stage, "wall_ms": wall_ms,
+              "device_busy_ms": busy if busy > 0 else None,
+              "idle_share": 1 - busy / wall_ms if busy > 0 else None,
+              "top_device_ms": top})
+
+
+def quality_gates() -> dict:
+    g, labels = synthetic_multilabel(2000, seed=0)
+    n2v = Node2VecParams(num_walks=8, walk_length=40)
+    w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128)
+    t0 = time.perf_counter()
+    auc = holdout_link_prediction(g, n2v_params=n2v, w2v_params=w2v, seed=0,
+                                  device="cuda")["holdout_link_auc"]
+    emb, strategy = train_embeddings(g, n2v, w2v, seed=0, device="cuda")
+    gap = label_cosine_gap(emb, labels, n_pairs=200_000, seed=0)
+    out = {"phase": "quality", "graph": "synthetic_multilabel(2000, seed=0)",
+           "walk_strategy": strategy, "holdout_link_auc": auc, "auc_min": 0.60,
+           "label_cosine_gap": gap, "gap_min": 0.05, "seconds": time.perf_counter() - t0}
+    emit(out)
+    require(auc >= 0.60, f"held-out link AUC {auc} < 0.60")
+    require(gap >= 0.05, f"label cosine gap {gap} < 0.05")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="build and check the kernels at small shapes, then stop")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "torch_name": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "installed": {m: importlib.util.find_spec(m) is not None
+                        for m in ("pandas", "sklearn", "scipy", "jax", "triton")}})
+
+    t0 = time.perf_counter()
+    _build.lib()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": _build.build_seconds,
+          "ptxas": [ln.strip() for ln in _build.ptxas_report.splitlines()
+                    if "registers" in ln or "spill" in ln or ln.startswith("==")]})
+
+    results: dict = {}
+    if args.quick:
+        src, dst = smoke_edges(4096, 65536)
+        g = build_graph((src, dst), directed=False)
+        check_dense_walk(g, 4096, 20, results)
+        check_sgns(4096, 64, 21, 128, 5, 64, True, results)
+        check_sgns(512, 16, 41, 32, 5, 64, False, results)
+        edge_cases()
+        small_reference()
+        emit({"phase": "quick", "ok": True})
+        return 0
+
+    src, dst = smoke_edges(131072, 2_097_152)
+    g = build_graph((src, dst), directed=False)
+    check_dense_walk(g, 131072, 20, results)
+    from node2vec_torch.models.word2vec import _effective_batch
+
+    main_batch = _effective_batch(8192, 10 * g.n_vertices)
+    check_sgns(131072, main_batch, 21, 128, 5, 64, True, results)
+    if main_batch != 8192:
+        check_sgns(131072, 8192, 21, 128, 5, 64, False, results)
+    edge_cases()
+    small_reference()
+    main = main_path(src, dst, max_iter=1)
+    quality_gates()
+
+    kernels = []
+    for name in _build.KERNELS:
+        src_file, replaces = SOURCES[name]
+        r = results[name]
+        kernels.append({"name": name, "route": "cuda", "source": src_file,
+                        "replaces": replaces, "launches": main["launches"][name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,30 @@
+"""node2vec in PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
+
+A port of the JAX package ``node2vec_tpu`` beside it, one slice at a time:
+host graph build (numpy + the C++ core in ``native/``), dense biased walks
+(kernel K1), and SGNS with row-wise Adagrad (kernels K2–K4), driven by
+``Node2Vec``.  Each kernel's wrapper launches it for CUDA tensors and runs
+its plain PyTorch version for CPU tensors.  Kernels are built with nvcc at
+first use (``node2vec_torch._build``); importing the package builds nothing
+and needs no GPU.
+"""
+
+from node2vec_torch.api import Node2Vec
+from node2vec_torch.constants import Node2VecParams, Word2VecParams
+from node2vec_torch.embedding import Node2VecTorchEmbedding
+from node2vec_torch.graph import Graph, build_graph, from_edge_arrays
+from node2vec_torch.models.word2vec import Word2VecTorch
+from node2vec_torch.walk import WalkEngine, random_walks
+
+__all__ = [
+    "Node2Vec",
+    "Node2VecParams",
+    "Word2VecParams",
+    "Node2VecTorchEmbedding",
+    "Graph",
+    "build_graph",
+    "from_edge_arrays",
+    "Word2VecTorch",
+    "WalkEngine",
+    "random_walks",
+]

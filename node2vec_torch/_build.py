@@ -1,0 +1,158 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+``csrc/*.cu`` are compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a``
+at first use: one ``nvcc -c`` per source, all started together, then one
+link into ``build/node2vec_torch/libn2v_kernels.so`` (see
+``node2vec_torch.native.build_dir``), loaded with ctypes.  Every C entry
+returns ``cudaGetLastError()`` and ``check`` raises when it is not 0.  Nothing
+here runs at import: the CPU tests import every module, and this machine
+may have no ``nvcc``.
+
+``launches`` counts kernel launches by name.  Each wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+from node2vec_torch.native import build_dir
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+KERNELS = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply")
+
+launches: collections.Counter = collections.Counter()
+build_seconds: Optional[float] = None
+ptxas_report: str = ""
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set NVCC or CUDA_HOME): the CUDA kernels are built "
+        "from node2vec_torch/csrc on a machine with the CUDA toolkit"
+    )
+
+
+def build() -> str:
+    """Compile csrc/*.cu if the library is missing or older than a source;
+    returns the library path."""
+    global build_seconds, ptxas_report
+    out_dir = build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "libn2v_kernels.so")
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    deps = sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= max(
+        os.path.getmtime(p) for p in deps
+    ):
+        return lib_path
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    tag = f"{os.getpid()}"
+    procs = []
+    for src in sources:
+        obj = os.path.join(out_dir, os.path.basename(src)[:-3] + f".{tag}.o")
+        cmd = [nvcc, *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-c", src, "-o", obj]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    reports = []
+    failed = []
+    for src, _obj, proc in procs:
+        stdout, stderr = proc.communicate(timeout=900)
+        reports.append(f"== {os.path.basename(src)}\n{stdout}{stderr}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src}:\n{stderr}")
+    ptxas_report = "\n".join(reports)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = f"{lib_path}.{tag}.tmp"
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", "-o", tmp, *[o for _, o, _ in procs]],
+        capture_output=True, text=True, timeout=300,
+    )
+    for _, obj, _ in procs:
+        os.remove(obj)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+    os.replace(tmp, lib_path)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        handle = ctypes.CDLL(build())
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        f32, u32 = ctypes.c_float, ctypes.c_uint32
+        signatures = {
+            "n2v_dense_walk": [vp, i32, vp, vp, i64, i32, i64, u32, f32, f32, i32, vp],
+            "n2v_sgns_grads": [vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, f32,
+                               vp, vp, vp, vp, vp],
+            "n2v_adagrad_accumulate": [vp, vp, vp, vp, vp, vp, i64, vp, i32, i32, vp],
+            "n2v_adagrad_apply": [vp, vp, vp, vp, vp, vp, vp, vp, i64, vp, i32, i32,
+                                  f32, vp],
+        }
+        for name, argtypes in signatures.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.n2v_sgns_grads_smem.argtypes = [i32, i32, i32, i32]
+        handle.n2v_sgns_grads_smem.restype = ctypes.c_size_t
+        handle.n2v_error_string.argtypes = [ctypes.c_int]
+        handle.n2v_error_string.restype = ctypes.c_char_p
+        _lib = handle
+        return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if rc != 0:
+        msg = lib().n2v_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Kernel inputs must be contiguous tensors on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices ({t.device} vs {dev})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel inputs must be contiguous")

@@ -1,0 +1,171 @@
+"""Top-level pipeline (port of ``node2vec_tpu/api.py``): preprocess ->
+random_walk -> fit -> embedding on one device.
+
+``Node2Vec`` runs on the card by default (``device="cuda"``) and raises when
+CUDA is missing unless the caller passes ``device="cpu"``, which runs every
+kernel's plain PyTorch version.  The streaming, host-corpus, mesh and
+graph-sharded branches of the JAX pipeline are not ported yet and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Mapping, Optional, Union
+
+import numpy as np
+
+from node2vec_torch.constants import MAX_OUT_DEGREES, Node2VecParams, Word2VecParams
+from node2vec_torch.device import resolve_device
+from node2vec_torch.embedding import Node2VecTorchEmbedding
+from node2vec_torch.graph import Graph, build_graph
+from node2vec_torch.models.word2vec import Word2VecTorch
+from node2vec_torch.walk import WalkEngine
+
+logger = logging.getLogger(__name__)
+
+
+class Node2Vec:
+    """End-to-end node2vec on one device.
+
+    >>> n2v = Node2Vec(n2v_params={"num_walks": 10, "walk_length": 20})
+    >>> n2v.preprocess_input_graph(df, indexed=False, directed=False)
+    >>> n2v.random_walk()
+    >>> n2v.fit()
+    >>> df_emb = n2v.embedding()
+    """
+
+    def __init__(
+        self,
+        n2v_params: Optional[Union[Node2VecParams, Mapping[str, Any]]] = None,
+        w2v_params: Optional[Union[Word2VecParams, Mapping[str, Any]]] = None,
+        max_out_degree: int = 0,
+        random_seed: Optional[int] = None,
+        profile: str = "fugue",
+        walk_seed_vertices: Optional[np.ndarray] = None,
+        mesh=None,
+        graph_sharded: bool = False,
+        host_corpus: bool = False,
+        device="cuda",
+    ):
+        if mesh is not None or graph_sharded:
+            raise NotImplementedError(
+                "mesh and graph-sharded runs are not ported yet (ROADMAP Queue A item 12)"
+            )
+        if host_corpus:
+            raise NotImplementedError(
+                "host_corpus (fit_host) is not ported yet (ROADMAP Queue A item 15)"
+            )
+        self.device = resolve_device(device)
+        if isinstance(n2v_params, Node2VecParams):
+            self.n2v_params = n2v_params
+        else:
+            self.n2v_params = Node2VecParams.from_dict(n2v_params, profile=profile)
+        if isinstance(w2v_params, Word2VecParams):
+            self.w2v_params = w2v_params
+        else:
+            self.w2v_params = Word2VecParams.from_dict(w2v_params)
+        self.max_out_degree = max_out_degree or MAX_OUT_DEGREES
+        self.random_seed = random_seed if random_seed is not None else 0
+        self.walk_seed_vertices = walk_seed_vertices
+        self.graph: Optional[Graph] = None
+        self.walks: Optional[np.ndarray] = None
+        self.backend: Optional[Node2VecTorchEmbedding] = None
+        self._engine: Optional[WalkEngine] = None
+
+    # -- pipeline stages ---------------------------------------------------- #
+
+    def preprocess_input_graph(
+        self,
+        data,
+        indexed: bool = True,
+        directed: bool = True,
+        log1p_weight: bool = False,
+    ) -> Graph:
+        """Validate/index/trim and build the CSR graph.  ``data`` is a tuple
+        of arrays (src, dst[, weight]), a path (.npz, .csv, .parquet or a
+        whitespace edge list) or a DataFrame with src/dst[/weight]."""
+        self.graph = build_graph(
+            data,
+            indexed=indexed,
+            directed=directed,
+            max_out_degree=self.max_out_degree,
+            random_seed=self.random_seed,
+            log1p_weight=log1p_weight,
+        )
+        self._engine = None  # packed tables belong to the previous graph
+        logger.info(
+            "graph preprocessed: %d vertices, %d edges",
+            self.graph.n_vertices,
+            self.graph.n_edges,
+        )
+        return self.graph
+
+    def _walk_engine(self) -> WalkEngine:
+        """Build once, reuse: the packed tables are p/q/seed independent."""
+        if self._engine is None:
+            self._engine = WalkEngine(self.graph, self.n2v_params, device=self.device)
+        return self._engine
+
+    def _new_backend(self, walks=None) -> Node2VecTorchEmbedding:
+        return Node2VecTorchEmbedding(
+            df_walks=walks, name_id=self.graph.names if self.graph is not None else None,
+            w2v_params=self.w2v_params, device=self.device,
+        )
+
+    def random_walk(self) -> np.ndarray:
+        """Generate the walk corpus as a host array."""
+        if self.graph is None:
+            raise RuntimeError("call preprocess_input_graph() first")
+        self.walks = self._walk_engine().run(
+            seed=self.random_seed, start_vertices=self.walk_seed_vertices
+        )
+        logger.info("random walks done: %s", self.walks.shape)
+        return self.walks
+
+    def run_pipeline(
+        self, verbose: bool = False, streaming: Optional[bool] = False
+    ) -> Word2VecTorch:
+        """Walks + training without the corpus leaving the device."""
+        if self.graph is None:
+            raise RuntimeError("call preprocess_input_graph() first")
+        if streaming is None or streaming:
+            raise NotImplementedError(
+                "streaming training over a virtual corpus is not ported yet "
+                "(ROADMAP Queue A item 15); use streaming=False"
+            )
+        walks_dev = self._walk_engine().run_device(
+            seed=self.random_seed, start_vertices=self.walk_seed_vertices
+        )
+        self.backend = self._new_backend()
+        self.backend.model.fit(walks_dev, n_vertices=self.graph.n_vertices, verbose=verbose)
+        self.walks = walks_dev.cpu().numpy()
+        return self.backend.model
+
+    def fit(self, verbose: bool = False) -> Word2VecTorch:
+        """Train embeddings over the walks."""
+        if self.walks is None:
+            raise RuntimeError("call random_walk() first")
+        self.backend = self._new_backend(self.walks)
+        # vocabulary covers every graph vertex even if rare ones fall below
+        # min_count (they are masked, not renumbered)
+        n_v = self.graph.n_vertices if self.graph else None
+        self.backend.model.fit(self.walks, n_vertices=n_v, verbose=verbose)
+        return self.backend.model
+
+    def embedding(self, as_frame: bool = True):
+        """Vectors mapped back to original names (see
+        Node2VecTorchEmbedding.embedding)."""
+        if self.backend is None:
+            raise RuntimeError("model not fitted yet!")
+        return self.backend.embedding(as_frame=as_frame)
+
+    def get_vector(self, vertex_name: Union[str, int]) -> np.ndarray:
+        if self.backend is None:
+            raise RuntimeError("model not fitted yet!")
+        return self.backend.get_vector(vertex_name)
+
+    def save_vectors(self, cloud_path: str, file_name: str) -> None:
+        if self.backend is None:
+            raise RuntimeError("model not fitted yet!")
+        self.backend.save_vectors(cloud_path, file_name)

@@ -1,0 +1,41 @@
+"""Trainer state carried across between the JAX package and the port.
+
+The JAX trainer keeps numpy-convertible tables in the logical ``[V, D]``
+layout at its boundaries (checkpoints, ``emb_in``/``emb_out``), never the
+packed dim-64 device layout, and the port works on that layout throughout.
+These two functions turn one side's state into the other's, so both
+trainers can start from the same tables.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def from_reference_state(
+    emb_in, emb_out, acc_in, acc_out, device="cpu"
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(emb_in [V, D], emb_out [V, D], acc_in [V], acc_out [V]) arrays ->
+    contiguous float32 tensors on ``device`` (copies, never views)."""
+    out = []
+    for a, ndim in ((emb_in, 2), (emb_out, 2), (acc_in, 1), (acc_out, 1)):
+        a = np.array(a, dtype=np.float32, copy=True)
+        if a.ndim != ndim:
+            raise ValueError(f"expected a {ndim}-d array, got shape {a.shape}")
+        out.append(torch.from_numpy(a).to(device))
+    if out[0].shape != out[1].shape or out[2].shape != out[3].shape:
+        raise ValueError("emb_in/emb_out and acc_in/acc_out must match in shape")
+    if out[2].shape[0] != out[0].shape[0]:
+        raise ValueError("accumulators must have one entry per table row")
+    return tuple(out)
+
+
+def to_reference_state(
+    emb_in: torch.Tensor, emb_out: torch.Tensor, acc_in: torch.Tensor, acc_out: torch.Tensor
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The port's state tensors -> host float32 numpy arrays, logical layout."""
+    return tuple(t.detach().to("cpu", torch.float32).numpy().copy()
+                 for t in (emb_in, emb_out, acc_in, acc_out))

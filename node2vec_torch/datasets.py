@@ -1,0 +1,212 @@
+"""Synthetic labelled graphs and the quality protocols (port of part of
+``node2vec_tpu/datasets.py``).
+
+``synthetic_multilabel`` builds the overlapping-community graph of the JAX
+package (the same graph from the same seed).  ``holdout_link_prediction``
+and ``run_quality`` train, so they take ``device=``.  ``multilabel_f1``
+needs sklearn and imports it lazily; ``label_cosine_gap`` is a label check
+that needs nothing beyond numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+
+from node2vec_torch.graph.csr import Graph, from_edge_arrays
+
+
+def synthetic_multilabel(
+    n_vertices: int = 3000,
+    n_labels: int = 12,
+    avg_degree: int = 12,
+    labels_per_vertex: float = 1.6,
+    p_in_out_ratio: float = 12.0,
+    seed: int = 0,
+    degree_skew: float = 0.0,
+) -> Tuple[Graph, np.ndarray]:
+    """Overlapping-community graph with community ids as multi-labels.
+
+    Each vertex joins 1+ communities; edge probability is much higher within
+    a shared community.  ``degree_skew`` > 0 draws intra-community endpoints
+    from a zipf-like weight ``rank^-skew`` instead of uniformly.
+    """
+    rng = np.random.default_rng(seed)
+    member = rng.random((n_vertices, n_labels)) < (labels_per_vertex / n_labels)
+    none = ~member.any(axis=1)
+    member[none, rng.integers(0, n_labels, none.sum())] = True
+
+    def pick(vs: np.ndarray, k: int) -> np.ndarray:
+        if degree_skew <= 0.0:
+            return vs[rng.integers(0, len(vs), k)]
+        w = np.arange(1, len(vs) + 1, dtype=np.float64) ** -degree_skew
+        return vs[rng.choice(len(vs), size=k, p=w / w.sum())]
+
+    src_list, dst_list = [], []
+    n_intra = n_vertices * avg_degree * 3 // 4
+    per_label = np.maximum((member.sum(0) * n_intra) // member.sum(), 1)
+    for c in range(n_labels):
+        vs = np.flatnonzero(member[:, c])
+        if len(vs) < 2:
+            continue
+        k = int(per_label[c])
+        src_list.append(pick(vs, k))
+        dst_list.append(pick(vs, k))
+    n_noise = int(n_intra / p_in_out_ratio)
+    src_list.append(rng.integers(0, n_vertices, n_noise).astype(np.int64))
+    dst_list.append(rng.integers(0, n_vertices, n_noise).astype(np.int64))
+    src = np.concatenate(src_list).astype(np.int32)
+    dst = np.concatenate(dst_list).astype(np.int32)
+    keep = src != dst
+    g = from_edge_arrays(src[keep], dst[keep], directed=False)
+    return g, member
+
+
+def multilabel_f1(
+    embeddings: np.ndarray,
+    labels: np.ndarray,
+    train_ratio: float = 0.5,
+    seed: int = 0,
+) -> Dict[str, float]:
+    """Top-k one-vs-rest protocol (node2vec paper §4.3 / DeepWalk): test
+    nodes predict their k highest-scoring labels, k = their true count."""
+    from sklearn.linear_model import LogisticRegression
+    from sklearn.multiclass import OneVsRestClassifier
+
+    rng = np.random.default_rng(seed)
+    has_label = labels.any(axis=1)
+    idx = np.flatnonzero(has_label)
+    rng.shuffle(idx)
+    n_train = max(int(len(idx) * train_ratio), 1)
+    tr, te = idx[:n_train], idx[n_train:]
+
+    clf = OneVsRestClassifier(LogisticRegression(max_iter=500, C=1.0))
+    clf.fit(embeddings[tr], labels[tr])
+    scores = clf.decision_function(embeddings[te])
+    if scores.ndim == 1:
+        scores = scores[:, None]
+
+    k = labels[te].sum(axis=1)
+    order = np.argsort(-scores, axis=1)
+    pred = np.zeros_like(labels[te])
+    for i in range(len(te)):
+        pred[i, order[i, : k[i]]] = True
+
+    true = labels[te]
+    tp = (pred & true).sum()
+    micro = 2 * tp / max(pred.sum() + true.sum(), 1)
+    per_label_tp = (pred & true).sum(axis=0)
+    per_label_f1 = np.where(
+        (pred.sum(0) + true.sum(0)) > 0,
+        2 * per_label_tp / np.maximum(pred.sum(0) + true.sum(0), 1),
+        0.0,
+    )
+    macro = per_label_f1[true.sum(0) > 0].mean()
+    return {"micro_f1": float(micro), "macro_f1": float(macro)}
+
+
+def label_cosine_gap(
+    embeddings: np.ndarray, labels: np.ndarray, n_pairs: int = 200_000, seed: int = 0
+) -> float:
+    """Mean cosine of random vertex pairs that share a label minus that of
+    pairs that share none (``n_pairs`` uniform pairs, u != v)."""
+    rng = np.random.default_rng(seed)
+    n = len(embeddings)
+    u = rng.integers(0, n, n_pairs)
+    v = rng.integers(0, n, n_pairs)
+    keep = u != v
+    u, v = u[keep], v[keep]
+    unit = embeddings / np.maximum(np.linalg.norm(embeddings, axis=1, keepdims=True), 1e-12)
+    cos = np.sum(unit[u] * unit[v], axis=1)
+    share = (labels[u] & labels[v]).any(axis=1)
+    return float(cos[share].mean() - cos[~share].mean())
+
+
+def train_embeddings(graph: Graph, n2v_params=None, w2v_params=None, seed: int = 0,
+                     device="cuda") -> Tuple[np.ndarray, str]:
+    """Walks -> SGNS on the full graph, as ``run_quality`` trains:
+    returns (input vectors [V, D], walk strategy)."""
+    from node2vec_torch.constants import Node2VecParams, Word2VecParams
+    from node2vec_torch.models.word2vec import Word2VecTorch
+    from node2vec_torch.walk import WalkEngine
+
+    n2v = n2v_params or Node2VecParams(num_walks=10, walk_length=80)
+    w2v = w2v_params or Word2VecParams(min_count=1, max_iter=5)
+    engine = WalkEngine(graph, n2v, device=device)
+    walks = engine.run(seed=seed)
+    model = Word2VecTorch(w2v, device=device).fit(walks, n_vertices=graph.n_vertices)
+    return model.vectors, engine.strategy
+
+
+def holdout_link_prediction(
+    graph: Graph,
+    holdout_frac: float = 0.2,
+    n2v_params=None,
+    w2v_params=None,
+    seed: int = 0,
+    device="cuda",
+) -> Dict[str, float]:
+    """Honest link-prediction AUC: hold out edges BEFORE walk generation,
+    embed on the rest, score held-out edges vs sampled non-edges."""
+    from node2vec_torch.constants import Node2VecParams, Word2VecParams
+    from node2vec_torch.eval import link_prediction_auc, sample_negative_edges
+    from node2vec_torch.models.word2vec import Word2VecTorch
+    from node2vec_torch.walk import random_walks
+
+    rng = np.random.default_rng(seed)
+    src = np.repeat(
+        np.arange(graph.n_vertices), np.diff(graph.indptr)
+    ).astype(np.int32)
+    dst = graph.indices
+    # undirected graphs store both directions; hold out canonical pairs
+    canon = src < dst
+    pairs = np.flatnonzero(canon)
+    rng.shuffle(pairs)
+    n_hold = int(len(pairs) * holdout_frac)
+    held = np.zeros(len(src), dtype=bool)
+    held[pairs[:n_hold]] = True
+    # remove both directions of held-out pairs
+    key_all = src.astype(np.int64) * graph.n_vertices + dst
+    key_rev = dst.astype(np.int64) * graph.n_vertices + src
+    held_keys = set(key_all[held].tolist())
+    drop = held | np.isin(key_rev, list(held_keys))
+    g_train = from_edge_arrays(
+        src[~drop], dst[~drop], graph.weights[~drop],
+        n_vertices=graph.n_vertices, directed=True,
+    )
+    walks = random_walks(g_train, n2v_params or Node2VecParams(), seed=seed, device=device)
+    model = Word2VecTorch(
+        w2v_params or Word2VecParams(min_count=1, max_iter=5), device=device
+    ).fit(walks, n_vertices=graph.n_vertices)
+    emb = model.vectors
+    emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
+    pos = (src[held], dst[held])
+    neg = sample_negative_edges(
+        graph.indptr, graph.indices, min(n_hold, 20000), seed=seed
+    )
+    return {"holdout_link_auc": link_prediction_auc(emb, pos, neg)}
+
+
+def run_quality(
+    graph: Graph,
+    labels: np.ndarray,
+    n2v_params=None,
+    w2v_params=None,
+    train_ratios: Sequence[float] = (0.1, 0.5, 0.9),
+    seed: int = 0,
+    device="cuda",
+) -> Dict[str, object]:
+    """Full quality protocol: walks -> SGNS -> multi-label F1 per train ratio."""
+    emb, strategy = train_embeddings(graph, n2v_params, w2v_params, seed, device)
+    out: Dict[str, object] = {
+        "n_vertices": graph.n_vertices,
+        "n_edges": graph.n_edges,
+        "n_labels": int(labels.shape[1]),
+        "walk_strategy": strategy,
+    }
+    for r in train_ratios:
+        scores = multilabel_f1(emb, labels, train_ratio=r, seed=seed)
+        out[f"micro_f1@{r}"] = scores["micro_f1"]
+        out[f"macro_f1@{r}"] = scores["macro_f1"]
+    return out

@@ -1,0 +1,14 @@
+from node2vec_torch.graph.csr import Graph, build_csr, mirror_dedup, from_edge_arrays
+from node2vec_torch.graph.indexer import index_edges
+from node2vec_torch.graph.trim import trim_hotspot_edges
+from node2vec_torch.graph.ingest import build_graph
+
+__all__ = [
+    "Graph",
+    "build_csr",
+    "mirror_dedup",
+    "from_edge_arrays",
+    "index_edges",
+    "trim_hotspot_edges",
+    "build_graph",
+]

@@ -1,0 +1,348 @@
+"""Walk-structured skip-gram negative sampling (port of the SGNS path of
+``node2vec_tpu/models/skipgram.py``).
+
+One step over a batch of walks ``[B, L1]``: every walk position's input and
+output rows are gathered once, all window offsets are shifted elementwise
+products with gensim-style window shrinking, S negatives are shared by the
+whole batch (drawn from the unigram^0.75 alias table, loss scaled by K/S),
+and the update is row-wise Adagrad per occurrence: every occurrence's
+mean-squared grad lands in the row's accumulator before any row is scaled
+by 1/sqrt of it.
+
+The step is three kernels, each beside its plain PyTorch version:
+
+* K2 ``sgns_grads`` (``csrc/sgns.cu``): grads, d_no and the loss;
+* K3 ``adagrad_accumulate`` and K4 ``adagrad_apply`` (``csrc/adagrad.cu``),
+  two launches because the accumulators must be complete before any row
+  reads them.
+
+CPU tensors take the plain versions; CUDA tensors launch the kernels or
+raise.  Unlike the JAX step, which draws its randomness inside, this step
+takes the draws as tensors: ``b_sh`` [B, L1] int32 in [1, w], ``r1``/``r2``
+[S] float32 (``draw_step`` makes them from a torch.Generator; tests make
+them with jax.random).  Tables and accumulators are updated in place, which
+saves the copies the functional JAX version makes.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from node2vec_torch import _build
+
+_EPS = 1e-12
+
+
+def init_embeddings(
+    n_vertices: int, dim: int, seed: int = 1, device="cpu"
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """word2vec-standard init: input ~ U(-0.5/dim, 0.5/dim), output zeros,
+    plus the two row-wise Adagrad accumulators (zeros).  The uniform comes
+    from a torch.Generator seeded with ``seed`` on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    emb_in = torch.rand((n_vertices, dim), generator=gen, device=device)
+    emb_in = (emb_in - 0.5) / dim
+    emb_out = torch.zeros((n_vertices, dim), dtype=torch.float32, device=device)
+    acc_in = torch.zeros((n_vertices,), dtype=torch.float32, device=device)
+    acc_out = torch.zeros((n_vertices,), dtype=torch.float32, device=device)
+    return emb_in, emb_out, acc_in, acc_out
+
+
+def draw_step(
+    gen: torch.Generator, n_walks: int, length: int, window: int,
+    shared_negatives: int, shrink_window: bool, device,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step's random draws: (b_sh [B, L1] int32 in [1, w], r1 [S], r2 [S])."""
+    if shrink_window:
+        b_sh = torch.randint(
+            1, window + 1, (n_walks, length), generator=gen, device=device,
+            dtype=torch.int32,
+        )
+    else:
+        b_sh = torch.full((n_walks, length), window, dtype=torch.int32, device=device)
+    r1 = torch.rand((shared_negatives,), generator=gen, device=device)
+    r2 = torch.rand((shared_negatives,), generator=gen, device=device)
+    return b_sh, r1, r2
+
+
+def negative_ids(
+    r1: torch.Tensor, r2: torch.Tensor, ns_alias: torch.Tensor, ns_prob: torch.Tensor
+) -> torch.Tensor:
+    """Shared negatives from the noise alias table (skipgram.py:382-383)."""
+    n_vertices = ns_prob.shape[0]
+    slot = torch.clamp((r1 * n_vertices).to(torch.int32), max=n_vertices - 1)
+    slot_l = slot.long()
+    return torch.where(r2 < ns_prob[slot_l], slot, ns_alias[slot_l]).to(torch.int32)
+
+
+def window_shift(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x`` shifted by ``d`` along axis 1: entry i is x[:, i + d], zero
+    outside the walk."""
+    out = torch.zeros_like(x)
+    length = x.shape[1]
+    if abs(d) >= length:
+        return out
+    if d >= 0:
+        out[:, : length - d] = x[:, d:]
+    else:
+        out[:, -d:] = x[:, : length + d]
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K2: grads of one step
+# --------------------------------------------------------------------------- #
+
+
+def sgns_grads_plain(
+    emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids, *, window: int, negatives: int,
+):
+    """skipgram.py:344-398 op for op: (g_in [B*L1, D], g_out [B*L1, D],
+    d_no [S, D], loss)."""
+    n_walks, length = walks.shape
+    dim = emb_in.shape[1]
+    walks_safe = torch.where(walks >= 0, walks, 0).long()
+    valid_pos = (walks >= 0) & vocab_mask[walks_safe]
+    x_in = emb_in[walks_safe]  # [B, L1, D]
+    x_out = emb_out[walks_safe]
+
+    g_in = torch.zeros_like(x_in)
+    g_out = torch.zeros_like(x_out)
+    pos_loss = torch.zeros((), dtype=torch.float32, device=walks.device)
+    mult = torch.zeros((n_walks, length), dtype=torch.float32, device=walks.device)
+    for d in [d for d in range(-window, window + 1) if d != 0]:
+        xo = window_shift(x_out, d)
+        pv = (valid_pos & window_shift(valid_pos, d) & (abs(d) <= b_sh)).to(torch.float32)
+        logit = torch.sum(x_in * xo, dim=-1)
+        g = (torch.sigmoid(logit) - 1.0) * pv
+        g_in = g_in + g[..., None] * xo
+        g_out = g_out + window_shift(g[..., None] * x_in, -d)
+        pos_loss = pos_loss + torch.sum(F.logsigmoid(logit) * pv)
+        mult = mult + pv
+
+    s = neg_ids.shape[0]
+    no = emb_out[neg_ids.long()]  # [S, D]
+    x_in_flat = x_in.reshape(-1, dim)
+    m_flat = mult.reshape(-1)
+    neg_scale = negatives / s
+    nl = x_in_flat @ no.T  # [B*L1, S]
+    g_neg = torch.sigmoid(nl) * m_flat[:, None] * neg_scale
+    neg_loss = neg_scale * torch.sum(F.logsigmoid(-nl) * m_flat[:, None])
+    g_in_flat = g_in.reshape(-1, dim) + g_neg @ no
+    d_no = g_neg.T @ x_in_flat
+    n_valid = torch.clamp(torch.sum(mult), min=1.0)
+    loss = -(pos_loss + neg_loss) / n_valid
+    return g_in_flat, g_out.reshape(-1, dim), d_no, loss
+
+
+def sgns_grads(
+    emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids, *, window: int, negatives: int,
+):
+    """K2 for CUDA tensors, the plain version for CPU tensors."""
+    if not emb_in.is_cuda:
+        return sgns_grads_plain(
+            emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids,
+            window=window, negatives=negatives,
+        )
+    _build.require_cuda("sgns_grads", emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids)
+    if (emb_in.dtype, emb_out.dtype) != (torch.float32, torch.float32):
+        raise TypeError("sgns_grads takes float32 tables")
+    if (walks.dtype, b_sh.dtype, neg_ids.dtype, vocab_mask.dtype) != (
+        torch.int32, torch.int32, torch.int32, torch.bool
+    ):
+        raise TypeError("sgns_grads takes int32 walks/b_sh/neg_ids and a bool mask")
+    if b_sh.shape != walks.shape or walks.dim() != 2:
+        raise ValueError(f"b_sh {tuple(b_sh.shape)} must match walks {tuple(walks.shape)}")
+    if emb_out.shape != emb_in.shape or emb_in.dim() != 2:
+        raise ValueError("emb_in and emb_out must both be [V, D]")
+    n_walks, length = walks.shape
+    dim = emb_in.shape[1]
+    s = neg_ids.shape[0]
+    lib = _build.lib()
+    smem = lib.n2v_sgns_grads_smem(length, dim, s, window)
+    props = torch.cuda.get_device_properties(emb_in.device)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    if smem > limit:
+        raise ValueError(
+            f"sgns_grads kernel needs {smem} B of shared memory for walk length "
+            f"{length}, dim {dim}, {s} negatives; the card allows {limit} "
+            "(tiling over dim is ROADMAP Queue A item 16)"
+        )
+    dev = emb_in.device
+    g_in = torch.empty((n_walks * length, dim), dtype=torch.float32, device=dev)
+    g_out = torch.empty_like(g_in)
+    d_no = torch.zeros((s, dim), dtype=torch.float32, device=dev)
+    parts = torch.zeros((n_walks, 3), dtype=torch.float32, device=dev)
+    neg_scale = negatives / s
+    rc = lib.n2v_sgns_grads(
+        _build.ptr(emb_in), _build.ptr(emb_out), dim, _build.ptr(walks),
+        _build.ptr(vocab_mask), _build.ptr(b_sh), _build.ptr(neg_ids),
+        n_walks, length, window, s, float(np.float32(neg_scale)),
+        _build.ptr(g_in), _build.ptr(g_out), _build.ptr(d_no), _build.ptr(parts),
+        _build.stream_of(emb_in),
+    )
+    _build.check(rc, "sgns_grads")
+    _build.launches["sgns_grads"] += 1
+    tot = parts.sum(dim=0)
+    loss = -(tot[0] + neg_scale * tot[1]) / torch.clamp(tot[2], min=1.0)
+    return g_in, g_out, d_no, loss
+
+
+# --------------------------------------------------------------------------- #
+# K3 + K4: row-wise Adagrad, per occurrence
+# --------------------------------------------------------------------------- #
+
+
+def adagrad_accumulate_plain(acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids):
+    """skipgram.py:463-468, in place on the accumulators."""
+    rows = torch.where(walks_flat >= 0, walks_flat, 0).long()
+    row_valid = (walks_flat >= 0).to(torch.float32)
+    acc_in.index_add_(0, rows, torch.mean(g_in * g_in, dim=-1) * row_valid)
+    acc_out.index_add_(0, rows, torch.mean(g_out * g_out, dim=-1) * row_valid)
+    acc_out.index_add_(0, neg_ids.long(), torch.mean(d_no * d_no, dim=-1))
+
+
+def adagrad_accumulate(acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids):
+    """K3 for CUDA tensors, the plain version for CPU tensors."""
+    if not acc_in.is_cuda:
+        return adagrad_accumulate_plain(acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids)
+    _build.require_cuda(
+        "adagrad_accumulate", acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids
+    )
+    _check_adagrad_args((acc_in, acc_out), g_in, g_out, d_no, walks_flat, neg_ids)
+    rc = _build.lib().n2v_adagrad_accumulate(
+        _build.ptr(acc_in), _build.ptr(acc_out), _build.ptr(g_in), _build.ptr(g_out),
+        _build.ptr(d_no), _build.ptr(walks_flat), walks_flat.shape[0],
+        _build.ptr(neg_ids), neg_ids.shape[0], g_in.shape[1], _build.stream_of(acc_in),
+    )
+    _build.check(rc, "adagrad_accumulate")
+    _build.launches["adagrad_accumulate"] += 1
+
+
+def adagrad_apply_plain(
+    emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids, lr: float
+):
+    """skipgram.py:469-475, in place on the tables."""
+    rows = torch.where(walks_flat >= 0, walks_flat, 0).long()
+    row_valid = (walks_flat >= 0).to(torch.float32)
+    neg = neg_ids.long()
+    scale_in = torch.rsqrt(acc_in[rows] + _EPS) * row_valid
+    scale_out = torch.rsqrt(acc_out[rows] + _EPS) * row_valid
+    scale_no = torch.rsqrt(acc_out[neg] + _EPS)
+    emb_in.index_add_(0, rows, -lr * g_in * scale_in[:, None])
+    emb_out.index_add_(0, rows, -lr * g_out * scale_out[:, None])
+    emb_out.index_add_(0, neg, -lr * d_no * scale_no[:, None])
+
+
+def adagrad_apply(
+    emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids, lr: float
+):
+    """K4 for CUDA tensors, the plain version for CPU tensors."""
+    if not emb_in.is_cuda:
+        return adagrad_apply_plain(
+            emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids, lr
+        )
+    _build.require_cuda(
+        "adagrad_apply", emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no,
+        walks_flat, neg_ids,
+    )
+    _check_adagrad_args((emb_in, emb_out, acc_in, acc_out), g_in, g_out, d_no, walks_flat,
+                        neg_ids)
+    if emb_in.shape[1] != g_in.shape[1] or emb_out.shape != emb_in.shape:
+        raise ValueError("tables must be [V, D] with the grads' D")
+    rc = _build.lib().n2v_adagrad_apply(
+        _build.ptr(emb_in), _build.ptr(emb_out), _build.ptr(acc_in), _build.ptr(acc_out),
+        _build.ptr(g_in), _build.ptr(g_out), _build.ptr(d_no), _build.ptr(walks_flat),
+        walks_flat.shape[0], _build.ptr(neg_ids), neg_ids.shape[0], g_in.shape[1],
+        float(lr), _build.stream_of(emb_in),
+    )
+    _build.check(rc, "adagrad_apply")
+    _build.launches["adagrad_apply"] += 1
+
+
+def _check_adagrad_args(tables, g_in, g_out, d_no, walks_flat, neg_ids) -> None:
+    if walks_flat.dtype != torch.int32 or neg_ids.dtype != torch.int32:
+        raise TypeError("Adagrad kernels take int32 walks and neg_ids")
+    if any(t.dtype != torch.float32 for t in (*tables, g_in, g_out, d_no)):
+        raise TypeError("Adagrad kernels take float32 tables, accumulators and grads")
+    if walks_flat.dim() != 1 or g_in.shape != (walks_flat.shape[0], g_in.shape[1]):
+        raise ValueError("g_in must be [B*L1, D] for flat walks [B*L1]")
+    if g_out.shape != g_in.shape or d_no.shape != (neg_ids.shape[0], g_in.shape[1]):
+        raise ValueError("g_out must match g_in and d_no must be [S, D]")
+
+
+# --------------------------------------------------------------------------- #
+# The step and the epoch
+# --------------------------------------------------------------------------- #
+
+
+def _step(grads, accumulate, apply, emb_in, emb_out, acc_in, acc_out, walks, b_sh,
+          r1, r2, lr, ns_alias, ns_prob, vocab_mask, window, negatives):
+    neg_ids = negative_ids(r1, r2, ns_alias, ns_prob)
+    g_in, g_out, d_no, loss = grads(
+        emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids,
+        window=window, negatives=negatives,
+    )
+    walks_flat = walks.reshape(-1)
+    accumulate(acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids)
+    apply(emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids, lr)
+    return loss
+
+
+def sgns_walk_step(
+    emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1, r2, lr: float,
+    ns_alias, ns_prob, vocab_mask, *, window: int, negatives: int,
+) -> torch.Tensor:
+    """One SGNS + row-wise Adagrad step (``sgns_walk_step_impl``, adagrad,
+    not preaggregated), in place on the four state tensors; returns the loss.
+    Goes through K2, K3, K4 on CUDA tensors and their plain versions on CPU
+    tensors."""
+    return _step(sgns_grads, adagrad_accumulate, adagrad_apply, emb_in, emb_out,
+                 acc_in, acc_out, walks, b_sh, r1, r2, lr, ns_alias, ns_prob,
+                 vocab_mask, window, negatives)
+
+
+def sgns_walk_step_plain(
+    emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1, r2, lr: float,
+    ns_alias, ns_prob, vocab_mask, *, window: int, negatives: int,
+) -> torch.Tensor:
+    """``sgns_walk_step`` through the three plain versions, on any device."""
+    return _step(sgns_grads_plain, adagrad_accumulate_plain, adagrad_apply_plain,
+                 emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1, r2, lr, ns_alias,
+                 ns_prob, vocab_mask, window, negatives)
+
+
+def step_lr(lr0: float, lr_slope: float, gstep: int, min_lr: float) -> float:
+    """max(lr0 - slope * gstep, min_lr) in float32, as the JAX epoch computes it."""
+    lr = np.float32(lr0) - np.float32(lr_slope) * np.float32(gstep)
+    return float(np.maximum(lr, np.float32(min_lr)))
+
+
+def sgns_epoch(
+    emb_in, emb_out, acc_in, acc_out, corpus: torch.Tensor,
+    draws: Callable[[int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    step0: int, lr0: float, lr_slope: float, ns_alias, ns_prob, vocab_mask, *,
+    batch: int, n_batches: int, window: int, negatives: int, min_lr: float,
+) -> torch.Tensor:
+    """A whole epoch of steps over a shuffled, batch-padded corpus
+    (``_sgns_epoch_impl`` as a Python loop).  ``draws(gstep)`` returns the
+    step's (b_sh, r1, r2).  Returns the per-batch losses [n_batches]."""
+    losses = []
+    for b in range(n_batches):
+        gstep = step0 + b
+        lr = step_lr(lr0, lr_slope, gstep, min_lr)
+        wb = corpus[b * batch: (b + 1) * batch]
+        b_sh, r1, r2 = draws(gstep)
+        losses.append(sgns_walk_step(
+            emb_in, emb_out, acc_in, acc_out, wb, b_sh, r1, r2, lr,
+            ns_alias, ns_prob, vocab_mask, window=window, negatives=negatives,
+        ))
+    return torch.stack(losses)
+
+
+def pairs_per_batch(n_walks: int, walk_length: int, window: int) -> int:
+    return n_walks * (walk_length + 1) * 2 * window

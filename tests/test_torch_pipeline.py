@@ -1,0 +1,112 @@
+"""The port's Quickstart path against node2vec_tpu's on the CPU: bit-equal
+walks, embedding quality within 0.05 micro-F1 of the JAX package, vector
+files interchangeable, and no silent CPU run."""
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+import node2vec_tpu
+from node2vec_tpu.constants import Node2VecParams as RefN2V
+from node2vec_tpu.constants import Word2VecParams as RefW2V
+from node2vec_tpu.datasets import run_quality as ref_run_quality
+from node2vec_tpu.embedding import Node2VecTPUEmbedding
+import node2vec_torch
+from node2vec_torch import Node2Vec, Node2VecParams, Word2VecParams
+from node2vec_torch.datasets import run_quality, synthetic_multilabel
+from node2vec_torch.embedding import Node2VecTorchEmbedding
+
+N2V = {"num_walks": 4, "walk_length": 12, "return_param": 0.25, "inout_param": 4.0}
+W2V = {"vector_size": 32, "max_iter": 2, "min_count": 1}
+
+
+def test_quickstart_walks_bit_equal_to_jax(karate_edges):
+    src, dst = karate_edges
+    ref = node2vec_tpu.Node2Vec(n2v_params=N2V, w2v_params=W2V, random_seed=3)
+    ref.preprocess_input_graph((src, dst), directed=False)
+    port = Node2Vec(n2v_params=N2V, w2v_params=W2V, random_seed=3, device="cpu")
+    port.preprocess_input_graph((src, dst), directed=False)
+    np.testing.assert_array_equal(port.random_walk(), ref.random_walk())
+    port.fit()
+    emb = port.embedding()
+    assert list(emb.columns) == ["name", "vector"] and len(emb) == 34
+    names, vectors = port.embedding(as_frame=False)
+    np.testing.assert_array_equal(np.stack(emb["vector"]), vectors)
+    np.testing.assert_array_equal(port.get_vector(5), vectors[5])
+
+
+def test_string_names_quickstart():
+    df = pd.DataFrame({"src": ["a", "b", "c"], "dst": ["b", "c", "a"]})
+    n2v = Node2Vec(n2v_params=N2V, w2v_params=W2V, device="cpu")
+    n2v.preprocess_input_graph(df, indexed=False, directed=False)
+    n2v.random_walk()
+    n2v.fit()
+    assert sorted(n2v.embedding()["name"]) == ["a", "b", "c"]
+    assert n2v.get_vector("a").shape == (32,)
+    with pytest.raises(KeyError):
+        n2v.get_vector("zz")
+
+
+def test_run_pipeline_matches_random_walk(karate_edges):
+    n2v = Node2Vec(n2v_params=N2V, w2v_params=W2V, device="cpu")
+    n2v.preprocess_input_graph(karate_edges, directed=False)
+    model = n2v.run_pipeline()
+    walks = n2v.walks.copy()
+    np.testing.assert_array_equal(n2v.random_walk(), walks)
+    assert np.isfinite(model.vectors).all()
+    for streaming in (None, True):
+        with pytest.raises(NotImplementedError, match="streaming"):
+            n2v.run_pipeline(streaming=streaming)
+
+
+def test_multilabel_quality_close_to_jax():
+    """micro-F1@0.5 >= 0.55 (the bench gate) and within 0.05 of the JAX value."""
+    g, labels = synthetic_multilabel(600, seed=0)
+    kw_n2v = dict(num_walks=6, walk_length=20)
+    kw_w2v = dict(min_count=1, max_iter=3, vector_size=32)
+    got = run_quality(g, labels, Node2VecParams(**kw_n2v), Word2VecParams(**kw_w2v),
+                      train_ratios=(0.5,), device="cpu")["micro_f1@0.5"]
+    ref_g, ref_labels = node2vec_tpu.datasets.synthetic_multilabel(600, seed=0)
+    np.testing.assert_array_equal(ref_labels, labels)
+    want = ref_run_quality(ref_g, ref_labels, RefN2V(**kw_n2v), RefW2V(**kw_w2v),
+                           train_ratios=(0.5,))["micro_f1@0.5"]
+    assert got >= 0.55, got
+    assert abs(got - want) <= 0.05, (got, want)
+
+
+def test_vectors_interchange_both_ways(tmp_path, karate_edges):
+    walks = np.random.default_rng(0).integers(0, 34, (200, 8)).astype(np.int32)
+    names = np.array([f"v{i}" for i in range(34)])
+    ref = Node2VecTPUEmbedding(walks, name_id=names, w2v_params=W2V)
+    ref.fit()
+    ref.save_vectors(str(tmp_path), "ref.txt")
+    port = Node2VecTorchEmbedding(walks, name_id=names, w2v_params=W2V, device="cpu")
+    port.fit()
+    port.save_vectors(str(tmp_path), "port.txt")
+    got = port.load_vectors(str(tmp_path), "ref.txt")
+    want = ref.load_vectors(str(tmp_path), "ref.txt")
+    assert list(got["name"]) == list(want["name"]) == list(names)
+    np.testing.assert_array_equal(np.stack(got["vector"]), np.stack(want["vector"]))
+    back = ref.load_vectors(str(tmp_path), "port.txt")
+    assert list(back["name"]) == list(names)
+    np.testing.assert_allclose(np.stack(back["vector"]), port.model.vectors, rtol=1e-5, atol=1e-6)
+
+
+def test_no_silent_cpu_run(karate_edges):
+    """Without CUDA the entry points raise unless device='cpu' is passed."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    g = node2vec_torch.from_edge_arrays(*karate_edges, directed=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Node2Vec()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        node2vec_torch.WalkEngine(g, Node2VecParams())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        node2vec_torch.Word2VecTorch()
+
+
+def test_unported_pipeline_options_raise():
+    for kw in ({"mesh": object()}, {"graph_sharded": True}, {"host_corpus": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Node2Vec(device="cpu", **kw)
