@@ -17,25 +17,44 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
      V = 131,072, D = 128, S = 64, window 5, L1 = 21, at the main path's
      batch and at B = 8192; rtol 1e-4, atol 1e-6, because fp32 atomics
      reorder the sums;
-4. edge cases the main path does not reach (K1 at P = 8 .. 256 with sinks,
-   dead lanes and general weights; the SGNS step at other shapes), and a
-   small reference: the Quickstart on the karate graph with device="cuda"
-   (in 64-walker chunks) and device="cpu" gives bit-equal walks;
-5. the main path: ``Node2Vec(device="cuda")`` through preprocess_input_graph
-   -> random_walk -> fit -> embedding on the dense-engine graph (131,072
-   vertices, 2,097,152 drawn undirected unit-weight edges, numpy seed 0),
-   p = 0.25, q = 4, num_walks 10, walk_length 20, dim 128, window 5,
-   negative 5, min_count 10, max_iter cut to 1 epoch; launch counts are
-   reset just before and read just after, and every kernel must have run;
-6. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
+   - K5 blocked_walk on the heavy-tail RMAT (scale 19, 8 * 2^19 drawn
+     edges, numpy seed 0, undirected, max_out_degree 10,000, self loops
+     kept; the graph of bench.py:807-821), 131,072 walkers x 20 steps at
+     (p, q, max_trials) = (0.25, 4, 64), (1, 1, 64), (1, 4, 64) and
+     (0.25, 4, 2): unit weights, so paths, fallbacks and attempts must be
+     bit-equal; its bound counts each table byte the run reads once
+     (distinct rows and sectors, from the plain run);
+4. edge cases the main paths do not reach (K1 at P = 8 .. 256 with sinks,
+   dead lanes and general weights; the SGNS step at other shapes; K5 with
+   sinks and dead lanes, at P = 8 / C = 64, on a hub of degree 20,000
+   (C = 512), and on general weights by chi-square with a heavy current
+   vertex and a heavy previous vertex), and a small reference: the
+   Quickstart on the karate graph with device="cuda" (in 64-walker chunks)
+   and device="cpu" gives bit-equal walks;
+5. the dense main path: ``Node2Vec(device="cuda")`` through
+   preprocess_input_graph -> random_walk -> fit -> embedding on the
+   dense-engine graph (131,072 vertices, 2,097,152 drawn undirected
+   unit-weight edges, numpy seed 0), p = 0.25, q = 4, num_walks 10,
+   walk_length 20, dim 128, window 5, negative 5, min_count 10, max_iter cut
+   to 1 epoch; launch counts are reset just before and read just after, and
+   K1-K4 must have run;
+6. the blocked main path: ``Node2Vec(device="cuda", max_out_degree=10_000)``
+   through preprocess_input_graph -> run_pipeline(streaming=False) ->
+   embedding on the RMAT graph of 3., same parameters (max_iter cut to 1,
+   streaming off because it is not ported); K5, K6 and K2-K4 must have run
+   the expected number of times; then K6 against its plain version and
+   torch.bincount on that run's corpus;
+7. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
    walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1: held-out
    link-prediction AUC >= 0.60, and the same-label minus no-shared-label
-   mean cosine >= 0.05;
-7. the ``kernels`` line (times, bounds, launches, errors), then the last
+   mean cosine >= 0.05; once on the engine the graph selects (dense) and
+   once on blocked tables at P = 8, C = 64, where most vertices are heavy;
+8. the ``kernels`` line (times, bounds, launches, errors), then the last
    line ``{"ok": true, "device": {...}}``.
 
-Exits non-zero, printing no result, when CUDA is missing or any phase fails.
-Imports neither jax nor the JAX package.
+``--quick`` runs 2-4 at small shapes (K5 on the RMAT at scale 12, K6 on its
+walks) and stops.  Exits non-zero, printing no result, when CUDA is missing
+or any phase fails.  Imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -61,8 +80,8 @@ from node2vec_torch.datasets import (
 from node2vec_torch.eval import walk_transition_pvalue
 from node2vec_torch.graph import build_graph, from_edge_arrays
 from node2vec_torch.models import skipgram as sg
-from node2vec_torch.models.vocab import build_vocab_from_counts
-from node2vec_torch.walk import WalkEngine, dense
+from node2vec_torch.models.vocab import build_vocab_from_counts, vertex_counts, vertex_counts_plain
+from node2vec_torch.walk import WalkEngine, blocked, dense
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -76,7 +95,14 @@ SOURCES = {
     "adagrad_accumulate": ("node2vec_torch/csrc/adagrad.cu",
                            "node2vec_tpu/models/skipgram.py:463"),
     "adagrad_apply": ("node2vec_torch/csrc/adagrad.cu", "node2vec_tpu/models/skipgram.py:469"),
+    "blocked_walk": ("node2vec_torch/csrc/blocked_walk.cu",
+                     "node2vec_tpu/walk/blocked.py:732"),
+    "vertex_counts": ("node2vec_torch/csrc/vertex_counts.cu",
+                      "node2vec_tpu/models/vocab.py:104"),
 }
+DENSE_PATH = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply")
+BLOCKED_PATH = ("blocked_walk", "vertex_counts", "sgns_grads", "adagrad_accumulate",
+                "adagrad_apply")
 
 
 def emit(obj) -> None:
@@ -120,6 +146,35 @@ def smoke_edges(n_vertices: int, n_edges: int, seed: int = 0):
     dst = rng.integers(0, n_vertices, n_edges).astype(np.int32)
     keep = src != dst
     return src[keep], dst[keep]
+
+
+def rmat_edges(n_vertices_log2: int, n_edges: int, seed: int = 0):
+    """RMAT generator (a=0.57, b=c=0.19): power-law degree distribution
+    (a copy of examples/scale_test.py:rmat_edges)."""
+    rng = np.random.default_rng(seed)
+    src = np.zeros(n_edges, dtype=np.int64)
+    dst = np.zeros(n_edges, dtype=np.int64)
+    a, b, c = 0.57, 0.19, 0.19
+    for _ in range(n_vertices_log2):
+        r = rng.random(n_edges)
+        src_bit = (r >= a + b).astype(np.int64)
+        r2 = rng.random(n_edges)
+        dst_bit = np.where(
+            src_bit == 0, (r2 >= a / (a + b)).astype(np.int64),
+            (r2 >= c / (c + (1 - a - b - c))).astype(np.int64),
+        )
+        src = (src << 1) | src_bit
+        dst = (dst << 1) | dst_bit
+    return src.astype(np.int32), dst.astype(np.int32)
+
+
+def rmat_graph(scale: int):
+    """The bench's heavy-tail graph: (src, dst, Graph) of RMAT at ``scale``,
+    8 * 2^scale drawn edges, indexed, undirected, max_out_degree 10,000,
+    self loops kept."""
+    src, dst = rmat_edges(scale, 8 << scale)
+    return src, dst, build_graph((src, dst), indexed=True, directed=False,
+                                 max_out_degree=10_000, random_seed=0)
 
 
 # --------------------------------------------------------------------------- #
@@ -336,6 +391,190 @@ def edge_cases() -> None:
         check_sgns(4096, n_walks, length, dim, window, 64, False, {})
 
 
+BLOCKED_SETTINGS = ((0.25, 4.0, 64), (1.0, 1.0, 64), (1.0, 4.0, 64), (0.25, 4.0, 2))
+
+
+def blocked_bytes(paths: torch.Tensor, stats: dict, row_bytes: int, c: int) -> int:
+    """Least traffic of a blocked walk run, each byte read once: the
+    distinct light rows read (``row_bytes`` each), the distinct blocks whose
+    C weights were scanned, the distinct 32 B sectors holding a chosen id or
+    a chosen brp pair, the distinct bids rows probed, the starts read and
+    the paths written.  The sets come from the plain version's run on the
+    same inputs."""
+    def n(key):
+        return int(stats[key].sum())
+
+    return (n("light_rows") * row_bytes + n("biw_rows") * c * 4 + n("bids_rows") * c * 4
+            + (n("biw_id_sectors") + n("brp_sectors")) * 32
+            + paths.shape[0] * 4 + paths.numel() * 4)
+
+
+def blocked_access_bytes(paths: torch.Tensor, stats: dict, row_bytes: int, c: int,
+                         uniform: bool) -> int:
+    """The same run's bytes per access (a light row per live walker-step, a
+    block's weights plus the id and pair sectors per heavy attempt, a sector
+    per heavy-prev probe): what reaches L2 when nothing is reused in L1."""
+    rows = int((paths[:, :-1] >= 0).sum())
+    per_heavy = c * 4 + 32 + (0 if uniform else 32)
+    return (rows * row_bytes + stats.get("heavy_attempts", 0) * per_heavy
+            + stats.get("heavy_prev_probes", 0) * 32 + paths.shape[0] * 4 + paths.numel() * 4)
+
+
+def check_blocked_walk(graph, n_walkers: int, walk_length: int, results: dict) -> None:
+    """K5 against its plain version on the RMAT graph: bit-equal paths,
+    fallbacks and attempts at every setting of BLOCKED_SETTINGS."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    bg = blocked.build_blocked_graph(graph.indptr, graph.indices, graph.weights, device=dev)
+    torch.cuda.synchronize()
+    deg = np.diff(graph.indptr)
+    emit({"phase": "blocked_tables", "n_vertices": graph.n_vertices, "n_edges": graph.n_edges,
+          "max_degree": int(deg.max()), "isolated": int((deg == 0).sum()),
+          "heavy_vertices": int((deg > bg.light_width).sum()),
+          "heavy_edges": int(deg[deg > bg.light_width].sum()), "P": bg.light_width,
+          "C": bg.block_width, "bytes": {k: int(t.numel() * 4) for k, t in zip(
+              ("light", "biw", "bids", "brp"), bg[:4])}, "build_s": time.perf_counter() - t0})
+    starts = torch.arange(n_walkers, dtype=torch.int32, device=dev) % graph.n_vertices
+    shapes = dict(light_width=bg.light_width, block_width=bg.block_width,
+                  has_heavy=bg.has_heavy)
+    for p, q, trials in BLOCKED_SETTINGS:
+        kw = dict(walk_length=walk_length, return_param=p, inout_param=q, max_trials=trials,
+                  **shapes)
+        got = blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, **kw)
+        stats: dict = {}
+        want = blocked.blocked_walk_chunk_plain(*bg[:4], starts, 0, 0, stats=stats, **kw)
+        torch.cuda.synchronize()
+        n_diff = int((got[0] != want[0]).sum())
+        counters = [int(got[1]), int(got[2])]
+        counters_plain = [int(want[1]), int(want[2])]
+        err = int((got[0].long() - want[0].long()).abs().max())
+        ms = time_ms(lambda: blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, **kw), reps=5)
+        plain_ms = time_ms(lambda: blocked.blocked_walk_chunk_plain(*bg[:4], starts, 0, 0, **kw),
+                           reps=1, warmup=0)
+        steps = int((got[0][:, 1:] >= 0).sum())
+        row_bytes = bg.light.shape[1] * 4
+        n_bytes = blocked_bytes(got[0], stats, row_bytes, bg.block_width)
+        access_bytes = blocked_access_bytes(got[0], stats, row_bytes, bg.block_width,
+                                            (p, q) == (1.0, 1.0))
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        emit({"phase": "check", "kernel": "blocked_walk", "p": p, "q": q, "max_trials": trials,
+              "walkers": n_walkers, "walk_length": walk_length, "P": bg.light_width,
+              "C": bg.block_width, "bit_equal": n_diff == 0, "entries_differing": n_diff,
+              "fallbacks_attempts": counters, "fallbacks_attempts_plain": counters_plain,
+              "walk_steps": steps, "attempts_per_step": counters[1] / max(steps, 1),
+              "heavy_attempts": stats.get("heavy_attempts", 0),
+              "heavy_prev_probes": stats.get("heavy_prev_probes", 0),
+              "distinct": {k: int(stats[k].sum()) for k in (
+                  "light_rows", "biw_rows", "biw_id_sectors", "bids_rows", "brp_sectors")},
+              "ms": ms, "plain_ms": plain_ms, "walk_steps_per_s": steps / (ms / 1e3),
+              "bound_bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
+              "access_bytes": access_bytes, "access_ms_at_hbm_rate": access_bytes / HBM_BYTES_PER_S * 1e3})
+        require(n_diff == 0, f"blocked_walk differs from its plain version at p={p} q={q} "
+                             f"max_trials={trials}")
+        require(counters == counters_plain,
+                f"blocked_walk counters {counters} != plain {counters_plain}")
+        if trials == 2:
+            require(counters[0] > 0, "max_trials=2 produced no fallback")
+        if (p, q, trials) == BLOCKED_SETTINGS[0]:  # the main path's setting
+            results["blocked_walk"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def _hub_edges(hub_deg: int, seed: int, dyadic: bool, with_far: bool = False):
+    """Hub 0 with ``hub_deg`` out/in edges and a ring over its neighbours
+    (tests/test_blocked.py:30); ``with_far`` adds a vertex every ring vertex
+    reaches that is not the hub's neighbour."""
+    rng = np.random.default_rng(seed)
+    nbrs = np.arange(1, hub_deg + 1, dtype=np.int32)
+    src = np.concatenate([np.zeros(hub_deg, np.int32), nbrs, nbrs, nbrs % hub_deg + 1])
+    dst = np.concatenate([nbrs, np.zeros(hub_deg, np.int32), nbrs % hub_deg + 1, nbrs])
+    if with_far:
+        src = np.concatenate([src, nbrs, [hub_deg + 1]]).astype(np.int32)
+        dst = np.concatenate([dst, np.full(hub_deg, hub_deg + 1, np.int32), [1]]).astype(np.int32)
+    w = (rng.choice(np.float32([0.5, 1.0, 2.0]), len(src)) if dyadic
+         else rng.uniform(0.5, 2.0, len(src)).astype(np.float32))
+    return src, dst, w
+
+
+def edge_cases_blocked() -> None:
+    """K5 where the main path does not go, each against the plain version:
+    sinks and dead lanes on a dyadic graph at P = 31 / C = 256 and at
+    P = 8 / C = 64, a hub of degree 20,000 (C = 512), every setting of
+    BLOCKED_SETTINGS plus (4, 0.25) bit-equal; general weights by
+    chi-square (p-value > 1e-4) with the heavy vertex as current and as
+    previous vertex."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    n = 500
+    deg = rng.integers(1, 41, n - 15)  # the last 15 vertices are sinks
+    deg[:3] = (300, 520, 700)
+    src = np.repeat(np.arange(n - 15), deg).astype(np.int32)
+    dst = rng.integers(0, n, len(src)).astype(np.int32)
+    back = rng.random(len(src)) < 0.5  # reverse edges: 1/p atoms and triangles
+    src, dst = np.concatenate([src, dst[back]]), np.concatenate([dst, src[back]])
+    keep = src < n - 15
+    w = rng.choice(np.float32([0.5, 1.0, 2.0]), int(keep.sum()))
+    dyadic = from_edge_arrays(src[keep], dst[keep], w, n_vertices=n, directed=True)
+    hub = from_edge_arrays(*_hub_edges(20000, 4, dyadic=True), directed=True)
+    for name, g, widths in (("sinks_dead_lanes", dyadic, (None, None)),
+                            ("narrow_P8_C64", dyadic, (8, 64)),
+                            ("hub_20000", hub, (None, None))):
+        bg = blocked.build_blocked_graph(g.indptr, g.indices, g.weights, *widths, device=dev)
+        starts = torch.arange(3 * g.n_vertices, dtype=torch.int32, device=dev) % g.n_vertices
+        starts[::13] = -1
+        if name == "hub_20000":
+            starts = torch.cat([torch.zeros(4096, dtype=torch.int32, device=dev), starts[:8192]])
+        for p, q, trials in BLOCKED_SETTINGS + ((4.0, 0.25, 64),):
+            kw = dict(walk_length=30, return_param=p, inout_param=q, max_trials=trials,
+                      light_width=bg.light_width, block_width=bg.block_width,
+                      has_heavy=bg.has_heavy)
+            got = blocked.blocked_walk_chunk(*bg[:4], starts, 1000, 99, **kw)
+            want = blocked.blocked_walk_chunk_plain(*bg[:4], starts, 1000, 99, **kw)
+            n_diff = int((got[0] != want[0]).sum())
+            require(n_diff == 0 and [int(x) for x in got[1:]] == [int(x) for x in want[1:]],
+                    f"blocked_walk differs on {name} at p={p} q={q} max_trials={trials}")
+        emit({"phase": "edge_case", "kernel": "blocked_walk", "case": name,
+              "P": bg.light_width, "C": bg.block_width, "walkers": int(starts.numel()),
+              "sink_ended_walks": int((got[0][:, -1] < 0).sum()), "bit_equal": True})
+
+    g = from_edge_arrays(*_hub_edges(100, 3, dyadic=False, with_far=True), directed=True)
+    bg = blocked.build_blocked_graph(g.indptr, g.indices, g.weights, 8, 64, device=dev)
+    for role, prev, cur in (("heavy_cur", 5, 0), ("heavy_prev", 0, 80)):
+        for p, q in ((0.25, 4.0), (2.0, 0.5)):
+            engine = WalkEngine(g, Node2VecParams(num_walks=20000, walk_length=2,
+                                                  return_param=p, inout_param=q),
+                                strategy="blocked", device="cuda", blocked_graph=bg)
+            walks = engine.run(seed=11, start_vertices=np.array([prev], np.int32))
+            pval = walk_transition_pvalue(g, walks, prev, cur, p, q)
+            emit({"phase": "edge_case", "kernel": "blocked_walk", "case": role, "p": p, "q": q,
+                  "general_weights_chi2_pvalue": pval})
+            require(pval is not None and pval > 1e-4, f"{role} chi-square p-value {pval}")
+
+
+def check_vertex_counts(walks: torch.Tensor, n_vertices: int, results: dict) -> None:
+    """K6 against its plain version on a corpus on the card: exact counts.
+    torch.bincount of the corpus's valid entries (filtered outside the
+    timed call) is the library yardstick."""
+    got = vertex_counts(walks, n_vertices)
+    want = vertex_counts_plain(walks, n_vertices)
+    flat = walks.reshape(-1)
+    valid = flat[flat >= 0]
+    lib = torch.bincount(valid, minlength=n_vertices)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    require(err == 0, f"vertex_counts differs from its plain version by {err}")
+    require(bool((lib == got).all()), "vertex_counts differs from torch.bincount")
+    ms = time_ms(lambda: vertex_counts(walks, n_vertices))
+    plain_ms = time_ms(lambda: vertex_counts_plain(walks, n_vertices))
+    lib_ms = time_ms(lambda: torch.bincount(valid, minlength=n_vertices))
+    b_ms, b_by = bound_ms(walks.numel() * 4 + n_vertices * 4, walks.numel())
+    emit({"phase": "check", "kernel": "vertex_counts", "corpus": list(walks.shape),
+          "V": n_vertices, "exact": True, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "bound_ms": b_ms, "bound_by": b_by})
+    results["vertex_counts"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
 # --------------------------------------------------------------------------- #
 # pipeline phases
 # --------------------------------------------------------------------------- #
@@ -424,12 +663,7 @@ def main_path(src, dst, max_iter: int) -> dict:
     # what came out is right
     require(walks.shape == (10 * graph.n_vertices, 21), f"walk corpus shape {walks.shape}")
     require(bool((walks[:, 0] >= 0).all()), "a start vertex is missing")
-    rng = np.random.default_rng(0)
-    for w in rng.integers(0, n_walks, 2000):
-        path = walks[w][walks[w] >= 0]
-        for a, b in zip(path[:-1], path[1:]):
-            lo, hi = graph.indptr[a], graph.indptr[a + 1]
-            require(b in graph.indices[lo:hi], f"walk {w} steps {a}->{b}, not an edge")
+    check_steps(graph, walks)
     require(vectors.shape == (graph.n_vertices, 128), f"vectors shape {vectors.shape}")
     require(bool(np.isfinite(vectors).all()), "non-finite embedding values")
     require(all(np.isfinite(x) for x in model.losses), "non-finite loss")
@@ -437,18 +671,129 @@ def main_path(src, dst, max_iter: int) -> dict:
             f"dense_walk launched {launches['dense_walk']} times")
     for k in ("sgns_grads", "adagrad_accumulate", "adagrad_apply"):
         require(launches[k] == n_batches * max_iter, f"{k} launched {launches[k]} times")
-    require(all(v > 0 for v in launches.values()), f"a kernel never ran: {launches}")
-    breakdown(n2v)
+    require(all(launches[k] > 0 for k in DENSE_PATH), f"a kernel never ran: {launches}")
+    breakdown((("random_walk", n2v.random_walk), ("fit", n2v.fit)))
     return out
 
 
-def breakdown(n2v: Node2Vec) -> None:
-    """Device time by kernel and the idle share of the walk and fit stages,
-    from torch.profiler over a second run of each (launch counts of the main
+def check_steps(graph, walks: np.ndarray, n_check: int = 2000) -> None:
+    """Every step of ``n_check`` random walks is an edge of the CSR."""
+    rng = np.random.default_rng(0)
+    for w in rng.integers(0, len(walks), n_check):
+        path = walks[w][walks[w] >= 0]
+        for a, b in zip(path[:-1], path[1:]):
+            lo, hi = graph.indptr[a], graph.indptr[a + 1]
+            require(b in graph.indices[lo:hi], f"walk {w} steps {a}->{b}, not an edge")
+
+
+def main_path_blocked(src, dst, max_iter: int):
+    """Node2Vec on the heavy-tail RMAT: preprocess -> run_pipeline(streaming=
+    False) -> embedding, the corpus on the card from the walk to the count."""
+    n2v = Node2Vec(
+        n2v_params={"num_walks": 10, "walk_length": 20, "return_param": 0.25,
+                    "inout_param": 4.0},
+        w2v_params={"vector_size": 128, "window_size": 5, "negative": 5,
+                    "min_count": 10, "max_iter": max_iter},
+        max_out_degree=10_000,
+        random_seed=0,
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    graph = n2v.preprocess_input_graph((src, dst), indexed=True, directed=False)
+    t1 = time.perf_counter()
+    engine = n2v._walk_engine()  # packs and uploads the blocked tables
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    walk_s, fit_s = [], []
+
+    def timed(fn, into):  # a stage inside run_pipeline, synchronised
+        def run(*args, **kwargs):
+            ts = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - ts)
+            return out
+        return run
+
+    new_backend = n2v._new_backend
+
+    def timed_backend(*args, **kwargs):
+        backend = new_backend(*args, **kwargs)
+        backend.model.fit = timed(backend.model.fit, fit_s)
+        return backend
+
+    engine.run_device = timed(engine.run_device, walk_s)
+    n2v._new_backend = timed_backend
+    model = n2v.run_pipeline(streaming=False)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del engine.run_device, n2v._new_backend, model.fit
+    names, vectors = n2v.embedding(as_frame=False)
+    t4 = time.perf_counter()
+    launches = {k: int(_build.launches[k]) for k in _build.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+
+    walks = n2v.walks
+    deg = np.diff(graph.indptr)
+    steps = int((walks[:, 1:] >= 0).sum())
+    n_walks, length = walks.shape
+    from node2vec_torch.models.word2vec import _effective_batch
+
+    p = model.params
+    batch = _effective_batch(p.batch_walks, n_walks)
+    n_batches = -(-n_walks // batch)
+    chunk = engine._effective_chunk(n_walks)
+    pairs = sg.pairs_per_batch(batch, length - 1, p.window_size) * n_batches * max_iter
+    out = {
+        "phase": "main_path_blocked", "cuts": {"max_iter": f"10 -> {max_iter}",
+                                               "streaming": "auto (40 chunks) -> False"},
+        "n_vertices": graph.n_vertices, "n_edges": graph.n_edges,
+        "max_degree": int(deg.max()), "strategy": engine.strategy,
+        "P": engine.bgraph.light_width, "C": engine.bgraph.block_width,
+        "walks": [int(n_walks), int(length)], "walk_steps": steps,
+        "walker_chunk": chunk, "batch_walks": batch, "n_batches": n_batches,
+        "preprocess_s": t1 - t0, "tables_s": t2 - t1, "walk_s": walk_s[0],
+        "fit_s": fit_s[0], "pipeline_s": t3 - t2, "embedding_s": t4 - t3,
+        "walk_steps_per_s": steps / walk_s[0],
+        "attempts_per_step": engine.attempt_count / max(steps, 1),
+        "fallback_count": engine.fallback_count,
+        "sgns_pair_updates_per_s": pairs / fit_s[0],
+        "epoch_losses": model.losses, "vocab_kept": model.vocab.n_kept,
+        "peak_device_memory_bytes": int(peak),
+        "launches": launches,
+        "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+    }
+    emit(out)
+    require(engine.strategy == "blocked", f"strategy {engine.strategy}")
+    require(walks.shape == (10 * graph.n_vertices, 21), f"walk corpus shape {walks.shape}")
+    require(bool((walks[:, 0] >= 0).all()), "a start vertex is missing")
+    check_steps(graph, walks)
+    require(vectors.shape == (graph.n_vertices, 128), f"vectors shape {vectors.shape}")
+    require(bool(np.isfinite(vectors).all()), "non-finite embedding values")
+    require(all(np.isfinite(x) for x in model.losses), "non-finite loss")
+    require(launches["blocked_walk"] == -(-n_walks // chunk),
+            f"blocked_walk launched {launches['blocked_walk']} times")
+    require(launches["vertex_counts"] == 1,
+            f"vertex_counts launched {launches['vertex_counts']} times")
+    for k in ("sgns_grads", "adagrad_accumulate", "adagrad_apply"):
+        require(launches[k] == n_batches * max_iter, f"{k} launched {launches[k]} times")
+    require(launches["dense_walk"] == 0, "the blocked path launched the dense walk")
+    walks_dev = torch.from_numpy(walks).cuda()
+    breakdown((("random_walk", lambda: engine.run_device(seed=0)),
+               ("fit", lambda: model.fit(walks_dev, n_vertices=graph.n_vertices))))
+    return out, walks_dev, graph.n_vertices
+
+
+def breakdown(stages) -> None:
+    """Device time by kernel and the idle share of each (name, fn) stage,
+    from torch.profiler over a second run of it (launch counts of the main
     path were read before)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for stage, fn in (("random_walk", n2v.random_walk), ("fit", n2v.fit)):
+    for stage, fn in stages:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -470,17 +815,22 @@ def breakdown(n2v: Node2Vec) -> None:
               "top_device_ms": top})
 
 
-def quality_gates() -> dict:
+def quality_gates(blocked_widths=None) -> dict:
     g, labels = synthetic_multilabel(2000, seed=0)
     n2v = Node2VecParams(num_walks=8, walk_length=40)
     w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128)
     t0 = time.perf_counter()
-    auc = holdout_link_prediction(g, n2v_params=n2v, w2v_params=w2v, seed=0,
-                                  device="cuda")["holdout_link_auc"]
-    emb, strategy = train_embeddings(g, n2v, w2v, seed=0, device="cuda")
+    auc = holdout_link_prediction(g, n2v_params=n2v, w2v_params=w2v, seed=0, device="cuda",
+                                  blocked_widths=blocked_widths)["holdout_link_auc"]
+    emb, strategy = train_embeddings(g, n2v, w2v, seed=0, device="cuda",
+                                     blocked_widths=blocked_widths)
     gap = label_cosine_gap(emb, labels, n_pairs=200_000, seed=0)
+    deg = np.diff(g.indptr)
     out = {"phase": "quality", "graph": "synthetic_multilabel(2000, seed=0)",
-           "walk_strategy": strategy, "holdout_link_auc": auc, "auc_min": 0.60,
+           "walk_strategy": strategy, "blocked_widths": blocked_widths,
+           "heavy_vertex_share": (float((deg > blocked_widths[0]).mean())
+                                  if blocked_widths else None),
+           "holdout_link_auc": auc, "auc_min": 0.60,
            "label_cosine_gap": gap, "gap_min": 0.05, "seconds": time.perf_counter() - t0}
     emit(out)
     require(auc >= 0.60, f"held-out link AUC {auc} < 0.60")
@@ -526,7 +876,12 @@ def main() -> int:
         check_dense_walk(g, 4096, 20, results)
         check_sgns(4096, 64, 21, 128, 5, 64, True, results)
         check_sgns(512, 16, 41, 32, 5, 64, False, results)
+        _, _, g_rmat = rmat_graph(12)
+        check_blocked_walk(g_rmat, 4096, 20, results)
+        engine = WalkEngine(g_rmat, Node2VecParams(num_walks=2), device="cuda")
+        check_vertex_counts(engine.run_device(), g_rmat.n_vertices, results)
         edge_cases()
+        edge_cases_blocked()
         small_reference()
         emit({"phase": "quick", "ok": True})
         return 0
@@ -540,17 +895,26 @@ def main() -> int:
     check_sgns(131072, main_batch, 21, 128, 5, 64, True, results)
     if main_batch != 8192:
         check_sgns(131072, 8192, 21, 128, 5, 64, False, results)
+    rmat_src, rmat_dst, g_rmat = rmat_graph(19)
+    check_blocked_walk(g_rmat, 131072, 20, results)
+    del g_rmat
     edge_cases()
+    edge_cases_blocked()
     small_reference()
     main = main_path(src, dst, max_iter=1)
+    main_blocked, walks_dev, n_v = main_path_blocked(rmat_src, rmat_dst, max_iter=1)
+    check_vertex_counts(walks_dev, n_v, results)
+    del walks_dev
     quality_gates()
+    quality_gates(blocked_widths=(8, 64))
 
     kernels = []
     for name in _build.KERNELS:
         src_file, replaces = SOURCES[name]
         r = results[name]
+        path = main if name in DENSE_PATH else main_blocked
         kernels.append({"name": name, "route": "cuda", "source": src_file,
-                        "replaces": replaces, "launches": main["launches"][name],
+                        "replaces": replaces, "launches": path["launches"][name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

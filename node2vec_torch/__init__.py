@@ -1,12 +1,14 @@
 """node2vec in PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
 
 A port of the JAX package ``node2vec_tpu`` beside it, one slice at a time:
-host graph build (numpy + the C++ core in ``native/``), dense biased walks
-(kernel K1), and SGNS with row-wise Adagrad (kernels K2–K4), driven by
-``Node2Vec``.  Each kernel's wrapper launches it for CUDA tensors and runs
-its plain PyTorch version for CPU tensors.  Kernels are built with nvcc at
-first use (``node2vec_torch._build``); importing the package builds nothing
-and needs no GPU.
+host graph build (numpy + the C++ core in ``native/``), biased walks on the
+dense engine (kernel K1) or, for heavy-tailed graphs, the blocked engine
+(K5), vertex counts of a corpus on the card (K6), and SGNS with row-wise
+Adagrad (kernels K2–K4), driven by ``Node2Vec``.  Each kernel's wrapper
+launches it for CUDA tensors and runs its plain PyTorch version for CPU
+tensors.  Kernels are built with nvcc at first use
+(``node2vec_torch._build``); importing the package builds nothing and needs
+no GPU.
 """
 
 from node2vec_torch.api import Node2Vec

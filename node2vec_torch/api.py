@@ -3,9 +3,10 @@ random_walk -> fit -> embedding on one device.
 
 ``Node2Vec`` runs on the card by default (``device="cuda"``) and raises when
 CUDA is missing unless the caller passes ``device="cpu"``, which runs every
-kernel's plain PyTorch version.  The streaming, host-corpus, mesh and
-graph-sharded branches of the JAX pipeline are not ported yet and raise
-``NotImplementedError``.
+kernel's plain PyTorch version.  Graphs with a max degree above 256 walk on
+the blocked engine (K5), as in the JAX package.  The streaming,
+host-corpus, mesh and graph-sharded branches of the JAX pipeline are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,7 +48,12 @@ class Node2Vec:
         graph_sharded: bool = False,
         host_corpus: bool = False,
         device="cuda",
+        shared_lists="auto",
     ):
+        """``shared_lists`` keeps the JAX signature and is passed to
+        ``WalkEngine``: "auto" (the default) and False run without the
+        shared-list sampler, True raises ``NotImplementedError`` (not
+        ported)."""
         if mesh is not None or graph_sharded:
             raise NotImplementedError(
                 "mesh and graph-sharded runs are not ported yet (ROADMAP Queue A item 12)"
@@ -68,6 +74,7 @@ class Node2Vec:
         self.max_out_degree = max_out_degree or MAX_OUT_DEGREES
         self.random_seed = random_seed if random_seed is not None else 0
         self.walk_seed_vertices = walk_seed_vertices
+        self.shared_lists = shared_lists
         self.graph: Optional[Graph] = None
         self.walks: Optional[np.ndarray] = None
         self.backend: Optional[Node2VecTorchEmbedding] = None
@@ -104,7 +111,10 @@ class Node2Vec:
     def _walk_engine(self) -> WalkEngine:
         """Build once, reuse: the packed tables are p/q/seed independent."""
         if self._engine is None:
-            self._engine = WalkEngine(self.graph, self.n2v_params, device=self.device)
+            self._engine = WalkEngine(
+                self.graph, self.n2v_params, device=self.device,
+                shared_lists=self.shared_lists,
+            )
         return self._engine
 
     def _new_backend(self, walks=None) -> Node2VecTorchEmbedding:
@@ -124,17 +134,26 @@ class Node2Vec:
         return self.walks
 
     def run_pipeline(
-        self, verbose: bool = False, streaming: Optional[bool] = False
+        self, verbose: bool = False, streaming: Optional[bool] = None
     ) -> Word2VecTorch:
-        """Walks + training without the corpus leaving the device."""
+        """Walks + training without the corpus leaving the device.
+
+        ``streaming`` (default None: on when the corpus spans several walker
+        chunks, as in the JAX package) trains over a virtual corpus, which
+        is not ported yet: None on one chunk trains in memory, exactly as
+        False; None on several chunks and True raise.
+        """
         if self.graph is None:
             raise RuntimeError("call preprocess_input_graph() first")
-        if streaming is None or streaming:
+        engine = self._walk_engine()
+        if streaming is None:
+            streaming = engine.n_chunks(self.walk_seed_vertices) > 1
+        if streaming:
             raise NotImplementedError(
                 "streaming training over a virtual corpus is not ported yet "
-                "(ROADMAP Queue A item 15); use streaming=False"
+                "(ROADMAP Queue A items 7 and 15); use streaming=False"
             )
-        walks_dev = self._walk_engine().run_device(
+        walks_dev = engine.run_device(
             seed=self.random_seed, start_vertices=self.walk_seed_vertices
         )
         self.backend = self._new_backend()

@@ -1,10 +1,13 @@
-"""Trainer state carried across between the JAX package and the port.
+"""State carried across between the JAX package and the port.
 
 The JAX trainer keeps numpy-convertible tables in the logical ``[V, D]``
 layout at its boundaries (checkpoints, ``emb_in``/``emb_out``), never the
 packed dim-64 device layout, and the port works on that layout throughout.
-These two functions turn one side's state into the other's, so both
-trainers can start from the same tables.
+``from_reference_state`` and ``to_reference_state`` turn one side's trainer
+state into the other's, so both trainers can start from the same tables.
+``blocked_graph_from_arrays`` takes the blocked walk engine's tables, which
+have one layout in both packages, so both walk kernels can run on the very
+tables one package packed.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from node2vec_torch.walk.blocked import BlockedGraph
 
 
 def from_reference_state(
@@ -39,3 +44,22 @@ def to_reference_state(
     """The port's state tensors -> host float32 numpy arrays, logical layout."""
     return tuple(t.detach().to("cpu", torch.float32).numpy().copy()
                  for t in (emb_in, emb_out, acc_in, acc_out))
+
+
+def blocked_graph_from_arrays(
+    light, biw, bids, brp, light_width: int, block_width: int, has_heavy: bool,
+    device="cpu",
+) -> BlockedGraph:
+    """The port's BlockedGraph from host copies of the four tables (e.g.
+    ``np.asarray`` of a JAX BlockedGraph's), as contiguous int32 tensors on
+    ``device``."""
+    tables = [torch.from_numpy(np.array(a, dtype=np.int32, copy=True)).to(device)
+              for a in (light, biw, bids, brp)]
+    c = int(block_width)
+    if tables[0].dim() != 2 or tables[0].shape[1] < 4 * light_width:
+        raise ValueError(f"light must be [V, >= 4P], got {tuple(tables[0].shape)}")
+    nb = tables[1].shape[0]
+    if (tuple(tables[1].shape) != (nb, 2 * c) or tuple(tables[2].shape) != (nb, c)
+            or tuple(tables[3].shape) != (nb * c // 64, 128)):
+        raise ValueError("biw, bids and brp must be [NB, 2C], [NB, C] and [NB*C/64, 128]")
+    return BlockedGraph(*tables, int(light_width), c, bool(has_heavy))

@@ -123,17 +123,31 @@ def label_cosine_gap(
     return float(cos[share].mean() - cos[~share].mean())
 
 
+def _walk_engine(graph: Graph, n2v_params, device, blocked_widths=None):
+    """WalkEngine over ``graph``; with ``blocked_widths = (P, C)`` on the
+    blocked engine, its tables built at those widths."""
+    from node2vec_torch.walk import WalkEngine
+    from node2vec_torch.walk.blocked import build_blocked_graph
+
+    if blocked_widths is None:
+        return WalkEngine(graph, n2v_params, device=device)
+    bg = build_blocked_graph(graph.indptr, graph.indices, graph.weights,
+                             *blocked_widths, device=device)
+    return WalkEngine(graph, n2v_params, strategy="blocked", device=device, blocked_graph=bg)
+
+
 def train_embeddings(graph: Graph, n2v_params=None, w2v_params=None, seed: int = 0,
-                     device="cuda") -> Tuple[np.ndarray, str]:
+                     device="cuda", blocked_widths=None) -> Tuple[np.ndarray, str]:
     """Walks -> SGNS on the full graph, as ``run_quality`` trains:
-    returns (input vectors [V, D], walk strategy)."""
+    returns (input vectors [V, D], walk strategy).  ``blocked_widths =
+    (light_width, block_width)`` walks on the blocked engine at those
+    widths whatever the graph's degrees."""
     from node2vec_torch.constants import Node2VecParams, Word2VecParams
     from node2vec_torch.models.word2vec import Word2VecTorch
-    from node2vec_torch.walk import WalkEngine
 
     n2v = n2v_params or Node2VecParams(num_walks=10, walk_length=80)
     w2v = w2v_params or Word2VecParams(min_count=1, max_iter=5)
-    engine = WalkEngine(graph, n2v, device=device)
+    engine = _walk_engine(graph, n2v, device, blocked_widths)
     walks = engine.run(seed=seed)
     model = Word2VecTorch(w2v, device=device).fit(walks, n_vertices=graph.n_vertices)
     return model.vectors, engine.strategy
@@ -146,13 +160,14 @@ def holdout_link_prediction(
     w2v_params=None,
     seed: int = 0,
     device="cuda",
+    blocked_widths=None,
 ) -> Dict[str, float]:
     """Honest link-prediction AUC: hold out edges BEFORE walk generation,
-    embed on the rest, score held-out edges vs sampled non-edges."""
+    embed on the rest, score held-out edges vs sampled non-edges.
+    ``blocked_widths`` as in ``train_embeddings``."""
     from node2vec_torch.constants import Node2VecParams, Word2VecParams
     from node2vec_torch.eval import link_prediction_auc, sample_negative_edges
     from node2vec_torch.models.word2vec import Word2VecTorch
-    from node2vec_torch.walk import random_walks
 
     rng = np.random.default_rng(seed)
     src = np.repeat(
@@ -175,7 +190,8 @@ def holdout_link_prediction(
         src[~drop], dst[~drop], graph.weights[~drop],
         n_vertices=graph.n_vertices, directed=True,
     )
-    walks = random_walks(g_train, n2v_params or Node2VecParams(), seed=seed, device=device)
+    walks = _walk_engine(g_train, n2v_params or Node2VecParams(), device,
+                         blocked_widths).run(seed=seed)
     model = Word2VecTorch(
         w2v_params or Word2VecParams(min_count=1, max_iter=5), device=device
     ).fit(walks, n_vertices=graph.n_vertices)

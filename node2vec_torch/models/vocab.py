@@ -3,8 +3,10 @@
 
 Vertex ids index arrays directly: the "vocabulary" is a count vector, a
 min-count mask, and an alias table over the unigram^0.75 noise distribution
-(word2vec's standard SGNS negative distribution).  Counting happens on the
-host; a corpus handed over as a torch tensor is copied to the host first.
+(word2vec's standard SGNS negative distribution).  A numpy corpus is
+counted on the host with ``np.bincount``; a torch corpus is counted where it
+lies by ``vertex_counts`` (kernel K6, ``csrc/vertex_counts.cu``, on the card;
+its plain version on the CPU), and only the [V] counts reach the host.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
+
+from node2vec_torch import _build
 
 
 @dataclasses.dataclass
@@ -87,6 +92,40 @@ def subsample_keep_prob(
     return np.minimum(p, 1.0).astype(np.float32)
 
 
+def vertex_counts_plain(walks: torch.Tensor, n_vertices: int) -> torch.Tensor:
+    """int32 [V] counts of the entries in [0, V) of ``walks``."""
+    flat = walks.reshape(-1)
+    keep = (flat >= 0) & (flat < n_vertices)
+    counts = torch.zeros(n_vertices, dtype=torch.int32, device=walks.device)
+    return counts.index_add_(0, flat[keep].long(), torch.ones_like(flat[keep]))
+
+
+def vertex_counts(walks: torch.Tensor, n_vertices: int) -> torch.Tensor:
+    """How often each vertex occurs in a walk corpus: int32 [V] on the
+    corpus's device; entries < 0 (padding) and >= V are not counted.
+
+    CPU tensors take the plain version; CUDA tensors launch K6 or raise.
+    """
+    if walks.dtype != torch.int32:
+        raise TypeError("vertex_counts takes an int32 corpus")
+    if n_vertices < 0 or n_vertices > np.iinfo(np.int32).max:
+        raise ValueError(f"n_vertices must be in [0, 2^31), got {n_vertices}")
+    if not walks.is_cuda:
+        return vertex_counts_plain(walks, n_vertices)
+    walks = walks.contiguous()
+    if walks.data_ptr() % 16:  # the kernel reads 16-byte vectors
+        walks = walks.clone()
+    _build.require_cuda("vertex_counts", walks)
+    counts = torch.zeros(n_vertices, dtype=torch.int32, device=walks.device)
+    rc = _build.lib().n2v_vertex_counts(
+        _build.ptr(walks), walks.numel(), _build.ptr(counts), n_vertices,
+        _build.stream_of(walks),
+    )
+    _build.check(rc, "vertex_counts")
+    _build.launches["vertex_counts"] += 1
+    return counts
+
+
 def build_vocab(
     walks: np.ndarray,
     n_vertices: Optional[int] = None,
@@ -95,13 +134,16 @@ def build_vocab(
 ) -> Vocabulary:
     """Count vertices over the walk corpus and build the noise alias table.
 
-    ``walks`` is int32 [N, L+1] with -1 padding (numpy, or a torch tensor,
-    which is copied to the host).  Vertices below ``min_count`` are masked
-    out of training and excluded from the noise distribution (gensim
-    behavior: they are simply not in the vocab).
+    ``walks`` is int32 [N, L+1] with -1 padding: numpy, counted on the
+    host, or a torch tensor, counted on its device.  Vertices below
+    ``min_count`` are masked out of training and excluded from the noise
+    distribution (gensim behavior: they are simply not in the vocab).
     """
     if not isinstance(walks, np.ndarray):
-        walks = walks.cpu().numpy()
+        if n_vertices is None:
+            n_vertices = int(walks.max()) + 1 if walks.numel() else 0
+        counts = vertex_counts(walks.to(torch.int32), n_vertices).cpu().numpy()
+        return build_vocab_from_counts(counts, min_count, ns_exponent)
     flat = walks.reshape(-1)
     flat = flat[flat >= 0]
     if n_vertices is None:

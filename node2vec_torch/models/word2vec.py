@@ -87,16 +87,19 @@ class Word2VecTorch:
         verbose: bool = False,
     ) -> "Word2VecTorch":
         """Train embeddings over a walk corpus [N, L+1] int32 (-1 padded),
-        given as a numpy array or a torch tensor."""
+        given as a numpy array (counted on the host before the upload) or a
+        torch tensor (counted on its device, by K6 on the card)."""
         self._check_supported()
         p = self.params
         dev = self.device
         if isinstance(walks, np.ndarray):
-            walks = torch.from_numpy(np.ascontiguousarray(walks, dtype=np.int32))
-        walks = walks.to(device=dev, dtype=torch.int32)
+            walks = np.ascontiguousarray(walks, dtype=np.int32)
         self.vocab = build_vocab(
             walks, n_vertices, min_count=p.min_count, ns_exponent=p.ns_exponent
         )
+        if isinstance(walks, np.ndarray):
+            walks = torch.from_numpy(walks)
+        walks = walks.to(device=dev, dtype=torch.int32)
         n_v = self.vocab.n_vertices
         if self.vocab.n_kept == 0:
             raise ValueError(

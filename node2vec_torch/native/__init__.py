@@ -102,6 +102,20 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.n2v_mirror_dedup.argtypes = [
         ctypes.c_int64, i32p, i32p, f32p, i32p, i32p, f32p,
     ]
+    lib.n2v_edge_has_shared.restype = ctypes.c_int
+    lib.n2v_edge_has_shared.argtypes = [
+        ctypes.c_int32, i64p, i32p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32,
+    ]
+    lib.n2v_edge_metadata.restype = ctypes.c_int
+    lib.n2v_edge_metadata.argtypes = [
+        ctypes.c_int32, i64p, i32p, f32p, i32p, f32p, ctypes.c_int32,
+    ]
+    lib.n2v_pack_blocked.restype = ctypes.c_int
+    lib.n2v_pack_blocked.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, i64p, i32p, f32p, i32p, f32p, i64p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        i32p, i32p, i32p, i32p, ctypes.c_int32,
+    ]
     _lib = lib
     return _lib
 
@@ -246,3 +260,111 @@ def mirror_dedup(
         _ptr(out_w, ctypes.c_float),
     )
     return out_src[:count].copy(), out_dst[:count].copy(), out_w[:count].copy()
+
+
+def edge_has_shared(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """uint8[e] = 1 iff edge e closes a triangle (sorted-row merge)."""
+    lib = _load()
+    assert lib is not None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    out = np.zeros(len(indices), dtype=np.uint8)
+    lib.n2v_edge_has_shared(
+        len(indptr) - 1,
+        _ptr(indptr, ctypes.c_int64),
+        _ptr(indices, ctypes.c_int32),
+        _ptr(out, ctypes.c_uint8),
+        _N_THREADS,
+    )
+    return out
+
+
+def edge_metadata(
+    indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-edge (rev_enc, pfx) for the blocked walk engine, one parallel pass.
+
+    rev_enc: f32 bits of the reverse-edge weight with the triangle bit in the
+    sign; pfx: weight-CDF prefix of src within N(dst).  See
+    walk/blocked.py:_edge_metadata for the semantics and the numpy fallback.
+    """
+    lib = _load()
+    assert lib is not None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    weights = np.ascontiguousarray(weights, dtype=np.float32)
+    n_edges = len(indices)
+    rev_enc = np.empty(n_edges, dtype=np.int32)
+    pfx = np.empty(n_edges, dtype=np.float32)
+    lib.n2v_edge_metadata(
+        len(indptr) - 1,
+        _ptr(indptr, ctypes.c_int64),
+        _ptr(indices, ctypes.c_int32),
+        _ptr(weights, ctypes.c_float),
+        _ptr(rev_enc, ctypes.c_int32),
+        _ptr(pfx, ctypes.c_float),
+        _N_THREADS,
+    )
+    return rev_enc, pfx
+
+
+def pack_blocked(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    weights: np.ndarray,
+    rev_enc: np.ndarray,
+    pfx: np.ndarray,
+    lo: int,
+    hi: int,
+    p_l: int,
+    c: int,
+    row_width: int,
+    block_start: np.ndarray,
+    n_blocks: int,
+    ebase: bool,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Blocked-table packing (light, biw, bids, brp) for vertices [lo, hi),
+    threaded.  ``block_start[i]`` is the first block of the range's i-th
+    vertex (cumulative over the range's heavy vertices).  Block CDFs are
+    row-local double accumulation, so they can differ from the numpy
+    fallback's global-prefix difference in the last f32 ulp (both exact)."""
+    lib = _load()
+    assert lib is not None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    weights = np.ascontiguousarray(weights, dtype=np.float32)
+    rev_enc = np.ascontiguousarray(rev_enc, dtype=np.int32)
+    pfx = np.ascontiguousarray(pfx, dtype=np.float32)
+    block_start = np.ascontiguousarray(block_start, dtype=np.int64)
+    n_range = hi - lo
+    light = np.empty((n_range, row_width), dtype=np.int32)
+    biw = np.empty((max(n_blocks, 1), 2 * c), dtype=np.int32)
+    bids = np.empty((max(n_blocks, 1), c), dtype=np.int32)
+    brp = np.empty((max(n_blocks, 1) * c // 64, 128), dtype=np.int32)
+    if n_blocks == 0:  # the numpy packer's 1-row dummy tables
+        biw[:, :c] = np.int32(np.iinfo(np.int32).max)
+        biw[:, c:] = 0
+        bids[:] = np.int32(np.iinfo(np.int32).max)
+        brp[:] = 0
+    rc = lib.n2v_pack_blocked(
+        lo,
+        hi,
+        _ptr(indptr, ctypes.c_int64),
+        _ptr(indices, ctypes.c_int32),
+        _ptr(weights, ctypes.c_float),
+        _ptr(rev_enc, ctypes.c_int32),
+        _ptr(pfx, ctypes.c_float),
+        _ptr(block_start, ctypes.c_int64),
+        p_l,
+        c,
+        row_width,
+        1 if ebase else 0,
+        _ptr(light, ctypes.c_int32),
+        _ptr(biw, ctypes.c_int32),
+        _ptr(bids, ctypes.c_int32),
+        _ptr(brp, ctypes.c_int32),
+        _N_THREADS,
+    )
+    if rc != 0:
+        raise ValueError(f"n2v_pack_blocked failed with status {rc}")
+    return light, biw, bids, brp

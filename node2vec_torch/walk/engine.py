@@ -1,15 +1,17 @@
-"""Chunked walk runner (port of ``node2vec_tpu/walk/engine.py``, dense strategy).
+"""Chunked walk runner (port of ``node2vec_tpu/walk/engine.py``, dense and
+blocked strategies).
 
 Replicates each start vertex ``num_walks`` times and sweeps fixed-size walker
-chunks through the dense walk kernel.  Semantics as in the JAX package:
-step 0 is first-order, sinks end walks (the path keeps its prefix, -1
-after), walks can be restricted to seed start vertices, and every draw is
-keyed on (seed, global walker id, step), so results do not depend on
-``walker_chunk``.
+chunks through a walk kernel: the dense engine (K1) when the max degree is
+at most ``dense_max_degree``, the blocked engine (K5) above it.  Semantics
+as in the JAX package: step 0 is first-order, sinks end walks (the path
+keeps its prefix, -1 after), walks can be restricted to seed start
+vertices, and every draw is keyed on (seed, global walker id, counter), so
+results do not depend on ``walker_chunk``.
 
-Only the dense strategy is ported.  The blocked engine (max degree above
-``dense_max_degree``), the CSR fallback, the edge-partitioned engine and
-mesh sharding raise ``NotImplementedError`` naming their ROADMAP item.
+The CSR fallback, the edge-partitioned engine, mesh sharding and the
+blocked engine's shared-list sampler raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,17 +24,30 @@ import torch
 from node2vec_torch.constants import Node2VecParams
 from node2vec_torch.device import resolve_device
 from node2vec_torch.graph.csr import Graph
+from node2vec_torch.walk.blocked import (
+    SHARED_LISTS_NOT_PORTED,
+    BlockedGraph,
+    blocked_walk_chunk,
+    build_blocked_graph,
+)
 from node2vec_torch.walk.dense import build_padded_adjacency, dense_walk_chunk
 
 _NOT_PORTED = {
-    "blocked": "the blocked walk engine is not ported yet (ROADMAP Queue A item 6)",
     "csr": "the CSR fallback walk engine is not ported yet (ROADMAP Queue A item 10)",
     "ep_blocked": "the edge-partitioned walk engine is not ported yet (ROADMAP Queue A item 12)",
 }
 
 
 class WalkEngine:
-    """Chunked walk runner over the dense padded-adjacency sampler."""
+    """Chunked walk runner over the dense or the blocked sampler.
+
+    ``blocked_graph``: prebuilt blocked tables to reuse across engines over
+    the same graph (host packing and upload of a multi-million-edge graph
+    take seconds; p, q and the trial cap live in the kernel, not the
+    tables).  ``shared_lists`` keeps the JAX engine's signature: "auto" and
+    False both run the rejection-bound sampler (the JAX "auto" resolves to
+    False too); True asks for the shared-list sampler, which is not ported.
+    """
 
     def __init__(
         self,
@@ -42,11 +57,15 @@ class WalkEngine:
         dense_max_degree: int = 256,
         mesh=None,
         device="cuda",
+        blocked_graph: Optional[BlockedGraph] = None,
+        shared_lists="auto",
     ):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded walks are not ported yet (ROADMAP Queue A item 12)"
             )
+        if shared_lists is True:
+            raise NotImplementedError(SHARED_LISTS_NOT_PORTED)
         self.device = resolve_device(device)
         self.params = params
         self.n_vertices = int(graph.n_vertices)
@@ -54,40 +73,99 @@ class WalkEngine:
         max_deg = int(np.max(np.diff(indptr))) if len(indptr) > 1 else 0
         self.max_degree = max_deg
         if strategy == "auto":
-            if max_deg > dense_max_degree:
-                raise NotImplementedError(
-                    f"max degree {max_deg} > dense_max_degree {dense_max_degree} "
-                    f"needs the blocked engine: {_NOT_PORTED['blocked']}"
-                )
-            strategy = "dense"
+            strategy = "dense" if max_deg <= dense_max_degree else "blocked"
         if strategy in _NOT_PORTED:
             raise NotImplementedError(_NOT_PORTED[strategy])
-        if strategy != "dense":
+        if strategy not in ("dense", "blocked"):
             raise ValueError(f"unknown walk strategy {strategy!r}")
         self.strategy = strategy
-        self.packed_adj = torch.from_numpy(
-            build_padded_adjacency(indptr, graph.indices, graph.weights)
-        ).to(self.device)
+        self.packed_adj = None
+        self.bgraph = None
+        # blocked engine: trial-capped accepts and sampling attempts, kept as
+        # device scalars and read back only when the property is read
+        self._fb_base = 0
+        self._att_base = 0
+        self._fb_parts: list = []
+        self._att_parts: list = []
+        if strategy == "dense":
+            self.packed_adj = torch.from_numpy(
+                build_padded_adjacency(indptr, graph.indices, graph.weights)
+            ).to(self.device)
+        elif blocked_graph is not None:
+            bdev = blocked_graph.light.device
+            if bdev.type != self.device.type or self.device.index not in (None, bdev.index):
+                raise ValueError(
+                    f"blocked_graph lies on {blocked_graph.light.device}, "
+                    f"the engine runs on {self.device}"
+                )
+            self.bgraph = blocked_graph
+        else:
+            self.bgraph = build_blocked_graph(
+                indptr, graph.indices, graph.weights, device=self.device
+            )
+
+    @property
+    def fallback_count(self) -> int:
+        """Trial-capped proportional-to-weight accepts (blocked engine).
+        Reading drains the pending device counters (may block)."""
+        if self._fb_parts:
+            self._fb_base += int(torch.stack(self._fb_parts).sum())
+            self._fb_parts = []
+        return self._fb_base
+
+    @fallback_count.setter
+    def fallback_count(self, value: int) -> None:
+        self._fb_parts = []
+        self._fb_base = int(value)
+
+    @property
+    def attempt_count(self) -> int:
+        """Total sampling attempts (blocked engine).  Reading drains the
+        pending device counters (may block)."""
+        if self._att_parts:
+            self._att_base += int(torch.stack(self._att_parts).sum())
+            self._att_parts = []
+        return self._att_base
+
+    @attempt_count.setter
+    def attempt_count(self, value: int) -> None:
+        self._att_parts = []
+        self._att_base = int(value)
 
     def _effective_chunk(self, n_total: int) -> int:
         chunk = min(self.params.walker_chunk, max(n_total, 1))
-        # bound the [W, P] working set: W * P <= 2^24 elements
-        w_cap = max(1024, (1 << 25) // self.packed_adj.shape[1])
+        if self.strategy == "dense":
+            # bound the [W, P] working set: W * P <= 2^24 elements
+            w_cap = max(1024, (1 << 25) // self.packed_adj.shape[1])
+        else:
+            # bound the carried per-walker state (row + prev_mem + path)
+            per_walker = 6 * self.bgraph.light_width + self.params.walk_length
+            w_cap = max(1024, (1 << 26) // per_walker)
         return min(chunk, w_cap)
+
+    def n_chunks(self, start_vertices: Optional[np.ndarray] = None) -> int:
+        """How many walker chunks run() sweeps."""
+        n_total = len(self._starts(start_vertices))
+        return -(-n_total // self._effective_chunk(n_total))
 
     def _run_chunk(
         self, chunk_starts: np.ndarray, gid_base: int = 0, seed: int = 0
     ) -> torch.Tensor:
         p = self.params
-        return dense_walk_chunk(
-            self.packed_adj,
-            torch.from_numpy(chunk_starts).to(self.device),
-            gid_base,
-            seed & 0xFFFFFFFF,
-            walk_length=p.walk_length,
-            return_param=float(p.return_param),
-            inout_param=float(p.inout_param),
+        starts = torch.from_numpy(chunk_starts).to(self.device)
+        kw = dict(walk_length=p.walk_length, return_param=float(p.return_param),
+                  inout_param=float(p.inout_param))
+        if self.strategy == "dense":
+            return dense_walk_chunk(self.packed_adj, starts, gid_base, seed & 0xFFFFFFFF, **kw)
+        bg = self.bgraph
+        paths, n_fb, n_att = blocked_walk_chunk(
+            bg.light, bg.biw, bg.bids, bg.brp, starts, gid_base, seed & 0xFFFFFFFF,
+            max_trials=p.max_rejection_trials, light_width=bg.light_width,
+            block_width=bg.block_width, has_heavy=bg.has_heavy, **kw,
         )
+        self._fb_parts.append(n_fb)  # device scalars, drained lazily
+        self._att_parts.append(n_att)
+        return paths
 
     def _starts(self, start_vertices: Optional[np.ndarray]) -> np.ndarray:
         if start_vertices is None:

@@ -55,9 +55,47 @@ def test_run_pipeline_matches_random_walk(karate_edges):
     walks = n2v.walks.copy()
     np.testing.assert_array_equal(n2v.random_walk(), walks)
     assert np.isfinite(model.vectors).all()
-    for streaming in (None, True):
-        with pytest.raises(NotImplementedError, match="streaming"):
+    with pytest.raises(NotImplementedError, match="streaming"):
+        n2v.run_pipeline(streaming=True)
+
+
+@pytest.mark.parametrize("streaming,chunk,n_chunks,expect_raise", [
+    (None, 1 << 17, 1, False), (None, 64, 3, True), (True, 1 << 17, 1, True)])
+def test_run_pipeline_streaming_decision(karate_edges, streaming, chunk, n_chunks, expect_raise):
+    """streaming=None decides as the JAX package does: one walker chunk
+    trains in memory exactly as streaming=False; several chunks would
+    stream, which is not ported, and raise as streaming=True does.  The
+    chunk count is the JAX engine's."""
+    kw = dict(n2v_params={**N2V, "walker_chunk": chunk}, w2v_params=W2V, device="cpu")
+    n2v = Node2Vec(**kw)
+    n2v.preprocess_input_graph(karate_edges, directed=False)
+    ref_n2v = node2vec_tpu.Node2Vec(n2v_params={**N2V, "walker_chunk": chunk}, w2v_params=W2V)
+    ref_n2v.preprocess_input_graph(karate_edges, directed=False)
+    ref_chunks = ref_n2v._walk_engine().chunk_source()[0]
+    assert n2v._walk_engine().n_chunks() == ref_chunks == n_chunks
+    if expect_raise:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A items 7 and 15"):
             n2v.run_pipeline(streaming=streaming)
+        return
+    got = n2v.run_pipeline(streaming=streaming)
+    ref = Node2Vec(**kw)
+    ref.preprocess_input_graph(karate_edges, directed=False)
+    want = ref.run_pipeline(streaming=False)
+    np.testing.assert_array_equal(n2v.walks, ref.walks)
+    np.testing.assert_array_equal(got.vectors, want.vectors)
+
+
+def test_fit_counts_numpy_and_tensor_corpora_alike(karate_edges):
+    """fit() counts a numpy corpus on the host before the upload and a
+    tensor where it lies (K6's plain version on the CPU): same vocabulary."""
+    walks = np.random.default_rng(4).integers(-1, 34, (300, 9)).astype(np.int32)
+    a = node2vec_torch.Word2VecTorch(Word2VecParams(**{**W2V, "min_count": 3}), device="cpu")
+    b = node2vec_torch.Word2VecTorch(Word2VecParams(**{**W2V, "min_count": 3}), device="cpu")
+    a.fit(walks, n_vertices=40)
+    b.fit(torch.from_numpy(walks), n_vertices=40)
+    for field in ("counts", "mask", "ns_alias", "ns_prob"):
+        np.testing.assert_array_equal(getattr(a.vocab, field), getattr(b.vocab, field))
+    np.testing.assert_array_equal(a.vectors, b.vectors)
 
 
 def test_multilabel_quality_close_to_jax():

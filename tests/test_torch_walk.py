@@ -90,13 +90,18 @@ def test_walk_transition_pvalue_general_weights(p, q):
 
 
 def test_unported_strategies_raise():
+    """csr, ep_blocked and mesh raise naming their ROADMAP item; "blocked"
+    and a graph above dense_max_degree select the blocked engine."""
     g = _dyadic_graph()
-    for strategy in ("blocked", "csr", "ep_blocked"):
+    for strategy in ("csr", "ep_blocked"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             WalkEngine(g, Node2VecParams(), strategy=strategy, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         WalkEngine(g, Node2VecParams(), mesh=object(), device="cpu")
+    forced = WalkEngine(g, Node2VecParams(), strategy="blocked", device="cpu")
+    assert forced.strategy == "blocked" and forced.bgraph is not None
+    assert forced.packed_adj is None
     hub = np.zeros(300, dtype=np.int32)
     heavy = from_edge_arrays(hub, np.arange(1, 301, dtype=np.int32), directed=True)
-    with pytest.raises(NotImplementedError, match="blocked"):
-        WalkEngine(heavy, Node2VecParams(), device="cpu")
+    auto = WalkEngine(heavy, Node2VecParams(), device="cpu")
+    assert auto.strategy == "blocked" and auto.bgraph.has_heavy
