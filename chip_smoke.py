@@ -41,19 +41,42 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
 6. the blocked main path: ``Node2Vec(device="cuda", max_out_degree=10_000)``
    through preprocess_input_graph -> run_pipeline(streaming=False) ->
    embedding on the RMAT graph of 3., same parameters (max_iter cut to 1,
-   streaming off because it is not ported); K5, K6 and K2-K4 must have run
-   the expected number of times; then K6 against its plain version and
-   torch.bincount on that run's corpus;
-7. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
+   streaming forced off: the in-memory trainer on the RMAT); K5, K6 and
+   K2-K4 must have run the expected number of times; then K6 against its
+   plain version and torch.bincount on that run's corpus;
+7. the streaming main path: the same Node2Vec on the same RMAT through
+   ``run_pipeline()`` with no argument, which streams over its 40 walker
+   chunks (max_iter cut to 1): K5 40 times for the counting pass and 40
+   per epoch for training, K6 40 times (the streaming form, out=), K2-K4
+   40 x 16 per epoch, K1 never; walk-regeneration time from CUDA events
+   around every chunk, fit time, pair-updates/s and peak device memory.
+   Then a resume drill: fit_streaming with a checkpoint directory and a
+   snapshot every 8 chunks, killed by an exception from walk_source at
+   the chunk in position 20 and run again; it must finish from the
+   snapshot at chunk 16 without a counting pass (K5 24 launches, K6 none),
+   with finite tables and the full loss list.  Then K6's streaming form
+   over the 40 chunk_source chunks against K6 over the in-memory corpus,
+   torch.bincount and the plain version;
+8. the host-corpus main path: ``Node2Vec(device="cuda", host_corpus=True)``
+   on the dense graph of 5. with sample=1e-3 through run_pipeline(): K1
+   10 times, K7 once a slab and epoch, K2-K4 once a batch of each slab;
+   H2D time of each slab (events on the copy stream) and how much of it
+   the training stream hid; then K7 against its plain version at that
+   path's slab shape (bit-equal), an all-dead slab, a keep table of ones,
+   in place against out of place, and a z-test of the keep count;
+9. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
    walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1: held-out
    link-prediction AUC >= 0.60, and the same-label minus no-shared-label
-   mean cosine >= 0.05; once on the engine the graph selects (dense) and
-   once on blocked tables at P = 8, C = 64, where most vertices are heavy;
-8. the ``kernels`` line (times, bounds, launches, errors), then the last
-   line ``{"ok": true, "device": {...}}``.
+   mean cosine >= 0.05; on the engine the graph selects (dense) through
+   fit, on blocked tables at P = 8, C = 64, where most vertices are heavy,
+   through run_pipeline() at walker_chunk 2048 (it streams over 8
+   chunks), and through host_corpus=True with sample=1e-3;
+10. the ``kernels`` line (times, bounds, launches, errors; K6 once for each
+   JAX function it replaces), then the last line
+   ``{"ok": true, "device": {...}}``.
 
-``--quick`` runs 2-4 at small shapes (K5 on the RMAT at scale 12, K6 on its
-walks) and stops.  Exits non-zero, printing no result, when CUDA is missing
+``--quick`` runs 2-4 at small shapes (K5 on the RMAT at scale 12, K6 and its
+streaming form on its walks, K7 on them) and stops.  Exits non-zero, printing no result, when CUDA is missing
 or any phase fails.  Imports neither jax nor the JAX package.
 """
 
@@ -62,6 +85,8 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -80,7 +105,16 @@ from node2vec_torch.datasets import (
 from node2vec_torch.eval import walk_transition_pvalue
 from node2vec_torch.graph import build_graph, from_edge_arrays
 from node2vec_torch.models import skipgram as sg
-from node2vec_torch.models.vocab import build_vocab_from_counts, vertex_counts, vertex_counts_plain
+from node2vec_torch.models.vocab import (
+    build_vocab_from_counts,
+    subsample_keep_prob,
+    subsample_walks,
+    subsample_walks_plain,
+    vertex_counts,
+    vertex_counts_plain,
+)
+from node2vec_torch.models.word2vec import Word2VecTorch, _effective_batch, _streaming_counts
+from node2vec_torch.utils.checkpoint import load_stream_state, save_stream_state, stream_fingerprint
 from node2vec_torch.walk import WalkEngine, blocked, dense
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
@@ -99,10 +133,28 @@ SOURCES = {
                      "node2vec_tpu/walk/blocked.py:732"),
     "vertex_counts": ("node2vec_torch/csrc/vertex_counts.cu",
                       "node2vec_tpu/models/vocab.py:104"),
+    # K6's streaming form: the same kernel adding into one counts tensor
+    "vertex_counts_streaming": ("node2vec_torch/csrc/vertex_counts.cu",
+                                "node2vec_tpu/models/word2vec.py:51"),
+    "subsample_walks": ("node2vec_torch/csrc/subsample.cu",
+                        "node2vec_tpu/models/word2vec.py:37"),
 }
+# the kernels line: (row, launch counter, main path whose launches it reads)
+ROWS = (("dense_walk", "dense_walk", "main_path"),
+        ("sgns_grads", "sgns_grads", "main_path"),
+        ("adagrad_accumulate", "adagrad_accumulate", "main_path"),
+        ("adagrad_apply", "adagrad_apply", "main_path"),
+        ("blocked_walk", "blocked_walk", "main_path_blocked"),
+        ("vertex_counts", "vertex_counts", "main_path_blocked"),
+        ("vertex_counts_streaming", "vertex_counts", "main_path_streaming"),
+        ("subsample_walks", "subsample_walks", "main_path_host"))
 DENSE_PATH = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply")
 BLOCKED_PATH = ("blocked_walk", "vertex_counts", "sgns_grads", "adagrad_accumulate",
                 "adagrad_apply")
+HOST_PATH = DENSE_PATH + ("subsample_walks",)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N2V_MAIN = {"num_walks": 10, "walk_length": 20, "return_param": 0.25, "inout_param": 4.0}
+W2V_MAIN = {"vector_size": 128, "window_size": 5, "negative": 5, "min_count": 10}
 
 
 def emit(obj) -> None:
@@ -575,6 +627,112 @@ def check_vertex_counts(walks: torch.Tensor, n_vertices: int, results: dict) -> 
                                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def check_streaming_counts(engine: WalkEngine, n_vertices: int, results: dict) -> None:
+    """K6's streaming form (``_streaming_counts``: K6 adding every
+    chunk_source chunk into one counts tensor) against K6 over the
+    concatenated in-memory corpus, torch.bincount and the plain version
+    over the same chunks: exact counts.  torch.bincount of each chunk's
+    valid entries (filtered outside the timed call), added up, is the
+    library yardstick."""
+    n_chunks, chunk, source = engine.chunk_source(seed=0)
+    chunks = [source(i) for i in range(n_chunks)]
+    corpus = engine.run_device(seed=0)
+    got, length = _streaming_counts(lambda i: chunks[i], n_chunks, n_vertices)
+    in_memory = vertex_counts(corpus, n_vertices).cpu().numpy()
+    flat = corpus.reshape(-1)
+    lib = torch.bincount(flat[flat >= 0], minlength=n_vertices).cpu().numpy()
+    plain = torch.zeros(n_vertices, dtype=torch.int32, device="cuda")
+    for c in chunks:
+        vertex_counts_plain(c, n_vertices, out=plain)
+    err = int(np.abs(got - plain.cpu().numpy()).max())
+    require(err == 0, f"streaming vertex counts differ from the plain version by {err}")
+    require(bool((got == in_memory).all()), "streaming counts differ from K6 in memory")
+    require(bool((got == lib).all()), "streaming counts differ from torch.bincount")
+    counts = torch.zeros(n_vertices, dtype=torch.int32, device="cuda")
+
+    def kernel():
+        counts.zero_()
+        for c in chunks:
+            vertex_counts(c, n_vertices, out=counts)
+
+    def plain_run():
+        counts.zero_()
+        for c in chunks:
+            vertex_counts_plain(c, n_vertices, out=counts)
+
+    valid = [c.reshape(-1)[c.reshape(-1) >= 0] for c in chunks]
+    total = torch.zeros(n_vertices, dtype=torch.int64, device="cuda")
+    ms = time_ms(kernel, reps=5)
+    plain_ms = time_ms(plain_run, reps=2, warmup=1)
+    lib_ms = time_ms(lambda: [total.add_(torch.bincount(v, minlength=n_vertices)) for v in valid],
+                     reps=5)
+    entries = n_chunks * chunk * length
+    b_ms, b_by = bound_ms(entries * 4 + n_vertices * 4, entries)
+    emit({"phase": "check", "kernel": "vertex_counts (streaming form)", "chunks": n_chunks,
+          "chunk": [chunk, length], "V": n_vertices, "exact": True,
+          "equals_in_memory_and_bincount": True, "ms": ms, "plain_ms": plain_ms,
+          "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+    results["vertex_counts_streaming"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                          "bound_ms": b_ms, "bound_by": b_by,
+                                          "library_ms": lib_ms}
+
+
+HASH_OPS = 26  # integer ops of one draw: two fmix32 rounds, the Weyl mix, compare, select
+
+
+def check_subsample(walks: np.ndarray, vocab, slab: int, results: dict) -> None:
+    """K7 against its plain version on the first ``slab`` rows of a corpus
+    (the host path's slab shape): bit-equal, both drawing the counter hash.
+    The keep table is the corpus's at sample=1e-6: at gensim's 1e-3 no
+    vertex of a near-uniform graph holds enough of the corpus to be
+    dropped (that table is held to keep every entry), at 1e-6 about half
+    the entries drop.  Edge cases: an all-dead slab and a keep table of
+    ones pass through; in place equals out of place.  The keep count over
+    the slab is held to its expectation (the sum of keep_prob over the
+    live entries) by a z-test, |z| < 5."""
+    dev = torch.device("cuda")
+    corpus = torch.from_numpy(np.ascontiguousarray(walks[:slab])).to(dev)
+    keep_1e3 = torch.from_numpy(subsample_keep_prob(vocab.counts, 1e-3, vocab.mask)).to(dev)
+    keep = torch.from_numpy(subsample_keep_prob(vocab.counts, 1e-6, vocab.mask)).to(dev)
+    seed, tag = 1, 4_000_000
+    dropped_1e3 = int((subsample_walks(corpus, keep_1e3, seed, tag) != corpus).sum())
+    got = subsample_walks(corpus, keep, seed, tag)
+    want = subsample_walks_plain(corpus, keep, seed, tag)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    require(n_diff == 0, f"subsample_walks differs from its plain version in {n_diff} entries")
+    dead = torch.full_like(corpus, -1)
+    require(bool((subsample_walks(dead, keep, seed, tag) == -1).all()),
+            "subsample_walks changed an all-dead slab")
+    require(bool((subsample_walks(corpus, torch.ones_like(keep), seed, tag) == corpus).all()),
+            "subsample_walks dropped an entry with keep probability 1")
+    inplace = corpus.clone()
+    subsample_walks(inplace, keep, seed, tag, out=inplace)
+    require(bool((inplace == got).all()), "subsample_walks in place differs from out of place")
+    live = corpus >= 0
+    p_live = keep[corpus[live].long()].double()
+    expected = float(p_live.sum())
+    sd = float((p_live * (1 - p_live)).sum().sqrt())
+    kept = int((got >= 0).sum())
+    z = (kept - expected) / max(sd, 1e-12)
+    require(abs(z) < 5, f"subsample_walks kept {kept}, expected {expected:.1f} (z = {z:.2f})")
+    ms = time_ms(lambda: subsample_walks(corpus, keep, seed, tag))
+    plain_ms = time_ms(lambda: subsample_walks_plain(corpus, keep, seed, tag), reps=3, warmup=1)
+    n_live = int(live.sum())
+    distinct = int(torch.unique(corpus[live]).numel())
+    b_ms, b_by = bound_ms(2 * corpus.numel() * 4 + distinct * 4, HASH_OPS * n_live)
+    emit({"phase": "check", "kernel": "subsample_walks", "slab": list(corpus.shape),
+          "V": int(keep.numel()), "bit_equal": True, "live_entries": n_live,
+          "sample": 1e-6, "keep_prob_min_at_1e-3": float(keep_1e3.min()),
+          "dropped_at_1e-3": dropped_1e3,
+          "kept": kept, "expected_kept": expected, "z": z, "keep_rate": kept / max(n_live, 1),
+          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "library_ms": None})
+    err = int((got.long() - want.long()).abs().max())
+    results["subsample_walks"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 # --------------------------------------------------------------------------- #
 # pipeline phases
 # --------------------------------------------------------------------------- #
@@ -638,8 +796,6 @@ def main_path(src, dst, max_iter: int) -> dict:
     steps = int((walks[:, 1:] >= 0).sum())
     p = model.params
     n_walks, length = walks.shape
-    from node2vec_torch.models.word2vec import _effective_batch
-
     batch = _effective_batch(p.batch_walks, n_walks)
     n_batches = -(-n_walks // batch)
     pairs = sg.pairs_per_batch(batch, length - 1, p.window_size) * n_batches * max_iter
@@ -740,8 +896,6 @@ def main_path_blocked(src, dst, max_iter: int):
     deg = np.diff(graph.indptr)
     steps = int((walks[:, 1:] >= 0).sum())
     n_walks, length = walks.shape
-    from node2vec_torch.models.word2vec import _effective_batch
-
     p = model.params
     batch = _effective_batch(p.batch_walks, n_walks)
     n_batches = -(-n_walks // batch)
@@ -787,6 +941,239 @@ def main_path_blocked(src, dst, max_iter: int):
     return out, walks_dev, graph.n_vertices
 
 
+def _fresh_run() -> None:
+    """Counts to 0 and peak memory reset, just before a main path."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+
+
+def _launches() -> dict:
+    return {k: int(_build.launches[k]) for k in _build.KERNELS}
+
+
+def main_path_streaming(src, dst, max_iter: int):
+    """Node2Vec on the heavy-tail RMAT through ``run_pipeline()`` with no
+    argument: 40 walker chunks, so it streams (``fit_streaming`` over
+    ``chunk_source``), the corpus never materialized."""
+    n2v = Node2Vec(n2v_params=N2V_MAIN, w2v_params={**W2V_MAIN, "max_iter": max_iter},
+                   max_out_degree=10_000, random_seed=0, device="cuda")
+    _fresh_run()
+    t0 = time.perf_counter()
+    graph = n2v.preprocess_input_graph((src, dst), indexed=True, directed=False)
+    t1 = time.perf_counter()
+    engine = n2v._walk_engine()  # packs and uploads the blocked tables
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    walk_events = []
+    run_chunk = engine._run_chunk
+
+    def timed_chunk(*args, **kwargs):  # device time of every regenerated chunk
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_chunk(*args, **kwargs)
+        end.record()
+        walk_events.append((start, end))
+        return out
+
+    engine._run_chunk = timed_chunk
+    model = n2v.run_pipeline()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del engine._run_chunk
+    names, vectors = n2v.embedding(as_frame=False)
+    t4 = time.perf_counter()
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_chunks, chunk, _ = engine.chunk_source(seed=0)
+    p = model.params
+    batch = _effective_batch(p.batch_walks, chunk, target_updates=max(512 // n_chunks, 1))
+    n_batches = chunk // batch
+    walk_s = sum(a.elapsed_time(b) for a, b in walk_events) / 1e3
+    pipeline_s = t3 - t2
+    pairs = sg.pairs_per_batch(batch, N2V_MAIN["walk_length"], p.window_size) * n_batches \
+        * n_chunks * max_iter
+    out = {
+        "phase": "main_path_streaming", "cuts": {"max_iter": f"10 -> {max_iter}"},
+        "n_vertices": graph.n_vertices, "n_edges": graph.n_edges, "strategy": engine.strategy,
+        "walker_chunk": chunk, "n_chunks": n_chunks, "batch_walks": batch,
+        "n_batches_per_chunk": n_batches, "preprocess_s": t1 - t0, "tables_s": t2 - t1,
+        "pipeline_s": pipeline_s, "walk_regeneration_device_s": walk_s,
+        "walk_regenerations": len(walk_events), "fit_s": pipeline_s - walk_s,
+        "sgns_pair_updates_per_s": pairs / pipeline_s, "embedding_s": t4 - t3,
+        "epoch_losses": model.losses, "vocab_kept": model.vocab.n_kept,
+        "peak_device_memory_bytes": int(peak), "launches": launches,
+        "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+    }
+    emit(out)
+    require(engine.strategy == "blocked", f"strategy {engine.strategy}")
+    require(n2v.walks is None, "run_pipeline() did not stream")
+    require(n_chunks == 40 and n_batches == 16, f"{n_chunks} chunks of {n_batches} batches")
+    require(int(model.vocab.counts.sum()) > 0, "the counting pass counted nothing")
+    require(vectors.shape == (graph.n_vertices, 128), f"vectors shape {vectors.shape}")
+    require(bool(np.isfinite(vectors).all()), "non-finite embedding values")
+    require(len(model.losses) == max_iter and all(np.isfinite(x) for x in model.losses),
+            f"losses {model.losses}")
+    require(launches["blocked_walk"] == n_chunks * (1 + max_iter),
+            f"blocked_walk launched {launches['blocked_walk']} times")
+    require(launches["vertex_counts"] == n_chunks,
+            f"vertex_counts launched {launches['vertex_counts']} times")
+    for k in ("sgns_grads", "adagrad_accumulate", "adagrad_apply"):
+        require(launches[k] == n_chunks * n_batches * max_iter,
+                f"{k} launched {launches[k]} times")
+    require(launches["dense_walk"] == 0 and launches["subsample_walks"] == 0,
+            f"a kernel off the streaming path ran: {launches}")
+    source_token = n2v._stream_source_token(engine)
+    resume_drill(engine, model, source_token, max_iter)
+    breakdown((("run_pipeline (streaming)", lambda: Word2VecTorch(p, device="cuda")
+                .fit_streaming(engine.chunk_source(seed=0)[2], n_chunks, graph.n_vertices)),))
+    return out, engine, graph.n_vertices
+
+
+def resume_drill(engine: WalkEngine, full, source_token: str, max_iter: int) -> None:
+    """fit_streaming with a snapshot every 8 chunks, killed by walk_source
+    at the chunk in position 20 of the first epoch (after the counting
+    pass), then run again: it resumes at chunk 16 without counting."""
+    ck = os.path.join(ROOT, "build", "chip_smoke_resume")
+    shutil.rmtree(ck, ignore_errors=True)
+    n_chunks, _, source = engine.chunk_source(seed=0)
+    n_v = engine.n_vertices
+    calls = [0]
+
+    def dying(i):
+        calls[0] += 1
+        if calls[0] > n_chunks + 20:
+            raise RuntimeError("simulated kill")
+        return source(i)
+
+    kw = dict(checkpoint_dir=ck, checkpoint_every_chunks=8, source_token=source_token)
+    try:
+        Word2VecTorch(full.params, device="cuda").fit_streaming(dying, n_chunks, n_v, **kw)
+    except RuntimeError as exc:
+        if "simulated kill" not in str(exc):
+            raise
+    else:
+        require(False, "the drill's first run was not interrupted")
+    snap = np.load(os.path.join(ck, "stream_state.npz"))
+    cursor = (int(snap["epoch"]), int(snap["chunk"]))
+    require(cursor == (0, 16), f"snapshot cursor {cursor}, expected (0, 16)")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    resumed = Word2VecTorch(full.params, device="cuda").fit_streaming(source, n_chunks, n_v, **kw)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches = _launches()
+    t0 = time.perf_counter()
+    state = load_stream_state(ck, stream_fingerprint(full.params, n_chunks, n_v, source_token))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_stream_state(ck, "timing", *state[:2], *resumed._to_host(
+        (resumed._emb_in, resumed._emb_out, resumed.acc_in, resumed.acc_out)), *state[6:9],
+        chunk_walks=state[9])
+    save_s = time.perf_counter() - t0
+    shutil.rmtree(ck, ignore_errors=True)
+    vectors = resumed.vectors
+    emit({"phase": "resume_drill", "killed_at_chunk_position": 20, "snapshot_every": 8,
+          "resumed_from": list(cursor), "resume_s": resume_s, "snapshot_load_s": load_s,
+          "snapshot_save_s": save_s, "launches": launches,
+          "losses": resumed.losses, "uninterrupted_losses": full.losses,
+          "max_abs_diff_vs_uninterrupted": float(np.abs(vectors - full.vectors).max())})
+    require(launches["vertex_counts"] == 0, "the resumed run counted the corpus again")
+    require(launches["blocked_walk"] == n_chunks - 16 + n_chunks * (max_iter - 1),
+            f"the resumed run walked {launches['blocked_walk']} chunks")
+    require(len(resumed.losses) == max_iter and all(np.isfinite(resumed.losses)),
+            f"resumed losses {resumed.losses}")
+    require(bool(np.isfinite(vectors).all()), "non-finite tables after the resume")
+
+
+def main_path_host(src, dst, max_iter: int):
+    """Node2Vec(host_corpus=True) on the dense graph with sample=1e-3: the
+    walks go to host memory, the engine's tables are released, fit_host
+    uploads slabs double-buffered and subsamples each on the card."""
+    n2v = Node2Vec(n2v_params=N2V_MAIN,
+                   w2v_params={**W2V_MAIN, "max_iter": max_iter, "sample": 1e-3},
+                   random_seed=0, device="cuda", host_corpus=True)
+    _fresh_run()
+    t0 = time.perf_counter()
+    graph = n2v.preprocess_input_graph((src, dst), indexed=True, directed=False)
+    t1 = time.perf_counter()
+    fit_s = []
+    new_backend = n2v._new_backend
+
+    def timed_backend(*args, **kwargs):
+        backend = new_backend(*args, **kwargs)
+        fit_host = backend.model.fit_host
+
+        def timed(*a, **k):
+            ts = time.perf_counter()
+            out = fit_host(*a, **k)
+            torch.cuda.synchronize()
+            fit_s.append(time.perf_counter() - ts)
+            return out
+        backend.model.fit_host = timed
+        return backend
+
+    n2v._new_backend = timed_backend
+    model = n2v.run_pipeline()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del n2v._new_backend, model.fit_host
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    walks = n2v.walks
+    n_walks, length = walks.shape
+    p = model.params
+    batch = _effective_batch(p.batch_walks, n_walks)
+    slab = (min(1 << 20, n_walks) // batch) * batch
+    slab_batches = slab // batch
+    n_slabs = -(-n_walks // slab)
+    ref = model._h2d_events[0][0]
+    copies = [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in model._h2d_events]
+    trains = [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in model._slab_events]
+    h2d_ms = [b - a for a, b in copies]
+    hidden_ms = [sum(max(0.0, min(c1, t1) - max(c0, t0)) for t0, t1 in trains)
+                 for c0, c1 in copies]
+    pairs = sg.pairs_per_batch(batch, length - 1, p.window_size) * slab_batches * n_slabs \
+        * max_iter
+    out = {
+        "phase": "main_path_host", "cuts": {"max_iter": f"10 -> {max_iter}"},
+        "sample": p.sample, "n_vertices": graph.n_vertices, "walks": [int(n_walks), int(length)],
+        "batch_walks": batch, "slab_walks": slab, "n_slabs": n_slabs,
+        "slab_batches": slab_batches, "preprocess_s": t1 - t0, "pipeline_s": t2 - t1,
+        "fit_s": fit_s[0], "walk_s": t2 - t1 - fit_s[0],
+        "sgns_pair_updates_per_s": pairs / fit_s[0],
+        "h2d_ms_per_slab": h2d_ms, "h2d_hidden_ms_per_slab": hidden_ms,
+        "h2d_hidden_share": sum(hidden_ms) / max(sum(h2d_ms), 1e-9),
+        "h2d_intervals_ms": copies, "train_intervals_ms": trains,
+        "h2d_bytes_per_slab": slab * length * 4,
+        "epoch_losses": model.losses, "slab_losses": model._slab_losses,
+        "peak_device_memory_bytes": int(peak), "launches": launches,
+    }
+    emit(out)
+    require(n2v._engine is None, "the engine's device tables were not released")
+    require(walks.shape == (10 * graph.n_vertices, 21), f"walk corpus shape {walks.shape}")
+    check_steps(graph, walks)
+    vectors = model.vectors
+    require(vectors.shape == (graph.n_vertices, 128), f"vectors shape {vectors.shape}")
+    require(bool(np.isfinite(vectors).all()), "non-finite embedding values")
+    require(len(model.losses) == max_iter and all(np.isfinite(model.losses)),
+            f"losses {model.losses}")
+    require(launches["dense_walk"] == -(-n_walks // 131072),
+            f"dense_walk launched {launches['dense_walk']} times")
+    require(launches["subsample_walks"] == n_slabs * max_iter,
+            f"subsample_walks launched {launches['subsample_walks']} times")
+    for k in ("sgns_grads", "adagrad_accumulate", "adagrad_apply"):
+        require(launches[k] == n_slabs * slab_batches * max_iter,
+                f"{k} launched {launches[k]} times")
+    require(all(launches[k] > 0 for k in HOST_PATH), f"a kernel never ran: {launches}")
+    breakdown((("fit_host", lambda: Word2VecTorch(p, device="cuda").fit_host(
+        walks, n_vertices=graph.n_vertices)),))
+    return out, walks, model.vocab, slab
+
+
 def breakdown(stages) -> None:
     """Device time by kernel and the idle share of each (name, fn) stage,
     from torch.profiler over a second run of it (launch counts of the main
@@ -815,26 +1202,32 @@ def breakdown(stages) -> None:
               "top_device_ms": top})
 
 
-def quality_gates(blocked_widths=None) -> dict:
+def quality_gates(blocked_widths=None, trainer: str = "fit", walker_chunk=None,
+                  sample: float = 0.0, auc_min: float = 0.60, gap_min: float = 0.05) -> dict:
+    """The gates on synthetic_multilabel(2000, seed=0), trained through
+    ``trainer`` (see datasets._train)."""
     g, labels = synthetic_multilabel(2000, seed=0)
-    n2v = Node2VecParams(num_walks=8, walk_length=40)
-    w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128)
+    n2v = Node2VecParams(num_walks=8, walk_length=40,
+                         **({"walker_chunk": walker_chunk} if walker_chunk else {}))
+    w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128, sample=sample)
     t0 = time.perf_counter()
     auc = holdout_link_prediction(g, n2v_params=n2v, w2v_params=w2v, seed=0, device="cuda",
-                                  blocked_widths=blocked_widths)["holdout_link_auc"]
+                                  blocked_widths=blocked_widths,
+                                  trainer=trainer)["holdout_link_auc"]
     emb, strategy = train_embeddings(g, n2v, w2v, seed=0, device="cuda",
-                                     blocked_widths=blocked_widths)
+                                     blocked_widths=blocked_widths, trainer=trainer)
     gap = label_cosine_gap(emb, labels, n_pairs=200_000, seed=0)
     deg = np.diff(g.indptr)
     out = {"phase": "quality", "graph": "synthetic_multilabel(2000, seed=0)",
+           "trainer": trainer, "walker_chunk": n2v.walker_chunk, "sample": sample,
            "walk_strategy": strategy, "blocked_widths": blocked_widths,
            "heavy_vertex_share": (float((deg > blocked_widths[0]).mean())
                                   if blocked_widths else None),
-           "holdout_link_auc": auc, "auc_min": 0.60,
-           "label_cosine_gap": gap, "gap_min": 0.05, "seconds": time.perf_counter() - t0}
+           "holdout_link_auc": auc, "auc_min": auc_min,
+           "label_cosine_gap": gap, "gap_min": gap_min, "seconds": time.perf_counter() - t0}
     emit(out)
-    require(auc >= 0.60, f"held-out link AUC {auc} < 0.60")
-    require(gap >= 0.05, f"label cosine gap {gap} < 0.05")
+    require(auc >= auc_min, f"held-out link AUC {auc} < {auc_min}")
+    require(gap >= gap_min, f"label cosine gap {gap} < {gap_min}")
     return out
 
 
@@ -878,8 +1271,12 @@ def main() -> int:
         check_sgns(512, 16, 41, 32, 5, 64, False, results)
         _, _, g_rmat = rmat_graph(12)
         check_blocked_walk(g_rmat, 4096, 20, results)
-        engine = WalkEngine(g_rmat, Node2VecParams(num_walks=2), device="cuda")
-        check_vertex_counts(engine.run_device(), g_rmat.n_vertices, results)
+        engine = WalkEngine(g_rmat, Node2VecParams(num_walks=2, walker_chunk=2048), device="cuda")
+        walks = engine.run_device()
+        check_vertex_counts(walks, g_rmat.n_vertices, results)
+        check_streaming_counts(engine, g_rmat.n_vertices, results)
+        counts = np.bincount(walks[walks >= 0].cpu().numpy(), minlength=g_rmat.n_vertices)
+        check_subsample(walks.cpu().numpy(), build_vocab_from_counts(counts), 4096, results)
         edge_cases()
         edge_cases_blocked()
         small_reference()
@@ -889,8 +1286,6 @@ def main() -> int:
     src, dst = smoke_edges(131072, 2_097_152)
     g = build_graph((src, dst), directed=False)
     check_dense_walk(g, 131072, 20, results)
-    from node2vec_torch.models.word2vec import _effective_batch
-
     main_batch = _effective_batch(8192, 10 * g.n_vertices)
     check_sgns(131072, main_batch, 21, 128, 5, 64, True, results)
     if main_batch != 8192:
@@ -901,20 +1296,27 @@ def main() -> int:
     edge_cases()
     edge_cases_blocked()
     small_reference()
-    main = main_path(src, dst, max_iter=1)
-    main_blocked, walks_dev, n_v = main_path_blocked(rmat_src, rmat_dst, max_iter=1)
+    paths = {"main_path": main_path(src, dst, max_iter=1)}
+    paths["main_path_blocked"], walks_dev, n_v = main_path_blocked(rmat_src, rmat_dst, max_iter=1)
     check_vertex_counts(walks_dev, n_v, results)
     del walks_dev
+    paths["main_path_streaming"], engine, n_v = main_path_streaming(rmat_src, rmat_dst, max_iter=1)
+    check_streaming_counts(engine, n_v, results)
+    del engine
+    paths["main_path_host"], walks, vocab, slab = main_path_host(src, dst, max_iter=1)
+    check_subsample(walks, vocab, slab, results)
+    del walks
     quality_gates()
     quality_gates(blocked_widths=(8, 64))
+    quality_gates(trainer="run_pipeline", walker_chunk=2048)
+    quality_gates(trainer="host_corpus", sample=1e-3)
 
     kernels = []
-    for name in _build.KERNELS:
+    for name, counter, path in ROWS:
         src_file, replaces = SOURCES[name]
         r = results[name]
-        path = main if name in DENSE_PATH else main_blocked
         kernels.append({"name": name, "route": "cuda", "source": src_file,
-                        "replaces": replaces, "launches": path["launches"][name],
+                        "replaces": replaces, "launches": paths[path]["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

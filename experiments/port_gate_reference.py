@@ -1,0 +1,113 @@
+"""Reference values of chip_smoke.py's quality gates, from the JAX package
+on the CPU (and, with --port, from the PyTorch port's plain path).
+
+    JAX_PLATFORMS=cpu python experiments/port_gate_reference.py [--port] [--seeds 0 1]
+
+The gates train on ``synthetic_multilabel(2000, seed=0)`` with num_walks 8,
+walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1, and read the
+held-out link-prediction AUC (20% of the edges held out before walking)
+and the same-label minus no-shared-label mean cosine over 200k pairs.
+Three trainers: "fit" (walks to the host, then fit), "run_pipeline"
+(``Node2Vec.run_pipeline()`` at walker_chunk 2048, so it streams over 8
+chunks) and "host_corpus" (``Node2Vec(host_corpus=True)``, with
+sample=1e-3).  Prints one JSON line per (package, trainer, seed).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import numpy as np  # noqa: E402
+
+import node2vec_tpu  # noqa: E402
+from node2vec_tpu.constants import Node2VecParams as RefN2V  # noqa: E402
+from node2vec_tpu.constants import Word2VecParams as RefW2V  # noqa: E402
+from node2vec_tpu.graph import from_edge_arrays as ref_from_edge_arrays  # noqa: E402
+from node2vec_tpu.models.word2vec import Word2VecTPU  # noqa: E402
+from node2vec_tpu.walk import random_walks as ref_random_walks  # noqa: E402
+from node2vec_torch.constants import Node2VecParams, Word2VecParams  # noqa: E402
+from node2vec_torch.datasets import (  # noqa: E402
+    holdout_link_prediction,
+    holdout_split,
+    label_cosine_gap,
+    synthetic_multilabel,
+    train_embeddings,
+)
+from node2vec_torch.eval import link_prediction_auc  # noqa: E402
+
+TRAINERS = {
+    "fit": ({}, {}),
+    "run_pipeline": ({"walker_chunk": 2048}, {}),
+    "host_corpus": ({}, {"sample": 1e-3}),
+}
+
+
+def jax_vectors(indptr, indices, weights, n_vertices, n2v, w2v, seed, trainer):
+    src = np.repeat(np.arange(n_vertices), np.diff(indptr)).astype(np.int32)
+    g = ref_from_edge_arrays(src, indices, weights, n_vertices=n_vertices, directed=True)
+    if trainer == "fit":
+        walks = ref_random_walks(g, n2v, seed=seed)
+        return np.asarray(Word2VecTPU(w2v).fit(walks, n_vertices=n_vertices).vectors)
+    pipe = node2vec_tpu.Node2Vec(n2v, w2v, random_seed=seed,
+                                 host_corpus=trainer == "host_corpus")
+    pipe.graph = g
+    model = pipe.run_pipeline()
+    if trainer == "run_pipeline":
+        assert pipe.walks is None, "the JAX pipeline did not stream"
+    return np.asarray(model.vectors)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--port", action="store_true", help="also run the port on the CPU")
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0])
+    ap.add_argument("--trainers", nargs="+", default=list(TRAINERS))
+    args = ap.parse_args()
+    g, labels = synthetic_multilabel(2000, seed=0)
+    for trainer in args.trainers:
+        n2v_kw, w2v_kw = TRAINERS[trainer]
+        n2v_kw = dict(num_walks=8, walk_length=40, **n2v_kw)
+        w2v_kw = dict(min_count=1, max_iter=5, vector_size=128, **w2v_kw)
+        for seed in args.seeds:
+            kept, pos, neg = holdout_split(g, 0.2, seed)
+            emb = jax_vectors(*_csr(kept, g.n_vertices), g.n_vertices, RefN2V(**n2v_kw),
+                              RefW2V(**w2v_kw), seed, trainer)
+            emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
+            full = jax_vectors(g.indptr, g.indices, g.weights, g.n_vertices,
+                               RefN2V(**n2v_kw), RefW2V(**w2v_kw), seed, trainer)
+            print(json.dumps({"package": "node2vec_tpu (CPU)", "trainer": trainer, "seed": seed,
+                              "holdout_link_auc": link_prediction_auc(emb, pos, neg),
+                              "label_cosine_gap": label_cosine_gap(full, labels,
+                                                                   n_pairs=200_000, seed=0)}),
+                  flush=True)
+            if args.port:
+                n2v, w2v = Node2VecParams(**n2v_kw), Word2VecParams(**w2v_kw)
+                auc = holdout_link_prediction(g, n2v_params=n2v, w2v_params=w2v, seed=seed,
+                                              device="cpu", trainer=trainer)
+                vec, _ = train_embeddings(g, n2v, w2v, seed=seed, device="cpu", trainer=trainer)
+                print(json.dumps({"package": "node2vec_torch (CPU)", "trainer": trainer,
+                                  "seed": seed, **auc,
+                                  "label_cosine_gap": label_cosine_gap(vec, labels,
+                                                                       n_pairs=200_000, seed=0)}),
+                      flush=True)
+
+
+def _csr(kept, n_vertices):
+    """(indptr, indices, weights) of the kept directed edges."""
+    from node2vec_torch.graph import from_edge_arrays
+
+    g = from_edge_arrays(*kept, n_vertices=n_vertices, directed=True)
+    return g.indptr, g.indices, g.weights
+
+
+if __name__ == "__main__":
+    main()

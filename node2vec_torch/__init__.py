@@ -3,8 +3,10 @@
 A port of the JAX package ``node2vec_tpu`` beside it, one slice at a time:
 host graph build (numpy + the C++ core in ``native/``), biased walks on the
 dense engine (kernel K1) or, for heavy-tailed graphs, the blocked engine
-(K5), vertex counts of a corpus on the card (K6), and SGNS with row-wise
-Adagrad (kernels K2–K4), driven by ``Node2Vec``.  Each kernel's wrapper
+(K5), vertex counts of a corpus on the card (K6), frequent-vertex
+subsampling (K7), and SGNS with row-wise Adagrad (kernels K2–K4), trained
+in memory, over a streamed virtual corpus or from host slabs, and driven by
+``Node2Vec``.  Each kernel's wrapper
 launches it for CUDA tensors and runs its plain PyTorch version for CPU
 tensors.  Kernels are built with nvcc at first use
 (``node2vec_torch._build``); importing the package builds nothing and needs

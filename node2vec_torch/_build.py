@@ -30,7 +30,7 @@ from node2vec_torch.native import build_dir
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 KERNELS = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply",
-           "blocked_walk", "vertex_counts")
+           "blocked_walk", "vertex_counts", "subsample_walks")
 
 launches: collections.Counter = collections.Counter()
 build_seconds: Optional[float] = None
@@ -121,6 +121,7 @@ def lib() -> ctypes.CDLL:
             "n2v_blocked_walk": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i64, u32, f32, f32,
                                  f32, i32, i32, i32, i32, i32, vp],
             "n2v_vertex_counts": [vp, i64, vp, i32, vp],
+            "n2v_subsample_walks": [vp, i64, vp, i32, u32, u32, vp, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(handle, name)

@@ -4,17 +4,21 @@ random_walk -> fit -> embedding on one device.
 ``Node2Vec`` runs on the card by default (``device="cuda"``) and raises when
 CUDA is missing unless the caller passes ``device="cpu"``, which runs every
 kernel's plain PyTorch version.  Graphs with a max degree above 256 walk on
-the blocked engine (K5), as in the JAX package.  The streaming,
-host-corpus, mesh and graph-sharded branches of the JAX pipeline are not
-ported yet and raise ``NotImplementedError``.
+the blocked engine (K5), as in the JAX package.  ``run_pipeline()`` streams
+over a virtual corpus when it spans several walker chunks, trains from host
+slabs with ``host_corpus=True``, and every stage resumes from
+``checkpoint_dir``.  The mesh and graph-sharded branches of the JAX
+pipeline are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import gc
 import logging
 from typing import Any, Mapping, Optional, Union
 
 import numpy as np
+import torch
 
 from node2vec_torch.constants import MAX_OUT_DEGREES, Node2VecParams, Word2VecParams
 from node2vec_torch.device import resolve_device
@@ -43,6 +47,7 @@ class Node2Vec:
         max_out_degree: int = 0,
         random_seed: Optional[int] = None,
         profile: str = "fugue",
+        checkpoint_dir: Optional[str] = None,
         walk_seed_vertices: Optional[np.ndarray] = None,
         mesh=None,
         graph_sharded: bool = False,
@@ -50,7 +55,15 @@ class Node2Vec:
         device="cuda",
         shared_lists="auto",
     ):
-        """``shared_lists`` keeps the JAX signature and is passed to
+        """``checkpoint_dir``: walk chunks, train state and streaming
+        snapshots are saved there, and each stage resumes from them.
+
+        ``host_corpus=True``: the walk corpus lives in host memory and
+        training uploads globally shuffled slabs double-buffered
+        (``Word2VecTorch.fit_host``), for corpora that do not fit on the
+        card beside the tables.
+
+        ``shared_lists`` keeps the JAX signature and is passed to
         ``WalkEngine``: "auto" (the default) and False run without the
         shared-list sampler, True raises ``NotImplementedError`` (not
         ported)."""
@@ -58,10 +71,8 @@ class Node2Vec:
             raise NotImplementedError(
                 "mesh and graph-sharded runs are not ported yet (ROADMAP Queue A item 12)"
             )
-        if host_corpus:
-            raise NotImplementedError(
-                "host_corpus (fit_host) is not ported yet (ROADMAP Queue A item 15)"
-            )
+        self.checkpoint_dir = checkpoint_dir
+        self.host_corpus = host_corpus
         self.device = resolve_device(device)
         if isinstance(n2v_params, Node2VecParams):
             self.n2v_params = n2v_params
@@ -123,12 +134,24 @@ class Node2Vec:
             w2v_params=self.w2v_params, device=self.device,
         )
 
+    def _stream_source_token(self, engine: WalkEngine) -> str:
+        """Identity of the virtual walk corpus for streaming-checkpoint
+        fingerprints (graph content, walk params, seed, engine), the JAX
+        package's string."""
+        starts = self.walk_seed_vertices
+        return (
+            f"{engine.graph_token}|{self.n2v_params!r}|{self.random_seed}|"
+            f"{engine._strategy_token()}|"
+            f"{None if starts is None else list(map(int, starts))}"
+        )
+
     def random_walk(self) -> np.ndarray:
         """Generate the walk corpus as a host array."""
         if self.graph is None:
             raise RuntimeError("call preprocess_input_graph() first")
         self.walks = self._walk_engine().run(
-            seed=self.random_seed, start_vertices=self.walk_seed_vertices
+            seed=self.random_seed, start_vertices=self.walk_seed_vertices,
+            checkpoint_dir=self.checkpoint_dir,
         )
         logger.info("random walks done: %s", self.walks.shape)
         return self.walks
@@ -136,40 +159,72 @@ class Node2Vec:
     def run_pipeline(
         self, verbose: bool = False, streaming: Optional[bool] = None
     ) -> Word2VecTorch:
-        """Walks + training without the corpus leaving the device.
+        """Walks + training, the corpus kept off the host where it can be.
 
-        ``streaming`` (default None: on when the corpus spans several walker
-        chunks, as in the JAX package) trains over a virtual corpus, which
-        is not ported yet: None on one chunk trains in memory, exactly as
-        False; None on several chunks and True raise.
+        With ``host_corpus=True`` the walks go to host memory, the engine's
+        device tables are released, and ``fit_host`` trains from slabs.
+        Otherwise ``streaming`` (default None: on when the corpus spans
+        several walker chunks, as in the JAX package) trains over a virtual
+        corpus: walk chunks regenerate on the device every epoch, chunk k+1
+        enqueued while chunk k trains, and ``self.walks`` stays None.
+        ``streaming=False`` walks the whole corpus on the device and trains
+        on it in memory.
         """
         if self.graph is None:
             raise RuntimeError("call preprocess_input_graph() first")
         engine = self._walk_engine()
-        if streaming is None:
-            streaming = engine.n_chunks(self.walk_seed_vertices) > 1
-        if streaming:
-            raise NotImplementedError(
-                "streaming training over a virtual corpus is not ported yet "
-                "(ROADMAP Queue A items 7 and 15); use streaming=False"
+        self.backend = self._new_backend()
+        n_v = self.graph.n_vertices
+        if self.host_corpus:
+            self.walks = engine.run(
+                seed=self.random_seed, start_vertices=self.walk_seed_vertices,
+                checkpoint_dir=self.checkpoint_dir,
             )
+            # free the device graph tables before the slabs go up
+            self._engine = None
+            del engine
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            self.backend.model.fit_host(
+                self.walks, n_vertices=n_v, verbose=verbose,
+                checkpoint_dir=self.checkpoint_dir,
+            )
+            self.backend.walks = self.walks
+            return self.backend.model
+        n_chunks, _, source = engine.chunk_source(
+            seed=self.random_seed, start_vertices=self.walk_seed_vertices
+        )
+        if streaming is None:
+            streaming = n_chunks > 1
+        if streaming:
+            self.backend.model.fit_streaming(
+                source, n_chunks, n_v, verbose=verbose,
+                checkpoint_dir=self.checkpoint_dir,
+                source_token=self._stream_source_token(engine),
+            )
+            self.walks = None  # virtual corpus: regenerate with random_walk()
+            return self.backend.model
         walks_dev = engine.run_device(
             seed=self.random_seed, start_vertices=self.walk_seed_vertices
         )
-        self.backend = self._new_backend()
-        self.backend.model.fit(walks_dev, n_vertices=self.graph.n_vertices, verbose=verbose)
+        self.backend.model.fit(
+            walks_dev, n_vertices=n_v, verbose=verbose, checkpoint_dir=self.checkpoint_dir,
+        )
         self.walks = walks_dev.cpu().numpy()
         return self.backend.model
 
     def fit(self, verbose: bool = False) -> Word2VecTorch:
-        """Train embeddings over the walks."""
+        """Train embeddings over the walks (``fit_host`` with
+        ``host_corpus=True``)."""
         if self.walks is None:
             raise RuntimeError("call random_walk() first")
         self.backend = self._new_backend(self.walks)
         # vocabulary covers every graph vertex even if rare ones fall below
         # min_count (they are masked, not renumbered)
         n_v = self.graph.n_vertices if self.graph else None
-        self.backend.model.fit(self.walks, n_vertices=n_v, verbose=verbose)
+        trainer = self.backend.model.fit_host if self.host_corpus else self.backend.model.fit
+        trainer(self.walks, n_vertices=n_v, verbose=verbose, checkpoint_dir=self.checkpoint_dir)
         return self.backend.model
 
     def embedding(self, as_frame: bool = True):

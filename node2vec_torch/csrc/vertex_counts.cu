@@ -4,6 +4,9 @@
 // (build_vocab on a device array: a scatter-add of ones over the entries
 // >= 0 of the [N, L+1] corpus into an int32 [V] array).  Entries outside
 // [0, V) are dropped, as the JAX scatter drops out-of-bounds indices.
+// The kernel adds into ``counts`` and never clears it, so the same launch
+// is also the per-chunk count of node2vec_tpu/models/word2vec.py:51-79
+// (_streaming_counts): the caller keeps one counts array across chunks.
 //
 // Design: a grid-stride loop, 16 bytes (four entries) per thread and load,
 // one atomicAdd into the [V] counts per entry.  A walk visits different

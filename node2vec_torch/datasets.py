@@ -136,38 +136,52 @@ def _walk_engine(graph: Graph, n2v_params, device, blocked_widths=None):
     return WalkEngine(graph, n2v_params, strategy="blocked", device=device, blocked_graph=bg)
 
 
+TRAINERS = ("fit", "run_pipeline", "host_corpus")
+
+
+def _train(graph: Graph, n2v, w2v, seed: int, device, blocked_widths, trainer: str):
+    """Walk ``graph`` and train; returns (model, walk strategy).  ``trainer``
+    is "fit" (walks to the host, then ``Word2VecTorch.fit``),
+    "run_pipeline" (``Node2Vec.run_pipeline()`` with its defaults: it
+    streams when the corpus spans several walker chunks) or "host_corpus"
+    (``Node2Vec(host_corpus=True).run_pipeline()``, i.e. ``fit_host``)."""
+    from node2vec_torch.models.word2vec import Word2VecTorch
+
+    if trainer not in TRAINERS:
+        raise ValueError(f"trainer must be one of {TRAINERS}, got {trainer!r}")
+    engine = _walk_engine(graph, n2v, device, blocked_widths)
+    if trainer == "fit":
+        walks = engine.run(seed=seed)
+        return Word2VecTorch(w2v, device=device).fit(walks, n_vertices=graph.n_vertices), \
+            engine.strategy
+    from node2vec_torch.api import Node2Vec
+
+    pipe = Node2Vec(n2v, w2v, random_seed=seed, device=device,
+                    host_corpus=trainer == "host_corpus")
+    pipe.graph, pipe._engine = graph, engine
+    return pipe.run_pipeline(), engine.strategy
+
+
 def train_embeddings(graph: Graph, n2v_params=None, w2v_params=None, seed: int = 0,
-                     device="cuda", blocked_widths=None) -> Tuple[np.ndarray, str]:
+                     device="cuda", blocked_widths=None,
+                     trainer: str = "fit") -> Tuple[np.ndarray, str]:
     """Walks -> SGNS on the full graph, as ``run_quality`` trains:
     returns (input vectors [V, D], walk strategy).  ``blocked_widths =
     (light_width, block_width)`` walks on the blocked engine at those
-    widths whatever the graph's degrees."""
+    widths whatever the graph's degrees; ``trainer`` as in ``_train``."""
     from node2vec_torch.constants import Node2VecParams, Word2VecParams
-    from node2vec_torch.models.word2vec import Word2VecTorch
 
     n2v = n2v_params or Node2VecParams(num_walks=10, walk_length=80)
     w2v = w2v_params or Word2VecParams(min_count=1, max_iter=5)
-    engine = _walk_engine(graph, n2v, device, blocked_widths)
-    walks = engine.run(seed=seed)
-    model = Word2VecTorch(w2v, device=device).fit(walks, n_vertices=graph.n_vertices)
-    return model.vectors, engine.strategy
+    model, strategy = _train(graph, n2v, w2v, seed, device, blocked_widths, trainer)
+    return model.vectors, strategy
 
 
-def holdout_link_prediction(
-    graph: Graph,
-    holdout_frac: float = 0.2,
-    n2v_params=None,
-    w2v_params=None,
-    seed: int = 0,
-    device="cuda",
-    blocked_widths=None,
-) -> Dict[str, float]:
-    """Honest link-prediction AUC: hold out edges BEFORE walk generation,
-    embed on the rest, score held-out edges vs sampled non-edges.
-    ``blocked_widths`` as in ``train_embeddings``."""
-    from node2vec_torch.constants import Node2VecParams, Word2VecParams
-    from node2vec_torch.eval import link_prediction_auc, sample_negative_edges
-    from node2vec_torch.models.word2vec import Word2VecTorch
+def holdout_split(graph: Graph, holdout_frac: float = 0.2, seed: int = 0):
+    """Hold out ``holdout_frac`` of the undirected edges before walking:
+    (src, dst, weight) of the directed edges that stay, the held-out pairs
+    (src, dst) and as many sampled non-edges (at most 20,000)."""
+    from node2vec_torch.eval import sample_negative_edges
 
     rng = np.random.default_rng(seed)
     src = np.repeat(
@@ -186,21 +200,33 @@ def holdout_link_prediction(
     key_rev = dst.astype(np.int64) * graph.n_vertices + src
     held_keys = set(key_all[held].tolist())
     drop = held | np.isin(key_rev, list(held_keys))
-    g_train = from_edge_arrays(
-        src[~drop], dst[~drop], graph.weights[~drop],
-        n_vertices=graph.n_vertices, directed=True,
-    )
-    walks = _walk_engine(g_train, n2v_params or Node2VecParams(), device,
-                         blocked_widths).run(seed=seed)
-    model = Word2VecTorch(
-        w2v_params or Word2VecParams(min_count=1, max_iter=5), device=device
-    ).fit(walks, n_vertices=graph.n_vertices)
+    neg = sample_negative_edges(graph.indptr, graph.indices, min(n_hold, 20000), seed=seed)
+    return (src[~drop], dst[~drop], graph.weights[~drop]), (src[held], dst[held]), neg
+
+
+def holdout_link_prediction(
+    graph: Graph,
+    holdout_frac: float = 0.2,
+    n2v_params=None,
+    w2v_params=None,
+    seed: int = 0,
+    device="cuda",
+    blocked_widths=None,
+    trainer: str = "fit",
+) -> Dict[str, float]:
+    """Honest link-prediction AUC: hold out edges BEFORE walk generation,
+    embed on the rest, score held-out edges vs sampled non-edges.
+    ``blocked_widths`` and ``trainer`` as in ``train_embeddings``."""
+    from node2vec_torch.constants import Node2VecParams, Word2VecParams
+    from node2vec_torch.eval import link_prediction_auc
+
+    kept, pos, neg = holdout_split(graph, holdout_frac, seed)
+    g_train = from_edge_arrays(*kept, n_vertices=graph.n_vertices, directed=True)
+    model, _ = _train(g_train, n2v_params or Node2VecParams(),
+                      w2v_params or Word2VecParams(min_count=1, max_iter=5), seed, device,
+                      blocked_widths, trainer)
     emb = model.vectors
     emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
-    pos = (src[held], dst[held])
-    neg = sample_negative_edges(
-        graph.indptr, graph.indices, min(n_hold, 20000), seed=seed
-    )
     return {"holdout_link_auc": link_prediction_auc(emb, pos, neg)}
 
 

@@ -6,7 +6,13 @@ min-count mask, and an alias table over the unigram^0.75 noise distribution
 (word2vec's standard SGNS negative distribution).  A numpy corpus is
 counted on the host with ``np.bincount``; a torch corpus is counted where it
 lies by ``vertex_counts`` (kernel K6, ``csrc/vertex_counts.cu``, on the card;
-its plain version on the CPU), and only the [V] counts reach the host.
+its plain version on the CPU), and only the [V] counts reach the host;
+with ``out=`` it accumulates into a persistent counts tensor, which is how
+the streaming trainer counts a virtual corpus chunk by chunk.
+
+``subsample_walks`` (kernel K7, ``csrc/subsample.cu``) applies gensim's
+frequent-vertex subsampling to a corpus on the card, drawing its uniforms
+from the counter hash keyed on (seed, flat position, stream tag).
 """
 
 from __future__ import annotations
@@ -92,17 +98,35 @@ def subsample_keep_prob(
     return np.minimum(p, 1.0).astype(np.float32)
 
 
-def vertex_counts_plain(walks: torch.Tensor, n_vertices: int) -> torch.Tensor:
-    """int32 [V] counts of the entries in [0, V) of ``walks``."""
+def _counts_out(walks: torch.Tensor, n_vertices: int, out: Optional[torch.Tensor]):
+    if out is None:
+        return torch.zeros(n_vertices, dtype=torch.int32, device=walks.device)
+    if out.dtype != torch.int32 or out.shape != (n_vertices,) or out.device != walks.device:
+        raise ValueError(
+            f"out must be an int32 [{n_vertices}] tensor on {walks.device}, got "
+            f"{out.dtype} {tuple(out.shape)} on {out.device}"
+        )
+    return out
+
+
+def vertex_counts_plain(
+    walks: torch.Tensor, n_vertices: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """int32 [V] counts of the entries in [0, V) of ``walks``, added to
+    ``out`` when it is given."""
     flat = walks.reshape(-1)
     keep = (flat >= 0) & (flat < n_vertices)
-    counts = torch.zeros(n_vertices, dtype=torch.int32, device=walks.device)
+    counts = _counts_out(walks, n_vertices, out)
     return counts.index_add_(0, flat[keep].long(), torch.ones_like(flat[keep]))
 
 
-def vertex_counts(walks: torch.Tensor, n_vertices: int) -> torch.Tensor:
+def vertex_counts(
+    walks: torch.Tensor, n_vertices: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """How often each vertex occurs in a walk corpus: int32 [V] on the
-    corpus's device; entries < 0 (padding) and >= V are not counted.
+    corpus's device; entries < 0 (padding) and >= V are not counted.  With
+    ``out`` (int32 [V] on the same device) the counts are added to it and
+    ``out`` is returned.
 
     CPU tensors take the plain version; CUDA tensors launch K6 or raise.
     """
@@ -111,12 +135,12 @@ def vertex_counts(walks: torch.Tensor, n_vertices: int) -> torch.Tensor:
     if n_vertices < 0 or n_vertices > np.iinfo(np.int32).max:
         raise ValueError(f"n_vertices must be in [0, 2^31), got {n_vertices}")
     if not walks.is_cuda:
-        return vertex_counts_plain(walks, n_vertices)
+        return vertex_counts_plain(walks, n_vertices, out)
     walks = walks.contiguous()
     if walks.data_ptr() % 16:  # the kernel reads 16-byte vectors
         walks = walks.clone()
-    _build.require_cuda("vertex_counts", walks)
-    counts = torch.zeros(n_vertices, dtype=torch.int32, device=walks.device)
+    counts = _counts_out(walks, n_vertices, out)
+    _build.require_cuda("vertex_counts", walks, counts)
     rc = _build.lib().n2v_vertex_counts(
         _build.ptr(walks), walks.numel(), _build.ptr(counts), n_vertices,
         _build.stream_of(walks),
@@ -124,6 +148,71 @@ def vertex_counts(walks: torch.Tensor, n_vertices: int) -> torch.Tensor:
     _build.check(rc, "vertex_counts")
     _build.launches["vertex_counts"] += 1
     return counts
+
+
+def _check_subsample_args(walks, keep_prob, tag, u=None):
+    if walks.dtype != torch.int32 or keep_prob.dtype != torch.float32:
+        raise TypeError("subsample_walks takes an int32 corpus and a float32 keep_prob")
+    if keep_prob.dim() != 1 or keep_prob.shape[0] == 0:
+        raise ValueError("keep_prob must be a non-empty [V] table")
+    if walks.numel() > 1 << 32:
+        raise ValueError("subsample_walks keys its draws on 32-bit positions: "
+                         f"{walks.numel()} entries is too many for one call")
+    if not 0 <= int(tag) < 1 << 32:
+        raise ValueError(f"stream tag {tag} is not a uint32")
+    if u is not None and u.shape != walks.shape:
+        raise ValueError(f"u {tuple(u.shape)} must match walks {tuple(walks.shape)}")
+
+
+def subsample_walks_plain(
+    walks: torch.Tensor, keep_prob: torch.Tensor, seed: int, tag: int,
+    u: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``_subsample_walks`` (word2vec.py:37-48) in plain PyTorch: entries
+    v >= 0 survive when u < keep_prob[v], others become -1.  ``u`` defaults
+    to K7's draws, ``hash_uniform(seed, flat position, tag)``; a test may
+    pass JAX's uniforms instead.  With ``out`` the result is written there
+    (it may be ``walks`` itself)."""
+    from node2vec_torch.ops.hashrng import hash_uniform
+
+    _check_subsample_args(walks, keep_prob, tag, u)
+    if u is None:
+        pos = torch.arange(walks.numel(), dtype=torch.int64, device=walks.device)
+        u = hash_uniform(seed, pos.reshape(walks.shape), tag)
+    safe = torch.where(walks >= 0, walks, 0).long().clamp(max=keep_prob.shape[0] - 1)
+    keep = (walks < 0) | (u < keep_prob[safe])
+    res = torch.where(keep, walks, -1)
+    return res if out is None else out.copy_(res)
+
+
+def subsample_walks(
+    walks: torch.Tensor, keep_prob: torch.Tensor, seed: int, tag: int,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Frequent-vertex subsampling of an int32 corpus (gensim ``sample``),
+    one draw per entry keyed on (seed, flat position, stream tag).  Returns
+    a new tensor, or writes ``out`` (which may be ``walks``).
+
+    CPU tensors take the plain version; CUDA tensors launch K7 or raise.
+    """
+    if not walks.is_cuda:
+        return subsample_walks_plain(walks, keep_prob, seed, tag, out=out)
+    _check_subsample_args(walks, keep_prob, tag)
+    if out is None:
+        out = torch.empty_like(walks, memory_format=torch.contiguous_format)
+    _build.require_cuda("subsample_walks", walks, keep_prob, out)
+    if out.shape != walks.shape or out.dtype != torch.int32:
+        raise ValueError("out must be an int32 tensor of the corpus's shape")
+    if walks.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("subsample_walks reads and writes 16-byte vectors: "
+                         "corpus and out must be 16-byte aligned")
+    rc = _build.lib().n2v_subsample_walks(
+        _build.ptr(walks), walks.numel(), _build.ptr(keep_prob), keep_prob.shape[0],
+        int(seed) & 0xFFFFFFFF, int(tag), _build.ptr(out), _build.stream_of(walks),
+    )
+    _build.check(rc, "subsample_walks")
+    _build.launches["subsample_walks"] += 1
+    return out
 
 
 def build_vocab(

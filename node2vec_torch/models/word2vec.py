@@ -1,23 +1,48 @@
-"""Word2VecTorch: the skip-gram trainer (port of ``Word2VecTPU.fit``
-for SGNS with row-wise Adagrad, ``node2vec_tpu/models/word2vec.py:139-284``).
+"""Word2VecTorch: the skip-gram trainers (port of ``Word2VecTPU.fit``,
+``fit_host`` and ``fit_streaming`` for SGNS with row-wise Adagrad,
+``node2vec_tpu/models/word2vec.py:37-793``).
 
-Walks in, per-vertex embedding vectors out: the corpus is padded to whole
-batches and kept on the device, each epoch shuffles it with
-``torch.randperm`` on a seeded ``torch.Generator`` and sweeps the SGNS step
-over its batches with word2vec's linear learning-rate decay.  All random
-draws (init, shuffle, window shrink, negatives) come from generators seeded
-with ``params.seed`` on the trainer's device.
+Walks in, per-vertex embedding vectors out, through three trainers that
+share one SGNS step (K2-K4, ``models/skipgram.py``):
+
+* ``fit``: the corpus lives on the device, padded to whole batches; each
+  epoch shuffles it and sweeps the step over its batches with word2vec's
+  linear learning-rate decay;
+* ``fit_host``: the corpus stays in host memory; each epoch draws one
+  global host permutation and uploads slabs double-buffered (pinned host
+  buffers, a copy stream), so device memory is the tables plus two slabs;
+* ``fit_streaming``: a virtual corpus, ``walk_source(i)`` regenerating walk
+  chunk i on the device; a first pass counts the vertices
+  (``_streaming_counts``, K6 into one persistent counts tensor), then each
+  epoch visits the chunks in a seeded order, chunk i+1's walk enqueued
+  before chunk i trains.
+
+``sample > 0`` applies gensim's frequent-vertex subsampling to every
+shuffled corpus, slab or chunk (K7 ``subsample_walks``).  Every trainer
+saves its state to ``checkpoint_dir`` (the JAX package's file formats) and
+resumes from it.
+
+Randomness: every draw is keyed on absolute indices, as the JAX package
+keys its draws with ``fold_in(PRNGKey(seed), tag)``, so a resumed run
+replays the uninterrupted one (bit for bit on the CPU; on the card K2's
+fp32 atomics reorder sums).  ``Draws`` makes a ``torch.Generator`` seeded
+from a hash of (seed, tag) at each site: tag 1,000,000+epoch for fit's
+shuffle, 7,000,000+epoch*n_chunks+i for a streamed chunk's, the global
+step for a step's window shrink and negatives; subsampling takes the tags
+2,000,000+epoch (fit), 4,000,000+epoch*n_slabs+s (fit_host) and
+8,000,000+epoch*n_chunks+i (fit_streaming) into K7's counter hash.
+fit_host's permutations and fit_streaming's chunk orders are numpy, seeded
+as in the JAX package, and equal to its own.
 
 Not ported yet, and raising ``NotImplementedError``: CBOW (``sg=0``),
-hierarchical softmax (``negative=0``), ``optimizer="sgd"``, frequent-vertex
-subsampling (``sample>0``), ``fit_streaming``, ``fit_host`` and
+hierarchical softmax (``negative=0``), ``optimizer="sgd"`` and
 ``fit_sharded``.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,9 +50,104 @@ import torch
 from node2vec_torch.constants import Word2VecParams
 from node2vec_torch.device import resolve_device
 from node2vec_torch.models.skipgram import draw_step, init_embeddings, sgns_epoch
-from node2vec_torch.models.vocab import Vocabulary, build_vocab
+from node2vec_torch.models.vocab import (
+    Vocabulary,
+    build_vocab,
+    build_vocab_from_counts,
+    subsample_keep_prob,
+    subsample_walks,
+    vertex_counts,
+)
+from node2vec_torch.utils.checkpoint import (
+    load_stream_state,
+    load_train_state,
+    save_stream_state,
+    save_train_state,
+    stream_fingerprint,
+)
 
 logger = logging.getLogger(__name__)
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def _tag_seed(seed: int, tag: int) -> int:
+    """63-bit generator seed for the draw site ``tag`` of a run seeded with
+    ``seed`` (splitmix64 of both)."""
+    return _splitmix64(_splitmix64(seed & _MASK64) ^ (tag & _MASK64)) >> 1
+
+
+class Draws:
+    """Every random draw of one fit, each keyed on (params.seed, tag).
+
+    The trainers reach randomness only through these methods, so a test
+    can hand a trainer JAX's draws instead (``Word2VecTorch._new_draws``).
+    """
+
+    def __init__(self, params: Word2VecParams, shared_negatives: int, device):
+        self.params = params
+        self.shared_negatives = shared_negatives
+        self.device = device
+
+    def generator(self, tag: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(_tag_seed(self.params.seed, tag))
+
+    def init(self, n_vertices: int, dim: int):
+        """(emb_in, emb_out, acc_in, acc_out), word2vec's init."""
+        return init_embeddings(n_vertices, dim, seed=self.params.seed, device=self.device)
+
+    def permutation(self, tag: int, n: int) -> torch.Tensor:
+        return torch.randperm(n, generator=self.generator(tag), device=self.device)
+
+    def step(self, gstep: int, n_walks: int, length: int):
+        """(b_sh, r1, r2) of global step ``gstep``."""
+        p = self.params
+        return draw_step(self.generator(gstep), n_walks, length, p.window_size,
+                         self.shared_negatives, p.shrink_window, self.device)
+
+    def subsample(self, walks: torch.Tensor, keep_prob: torch.Tensor, tag: int) -> torch.Tensor:
+        """K7 in place on a corpus the trainer owns (a shuffled copy or an
+        uploaded slab)."""
+        return subsample_walks(walks, keep_prob, self.params.seed, tag, out=walks)
+
+
+def _sync(t: torch.Tensor) -> None:
+    """Wait for the work queued on ``t``'s stream (bounds the enqueue depth)."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def _streaming_counts(walk_source: Callable[[int], torch.Tensor], n_chunks: int,
+                      n_vertices: int) -> Tuple[np.ndarray, Optional[int]]:
+    """Pass-1 exact corpus counts over a virtual corpus, nothing
+    materialized: K6 adds each chunk into one int32 counts tensor on the
+    chunk's device, spilled to a host int64 total every 256 chunks so hub
+    counts cannot wrap.  A sync every 8 chunks bounds how many chunks are
+    queued at once.  Returns (counts int64 [V], walk length)."""
+    counts_host = np.zeros((n_vertices,), np.int64)
+    counts = None
+    length = None
+    for c in range(n_chunks):
+        w = walk_source(c)
+        length = w.shape[1]
+        if counts is None:
+            counts = torch.zeros((n_vertices,), dtype=torch.int32, device=w.device)
+        vertex_counts(w, n_vertices, out=counts)
+        if (c + 1) % 8 == 0:
+            _sync(counts)
+        if (c + 1) % 256 == 0:
+            counts_host += counts.cpu().numpy()
+            counts.zero_()
+    if counts is not None:
+        counts_host += counts.cpu().numpy()
+    return counts_host, length
 
 
 def _effective_batch(
@@ -37,10 +157,70 @@ def _effective_batch(
     """Batch size with a small-corpus cap: at least ~``target_updates``
     optimizer updates per epoch, but never below 64 walks per batch (the
     shared-negative pool is drawn per batch).  Inactive at production corpus
-    sizes (n_walks >= target_updates * batch_walks)."""
+    sizes (n_walks >= target_updates * batch_walks); the streaming trainer
+    scales ``target_updates`` down by n_chunks."""
     batch = min(batch_walks, max(n_walks, 1))
     target = max(target_updates, 1)
     return max(min(batch, max(n_walks // target, 64, floor)), floor)
+
+
+class _SlabUploader:
+    """Host slabs of a corpus to the device for ``fit_host``.
+
+    On the card: two pinned host buffers, each filled with ``np.take`` and
+    copied ``non_blocking`` on a copy stream; the training stream waits on
+    the copy's event.  A buffer is refilled only after its previous copy
+    has completed.  ``events`` keeps (copy start, copy end) of each upload.
+    On the CPU each slab is a fresh array, since the tensor aliases it."""
+
+    def __init__(self, walks: np.ndarray, slab: int, device: torch.device):
+        self.walks = walks
+        self.slab = slab
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.events: List[tuple] = []
+        if self.cuda:
+            shape = (slab, walks.shape[1])
+            self.pinned = [torch.empty(shape, dtype=torch.int32, pin_memory=True)
+                           for _ in range(2)]
+            self.copied = [None, None]
+            self.stream = torch.cuda.Stream(device)
+            self.n_uploads = 0
+
+    def _fill(self, buf: np.ndarray, idx: np.ndarray) -> None:
+        np.take(self.walks, idx, axis=0, out=buf[: len(idx)])
+        buf[len(idx):] = -1  # tail slab: dead rows, the trainers mask them
+
+    def upload(self, perm: np.ndarray, s: int):
+        idx = perm[s * self.slab: (s + 1) * self.slab]
+        if not self.cuda:
+            buf = np.empty((self.slab, self.walks.shape[1]), np.int32)
+            self._fill(buf, idx)
+            return torch.from_numpy(buf), None
+        k = self.n_uploads % 2
+        self.n_uploads += 1
+        if self.copied[k] is not None:
+            self.copied[k].synchronize()
+        self._fill(self.pinned[k].numpy(), idx)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self.stream):
+            start.record()
+            dev = torch.empty(self.pinned[k].shape, dtype=torch.int32, device=self.device)
+            dev.copy_(self.pinned[k], non_blocking=True)
+            end.record()
+        self.copied[k] = end
+        self.events.append((start, end))
+        return dev, end
+
+    def ready(self, pending) -> torch.Tensor:
+        """The uploaded slab, with the training stream made to wait for it."""
+        slab_dev, end = pending
+        if end is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(end)
+            slab_dev.record_stream(cur)
+        return slab_dev
 
 
 class Word2VecTorch:
@@ -61,6 +241,9 @@ class Word2VecTorch:
         self.acc_in: Optional[torch.Tensor] = None
         self.acc_out: Optional[torch.Tensor] = None
         self._losses: list = []
+        self._slab_losses: list = []
+        self._slab_events: list = []
+        self._h2d_events: list = []
 
     def _check_supported(self) -> None:
         p = self.params
@@ -74,21 +257,81 @@ class Word2VecTorch:
             raise NotImplementedError(
                 "optimizer='sgd' is not ported yet (ROADMAP Queue A item 14)"
             )
-        if p.sample > 0:
-            raise NotImplementedError(
-                "frequent-vertex subsampling (sample>0) is not ported yet "
-                "(ROADMAP Queue A item 14)"
+
+    # -- shared pieces of the three trainers -------------------------------- #
+
+    def _new_draws(self) -> Draws:
+        return Draws(self.params, self.shared_negatives, self.device)
+
+    def _require_vocab(self) -> None:
+        if self.vocab.n_kept == 0:
+            raise ValueError(
+                f"No vertex meets min_count={self.params.min_count}; corpus too small"
             )
+
+    def _noise(self):
+        """(ns_alias, ns_prob, vocab_mask) on the device."""
+        v = self.vocab
+        return tuple(torch.from_numpy(a).to(self.device) for a in (v.ns_alias, v.ns_prob, v.mask))
+
+    def _keep_table(self) -> Optional[torch.Tensor]:
+        """[V] keep probabilities for ``sample`` subsampling, or None."""
+        if self.params.sample <= 0:
+            return None
+        keep = subsample_keep_prob(self.vocab.counts, self.params.sample, self.vocab.mask)
+        return torch.from_numpy(keep).to(self.device)
+
+    def _to_device(self, tables) -> List[torch.Tensor]:
+        return [torch.from_numpy(np.ascontiguousarray(t, dtype=np.float32)).to(self.device)
+                for t in tables]
+
+    @staticmethod
+    def _to_host(state) -> List[np.ndarray]:
+        return [t.cpu().numpy() for t in state]
+
+    def _init_state(self, draws: Draws, checkpoint_dir: Optional[str]):
+        """Fresh tables, or those of the newest train-state snapshot:
+        (state [emb_in, emb_out, acc_in, acc_out], first epoch to run)."""
+        state = list(draws.init(self.vocab.n_vertices, self.params.vector_size))
+        ckpt = load_train_state(checkpoint_dir)
+        if ckpt is None:
+            return state, 0
+        logger.info("resuming training from epoch %d", ckpt[0])
+        return self._to_device(ckpt[1:]), ckpt[0]
+
+    def _train(self, state, corpus, draws: Draws, step0: int, lr_slope: float,
+               batch: int, n_batches: int, noise) -> torch.Tensor:
+        """SGNS over ``n_batches`` batches of ``corpus``, in place on
+        ``state``; returns the per-batch losses."""
+        p = self.params
+        length = corpus.shape[1]
+        return sgns_epoch(
+            *state, corpus, lambda gstep: draws.step(gstep, batch, length),
+            step0, p.step_size, lr_slope, *noise, batch=batch, n_batches=n_batches,
+            window=p.window_size, negatives=p.negative, min_lr=p.min_step_size,
+        )
+
+    def _finish(self, state) -> "Word2VecTorch":
+        self._emb_in, self._emb_out, self.acc_in, self.acc_out = state
+        return self
+
+    # -- the trainers -------------------------------------------------------- #
 
     def fit(
         self,
         walks,
         n_vertices: Optional[int] = None,
         verbose: bool = False,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 1,
     ) -> "Word2VecTorch":
         """Train embeddings over a walk corpus [N, L+1] int32 (-1 padded),
         given as a numpy array (counted on the host before the upload) or a
-        torch tensor (counted on its device, by K6 on the card)."""
+        torch tensor (counted on its device, by K6 on the card).
+
+        With ``checkpoint_dir``, state is saved every ``checkpoint_every``
+        epochs and fit() resumes from the newest saved epoch.
+        """
         self._check_supported()
         p = self.params
         dev = self.device
@@ -97,20 +340,14 @@ class Word2VecTorch:
         self.vocab = build_vocab(
             walks, n_vertices, min_count=p.min_count, ns_exponent=p.ns_exponent
         )
+        self._require_vocab()
         if isinstance(walks, np.ndarray):
             walks = torch.from_numpy(walks)
         walks = walks.to(device=dev, dtype=torch.int32)
-        n_v = self.vocab.n_vertices
-        if self.vocab.n_kept == 0:
-            raise ValueError(
-                f"No vertex meets min_count={p.min_count}; corpus too small"
-            )
-        emb_in, emb_out, acc_in, acc_out = init_embeddings(
-            n_v, p.vector_size, seed=p.seed, device=dev
-        )
-        ns_alias = torch.from_numpy(self.vocab.ns_alias).to(dev)
-        ns_prob = torch.from_numpy(self.vocab.ns_prob).to(dev)
-        vocab_mask = torch.from_numpy(self.vocab.mask).to(dev)
+        draws = self._new_draws()
+        state, start_epoch = self._init_state(draws, checkpoint_dir)
+        noise = self._noise()
+        keep = self._keep_table()
 
         n_walks, length = walks.shape
         batch = _effective_batch(p.batch_walks, n_walks)
@@ -125,45 +362,240 @@ class Word2VecTorch:
             pad = torch.full((n_padded - n_walks, length), -1, dtype=torch.int32, device=dev)
             corpus = torch.cat([walks, pad])
 
-        gen = torch.Generator(device=dev).manual_seed(p.seed)
-
-        def draws(_gstep: int):
-            return draw_step(
-                gen, batch, length, p.window_size, self.shared_negatives,
-                p.shrink_window, dev,
-            )
-
         self._losses = []
-        for epoch in range(p.max_iter):
-            perm = torch.randperm(n_padded, generator=gen, device=dev)
-            shuffled = corpus[perm]
-            losses = sgns_epoch(
-                emb_in, emb_out, acc_in, acc_out, shuffled, draws,
-                epoch * n_batches, p.step_size, lr_slope, ns_alias, ns_prob,
-                vocab_mask, batch=batch, n_batches=n_batches,
-                window=p.window_size, negatives=p.negative, min_lr=p.min_step_size,
-            )
+        for epoch in range(start_epoch, p.max_iter):
+            shuffled = corpus[draws.permutation(1_000_000 + epoch, n_padded)]
+            if keep is not None:  # gensim subsampling, redrawn per epoch
+                shuffled = draws.subsample(shuffled, keep, 2_000_000 + epoch)
+            losses = self._train(state, shuffled, draws, epoch * n_batches, lr_slope,
+                                 batch, n_batches, noise)
             epoch_loss = float(losses.mean())  # mean over batches
             self._losses.append(epoch_loss)
             if verbose:
                 logger.info("epoch %d/%d loss=%.4f", epoch + 1, p.max_iter, epoch_loss)
+            if checkpoint_dir and (epoch + 1) % checkpoint_every == 0:
+                save_train_state(checkpoint_dir, epoch + 1, *self._to_host(state))
+        return self._finish(state)
 
-        self._emb_in, self._emb_out = emb_in, emb_out
-        self.acc_in, self.acc_out = acc_in, acc_out
-        return self
+    def fit_host(
+        self,
+        walks: np.ndarray,
+        n_vertices: Optional[int] = None,
+        slab_walks: int = 1 << 20,
+        verbose: bool = False,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 1,
+    ) -> "Word2VecTorch":
+        """Host-resident-corpus trainer: the corpus never lives on the device.
 
-    def fit_streaming(self, *args, **kwargs):
-        raise NotImplementedError("fit_streaming is not ported yet (ROADMAP Queue A item 7)")
+        Each epoch draws one global host permutation
+        (``default_rng(seed * 1_000_003 + 17 + epoch)``, as the JAX package),
+        cuts it into slabs of ``slab_walks`` rows (whole batches) and
+        gathers and uploads each while the previous slab trains (its steps
+        are queued on the card first); the tail slab is
+        padded with dead rows, and its all-dead trailing batches are left out
+        of the epoch loss.  ``self._slab_losses`` keeps each slab's mean loss;
+        ``self._slab_events`` each upload's (copy start, copy end) events and
+        each slab's (train start, train end) on the card.  With
+        ``checkpoint_dir``, the train state is saved every
+        ``checkpoint_every`` epochs and fit_host resumes from the newest.
+        """
+        self._check_supported()
+        p = self.params
+        walks = np.ascontiguousarray(walks, dtype=np.int32)
+        self.vocab = build_vocab(
+            walks, n_vertices, min_count=p.min_count, ns_exponent=p.ns_exponent
+        )
+        self._require_vocab()
+        draws = self._new_draws()
+        state, start_epoch = self._init_state(draws, checkpoint_dir)
+        noise = self._noise()
+        keep = self._keep_table()
 
-    def fit_host(self, *args, **kwargs):
-        raise NotImplementedError("fit_host is not ported yet (ROADMAP Queue A item 7)")
+        n_walks = len(walks)
+        batch = _effective_batch(p.batch_walks, n_walks)
+        slab = max((min(slab_walks, n_walks) // batch) * batch, batch)
+        slab_batches = slab // batch
+        n_slabs = -(-n_walks // slab)
+        total_steps = max(p.max_iter * n_slabs * slab_batches, 1)
+        lr_slope = float(np.float32(p.step_size / total_steps))
+        # the tail slab's dead rows sit at its end, so its trailing batches
+        # can be all padding: they train nothing and report loss 0
+        tail_real = n_walks - (n_slabs - 1) * slab
+        tail_real_batches = min(-(-tail_real // batch), slab_batches)
+
+        uploader = _SlabUploader(walks, slab, self.device)
+        timing = self.device.type == "cuda"
+        self._losses = []
+        self._slab_losses = []
+        self._slab_events = []
+        for epoch in range(start_epoch, p.max_iter):
+            perm = np.random.default_rng(p.seed * 1_000_003 + 17 + epoch).permutation(n_walks)
+            pending = uploader.upload(perm, 0)
+            epoch_losses = []
+            for s in range(n_slabs):
+                slab_dev = uploader.ready(pending)
+                if timing:
+                    t_start = torch.cuda.Event(enable_timing=True)
+                    t_start.record()
+                if keep is not None:  # gensim subsampling, redrawn per slab
+                    slab_dev = draws.subsample(slab_dev, keep, 4_000_000 + epoch * n_slabs + s)
+                step0 = (epoch * n_slabs + s) * slab_batches
+                losses = self._train(state, slab_dev, draws, step0, lr_slope, batch,
+                                     slab_batches, noise)
+                if timing:
+                    t_end = torch.cuda.Event(enable_timing=True)
+                    t_end.record()
+                    self._slab_events.append((t_start, t_end))
+                if s + 1 < n_slabs:  # gather and copy the next slab while this one trains
+                    pending = uploader.upload(perm, s + 1)
+                if s == n_slabs - 1:
+                    losses = losses[:tail_real_batches]
+                epoch_losses.append(losses)
+                if (s + 1) % 4 == 0:
+                    _sync(losses)  # bound the enqueue depth
+            self._slab_losses.append([float(x.mean()) for x in epoch_losses])
+            self._losses.append(float(torch.cat(epoch_losses).mean()))
+            if verbose:
+                logger.info("host epoch %d/%d loss=%.4f (%d slabs)",
+                            epoch + 1, p.max_iter, self._losses[-1], n_slabs)
+            if checkpoint_dir and (epoch + 1) % checkpoint_every == 0:
+                save_train_state(checkpoint_dir, epoch + 1, *self._to_host(state))
+        self._h2d_events = uploader.events
+        return self._finish(state)
+
+    def fit_streaming(
+        self,
+        walk_source: Callable[[int], torch.Tensor],
+        n_chunks: int,
+        n_vertices: int,
+        verbose: bool = False,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every_chunks: int = 0,
+        source_token: str = "",
+    ) -> "Word2VecTorch":
+        """Train over a virtual corpus: ``walk_source(i)`` regenerates walk
+        chunk i on the device (``WalkEngine.chunk_source``), always with
+        the same number of rows.
+
+        A first pass counts the vertices (``_streaming_counts``).  Each
+        epoch then visits the chunks in ``default_rng(seed)``'s order for
+        that epoch (all epochs drawn up front); a chunk is shuffled on the
+        device, cut to whole batches (the tail rows beyond them are dropped,
+        as in the JAX package) and trained, chunk i+1's walk enqueued first.
+
+        With ``checkpoint_dir``, a snapshot (cursor, tables, Adagrad state,
+        losses, pass-1 counts) is written at every epoch end and, when
+        ``checkpoint_every_chunks`` > 0, every that many chunks; a restarted
+        call resumes from it without the counting pass.  ``source_token``
+        identifies the walk source (graph digest, walk params, walk seed),
+        so a snapshot is never resumed against another virtual corpus.
+        """
+        self._check_supported()
+        p = self.params
+        dev = self.device
+        fp = stream_fingerprint(p, n_chunks, n_vertices, token=source_token)
+        resume = load_stream_state(checkpoint_dir, fp)
+        chunk_walks = None
+        cur_losses = np.zeros(0, np.float32)
+        prev_losses = np.zeros(0, np.float32)
+        start_epoch = start_chunk = 0
+        if resume is not None:
+            (start_epoch, start_chunk, e_in, e_out, a_in, a_out,
+             prev_losses, cur_losses, counts_host, chunk_walks) = resume
+            logger.info("resuming streaming training at epoch %d chunk %d",
+                        start_epoch, start_chunk)
+        else:
+            counts_host, _ = _streaming_counts(walk_source, n_chunks, n_vertices)
+        self.vocab = build_vocab_from_counts(
+            counts_host, min_count=p.min_count, ns_exponent=p.ns_exponent
+        )
+        self._require_vocab()
+        noise = self._noise()
+        keep = self._keep_table()
+        draws = self._new_draws()
+        state = list(draws.init(n_vertices, p.vector_size))
+        if resume is not None:
+            state = self._to_device((e_in, e_out, a_in, a_out))
+        rng = np.random.default_rng(p.seed)
+        # all epochs' chunk orders up front: a resume replays the same stream
+        orders = [rng.permutation(n_chunks) for _ in range(p.max_iter)]
+
+        self._losses = [float(x) for x in prev_losses]
+        batch = n_batches = lr_slope = None
+        step0 = 0
+
+        def geometry(walks_per_chunk: int):
+            b = _effective_batch(p.batch_walks, walks_per_chunk,
+                                 target_updates=max(512 // n_chunks, 1))
+            nb = walks_per_chunk // b
+            slope = float(np.float32(p.step_size / max(p.max_iter * n_chunks * nb, 1)))
+            return b, nb, slope
+
+        if chunk_walks is not None:  # resume: geometry known from the snapshot
+            batch, n_batches, lr_slope = geometry(chunk_walks)
+            step0 = (start_epoch * n_chunks + start_chunk) * n_batches
+
+        def snapshot(epoch_next: int, chunk_next: int, epoch_losses) -> None:
+            cur = (torch.cat(epoch_losses).cpu().numpy() if epoch_losses
+                   else np.zeros(0, np.float32))
+            save_stream_state(
+                checkpoint_dir, fp, epoch_next, chunk_next, *self._to_host(state),
+                np.asarray(self._losses, np.float32), cur,
+                counts=counts_host, chunk_walks=chunk_walks or 0,
+            )
+
+        for epoch in range(start_epoch, p.max_iter):
+            order = orders[epoch]
+            skip = start_chunk if epoch == start_epoch else 0
+            if skip >= n_chunks:
+                continue  # epoch-end snapshots normalize to (epoch + 1, 0)
+            epoch_losses = []
+            if epoch == start_epoch and len(cur_losses):
+                epoch_losses.append(torch.from_numpy(np.asarray(cur_losses, np.float32)).to(dev))
+            pending = walk_source(int(order[skip]))
+            for i in range(skip, n_chunks):
+                # prefetch: chunk i+1's walk is enqueued before chunk i trains
+                nxt = walk_source(int(order[i + 1])) if i + 1 < n_chunks else None
+                corpus = pending.to(device=dev, dtype=torch.int32)
+                n_walks_c = corpus.shape[0]
+                if chunk_walks is None:
+                    chunk_walks = n_walks_c
+                    batch, n_batches, lr_slope = geometry(n_walks_c)
+                elif n_walks_c != chunk_walks:
+                    raise ValueError(
+                        f"walk_source chunk {int(order[i])} has {n_walks_c} walks, "
+                        f"expected {chunk_walks}: streaming requires constant chunk "
+                        "shapes (WalkEngine.chunk_source pads every chunk)"
+                    )
+                perm = draws.permutation(7_000_000 + epoch * n_chunks + i, n_walks_c)
+                shuffled = corpus[perm][: n_batches * batch]
+                if keep is not None:
+                    shuffled = draws.subsample(shuffled, keep, 8_000_000 + epoch * n_chunks + i)
+                losses = self._train(state, shuffled, draws, step0, lr_slope, batch,
+                                     n_batches, noise)
+                step0 += n_batches
+                epoch_losses.append(losses)
+                pending = nxt
+                if (i + 1) % 4 == 0:
+                    _sync(losses)  # at most ~4 chunks of walk + train work queued
+                if (checkpoint_dir and checkpoint_every_chunks > 0 and i + 1 < n_chunks
+                        and (i + 1) % checkpoint_every_chunks == 0):
+                    snapshot(epoch, i + 1, epoch_losses)
+            self._losses.append(float(torch.cat(epoch_losses).mean()))
+            if verbose:
+                logger.info("streaming epoch %d/%d loss=%.4f", epoch + 1, p.max_iter,
+                            self._losses[-1])
+            if checkpoint_dir:
+                snapshot(epoch + 1, 0, [])
+        return self._finish(state)
 
     def fit_sharded(self, *args, **kwargs):
         raise NotImplementedError("fit_sharded is not ported yet (ROADMAP Queue A item 12)")
 
     @property
     def losses(self) -> list:
-        """Mean loss of each epoch of the last fit()."""
+        """Mean loss of each epoch of the last fit."""
         return list(self._losses)
 
     @property

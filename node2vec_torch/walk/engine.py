@@ -7,7 +7,10 @@ at most ``dense_max_degree``, the blocked engine (K5) above it.  Semantics
 as in the JAX package: step 0 is first-order, sinks end walks (the path
 keeps its prefix, -1 after), walks can be restricted to seed start
 vertices, and every draw is keyed on (seed, global walker id, counter), so
-results do not depend on ``walker_chunk``.
+results do not depend on ``walker_chunk``.  ``run`` fetches the corpus to
+the host (with ``checkpoint_dir``, completed chunks are persisted and a
+restarted run skips them), ``run_device`` keeps it on the device, and
+``chunk_source`` regenerates any chunk on demand for the streaming trainer.
 
 The CSR fallback, the edge-partitioned engine, mesh sharding and the
 blocked engine's shared-list sampler raise ``NotImplementedError`` naming
@@ -16,7 +19,7 @@ their ROADMAP item.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +27,12 @@ import torch
 from node2vec_torch.constants import Node2VecParams
 from node2vec_torch.device import resolve_device
 from node2vec_torch.graph.csr import Graph
+from node2vec_torch.utils.checkpoint import (
+    graph_digest,
+    load_walk_chunks,
+    save_walk_chunk,
+    walk_fingerprint,
+)
 from node2vec_torch.walk.blocked import (
     SHARED_LISTS_NOT_PORTED,
     BlockedGraph,
@@ -79,6 +88,8 @@ class WalkEngine:
         if strategy not in ("dense", "blocked"):
             raise ValueError(f"unknown walk strategy {strategy!r}")
         self.strategy = strategy
+        # checkpoint fingerprints change when the edges change, not just V
+        self.graph_token = graph_digest(graph.indices, graph.weights)
         self.packed_adj = None
         self.bgraph = None
         # blocked engine: trial-capped accepts and sampling attempts, kept as
@@ -132,6 +143,11 @@ class WalkEngine:
         self._att_parts = []
         self._att_base = int(value)
 
+    def _strategy_token(self) -> str:
+        """Strategy string for walk fingerprints, as the JAX engine's: the
+        shared-list sampler is not ported, so it is the strategy's name."""
+        return self.strategy
+
     def _effective_chunk(self, n_total: int) -> int:
         chunk = min(self.params.walker_chunk, max(n_total, 1))
         if self.strategy == "dense":
@@ -142,11 +158,6 @@ class WalkEngine:
             per_walker = 6 * self.bgraph.light_width + self.params.walk_length
             w_cap = max(1024, (1 << 26) // per_walker)
         return min(chunk, w_cap)
-
-    def n_chunks(self, start_vertices: Optional[np.ndarray] = None) -> int:
-        """How many walker chunks run() sweeps."""
-        n_total = len(self._starts(start_vertices))
-        return -(-n_total // self._effective_chunk(n_total))
 
     def _run_chunk(
         self, chunk_starts: np.ndarray, gid_base: int = 0, seed: int = 0
@@ -167,16 +178,27 @@ class WalkEngine:
         self._att_parts.append(n_att)
         return paths
 
-    def _starts(self, start_vertices: Optional[np.ndarray]) -> np.ndarray:
+    def _starts_one(self, start_vertices: Optional[np.ndarray]) -> np.ndarray:
+        """The start vertices, one walk each."""
         if start_vertices is None:
-            starts_one = np.arange(self.n_vertices, dtype=np.int32)
-        else:
-            starts_one = np.asarray(start_vertices, dtype=np.int32)
-            if len(starts_one) and starts_one.max() >= self.n_vertices:
-                raise ValueError(
-                    f"start vertex {int(starts_one.max())} >= n_vertices {self.n_vertices}"
-                )
-        return np.tile(starts_one, self.params.num_walks)
+            return np.arange(self.n_vertices, dtype=np.int32)
+        starts_one = np.asarray(start_vertices, dtype=np.int32)
+        if len(starts_one) and starts_one.max() >= self.n_vertices:
+            raise ValueError(
+                f"start vertex {int(starts_one.max())} >= n_vertices {self.n_vertices}"
+            )
+        return starts_one
+
+    def _starts(self, start_vertices: Optional[np.ndarray]) -> np.ndarray:
+        return np.tile(self._starts_one(start_vertices), self.params.num_walks)
+
+    def _chunk_starts(self, starts: np.ndarray, lo: int, chunk: int) -> np.ndarray:
+        """Chunk ``[lo, lo + chunk)`` of the walker starts, dead (-1) lanes
+        past the end."""
+        out = np.full(chunk, -1, dtype=np.int32)
+        part = starts[lo: lo + chunk]
+        out[: len(part)] = part
+        return out
 
     def _chunks(self, seed: int, start_vertices: Optional[np.ndarray]):
         """Yield (lo, hi, device paths of the chunk's real rows)."""
@@ -185,26 +207,72 @@ class WalkEngine:
         chunk = self._effective_chunk(n_total)
         for lo in range(0, n_total, chunk):
             hi = min(lo + chunk, n_total)
-            chunk_starts = np.full(chunk, -1, dtype=np.int32)
-            chunk_starts[: hi - lo] = starts[lo:hi]
-            paths = self._run_chunk(chunk_starts, gid_base=lo, seed=seed)
+            paths = self._run_chunk(self._chunk_starts(starts, lo, chunk), gid_base=lo, seed=seed)
             yield lo, hi, paths[: hi - lo]
 
     def run(
         self,
         seed: int = 0,
         start_vertices: Optional[np.ndarray] = None,
+        checkpoint_dir: Optional[str] = None,
     ) -> np.ndarray:
         """All walks as a host array [num_starts * num_walks, walk_length+1].
 
         Row layout: walk copy ``i`` of start vertex ``v`` is row
-        ``i * num_starts + v``.
+        ``i * num_starts + v``.  With ``checkpoint_dir``, each completed
+        chunk is saved (the JAX package's file format and fingerprint) and
+        a restarted run with the same configuration skips the chunks on
+        disk.  On the card each chunk is copied to a pinned host buffer on
+        a copy stream while the next chunk's kernel runs.
         """
-        n_total = len(self._starts(start_vertices))
-        out = np.empty((n_total, self.params.walk_length + 1), dtype=np.int32)
-        for lo, hi, paths in self._chunks(seed, start_vertices):
-            out[lo:hi] = paths.cpu().numpy()
+        p = self.params
+        starts_one = self._starts_one(start_vertices)
+        starts = np.tile(starts_one, p.num_walks)
+        n_total = len(starts)
+        chunk = self._effective_chunk(n_total)
+        fp = walk_fingerprint(p, seed, starts_one, self.n_vertices,
+                              graph_token=self.graph_token, strategy=self._strategy_token())
+        done = load_walk_chunks(checkpoint_dir, fingerprint=fp)
+        out = np.empty((n_total, p.walk_length + 1), dtype=np.int32)
+        fetch = _ChunkFetcher(self.device, (chunk, p.walk_length + 1))
+
+        def persist(fetched) -> None:
+            for c_idx, lo, hi in fetched:
+                if checkpoint_dir:
+                    save_walk_chunk(checkpoint_dir, c_idx, out[lo:hi], fingerprint=fp)
+
+        for c_idx, lo in enumerate(range(0, n_total, chunk)):
+            hi = min(lo + chunk, n_total)
+            if c_idx in done and done[c_idx].shape == (hi - lo, p.walk_length + 1):
+                out[lo:hi] = done[c_idx]
+                continue
+            paths = self._run_chunk(self._chunk_starts(starts, lo, chunk), gid_base=lo, seed=seed)
+            # the previous chunk reaches the host while this one walks
+            persist(fetch.push(paths, (c_idx, lo, hi), out))
+        persist(fetch.drain(out))
         return out
+
+    def chunk_source(
+        self,
+        seed: int = 0,
+        start_vertices: Optional[np.ndarray] = None,
+    ) -> Tuple[int, int, Callable[[int], torch.Tensor]]:
+        """Virtual-corpus interface: (n_chunks, chunk, source), where
+        ``source(i)`` regenerates walk chunk i on the engine's device as a
+        full ``chunk`` rows, the tail chunk padded with dead (-1) rows
+        (streaming needs constant chunk shapes).  Chunks are pure functions
+        of (seed, chunk index), so a corpus of any size streams through
+        fixed device memory."""
+        starts = self._starts(start_vertices)
+        n_total = len(starts)
+        chunk = self._effective_chunk(n_total)
+        n_chunks = -(-n_total // chunk)
+
+        def source(c_idx: int) -> torch.Tensor:
+            lo = c_idx * chunk
+            return self._run_chunk(self._chunk_starts(starts, lo, chunk), gid_base=lo, seed=seed)
+
+        return n_chunks, chunk, source
 
     def run_device(
         self,
@@ -217,14 +285,55 @@ class WalkEngine:
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
+class _ChunkFetcher:
+    """Walk chunks to a host array, one chunk behind the walk kernels.
+
+    On the card chunk k is copied ``non_blocking`` into a pinned host
+    buffer on a copy stream that waits for its kernel, so the copy runs
+    while chunk k+1's kernel does; the host reads the buffer before the
+    next copy is queued into it.  On the CPU the rows are copied at once."""
+
+    def __init__(self, device: torch.device, shape: Tuple[int, int]):
+        self.cuda = device.type == "cuda"
+        self.pending = None  # (copy event, (c_idx, lo, hi))
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)
+            self.pinned = torch.empty(shape, dtype=torch.int32, pin_memory=True)
+
+    def push(self, paths: torch.Tensor, where, out: np.ndarray):
+        """Start fetching ``paths`` (rows [0, hi - lo) go to out[lo:hi]);
+        returns the chunks that reached ``out``, as (c_idx, lo, hi)."""
+        c_idx, lo, hi = where
+        if not self.cuda:
+            out[lo:hi] = paths[: hi - lo].numpy()
+            return [where]
+        done = self.drain(out)  # frees the buffer this copy is about to use
+        self.stream.wait_event(torch.cuda.current_stream(paths.device).record_event())
+        with torch.cuda.stream(self.stream):
+            self.pinned.copy_(paths, non_blocking=True)
+            paths.record_stream(self.stream)
+            self.pending = (self.stream.record_event(), where)
+        return done
+
+    def drain(self, out: np.ndarray):
+        if self.pending is None:
+            return []
+        copied, (c_idx, lo, hi) = self.pending
+        self.pending = None
+        copied.synchronize()
+        out[lo:hi] = self.pinned[: hi - lo].numpy()
+        return [(c_idx, lo, hi)]
+
+
 def random_walks(
     graph: Graph,
     params: Optional[Node2VecParams] = None,
     seed: int = 0,
     start_vertices: Optional[np.ndarray] = None,
     device="cuda",
+    checkpoint_dir: Optional[str] = None,
 ) -> np.ndarray:
     """Functional form: all walks of ``graph`` as a host array."""
     return WalkEngine(graph, params or Node2VecParams(), device=device).run(
-        seed, start_vertices
+        seed, start_vertices, checkpoint_dir
     )

@@ -10,6 +10,7 @@ quality tolerance: micro-F1@0.5 within 0.05 of the JAX package's."""
 import importlib.util
 import os
 import sys
+import time
 from unittest import mock
 
 import numpy as np
@@ -44,6 +45,22 @@ def _load(name, path):
     sys.modules.setdefault(name, mod)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _ref_native_loaded(deadline_s: float = 120.0) -> None:
+    """Load the JAX package's native library, waiting out a concurrent build.
+
+    Its loader compiles libgraphcore.so in place with g++ and, after one
+    failed load, gives up for the life of the process; under xdist another
+    worker may still be writing the file when this one first loads it.  The
+    file is then newer than its source, so each retry only reloads it.
+    Fails (never skips) naming the library if it does not load in time."""
+    t_end = time.monotonic() + deadline_s
+    while not ref_native.available():
+        if time.monotonic() > t_end:
+            pytest.fail(f"{ref_native._LIB_PATH} did not load within {deadline_s:.0f} s")
+        time.sleep(0.5)
+        ref_native._tried = False
 
 
 def _hub_graph(hub_deg=600, seed=0, with_far=False, weights=None):
@@ -102,6 +119,8 @@ GRAPHS = {
 def test_tables_equal_jax(name, use_native):
     src, dst, w = GRAPHS[name]()
     g, _ = _both_graphs(src, dst, w, directed=name != "rmat10")
+    if use_native:
+        _ref_native_loaded()
     with mock.patch.object(native, "available", return_value=use_native), \
             mock.patch.object(ref_native, "available", return_value=use_native):
         want = ref_blocked.build_blocked_graph(g.indptr, g.indices, g.weights)
@@ -122,6 +141,7 @@ def test_native_edge_has_shared_equals_fallback(name):
     got = native.edge_has_shared(g.indptr, g.indices).astype(bool)
     want = blocked._edge_has_shared(g.indptr, g.indices, np.diff(g.indptr))
     np.testing.assert_array_equal(got, want)
+    _ref_native_loaded()
     np.testing.assert_array_equal(got, ref_native.edge_has_shared(g.indptr, g.indices) != 0)
     assert got.any()
 

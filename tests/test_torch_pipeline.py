@@ -55,29 +55,33 @@ def test_run_pipeline_matches_random_walk(karate_edges):
     walks = n2v.walks.copy()
     np.testing.assert_array_equal(n2v.random_walk(), walks)
     assert np.isfinite(model.vectors).all()
-    with pytest.raises(NotImplementedError, match="streaming"):
-        n2v.run_pipeline(streaming=True)
+    streamed = n2v.run_pipeline(streaming=True)  # one chunk, streamed on request
+    assert n2v.walks is None and np.isfinite(streamed.vectors).all()
 
 
-@pytest.mark.parametrize("streaming,chunk,n_chunks,expect_raise", [
+@pytest.mark.parametrize("streaming,chunk,n_chunks,streams", [
     (None, 1 << 17, 1, False), (None, 64, 3, True), (True, 1 << 17, 1, True)])
-def test_run_pipeline_streaming_decision(karate_edges, streaming, chunk, n_chunks, expect_raise):
+def test_run_pipeline_streaming_decision(karate_edges, streaming, chunk, n_chunks, streams):
     """streaming=None decides as the JAX package does: one walker chunk
-    trains in memory exactly as streaming=False; several chunks would
-    stream, which is not ported, and raise as streaming=True does.  The
-    chunk count is the JAX engine's."""
+    trains in memory exactly as streaming=False; several chunks stream, as
+    streaming=True does, and give the vectors of fit_streaming over
+    chunk_source.  The chunk count is the JAX engine's."""
     kw = dict(n2v_params={**N2V, "walker_chunk": chunk}, w2v_params=W2V, device="cpu")
     n2v = Node2Vec(**kw)
     n2v.preprocess_input_graph(karate_edges, directed=False)
     ref_n2v = node2vec_tpu.Node2Vec(n2v_params={**N2V, "walker_chunk": chunk}, w2v_params=W2V)
     ref_n2v.preprocess_input_graph(karate_edges, directed=False)
     ref_chunks = ref_n2v._walk_engine().chunk_source()[0]
-    assert n2v._walk_engine().n_chunks() == ref_chunks == n_chunks
-    if expect_raise:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A items 7 and 15"):
-            n2v.run_pipeline(streaming=streaming)
-        return
+    assert n2v._walk_engine().chunk_source()[0] == ref_chunks == n_chunks
     got = n2v.run_pipeline(streaming=streaming)
+    if streams:
+        assert n2v.walks is None
+        engine = node2vec_torch.WalkEngine(n2v.graph, n2v.n2v_params, device="cpu")
+        count, _, source = engine.chunk_source(seed=0)
+        want = node2vec_torch.Word2VecTorch(n2v.w2v_params, device="cpu").fit_streaming(
+            source, count, n2v.graph.n_vertices)
+        np.testing.assert_array_equal(got.vectors, want.vectors)
+        return
     ref = Node2Vec(**kw)
     ref.preprocess_input_graph(karate_edges, directed=False)
     want = ref.run_pipeline(streaming=False)
@@ -145,6 +149,6 @@ def test_no_silent_cpu_run(karate_edges):
 
 
 def test_unported_pipeline_options_raise():
-    for kw in ({"mesh": object()}, {"graph_sharded": True}, {"host_corpus": True}):
+    for kw in ({"mesh": object()}, {"graph_sharded": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Node2Vec(device="cpu", **kw)

@@ -140,17 +140,34 @@ def test_fit_runs_and_is_deterministic(karate_edges):
     assert m1.losses[-1] < m1.losses[0]
 
 
-@pytest.mark.parametrize(
-    "override", [{"sg": 0}, {"negative": 0}, {"optimizer": "sgd"}, {"sample": 1e-3}]
-)
+@pytest.mark.parametrize("override", [{"sg": 0}, {"negative": 0}, {"optimizer": "sgd"}])
 def test_unported_trainer_options_raise(override):
     walks = np.random.default_rng(0).integers(0, 20, (64, 6)).astype(np.int32)
     model = Word2VecTorch(Word2VecParams(min_count=1, **override), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.fit(walks)
-    for fn in (model.fit_streaming, model.fit_host, model.fit_sharded):
-        with pytest.raises(NotImplementedError):
-            fn()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.fit_host(walks)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.fit_streaming(lambda i: torch.from_numpy(walks), 1, 20)
+    with pytest.raises(NotImplementedError):
+        model.fit_sharded()
+
+
+def test_sample_fits(karate_edges):
+    """sample > 0 trains (frequent-vertex subsampling through K7's plain
+    version here) and drops occurrences: its loss differs from sample 0."""
+    from node2vec_torch.graph import from_edge_arrays
+    from node2vec_torch.walk import random_walks
+    from node2vec_torch.constants import Node2VecParams
+
+    g = from_edge_arrays(*karate_edges, directed=False)
+    walks = random_walks(g, Node2VecParams(num_walks=4, walk_length=10), seed=0, device="cpu")
+    kw = dict(min_count=1, max_iter=3, vector_size=32)
+    m = Word2VecTorch(Word2VecParams(sample=1e-2, **kw), device="cpu").fit(walks, n_vertices=34)
+    plain = Word2VecTorch(Word2VecParams(**kw), device="cpu").fit(walks, n_vertices=34)
+    assert np.isfinite(m.vectors).all() and m.losses[-1] < m.losses[0]
+    assert m.losses != plain.losses
 
 
 def test_effective_batch_equal():
