@@ -64,19 +64,40 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    the training stream hid; then K7 against its plain version at that
    path's slab shape (bit-equal), an all-dead slab, a keep table of ones,
    in place against out of place, and a z-test of the keep count;
-9. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
+9. the hierarchical-softmax main path: ``Node2Vec(device="cuda")`` on the
+   dense graph of 5. with negative=0 (the reference's default objective)
+   through ``run_pipeline()`` with no argument, which streams over its 10
+   walker chunks (max_iter cut to 1): K1 10 times to count and 10 to
+   train, K6 10 times (streaming form), K8 hs_grads and K3/K4 10 x 51,
+   K2 never; the tree's code length, head levels and rows, fit time,
+   pair-updates/s, walk regeneration and peak device memory;
+10. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
    walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1: held-out
    link-prediction AUC >= 0.60, and the same-label minus no-shared-label
    mean cosine >= 0.05; on the engine the graph selects (dense) through
    fit, on blocked tables at P = 8, C = 64, where most vertices are heavy,
    through run_pipeline() at walker_chunk 2048 (it streams over 8
-   chunks), and through host_corpus=True with sample=1e-3;
-10. the ``kernels`` line (times, bounds, launches, errors; K6 once for each
-   JAX function it replaces), then the last line
-   ``{"ok": true, "device": {...}}``.
+   chunks), and through host_corpus=True with sample=1e-3; then with
+   negative=0 (HS) through fit, run_pipeline() at walker_chunk 2048 and
+   host_corpus=True with sample=1e-3 (the JAX package's HS values on the
+   CPU clear the same limits, PERF.md section 2);
+11. the ``kernels`` line (times, bounds, launches, errors; K6 once for each
+   JAX function it replaces, K3/K4 once for SGNS and once for HS's row
+   lists), then the last line ``{"ok": true, "device": {...}}``.
+
+Kernel checks of 3. also hold K8 hs_grads and K3/K4 over HS's three row
+lists (emb_in rows, theta's tail rows, theta's head rows) against their
+plain versions on the dense graph's Huffman tree (counts proportional to
+degree: code length 18, a head of 9 levels and 511 rows, 131,071 inner
+nodes), D = 128, L1 = 21, window 5, at the HS path's batch (2,570) and at
+B = 8192, with the tolerances of the SGNS step; edge cases 4. add the head
+off, a code length capped at 8 (no tail), a one-vertex vocabulary, walk
+length 80, and D = 100 at window 10, with dead lanes and
+out-of-vocabulary positions in every case.
 
 ``--quick`` runs 2-4 at small shapes (K5 on the RMAT at scale 12, K6 and its
-streaming form on its walks, K7 on them) and stops.  Exits non-zero, printing no result, when CUDA is missing
+streaming form on its walks, K7 on them, K8 on a 4,096-vertex tree) and
+stops.  Exits non-zero, printing no result, when CUDA is missing
 or any phase fails.  Imports neither jax nor the JAX package.
 """
 
@@ -104,6 +125,7 @@ from node2vec_torch.datasets import (
 )
 from node2vec_torch.eval import walk_transition_pvalue
 from node2vec_torch.graph import build_graph, from_edge_arrays
+from node2vec_torch.models import hsoftmax as hs
 from node2vec_torch.models import skipgram as sg
 from node2vec_torch.models.vocab import (
     build_vocab_from_counts,
@@ -138,6 +160,12 @@ SOURCES = {
                                 "node2vec_tpu/models/word2vec.py:51"),
     "subsample_walks": ("node2vec_torch/csrc/subsample.cu",
                         "node2vec_tpu/models/word2vec.py:37"),
+    "hs_grads": ("node2vec_torch/csrc/hs.cu", "node2vec_tpu/models/hsoftmax.py:209"),
+    # K3 and K4 over HS's three row lists (emb_in, theta's tail, theta's head)
+    "adagrad_accumulate_hs": ("node2vec_torch/csrc/adagrad.cu",
+                              "node2vec_tpu/models/hsoftmax.py:396"),
+    "adagrad_apply_hs": ("node2vec_torch/csrc/adagrad.cu",
+                         "node2vec_tpu/models/hsoftmax.py:399"),
 }
 # the kernels line: (row, launch counter, main path whose launches it reads)
 ROWS = (("dense_walk", "dense_walk", "main_path"),
@@ -147,11 +175,15 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("blocked_walk", "blocked_walk", "main_path_blocked"),
         ("vertex_counts", "vertex_counts", "main_path_blocked"),
         ("vertex_counts_streaming", "vertex_counts", "main_path_streaming"),
-        ("subsample_walks", "subsample_walks", "main_path_host"))
+        ("subsample_walks", "subsample_walks", "main_path_host"),
+        ("hs_grads", "hs_grads", "main_path_hs"),
+        ("adagrad_accumulate_hs", "adagrad_accumulate", "main_path_hs"),
+        ("adagrad_apply_hs", "adagrad_apply", "main_path_hs"))
 DENSE_PATH = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply")
 BLOCKED_PATH = ("blocked_walk", "vertex_counts", "sgns_grads", "adagrad_accumulate",
                 "adagrad_apply")
 HOST_PATH = DENSE_PATH + ("subsample_walks",)
+HS_PATH = ("dense_walk", "vertex_counts", "hs_grads", "adagrad_accumulate", "adagrad_apply")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N2V_MAIN = {"num_walks": 10, "walk_length": 20, "return_param": 0.25, "inout_param": 4.0}
 W2V_MAIN = {"vector_size": 128, "window_size": 5, "negative": 5, "min_count": 10}
@@ -312,34 +344,31 @@ def check_sgns(n_vertices: int, n_walks: int, length: int, dim: int, window: int
     errs.append(d_no_err)
     g_in, g_out, d_no, _ = want
     walks_flat = walks.reshape(-1)
+    lists = (g_in, walks_flat, g_out, walks_flat, d_no, neg)  # SGNS's three row lists
     k2_ms = time_ms(lambda: sg.sgns_grads(emb_in, emb_out, walks, mask, b_sh, neg, **kw))
     k2_plain = time_ms(lambda: sg.sgns_grads_plain(emb_in, emb_out, walks, mask, b_sh, neg, **kw),
                        reps=3, warmup=1)
 
     # K3 on the plain K2 outputs
     a_in, a_out = acc_in.clone(), acc_out.clone()
-    sg.adagrad_accumulate(a_in, a_out, g_in, g_out, d_no, walks_flat, neg)
+    sg.adagrad_accumulate(a_in, a_out, *lists)
     p_in, p_out = acc_in.clone(), acc_out.clone()
-    sg.adagrad_accumulate_plain(p_in, p_out, g_in, g_out, d_no, walks_flat, neg)
+    sg.adagrad_accumulate_plain(p_in, p_out, *lists)
     k3_err = max(_close("adagrad_accumulate[acc_in]", a_in, p_in),
                  _close("adagrad_accumulate[acc_out]", a_out, p_out))
-    k3_ms = time_ms(lambda: sg.adagrad_accumulate(
-        a_in, a_out, g_in, g_out, d_no, walks_flat, neg))
+    k3_ms = time_ms(lambda: sg.adagrad_accumulate(a_in, a_out, *lists))
     s_in, s_out = acc_in.clone(), acc_out.clone()
-    k3_plain = time_ms(lambda: sg.adagrad_accumulate_plain(
-        s_in, s_out, g_in, g_out, d_no, walks_flat, neg))
+    k3_plain = time_ms(lambda: sg.adagrad_accumulate_plain(s_in, s_out, *lists))
 
     # K4 on the plain K3 outputs
     t_in, t_out = emb_in.clone(), emb_out.clone()
-    sg.adagrad_apply(t_in, t_out, p_in, p_out, g_in, g_out, d_no, walks_flat, neg, lr)
+    sg.adagrad_apply(t_in, t_out, p_in, p_out, *lists, lr)
     q_in, q_out = emb_in.clone(), emb_out.clone()
-    sg.adagrad_apply_plain(q_in, q_out, p_in, p_out, g_in, g_out, d_no, walks_flat, neg, lr)
+    sg.adagrad_apply_plain(q_in, q_out, p_in, p_out, *lists, lr)
     k4_err = max(_close("adagrad_apply[emb_in]", t_in, q_in),
                  _close("adagrad_apply[emb_out]", t_out, q_out))
-    k4_ms = time_ms(lambda: sg.adagrad_apply(
-        t_in, t_out, p_in, p_out, g_in, g_out, d_no, walks_flat, neg, lr))
-    k4_plain = time_ms(lambda: sg.adagrad_apply_plain(
-        q_in, q_out, p_in, p_out, g_in, g_out, d_no, walks_flat, neg, lr))
+    k4_ms = time_ms(lambda: sg.adagrad_apply(t_in, t_out, p_in, p_out, *lists, lr))
+    k4_plain = time_ms(lambda: sg.adagrad_apply_plain(q_in, q_out, p_in, p_out, *lists, lr))
 
     # the whole step, kernels against plain versions, from the same state and
     # draws: tables, accumulators and loss elementwise
@@ -731,6 +760,216 @@ def check_subsample(walks: np.ndarray, vocab, slab: int, results: dict) -> None:
     err = int((got.long() - want.long()).abs().max())
     results["subsample_walks"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+# --------------------------------------------------------------------------- #
+# hierarchical softmax: K8 and K3/K4 over HS's row lists
+# --------------------------------------------------------------------------- #
+
+
+def hs_tree(graph, max_len=None):
+    """(tree, counts): the Huffman tree over counts proportional to degree
+    (a walk's stationary distribution on an undirected graph), scaled to a
+    corpus of 10 walks of 21 per vertex, as main_path_hs counts it."""
+    deg = np.diff(graph.indptr).astype(np.float64)
+    counts = np.rint(deg * (10 * 21 * graph.n_vertices) / deg.sum()).astype(np.int64)
+    return hs.cap_code_length(hs.build_huffman(counts), counts, max_len=max_len), counts
+
+
+def _hs_inputs(tree, counts, n_walks: int, length: int, dim: int, window: int, seed: int,
+               walks=None):
+    """Tables, window shrinks, the vocabulary mask (min_count 10) and the
+    tree's tables, on the card, and walks: the first ``n_walks`` rows of
+    ``walks`` where given, else random walks with dead tails and
+    out-of-vocabulary vertices."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    n_vertices = len(counts)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    state = [t(rng.normal(0, 0.1, (n_vertices, dim)).astype(np.float32)),
+             t(rng.normal(0, 0.1, (tree.n_inner, dim)).astype(np.float32)),
+             t(rng.random(n_vertices).astype(np.float32)),
+             t(rng.random(tree.n_inner).astype(np.float32))]
+    if walks is None:
+        walks = rng.integers(0, n_vertices, (n_walks, length)).astype(np.int32)
+        dead = rng.integers(length // 2, length + 1, n_walks)
+        walks[np.arange(length)[None, :] >= dead[:, None]] = -1
+    else:
+        walks = walks[:n_walks]
+    mask = counts >= min(10, int(counts.max()))
+    b_sh = rng.integers(1, window + 1, (n_walks, length)).astype(np.int32)
+    tables = (t(tree.points), t(tree.codes), t(tree.lengths))
+    return state, t(walks), t(mask), t(b_sh), tables
+
+
+def _hs_live_entries(walks, mask, b_sh, lengths, window: int):
+    """(valid pairs, live (pair, path entry)s) of a batch: what K8 computes."""
+    safe = torch.where(walks >= 0, walks, 0).long()
+    vpos = (walks >= 0) & mask[safe]
+    plen = lengths[safe].long()
+    pairs = entries = 0
+    for d in [d for d in range(-window, window + 1) if d != 0]:
+        pv = vpos & sg.window_shift(vpos, d) & (abs(d) <= b_sh)
+        pairs += int(pv.sum())
+        entries += int((pv * sg.window_shift(plen, d)).sum())
+    return pairs, entries
+
+
+def check_hs(tree, counts, n_walks: int, length: int, dim: int, window: int, head_offsets,
+             timed: bool, record: bool, results: dict, case: str = "main",
+             walks=None) -> None:
+    """K8 hs_grads, and K3/K4 over HS's three row lists, each against its
+    plain version on the same inputs (``walks`` as ``_hs_inputs`` takes
+    them); then the whole step.  Tolerances are
+    those of check_sgns: g_in, g_tail and the loss elementwise, tail_rows
+    exact, d_head (sums over every head entry of the batch, through fp32
+    atomics) to rtol of its largest entry; the Adagrad kernels and the
+    step's tables elementwise."""
+    dev = torch.device("cuda")
+    walks_from = "random, dead tails" if walks is None else "main_path_hs chunk 0"
+    (emb_in, theta, acc_in, acc_th), walks, mask, b_sh, tables = _hs_inputs(
+        tree, counts, n_walks, length, dim, window, seed=5, walks=walks)
+    kw = dict(window=window, head_offsets=head_offsets)
+    args = (emb_in, theta, walks, mask, b_sh, *tables)
+    got = hs.hs_grads(*args, **kw)
+    want = hs.hs_grads_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = [_close(f"hs_grads[{k}] ({case})", g, w) for k, g, w in
+            zip(("g_in", "g_tail", "loss"), (got[0], got[1], got[4]), (want[0], want[1], want[4]))
+            if w.numel()]  # no g_tail when every level is in the head
+    require(torch.equal(got[2], want[2]), f"hs_grads[tail_rows] ({case}) differ")
+    dh_err = float((got[3] - want[3]).abs().max()) if got[3].numel() else 0.0
+    dh_scale = float(want[3].abs().max()) if got[3].numel() else 0.0
+    require(dh_err <= RTOL * dh_scale,
+            f"hs_grads[d_head] ({case}): max abs err {dh_err} > rtol {RTOL} * {dh_scale}")
+    errs.append(dh_err)
+    g_in, g_tail, tail_rows, d_head, _ = want
+    n_head, k_rows = hs.head_split(head_offsets, tree.points.shape[1])
+    head_rows = torch.arange(k_rows, dtype=torch.int32, device=dev)
+    walks_flat = walks.reshape(-1)
+    lists = (g_in, walks_flat, g_tail, tail_rows, d_head, head_rows)
+
+    a_in, a_th = acc_in.clone(), acc_th.clone()
+    sg.adagrad_accumulate(a_in, a_th, *lists)
+    p_in, p_th = acc_in.clone(), acc_th.clone()
+    sg.adagrad_accumulate_plain(p_in, p_th, *lists)
+    k3_err = max(_close(f"adagrad_accumulate_hs[acc_in] ({case})", a_in, p_in),
+                 _close(f"adagrad_accumulate_hs[acc_theta] ({case})", a_th, p_th))
+    lr = 0.05
+    t_in, t_th = emb_in.clone(), theta.clone()
+    sg.adagrad_apply(t_in, t_th, p_in, p_th, *lists, lr)
+    q_in, q_th = emb_in.clone(), theta.clone()
+    sg.adagrad_apply_plain(q_in, q_th, p_in, p_th, *lists, lr)
+    k4_err = max(_close(f"adagrad_apply_hs[emb_in] ({case})", t_in, q_in),
+                 _close(f"adagrad_apply_hs[theta] ({case})", t_th, q_th))
+
+    b_state = [x.clone() for x in (emb_in, theta, acc_in, acc_th)]
+    p_state = [x.clone() for x in (emb_in, theta, acc_in, acc_th)]
+    loss_k = hs.hs_walk_step(*b_state, walks, b_sh, lr, *tables, mask, **kw)
+    loss_p = hs.hs_walk_step_plain(*p_state, walks, b_sh, lr, *tables, mask, **kw)
+    step_err = max(_close(f"hs step[{k}] ({case})", a, b) for k, a, b in zip(
+        ("emb_in", "theta", "acc_in", "acc_theta", "loss"), (*b_state, loss_k), (*p_state, loss_p)))
+    line = {"phase": "check" if timed else "edge_case", "kernel": "hs_grads + K3/K4 (HS)",
+            "case": case, "B": n_walks, "L1": length, "D": dim, "window": window,
+            "V": len(counts), "CL": int(tree.points.shape[1]), "H": n_head, "K": k_rows,
+            "n_inner": tree.n_inner, "walks": walks_from,
+            "max_abs_err": {"hs_grads": max(errs), "accumulate": k3_err, "apply": k4_err,
+                            "step": step_err},
+            "rtol": RTOL, "atol": ATOL}
+    if not timed:
+        emit(line)
+        return
+
+    k8_ms = time_ms(lambda: hs.hs_grads(*args, **kw))
+    k8_plain = time_ms(lambda: hs.hs_grads_plain(*args, **kw), reps=2, warmup=1)
+    k3_ms = time_ms(lambda: sg.adagrad_accumulate(a_in, a_th, *lists))
+    s_in, s_th = acc_in.clone(), acc_th.clone()
+    k3_plain = time_ms(lambda: sg.adagrad_accumulate_plain(s_in, s_th, *lists))
+    k4_ms = time_ms(lambda: sg.adagrad_apply(t_in, t_th, p_in, p_th, *lists, lr))
+    k4_plain = time_ms(lambda: sg.adagrad_apply_plain(q_in, q_th, p_in, p_th, *lists, lr))
+
+    # library yardsticks: index_add_ of the same precomputed rows, never used by the port
+    live_in = walks_flat >= 0
+    live_tail = tail_rows >= 0
+    rows_in = walks_flat[live_in].long()
+    rows_th = torch.cat([tail_rows[live_tail].long(), head_rows.long()])
+    g_th = torch.cat([g_tail[live_tail], d_head])
+    sq_in, sq_th = (g_in[live_in] ** 2).mean(-1), (g_th ** 2).mean(-1)
+    k3_lib = time_ms(lambda: (s_in.index_add_(0, rows_in, sq_in),
+                              s_th.index_add_(0, rows_th, sq_th)))
+    upd_in = -lr * g_in[live_in] * torch.rsqrt(p_in[rows_in] + 1e-12)[:, None]
+    upd_th = -lr * g_th * torch.rsqrt(p_th[rows_th] + 1e-12)[:, None]
+    k4_lib = time_ms(lambda: (t_in.index_add_(0, rows_in, upd_in),
+                              t_th.index_add_(0, rows_th, upd_th)))
+
+    # bounds, from this run's data.  K8 reads the batch's ids and shrinks,
+    # each distinct vertex's emb_in row, path, length and mask byte once,
+    # each distinct theta row on those paths once, and writes g_in of the
+    # live positions, g_tail with its row of the live tail entries (those
+    # K3/K4 read) and d_head; it does 6 * D flops per live (pair, entry)
+    # (the dot, the g_in term, the context-gradient term)
+    n_rows = n_walks * length
+    clt = tree.points.shape[1] - n_head
+    cl = tree.points.shape[1]
+    pairs, entries = _hs_live_entries(walks, mask, b_sh, tables[2], window)
+    u_in = torch.unique(rows_in)
+    on_path = torch.arange(cl, device=dev)[None, :] < tables[2][u_in][:, None]
+    u_th = int(torch.unique(tables[0][u_in][on_path]).numel())
+    k8_bytes = (n_rows * 8 + u_in.numel() * (dim * 4 + cl * 5 + 5) + u_th * dim * 4
+                + int(live_in.sum()) * dim * 4 + int(live_tail.sum()) * (dim * 4 + 4)
+                + k_rows * dim * 4)
+    n_live = int(live_in.sum()) + int(live_tail.sum()) + k_rows
+    u_acc_in = int(u_in.numel())
+    u_acc_th = int(torch.unique(rows_th).numel())
+    ids = (n_rows + n_rows * clt + k_rows) * 4
+    k3_bytes = n_live * dim * 4 + ids + 8 * (u_acc_in + u_acc_th)
+    k4_bytes = n_live * dim * 4 + ids + 4 * (u_acc_in + u_acc_th) + 8 * dim * (u_acc_in + u_acc_th)
+    rec = {
+        "hs_grads": (max(errs), k8_ms, k8_plain, bound_ms(k8_bytes, 6 * dim * entries), None),
+        "adagrad_accumulate_hs": (k3_err, k3_ms, k3_plain, bound_ms(k3_bytes, 2 * dim * n_live),
+                                  k3_lib),
+        "adagrad_apply_hs": (k4_err, k4_ms, k4_plain, bound_ms(k4_bytes, 3 * dim * n_live),
+                             k4_lib),
+    }
+    line.update({"valid_pairs": pairs, "live_path_entries": entries,
+                 "live_positions": int(live_in.sum()), "live_tail_entries": int(live_tail.sum()),
+                 "distinct_vertices": u_acc_in, "distinct_theta_rows": u_th})
+    emit(line)
+    for name, (err, ms, plain_ms, (b_ms, b_by), lib_ms) in rec.items():
+        emit({"phase": "check", "kernel": name, "case": case, "B": n_walks, "L1": length,
+              "D": dim, "CL": cl, "H": n_head, "K": k_rows, "max_abs_err": err, "rtol": RTOL,
+              "atol": ATOL, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": lib_ms})
+        if record:
+            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def edge_cases_hs(tree, counts) -> None:
+    """K8 and K3/K4 where the main path does not go, each against the plain
+    version (check_hs's tolerances): the head off, a code length capped at
+    8 (hs_max_code_length=8: every level in the head, no tail), a
+    one-vertex vocabulary with and without its head, and other walk
+    lengths, widths and windows.  Dead lanes and out-of-vocabulary
+    positions are in every case's walks."""
+    capped = hs.cap_code_length(tree, counts, max_len=8)
+    one = hs.build_huffman(np.array([7]))
+    one_counts = np.array([7])
+    cases = (("head_off", tree, counts, 256, 21, 128, 5, (0,)),
+             ("max_code_length_8", capped, counts, 256, 21, 128, 5,
+              hs.head_level_offsets(capped, table_rows=capped.n_inner)),
+             ("one_vertex", one, one_counts, 64, 21, 128, 5,
+              hs.head_level_offsets(one, table_rows=1)),
+             ("one_vertex_head_off", one, one_counts, 64, 21, 128, 5, (0,)),
+             ("walk_length_80", tree, counts, 64, 81, 128, 5,
+              hs.head_level_offsets(tree, table_rows=tree.n_inner)),
+             ("dim_100_window_10", tree, counts, 96, 11, 100, 10,
+              hs.head_level_offsets(tree, table_rows=tree.n_inner)))
+    for case, t, c, n_walks, length, dim, window, head in cases:
+        check_hs(t, c, n_walks, length, dim, window, head, False, False, {}, case=case)
 
 
 # --------------------------------------------------------------------------- #
@@ -1174,6 +1413,96 @@ def main_path_host(src, dst, max_iter: int):
     return out, walks, model.vocab, slab
 
 
+def main_path_hs(src, dst, max_iter: int):
+    """Node2Vec on the dense graph with negative=0 (hierarchical softmax,
+    the reference's default objective) through ``run_pipeline()`` with no
+    argument: 10 walker chunks, so it streams (K1 counting and training,
+    K6's streaming form, the Huffman tree from the pass-1 counts, K8 and
+    K3/K4 every step)."""
+    n2v = Node2Vec(n2v_params=N2V_MAIN,
+                   w2v_params={**W2V_MAIN, "negative": 0, "max_iter": max_iter},
+                   random_seed=0, device="cuda")
+    _fresh_run()
+    t0 = time.perf_counter()
+    graph = n2v.preprocess_input_graph((src, dst), indexed=True, directed=False)
+    t1 = time.perf_counter()
+    engine = n2v._walk_engine()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    walk_events = []
+    run_chunk = engine._run_chunk
+
+    def timed_chunk(*args, **kwargs):  # device time of every regenerated chunk
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_chunk(*args, **kwargs)
+        end.record()
+        walk_events.append((start, end))
+        return out
+
+    engine._run_chunk = timed_chunk
+    model = n2v.run_pipeline()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del engine._run_chunk
+    names, vectors = n2v.embedding(as_frame=False)
+    t4 = time.perf_counter()
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_chunks, chunk, _ = engine.chunk_source(seed=0)
+    p = model.params
+    batch = _effective_batch(p.batch_walks, chunk, target_updates=max(512 // n_chunks, 1))
+    n_batches = chunk // batch
+    walk_s = sum(a.elapsed_time(b) for a, b in walk_events) / 1e3
+    pipeline_s = t3 - t2
+    pairs = sg.pairs_per_batch(batch, N2V_MAIN["walk_length"], p.window_size) * n_batches \
+        * n_chunks * max_iter
+    tree = model.tree
+    n_head, k_rows = hs.head_split(model.head_offsets, tree.points.shape[1])
+    out = {
+        "phase": "main_path_hs", "cuts": {"max_iter": f"10 -> {max_iter}"},
+        "objective": "hierarchical softmax (negative=0)",
+        "n_vertices": graph.n_vertices, "n_edges": graph.n_edges, "strategy": engine.strategy,
+        "tree": {"code_length": int(tree.points.shape[1]), "head_levels": n_head,
+                 "head_rows": k_rows, "n_inner": tree.n_inner,
+                 "code_lengths": [int(tree.lengths.min()), int(tree.lengths.max())]},
+        "walker_chunk": chunk, "n_chunks": n_chunks, "batch_walks": batch,
+        "n_batches_per_chunk": n_batches, "preprocess_s": t1 - t0, "tables_s": t2 - t1,
+        "pipeline_s": pipeline_s, "walk_regeneration_device_s": walk_s,
+        "walk_regenerations": len(walk_events), "fit_s": pipeline_s - walk_s,
+        "hs_pair_updates_per_fit_s": pairs / (pipeline_s - walk_s), "embedding_s": t4 - t3,
+        "epoch_losses": model.losses, "vocab_kept": model.vocab.n_kept,
+        "peak_device_memory_bytes": int(peak), "launches": launches,
+        "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+    }
+    emit(out)
+    require(engine.strategy == "dense", f"strategy {engine.strategy}")
+    require(n2v.walks is None, "run_pipeline() did not stream")
+    require(n_chunks == 10 and n_batches == 51, f"{n_chunks} chunks of {n_batches} batches")
+    require(model.emb_out.shape == (tree.n_inner, 128), f"theta shape {model.emb_out.shape}")
+    require(vectors.shape == (graph.n_vertices, 128), f"vectors shape {vectors.shape}")
+    require(bool(np.isfinite(vectors).all()), "non-finite embedding values")
+    require(bool(np.isfinite(model.emb_out).all()), "non-finite theta")
+    require(len(model.losses) == max_iter and all(np.isfinite(x) for x in model.losses),
+            f"losses {model.losses}")
+    require(launches["dense_walk"] == n_chunks * (1 + max_iter),
+            f"dense_walk launched {launches['dense_walk']} times")
+    require(launches["vertex_counts"] == n_chunks,
+            f"vertex_counts launched {launches['vertex_counts']} times")
+    for k in ("hs_grads", "adagrad_accumulate", "adagrad_apply"):
+        require(launches[k] == n_chunks * n_batches * max_iter,
+                f"{k} launched {launches[k]} times")
+    require(launches["sgns_grads"] == 0 and launches["blocked_walk"] == 0
+            and launches["subsample_walks"] == 0,
+            f"a kernel off the HS path ran: {launches}")
+    require(all(launches[k] > 0 for k in HS_PATH), f"a kernel never ran: {launches}")
+    breakdown((("run_pipeline (HS, streaming)", lambda: Word2VecTorch(p, device="cuda")
+                .fit_streaming(engine.chunk_source(seed=0)[2], n_chunks, graph.n_vertices)),))
+    return out
+
+
 def breakdown(stages) -> None:
     """Device time by kernel and the idle share of each (name, fn) stage,
     from torch.profiler over a second run of it (launch counts of the main
@@ -1203,13 +1532,16 @@ def breakdown(stages) -> None:
 
 
 def quality_gates(blocked_widths=None, trainer: str = "fit", walker_chunk=None,
-                  sample: float = 0.0, auc_min: float = 0.60, gap_min: float = 0.05) -> dict:
+                  sample: float = 0.0, negative: int = 5, auc_min: float = 0.60,
+                  gap_min: float = 0.05) -> dict:
     """The gates on synthetic_multilabel(2000, seed=0), trained through
-    ``trainer`` (see datasets._train)."""
+    ``trainer`` (see datasets._train); ``negative=0`` trains hierarchical
+    softmax."""
     g, labels = synthetic_multilabel(2000, seed=0)
     n2v = Node2VecParams(num_walks=8, walk_length=40,
                          **({"walker_chunk": walker_chunk} if walker_chunk else {}))
-    w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128, sample=sample)
+    w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128, sample=sample,
+                         negative=negative)
     t0 = time.perf_counter()
     auc = holdout_link_prediction(g, n2v_params=n2v, w2v_params=w2v, seed=0, device="cuda",
                                   blocked_widths=blocked_widths,
@@ -1219,7 +1551,8 @@ def quality_gates(blocked_widths=None, trainer: str = "fit", walker_chunk=None,
     gap = label_cosine_gap(emb, labels, n_pairs=200_000, seed=0)
     deg = np.diff(g.indptr)
     out = {"phase": "quality", "graph": "synthetic_multilabel(2000, seed=0)",
-           "trainer": trainer, "walker_chunk": n2v.walker_chunk, "sample": sample,
+           "trainer": trainer, "objective": "hs" if negative == 0 else "sgns",
+           "walker_chunk": n2v.walker_chunk, "sample": sample,
            "walk_strategy": strategy, "blocked_widths": blocked_widths,
            "heavy_vertex_share": (float((deg > blocked_widths[0]).mean())
                                   if blocked_widths else None),
@@ -1277,6 +1610,10 @@ def main() -> int:
         check_streaming_counts(engine, g_rmat.n_vertices, results)
         counts = np.bincount(walks[walks >= 0].cpu().numpy(), minlength=g_rmat.n_vertices)
         check_subsample(walks.cpu().numpy(), build_vocab_from_counts(counts), 4096, results)
+        tree, tree_counts = hs_tree(g)
+        head = hs.head_level_offsets(tree, table_rows=tree.n_inner)
+        check_hs(tree, tree_counts, 64, 21, 128, 5, head, True, True, results)
+        edge_cases_hs(tree, tree_counts)
         edge_cases()
         edge_cases_blocked()
         small_reference()
@@ -1290,6 +1627,17 @@ def main() -> int:
     check_sgns(131072, main_batch, 21, 128, 5, 64, True, results)
     if main_batch != 8192:
         check_sgns(131072, 8192, 21, 128, 5, 64, False, results)
+    tree, tree_counts = hs_tree(g)
+    head = hs.head_level_offsets(tree, table_rows=tree.n_inner)
+    hs_batch = _effective_batch(8192, 131072, target_updates=51)  # main_path_hs's chunks
+    # K8 is timed on the walks main_path_hs trains: its first chunk, shuffled
+    chunk0 = WalkEngine(g, Node2VecParams(**N2V_MAIN), device="cuda").chunk_source(seed=0)[2](0)
+    hs_walks = chunk0.cpu().numpy()[np.random.default_rng(0).permutation(len(chunk0))]
+    del chunk0
+    check_hs(tree, tree_counts, hs_batch, 21, 128, 5, head, True, True, results, walks=hs_walks)
+    check_hs(tree, tree_counts, 8192, 21, 128, 5, head, True, False, results, case="B=8192",
+             walks=hs_walks)
+    edge_cases_hs(tree, tree_counts)
     rmat_src, rmat_dst, g_rmat = rmat_graph(19)
     check_blocked_walk(g_rmat, 131072, 20, results)
     del g_rmat
@@ -1306,10 +1654,14 @@ def main() -> int:
     paths["main_path_host"], walks, vocab, slab = main_path_host(src, dst, max_iter=1)
     check_subsample(walks, vocab, slab, results)
     del walks
+    paths["main_path_hs"] = main_path_hs(src, dst, max_iter=1)
     quality_gates()
     quality_gates(blocked_widths=(8, 64))
     quality_gates(trainer="run_pipeline", walker_chunk=2048)
     quality_gates(trainer="host_corpus", sample=1e-3)
+    quality_gates(negative=0)
+    quality_gates(trainer="run_pipeline", walker_chunk=2048, negative=0)
+    quality_gates(trainer="host_corpus", sample=1e-3, negative=0)
 
     kernels = []
     for name, counter, path in ROWS:

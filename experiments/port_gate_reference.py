@@ -1,7 +1,7 @@
 """Reference values of chip_smoke.py's quality gates, from the JAX package
 on the CPU (and, with --port, from the PyTorch port's plain path).
 
-    JAX_PLATFORMS=cpu python experiments/port_gate_reference.py [--port] [--seeds 0 1]
+    JAX_PLATFORMS=cpu python experiments/port_gate_reference.py [--port] [--hs] [--seeds 0 1]
 
 The gates train on ``synthetic_multilabel(2000, seed=0)`` with num_walks 8,
 walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1, and read the
@@ -10,7 +10,9 @@ and the same-label minus no-shared-label mean cosine over 200k pairs.
 Three trainers: "fit" (walks to the host, then fit), "run_pipeline"
 (``Node2Vec.run_pipeline()`` at walker_chunk 2048, so it streams over 8
 chunks) and "host_corpus" (``Node2Vec(host_corpus=True)``, with
-sample=1e-3).  Prints one JSON line per (package, trainer, seed).
+sample=1e-3).  ``--hs`` trains hierarchical softmax (negative=0), the
+reference's default objective, instead of SGNS.  Prints one JSON line per
+(package, objective, trainer, seed).
 """
 
 from __future__ import annotations
@@ -71,12 +73,17 @@ def main() -> None:
     ap.add_argument("--port", action="store_true", help="also run the port on the CPU")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--trainers", nargs="+", default=list(TRAINERS))
+    ap.add_argument("--hs", action="store_true",
+                    help="hierarchical softmax (negative=0) instead of SGNS")
     args = ap.parse_args()
     g, labels = synthetic_multilabel(2000, seed=0)
     for trainer in args.trainers:
         n2v_kw, w2v_kw = TRAINERS[trainer]
         n2v_kw = dict(num_walks=8, walk_length=40, **n2v_kw)
         w2v_kw = dict(min_count=1, max_iter=5, vector_size=128, **w2v_kw)
+        if args.hs:
+            w2v_kw["negative"] = 0
+        objective = "hs" if args.hs else "sgns"
         for seed in args.seeds:
             kept, pos, neg = holdout_split(g, 0.2, seed)
             emb = jax_vectors(*_csr(kept, g.n_vertices), g.n_vertices, RefN2V(**n2v_kw),
@@ -84,7 +91,8 @@ def main() -> None:
             emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
             full = jax_vectors(g.indptr, g.indices, g.weights, g.n_vertices,
                                RefN2V(**n2v_kw), RefW2V(**w2v_kw), seed, trainer)
-            print(json.dumps({"package": "node2vec_tpu (CPU)", "trainer": trainer, "seed": seed,
+            print(json.dumps({"package": "node2vec_tpu (CPU)", "objective": objective,
+                              "trainer": trainer, "seed": seed,
                               "holdout_link_auc": link_prediction_auc(emb, pos, neg),
                               "label_cosine_gap": label_cosine_gap(full, labels,
                                                                    n_pairs=200_000, seed=0)}),
@@ -94,8 +102,8 @@ def main() -> None:
                 auc = holdout_link_prediction(g, n2v_params=n2v, w2v_params=w2v, seed=seed,
                                               device="cpu", trainer=trainer)
                 vec, _ = train_embeddings(g, n2v, w2v, seed=seed, device="cpu", trainer=trainer)
-                print(json.dumps({"package": "node2vec_torch (CPU)", "trainer": trainer,
-                                  "seed": seed, **auc,
+                print(json.dumps({"package": "node2vec_torch (CPU)", "objective": objective,
+                                  "trainer": trainer, "seed": seed, **auc,
                                   "label_cosine_gap": label_cosine_gap(vec, labels,
                                                                        n_pairs=200_000, seed=0)}),
                       flush=True)

@@ -30,7 +30,7 @@ from node2vec_torch.native import build_dir
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 KERNELS = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply",
-           "blocked_walk", "vertex_counts", "subsample_walks")
+           "blocked_walk", "vertex_counts", "subsample_walks", "hs_grads")
 
 launches: collections.Counter = collections.Counter()
 build_seconds: Optional[float] = None
@@ -115,13 +115,16 @@ def lib() -> ctypes.CDLL:
             "n2v_dense_walk": [vp, i32, vp, vp, i64, i32, i64, u32, f32, f32, i32, vp],
             "n2v_sgns_grads": [vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, f32,
                                vp, vp, vp, vp, vp],
-            "n2v_adagrad_accumulate": [vp, vp, vp, vp, vp, vp, i64, vp, i32, i32, vp],
-            "n2v_adagrad_apply": [vp, vp, vp, vp, vp, vp, vp, vp, i64, vp, i32, i32,
+            "n2v_adagrad_accumulate": [vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32,
+                                       vp],
+            "n2v_adagrad_apply": [vp, vp, vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32,
                                   f32, vp],
             "n2v_blocked_walk": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i64, u32, f32, f32,
                                  f32, i32, i32, i32, i32, i32, vp],
             "n2v_vertex_counts": [vp, i64, vp, i32, vp],
             "n2v_subsample_walks": [vp, i64, vp, i32, u32, u32, vp, vp],
+            "n2v_hs_grads": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                             i32, vp, vp, vp, vp, vp, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(handle, name)
@@ -129,6 +132,8 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.n2v_sgns_grads_smem.argtypes = [i32, i32, i32, i32]
         handle.n2v_sgns_grads_smem.restype = ctypes.c_size_t
+        handle.n2v_hs_grads_smem.argtypes = [i32, i32, i32, i32, i32]
+        handle.n2v_hs_grads_smem.restype = ctypes.c_size_t
         handle.n2v_error_string.argtypes = [ctypes.c_int]
         handle.n2v_error_string.restype = ctypes.c_char_p
         _lib = handle

@@ -1,6 +1,6 @@
 """State carried across between the JAX package and the port.
 
-The JAX trainer keeps numpy-convertible tables in the logical ``[V, D]``
+The JAX trainer keeps numpy-convertible tables in the logical ``[N, D]``
 layout at its boundaries (checkpoints, ``emb_in``/``emb_out``), never the
 packed dim-64 device layout, and the port works on that layout throughout.
 ``from_reference_state`` and ``to_reference_state`` turn one side's trainer
@@ -23,18 +23,22 @@ from node2vec_torch.walk.blocked import BlockedGraph
 def from_reference_state(
     emb_in, emb_out, acc_in, acc_out, device="cpu"
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(emb_in [V, D], emb_out [V, D], acc_in [V], acc_out [V]) arrays ->
-    contiguous float32 tensors on ``device`` (copies, never views)."""
+    """(emb_in [V, D], emb_out [N_out, D], acc_in [V], acc_out [N_out])
+    arrays -> contiguous float32 tensors on ``device`` (copies, never
+    views).  The output table has its own row count: V for SGNS, the
+    Huffman tree's n_inner for hierarchical softmax (theta)."""
     out = []
     for a, ndim in ((emb_in, 2), (emb_out, 2), (acc_in, 1), (acc_out, 1)):
         a = np.array(a, dtype=np.float32, copy=True)
         if a.ndim != ndim:
             raise ValueError(f"expected a {ndim}-d array, got shape {a.shape}")
         out.append(torch.from_numpy(a).to(device))
-    if out[0].shape != out[1].shape or out[2].shape != out[3].shape:
-        raise ValueError("emb_in/emb_out and acc_in/acc_out must match in shape")
-    if out[2].shape[0] != out[0].shape[0]:
-        raise ValueError("accumulators must have one entry per table row")
+    if out[0].shape[1] != out[1].shape[1]:
+        raise ValueError(f"emb_in and emb_out must have one D, got {out[0].shape[1]} "
+                         f"and {out[1].shape[1]}")
+    for table, acc, name in ((out[0], out[2], "in"), (out[1], out[3], "out")):
+        if acc.shape[0] != table.shape[0]:
+            raise ValueError(f"acc_{name} must have one entry per emb_{name} row")
     return tuple(out)
 
 

@@ -1,26 +1,32 @@
-// K3 adagrad_accumulate and K4 adagrad_apply: the row-wise Adagrad of one
-// walk-structured SGNS step, per occurrence (the non-preaggregated path).
+// K3 adagrad_accumulate and K4 adagrad_apply: row-wise Adagrad per
+// occurrence over three (grads, rows) lists.
 //
-// Replaces node2vec_tpu/models/skipgram.py:463-475:
-//   K3: acc_in[rows]  += mean(g_in^2)  * row_valid
-//       acc_out[rows] += mean(g_out^2) * row_valid
-//       acc_out[neg]  += mean(d_no^2)
-//   K4: emb_in[rows]  += -lr * g_in  * rsqrt(acc_in[rows]  + 1e-12) * row_valid
-//       emb_out[rows] += -lr * g_out * rsqrt(acc_out[rows] + 1e-12) * row_valid
-//       emb_out[neg]  += -lr * d_no  * rsqrt(acc_out[neg]  + 1e-12)
-// with rows = max(walks, 0) and row_valid = walks >= 0.
+// Replaces node2vec_tpu/models/skipgram.py:463-475 (SGNS) and
+// node2vec_tpu/models/hsoftmax.py:396-429 (HS):
+//   K3: acc_in[rows_in]     += mean(g_in^2)
+//       acc_out[rows_out]   += mean(g_out^2)
+//       acc_out[rows_extra] += mean(g_extra^2)
+//   K4: emb_in[rows_in]     += -lr * g_in    * rsqrt(acc_in[rows_in]     + 1e-12)
+//       emb_out[rows_out]   += -lr * g_out   * rsqrt(acc_out[rows_out]   + 1e-12)
+//       emb_out[rows_extra] += -lr * g_extra * rsqrt(acc_out[rows_extra] + 1e-12)
+// where a row id < 0 skips its gradient row (the JAX versions add exact
+// zeros there).  SGNS: rows_in = rows_out = the flat walks, the extra list
+// its shared negatives with d_no.  HS: rows_in = the flat walks, rows_out
+// the tail path entries' theta rows (-1 where masked) with the
+// per-occurrence tail gradients, the extra list the head rows 0..K-1 with
+// the pre-aggregated d_head.  HS's head and tail rows are disjoint (BFS
+// numbering), so the JAX order (head, emb_in, tail) equals one pass.
 //
 // They are two launches on purpose: every occurrence's square has to land
-// in the accumulator before any row reads it back, and context rows and
-// negatives share acc_out.  Fusing them into one pass that reads partial
-// accumulators would change the update.  Duplicate rows and duplicate
-// negatives accumulate through fp32 atomics (in another order than the
-// JAX scatter, hence a tolerance in the comparisons).
+// in the accumulator before any row reads it back, and two lists share
+// acc_out.  Fusing them into one pass that reads partial accumulators would
+// change the update.  Duplicate rows accumulate through fp32 atomics (in
+// another order than the JAX scatter, hence a tolerance in the
+// comparisons).
 //
-// Design: one warp per gradient row (B*L1 walk positions, then S negatives);
+// Design: one warp per gradient row of the three lists laid end to end;
 // the row's squares are a warp reduction, and its update is one coalesced
-// pass of atomics over the table row.  Invalid positions (walks < 0) add
-// exact zeros in the JAX version and are skipped here.
+// pass of atomics over the table row.
 //
 // Bound on an H100: memory — reading the grads once and a read-modify-write
 // of each touched accumulator entry (K3) or table row (K4).
@@ -35,6 +41,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kEps = 1e-12f;
 
+struct RowLists {
+  const float *g_in, *g_out, *g_extra;
+  const int32_t *rows_in, *rows_out, *rows_extra;
+  int64_t n_in, n_out, n_extra;
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
@@ -47,94 +59,99 @@ __device__ __forceinline__ float row_mean_sq(const float* g, int dim, int lane) 
   return warp_sum(acc) / static_cast<float>(dim);
 }
 
+// The r-th row of the lists laid end to end: its gradient row, its table
+// row v (< 0: skip) and whether it belongs to the input table (list 0).
+// Named fields and selects, so nothing indexes the kernel's parameters.
+__device__ __forceinline__ bool locate(const RowLists& l, int64_t r, int dim,
+                                       const float*& g, int& v, bool& first) {
+  first = r < l.n_in;
+  if (first) {
+    v = l.rows_in[r];
+    g = l.g_in + r * dim;
+    return true;
+  }
+  r -= l.n_in;
+  if (r < l.n_out) {
+    v = l.rows_out[r];
+    g = l.g_out + r * dim;
+    return true;
+  }
+  r -= l.n_out;
+  if (r < l.n_extra) {
+    v = l.rows_extra[r];
+    g = l.g_extra + r * dim;
+    return true;
+  }
+  return false;
+}
+
 __global__ void __launch_bounds__(kThreads)
 adagrad_accumulate_kernel(float* __restrict__ acc_in, float* __restrict__ acc_out,
-                          const float* __restrict__ g_in,
-                          const float* __restrict__ g_out,
-                          const float* __restrict__ d_no,
-                          const int32_t* __restrict__ walks, int64_t n_rows,
-                          const int32_t* __restrict__ neg_ids, int n_neg, int dim) {
+                          RowLists l, int dim) {
   const int lane = threadIdx.x & 31;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (r < n_rows) {
-    const int v = walks[r];
-    if (v < 0) return;
-    const float sq_in = row_mean_sq(g_in + r * dim, dim, lane);
-    const float sq_out = row_mean_sq(g_out + r * dim, dim, lane);
-    if (lane == 0) {
-      atomicAdd(acc_in + v, sq_in);
-      atomicAdd(acc_out + v, sq_out);
-    }
-  } else if (r < n_rows + n_neg) {
-    const int64_t s = r - n_rows;
-    const float sq = row_mean_sq(d_no + s * dim, dim, lane);
-    if (lane == 0) atomicAdd(acc_out + neg_ids[s], sq);
-  }
+  const float* g;
+  int v;
+  bool first;
+  if (!locate(l, r, dim, g, v, first) || v < 0) return;
+  const float sq = row_mean_sq(g, dim, lane);
+  if (lane == 0) atomicAdd((first ? acc_in : acc_out) + v, sq);
 }
 
 __global__ void __launch_bounds__(kThreads)
 adagrad_apply_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
                      const float* __restrict__ acc_in,
-                     const float* __restrict__ acc_out,
-                     const float* __restrict__ g_in,
-                     const float* __restrict__ g_out,
-                     const float* __restrict__ d_no,
-                     const int32_t* __restrict__ walks, int64_t n_rows,
-                     const int32_t* __restrict__ neg_ids, int n_neg, int dim,
+                     const float* __restrict__ acc_out, RowLists l, int dim,
                      float lr) {
   const int lane = threadIdx.x & 31;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (r < n_rows) {
-    const int v = walks[r];
-    if (v < 0) return;
-    const float s_in = rsqrtf(acc_in[v] + kEps);
-    const float s_out = rsqrtf(acc_out[v] + kEps);
-    float* t_in = emb_in + static_cast<int64_t>(v) * dim;
-    float* t_out = emb_out + static_cast<int64_t>(v) * dim;
-    const float* gi = g_in + r * dim;
-    const float* go = g_out + r * dim;
-    for (int k = lane; k < dim; k += 32) {
-      atomicAdd(t_in + k, (-lr * gi[k]) * s_in);
-      atomicAdd(t_out + k, (-lr * go[k]) * s_out);
-    }
-  } else if (r < n_rows + n_neg) {
-    const int64_t s = r - n_rows;
-    const int v = neg_ids[s];
-    const float scale = rsqrtf(acc_out[v] + kEps);
-    float* t = emb_out + static_cast<int64_t>(v) * dim;
-    const float* g = d_no + s * dim;
-    for (int k = lane; k < dim; k += 32) atomicAdd(t + k, (-lr * g[k]) * scale);
-  }
+  const float* g;
+  int v;
+  bool first;
+  if (!locate(l, r, dim, g, v, first) || v < 0) return;
+  const float scale = rsqrtf((first ? acc_in : acc_out)[v] + kEps);
+  float* t = (first ? emb_in : emb_out) + static_cast<int64_t>(v) * dim;
+  for (int k = lane; k < dim; k += 32) atomicAdd(t + k, (-lr * g[k]) * scale);
 }
 
-unsigned n_blocks(int64_t n_rows, int n_neg) {
-  return static_cast<unsigned>((n_rows + n_neg + kWarps - 1) / kWarps);
+RowLists make_lists(const float* g_in, const int32_t* rows_in, int64_t n_in,
+                    const float* g_out, const int32_t* rows_out, int64_t n_out,
+                    const float* g_extra, const int32_t* rows_extra, int64_t n_extra) {
+  return RowLists{g_in, g_out, g_extra, rows_in, rows_out, rows_extra, n_in, n_out, n_extra};
+}
+
+unsigned n_blocks(const RowLists& l) {
+  return static_cast<unsigned>((l.n_in + l.n_out + l.n_extra + kWarps - 1) / kWarps);
 }
 
 }  // namespace
 
 extern "C" int n2v_adagrad_accumulate(float* acc_in, float* acc_out,
-                                      const float* g_in, const float* g_out,
-                                      const float* d_no, const int32_t* walks,
-                                      int64_t n_rows, const int32_t* neg_ids,
-                                      int n_neg, int dim, void* stream) {
-  if (n_rows + n_neg == 0) return 0;
-  adagrad_accumulate_kernel<<<n_blocks(n_rows, n_neg), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      acc_in, acc_out, g_in, g_out, d_no, walks, n_rows, neg_ids, n_neg, dim);
+                                      const float* g_in, const int32_t* rows_in,
+                                      int64_t n_in, const float* g_out,
+                                      const int32_t* rows_out, int64_t n_out,
+                                      const float* g_extra,
+                                      const int32_t* rows_extra, int64_t n_extra,
+                                      int dim, void* stream) {
+  const RowLists l = make_lists(g_in, rows_in, n_in, g_out, rows_out, n_out, g_extra,
+                                rows_extra, n_extra);
+  if (n_blocks(l) == 0) return 0;
+  adagrad_accumulate_kernel<<<n_blocks(l), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(acc_in, acc_out, l, dim);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int n2v_adagrad_apply(float* emb_in, float* emb_out,
-                                 const float* acc_in, const float* acc_out,
-                                 const float* g_in, const float* g_out,
-                                 const float* d_no, const int32_t* walks,
-                                 int64_t n_rows, const int32_t* neg_ids,
-                                 int n_neg, int dim, float lr, void* stream) {
-  if (n_rows + n_neg == 0) return 0;
-  adagrad_apply_kernel<<<n_blocks(n_rows, n_neg), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no, walks, n_rows,
-      neg_ids, n_neg, dim, lr);
+extern "C" int n2v_adagrad_apply(float* emb_in, float* emb_out, const float* acc_in,
+                                 const float* acc_out, const float* g_in,
+                                 const int32_t* rows_in, int64_t n_in,
+                                 const float* g_out, const int32_t* rows_out,
+                                 int64_t n_out, const float* g_extra,
+                                 const int32_t* rows_extra, int64_t n_extra, int dim,
+                                 float lr, void* stream) {
+  const RowLists l = make_lists(g_in, rows_in, n_in, g_out, rows_out, n_out, g_extra,
+                                rows_extra, n_extra);
+  if (n_blocks(l) == 0) return 0;
+  adagrad_apply_kernel<<<n_blocks(l), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      emb_in, emb_out, acc_in, acc_out, l, dim, lr);
   return static_cast<int>(cudaGetLastError());
 }

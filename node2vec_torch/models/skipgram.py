@@ -14,7 +14,8 @@ The step is three kernels, each beside its plain PyTorch version:
 * K2 ``sgns_grads`` (``csrc/sgns.cu``): grads, d_no and the loss;
 * K3 ``adagrad_accumulate`` and K4 ``adagrad_apply`` (``csrc/adagrad.cu``),
   two launches because the accumulators must be complete before any row
-  reads them.
+  reads them.  They take three (grads, rows) lists, so the HS step
+  (``models/hsoftmax.py``) runs on them too.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.  Unlike the JAX step, which draws its randomness inside, this step
@@ -195,84 +196,98 @@ def sgns_grads(
 # --------------------------------------------------------------------------- #
 # K3 + K4: row-wise Adagrad, per occurrence
 # --------------------------------------------------------------------------- #
+#
+# Both take three (grads, rows) lists: g_in at rows_in of emb_in / acc_in,
+# g_out at rows_out and g_extra at rows_extra of emb_out / acc_out.  A row
+# id < 0 skips its gradient row.  SGNS passes the flat walks as rows_in and
+# rows_out and its shared negatives with d_no as the extra list; HS passes
+# the flat walks, the tail rows of theta and its head rows 0..K-1 with
+# d_head (models/hsoftmax.py).
 
 
-def adagrad_accumulate_plain(acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids):
-    """skipgram.py:463-468, in place on the accumulators."""
-    rows = torch.where(walks_flat >= 0, walks_flat, 0).long()
-    row_valid = (walks_flat >= 0).to(torch.float32)
-    acc_in.index_add_(0, rows, torch.mean(g_in * g_in, dim=-1) * row_valid)
-    acc_out.index_add_(0, rows, torch.mean(g_out * g_out, dim=-1) * row_valid)
-    acc_out.index_add_(0, neg_ids.long(), torch.mean(d_no * d_no, dim=-1))
+def _row_lists(t_in, t_out, g_in, rows_in, g_out, rows_out, g_extra, rows_extra):
+    """(target, grads, rows) of the three lists: t_in is emb_in or acc_in,
+    t_out emb_out or acc_out."""
+    return ((t_in, g_in, rows_in), (t_out, g_out, rows_out), (t_out, g_extra, rows_extra))
 
 
-def adagrad_accumulate(acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids):
+def adagrad_accumulate_plain(acc_in, acc_out, g_in, rows_in, g_out, rows_out, g_extra,
+                             rows_extra):
+    """skipgram.py:463-468 (and hsoftmax.py:396-398, :414-416, :420-427), in
+    place on the accumulators."""
+    for acc, g, rows in _row_lists(acc_in, acc_out, g_in, rows_in, g_out, rows_out,
+                                   g_extra, rows_extra):
+        safe = torch.where(rows >= 0, rows, 0).long()
+        acc.index_add_(0, safe, torch.mean(g * g, dim=-1) * (rows >= 0).to(torch.float32))
+
+
+def adagrad_accumulate(acc_in, acc_out, g_in, rows_in, g_out, rows_out, g_extra,
+                       rows_extra):
     """K3 for CUDA tensors, the plain version for CPU tensors."""
+    args = (g_in, rows_in, g_out, rows_out, g_extra, rows_extra)
     if not acc_in.is_cuda:
-        return adagrad_accumulate_plain(acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids)
-    _build.require_cuda(
-        "adagrad_accumulate", acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids
-    )
-    _check_adagrad_args((acc_in, acc_out), g_in, g_out, d_no, walks_flat, neg_ids)
+        return adagrad_accumulate_plain(acc_in, acc_out, *args)
+    _build.require_cuda("adagrad_accumulate", acc_in, acc_out, *args)
+    _check_adagrad_args((acc_in, acc_out), *args)
     rc = _build.lib().n2v_adagrad_accumulate(
-        _build.ptr(acc_in), _build.ptr(acc_out), _build.ptr(g_in), _build.ptr(g_out),
-        _build.ptr(d_no), _build.ptr(walks_flat), walks_flat.shape[0],
-        _build.ptr(neg_ids), neg_ids.shape[0], g_in.shape[1], _build.stream_of(acc_in),
+        _build.ptr(acc_in), _build.ptr(acc_out),
+        *_list_ptrs(*args), g_in.shape[1], _build.stream_of(acc_in),
     )
     _build.check(rc, "adagrad_accumulate")
     _build.launches["adagrad_accumulate"] += 1
 
 
-def adagrad_apply_plain(
-    emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids, lr: float
-):
-    """skipgram.py:469-475, in place on the tables."""
-    rows = torch.where(walks_flat >= 0, walks_flat, 0).long()
-    row_valid = (walks_flat >= 0).to(torch.float32)
-    neg = neg_ids.long()
-    scale_in = torch.rsqrt(acc_in[rows] + _EPS) * row_valid
-    scale_out = torch.rsqrt(acc_out[rows] + _EPS) * row_valid
-    scale_no = torch.rsqrt(acc_out[neg] + _EPS)
-    emb_in.index_add_(0, rows, -lr * g_in * scale_in[:, None])
-    emb_out.index_add_(0, rows, -lr * g_out * scale_out[:, None])
-    emb_out.index_add_(0, neg, -lr * d_no * scale_no[:, None])
+def adagrad_apply_plain(emb_in, emb_out, acc_in, acc_out, g_in, rows_in, g_out, rows_out,
+                        g_extra, rows_extra, lr: float):
+    """skipgram.py:469-475 (and hsoftmax.py:399-412, :417-418, :428-429), in
+    place on the tables."""
+    tables = _row_lists(emb_in, emb_out, g_in, rows_in, g_out, rows_out, g_extra, rows_extra)
+    accs = (acc_in, acc_out, acc_out)
+    updates = []
+    for (table, g, rows), acc in zip(tables, accs):  # every scale before any update
+        safe = torch.where(rows >= 0, rows, 0).long()
+        scale = torch.rsqrt(acc[safe] + _EPS) * (rows >= 0).to(torch.float32)
+        updates.append((table, safe, -lr * g * scale[:, None]))
+    for table, safe, upd in updates:
+        table.index_add_(0, safe, upd)
 
 
-def adagrad_apply(
-    emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids, lr: float
-):
+def adagrad_apply(emb_in, emb_out, acc_in, acc_out, g_in, rows_in, g_out, rows_out, g_extra,
+                  rows_extra, lr: float):
     """K4 for CUDA tensors, the plain version for CPU tensors."""
+    args = (g_in, rows_in, g_out, rows_out, g_extra, rows_extra)
     if not emb_in.is_cuda:
-        return adagrad_apply_plain(
-            emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids, lr
-        )
-    _build.require_cuda(
-        "adagrad_apply", emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no,
-        walks_flat, neg_ids,
-    )
-    _check_adagrad_args((emb_in, emb_out, acc_in, acc_out), g_in, g_out, d_no, walks_flat,
-                        neg_ids)
-    if emb_in.shape[1] != g_in.shape[1] or emb_out.shape != emb_in.shape:
-        raise ValueError("tables must be [V, D] with the grads' D")
+        return adagrad_apply_plain(emb_in, emb_out, acc_in, acc_out, *args, lr)
+    _build.require_cuda("adagrad_apply", emb_in, emb_out, acc_in, acc_out, *args)
+    _check_adagrad_args((emb_in, emb_out, acc_in, acc_out), *args)
+    if emb_in.shape[1] != g_in.shape[1] or emb_out.shape[1] != g_in.shape[1]:
+        raise ValueError("tables must be [rows, D] with the grads' D")
+    if acc_in.shape[0] != emb_in.shape[0] or acc_out.shape[0] != emb_out.shape[0]:
+        raise ValueError("each accumulator must have one entry per table row")
     rc = _build.lib().n2v_adagrad_apply(
         _build.ptr(emb_in), _build.ptr(emb_out), _build.ptr(acc_in), _build.ptr(acc_out),
-        _build.ptr(g_in), _build.ptr(g_out), _build.ptr(d_no), _build.ptr(walks_flat),
-        walks_flat.shape[0], _build.ptr(neg_ids), neg_ids.shape[0], g_in.shape[1],
-        float(lr), _build.stream_of(emb_in),
+        *_list_ptrs(*args), g_in.shape[1], float(lr), _build.stream_of(emb_in),
     )
     _build.check(rc, "adagrad_apply")
     _build.launches["adagrad_apply"] += 1
 
 
-def _check_adagrad_args(tables, g_in, g_out, d_no, walks_flat, neg_ids) -> None:
-    if walks_flat.dtype != torch.int32 or neg_ids.dtype != torch.int32:
-        raise TypeError("Adagrad kernels take int32 walks and neg_ids")
-    if any(t.dtype != torch.float32 for t in (*tables, g_in, g_out, d_no)):
+def _list_ptrs(g_in, rows_in, g_out, rows_out, g_extra, rows_extra):
+    out = []
+    for g, rows in ((g_in, rows_in), (g_out, rows_out), (g_extra, rows_extra)):
+        out += [_build.ptr(g), _build.ptr(rows), rows.shape[0]]
+    return out
+
+
+def _check_adagrad_args(tables, g_in, rows_in, g_out, rows_out, g_extra, rows_extra) -> None:
+    if any(r.dtype != torch.int32 for r in (rows_in, rows_out, rows_extra)):
+        raise TypeError("Adagrad kernels take int32 row lists")
+    if any(t.dtype != torch.float32 for t in (*tables, g_in, g_out, g_extra)):
         raise TypeError("Adagrad kernels take float32 tables, accumulators and grads")
-    if walks_flat.dim() != 1 or g_in.shape != (walks_flat.shape[0], g_in.shape[1]):
-        raise ValueError("g_in must be [B*L1, D] for flat walks [B*L1]")
-    if g_out.shape != g_in.shape or d_no.shape != (neg_ids.shape[0], g_in.shape[1]):
-        raise ValueError("g_out must match g_in and d_no must be [S, D]")
+    dim = g_in.shape[1] if g_in.dim() == 2 else -1
+    for g, rows in ((g_in, rows_in), (g_out, rows_out), (g_extra, rows_extra)):
+        if rows.dim() != 1 or g.shape != (rows.shape[0], dim):
+            raise ValueError("each gradient list must be [rows, D] beside its int32 rows [rows]")
 
 
 # --------------------------------------------------------------------------- #
@@ -288,8 +303,9 @@ def _step(grads, accumulate, apply, emb_in, emb_out, acc_in, acc_out, walks, b_s
         window=window, negatives=negatives,
     )
     walks_flat = walks.reshape(-1)
-    accumulate(acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids)
-    apply(emb_in, emb_out, acc_in, acc_out, g_in, g_out, d_no, walks_flat, neg_ids, lr)
+    lists = (g_in, walks_flat, g_out, walks_flat, d_no, neg_ids)
+    accumulate(acc_in, acc_out, *lists)
+    apply(emb_in, emb_out, acc_in, acc_out, *lists, lr)
     return loss
 
 

@@ -1,9 +1,14 @@
 """Word2VecTorch: the skip-gram trainers (port of ``Word2VecTPU.fit``,
-``fit_host`` and ``fit_streaming`` for SGNS with row-wise Adagrad,
-``node2vec_tpu/models/word2vec.py:37-793``).
+``fit_host``, ``fit_streaming`` and ``_fit_hs`` with row-wise Adagrad,
+``node2vec_tpu/models/word2vec.py:37-909``).
 
 Walks in, per-vertex embedding vectors out, through three trainers that
-share one SGNS step (K2-K4, ``models/skipgram.py``):
+share one step: SGNS (K2-K4, ``models/skipgram.py``) for ``negative > 0``,
+or hierarchical softmax (K8, K3, K4, ``models/hsoftmax.py``), the
+reference's default objective, for ``negative == 0``.  With HS the output
+table ``emb_out`` is the Huffman tree's inner-node table theta
+[n_inner, D] (word2vec's syn1), built from the vocabulary's counts of all V
+vertices; ``vectors`` stays the input table.
 
 * ``fit``: the corpus lives on the device, padded to whole batches; each
   epoch shuffles it and sweeps the step over its batches with word2vec's
@@ -28,15 +33,15 @@ replays the uninterrupted one (bit for bit on the CPU; on the card K2's
 fp32 atomics reorder sums).  ``Draws`` makes a ``torch.Generator`` seeded
 from a hash of (seed, tag) at each site: tag 1,000,000+epoch for fit's
 shuffle, 7,000,000+epoch*n_chunks+i for a streamed chunk's, the global
-step for a step's window shrink and negatives; subsampling takes the tags
+step for a step's window shrink and negatives (HS draws only the shrink,
+the first draw of the same generator); subsampling takes the tags
 2,000,000+epoch (fit), 4,000,000+epoch*n_slabs+s (fit_host) and
 8,000,000+epoch*n_chunks+i (fit_streaming) into K7's counter hash.
 fit_host's permutations and fit_streaming's chunk orders are numpy, seeded
 as in the JAX package, and equal to its own.
 
 Not ported yet, and raising ``NotImplementedError``: CBOW (``sg=0``),
-hierarchical softmax (``negative=0``), ``optimizer="sgd"`` and
-``fit_sharded``.
+``optimizer="sgd"`` and ``fit_sharded``.
 """
 
 from __future__ import annotations
@@ -49,6 +54,13 @@ import torch
 
 from node2vec_torch.constants import Word2VecParams
 from node2vec_torch.device import resolve_device
+from node2vec_torch.models.hsoftmax import (
+    HuffmanTree,
+    build_huffman,
+    cap_code_length,
+    head_level_offsets,
+    hs_epoch,
+)
 from node2vec_torch.models.skipgram import draw_step, init_embeddings, sgns_epoch
 from node2vec_torch.models.vocab import (
     Vocabulary,
@@ -111,6 +123,13 @@ class Draws:
         p = self.params
         return draw_step(self.generator(gstep), n_walks, length, p.window_size,
                          self.shared_negatives, p.shrink_window, self.device)
+
+    def window_shrink(self, gstep: int, n_walks: int, length: int) -> torch.Tensor:
+        """b_sh of global step ``gstep`` for the HS step: the b_sh that
+        ``step`` draws, without the negatives."""
+        p = self.params
+        return draw_step(self.generator(gstep), n_walks, length, p.window_size, 0,
+                         p.shrink_window, self.device)[0]
 
     def subsample(self, walks: torch.Tensor, keep_prob: torch.Tensor, tag: int) -> torch.Tensor:
         """K7 in place on a corpus the trainer owns (a shuffled copy or an
@@ -224,7 +243,8 @@ class _SlabUploader:
 
 
 class Word2VecTorch:
-    """Skip-gram negative-sampling trainer over walk corpora."""
+    """Skip-gram trainer over walk corpora: negative sampling
+    (``negative > 0``) or hierarchical softmax (``negative == 0``)."""
 
     def __init__(
         self,
@@ -240,6 +260,8 @@ class Word2VecTorch:
         self._emb_out: Optional[torch.Tensor] = None
         self.acc_in: Optional[torch.Tensor] = None
         self.acc_out: Optional[torch.Tensor] = None
+        self.tree: Optional[HuffmanTree] = None
+        self.head_offsets: Tuple[int, ...] = (0,)
         self._losses: list = []
         self._slab_losses: list = []
         self._slab_events: list = []
@@ -249,10 +271,6 @@ class Word2VecTorch:
         p = self.params
         if p.sg == 0:
             raise NotImplementedError("CBOW (sg=0) is not ported yet (ROADMAP Queue A item 9)")
-        if p.negative == 0:
-            raise NotImplementedError(
-                "hierarchical softmax (negative=0) is not ported yet (ROADMAP Queue A item 8)"
-            )
         if p.optimizer != "adagrad":
             raise NotImplementedError(
                 "optimizer='sgd' is not ported yet (ROADMAP Queue A item 14)"
@@ -269,10 +287,22 @@ class Word2VecTorch:
                 f"No vertex meets min_count={self.params.min_count}; corpus too small"
             )
 
-    def _noise(self):
-        """(ns_alias, ns_prob, vocab_mask) on the device."""
+    def _objective(self):
+        """The step's device tables, from the vocabulary: SGNS's (ns_alias,
+        ns_prob, vocab_mask), or HS's (points, codes, lengths, vocab_mask)
+        of the Huffman tree over all V vertices' counts, capped as the JAX
+        package caps it; the tree and its head split are kept on self."""
         v = self.vocab
-        return tuple(torch.from_numpy(a).to(self.device) for a in (v.ns_alias, v.ns_prob, v.mask))
+        p = self.params
+        if p.negative > 0:
+            self.tree = None
+            tables = (v.ns_alias, v.ns_prob, v.mask)
+        else:
+            self.tree = cap_code_length(build_huffman(v.counts), v.counts,
+                                        max_len=p.hs_max_code_length or None)
+            self.head_offsets = head_level_offsets(self.tree, table_rows=self.tree.n_inner)
+            tables = (self.tree.points, self.tree.codes, self.tree.lengths, v.mask)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in tables)
 
     def _keep_table(self) -> Optional[torch.Tensor]:
         """[V] keep probabilities for ``sample`` subsampling, or None."""
@@ -289,26 +319,54 @@ class Word2VecTorch:
     def _to_host(state) -> List[np.ndarray]:
         return [t.cpu().numpy() for t in state]
 
+    def _fresh_state(self, draws: Draws, n_vertices: int) -> List[torch.Tensor]:
+        """[emb_in, emb_out, acc_in, acc_out], word2vec's init; with HS the
+        output table and its accumulator are theta's, zeros of n_inner rows."""
+        state = list(draws.init(n_vertices, self.params.vector_size))
+        if self.tree is not None:
+            n_inner = self.tree.n_inner
+            state[1] = torch.zeros((n_inner, self.params.vector_size), dtype=torch.float32,
+                                   device=self.device)
+            state[3] = torch.zeros((n_inner,), dtype=torch.float32, device=self.device)
+        return state
+
+    def _restored(self, tables) -> List[torch.Tensor]:
+        """Snapshot tables on the device, their output rows checked against
+        the objective (V rows for SGNS, n_inner for HS)."""
+        n_out = self.vocab.n_vertices if self.tree is None else self.tree.n_inner
+        if tables[1].shape[0] != n_out or tables[3].shape[0] != n_out:
+            raise ValueError(
+                f"checkpoint output table has {tables[1].shape[0]} rows, this objective "
+                f"needs {n_out} (negative={self.params.negative})"
+            )
+        return self._to_device(tables)
+
     def _init_state(self, draws: Draws, checkpoint_dir: Optional[str]):
         """Fresh tables, or those of the newest train-state snapshot:
         (state [emb_in, emb_out, acc_in, acc_out], first epoch to run)."""
-        state = list(draws.init(self.vocab.n_vertices, self.params.vector_size))
+        state = self._fresh_state(draws, self.vocab.n_vertices)
         ckpt = load_train_state(checkpoint_dir)
         if ckpt is None:
             return state, 0
         logger.info("resuming training from epoch %d", ckpt[0])
-        return self._to_device(ckpt[1:]), ckpt[0]
+        return self._restored(ckpt[1:]), ckpt[0]
 
     def _train(self, state, corpus, draws: Draws, step0: int, lr_slope: float,
-               batch: int, n_batches: int, noise) -> torch.Tensor:
-        """SGNS over ``n_batches`` batches of ``corpus``, in place on
+               batch: int, n_batches: int, tables) -> torch.Tensor:
+        """SGNS or HS over ``n_batches`` batches of ``corpus``, in place on
         ``state``; returns the per-batch losses."""
         p = self.params
         length = corpus.shape[1]
+        kw = dict(batch=batch, n_batches=n_batches, window=p.window_size,
+                  min_lr=p.min_step_size)
+        if self.tree is not None:
+            return hs_epoch(
+                *state, corpus, lambda gstep: draws.window_shrink(gstep, batch, length),
+                step0, p.step_size, lr_slope, *tables, head_offsets=self.head_offsets, **kw,
+            )
         return sgns_epoch(
             *state, corpus, lambda gstep: draws.step(gstep, batch, length),
-            step0, p.step_size, lr_slope, *noise, batch=batch, n_batches=n_batches,
-            window=p.window_size, negatives=p.negative, min_lr=p.min_step_size,
+            step0, p.step_size, lr_slope, *tables, negatives=p.negative, **kw,
         )
 
     def _finish(self, state) -> "Word2VecTorch":
@@ -345,8 +403,8 @@ class Word2VecTorch:
             walks = torch.from_numpy(walks)
         walks = walks.to(device=dev, dtype=torch.int32)
         draws = self._new_draws()
+        tables = self._objective()
         state, start_epoch = self._init_state(draws, checkpoint_dir)
-        noise = self._noise()
         keep = self._keep_table()
 
         n_walks, length = walks.shape
@@ -368,7 +426,7 @@ class Word2VecTorch:
             if keep is not None:  # gensim subsampling, redrawn per epoch
                 shuffled = draws.subsample(shuffled, keep, 2_000_000 + epoch)
             losses = self._train(state, shuffled, draws, epoch * n_batches, lr_slope,
-                                 batch, n_batches, noise)
+                                 batch, n_batches, tables)
             epoch_loss = float(losses.mean())  # mean over batches
             self._losses.append(epoch_loss)
             if verbose:
@@ -408,8 +466,8 @@ class Word2VecTorch:
         )
         self._require_vocab()
         draws = self._new_draws()
+        tables = self._objective()
         state, start_epoch = self._init_state(draws, checkpoint_dir)
-        noise = self._noise()
         keep = self._keep_table()
 
         n_walks = len(walks)
@@ -442,7 +500,7 @@ class Word2VecTorch:
                     slab_dev = draws.subsample(slab_dev, keep, 4_000_000 + epoch * n_slabs + s)
                 step0 = (epoch * n_slabs + s) * slab_batches
                 losses = self._train(state, slab_dev, draws, step0, lr_slope, batch,
-                                     slab_batches, noise)
+                                     slab_batches, tables)
                 if timing:
                     t_end = torch.cuda.Event(enable_timing=True)
                     t_end.record()
@@ -511,12 +569,13 @@ class Word2VecTorch:
             counts_host, min_count=p.min_count, ns_exponent=p.ns_exponent
         )
         self._require_vocab()
-        noise = self._noise()
+        tables = self._objective()  # HS: the tree from the pass-1 or the snapshot's counts
         keep = self._keep_table()
         draws = self._new_draws()
-        state = list(draws.init(n_vertices, p.vector_size))
         if resume is not None:
-            state = self._to_device((e_in, e_out, a_in, a_out))
+            state = self._restored((e_in, e_out, a_in, a_out))
+        else:
+            state = self._fresh_state(draws, n_vertices)
         rng = np.random.default_rng(p.seed)
         # all epochs' chunk orders up front: a resume replays the same stream
         orders = [rng.permutation(n_chunks) for _ in range(p.max_iter)]
@@ -573,7 +632,7 @@ class Word2VecTorch:
                 if keep is not None:
                     shuffled = draws.subsample(shuffled, keep, 8_000_000 + epoch * n_chunks + i)
                 losses = self._train(state, shuffled, draws, step0, lr_slope, batch,
-                                     n_batches, noise)
+                                     n_batches, tables)
                 step0 += n_batches
                 epoch_losses.append(losses)
                 pending = nxt
@@ -605,6 +664,7 @@ class Word2VecTorch:
 
     @property
     def emb_out(self) -> Optional[np.ndarray]:
+        """Output table as numpy: [V, D] for SGNS, theta [n_inner, D] for HS."""
         return None if self._emb_out is None else self._emb_out.cpu().numpy()
 
     @property

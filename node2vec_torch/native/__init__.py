@@ -116,6 +116,13 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         i32p, i32p, i32p, i32p, ctypes.c_int32,
     ]
+    lib.n2v_huffman.restype = ctypes.c_int
+    lib.n2v_huffman.argtypes = [ctypes.c_int64, i64p, i64p, ctypes.POINTER(ctypes.c_int8), i32p]
+    lib.n2v_huffman_paths.restype = ctypes.c_int
+    lib.n2v_huffman_paths.argtypes = [
+        ctypes.c_int64, i64p, ctypes.POINTER(ctypes.c_int8), i64p, i32p, ctypes.c_int32,
+        i32p, ctypes.POINTER(ctypes.c_int8), ctypes.c_int32,
+    ]
     _lib = lib
     return _lib
 
@@ -368,3 +375,62 @@ def pack_blocked(
     if rc != 0:
         raise ValueError(f"n2v_pack_blocked failed with status {rc}")
     return light, biw, bids, brp
+
+
+def huffman_merge(counts_sorted: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """word2vec's two-queue Huffman merge over counts sorted ascending.
+
+    Returns (parent int64[2n-1], branch int8[2n-1], depth int32[2n-1]) with
+    leaves 0..n-1 in the sorted order; the caller maps them back to the
+    original leaf ids."""
+    lib = _load()
+    assert lib is not None
+    counts_sorted = np.ascontiguousarray(counts_sorted, dtype=np.int64)
+    n = len(counts_sorted)
+    parent = np.empty(2 * n - 1, dtype=np.int64)
+    branch = np.empty(2 * n - 1, dtype=np.int8)
+    depth = np.empty(2 * n - 1, dtype=np.int32)
+    rc = lib.n2v_huffman(
+        n,
+        _ptr(counts_sorted, ctypes.c_int64),
+        _ptr(parent, ctypes.c_int64),
+        _ptr(branch, ctypes.c_int8),
+        _ptr(depth, ctypes.c_int32),
+    )
+    if rc != 0:
+        raise ValueError(f"n2v_huffman failed with status {rc}")
+    return parent, branch, depth
+
+
+def huffman_paths(
+    parent: np.ndarray,
+    branch: np.ndarray,
+    new_id: np.ndarray,
+    lengths: np.ndarray,
+    max_len: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Threaded leaf-to-root path extraction into the root-first padded
+    (points int32 [n, max_len], codes int8 [n, max_len]) layout, padding 0."""
+    lib = _load()
+    assert lib is not None
+    n = len(lengths)
+    parent = np.ascontiguousarray(parent, dtype=np.int64)
+    branch = np.ascontiguousarray(branch, dtype=np.int8)
+    new_id = np.ascontiguousarray(new_id, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+    points = np.empty((n, max_len), dtype=np.int32)
+    codes = np.empty((n, max_len), dtype=np.int8)
+    rc = lib.n2v_huffman_paths(
+        n,
+        _ptr(parent, ctypes.c_int64),
+        _ptr(branch, ctypes.c_int8),
+        _ptr(new_id, ctypes.c_int64),
+        _ptr(lengths, ctypes.c_int32),
+        max_len,
+        _ptr(points, ctypes.c_int32),
+        _ptr(codes, ctypes.c_int8),
+        _N_THREADS,
+    )
+    if rc != 0:
+        raise ValueError(f"n2v_huffman_paths failed with status {rc}")
+    return points, codes
