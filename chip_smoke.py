@@ -71,6 +71,14 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    train, K6 10 times (streaming form), K8 hs_grads and K3/K4 10 x 51,
    K2 never; the tree's code length, head levels and rows, fit time,
    pair-updates/s, walk regeneration and peak device memory;
+9a. the CBOW main paths on the dense graph of 5. (max_iter cut to 1):
+   ``main_path_cbow``, sg=0 with negative 5 through ``run_pipeline()``
+   with no argument (10 chunks: K1 20, K6 10, K9 cbow_grads and K3/K4
+   10 x 51, K2, K8 and K10 never; trainable-center updates per training
+   second), and ``main_path_cbow_hs``, sg=0 with negative=0 through
+   ``host_corpus=True`` and sample=1e-3 (fit_host: K1, K7, K10
+   cbow_hs_grads and K3/K4, K2, K8 and K9 never; its tree and H2D
+   events), each followed by its ``breakdown`` line;
 10. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
    walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1: held-out
    link-prediction AUC >= 0.60, and the same-label minus no-shared-label
@@ -80,10 +88,14 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    chunks), and through host_corpus=True with sample=1e-3; then with
    negative=0 (HS) through fit, run_pipeline() at walker_chunk 2048 and
    host_corpus=True with sample=1e-3 (the JAX package's HS values on the
-   CPU clear the same limits, PERF.md section 2);
+   CPU clear the same limits, PERF.md section 2); then CBOW with limits of
+   its own, two thirds of the JAX package's margin over a broken trainer:
+   CBOW-NS through fit (AUC >= 0.57, gap >= 0.045) and CBOW-HS through
+   run_pipeline() at walker_chunk 2048 (AUC >= 0.55, gap >= 0.033);
 11. the ``kernels`` line (times, bounds, launches, errors; K6 once for each
-   JAX function it replaces, K3/K4 once for SGNS and once for HS's row
-   lists), then the last line ``{"ok": true, "device": {...}}``.
+   JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists
+   and once for CBOW-HS's), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Kernel checks of 3. also hold K8 hs_grads and K3/K4 over HS's three row
 lists (emb_in rows, theta's tail rows, theta's head rows) against their
@@ -93,11 +105,18 @@ nodes), D = 128, L1 = 21, window 5, at the HS path's batch (2,570) and at
 B = 8192, with the tolerances of the SGNS step; edge cases 4. add the head
 off, a code length capped at 8 (no tail), a one-vertex vocabulary, walk
 length 80, and D = 100 at window 10, with dead lanes and
-out-of-vocabulary positions in every case.
+out-of-vocabulary positions in every case.  They hold K9 cbow_grads, K10
+cbow_hs_grads (on the same tree, without its head: CBOW-HS updates every
+path entry per occurrence) and K3/K4 over CBOW-HS's row lists the same
+way, on main_path_hs's first chunk at its batch (cbow_mean True and False)
+and at B = 8192; edge cases add dead lanes with 20% of the vertices out of
+the vocabulary, all-dead walks, centers with no context, window >= L1,
+walk length 81, D = 100 at window 10, and 2-position walks, where K9's
+loss equals K2's under the same draws.
 
 ``--quick`` runs 2-4 at small shapes (K5 on the RMAT at scale 12, K6 and its
-streaming form on its walks, K7 on them, K8 on a 4,096-vertex tree) and
-stops.  Exits non-zero, printing no result, when CUDA is missing
+streaming form on its walks, K7 on them, K8, K9 and K10 on a 4,096-vertex
+tree) and stops.  Exits non-zero, printing no result, when CUDA is missing
 or any phase fails.  Imports neither jax nor the JAX package.
 """
 
@@ -125,6 +144,7 @@ from node2vec_torch.datasets import (
 )
 from node2vec_torch.eval import walk_transition_pvalue
 from node2vec_torch.graph import build_graph, from_edge_arrays
+from node2vec_torch.models import cbow
 from node2vec_torch.models import hsoftmax as hs
 from node2vec_torch.models import skipgram as sg
 from node2vec_torch.models.vocab import (
@@ -166,6 +186,13 @@ SOURCES = {
                               "node2vec_tpu/models/hsoftmax.py:396"),
     "adagrad_apply_hs": ("node2vec_torch/csrc/adagrad.cu",
                          "node2vec_tpu/models/hsoftmax.py:399"),
+    "cbow_grads": ("node2vec_torch/csrc/cbow.cu", "node2vec_tpu/models/cbow.py:112"),
+    "cbow_hs_grads": ("node2vec_torch/csrc/cbow_hs.cu", "node2vec_tpu/models/cbow.py:230"),
+    # K3 and K4 over CBOW-HS's row lists (emb_in, theta's path entries; no head)
+    "adagrad_accumulate_cbow_hs": ("node2vec_torch/csrc/adagrad.cu",
+                                   "node2vec_tpu/models/cbow.py:306"),
+    "adagrad_apply_cbow_hs": ("node2vec_torch/csrc/adagrad.cu",
+                              "node2vec_tpu/models/cbow.py:314"),
 }
 # the kernels line: (row, launch counter, main path whose launches it reads)
 ROWS = (("dense_walk", "dense_walk", "main_path"),
@@ -178,18 +205,25 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("subsample_walks", "subsample_walks", "main_path_host"),
         ("hs_grads", "hs_grads", "main_path_hs"),
         ("adagrad_accumulate_hs", "adagrad_accumulate", "main_path_hs"),
-        ("adagrad_apply_hs", "adagrad_apply", "main_path_hs"))
+        ("adagrad_apply_hs", "adagrad_apply", "main_path_hs"),
+        ("cbow_grads", "cbow_grads", "main_path_cbow"),
+        ("cbow_hs_grads", "cbow_hs_grads", "main_path_cbow_hs"),
+        ("adagrad_accumulate_cbow_hs", "adagrad_accumulate", "main_path_cbow_hs"),
+        ("adagrad_apply_cbow_hs", "adagrad_apply", "main_path_cbow_hs"))
+GRADS = ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads")  # one per objective
 DENSE_PATH = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply")
-BLOCKED_PATH = ("blocked_walk", "vertex_counts", "sgns_grads", "adagrad_accumulate",
-                "adagrad_apply")
-HOST_PATH = DENSE_PATH + ("subsample_walks",)
-HS_PATH = ("dense_walk", "vertex_counts", "hs_grads", "adagrad_accumulate", "adagrad_apply")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N2V_MAIN = {"num_walks": 10, "walk_length": 20, "return_param": 0.25, "inout_param": 4.0}
 W2V_MAIN = {"vector_size": 128, "window_size": 5, "negative": 5, "min_count": 10}
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line carries the seconds since the start (t_s)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -973,6 +1007,270 @@ def edge_cases_hs(tree, counts) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# CBOW: K9, K10 and K3/K4 over CBOW-HS's row lists
+# --------------------------------------------------------------------------- #
+
+
+def _cbow_inputs(tree, counts, n_walks: int, length: int, dim: int, window: int, seed: int,
+                 walks=None, oov: float = 0.0, dead: bool = True):
+    """_hs_inputs' HS state, walks, mask, shrinks and tree tables, plus
+    CBOW-NS's output table and accumulator, 64 shared negatives from the
+    vocabulary's noise table and their (r1, r2); ``oov`` drops that share
+    of the vertices from the mask."""
+    dev = torch.device("cuda")
+    hs_state, walks, mask, b_sh, tables = _hs_inputs(tree, counts, n_walks, length, dim,
+                                                     window, seed, walks=walks)
+    if not dead:
+        walks = walks.clamp(min=0)
+    rng = np.random.default_rng(seed + 1)
+    n_vertices = len(counts)
+    if oov:
+        mask = mask & torch.from_numpy(rng.random(n_vertices) >= oov).to(dev)
+    vocab = build_vocab_from_counts(counts, min_count=min(10, int(counts.max())))
+    noise = (torch.from_numpy(vocab.ns_alias).to(dev), torch.from_numpy(vocab.ns_prob).to(dev))
+    r1 = torch.from_numpy(rng.random(64).astype(np.float32)).to(dev)
+    r2 = torch.from_numpy(rng.random(64).astype(np.float32)).to(dev)
+    ns_state = [hs_state[0],
+                torch.from_numpy(rng.normal(0, 0.1, (n_vertices, dim)).astype(np.float32)).to(dev),
+                hs_state[2], torch.from_numpy(rng.random(n_vertices).astype(np.float32)).to(dev)]
+    return dict(ns=ns_state, hs=hs_state, walks=walks, mask=mask, b_sh=b_sh, tables=tables,
+                noise=noise, r=(r1, r2), neg=sg.negative_ids(r1, r2, *noise), window=window)
+
+
+def _verify_cbow(inp, cbow_mean: bool, case: str) -> dict:
+    """K9, K10 and K3/K4 over CBOW-HS's lists, then both whole steps, each
+    against its plain version on the same inputs (check_sgns's
+    tolerances: grads, tables and losses elementwise, d_no to rtol of its
+    largest entry, theta_rows exact).  Returns the errors and the plain
+    outputs."""
+    w = inp["window"]
+    ns_kw = dict(window=w, negatives=5, cbow_mean=cbow_mean)
+    hs_kw = dict(window=w, cbow_mean=cbow_mean)
+    ns_args = (*inp["ns"][:2], inp["walks"], inp["mask"], inp["b_sh"], inp["neg"])
+    hs_args = (*inp["hs"][:2], inp["walks"], inp["mask"], inp["b_sh"], *inp["tables"])
+    tag = f"({case}, cbow_mean={cbow_mean})"
+
+    got = cbow.cbow_grads(*ns_args, **ns_kw)
+    want9 = cbow.cbow_grads_plain(*ns_args, **ns_kw)
+    torch.cuda.synchronize()
+    errs9 = [_close(f"cbow_grads[{k}] {tag}", g, x) for k, g, x in
+             zip(("g_in", "d_out", "loss"), (got[0], got[1], got[3]),
+                 (want9[0], want9[1], want9[3]))]
+    d_no_err = float((got[2] - want9[2]).abs().max())
+    d_no_scale = float(want9[2].abs().max())
+    require(d_no_err <= RTOL * d_no_scale,
+            f"cbow_grads[d_no] {tag}: max abs err {d_no_err} > rtol {RTOL} * {d_no_scale}")
+    errs9.append(d_no_err)
+
+    got = cbow.cbow_hs_grads(*hs_args, **hs_kw)
+    want10 = cbow.cbow_hs_grads_plain(*hs_args, **hs_kw)
+    torch.cuda.synchronize()
+    errs10 = [_close(f"cbow_hs_grads[{k}] {tag}", g, x) for k, g, x in
+              zip(("g_in", "g_theta", "loss"), (got[0], got[1], got[3]),
+                  (want10[0], want10[1], want10[3]))]
+    require(torch.equal(got[2], want10[2]), f"cbow_hs_grads[theta_rows] {tag} differ")
+
+    emb_in, theta, acc_in, acc_th = inp["hs"]
+    lists = cbow.cbow_hs_lists(*want10[:3], inp["walks"])
+    a_in, a_th = acc_in.clone(), acc_th.clone()
+    sg.adagrad_accumulate(a_in, a_th, *lists)
+    p_in, p_th = acc_in.clone(), acc_th.clone()
+    sg.adagrad_accumulate_plain(p_in, p_th, *lists)
+    k3_err = max(_close(f"adagrad_accumulate_cbow_hs[acc_in] {tag}", a_in, p_in),
+                 _close(f"adagrad_accumulate_cbow_hs[acc_theta] {tag}", a_th, p_th))
+    lr = 0.05
+    t_in, t_th = emb_in.clone(), theta.clone()
+    sg.adagrad_apply(t_in, t_th, p_in, p_th, *lists, lr)
+    q_in, q_th = emb_in.clone(), theta.clone()
+    sg.adagrad_apply_plain(q_in, q_th, p_in, p_th, *lists, lr)
+    k4_err = max(_close(f"adagrad_apply_cbow_hs[emb_in] {tag}", t_in, q_in),
+                 _close(f"adagrad_apply_cbow_hs[theta] {tag}", t_th, q_th))
+
+    steps = {}
+    for name, state, fk, fp, extra, kw in (
+            ("ns", inp["ns"], cbow.cbow_walk_step, cbow.cbow_walk_step_plain,
+             (*inp["r"], lr, *inp["noise"], inp["mask"]), ns_kw),
+            ("hs", inp["hs"], cbow.cbow_hs_step, cbow.cbow_hs_step_plain,
+             (lr, *inp["tables"], inp["mask"]), hs_kw)):
+        k_state = [x.clone() for x in state]
+        p_state = [x.clone() for x in state]
+        loss_k = fk(*k_state, inp["walks"], inp["b_sh"], *extra, **kw)
+        loss_p = fp(*p_state, inp["walks"], inp["b_sh"], *extra, **kw)
+        steps[name] = max(_close(f"cbow {name} step[{k}] {tag}", a, b) for k, a, b in zip(
+            ("emb_in", "emb_out", "acc_in", "acc_out", "loss"), (*k_state, loss_k),
+            (*p_state, loss_p)))
+    return {"errs": {"cbow_grads": max(errs9), "cbow_hs_grads": max(errs10),
+                     "accumulate_cbow_hs": k3_err, "apply_cbow_hs": k4_err,
+                     "ns_step": steps["ns"], "hs_step": steps["hs"]},
+            "want9": want9, "want10": want10, "lists": lists, "acc": (p_in, p_th)}
+
+
+def _cbow_live(inp):
+    """(trainable centers, valid (center, context) pairs, live path
+    entries) of a batch: what K9 and K10 compute."""
+    walks, mask, b_sh = inp["walks"], inp["mask"], inp["b_sh"]
+    safe = torch.where(walks >= 0, walks, 0).long()
+    vpos = (walks >= 0) & mask[safe]
+    cnt = torch.zeros(walks.shape, dtype=torch.int32, device=walks.device)
+    for d in [d for d in range(-inp["window"], inp["window"] + 1) if d != 0]:
+        cnt += vpos & sg.window_shift(vpos, d) & (abs(d) <= b_sh)
+    w_c = vpos & (cnt > 0)
+    plen = inp["tables"][2][safe]
+    return int(w_c.sum()), int(cnt.sum()), int((plen * w_c).sum())
+
+
+def check_cbow(tree, counts, n_walks: int, length: int, dim: int, window: int,
+               cbow_mean: bool, timed: bool, record: bool, results: dict, case: str = "main",
+               walks=None) -> None:
+    """K9 cbow_grads, K10 cbow_hs_grads and K3/K4 over CBOW-HS's row lists,
+    each against its plain version (``_verify_cbow``), on the tree's
+    vocabulary; timed at the main paths' shapes.  K10 runs on the tree
+    without its head: CBOW-HS updates every path entry per occurrence."""
+    inp = _cbow_inputs(tree, counts, n_walks, length, dim, window, seed=6, walks=walks)
+    v = _verify_cbow(inp, cbow_mean, case)
+    walks_from = "random, dead tails" if walks is None else "main_path_cbow chunk 0"
+    cl = int(tree.points.shape[1])
+    line = {"phase": "check" if timed else "edge_case", "kernel": "cbow_grads, cbow_hs_grads "
+            "+ K3/K4 (CBOW-HS)", "case": case, "cbow_mean": cbow_mean, "B": n_walks,
+            "L1": length, "D": dim, "window": window, "S": 64, "V": len(counts), "CL": cl,
+            "n_inner": tree.n_inner, "walks": walks_from, "max_abs_err": v["errs"],
+            "rtol": RTOL, "atol": ATOL}
+    if not timed:
+        emit(line)
+        return
+
+    ns_kw = dict(window=window, negatives=5, cbow_mean=cbow_mean)
+    hs_kw = dict(window=window, cbow_mean=cbow_mean)
+    ns_args = (*inp["ns"][:2], inp["walks"], inp["mask"], inp["b_sh"], inp["neg"])
+    hs_args = (*inp["hs"][:2], inp["walks"], inp["mask"], inp["b_sh"], *inp["tables"])
+    k9_ms = time_ms(lambda: cbow.cbow_grads(*ns_args, **ns_kw))
+    k9_plain = time_ms(lambda: cbow.cbow_grads_plain(*ns_args, **ns_kw), reps=3, warmup=1)
+    k10_ms = time_ms(lambda: cbow.cbow_hs_grads(*hs_args, **hs_kw))
+    k10_plain = time_ms(lambda: cbow.cbow_hs_grads_plain(*hs_args, **hs_kw), reps=2, warmup=1)
+    lists = v["lists"]
+    g_in, walks_flat, g_theta, theta_rows = lists[:4]
+    acc_in, acc_th = inp["hs"][2:]
+    p_in, p_th = v["acc"]
+    lr = 0.05
+    a_in, a_th = acc_in.clone(), acc_th.clone()
+    k3_ms = time_ms(lambda: sg.adagrad_accumulate(a_in, a_th, *lists))
+    k3_plain = time_ms(lambda: sg.adagrad_accumulate_plain(a_in, a_th, *lists))
+    t_in, t_th = inp["hs"][0].clone(), inp["hs"][1].clone()
+    k4_ms = time_ms(lambda: sg.adagrad_apply(t_in, t_th, p_in, p_th, *lists, lr))
+    k4_plain = time_ms(lambda: sg.adagrad_apply_plain(t_in, t_th, p_in, p_th, *lists, lr))
+
+    # library yardsticks: index_add_ of the same precomputed rows, never used by the port
+    live_in = walks_flat >= 0
+    live_th = theta_rows >= 0
+    rows_in = walks_flat[live_in].long()
+    rows_th = theta_rows[live_th].long()
+    g_th = g_theta[live_th]
+    sq_in, sq_th = (g_in[live_in] ** 2).mean(-1), (g_th ** 2).mean(-1)
+    k3_lib = time_ms(lambda: (a_in.index_add_(0, rows_in, sq_in),
+                              a_th.index_add_(0, rows_th, sq_th)))
+    upd_in = -lr * g_in[live_in] * torch.rsqrt(p_in[rows_in] + 1e-12)[:, None]
+    upd_th = -lr * g_th * torch.rsqrt(p_th[rows_th] + 1e-12)[:, None]
+    k4_lib = time_ms(lambda: (t_in.index_add_(0, rows_in, upd_in),
+                              t_th.index_add_(0, rows_th, upd_th)))
+
+    # bounds, from this run's data.  K9 reads the batch's ids and shrinks,
+    # each distinct vertex's emb_in and emb_out rows and mask byte once and
+    # the S negative rows, and writes g_in and d_out of the live positions
+    # and d_no; it does (6 S + 7) D flops per trainable center (its two
+    # dots and d_out; the [., S] logits, g_neg . no and g_neg^T . h) and
+    # 2 D per valid (center, context) pair (h and the scatter).  K10 reads
+    # the same ids, each distinct vertex's emb_in row, path, codes, length
+    # and mask once and each distinct theta row on the trainable centers'
+    # paths once, and writes g_in of the live positions and g_theta with its
+    # row for the live path entries; 5 D flops per live entry (the dot,
+    # g_h, g_theta) and 2 D per pair.
+    n_rows = n_walks * length
+    n_ctr, n_pairs, n_entries = _cbow_live(inp)
+    n_live = int(live_in.sum())
+    u_in = torch.unique(rows_in)
+    s = inp["neg"].numel()
+    k9_bytes = (n_rows * 8 + u_in.numel() * (2 * dim * 4 + 1) + s * (dim * 4 + 4)
+                + 2 * n_live * dim * 4 + s * dim * 4)
+    k9_ops = dim * (n_ctr * (6 * s + 7) + 2 * n_pairs)
+    u_th = int(torch.unique(rows_th).numel())
+    k10_bytes = (n_rows * 8 + u_in.numel() * (dim * 4 + cl * 5 + 5) + u_th * dim * 4
+                 + n_live * dim * 4 + n_entries * (dim * 4 + 4))
+    k10_ops = dim * (5 * n_entries + 2 * n_pairs)
+    n_grads = n_live + n_entries
+    ids = (n_rows + n_rows * cl) * 4
+    k3_bytes = n_grads * dim * 4 + ids + 8 * (u_in.numel() + u_th)
+    k4_bytes = n_grads * dim * 4 + ids + 4 * (u_in.numel() + u_th) + 8 * dim * (u_in.numel() + u_th)
+    rec = {
+        "cbow_grads": (v["errs"]["cbow_grads"], k9_ms, k9_plain, bound_ms(k9_bytes, k9_ops), None),
+        "cbow_hs_grads": (v["errs"]["cbow_hs_grads"], k10_ms, k10_plain,
+                          bound_ms(k10_bytes, k10_ops), None),
+        "adagrad_accumulate_cbow_hs": (v["errs"]["accumulate_cbow_hs"], k3_ms, k3_plain,
+                                       bound_ms(k3_bytes, 2 * dim * n_grads), k3_lib),
+        "adagrad_apply_cbow_hs": (v["errs"]["apply_cbow_hs"], k4_ms, k4_plain,
+                                  bound_ms(k4_bytes, 3 * dim * n_grads), k4_lib),
+    }
+    line.update({"trainable_centers": n_ctr, "valid_pairs": n_pairs,
+                 "live_path_entries": n_entries, "live_positions": n_live,
+                 "distinct_vertices": int(u_in.numel()), "distinct_theta_rows": u_th})
+    emit(line)
+    for name, (err, ms, plain_ms, (b_ms, b_by), lib_ms) in rec.items():
+        emit({"phase": "check", "kernel": name, "case": case, "cbow_mean": cbow_mean,
+              "B": n_walks, "L1": length, "D": dim, "CL": cl, "max_abs_err": err,
+              "rtol": RTOL, "atol": ATOL, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+              "bound_by": b_by, "library_ms": lib_ms})
+        if record:
+            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def edge_cases_cbow(tree, counts) -> None:
+    """K9, K10 and K3/K4 over CBOW-HS's lists where the main path does not
+    go, each against its plain version at both cbow_mean settings
+    (``_verify_cbow``): dead lanes with 20% of the vertices out of the
+    vocabulary, all-dead walks, live positions between dead ones at window
+    1 (no center has a context), a window of 5 over 4-position walks, walk
+    length 81, and D = 100 at window 10; then 2-position walks, where the
+    CBOW-NS loss (K9) equals the SGNS loss (K2) under the same draws
+    (tests/test_cbow.py:43)."""
+    n_v = len(counts)
+    rng = np.random.default_rng(9)
+    gaps = rng.integers(0, n_v, (128, 21)).astype(np.int32)
+    gaps[:, 1::2] = -1
+    cases = (("dead_lanes_oov", 256, 21, 128, 5, None, 0.2),
+             ("all_dead", 64, 21, 128, 5, np.full((64, 21), -1, np.int32), 0.0),
+             ("no_context", 128, 21, 128, 1, gaps, 0.0),
+             ("window_ge_L1", 256, 4, 128, 5, None, 0.0),
+             ("walk_length_81", 64, 81, 128, 5, None, 0.1),
+             ("dim_100_window_10", 96, 11, 100, 10, None, 0.1))
+    for case, n_walks, length, dim, window, walks, oov in cases:
+        for cbow_mean in (True, False):
+            inp = _cbow_inputs(tree, counts, n_walks, length, dim, window, seed=11, walks=walks,
+                               oov=oov)
+            v = _verify_cbow(inp, cbow_mean, case)
+            n_ctr, n_pairs, n_entries = _cbow_live(inp)
+            if case in ("all_dead", "no_context"):
+                require(n_ctr == 0, f"{case}: {n_ctr} trainable centers")
+                require(float(v["want9"][3]) == 0 and float(v["want10"][3]) == 0,
+                        f"{case}: nonzero loss")
+            emit({"phase": "edge_case", "kernel": "cbow_grads, cbow_hs_grads + K3/K4 (CBOW-HS)",
+                  "case": case, "cbow_mean": cbow_mean, "B": n_walks, "L1": length, "D": dim,
+                  "window": window, "oov_share": oov, "trainable_centers": n_ctr,
+                  "valid_pairs": n_pairs, "live_path_entries": n_entries,
+                  "max_abs_err": v["errs"], "rtol": RTOL, "atol": ATOL})
+
+    inp = _cbow_inputs(tree, counts, 512, 2, 128, 5, seed=12, dead=False)
+    inp["mask"] = torch.ones_like(inp["mask"])
+    b_sh = torch.full_like(inp["b_sh"], 5)
+    args = (*inp["ns"][:2], inp["walks"], inp["mask"], b_sh, inp["neg"])
+    loss9 = float(cbow.cbow_grads(*args, window=5, negatives=5, cbow_mean=True)[3])
+    loss2 = float(sg.sgns_grads(*args, window=5, negatives=5)[3])
+    require(abs(loss9 - loss2) <= RTOL * abs(loss2),
+            f"2-position walks: CBOW-NS loss {loss9} != SGNS loss {loss2}")
+    emit({"phase": "edge_case", "kernel": "cbow_grads vs sgns_grads", "case": "two_token",
+          "B": 512, "cbow_loss": loss9, "sgns_loss": loss2, "rtol": RTOL})
+
+
+# --------------------------------------------------------------------------- #
 # pipeline phases
 # --------------------------------------------------------------------------- #
 
@@ -1328,12 +1626,23 @@ def resume_drill(engine: WalkEngine, full, source_token: str, max_iter: int) -> 
     require(bool(np.isfinite(vectors).all()), "non-finite tables after the resume")
 
 
-def main_path_host(src, dst, max_iter: int):
+def _tree_line(model) -> dict:
+    tree = model.tree
+    n_head, k_rows = hs.head_split(model.head_offsets, tree.points.shape[1])
+    return {"code_length": int(tree.points.shape[1]), "n_inner": tree.n_inner,
+            "code_lengths": [int(tree.lengths.min()), int(tree.lengths.max())],
+            **({} if model.params.sg == 0 else {"head_levels": n_head, "head_rows": k_rows})}
+
+
+def main_path_host(src, dst, max_iter: int, phase: str = "main_path_host", w2v=None,
+                   grads: str = "sgns_grads"):
     """Node2Vec(host_corpus=True) on the dense graph with sample=1e-3: the
     walks go to host memory, the engine's tables are released, fit_host
-    uploads slabs double-buffered and subsamples each on the card."""
+    uploads slabs double-buffered and subsamples each on the card.  SGNS
+    (``main_path_host``), or CBOW-HS with ``w2v={"sg": 0, "negative": 0}``
+    (``main_path_cbow_hs``: ``grads`` "cbow_hs_grads")."""
     n2v = Node2Vec(n2v_params=N2V_MAIN,
-                   w2v_params={**W2V_MAIN, "max_iter": max_iter, "sample": 1e-3},
+                   w2v_params={**W2V_MAIN, "max_iter": max_iter, "sample": 1e-3, **(w2v or {})},
                    random_seed=0, device="cuda", host_corpus=True)
     _fresh_run()
     t0 = time.perf_counter()
@@ -1375,15 +1684,18 @@ def main_path_host(src, dst, max_iter: int):
     h2d_ms = [b - a for a, b in copies]
     hidden_ms = [sum(max(0.0, min(c1, t1) - max(c0, t0)) for t0, t1 in trains)
                  for c0, c1 in copies]
-    pairs = sg.pairs_per_batch(batch, length - 1, p.window_size) * slab_batches * n_slabs \
-        * max_iter
+    steps = slab_batches * n_slabs * max_iter
+    if p.sg == 0:  # nominal centers, B * L1 a step
+        rate = {"cbow_center_updates_per_fit_s": batch * length * steps / fit_s[0]}
+    else:
+        rate = {"sgns_pair_updates_per_s":
+                sg.pairs_per_batch(batch, length - 1, p.window_size) * steps / fit_s[0]}
     out = {
-        "phase": "main_path_host", "cuts": {"max_iter": f"10 -> {max_iter}"},
+        "phase": phase, "cuts": {"max_iter": f"10 -> {max_iter}"},
         "sample": p.sample, "n_vertices": graph.n_vertices, "walks": [int(n_walks), int(length)],
         "batch_walks": batch, "slab_walks": slab, "n_slabs": n_slabs,
         "slab_batches": slab_batches, "preprocess_s": t1 - t0, "pipeline_s": t2 - t1,
-        "fit_s": fit_s[0], "walk_s": t2 - t1 - fit_s[0],
-        "sgns_pair_updates_per_s": pairs / fit_s[0],
+        "fit_s": fit_s[0], "walk_s": t2 - t1 - fit_s[0], **rate,
         "h2d_ms_per_slab": h2d_ms, "h2d_hidden_ms_per_slab": hidden_ms,
         "h2d_hidden_share": sum(hidden_ms) / max(sum(h2d_ms), 1e-9),
         "h2d_intervals_ms": copies, "train_intervals_ms": trains,
@@ -1391,6 +1703,8 @@ def main_path_host(src, dst, max_iter: int):
         "epoch_losses": model.losses, "slab_losses": model._slab_losses,
         "peak_device_memory_bytes": int(peak), "launches": launches,
     }
+    if model.tree is not None:
+        out["tree"] = _tree_line(model)
     emit(out)
     require(n2v._engine is None, "the engine's device tables were not released")
     require(walks.shape == (10 * graph.n_vertices, 21), f"walk corpus shape {walks.shape}")
@@ -1398,29 +1712,35 @@ def main_path_host(src, dst, max_iter: int):
     vectors = model.vectors
     require(vectors.shape == (graph.n_vertices, 128), f"vectors shape {vectors.shape}")
     require(bool(np.isfinite(vectors).all()), "non-finite embedding values")
+    require(bool(np.isfinite(model.emb_out).all()), "non-finite output table")
     require(len(model.losses) == max_iter and all(np.isfinite(model.losses)),
             f"losses {model.losses}")
     require(launches["dense_walk"] == -(-n_walks // 131072),
             f"dense_walk launched {launches['dense_walk']} times")
     require(launches["subsample_walks"] == n_slabs * max_iter,
             f"subsample_walks launched {launches['subsample_walks']} times")
-    for k in ("sgns_grads", "adagrad_accumulate", "adagrad_apply"):
+    for k in (grads, "adagrad_accumulate", "adagrad_apply"):
         require(launches[k] == n_slabs * slab_batches * max_iter,
                 f"{k} launched {launches[k]} times")
-    require(all(launches[k] > 0 for k in HOST_PATH), f"a kernel never ran: {launches}")
-    breakdown((("fit_host", lambda: Word2VecTorch(p, device="cuda").fit_host(
-        walks, n_vertices=graph.n_vertices)),))
+    require(all(launches[k] == 0 for k in GRADS if k != grads),
+            f"another objective's kernel ran: {launches}")
+    path = ("dense_walk", "subsample_walks", grads, "adagrad_accumulate", "adagrad_apply")
+    require(all(launches[k] > 0 for k in path), f"a kernel never ran: {launches}")
+    breakdown((("fit_host" if phase == "main_path_host" else f"fit_host ({phase})",
+                lambda: Word2VecTorch(p, device="cuda").fit_host(
+                    walks, n_vertices=graph.n_vertices)),))
     return out, walks, model.vocab, slab
 
 
-def main_path_hs(src, dst, max_iter: int):
-    """Node2Vec on the dense graph with negative=0 (hierarchical softmax,
-    the reference's default objective) through ``run_pipeline()`` with no
+def main_path_streamed(src, dst, max_iter: int, phase: str, w2v: dict, grads: str):
+    """Node2Vec on the dense graph through ``run_pipeline()`` with no
     argument: 10 walker chunks, so it streams (K1 counting and training,
-    K6's streaming form, the Huffman tree from the pass-1 counts, K8 and
-    K3/K4 every step)."""
+    K6's streaming form, ``grads`` and K3/K4 every step).  ``main_path_hs``:
+    negative=0 (hierarchical softmax, the reference's default objective,
+    its Huffman tree from the pass-1 counts, K8); ``main_path_cbow``: sg=0,
+    negative 5 (CBOW-NS, K9)."""
     n2v = Node2Vec(n2v_params=N2V_MAIN,
-                   w2v_params={**W2V_MAIN, "negative": 0, "max_iter": max_iter},
+                   w2v_params={**W2V_MAIN, **w2v, "max_iter": max_iter},
                    random_seed=0, device="cuda")
     _fresh_run()
     t0 = time.perf_counter()
@@ -1457,48 +1777,52 @@ def main_path_hs(src, dst, max_iter: int):
     n_batches = chunk // batch
     walk_s = sum(a.elapsed_time(b) for a, b in walk_events) / 1e3
     pipeline_s = t3 - t2
-    pairs = sg.pairs_per_batch(batch, N2V_MAIN["walk_length"], p.window_size) * n_batches \
-        * n_chunks * max_iter
-    tree = model.tree
-    n_head, k_rows = hs.head_split(model.head_offsets, tree.points.shape[1])
+    steps = n_batches * n_chunks * max_iter
+    length = N2V_MAIN["walk_length"] + 1
+    if p.sg == 0:  # nominal centers, B * L1 a step
+        objective = "CBOW with negative sampling (sg=0)"
+        rate = {"cbow_center_updates_per_fit_s": batch * length * steps / (pipeline_s - walk_s)}
+    else:
+        objective = "hierarchical softmax (negative=0)"
+        rate = {"hs_pair_updates_per_fit_s": sg.pairs_per_batch(
+            batch, length - 1, p.window_size) * steps / (pipeline_s - walk_s)}
     out = {
-        "phase": "main_path_hs", "cuts": {"max_iter": f"10 -> {max_iter}"},
-        "objective": "hierarchical softmax (negative=0)",
+        "phase": phase, "cuts": {"max_iter": f"10 -> {max_iter}"}, "objective": objective,
         "n_vertices": graph.n_vertices, "n_edges": graph.n_edges, "strategy": engine.strategy,
-        "tree": {"code_length": int(tree.points.shape[1]), "head_levels": n_head,
-                 "head_rows": k_rows, "n_inner": tree.n_inner,
-                 "code_lengths": [int(tree.lengths.min()), int(tree.lengths.max())]},
+        **({"tree": _tree_line(model)} if model.tree is not None else {}),
         "walker_chunk": chunk, "n_chunks": n_chunks, "batch_walks": batch,
         "n_batches_per_chunk": n_batches, "preprocess_s": t1 - t0, "tables_s": t2 - t1,
         "pipeline_s": pipeline_s, "walk_regeneration_device_s": walk_s,
-        "walk_regenerations": len(walk_events), "fit_s": pipeline_s - walk_s,
-        "hs_pair_updates_per_fit_s": pairs / (pipeline_s - walk_s), "embedding_s": t4 - t3,
+        "walk_regenerations": len(walk_events), "fit_s": pipeline_s - walk_s, **rate,
+        "embedding_s": t4 - t3,
         "epoch_losses": model.losses, "vocab_kept": model.vocab.n_kept,
         "peak_device_memory_bytes": int(peak), "launches": launches,
         "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
     }
     emit(out)
+    n_out = model.tree.n_inner if model.tree is not None else graph.n_vertices
     require(engine.strategy == "dense", f"strategy {engine.strategy}")
     require(n2v.walks is None, "run_pipeline() did not stream")
     require(n_chunks == 10 and n_batches == 51, f"{n_chunks} chunks of {n_batches} batches")
-    require(model.emb_out.shape == (tree.n_inner, 128), f"theta shape {model.emb_out.shape}")
+    require(model.emb_out.shape == (n_out, 128), f"output table shape {model.emb_out.shape}")
     require(vectors.shape == (graph.n_vertices, 128), f"vectors shape {vectors.shape}")
     require(bool(np.isfinite(vectors).all()), "non-finite embedding values")
-    require(bool(np.isfinite(model.emb_out).all()), "non-finite theta")
+    require(bool(np.isfinite(model.emb_out).all()), "non-finite output table")
     require(len(model.losses) == max_iter and all(np.isfinite(x) for x in model.losses),
             f"losses {model.losses}")
     require(launches["dense_walk"] == n_chunks * (1 + max_iter),
             f"dense_walk launched {launches['dense_walk']} times")
     require(launches["vertex_counts"] == n_chunks,
             f"vertex_counts launched {launches['vertex_counts']} times")
-    for k in ("hs_grads", "adagrad_accumulate", "adagrad_apply"):
+    for k in (grads, "adagrad_accumulate", "adagrad_apply"):
         require(launches[k] == n_chunks * n_batches * max_iter,
                 f"{k} launched {launches[k]} times")
-    require(launches["sgns_grads"] == 0 and launches["blocked_walk"] == 0
-            and launches["subsample_walks"] == 0,
-            f"a kernel off the HS path ran: {launches}")
-    require(all(launches[k] > 0 for k in HS_PATH), f"a kernel never ran: {launches}")
-    breakdown((("run_pipeline (HS, streaming)", lambda: Word2VecTorch(p, device="cuda")
+    require(all(launches[k] == 0 for k in GRADS if k != grads) and launches["blocked_walk"] == 0
+            and launches["subsample_walks"] == 0, f"a kernel off the {phase} path ran: {launches}")
+    path = ("dense_walk", "vertex_counts", grads, "adagrad_accumulate", "adagrad_apply")
+    require(all(launches[k] > 0 for k in path), f"a kernel never ran: {launches}")
+    label = {"main_path_hs": "HS", "main_path_cbow": "CBOW"}[phase]
+    breakdown(((f"run_pipeline ({label}, streaming)", lambda: Word2VecTorch(p, device="cuda")
                 .fit_streaming(engine.chunk_source(seed=0)[2], n_chunks, graph.n_vertices)),))
     return out
 
@@ -1532,16 +1856,16 @@ def breakdown(stages) -> None:
 
 
 def quality_gates(blocked_widths=None, trainer: str = "fit", walker_chunk=None,
-                  sample: float = 0.0, negative: int = 5, auc_min: float = 0.60,
-                  gap_min: float = 0.05) -> dict:
+                  sample: float = 0.0, negative: int = 5, sg_arch: int = 1,
+                  auc_min: float = 0.60, gap_min: float = 0.05) -> dict:
     """The gates on synthetic_multilabel(2000, seed=0), trained through
     ``trainer`` (see datasets._train); ``negative=0`` trains hierarchical
-    softmax."""
+    softmax, ``sg_arch=0`` CBOW."""
     g, labels = synthetic_multilabel(2000, seed=0)
     n2v = Node2VecParams(num_walks=8, walk_length=40,
                          **({"walker_chunk": walker_chunk} if walker_chunk else {}))
     w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128, sample=sample,
-                         negative=negative)
+                         negative=negative, sg=sg_arch)
     t0 = time.perf_counter()
     auc = holdout_link_prediction(g, n2v_params=n2v, w2v_params=w2v, seed=0, device="cuda",
                                   blocked_widths=blocked_widths,
@@ -1551,7 +1875,9 @@ def quality_gates(blocked_widths=None, trainer: str = "fit", walker_chunk=None,
     gap = label_cosine_gap(emb, labels, n_pairs=200_000, seed=0)
     deg = np.diff(g.indptr)
     out = {"phase": "quality", "graph": "synthetic_multilabel(2000, seed=0)",
-           "trainer": trainer, "objective": "hs" if negative == 0 else "sgns",
+           "trainer": trainer,
+           "objective": (("cbow_hs" if negative == 0 else "cbow_ns") if sg_arch == 0
+                         else ("hs" if negative == 0 else "sgns")),
            "walker_chunk": n2v.walker_chunk, "sample": sample,
            "walk_strategy": strategy, "blocked_widths": blocked_widths,
            "heavy_vertex_share": (float((deg > blocked_widths[0]).mean())
@@ -1614,6 +1940,10 @@ def main() -> int:
         head = hs.head_level_offsets(tree, table_rows=tree.n_inner)
         check_hs(tree, tree_counts, 64, 21, 128, 5, head, True, True, results)
         edge_cases_hs(tree, tree_counts)
+        check_cbow(tree, tree_counts, 64, 21, 128, 5, True, True, True, results)
+        check_cbow(tree, tree_counts, 64, 21, 128, 5, False, False, False, results,
+                   case="cbow_mean=False")
+        edge_cases_cbow(tree, tree_counts)
         edge_cases()
         edge_cases_blocked()
         small_reference()
@@ -1638,6 +1968,13 @@ def main() -> int:
     check_hs(tree, tree_counts, 8192, 21, 128, 5, head, True, False, results, case="B=8192",
              walks=hs_walks)
     edge_cases_hs(tree, tree_counts)
+    # K9 and K10 on the same walks (main_path_cbow trains at main_path_hs's batch)
+    check_cbow(tree, tree_counts, hs_batch, 21, 128, 5, True, True, True, results, walks=hs_walks)
+    check_cbow(tree, tree_counts, hs_batch, 21, 128, 5, False, False, False, results,
+               case="cbow_mean=False", walks=hs_walks)
+    check_cbow(tree, tree_counts, 8192, 21, 128, 5, True, True, False, results, case="B=8192",
+               walks=hs_walks)
+    edge_cases_cbow(tree, tree_counts)
     rmat_src, rmat_dst, g_rmat = rmat_graph(19)
     check_blocked_walk(g_rmat, 131072, 20, results)
     del g_rmat
@@ -1654,7 +1991,12 @@ def main() -> int:
     paths["main_path_host"], walks, vocab, slab = main_path_host(src, dst, max_iter=1)
     check_subsample(walks, vocab, slab, results)
     del walks
-    paths["main_path_hs"] = main_path_hs(src, dst, max_iter=1)
+    paths["main_path_hs"] = main_path_streamed(src, dst, 1, "main_path_hs", {"negative": 0},
+                                               "hs_grads")
+    paths["main_path_cbow"] = main_path_streamed(src, dst, 1, "main_path_cbow", {"sg": 0},
+                                                 "cbow_grads")
+    paths["main_path_cbow_hs"] = main_path_host(src, dst, 1, "main_path_cbow_hs",
+                                                {"sg": 0, "negative": 0}, "cbow_hs_grads")[0]
     quality_gates()
     quality_gates(blocked_widths=(8, 64))
     quality_gates(trainer="run_pipeline", walker_chunk=2048)
@@ -1662,6 +2004,11 @@ def main() -> int:
     quality_gates(negative=0)
     quality_gates(trainer="run_pipeline", walker_chunk=2048, negative=0)
     quality_gates(trainer="host_corpus", sample=1e-3, negative=0)
+    # CBOW's own limits: two thirds of the JAX value's margin over a broken
+    # trainer (AUC 0.5, gap 0), PERF.md section 2
+    quality_gates(sg_arch=0, auc_min=0.57, gap_min=0.045)
+    quality_gates(trainer="run_pipeline", walker_chunk=2048, negative=0, sg_arch=0,
+                  auc_min=0.55, gap_min=0.033)
 
     kernels = []
     for name, counter, path in ROWS:

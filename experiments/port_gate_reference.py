@@ -1,7 +1,8 @@
 """Reference values of chip_smoke.py's quality gates, from the JAX package
 on the CPU (and, with --port, from the PyTorch port's plain path).
 
-    JAX_PLATFORMS=cpu python experiments/port_gate_reference.py [--port] [--hs] [--seeds 0 1]
+    JAX_PLATFORMS=cpu python experiments/port_gate_reference.py [--port] [--hs] [--cbow]
+        [--trainers fit run_pipeline host_corpus] [--seeds 0 1]
 
 The gates train on ``synthetic_multilabel(2000, seed=0)`` with num_walks 8,
 walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1, and read the
@@ -11,8 +12,10 @@ Three trainers: "fit" (walks to the host, then fit), "run_pipeline"
 (``Node2Vec.run_pipeline()`` at walker_chunk 2048, so it streams over 8
 chunks) and "host_corpus" (``Node2Vec(host_corpus=True)``, with
 sample=1e-3).  ``--hs`` trains hierarchical softmax (negative=0), the
-reference's default objective, instead of SGNS.  Prints one JSON line per
-(package, objective, trainer, seed).
+reference's default objective, instead of negative sampling; ``--cbow``
+trains CBOW (sg=0, gensim's default architecture) instead of skip-gram, so
+``--cbow --hs`` trains CBOW with hierarchical softmax.  Prints one JSON line
+per (package, objective, trainer, seed).
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ def main() -> None:
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--trainers", nargs="+", default=list(TRAINERS))
     ap.add_argument("--hs", action="store_true",
-                    help="hierarchical softmax (negative=0) instead of SGNS")
+                    help="hierarchical softmax (negative=0) instead of negative sampling")
+    ap.add_argument("--cbow", action="store_true", help="CBOW (sg=0) instead of skip-gram")
     args = ap.parse_args()
     g, labels = synthetic_multilabel(2000, seed=0)
     for trainer in args.trainers:
@@ -83,7 +87,10 @@ def main() -> None:
         w2v_kw = dict(min_count=1, max_iter=5, vector_size=128, **w2v_kw)
         if args.hs:
             w2v_kw["negative"] = 0
-        objective = "hs" if args.hs else "sgns"
+        if args.cbow:
+            w2v_kw["sg"] = 0
+        objective = ("cbow_" if args.cbow else "") + ("hs" if args.hs else
+                                                      "ns" if args.cbow else "sgns")
         for seed in args.seeds:
             kept, pos, neg = holdout_split(g, 0.2, seed)
             emb = jax_vectors(*_csr(kept, g.n_vertices), g.n_vertices, RefN2V(**n2v_kw),

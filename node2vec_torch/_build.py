@@ -30,7 +30,8 @@ from node2vec_torch.native import build_dir
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 KERNELS = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply",
-           "blocked_walk", "vertex_counts", "subsample_walks", "hs_grads")
+           "blocked_walk", "vertex_counts", "subsample_walks", "hs_grads", "cbow_grads",
+           "cbow_hs_grads")
 
 launches: collections.Counter = collections.Counter()
 build_seconds: Optional[float] = None
@@ -125,6 +126,10 @@ def lib() -> ctypes.CDLL:
             "n2v_subsample_walks": [vp, i64, vp, i32, u32, u32, vp, vp],
             "n2v_hs_grads": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                              i32, vp, vp, vp, vp, vp, vp],
+            "n2v_cbow_grads": [vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, f32, i32,
+                               vp, vp, vp, vp, vp],
+            "n2v_cbow_hs_grads": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                  i32, vp, vp, vp, vp, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(handle, name)
@@ -134,6 +139,10 @@ def lib() -> ctypes.CDLL:
         handle.n2v_sgns_grads_smem.restype = ctypes.c_size_t
         handle.n2v_hs_grads_smem.argtypes = [i32, i32, i32, i32, i32]
         handle.n2v_hs_grads_smem.restype = ctypes.c_size_t
+        handle.n2v_cbow_grads_smem.argtypes = [i32, i32, i32]
+        handle.n2v_cbow_grads_smem.restype = ctypes.c_size_t
+        handle.n2v_cbow_hs_grads_smem.argtypes = [i32, i32]
+        handle.n2v_cbow_hs_grads_smem.restype = ctypes.c_size_t
         handle.n2v_error_string.argtypes = [ctypes.c_int]
         handle.n2v_error_string.restype = ctypes.c_char_p
         _lib = handle
@@ -156,6 +165,20 @@ def stream_of(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require_smem(name: str, smem: int, shape: str, device, item: int) -> None:
+    """Refuse a launch whose dynamic shared memory exceeds the card's opt-in
+    limit per block; ``item`` is the ROADMAP Queue A item that tiles it."""
+    import torch
+
+    limit = getattr(torch.cuda.get_device_properties(device), "shared_memory_per_block_optin",
+                    232448)
+    if smem > limit:
+        raise ValueError(
+            f"{name} kernel needs {smem} B of shared memory for {shape}; the card allows "
+            f"{limit} (tiling over dim is ROADMAP Queue A item {item})"
+        )
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -289,15 +289,8 @@ def hs_grads(emb_in, theta, walks, vocab_mask, b_sh, points, codes, lengths, *,
     n_head, k_rows = head_split(head_offsets, cl)
     clt = cl - n_head
     lib = _build.lib()
-    smem = lib.n2v_hs_grads_smem(length, dim, cl, window, k_rows)
-    props = torch.cuda.get_device_properties(emb_in.device)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    if smem > limit:
-        raise ValueError(
-            f"hs_grads kernel needs {smem} B of shared memory for walk length {length}, "
-            f"dim {dim}, code length {cl}; the card allows {limit} "
-            "(tiling over dim is ROADMAP Queue A item 21)"
-        )
+    _build.require_smem("hs_grads", lib.n2v_hs_grads_smem(length, dim, cl, window, k_rows),
+                        f"walk length {length}, dim {dim}, code length {cl}", emb_in.device, 21)
     dev = emb_in.device
     g_in = torch.empty((n_walks * length, dim), dtype=torch.float32, device=dev)
     g_tail = torch.empty((n_walks * length * clt, dim), dtype=torch.float32, device=dev)

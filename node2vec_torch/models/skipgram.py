@@ -164,15 +164,8 @@ def sgns_grads(
     dim = emb_in.shape[1]
     s = neg_ids.shape[0]
     lib = _build.lib()
-    smem = lib.n2v_sgns_grads_smem(length, dim, s, window)
-    props = torch.cuda.get_device_properties(emb_in.device)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    if smem > limit:
-        raise ValueError(
-            f"sgns_grads kernel needs {smem} B of shared memory for walk length "
-            f"{length}, dim {dim}, {s} negatives; the card allows {limit} "
-            "(tiling over dim is ROADMAP Queue A item 16)"
-        )
+    _build.require_smem("sgns_grads", lib.n2v_sgns_grads_smem(length, dim, s, window),
+                        f"walk length {length}, dim {dim}, {s} negatives", emb_in.device, 16)
     dev = emb_in.device
     g_in = torch.empty((n_walks * length, dim), dtype=torch.float32, device=dev)
     g_out = torch.empty_like(g_in)

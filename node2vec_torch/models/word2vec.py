@@ -1,14 +1,17 @@
-"""Word2VecTorch: the skip-gram trainers (port of ``Word2VecTPU.fit``,
-``fit_host``, ``fit_streaming`` and ``_fit_hs`` with row-wise Adagrad,
-``node2vec_tpu/models/word2vec.py:37-909``).
+"""Word2VecTorch: the word2vec trainers (port of ``Word2VecTPU.fit``,
+``fit_host``, ``fit_streaming``, ``_fit_hs`` and ``_fit_cbow`` with row-wise
+Adagrad, ``node2vec_tpu/models/word2vec.py:37-1043``).
 
 Walks in, per-vertex embedding vectors out, through three trainers that
-share one step: SGNS (K2-K4, ``models/skipgram.py``) for ``negative > 0``,
-or hierarchical softmax (K8, K3, K4, ``models/hsoftmax.py``), the
-reference's default objective, for ``negative == 0``.  With HS the output
-table ``emb_out`` is the Huffman tree's inner-node table theta
-[n_inner, D] (word2vec's syn1), built from the vocabulary's counts of all V
-vertices; ``vectors`` stays the input table.
+share one step, picked by ``sg`` and ``negative`` in the JAX package's
+order: CBOW with hierarchical softmax (K10, K3, K4, ``models/cbow.py``) for
+``sg == 0, negative == 0``; skip-gram hierarchical softmax (K8, K3, K4,
+``models/hsoftmax.py``), the reference's default objective, for
+``negative == 0``; CBOW with negative sampling (K9, K3, K4) for
+``sg == 0``; SGNS (K2-K4, ``models/skipgram.py``) otherwise.  With
+hierarchical softmax the output table ``emb_out`` is the Huffman tree's
+inner-node table theta [n_inner, D] (word2vec's syn1), built from the
+vocabulary's counts of all V vertices; ``vectors`` stays the input table.
 
 * ``fit``: the corpus lives on the device, padded to whole batches; each
   epoch shuffles it and sweeps the step over its batches with word2vec's
@@ -40,12 +43,15 @@ the first draw of the same generator); subsampling takes the tags
 fit_host's permutations and fit_streaming's chunk orders are numpy, seeded
 as in the JAX package, and equal to its own.
 
-Not ported yet, and raising ``NotImplementedError``: CBOW (``sg=0``),
-``optimizer="sgd"`` and ``fit_sharded``.
+``optimizer`` is read only by SGNS, as in the JAX package: hierarchical
+softmax and CBOW train row-wise Adagrad whatever it says.  Not ported yet,
+and raising ``NotImplementedError``: SGNS with ``optimizer="sgd"`` and
+``fit_sharded``.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Callable, List, Optional, Tuple
 
@@ -54,6 +60,7 @@ import torch
 
 from node2vec_torch.constants import Word2VecParams
 from node2vec_torch.device import resolve_device
+from node2vec_torch.models.cbow import cbow_epoch, cbow_hs_epoch
 from node2vec_torch.models.hsoftmax import (
     HuffmanTree,
     build_huffman,
@@ -125,7 +132,7 @@ class Draws:
                          self.shared_negatives, p.shrink_window, self.device)
 
     def window_shrink(self, gstep: int, n_walks: int, length: int) -> torch.Tensor:
-        """b_sh of global step ``gstep`` for the HS step: the b_sh that
+        """b_sh of global step ``gstep`` for the HS steps: the b_sh that
         ``step`` draws, without the negatives."""
         p = self.params
         return draw_step(self.generator(gstep), n_walks, length, p.window_size, 0,
@@ -243,8 +250,9 @@ class _SlabUploader:
 
 
 class Word2VecTorch:
-    """Skip-gram trainer over walk corpora: negative sampling
-    (``negative > 0``) or hierarchical softmax (``negative == 0``)."""
+    """word2vec trainer over walk corpora: skip-gram (``sg=1``) or CBOW
+    (``sg=0``), with negative sampling (``negative > 0``) or hierarchical
+    softmax (``negative == 0``)."""
 
     def __init__(
         self,
@@ -269,9 +277,9 @@ class Word2VecTorch:
 
     def _check_supported(self) -> None:
         p = self.params
-        if p.sg == 0:
-            raise NotImplementedError("CBOW (sg=0) is not ported yet (ROADMAP Queue A item 9)")
-        if p.optimizer != "adagrad":
+        # only SGNS reads the optimizer (word2vec.py:167-182, :261): HS and
+        # CBOW train row-wise Adagrad whatever it says
+        if p.sg == 1 and p.negative > 0 and p.optimizer != "adagrad":
             raise NotImplementedError(
                 "optimizer='sgd' is not ported yet (ROADMAP Queue A item 14)"
             )
@@ -288,10 +296,11 @@ class Word2VecTorch:
             )
 
     def _objective(self):
-        """The step's device tables, from the vocabulary: SGNS's (ns_alias,
-        ns_prob, vocab_mask), or HS's (points, codes, lengths, vocab_mask)
-        of the Huffman tree over all V vertices' counts, capped as the JAX
-        package caps it; the tree and its head split are kept on self."""
+        """The step's device tables, from the vocabulary: negative
+        sampling's (ns_alias, ns_prob, vocab_mask), or hierarchical
+        softmax's (points, codes, lengths, vocab_mask) of the Huffman tree
+        over all V vertices' counts, capped as the JAX package caps it; the
+        tree and its head split are kept on self (CBOW-HS has no head)."""
         v = self.vocab
         p = self.params
         if p.negative > 0:
@@ -320,8 +329,9 @@ class Word2VecTorch:
         return [t.cpu().numpy() for t in state]
 
     def _fresh_state(self, draws: Draws, n_vertices: int) -> List[torch.Tensor]:
-        """[emb_in, emb_out, acc_in, acc_out], word2vec's init; with HS the
-        output table and its accumulator are theta's, zeros of n_inner rows."""
+        """[emb_in, emb_out, acc_in, acc_out], word2vec's init; with
+        hierarchical softmax the output table and its accumulator are
+        theta's, zeros of n_inner rows."""
         state = list(draws.init(n_vertices, self.params.vector_size))
         if self.tree is not None:
             n_inner = self.tree.n_inner
@@ -332,7 +342,8 @@ class Word2VecTorch:
 
     def _restored(self, tables) -> List[torch.Tensor]:
         """Snapshot tables on the device, their output rows checked against
-        the objective (V rows for SGNS, n_inner for HS)."""
+        the objective (V rows with negative sampling, n_inner with
+        hierarchical softmax)."""
         n_out = self.vocab.n_vertices if self.tree is None else self.tree.n_inner
         if tables[1].shape[0] != n_out or tables[3].shape[0] != n_out:
             raise ValueError(
@@ -353,21 +364,26 @@ class Word2VecTorch:
 
     def _train(self, state, corpus, draws: Draws, step0: int, lr_slope: float,
                batch: int, n_batches: int, tables) -> torch.Tensor:
-        """SGNS or HS over ``n_batches`` batches of ``corpus``, in place on
-        ``state``; returns the per-batch losses."""
+        """CBOW-HS, HS, CBOW-NS or SGNS (word2vec.py:711-758's order) over
+        ``n_batches`` batches of ``corpus``, in place on ``state``; returns
+        the per-batch losses."""
         p = self.params
         length = corpus.shape[1]
         kw = dict(batch=batch, n_batches=n_batches, window=p.window_size,
                   min_lr=p.min_step_size)
         if self.tree is not None:
-            return hs_epoch(
-                *state, corpus, lambda gstep: draws.window_shrink(gstep, batch, length),
-                step0, p.step_size, lr_slope, *tables, head_offsets=self.head_offsets, **kw,
-            )
-        return sgns_epoch(
-            *state, corpus, lambda gstep: draws.step(gstep, batch, length),
-            step0, p.step_size, lr_slope, *tables, negatives=p.negative, **kw,
-        )
+            shrink = functools.partial(draws.window_shrink, n_walks=batch, length=length)
+            if p.sg == 0:
+                return cbow_hs_epoch(*state, corpus, shrink, step0, p.step_size, lr_slope,
+                                     *tables, cbow_mean=p.cbow_mean, **kw)
+            return hs_epoch(*state, corpus, shrink, step0, p.step_size, lr_slope, *tables,
+                            head_offsets=self.head_offsets, **kw)
+        step = functools.partial(draws.step, n_walks=batch, length=length)
+        if p.sg == 0:
+            return cbow_epoch(*state, corpus, step, step0, p.step_size, lr_slope, *tables,
+                              negatives=p.negative, cbow_mean=p.cbow_mean, **kw)
+        return sgns_epoch(*state, corpus, step, step0, p.step_size, lr_slope, *tables,
+                          negatives=p.negative, **kw)
 
     def _finish(self, state) -> "Word2VecTorch":
         self._emb_in, self._emb_out, self.acc_in, self.acc_out = state
@@ -664,7 +680,8 @@ class Word2VecTorch:
 
     @property
     def emb_out(self) -> Optional[np.ndarray]:
-        """Output table as numpy: [V, D] for SGNS, theta [n_inner, D] for HS."""
+        """Output table as numpy: [V, D] with negative sampling, theta
+        [n_inner, D] with hierarchical softmax."""
         return None if self._emb_out is None else self._emb_out.cpu().numpy()
 
     @property

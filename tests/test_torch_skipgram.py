@@ -140,7 +140,7 @@ def test_fit_runs_and_is_deterministic(karate_edges):
     assert m1.losses[-1] < m1.losses[0]
 
 
-@pytest.mark.parametrize("override", [{"sg": 0}, {"optimizer": "sgd"}])
+@pytest.mark.parametrize("override", [{"optimizer": "sgd"}])
 def test_unported_trainer_options_raise(override):
     walks = np.random.default_rng(0).integers(0, 20, (64, 6)).astype(np.int32)
     model = Word2VecTorch(Word2VecParams(min_count=1, **override), device="cpu")
