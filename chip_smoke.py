@@ -16,7 +16,9 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    - K2 sgns_grads, K3 adagrad_accumulate, K4 adagrad_apply: one step at
      V = 131,072, D = 128, S = 64, window 5, L1 = 21, at the main path's
      batch and at B = 8192; rtol 1e-4, atol 1e-6, because fp32 atomics
-     reorder the sums;
+     reorder the sums (a tensor whose entries sum many signed terms, as
+     d_no, K11's sums, theta under a Huffman path's root and the CBOW
+     steps' tables, to rtol 1e-4 of its largest entry);
    - K5 blocked_walk on the heavy-tail RMAT (scale 19, 8 * 2^19 drawn
      edges, numpy seed 0, undirected, max_out_degree 10,000, self loops
      kept; the graph of bench.py:807-821), 131,072 walkers x 20 steps at
@@ -79,6 +81,14 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    ``host_corpus=True`` and sample=1e-3 (fit_host: K1, K7, K10
    cbow_hs_grads and K3/K4, K2, K8 and K9 never; its tree and H2D
    events), each followed by its ``breakdown`` line;
+9b. ``main_path_sgd``: the dense graph of 5. with optimizer="sgd",
+   step_size 0.025 through ``run_pipeline()`` with no argument (10 chunks:
+   K1 20, K6 10, K2, K11 preagg_rows and sgd_apply 10 x 51, K3/K4 never),
+   and ``main_path_csr``: ``WalkEngine(rmat, params, strategy="csr",
+   device="cuda").run_device()`` on the RMAT of 3. (K12 csr_walk 40 times,
+   K1 and K5 never; walk steps/s, DeviceGraph bytes), then
+   ``Word2VecTorch.fit`` for one epoch on that corpus; each followed by its
+   ``breakdown`` line;
 10. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
    walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1: held-out
    link-prediction AUC >= 0.60, and the same-label minus no-shared-label
@@ -91,7 +101,10 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    CPU clear the same limits, PERF.md section 2); then CBOW with limits of
    its own, two thirds of the JAX package's margin over a broken trainer:
    CBOW-NS through fit (AUC >= 0.57, gap >= 0.045) and CBOW-HS through
-   run_pipeline() at walker_chunk 2048 (AUC >= 0.55, gap >= 0.033);
+   run_pipeline() at walker_chunk 2048 (AUC >= 0.55, gap >= 0.033); then
+   SGNS with optimizer="sgd", step_size 0.025, by the same rule: through
+   fit (AUC >= 0.58, gap >= 0.145) and run_pipeline() at walker_chunk 2048
+   (AUC >= 0.575, gap >= 0.135);
 11. the ``kernels`` line (times, bounds, launches, errors; K6 once for each
    JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists
    and once for CBOW-HS's), then the last line ``{"ok": true, "device":
@@ -112,11 +125,23 @@ way, on main_path_hs's first chunk at its batch (cbow_mean True and False)
 and at B = 8192; edge cases add dead lanes with 20% of the vertices out of
 the vocabulary, all-dead walks, centers with no context, window >= L1,
 walk length 81, D = 100 at window 10, and 2-position walks, where K9's
-loss equals K2's under the same draws.
+loss equals K2's under the same draws.  They hold K11 preagg_rows,
+sgd_apply and K3/K4 over the de-duplicated lists, and both pre-aggregated
+steps (optimizer="sgd"; preagg=True with Adagrad), against their plain
+versions on main_path_sgd's batch (2,570 walks of its first chunk,
+shuffled) and at B = 8192 (sums to rtol 1e-4 of their largest entry,
+heads and counts exactly, the slot map back to empty); edge cases add dead
+lanes with 20% of the vertices out of the vocabulary, all-dead walks, a
+one-vertex batch and a 48-vertex batch whose repeated negatives are all
+heads.  They hold K12 csr_walk bit-equal to its plain version on the
+dense graph and the RMAT (131,072 walkers x 20) at (p, q) = (0.25, 4),
+(1, 1) and (1, 5) (K = 2 by Python's half-even rounding); edge cases add
+sinks and dead lanes, the forced back edge at a degree-1 vertex, and a
+chi-square on general weights.
 
-``--quick`` runs 2-4 at small shapes (K5 on the RMAT at scale 12, K6 and its
-streaming form on its walks, K7 on them, K8, K9 and K10 on a 4,096-vertex
-tree) and stops.  Exits non-zero, printing no result, when CUDA is missing
+``--quick`` runs 2-4 at small shapes (K5 and K12 on the RMAT at scale 12,
+K6 and its streaming form on its walks, K7 on them, K8, K9 and K10 on a
+4,096-vertex tree, K11 and sgd_apply on 64 walks) and stops.  Exits non-zero, printing no result, when CUDA is missing
 or any phase fails.  Imports neither jax nor the JAX package.
 """
 
@@ -157,7 +182,7 @@ from node2vec_torch.models.vocab import (
 )
 from node2vec_torch.models.word2vec import Word2VecTorch, _effective_batch, _streaming_counts
 from node2vec_torch.utils.checkpoint import load_stream_state, save_stream_state, stream_fingerprint
-from node2vec_torch.walk import WalkEngine, blocked, dense
+from node2vec_torch.walk import WalkEngine, blocked, csr, dense
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -193,6 +218,9 @@ SOURCES = {
                                    "node2vec_tpu/models/cbow.py:306"),
     "adagrad_apply_cbow_hs": ("node2vec_torch/csrc/adagrad.cu",
                               "node2vec_tpu/models/cbow.py:314"),
+    "preagg_rows": ("node2vec_torch/csrc/preagg.cu", "node2vec_tpu/models/skipgram.py:405"),
+    "sgd_apply": ("node2vec_torch/csrc/preagg.cu", "node2vec_tpu/models/skipgram.py:434"),
+    "csr_walk": ("node2vec_torch/csrc/csr_walk.cu", "node2vec_tpu/walk/engine.py:66"),
 }
 # the kernels line: (row, launch counter, main path whose launches it reads)
 ROWS = (("dense_walk", "dense_walk", "main_path"),
@@ -209,8 +237,13 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("cbow_grads", "cbow_grads", "main_path_cbow"),
         ("cbow_hs_grads", "cbow_hs_grads", "main_path_cbow_hs"),
         ("adagrad_accumulate_cbow_hs", "adagrad_accumulate", "main_path_cbow_hs"),
-        ("adagrad_apply_cbow_hs", "adagrad_apply", "main_path_cbow_hs"))
+        ("adagrad_apply_cbow_hs", "adagrad_apply", "main_path_cbow_hs"),
+        ("preagg_rows", "preagg_rows", "main_path_sgd"),
+        ("sgd_apply", "sgd_apply", "main_path_sgd"),
+        ("csr_walk", "csr_walk", "main_path_csr"))
 GRADS = ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads")  # one per objective
+ADAGRAD = ("adagrad_accumulate", "adagrad_apply")
+SGD = ("preagg_rows", "sgd_apply")  # SGNS with optimizer="sgd"
 DENSE_PATH = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N2V_MAIN = {"num_walks": 10, "walk_length": 20, "return_param": 0.25, "inout_param": 4.0}
@@ -340,6 +373,17 @@ def _close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def _close_to_largest(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A tensor whose entries sum many signed terms through fp32 atomics, in
+    an order that changes from run to run (d_no, K11's segment sums, a
+    table row that a Huffman path's root updates from every center): an
+    entry near zero carries the rounding of large partial sums, so it is
+    held to rtol of the tensor's largest entry."""
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    require(err <= RTOL * scale, f"{name}: max abs err {err} > rtol {RTOL} * max |.| {scale}")
+    return err
+
+
 def check_sgns(n_vertices: int, n_walks: int, length: int, dim: int, window: int,
                n_neg: int, record: bool, results: dict) -> None:
     """K2, K3, K4 each against its plain version on the same inputs."""
@@ -376,7 +420,7 @@ def check_sgns(n_vertices: int, n_walks: int, length: int, dim: int, window: int
     require(d_no_err <= RTOL * d_no_scale,
             f"sgns_grads[d_no]: max abs err {d_no_err} > rtol {RTOL} * max |d_no| {d_no_scale}")
     errs.append(d_no_err)
-    g_in, g_out, d_no, _ = want
+    g_in, g_out, d_no = want[:3]
     walks_flat = walks.reshape(-1)
     lists = (g_in, walks_flat, g_out, walks_flat, d_no, neg)  # SGNS's three row lists
     k2_ms = time_ms(lambda: sg.sgns_grads(emb_in, emb_out, walks, mask, b_sh, neg, **kw))
@@ -898,14 +942,16 @@ def check_hs(tree, counts, n_walks: int, length: int, dim: int, window: int, hea
     q_in, q_th = emb_in.clone(), theta.clone()
     sg.adagrad_apply_plain(q_in, q_th, p_in, p_th, *lists, lr)
     k4_err = max(_close(f"adagrad_apply_hs[emb_in] ({case})", t_in, q_in),
-                 _close(f"adagrad_apply_hs[theta] ({case})", t_th, q_th))
+                 _close_to_largest(f"adagrad_apply_hs[theta] ({case})", t_th, q_th))
 
     b_state = [x.clone() for x in (emb_in, theta, acc_in, acc_th)]
     p_state = [x.clone() for x in (emb_in, theta, acc_in, acc_th)]
     loss_k = hs.hs_walk_step(*b_state, walks, b_sh, lr, *tables, mask, **kw)
     loss_p = hs.hs_walk_step_plain(*p_state, walks, b_sh, lr, *tables, mask, **kw)
-    step_err = max(_close(f"hs step[{k}] ({case})", a, b) for k, a, b in zip(
-        ("emb_in", "theta", "acc_in", "acc_theta", "loss"), (*b_state, loss_k), (*p_state, loss_p)))
+    step_err = max([_close_to_largest(f"hs step[theta] ({case})", b_state[1], p_state[1])]
+                   + [_close(f"hs step[{k}] ({case})", a, b) for k, a, b in zip(
+                       ("emb_in", "acc_in", "acc_theta", "loss"),
+                       (b_state[0], *b_state[2:], loss_k), (p_state[0], *p_state[2:], loss_p))])
     line = {"phase": "check" if timed else "edge_case", "kernel": "hs_grads + K3/K4 (HS)",
             "case": case, "B": n_walks, "L1": length, "D": dim, "window": window,
             "V": len(counts), "CL": int(tree.points.shape[1]), "H": n_head, "K": k_rows,
@@ -1084,7 +1130,7 @@ def _verify_cbow(inp, cbow_mean: bool, case: str) -> dict:
     q_in, q_th = emb_in.clone(), theta.clone()
     sg.adagrad_apply_plain(q_in, q_th, p_in, p_th, *lists, lr)
     k4_err = max(_close(f"adagrad_apply_cbow_hs[emb_in] {tag}", t_in, q_in),
-                 _close(f"adagrad_apply_cbow_hs[theta] {tag}", t_th, q_th))
+                 _close_to_largest(f"adagrad_apply_cbow_hs[theta] {tag}", t_th, q_th))
 
     steps = {}
     for name, state, fk, fp, extra, kw in (
@@ -1096,9 +1142,12 @@ def _verify_cbow(inp, cbow_mean: bool, case: str) -> dict:
         p_state = [x.clone() for x in state]
         loss_k = fk(*k_state, inp["walks"], inp["b_sh"], *extra, **kw)
         loss_p = fp(*p_state, inp["walks"], inp["b_sh"], *extra, **kw)
-        steps[name] = max(_close(f"cbow {name} step[{k}] {tag}", a, b) for k, a, b in zip(
-            ("emb_in", "emb_out", "acc_in", "acc_out", "loss"), (*k_state, loss_k),
-            (*p_state, loss_p)))
+        errs_step = [_close_to_largest(f"cbow {name} step[{k}] {tag}", a, b) for k, a, b in zip(
+            ("emb_in", "emb_out"), k_state[:2], p_state[:2])]
+        steps[name] = max(errs_step + [_close(f"cbow {name} step[{k}] {tag}", a, b)
+                                       for k, a, b in zip(("acc_in", "acc_out", "loss"),
+                                                          (*k_state[2:], loss_k),
+                                                          (*p_state[2:], loss_p))])
     return {"errs": {"cbow_grads": max(errs9), "cbow_hs_grads": max(errs10),
                      "accumulate_cbow_hs": k3_err, "apply_cbow_hs": k4_err,
                      "ns_step": steps["ns"], "hs_step": steps["hs"]},
@@ -1268,6 +1317,309 @@ def edge_cases_cbow(tree, counts) -> None:
             f"2-position walks: CBOW-NS loss {loss9} != SGNS loss {loss2}")
     emit({"phase": "edge_case", "kernel": "cbow_grads vs sgns_grads", "case": "two_token",
           "B": 512, "cbow_loss": loss9, "sgns_loss": loss2, "rtol": RTOL})
+
+
+def _preagg_inputs(n_vertices: int, walks_np: np.ndarray, dim: int, window: int, seed: int,
+                   oov: float = 0.0):
+    """One SGNS batch on the card: random tables and accumulators, the
+    walks, a vocabulary mask without ``oov`` of the vertices, window
+    shrinks, the noise table of the walks' counts and 64 shared negatives
+    with their (r1, r2)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    length = walks_np.shape[1]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    state = [t(rng.normal(0, 0.1, (n_vertices, dim)).astype(np.float32)),
+             t(rng.normal(0, 0.1, (n_vertices, dim)).astype(np.float32)),
+             t(rng.random(n_vertices).astype(np.float32)),
+             t(rng.random(n_vertices).astype(np.float32))]
+    counts = np.bincount(walks_np[walks_np >= 0], minlength=n_vertices)
+    vocab = build_vocab_from_counts(np.maximum(counts, 1), min_count=1)
+    mask = rng.random(n_vertices) >= oov
+    noise = (t(vocab.ns_alias), t(vocab.ns_prob))
+    r1, r2 = (t(rng.random(64).astype(np.float32)) for _ in range(2))
+    b_sh = t(rng.integers(1, window + 1, walks_np.shape).astype(np.int32))
+    return dict(state=state, walks=t(walks_np), mask=t(mask), b_sh=b_sh, noise=noise, r=(r1, r2),
+                neg=sg.negative_ids(r1, r2, *noise), window=window, V=n_vertices, L1=length)
+
+
+def _verify_preagg(inp, case: str) -> dict:
+    """K11 preagg_rows, sgd_apply and K3/K4 over the de-duplicated lists,
+    then both pre-aggregated steps (optimizer="sgd", and preagg=True with
+    Adagrad), each against its plain version on the same inputs: the sums
+    to rtol of their largest entry (K2's d_no tolerance: fp32 atomics
+    reorder them), heads and counts exactly, the slot map back to empty,
+    tables, accumulators and losses elementwise (check_sgns's)."""
+    emb_in, emb_out, acc_in, acc_out = inp["state"]
+    walks, neg = inp["walks"], inp["neg"]
+    kw = dict(window=inp["window"], negatives=5)
+    g_in, g_out, d_no, _, pairs = sg.sgns_grads_plain(emb_in, emb_out, walks, inp["mask"],
+                                                       inp["b_sh"], neg, **kw)
+    flat = walks.reshape(-1)
+    slot = sg.new_slot_map(inp["V"], flat.device)
+    got = sg.preagg_rows(flat, g_in, g_out, slot)
+    want = sg.preagg_rows_plain(flat, g_in, g_out)
+    torch.cuda.synchronize()
+    require(torch.equal(got[2], want[2]), f"preagg_rows[heads] ({case}) differ")
+    require(torch.equal(got[3], want[3]), f"preagg_rows[cnt] ({case}) differ")
+    require(bool((slot == sg.SLOT_EMPTY).all()), f"preagg_rows ({case}) left the slot map dirty")
+    errs = {k: _close_to_largest(f"preagg_rows[{k}] ({case})", a, b)
+            for k, a, b in (("ga_in", got[0], want[0]), ("ga_out", got[1], want[1]))}
+    ga_in, ga_out, heads, cnt = want
+    lr, neg_scale = 0.025, 5 / neg.numel()
+    t_in, t_out = emb_in.clone(), emb_out.clone()
+    sg.sgd_apply(t_in, t_out, ga_in, ga_out, heads, cnt, d_no, neg, pairs, lr, neg_scale)
+    q_in, q_out = emb_in.clone(), emb_out.clone()
+    sg.sgd_apply_plain(q_in, q_out, ga_in, ga_out, heads, cnt, d_no, neg, pairs, lr, neg_scale)
+    errs["sgd_apply"] = max(_close(f"sgd_apply[emb_in] ({case})", t_in, q_in),
+                            _close(f"sgd_apply[emb_out] ({case})", t_out, q_out))
+    lists = (ga_in, heads, ga_out, heads, d_no, neg)
+    a_in, a_out = acc_in.clone(), acc_out.clone()
+    sg.adagrad_accumulate(a_in, a_out, *lists)
+    p_in, p_out = acc_in.clone(), acc_out.clone()
+    sg.adagrad_accumulate_plain(p_in, p_out, *lists)
+    errs["adagrad_accumulate_preagg"] = max(_close(f"K3 preagg[acc_in] ({case})", a_in, p_in),
+                                            _close(f"K3 preagg[acc_out] ({case})", a_out, p_out))
+    t_in, t_out = emb_in.clone(), emb_out.clone()
+    sg.adagrad_apply(t_in, t_out, p_in, p_out, *lists, lr)
+    q_in, q_out = emb_in.clone(), emb_out.clone()
+    sg.adagrad_apply_plain(q_in, q_out, p_in, p_out, *lists, lr)
+    errs["adagrad_apply_preagg"] = max(_close(f"K4 preagg[emb_in] ({case})", t_in, q_in),
+                                       _close(f"K4 preagg[emb_out] ({case})", t_out, q_out))
+    for optimizer, preagg in (("sgd", False), ("adagrad", True)):
+        k_state = [x.clone() for x in inp["state"]]
+        p_state = [x.clone() for x in inp["state"]]
+        step_kw = dict(kw, optimizer=optimizer, preagg=preagg)
+        loss_k = sg.sgns_walk_step(*k_state, walks, inp["b_sh"], *inp["r"], lr, *inp["noise"],
+                                   inp["mask"], slot=slot, **step_kw)
+        loss_p = sg.sgns_walk_step_plain(*p_state, walks, inp["b_sh"], *inp["r"], lr,
+                                         *inp["noise"], inp["mask"], **step_kw)
+        errs[f"step_{optimizer}"] = max(_close(f"{optimizer} step[{k}] ({case})", a, b)
+                                        for k, a, b in zip(
+            ("emb_in", "emb_out", "acc_in", "acc_out", "loss"), (*k_state, loss_k),
+            (*p_state, loss_p)))
+        if optimizer == "sgd":
+            require(torch.equal(k_state[2], acc_in) and torch.equal(k_state[3], acc_out),
+                    f"the SGD step ({case}) changed an accumulator")
+    return {"errs": errs, "grads": (g_in, g_out, d_no, pairs), "want": want, "slot": slot,
+            "lists": lists, "acc": (p_in, p_out)}
+
+
+def check_preagg(n_vertices: int, walks_np: np.ndarray, dim: int, window: int, record: bool,
+                 results: dict, case: str) -> None:
+    """K11 preagg_rows and sgd_apply (and K3/K4 over the de-duplicated
+    lists) against their plain versions (``_verify_preagg``) and timed, on
+    ``walks_np``: main_path_sgd's first chunk, shuffled.  Library
+    yardsticks: index_add_ of the live gradient rows into a zeroed [V, D]
+    buffer (the segment sums by direct address), and of the precomputed
+    SGD updates."""
+    inp = _preagg_inputs(n_vertices, walks_np, dim, window, seed=13)
+    v = _verify_preagg(inp, case)
+    g_in, g_out, d_no, pairs = v["grads"]
+    ga_in, ga_out, heads, cnt = v["want"]
+    flat, neg, slot = inp["walks"].reshape(-1), inp["neg"], v["slot"]
+    emb_in, emb_out = inp["state"][:2]
+    lr, neg_scale = 0.025, 5 / neg.numel()
+    k11_ms = time_ms(lambda: sg.preagg_rows(flat, g_in, g_out, slot))
+    k11_plain = time_ms(lambda: sg.preagg_rows_plain(flat, g_in, g_out), reps=3, warmup=1)
+    live = flat >= 0
+    rows_live = flat[live].long()
+    gi_live, go_live = g_in[live], g_out[live]
+    buf_in = torch.zeros_like(emb_in)
+    buf_out = torch.zeros_like(emb_out)
+    k11_lib = time_ms(lambda: (buf_in.index_add_(0, rows_live, gi_live),
+                               buf_out.index_add_(0, rows_live, go_live)))
+    t_in, t_out = emb_in.clone(), emb_out.clone()
+    sgd_args = (ga_in, ga_out, heads, cnt, d_no, neg, pairs, lr, neg_scale)
+    sgd_ms = time_ms(lambda: sg.sgd_apply(t_in, t_out, *sgd_args))
+    sgd_plain = time_ms(lambda: sg.sgd_apply_plain(t_in, t_out, *sgd_args), reps=3, warmup=1)
+    ok = heads >= 0
+    hv = heads[ok].long()
+    inv = 1.0 / torch.clamp(cnt[ok], min=1.0)
+    upd_in = (-lr * ga_in[ok]) * inv[:, None]
+    upd_out = torch.cat([(-lr * ga_out[ok]) * inv[:, None],
+                         (-lr * d_no) / torch.clamp(pairs * neg_scale, min=1.0)])
+    rows_out = torch.cat([hv, neg.long()])
+    sgd_lib = time_ms(lambda: (t_in.index_add_(0, hv, upd_in),
+                               t_out.index_add_(0, rows_out, upd_out)))
+    lists, (p_in, p_out) = v["lists"], v["acc"]
+    a_in, a_out = inp["state"][2].clone(), inp["state"][3].clone()
+    k3_ms = time_ms(lambda: sg.adagrad_accumulate(a_in, a_out, *lists))
+    k4_ms = time_ms(lambda: sg.adagrad_apply(t_in, t_out, p_in, p_out, *lists, lr))
+
+    # bounds, from this run's data.  preagg_rows reads the rows and the live
+    # rows' two gradients once, writes the two [N, D] sums, heads and counts
+    # once, and reads and writes each touched slot entry; sgd_apply reads
+    # heads, the heads' counts and sums, d_no, the negatives and pairs, and
+    # reads and writes each head's emb_in row and each distinct head or
+    # negative emb_out row once
+    n_rows, n_live, s = flat.numel(), int(live.sum()), neg.numel()
+    u = int(ok.sum())
+    u_out = int(torch.unique(rows_out).numel())
+    k11_bytes = 4 * n_rows + 2 * n_live * dim * 4 + 2 * n_rows * dim * 4 + 8 * n_rows + 8 * u
+    sgd_bytes = (4 * n_rows + 4 * u + 2 * u * dim * 4 + s * (dim * 4 + 4) + 4
+                 + 8 * dim * (u + u_out))
+    rec = {
+        "preagg_rows": (max(v["errs"]["ga_in"], v["errs"]["ga_out"]), k11_ms, k11_plain,
+                        bound_ms(k11_bytes, 2 * n_live * dim), k11_lib),
+        "sgd_apply": (v["errs"]["sgd_apply"], sgd_ms, sgd_plain,
+                      bound_ms(sgd_bytes, 3 * dim * (2 * u + s)), sgd_lib),
+    }
+    emit({"phase": "check", "kernel": "preagg_rows + sgd_apply + K3/K4 (preaggregated)",
+          "case": case, "B": walks_np.shape[0], "L1": inp["L1"], "D": dim, "S": s,
+          "V": n_vertices, "live_rows": n_live, "distinct_vertices": u,
+          "distinct_out_rows": u_out, "max_abs_err": v["errs"], "rtol": RTOL, "atol": ATOL,
+          "adagrad_accumulate_preagg_ms": k3_ms, "adagrad_apply_preagg_ms": k4_ms})
+    for name, (err, ms, plain_ms, (b_ms, b_by), lib_ms) in rec.items():
+        emit({"phase": "check", "kernel": name, "case": case, "B": walks_np.shape[0],
+              "L1": inp["L1"], "D": dim, "max_abs_err": err, "rtol": RTOL, "atol": ATOL,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": lib_ms})
+        if record:
+            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def edge_cases_preagg() -> None:
+    """K11, sgd_apply, K3/K4 over the de-duplicated lists and both
+    pre-aggregated steps where the main path does not go
+    (``_verify_preagg``): dead lanes with 20% of the vertices out of the
+    vocabulary (counted, with zero gradients), all-dead walks, a batch
+    whose every position is one vertex, and a 48-vertex batch, where the
+    64 shared negatives repeat and every one is also a head row."""
+    rng = np.random.default_rng(14)
+    dead = rng.integers(0, 4096, (256, 21)).astype(np.int32)
+    dead[np.arange(21)[None, :] >= rng.integers(1, 22, 256)[:, None]] = -1
+    small = rng.integers(0, 48, (96, 21)).astype(np.int32)
+    cases = (("dead_lanes_oov", 4096, dead, 0.2),
+             ("all_dead", 4096, np.full((64, 21), -1, np.int32), 0.0),
+             ("one_vertex", 4096, np.full((64, 21), 7, np.int32), 0.0),
+             ("negatives_are_heads", 48, small, 0.0))
+    for case, n_v, walks_np, oov in cases:
+        inp = _preagg_inputs(n_v, walks_np, 128, 5, seed=15, oov=oov)
+        v = _verify_preagg(inp, case)
+        heads, cnt = v["want"][2], v["want"][3]
+        neg = inp["neg"]
+        emit({"phase": "edge_case", "kernel": "preagg_rows + sgd_apply + K3/K4 (preaggregated)",
+              "case": case, "B": walks_np.shape[0], "V": n_v, "oov_share": oov,
+              "heads": int((heads >= 0).sum()), "counted_rows": int(cnt.sum()),
+              "distinct_negatives": int(torch.unique(neg).numel()),
+              "negatives_among_heads": int(torch.isin(neg, heads).sum()),
+              "max_abs_err": v["errs"], "rtol": RTOL, "atol": ATOL})
+        require(int(cnt.sum()) == int((walks_np >= 0).sum()), f"{case}: counts miss rows")
+        if case == "negatives_are_heads":
+            require(bool(torch.isin(neg, heads).all()) and torch.unique(neg).numel() < 64,
+                    f"{case}: the negatives do not repeat or are not all heads")
+
+
+CSR_SETTINGS = ((0.25, 4.0), (1.0, 1.0), (1.0, 5.0))  # (1, 5): K = 2 by half-even rounding
+
+
+def check_csr_walk(graph, name: str, n_walkers: int, walk_length: int, record: bool,
+                   results: dict) -> None:
+    """K12 against its plain version on ``graph``'s DeviceGraph at every
+    setting of CSR_SETTINGS: unit weights, so the paths must be bit-equal;
+    its bound counts each 32-byte sector of the CSR arrays the plain run
+    reads once, the starts read and the paths written."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    dg = graph.to_device(dev)
+    torch.cuda.synchronize()
+    deg = np.diff(graph.indptr)
+    iters = csr.search_iters(int(deg.max()))
+    emit({"phase": "csr_tables", "graph": name, "n_vertices": graph.n_vertices,
+          "n_edges": graph.n_edges, "max_degree": int(deg.max()), "search_iters": iters,
+          "device_graph_bytes": sum(t.numel() * t.element_size() for t in dg),
+          "upload_s": time.perf_counter() - t0})
+    starts = torch.arange(n_walkers, dtype=torch.int32, device=dev) % graph.n_vertices
+    for p, q in CSR_SETTINGS:
+        kw = dict(walk_length=walk_length, return_param=p, inout_param=q, max_trials=64,
+                  search_iters=iters)
+        got = csr.csr_walk_chunk(*dg, starts, 0, 0, **kw)
+        stats: dict = {}
+        want = csr.csr_walk_chunk_plain(*dg, starts, 0, 0, stats=stats, **kw)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        err = int((got.long() - want.long()).abs().max())
+        ms = time_ms(lambda: csr.csr_walk_chunk(*dg, starts, 0, 0, **kw), reps=5)
+        plain_ms = time_ms(lambda: csr.csr_walk_chunk_plain(*dg, starts, 0, 0, **kw),
+                           reps=1, warmup=0)
+        steps = int((got[:, 1:] >= 0).sum())
+        sectors = {k: int(m.sum()) for k, m in stats.items()}
+        n_bytes = 32 * sum(sectors.values()) + n_walkers * 4 + got.numel() * 4
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        kb, n_rounds = csr.proposal_rounds(p, q, 64)
+        emit({"phase": "check", "kernel": "csr_walk", "graph": name, "p": p, "q": q,
+              "K": kb, "rounds": n_rounds, "walkers": n_walkers, "walk_length": walk_length,
+              "bit_equal": n_diff == 0, "entries_differing": n_diff, "walk_steps": steps,
+              "sectors_read": sectors, "ms": ms, "plain_ms": plain_ms,
+              "walk_steps_per_s": steps / (ms / 1e3), "bound_bytes": n_bytes, "bound_ms": b_ms,
+              "bound_by": b_by})
+        require(n_diff == 0, f"csr_walk differs from its plain version on {name} at p={p} q={q}")
+        if record and (p, q) == CSR_SETTINGS[0]:  # main_path_csr's graph and setting
+            results["csr_walk"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def edge_cases_csr() -> None:
+    """K12 where the main path does not go: sinks and dead lanes on a
+    dyadic directed graph at every setting of CSR_SETTINGS and (4, 0.25)
+    (bit-equal to the plain version), the forced back edge at a degree-1
+    vertex at (4, 0.25) and (0.25, 4) (tests/test_walk.py:173), and general
+    weights by chi-square (p-value > 1e-4)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+    n = 600
+    src = rng.integers(0, n - 20, 9000).astype(np.int32)  # the last 20 vertices are sinks
+    dst = rng.integers(0, n, 9000).astype(np.int32)
+    back = rng.random(9000) < 0.5
+    src, dst = np.concatenate([src, dst[back]]), np.concatenate([dst, src[back]])
+    keep = (src < n - 20) & (src != dst)
+    w = rng.choice(np.float32([0.5, 1.0, 2.0]), int(keep.sum()))
+    g = from_edge_arrays(src[keep], dst[keep], w, n_vertices=n, directed=True)
+    dg = g.to_device(dev)
+    starts = torch.arange(3 * n, dtype=torch.int32, device=dev) % n
+    starts[::13] = -1
+    iters = csr.search_iters(int(np.diff(g.indptr).max()))
+    for p, q in CSR_SETTINGS + ((4.0, 0.25),):
+        kw = dict(walk_length=30, return_param=p, inout_param=q, max_trials=64,
+                  search_iters=iters)
+        got = csr.csr_walk_chunk(*dg, starts, 1000, 99, **kw)
+        want = csr.csr_walk_chunk_plain(*dg, starts, 1000, 99, **kw)
+        require(bool(torch.equal(got, want)), f"csr_walk differs with sinks at p={p} q={q}")
+    emit({"phase": "edge_case", "kernel": "csr_walk", "case": "sinks_dead_lanes",
+          "walkers": int(starts.numel()), "sink_ended_walks": int((got[:, -1] < 0).sum()),
+          "bit_equal": True})
+
+    chain = from_edge_arrays(np.array([0, 1, 1, 2], np.int32), np.array([1, 0, 2, 1], np.int32),
+                             directed=True)
+    for p, q in ((4.0, 0.25), (0.25, 4.0)):
+        walks = WalkEngine(chain, Node2VecParams(num_walks=200, walk_length=8, return_param=p,
+                                                 inout_param=q),
+                           strategy="csr", device="cuda").run(
+            seed=5, start_vertices=np.array([0], np.int32))
+        at0 = walks[:, :-1] == 0
+        ok = bool((walks >= 0).all() and (walks[:, 1:][at0] == 1).all())
+        emit({"phase": "edge_case", "kernel": "csr_walk", "case": "degree_one_back_edge",
+              "p": p, "q": q, "forced_back_moves": int(at0.sum()), "ok": ok})
+        require(ok, f"degree-1 back edge not forced at p={p} q={q}")
+
+    src = np.array([0, 0, 1, 1, 1, 2, 2, 3], dtype=np.int32)
+    dst = np.array([1, 2, 0, 2, 3, 0, 1, 1], dtype=np.int32)
+    w = np.array([1.0, 1.0, 1.0, 2.0, 1.5, 1, 1, 1], dtype=np.float32) * np.float32(1.3)
+    g = from_edge_arrays(src, dst, w, directed=True)
+    for p, q in ((0.5, 2.0), (2.0, 0.5)):
+        walks = WalkEngine(g, Node2VecParams(num_walks=20000, walk_length=2, return_param=p,
+                                             inout_param=q),
+                           strategy="csr", device="cuda").run(
+            seed=11, start_vertices=np.array([0], np.int32))
+        pval = walk_transition_pvalue(g, walks, 0, 1, p, q)
+        emit({"phase": "edge_case", "kernel": "csr_walk", "case": "general_weights", "p": p,
+              "q": q, "general_weights_chi2_pvalue": pval})
+        require(pval is not None and pval > 1e-4, f"csr_walk chi-square p-value {pval}")
 
 
 # --------------------------------------------------------------------------- #
@@ -1732,13 +2084,16 @@ def main_path_host(src, dst, max_iter: int, phase: str = "main_path_host", w2v=N
     return out, walks, model.vocab, slab
 
 
-def main_path_streamed(src, dst, max_iter: int, phase: str, w2v: dict, grads: str):
+def main_path_streamed(src, dst, max_iter: int, phase: str, w2v: dict, grads: str,
+                       update=ADAGRAD):
     """Node2Vec on the dense graph through ``run_pipeline()`` with no
     argument: 10 walker chunks, so it streams (K1 counting and training,
-    K6's streaming form, ``grads`` and K3/K4 every step).  ``main_path_hs``:
-    negative=0 (hierarchical softmax, the reference's default objective,
-    its Huffman tree from the pass-1 counts, K8); ``main_path_cbow``: sg=0,
-    negative 5 (CBOW-NS, K9)."""
+    K6's streaming form, ``grads`` and ``update`` every step).
+    ``main_path_hs``: negative=0 (hierarchical softmax, the reference's
+    default objective, its Huffman tree from the pass-1 counts, K8 and
+    K3/K4); ``main_path_cbow``: sg=0, negative 5 (CBOW-NS, K9 and K3/K4);
+    ``main_path_sgd``: SGNS with optimizer="sgd", step_size 0.025 (K2, K11
+    preagg_rows and sgd_apply)."""
     n2v = Node2Vec(n2v_params=N2V_MAIN,
                    w2v_params={**W2V_MAIN, **w2v, "max_iter": max_iter},
                    random_seed=0, device="cuda")
@@ -1779,13 +2134,16 @@ def main_path_streamed(src, dst, max_iter: int, phase: str, w2v: dict, grads: st
     pipeline_s = t3 - t2
     steps = n_batches * n_chunks * max_iter
     length = N2V_MAIN["walk_length"] + 1
+    pair_rate = sg.pairs_per_batch(batch, length - 1, p.window_size) * steps / (pipeline_s - walk_s)
     if p.sg == 0:  # nominal centers, B * L1 a step
         objective = "CBOW with negative sampling (sg=0)"
         rate = {"cbow_center_updates_per_fit_s": batch * length * steps / (pipeline_s - walk_s)}
-    else:
+    elif p.negative == 0:
         objective = "hierarchical softmax (negative=0)"
-        rate = {"hs_pair_updates_per_fit_s": sg.pairs_per_batch(
-            batch, length - 1, p.window_size) * steps / (pipeline_s - walk_s)}
+        rate = {"hs_pair_updates_per_fit_s": pair_rate}
+    else:
+        objective = f"SGNS with optimizer={p.optimizer}, step_size {p.step_size}"
+        rate = {"sgns_pair_updates_per_fit_s": pair_rate}
     out = {
         "phase": phase, "cuts": {"max_iter": f"10 -> {max_iter}"}, "objective": objective,
         "n_vertices": graph.n_vertices, "n_edges": graph.n_edges, "strategy": engine.strategy,
@@ -1814,16 +2172,76 @@ def main_path_streamed(src, dst, max_iter: int, phase: str, w2v: dict, grads: st
             f"dense_walk launched {launches['dense_walk']} times")
     require(launches["vertex_counts"] == n_chunks,
             f"vertex_counts launched {launches['vertex_counts']} times")
-    for k in (grads, "adagrad_accumulate", "adagrad_apply"):
+    for k in (grads, *update):
         require(launches[k] == n_chunks * n_batches * max_iter,
                 f"{k} launched {launches[k]} times")
-    require(all(launches[k] == 0 for k in GRADS if k != grads) and launches["blocked_walk"] == 0
-            and launches["subsample_walks"] == 0, f"a kernel off the {phase} path ran: {launches}")
-    path = ("dense_walk", "vertex_counts", grads, "adagrad_accumulate", "adagrad_apply")
+    off = [k for k in (*GRADS, *ADAGRAD, *SGD, "blocked_walk", "subsample_walks", "csr_walk")
+           if k != grads and k not in update]
+    require(all(launches[k] == 0 for k in off), f"a kernel off the {phase} path ran: {launches}")
+    path = ("dense_walk", "vertex_counts", grads, *update)
     require(all(launches[k] > 0 for k in path), f"a kernel never ran: {launches}")
-    label = {"main_path_hs": "HS", "main_path_cbow": "CBOW"}[phase]
+    label = {"main_path_hs": "HS", "main_path_cbow": "CBOW", "main_path_sgd": "SGNS-SGD"}[phase]
     breakdown(((f"run_pipeline ({label}, streaming)", lambda: Word2VecTorch(p, device="cuda")
                 .fit_streaming(engine.chunk_source(seed=0)[2], n_chunks, graph.n_vertices)),))
+    return out
+
+
+def main_path_csr(graph, max_iter: int) -> dict:
+    """The CSR walk engine on the heavy-tail RMAT:
+    ``WalkEngine(graph, params, strategy="csr", device="cuda").run_device()``
+    (its DeviceGraph uploaded at the first chunk; 40 chunks of K12), then
+    ``Word2VecTorch.fit`` on the corpus on the card (K6, K2-K4)."""
+    params = Node2VecParams(**N2V_MAIN)
+    w2v = Word2VecParams(**W2V_MAIN, max_iter=max_iter)
+    _fresh_run()
+    t0 = time.perf_counter()
+    engine = WalkEngine(graph, params, strategy="csr", device="cuda")
+    walks = engine.run_device(seed=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model = Word2VecTorch(w2v, device="cuda").fit(walks, n_vertices=graph.n_vertices)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_walks, length = walks.shape
+    n_chunks = -(-n_walks // engine._effective_chunk(n_walks))
+    steps = int((walks[:, 1:] >= 0).sum())
+    batch = _effective_batch(w2v.batch_walks, n_walks)
+    n_batches = -(-n_walks // batch)
+    pairs = sg.pairs_per_batch(batch, length - 1, w2v.window_size) * n_batches * max_iter
+    out = {
+        "phase": "main_path_csr", "cuts": {"max_iter": f"10 -> {max_iter}"},
+        "strategy": engine.strategy, "n_vertices": graph.n_vertices, "n_edges": graph.n_edges,
+        "max_degree": engine.max_degree, "search_iters": engine.search_iters,
+        "device_graph_bytes": sum(t.numel() * t.element_size() for t in engine.dgraph),
+        "walks": [int(n_walks), int(length)], "walk_steps": steps,
+        "walker_chunk": engine._effective_chunk(n_walks), "n_chunks": n_chunks,
+        "walk_s": t1 - t0, "walk_steps_per_s": steps / (t1 - t0), "fit_s": t2 - t1,
+        "batch_walks": batch, "n_batches": n_batches, "sgns_pair_updates_per_s": pairs / (t2 - t1),
+        "epoch_losses": model.losses, "peak_device_memory_bytes": int(peak),
+        "launches": launches,
+    }
+    emit(out)
+    require(engine.strategy == "csr", f"strategy {engine.strategy}")
+    require(walks.shape == (10 * graph.n_vertices, 21), f"walk corpus shape {walks.shape}")
+    walks_np = walks.cpu().numpy()
+    require(bool((walks_np[:, 0] >= 0).all()), "a start vertex is missing")
+    check_steps(graph, walks_np)
+    require(n_chunks == 40 and launches["csr_walk"] == n_chunks,
+            f"csr_walk launched {launches['csr_walk']} times for {n_chunks} chunks")
+    require(launches["dense_walk"] == 0 and launches["blocked_walk"] == 0,
+            f"another walk kernel ran: {launches}")
+    require(launches["vertex_counts"] == 1, f"vertex_counts launched {launches['vertex_counts']}")
+    for k in ("sgns_grads", *ADAGRAD):
+        require(launches[k] == n_batches * max_iter, f"{k} launched {launches[k]} times")
+    vectors = model.vectors
+    require(vectors.shape == (graph.n_vertices, 128) and bool(np.isfinite(vectors).all()),
+            "non-finite or misshapen vectors")
+    require(all(np.isfinite(model.losses)), f"losses {model.losses}")
+    breakdown((("run_device (csr)", lambda: engine.run_device(seed=0)),
+               ("fit (csr walks)", lambda: Word2VecTorch(w2v, device="cuda").fit(
+                   walks, n_vertices=graph.n_vertices))))
     return out
 
 
@@ -1857,15 +2275,17 @@ def breakdown(stages) -> None:
 
 def quality_gates(blocked_widths=None, trainer: str = "fit", walker_chunk=None,
                   sample: float = 0.0, negative: int = 5, sg_arch: int = 1,
-                  auc_min: float = 0.60, gap_min: float = 0.05) -> dict:
+                  auc_min: float = 0.60, gap_min: float = 0.05, sgd: bool = False) -> dict:
     """The gates on synthetic_multilabel(2000, seed=0), trained through
     ``trainer`` (see datasets._train); ``negative=0`` trains hierarchical
-    softmax, ``sg_arch=0`` CBOW."""
+    softmax, ``sg_arch=0`` CBOW, ``sgd`` SGNS with optimizer="sgd" at
+    step_size 0.025."""
     g, labels = synthetic_multilabel(2000, seed=0)
     n2v = Node2VecParams(num_walks=8, walk_length=40,
                          **({"walker_chunk": walker_chunk} if walker_chunk else {}))
     w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128, sample=sample,
-                         negative=negative, sg=sg_arch)
+                         negative=negative, sg=sg_arch,
+                         **({"optimizer": "sgd", "step_size": 0.025} if sgd else {}))
     t0 = time.perf_counter()
     auc = holdout_link_prediction(g, n2v_params=n2v, w2v_params=w2v, seed=0, device="cuda",
                                   blocked_widths=blocked_widths,
@@ -1877,7 +2297,7 @@ def quality_gates(blocked_widths=None, trainer: str = "fit", walker_chunk=None,
     out = {"phase": "quality", "graph": "synthetic_multilabel(2000, seed=0)",
            "trainer": trainer,
            "objective": (("cbow_hs" if negative == 0 else "cbow_ns") if sg_arch == 0
-                         else ("hs" if negative == 0 else "sgns")),
+                         else ("hs" if negative == 0 else "sgns_sgd" if sgd else "sgns")),
            "walker_chunk": n2v.walker_chunk, "sample": sample,
            "walk_strategy": strategy, "blocked_widths": blocked_widths,
            "heavy_vertex_share": (float((deg > blocked_widths[0]).mean())
@@ -1944,6 +2364,12 @@ def main() -> int:
         check_cbow(tree, tree_counts, 64, 21, 128, 5, False, False, False, results,
                    case="cbow_mean=False")
         edge_cases_cbow(tree, tree_counts)
+        walks_q = WalkEngine(g, Node2VecParams(**N2V_MAIN), device="cuda").run_device()
+        check_preagg(g.n_vertices, walks_q.cpu().numpy()[:64], 128, 5, True, results, "quick")
+        edge_cases_preagg()
+        check_csr_walk(g, "dense ER, 4,096 vertices", 4096, 20, False, results)
+        check_csr_walk(g_rmat, "RMAT scale 12", 4096, 20, True, results)
+        edge_cases_csr()
         edge_cases()
         edge_cases_blocked()
         small_reference()
@@ -1975,9 +2401,15 @@ def main() -> int:
     check_cbow(tree, tree_counts, 8192, 21, 128, 5, True, True, False, results, case="B=8192",
                walks=hs_walks)
     edge_cases_cbow(tree, tree_counts)
+    # K11 on main_path_sgd's batches: the same walks (it trains at main_path_hs's batch)
+    check_preagg(131072, hs_walks[:hs_batch], 128, 5, True, results, "main_path_sgd batch")
+    check_preagg(131072, hs_walks[:8192], 128, 5, False, results, "B=8192")
+    edge_cases_preagg()
     rmat_src, rmat_dst, g_rmat = rmat_graph(19)
     check_blocked_walk(g_rmat, 131072, 20, results)
-    del g_rmat
+    check_csr_walk(g, "dense ER", 131072, 20, False, results)
+    check_csr_walk(g_rmat, "RMAT scale 19", 131072, 20, True, results)
+    edge_cases_csr()
     edge_cases()
     edge_cases_blocked()
     small_reference()
@@ -1997,6 +2429,11 @@ def main() -> int:
                                                  "cbow_grads")
     paths["main_path_cbow_hs"] = main_path_host(src, dst, 1, "main_path_cbow_hs",
                                                 {"sg": 0, "negative": 0}, "cbow_hs_grads")[0]
+    paths["main_path_sgd"] = main_path_streamed(src, dst, 1, "main_path_sgd",
+                                                {"optimizer": "sgd", "step_size": 0.025},
+                                                "sgns_grads", SGD)
+    paths["main_path_csr"] = main_path_csr(g_rmat, max_iter=1)
+    del g_rmat
     quality_gates()
     quality_gates(blocked_widths=(8, 64))
     quality_gates(trainer="run_pipeline", walker_chunk=2048)
@@ -2009,6 +2446,10 @@ def main() -> int:
     quality_gates(sg_arch=0, auc_min=0.57, gap_min=0.045)
     quality_gates(trainer="run_pipeline", walker_chunk=2048, negative=0, sg_arch=0,
                   auc_min=0.55, gap_min=0.033)
+    # SGNS-SGD's own limits, by the same rule (PERF.md section 2)
+    quality_gates(sgd=True, auc_min=0.58, gap_min=0.145)
+    quality_gates(trainer="run_pipeline", walker_chunk=2048, sgd=True, auc_min=0.575,
+                  gap_min=0.135)
 
     kernels = []
     for name, counter, path in ROWS:

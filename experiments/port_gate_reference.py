@@ -2,7 +2,7 @@
 on the CPU (and, with --port, from the PyTorch port's plain path).
 
     JAX_PLATFORMS=cpu python experiments/port_gate_reference.py [--port] [--hs] [--cbow]
-        [--trainers fit run_pipeline host_corpus] [--seeds 0 1]
+        [--sgd] [--trainers fit run_pipeline host_corpus] [--seeds 0 1]
 
 The gates train on ``synthetic_multilabel(2000, seed=0)`` with num_walks 8,
 walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1, and read the
@@ -14,8 +14,10 @@ chunks) and "host_corpus" (``Node2Vec(host_corpus=True)``, with
 sample=1e-3).  ``--hs`` trains hierarchical softmax (negative=0), the
 reference's default objective, instead of negative sampling; ``--cbow``
 trains CBOW (sg=0, gensim's default architecture) instead of skip-gram, so
-``--cbow --hs`` trains CBOW with hierarchical softmax.  Prints one JSON line
-per (package, objective, trainer, seed).
+``--cbow --hs`` trains CBOW with hierarchical softmax; ``--sgd`` trains
+SGNS with ``optimizer="sgd"`` at ``step_size=0.025`` (the reference
+trainers' update rule).  Prints one JSON line per (package, objective,
+trainer, seed).
 """
 
 from __future__ import annotations
@@ -79,6 +81,8 @@ def main() -> None:
     ap.add_argument("--hs", action="store_true",
                     help="hierarchical softmax (negative=0) instead of negative sampling")
     ap.add_argument("--cbow", action="store_true", help="CBOW (sg=0) instead of skip-gram")
+    ap.add_argument("--sgd", action="store_true",
+                    help='SGNS with optimizer="sgd", step_size=0.025 instead of Adagrad')
     args = ap.parse_args()
     g, labels = synthetic_multilabel(2000, seed=0)
     for trainer in args.trainers:
@@ -89,8 +93,12 @@ def main() -> None:
             w2v_kw["negative"] = 0
         if args.cbow:
             w2v_kw["sg"] = 0
+        if args.sgd:
+            w2v_kw.update(optimizer="sgd", step_size=0.025)
         objective = ("cbow_" if args.cbow else "") + ("hs" if args.hs else
                                                       "ns" if args.cbow else "sgns")
+        if args.sgd:
+            objective += "_sgd"
         for seed in args.seeds:
             kept, pos, neg = holdout_split(g, 0.2, seed)
             emb = jax_vectors(*_csr(kept, g.n_vertices), g.n_vertices, RefN2V(**n2v_kw),

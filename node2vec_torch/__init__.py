@@ -3,9 +3,11 @@
 A port of the JAX package ``node2vec_tpu`` beside it, one slice at a time:
 host graph build (numpy + the C++ core in ``native/``), biased walks on the
 dense engine (kernel K1) or, for heavy-tailed graphs, the blocked engine
-(K5), vertex counts of a corpus on the card (K6), frequent-vertex
-subsampling (K7), and SGNS with row-wise Adagrad (kernels K2–K4), trained
-in memory, over a streamed virtual corpus or from host slabs, and driven by
+(K5), or the CSR rejection engine on request (K12), vertex counts of a
+corpus on the card (K6), frequent-vertex subsampling (K7), skip-gram and
+CBOW with negative sampling or hierarchical softmax and row-wise Adagrad
+(K2–K4, K8–K10), or SGNS with pre-aggregated SGD (K11), trained in memory,
+over a streamed virtual corpus or from host slabs, and driven by
 ``Node2Vec``.  Each kernel's wrapper
 launches it for CUDA tensors and runs its plain PyTorch version for CPU
 tensors.  Kernels are built with nvcc at first use

@@ -31,7 +31,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 KERNELS = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply",
            "blocked_walk", "vertex_counts", "subsample_walks", "hs_grads", "cbow_grads",
-           "cbow_hs_grads")
+           "cbow_hs_grads", "preagg_rows", "sgd_apply", "csr_walk")
 
 launches: collections.Counter = collections.Counter()
 build_seconds: Optional[float] = None
@@ -130,6 +130,10 @@ def lib() -> ctypes.CDLL:
                                vp, vp, vp, vp, vp],
             "n2v_cbow_hs_grads": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                   i32, vp, vp, vp, vp, vp],
+            "n2v_preagg_rows": [vp, i64, vp, vp, i32, vp, vp, vp, vp, vp, vp],
+            "n2v_sgd_apply": [vp, vp, i32, vp, vp, vp, vp, i64, vp, vp, i64, vp, f32, f32, vp],
+            "n2v_csr_walk": [vp, vp, vp, vp, vp, vp, i64, vp, vp, i64, i32, i64, u32, f32, f32,
+                             f32, i32, i32, i32, i32, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(handle, name)

@@ -51,9 +51,10 @@ class Node2Vec:
         walk_seed_vertices: Optional[np.ndarray] = None,
         mesh=None,
         graph_sharded: bool = False,
+        table_sharding: str = "column",
+        shared_lists="auto",
         host_corpus: bool = False,
         device="cuda",
-        shared_lists="auto",
     ):
         """``checkpoint_dir``: walk chunks, train state and streaming
         snapshots are saved there, and each stage resumes from them.
@@ -66,7 +67,15 @@ class Node2Vec:
         ``shared_lists`` keeps the JAX signature and is passed to
         ``WalkEngine``: "auto" (the default) and False run without the
         shared-list sampler, True raises ``NotImplementedError`` (not
-        ported)."""
+        ported).
+
+        ``table_sharding`` ("column", the default, or "row") picks the
+        mesh trainer's table layout in the JAX package; it is validated as
+        there, with or without a mesh, and one device reads no more of it."""
+        if table_sharding not in ("column", "row"):
+            raise ValueError(
+                f"table_sharding must be 'column' or 'row', got {table_sharding!r}"
+            )
         if mesh is not None or graph_sharded:
             raise NotImplementedError(
                 "mesh and graph-sharded runs are not ported yet (ROADMAP Queue A item 12)"
@@ -86,6 +95,7 @@ class Node2Vec:
         self.random_seed = random_seed if random_seed is not None else 0
         self.walk_seed_vertices = walk_seed_vertices
         self.shared_lists = shared_lists
+        self.table_sharding = table_sharding
         self.graph: Optional[Graph] = None
         self.walks: Optional[np.ndarray] = None
         self.backend: Optional[Node2VecTorchEmbedding] = None

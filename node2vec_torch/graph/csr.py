@@ -1,18 +1,39 @@
-"""Host CSR graph container (port of ``node2vec_tpu/graph/csr.py``).
+"""CSR graph containers (port of ``node2vec_tpu/graph/csr.py``).
 
 The graph is four flat arrays (indptr/indices/weights + precomputed per-edge
 alias tables) built on the host.  Neighbor lists are sorted ascending per
-row, so the dense walk engine's packed rows are sorted too.  The JAX
-package's ``DeviceGraph`` is not ported: only its CSR fallback engine reads
-it.
+row, so the dense walk engine's packed rows are sorted too, and the CSR
+engine's membership tests are binary searches.  ``Graph.to_device`` uploads
+them, with each vertex's total out-weight, as a ``DeviceGraph``: only the
+CSR walk engine (``walk/csr.py``) reads it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
+
+
+class DeviceGraph(NamedTuple):
+    """Graph arrays as tensors on one device (int32 indptr: E < 2^31)."""
+
+    indptr: torch.Tensor  # [V+1] int32
+    indices: torch.Tensor  # [E] int32, sorted per row
+    weights: torch.Tensor  # [E] float32
+    alias: torch.Tensor  # [E] int32 segment-local alias slots
+    prob: torch.Tensor  # [E] float32 alias keep-probabilities
+    wtot: torch.Tensor  # [V] float32 per-vertex total out-weight
+
+    @property
+    def n_vertices(self) -> int:
+        return self.indptr.shape[0] - 1
+
+    @property
+    def n_edges(self) -> int:
+        return self.indices.shape[0]
 
 
 @dataclasses.dataclass
@@ -41,6 +62,27 @@ class Graph:
     def neighbors(self, v: int) -> Tuple[np.ndarray, np.ndarray]:
         lo, hi = self.indptr[v], self.indptr[v + 1]
         return self.indices[lo:hi], self.weights[lo:hi]
+
+    def to_device(self, device="cuda") -> DeviceGraph:
+        """The arrays on ``device`` (``resolve_device``: "cuda" unless the
+        caller asks for the CPU); ``wtot`` is the float64 running sum's
+        difference over each row, cast to float32, as the JAX package's."""
+        from node2vec_torch.device import resolve_device
+
+        if self.n_edges >= np.iinfo(np.int32).max:
+            raise ValueError(
+                "the single-device graph path requires E < 2^31 (int32 indptr); "
+                "the sharded engines are ROADMAP Queue A item 12"
+            )
+        dev = resolve_device(device)
+        cs = np.concatenate([[0.0], np.cumsum(self.weights, dtype=np.float64)])
+        wtot = (cs[self.indptr[1:]] - cs[self.indptr[:-1]]).astype(np.float32)
+        arrays = (
+            (self.indptr, np.int32), (self.indices, np.int32), (self.weights, np.float32),
+            (self.alias, np.int32), (self.prob, np.float32), (wtot, np.float32),
+        )
+        return DeviceGraph(*(torch.from_numpy(np.ascontiguousarray(a, dtype=t)).to(dev)
+                             for a, t in arrays))
 
     def id_of(self, name) -> int:
         """Dense id of an original vertex name (binary search: names are sorted)."""

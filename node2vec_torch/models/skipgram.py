@@ -5,17 +5,29 @@ One step over a batch of walks ``[B, L1]``: every walk position's input and
 output rows are gathered once, all window offsets are shifted elementwise
 products with gensim-style window shrinking, S negatives are shared by the
 whole batch (drawn from the unigram^0.75 alias table, loss scaled by K/S),
-and the update is row-wise Adagrad per occurrence: every occurrence's
-mean-squared grad lands in the row's accumulator before any row is scaled
-by 1/sqrt of it.
+and one of three updates:
 
-The step is three kernels, each beside its plain PyTorch version:
+* row-wise Adagrad per occurrence (the default): every occurrence's
+  mean-squared grad lands in the row's accumulator before any row is
+  scaled by 1/sqrt of it;
+* ``preagg=True`` with Adagrad: the gradients of a vertex's occurrences are
+  summed first, and each vertex takes one accumulator increment and one
+  update per batch (the shared negatives are not de-duplicated);
+* ``optimizer="sgd"`` (which forces ``preagg``): each vertex steps by
+  ``-lr * sum / count`` over its occurrences with ``walks >= 0``, and the
+  negatives by ``-lr * d_no / max(pairs * K / S, 1)``; no accumulator
+  changes.
 
-* K2 ``sgns_grads`` (``csrc/sgns.cu``): grads, d_no and the loss;
+The step is five kernels, each beside its plain PyTorch version:
+
+* K2 ``sgns_grads`` (``csrc/sgns.cu``): grads, d_no, the loss and the
+  batch's valid-pair count;
 * K3 ``adagrad_accumulate`` and K4 ``adagrad_apply`` (``csrc/adagrad.cu``),
   two launches because the accumulators must be complete before any row
   reads them.  They take three (grads, rows) lists, so the HS step
-  (``models/hsoftmax.py``) runs on them too.
+  (``models/hsoftmax.py``) and the preaggregated step run on them too;
+* K11 ``preagg_rows`` and ``sgd_apply`` (``csrc/preagg.cu``): the segment
+  sums and counts of the batch's rows by vertex, and the SGD update.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.  Unlike the JAX step, which draws its randomness inside, this step
@@ -36,6 +48,8 @@ import torch.nn.functional as F
 from node2vec_torch import _build
 
 _EPS = 1e-12
+SLOT_EMPTY = int(np.iinfo(np.int32).max)  # an unclaimed entry of K11's slot map
+OPTIMIZERS = ("adagrad", "sgd")
 
 
 def init_embeddings(
@@ -103,7 +117,9 @@ def sgns_grads_plain(
     emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids, *, window: int, negatives: int,
 ):
     """skipgram.py:344-398 op for op: (g_in [B*L1, D], g_out [B*L1, D],
-    d_no [S, D], loss)."""
+    d_no [S, D], loss, pairs), ``pairs`` the batch's valid-pair count
+    (sum of mult, a float32 scalar: the SGD step scales the negatives by
+    it)."""
     n_walks, length = walks.shape
     dim = emb_in.shape[1]
     walks_safe = torch.where(walks >= 0, walks, 0).long()
@@ -135,9 +151,9 @@ def sgns_grads_plain(
     neg_loss = neg_scale * torch.sum(F.logsigmoid(-nl) * m_flat[:, None])
     g_in_flat = g_in.reshape(-1, dim) + g_neg @ no
     d_no = g_neg.T @ x_in_flat
-    n_valid = torch.clamp(torch.sum(mult), min=1.0)
-    loss = -(pos_loss + neg_loss) / n_valid
-    return g_in_flat, g_out.reshape(-1, dim), d_no, loss
+    pairs = torch.sum(mult)
+    loss = -(pos_loss + neg_loss) / torch.clamp(pairs, min=1.0)
+    return g_in_flat, g_out.reshape(-1, dim), d_no, loss, pairs
 
 
 def sgns_grads(
@@ -183,7 +199,7 @@ def sgns_grads(
     _build.launches["sgns_grads"] += 1
     tot = parts.sum(dim=0)
     loss = -(tot[0] + neg_scale * tot[1]) / torch.clamp(tot[2], min=1.0)
-    return g_in, g_out, d_no, loss
+    return g_in, g_out, d_no, loss, tot[2]
 
 
 # --------------------------------------------------------------------------- #
@@ -284,19 +300,150 @@ def _check_adagrad_args(tables, g_in, rows_in, g_out, rows_out, g_extra, rows_ex
 
 
 # --------------------------------------------------------------------------- #
+# K11: one summed gradient per vertex of the batch, and the SGD update
+# --------------------------------------------------------------------------- #
+#
+# Layout of K11's outputs over the batch's flat rows [N = B*L1]: row r of
+# ga_in, ga_out and cnt holds the sums and the occurrence count of the
+# vertex whose first live occurrence (walks >= 0) is row r, and heads[r] is
+# that vertex; every other row is zero with head -1.  This is the JAX
+# package's segment layout (a segment per distinct vertex, empty segments
+# dropped) with the segments at their first occurrence instead of in sorted
+# order, so K3/K4 and sgd_apply take heads as their row list unchanged.
+
+
+def new_slot_map(n_vertices: int, device) -> torch.Tensor:
+    """K11's scratch: int32 [V] of SLOT_EMPTY.  K11 leaves it as it found
+    it, so one map serves every step of a fit."""
+    return torch.full((n_vertices,), SLOT_EMPTY, dtype=torch.int32, device=device)
+
+
+def preagg_rows_plain(walks_flat, g_in, g_out):
+    """skipgram.py:409-423 and the count at :431-433 with torch.unique and
+    index_add_: (ga_in [N, D], ga_out [N, D], heads int32 [N], cnt float32
+    [N]) in K11's layout.  A row with walks < 0 adds nothing and is not
+    counted; an out-of-vocabulary row is counted (its gradients are 0)."""
+    n = walks_flat.shape[0]
+    dev = walks_flat.device
+    live = torch.nonzero(walks_flat >= 0).squeeze(1)
+    verts, seg = torch.unique(walks_flat[live], return_inverse=True)
+    first = torch.full((verts.numel(),), n, dtype=torch.long, device=dev)
+    first = first.scatter_reduce(0, seg, live, reduce="amin")
+    rep = first[seg]  # each live row's representative row
+    ga_in = torch.zeros_like(g_in).index_add_(0, rep, g_in[live])
+    ga_out = torch.zeros_like(g_out).index_add_(0, rep, g_out[live])
+    cnt = torch.zeros(n, dtype=torch.float32, device=dev)
+    cnt.index_add_(0, rep, torch.ones(live.numel(), dtype=torch.float32, device=dev))
+    heads = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    heads[first] = verts.to(torch.int32)
+    return ga_in, ga_out, heads, cnt
+
+
+def preagg_rows(walks_flat, g_in, g_out, slot=None):
+    """K11 for CUDA tensors (``slot`` a map from ``new_slot_map``, returned
+    as it was given), the plain version for CPU tensors (``slot`` unused)."""
+    if not g_in.is_cuda:
+        return preagg_rows_plain(walks_flat, g_in, g_out)
+    if slot is None or slot.dtype != torch.int32 or slot.dim() != 1:
+        raise ValueError("preagg_rows on the card needs an int32 [V] slot map (new_slot_map)")
+    _build.require_cuda("preagg_rows", walks_flat, g_in, g_out, slot)
+    if walks_flat.dtype != torch.int32 or (g_in.dtype, g_out.dtype) != (torch.float32,) * 2:
+        raise TypeError("preagg_rows takes int32 rows and float32 grads")
+    n = walks_flat.shape[0]
+    if walks_flat.dim() != 1 or g_in.dim() != 2 or g_in.shape[0] != n or g_out.shape != g_in.shape:
+        raise ValueError("preagg_rows takes rows [N] and grads [N, D]")
+    ga_in = torch.empty_like(g_in)
+    ga_out = torch.empty_like(g_out)
+    heads = torch.empty((n,), dtype=torch.int32, device=g_in.device)
+    cnt = torch.empty((n,), dtype=torch.float32, device=g_in.device)
+    rc = _build.lib().n2v_preagg_rows(
+        _build.ptr(walks_flat), n, _build.ptr(g_in), _build.ptr(g_out), g_in.shape[1],
+        _build.ptr(slot), _build.ptr(ga_in), _build.ptr(ga_out), _build.ptr(heads),
+        _build.ptr(cnt), _build.stream_of(g_in),
+    )
+    _build.check(rc, "preagg_rows")
+    _build.launches["preagg_rows"] += 1
+    return ga_in, ga_out, heads, cnt
+
+
+def sgd_apply_plain(emb_in, emb_out, ga_in, ga_out, heads, cnt, d_no, neg_ids, pairs,
+                    lr: float, neg_scale: float):
+    """skipgram.py:434-442, in place on the tables: each head row steps by
+    -lr * ga / max(cnt, 1) on both tables, each shared negative by
+    -lr * d_no / max(pairs * neg_scale, 1); rows with head -1 are skipped."""
+    ok = heads >= 0
+    rows = heads[ok].long()
+    inv = 1.0 / torch.clamp(cnt[ok], min=1.0)
+    emb_in.index_add_(0, rows, (-lr * ga_in[ok]) * inv[:, None])
+    emb_out.index_add_(0, rows, (-lr * ga_out[ok]) * inv[:, None])
+    cnt_neg = torch.clamp(pairs * neg_scale, min=1.0)
+    emb_out.index_add_(0, neg_ids.long(), (-lr * d_no) / cnt_neg)
+
+
+def sgd_apply(emb_in, emb_out, ga_in, ga_out, heads, cnt, d_no, neg_ids, pairs, lr: float,
+              neg_scale: float):
+    """``sgd_apply`` (``csrc/preagg.cu``) for CUDA tensors, the plain
+    version for CPU tensors.  ``pairs`` stays on the device: no sync."""
+    args = (ga_in, ga_out, heads, cnt, d_no, neg_ids, pairs)
+    if not emb_in.is_cuda:
+        return sgd_apply_plain(emb_in, emb_out, *args, lr, neg_scale)
+    _build.require_cuda("sgd_apply", emb_in, emb_out, *args)
+    if any(t.dtype != torch.float32 for t in (emb_in, emb_out, ga_in, ga_out, cnt, d_no, pairs)):
+        raise TypeError("sgd_apply takes float32 tables, grads, counts and pairs")
+    if heads.dtype != torch.int32 or neg_ids.dtype != torch.int32:
+        raise TypeError("sgd_apply takes int32 heads and neg_ids")
+    dim = emb_in.shape[1]
+    n, s = heads.shape[0], neg_ids.shape[0]
+    if (emb_out.shape[1] != dim or ga_in.shape != (n, dim) or ga_out.shape != (n, dim)
+            or cnt.shape != (n,) or d_no.shape != (s, dim) or pairs.numel() != 1):
+        raise ValueError("sgd_apply takes tables [V, D], grads [N, D], heads and cnt [N], "
+                         "d_no [S, D], neg_ids [S] and a one-element pairs")
+    rc = _build.lib().n2v_sgd_apply(
+        _build.ptr(emb_in), _build.ptr(emb_out), dim, _build.ptr(ga_in), _build.ptr(ga_out),
+        _build.ptr(heads), _build.ptr(cnt), n, _build.ptr(d_no), _build.ptr(neg_ids), s,
+        _build.ptr(pairs), float(np.float32(neg_scale)), float(np.float32(lr)),
+        _build.stream_of(emb_in),
+    )
+    _build.check(rc, "sgd_apply")
+    _build.launches["sgd_apply"] += 1
+
+
+# --------------------------------------------------------------------------- #
 # The step and the epoch
 # --------------------------------------------------------------------------- #
 
 
-def _step(grads, accumulate, apply, emb_in, emb_out, acc_in, acc_out, walks, b_sh,
-          r1, r2, lr, ns_alias, ns_prob, vocab_mask, window, negatives):
+def resolve_optimizer(optimizer: str, preagg: bool) -> bool:
+    """Whether the step preaggregates (skipgram.py:318-325): "sgd" forces
+    it, an unknown optimizer raises."""
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    return preagg or optimizer == "sgd"
+
+
+def _step(grads, accumulate, apply, emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1, r2,
+          lr, ns_alias, ns_prob, vocab_mask, window, negatives, preaggregated=None):
+    """The negative-sampling step of SGNS and CBOW-NS (``grads`` K2 or K9).
+    ``preaggregated``: None for row-wise Adagrad per occurrence, or SGNS's
+    (aggregate, sgd, optimizer, slot) for the pre-aggregated branch."""
     neg_ids = negative_ids(r1, r2, ns_alias, ns_prob)
-    g_in, g_out, d_no, loss = grads(
+    g_in, g_out, d_no, loss, *pairs = grads(
         emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids,
         window=window, negatives=negatives,
     )
     walks_flat = walks.reshape(-1)
-    lists = (g_in, walks_flat, g_out, walks_flat, d_no, neg_ids)
+    if preaggregated is None:
+        lists = (g_in, walks_flat, g_out, walks_flat, d_no, neg_ids)
+    else:
+        aggregate, sgd, optimizer, slot = preaggregated
+        ga_in, ga_out, heads, cnt = aggregate(walks_flat, g_in, g_out, slot)
+        if optimizer == "sgd":
+            sgd(emb_in, emb_out, ga_in, ga_out, heads, cnt, d_no, neg_ids, pairs[0], lr,
+                negatives / neg_ids.shape[0])
+            return loss
+        # K3/K4's two launches keep the JAX order: every increment (the
+        # negatives' to acc_out too) lands before any scale is read
+        lists = (ga_in, heads, ga_out, heads, d_no, neg_ids)
     accumulate(acc_in, acc_out, *lists)
     apply(emb_in, emb_out, acc_in, acc_out, *lists, lr)
     return loss
@@ -305,24 +452,35 @@ def _step(grads, accumulate, apply, emb_in, emb_out, acc_in, acc_out, walks, b_s
 def sgns_walk_step(
     emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1, r2, lr: float,
     ns_alias, ns_prob, vocab_mask, *, window: int, negatives: int,
+    optimizer: str = "adagrad", preagg: bool = False, slot=None,
 ) -> torch.Tensor:
-    """One SGNS + row-wise Adagrad step (``sgns_walk_step_impl``, adagrad,
-    not preaggregated), in place on the four state tensors; returns the loss.
-    Goes through K2, K3, K4 on CUDA tensors and their plain versions on CPU
-    tensors."""
-    return _step(sgns_grads, adagrad_accumulate, adagrad_apply, emb_in, emb_out,
-                 acc_in, acc_out, walks, b_sh, r1, r2, lr, ns_alias, ns_prob,
-                 vocab_mask, window, negatives)
+    """One SGNS step (``sgns_walk_step_impl``), in place on the four state
+    tensors; returns the loss.  Goes through K2 and K3/K4 (Adagrad, per
+    occurrence), K2, K11 and K3/K4 (Adagrad, ``preagg``) or K2, K11 and
+    sgd_apply (``optimizer="sgd"``) on CUDA tensors, and their plain
+    versions on CPU tensors.  ``slot``: K11's slot map (``new_slot_map``),
+    which a preaggregated step on the card needs."""
+    pre = None
+    if resolve_optimizer(optimizer, preagg):
+        pre = (preagg_rows, sgd_apply, optimizer, slot)
+    return _step(sgns_grads, adagrad_accumulate, adagrad_apply, emb_in, emb_out, acc_in,
+                 acc_out, walks, b_sh, r1, r2, lr, ns_alias, ns_prob, vocab_mask, window,
+                 negatives, pre)
 
 
 def sgns_walk_step_plain(
     emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1, r2, lr: float,
     ns_alias, ns_prob, vocab_mask, *, window: int, negatives: int,
+    optimizer: str = "adagrad", preagg: bool = False,
 ) -> torch.Tensor:
-    """``sgns_walk_step`` through the three plain versions, on any device."""
-    return _step(sgns_grads_plain, adagrad_accumulate_plain, adagrad_apply_plain,
-                 emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1, r2, lr, ns_alias,
-                 ns_prob, vocab_mask, window, negatives)
+    """``sgns_walk_step`` through the plain versions, on any device."""
+    pre = None
+    if resolve_optimizer(optimizer, preagg):
+        pre = (lambda w, g_in, g_out, _slot: preagg_rows_plain(w, g_in, g_out),
+               sgd_apply_plain, optimizer, None)
+    return _step(sgns_grads_plain, adagrad_accumulate_plain, adagrad_apply_plain, emb_in,
+                 emb_out, acc_in, acc_out, walks, b_sh, r1, r2, lr, ns_alias, ns_prob,
+                 vocab_mask, window, negatives, pre)
 
 
 def step_lr(lr0: float, lr_slope: float, gstep: int, min_lr: float) -> float:
@@ -336,10 +494,15 @@ def sgns_epoch(
     draws: Callable[[int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
     step0: int, lr0: float, lr_slope: float, ns_alias, ns_prob, vocab_mask, *,
     batch: int, n_batches: int, window: int, negatives: int, min_lr: float,
+    optimizer: str = "adagrad", preagg: bool = False, slot=None,
 ) -> torch.Tensor:
     """A whole epoch of steps over a shuffled, batch-padded corpus
     (``_sgns_epoch_impl`` as a Python loop).  ``draws(gstep)`` returns the
-    step's (b_sh, r1, r2).  Returns the per-batch losses [n_batches]."""
+    step's (b_sh, r1, r2).  ``slot``: K11's slot map for the preaggregated
+    steps on the card, made here once for the epoch if not given.  Returns
+    the per-batch losses [n_batches]."""
+    if slot is None and emb_in.is_cuda and resolve_optimizer(optimizer, preagg):
+        slot = new_slot_map(acc_in.shape[0], emb_in.device)
     losses = []
     for b in range(n_batches):
         gstep = step0 + b
@@ -349,6 +512,7 @@ def sgns_epoch(
         losses.append(sgns_walk_step(
             emb_in, emb_out, acc_in, acc_out, wb, b_sh, r1, r2, lr,
             ns_alias, ns_prob, vocab_mask, window=window, negatives=negatives,
+            optimizer=optimizer, preagg=preagg, slot=slot,
         ))
     return torch.stack(losses)
 

@@ -44,9 +44,15 @@ fit_host's permutations and fit_streaming's chunk orders are numpy, seeded
 as in the JAX package, and equal to its own.
 
 ``optimizer`` is read only by SGNS, as in the JAX package: hierarchical
-softmax and CBOW train row-wise Adagrad whatever it says.  Not ported yet,
-and raising ``NotImplementedError``: SGNS with ``optimizer="sgd"`` and
-``fit_sharded``.
+softmax and CBOW train row-wise Adagrad whatever it says.  SGNS with
+``optimizer="sgd"`` takes the pre-aggregated step (K2, K11 ``preagg_rows``
+and ``sgd_apply``; one slot map [V] a fit, never saved); its checkpoints
+still carry the accumulators, unchanged, as the JAX package's do.
+
+``emb_in``, ``emb_out`` and ``vectors`` read a table back from the device
+once and cache it until training or an assignment writes it; assigning a
+numpy array or a tensor puts it on the model's device.  Not ported yet, and
+raising ``NotImplementedError``: ``fit_sharded``.
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ from node2vec_torch.models.hsoftmax import (
     head_level_offsets,
     hs_epoch,
 )
-from node2vec_torch.models.skipgram import draw_step, init_embeddings, sgns_epoch
+from node2vec_torch.models.skipgram import draw_step, init_embeddings, new_slot_map, sgns_epoch
 from node2vec_torch.models.vocab import (
     Vocabulary,
     build_vocab,
@@ -274,15 +280,14 @@ class Word2VecTorch:
         self._slab_losses: list = []
         self._slab_events: list = []
         self._h2d_events: list = []
+        self._host: dict = {}  # cached host copies of the tables ("in", "out")
+        self._slot: Optional[torch.Tensor] = None  # K11's slot map (SGD), scratch
 
-    def _check_supported(self) -> None:
-        p = self.params
-        # only SGNS reads the optimizer (word2vec.py:167-182, :261): HS and
-        # CBOW train row-wise Adagrad whatever it says
-        if p.sg == 1 and p.negative > 0 and p.optimizer != "adagrad":
-            raise NotImplementedError(
-                "optimizer='sgd' is not ported yet (ROADMAP Queue A item 14)"
-            )
+    def _begin(self) -> None:
+        """Every trainer's entry: the tables are about to be written, so the
+        cached host copies and the last fit's scratch go."""
+        self._host.clear()
+        self._slot = None
 
     # -- shared pieces of the three trainers -------------------------------- #
 
@@ -350,6 +355,7 @@ class Word2VecTorch:
                 f"checkpoint output table has {tables[1].shape[0]} rows, this objective "
                 f"needs {n_out} (negative={self.params.negative})"
             )
+        self._host.clear()
         return self._to_device(tables)
 
     def _init_state(self, draws: Draws, checkpoint_dir: Optional[str]):
@@ -382,11 +388,23 @@ class Word2VecTorch:
         if p.sg == 0:
             return cbow_epoch(*state, corpus, step, step0, p.step_size, lr_slope, *tables,
                               negatives=p.negative, cbow_mean=p.cbow_mean, **kw)
+        # only SGNS reads the optimizer (word2vec.py:167-182, :261): HS and
+        # CBOW train row-wise Adagrad whatever it says
         return sgns_epoch(*state, corpus, step, step0, p.step_size, lr_slope, *tables,
-                          negatives=p.negative, **kw)
+                          negatives=p.negative, optimizer=p.optimizer,
+                          slot=self._slot_map(state[2].shape[0]), **kw)
+
+    def _slot_map(self, n_vertices: int) -> Optional[torch.Tensor]:
+        """K11's slot map for SGD, made once a fit (scratch: never saved)."""
+        if self.params.optimizer != "sgd":
+            return None
+        if self._slot is None:
+            self._slot = new_slot_map(n_vertices, self.device)
+        return self._slot
 
     def _finish(self, state) -> "Word2VecTorch":
         self._emb_in, self._emb_out, self.acc_in, self.acc_out = state
+        self._host.clear()
         return self
 
     # -- the trainers -------------------------------------------------------- #
@@ -406,7 +424,7 @@ class Word2VecTorch:
         With ``checkpoint_dir``, state is saved every ``checkpoint_every``
         epochs and fit() resumes from the newest saved epoch.
         """
-        self._check_supported()
+        self._begin()
         p = self.params
         dev = self.device
         if isinstance(walks, np.ndarray):
@@ -474,7 +492,7 @@ class Word2VecTorch:
         ``checkpoint_dir``, the train state is saved every
         ``checkpoint_every`` epochs and fit_host resumes from the newest.
         """
-        self._check_supported()
+        self._begin()
         p = self.params
         walks = np.ascontiguousarray(walks, dtype=np.int32)
         self.vocab = build_vocab(
@@ -565,7 +583,7 @@ class Word2VecTorch:
         identifies the walk source (graph digest, walk params, walk seed),
         so a snapshot is never resumed against another virtual corpus.
         """
-        self._check_supported()
+        self._begin()
         p = self.params
         dev = self.device
         fp = stream_fingerprint(p, n_chunks, n_vertices, token=source_token)
@@ -673,16 +691,44 @@ class Word2VecTorch:
         """Mean loss of each epoch of the last fit."""
         return list(self._losses)
 
+    def _host_table(self, key: str, table: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+        """The table as numpy, read back from the device once and cached
+        until training or an assignment writes it."""
+        if table is None:
+            return None
+        if key not in self._host:
+            self._host[key] = table.cpu().numpy()
+        return self._host[key]
+
+    def _on_device(self, value) -> Optional[torch.Tensor]:
+        if value is None:
+            return None
+        if isinstance(value, torch.Tensor):
+            return value.detach().to(device=self.device, dtype=torch.float32).contiguous()
+        return torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32)).to(self.device)
+
     @property
     def emb_in(self) -> Optional[np.ndarray]:
-        """Input table [V, D] as numpy (copied from the device on access)."""
-        return None if self._emb_in is None else self._emb_in.cpu().numpy()
+        """Input table [V, D] as numpy (read back from the device on the
+        first access after training or an assignment, then cached)."""
+        return self._host_table("in", self._emb_in)
+
+    @emb_in.setter
+    def emb_in(self, value) -> None:
+        """A numpy array or tensor, put on the model's device."""
+        self._emb_in = self._on_device(value)
+        self._host.pop("in", None)
 
     @property
     def emb_out(self) -> Optional[np.ndarray]:
         """Output table as numpy: [V, D] with negative sampling, theta
-        [n_inner, D] with hierarchical softmax."""
-        return None if self._emb_out is None else self._emb_out.cpu().numpy()
+        [n_inner, D] with hierarchical softmax (cached as ``emb_in``)."""
+        return self._host_table("out", self._emb_out)
+
+    @emb_out.setter
+    def emb_out(self, value) -> None:
+        self._emb_out = self._on_device(value)
+        self._host.pop("out", None)
 
     @property
     def vectors(self) -> np.ndarray:
@@ -692,6 +738,7 @@ class Word2VecTorch:
         return self.emb_in
 
     def vector(self, vertex_id: int) -> np.ndarray:
+        v = self.vectors[vertex_id]
         if self.vocab is not None and not self.vocab.mask[vertex_id]:
             raise KeyError(f"vertex {vertex_id} below min_count (not in vocabulary)")
-        return self._emb_in[vertex_id].cpu().numpy()
+        return v

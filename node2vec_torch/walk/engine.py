@@ -1,32 +1,35 @@
-"""Chunked walk runner (port of ``node2vec_tpu/walk/engine.py``, dense and
-blocked strategies).
+"""Chunked walk runner (port of ``node2vec_tpu/walk/engine.py``: the dense,
+blocked and CSR strategies).
 
 Replicates each start vertex ``num_walks`` times and sweeps fixed-size walker
 chunks through a walk kernel: the dense engine (K1) when the max degree is
-at most ``dense_max_degree``, the blocked engine (K5) above it.  Semantics
-as in the JAX package: step 0 is first-order, sinks end walks (the path
-keeps its prefix, -1 after), walks can be restricted to seed start
-vertices, and every draw is keyed on (seed, global walker id, counter), so
-results do not depend on ``walker_chunk``.  ``run`` fetches the corpus to
-the host (with ``checkpoint_dir``, completed chunks are persisted and a
-restarted run skips them), ``run_device`` keeps it on the device, and
-``chunk_source`` regenerates any chunk on demand for the streaming trainer.
+at most ``dense_max_degree``, the blocked engine (K5) above it, and, asked
+for by ``strategy="csr"``, the CSR engine (K12, ``walk/csr.py``), which the
+JAX package keeps as the reference-style fallback; its ``DeviceGraph`` is
+uploaded at the first CSR chunk.  Semantics as in the JAX package: step 0
+is first-order, sinks end walks (the path keeps its prefix, -1 after),
+walks can be restricted to seed start vertices, and every draw is keyed on
+(seed, global walker id, counter), so results do not depend on
+``walker_chunk``.  ``run`` fetches the corpus to the host (with
+``checkpoint_dir``, completed chunks are persisted and a restarted run
+skips them), ``run_device`` keeps it on the device, and ``chunk_source``
+regenerates any chunk on demand for the streaming trainer.
 
-The CSR fallback, the edge-partitioned engine, mesh sharding and the
-blocked engine's shared-list sampler raise ``NotImplementedError`` naming
-their ROADMAP item.
+The edge-partitioned engine, mesh sharding (``mesh``, ``graph_sharded``,
+``partitioned_graph``) and the blocked engine's shared-list sampler raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from node2vec_torch.constants import Node2VecParams
 from node2vec_torch.device import resolve_device
-from node2vec_torch.graph.csr import Graph
+from node2vec_torch.graph.csr import DeviceGraph, Graph
 from node2vec_torch.utils.checkpoint import (
     graph_digest,
     load_walk_chunks,
@@ -39,57 +42,72 @@ from node2vec_torch.walk.blocked import (
     blocked_walk_chunk,
     build_blocked_graph,
 )
+from node2vec_torch.walk.csr import csr_walk_chunk, search_iters
 from node2vec_torch.walk.dense import build_padded_adjacency, dense_walk_chunk
 
 _NOT_PORTED = {
-    "csr": "the CSR fallback walk engine is not ported yet (ROADMAP Queue A item 10)",
     "ep_blocked": "the edge-partitioned walk engine is not ported yet (ROADMAP Queue A item 12)",
 }
+_MESH_NOT_PORTED = "mesh-sharded walks are not ported yet (ROADMAP Queue A item 12)"
 
 
 class WalkEngine:
-    """Chunked walk runner over the dense or the blocked sampler.
+    """Chunked walk runner over the dense, blocked or CSR sampler.
 
-    ``blocked_graph``: prebuilt blocked tables to reuse across engines over
-    the same graph (host packing and upload of a multi-million-edge graph
-    take seconds; p, q and the trial cap live in the kernel, not the
-    tables).  ``shared_lists`` keeps the JAX engine's signature: "auto" and
-    False both run the rejection-bound sampler (the JAX "auto" resolves to
-    False too); True asks for the shared-list sampler, which is not ported.
+    ``graph``: a host ``Graph`` or a ``DeviceGraph`` (as the JAX engine
+    takes).  ``blocked_graph``: prebuilt blocked tables to reuse across
+    engines over the same graph (host packing and upload of a
+    multi-million-edge graph take seconds; p, q and the trial cap live in
+    the kernel, not the tables).  ``shared_lists`` keeps the JAX engine's
+    signature: "auto" and False both run the rejection-bound sampler (the
+    JAX "auto" resolves to False too); True asks for the shared-list
+    sampler, which is not ported.  ``graph_sharded=True`` needs a mesh, as
+    in the JAX package (``ValueError`` without one); ``partitioned_graph``
+    is read only by the graph-sharded engine.
     """
 
     def __init__(
         self,
-        graph: Graph,
+        graph: Union[Graph, DeviceGraph],
         params: Node2VecParams,
         strategy: str = "auto",
         dense_max_degree: int = 256,
         mesh=None,
-        device="cuda",
+        graph_sharded: bool = False,
+        partitioned_graph=None,
         blocked_graph: Optional[BlockedGraph] = None,
         shared_lists="auto",
+        device="cuda",
     ):
+        if graph_sharded and mesh is None:
+            raise ValueError("graph_sharded=True requires a mesh")
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded walks are not ported yet (ROADMAP Queue A item 12)"
-            )
+            raise NotImplementedError(_MESH_NOT_PORTED)
         if shared_lists is True:
             raise NotImplementedError(SHARED_LISTS_NOT_PORTED)
         self.device = resolve_device(device)
         self.params = params
         self.n_vertices = int(graph.n_vertices)
-        indptr = graph.indptr
+        if isinstance(graph, Graph):
+            self._graph_host, self._dgraph = graph, None
+            indptr, indices, weights = graph.indptr, graph.indices, graph.weights
+        else:
+            self._graph_host, self._dgraph = None, graph
+            indptr, indices, weights = (np.asarray(t.cpu()) for t in
+                                        (graph.indptr, graph.indices, graph.weights))
+            indptr = indptr.astype(np.int64)
         max_deg = int(np.max(np.diff(indptr))) if len(indptr) > 1 else 0
         self.max_degree = max_deg
+        self.search_iters = search_iters(max_deg)
         if strategy == "auto":
             strategy = "dense" if max_deg <= dense_max_degree else "blocked"
         if strategy in _NOT_PORTED:
             raise NotImplementedError(_NOT_PORTED[strategy])
-        if strategy not in ("dense", "blocked"):
+        if strategy not in ("dense", "blocked", "csr"):
             raise ValueError(f"unknown walk strategy {strategy!r}")
         self.strategy = strategy
         # checkpoint fingerprints change when the edges change, not just V
-        self.graph_token = graph_digest(graph.indices, graph.weights)
+        self.graph_token = graph_digest(indices, weights)
         self.packed_adj = None
         self.bgraph = None
         # blocked engine: trial-capped accepts and sampling attempts, kept as
@@ -100,20 +118,28 @@ class WalkEngine:
         self._att_parts: list = []
         if strategy == "dense":
             self.packed_adj = torch.from_numpy(
-                build_padded_adjacency(indptr, graph.indices, graph.weights)
+                build_padded_adjacency(indptr, indices, weights)
             ).to(self.device)
+        elif strategy == "csr":
+            if self._dgraph is not None:
+                self._check_device("graph", self._dgraph.indptr)
         elif blocked_graph is not None:
-            bdev = blocked_graph.light.device
-            if bdev.type != self.device.type or self.device.index not in (None, bdev.index):
-                raise ValueError(
-                    f"blocked_graph lies on {blocked_graph.light.device}, "
-                    f"the engine runs on {self.device}"
-                )
+            self._check_device("blocked_graph", blocked_graph.light)
             self.bgraph = blocked_graph
         else:
-            self.bgraph = build_blocked_graph(
-                indptr, graph.indices, graph.weights, device=self.device
-            )
+            self.bgraph = build_blocked_graph(indptr, indices, weights, device=self.device)
+
+    def _check_device(self, name: str, t: torch.Tensor) -> None:
+        if t.device.type != self.device.type or self.device.index not in (None, t.device.index):
+            raise ValueError(f"{name} lies on {t.device}, the engine runs on {self.device}")
+
+    @property
+    def dgraph(self) -> DeviceGraph:
+        """The CSR on the device, uploaded at first use: only the CSR
+        strategy reads it."""
+        if self._dgraph is None:
+            self._dgraph = self._graph_host.to_device(self.device)
+        return self._dgraph
 
     @property
     def fallback_count(self) -> int:
@@ -152,12 +178,12 @@ class WalkEngine:
         chunk = min(self.params.walker_chunk, max(n_total, 1))
         if self.strategy == "dense":
             # bound the [W, P] working set: W * P <= 2^24 elements
-            w_cap = max(1024, (1 << 25) // self.packed_adj.shape[1])
-        else:
+            return min(chunk, max(1024, (1 << 25) // self.packed_adj.shape[1]))
+        if self.strategy == "blocked":
             # bound the carried per-walker state (row + prev_mem + path)
             per_walker = 6 * self.bgraph.light_width + self.params.walk_length
-            w_cap = max(1024, (1 << 26) // per_walker)
-        return min(chunk, w_cap)
+            return min(chunk, max(1024, (1 << 26) // per_walker))
+        return chunk  # csr: no cap, as in the JAX engine
 
     def _run_chunk(
         self, chunk_starts: np.ndarray, gid_base: int = 0, seed: int = 0
@@ -168,6 +194,11 @@ class WalkEngine:
                   inout_param=float(p.inout_param))
         if self.strategy == "dense":
             return dense_walk_chunk(self.packed_adj, starts, gid_base, seed & 0xFFFFFFFF, **kw)
+        if self.strategy == "csr":
+            g = self.dgraph
+            return csr_walk_chunk(g.indptr, g.indices, g.weights, g.alias, g.prob, g.wtot, starts,
+                                  gid_base, seed & 0xFFFFFFFF, max_trials=p.max_rejection_trials,
+                                  search_iters=self.search_iters, **kw)
         bg = self.bgraph
         paths, n_fb, n_att = blocked_walk_chunk(
             bg.light, bg.biw, bg.bids, bg.brp, starts, gid_base, seed & 0xFFFFFFFF,
@@ -326,7 +357,7 @@ class _ChunkFetcher:
 
 
 def random_walks(
-    graph: Graph,
+    graph: Union[Graph, DeviceGraph],
     params: Optional[Node2VecParams] = None,
     seed: int = 0,
     start_vertices: Optional[np.ndarray] = None,

@@ -409,7 +409,7 @@ def test_optimizer_moves_only_sgns(objective, trainer):
     """HS and CBOW train row-wise Adagrad whatever ``optimizer`` says, as
     the JAX package does (it passes ``optimizer`` to the SGNS epoch alone,
     node2vec_tpu/models/word2vec.py:167-182, :394-424, :711-746); SGNS with
-    "sgd" still raises."""
+    "sgd" trains otherwise than with Adagrad."""
     walks = _corpus(64, 48, 7, seed=5)
     chunks = np.stack([_corpus(64, 48, 7, seed=s) for s in range(3)])
     kw = dict(min_count=1, vector_size=32, max_iter=1, batch_walks=32,
@@ -420,9 +420,12 @@ def test_optimizer_moves_only_sgns(objective, trainer):
     for name in ("_emb_in", "_emb_out", "acc_in", "acc_out"):
         np.testing.assert_array_equal(getattr(sgd, name).numpy(), getattr(adagrad, name).numpy(),
                                       err_msg=name)
-    sgns = Word2VecTorch(Word2VecParams(optimizer="sgd", min_count=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
-        _fit(sgns, trainer, walks, chunks)
+    sgns_kw = dict(min_count=1, vector_size=32, max_iter=1, batch_walks=32)
+    sgns_sgd, sgns_ada = (_fit(Word2VecTorch(Word2VecParams(optimizer=o, **sgns_kw),
+                                             device="cpu"), trainer, walks, chunks)
+                          for o in ("sgd", "adagrad"))
+    assert not np.allclose(sgns_sgd.vectors, sgns_ada.vectors)
+    assert not sgns_sgd.acc_in.any() and sgns_ada.acc_in.any()
 
 
 # --------------------------------------------------------------------------- #

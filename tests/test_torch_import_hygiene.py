@@ -14,7 +14,7 @@ import node2vec_torch.api, node2vec_torch.convert, node2vec_torch.datasets
 import node2vec_torch.embedding, node2vec_torch.eval, node2vec_torch._build
 import node2vec_torch.models.skipgram, node2vec_torch.models.word2vec
 import node2vec_torch.walk.dense, node2vec_torch.walk.engine, node2vec_torch.ops
-import node2vec_torch.walk.blocked, node2vec_torch.models.vocab
+import node2vec_torch.walk.blocked, node2vec_torch.walk.csr, node2vec_torch.models.vocab
 import node2vec_torch.models.hsoftmax, node2vec_torch.models.cbow, node2vec_torch.native
 import node2vec_torch.utils.checkpoint
 import chip_smoke

@@ -152,3 +152,16 @@ def test_unported_pipeline_options_raise():
     for kw in ({"mesh": object()}, {"graph_sharded": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Node2Vec(device="cpu", **kw)
+
+
+def test_table_sharding_is_validated_as_in_jax():
+    """Node2Vec takes the JAX default table_sharding="column" and "row",
+    and refuses anything else with or without a mesh (ROADMAP Queue C 2;
+    node2vec_tpu/api.py:84-87)."""
+    for layout in ("column", "row"):
+        assert Node2Vec(table_sharding=layout, device="cpu").table_sharding == layout
+    for kw in ({}, {"mesh": object()}):
+        with pytest.raises(ValueError, match="table_sharding"):
+            Node2Vec(table_sharding="diagonal", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Node2Vec(table_sharding="row", mesh=object(), device="cpu")

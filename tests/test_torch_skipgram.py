@@ -141,17 +141,25 @@ def test_fit_runs_and_is_deterministic(karate_edges):
 
 
 @pytest.mark.parametrize("override", [{"optimizer": "sgd"}])
-def test_unported_trainer_options_raise(override):
-    walks = np.random.default_rng(0).integers(0, 20, (64, 6)).astype(np.int32)
-    model = Word2VecTorch(Word2VecParams(min_count=1, **override), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit(walks)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit_host(walks)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit_streaming(lambda i: torch.from_numpy(walks), 1, 20)
+def test_unported_trainer_options_raise(override, karate_edges):
+    """SGNS with optimizer="sgd" trains through the three trainers (finite
+    tables, a falling loss, accumulators untouched; tests/test_skipgram.py:69
+    on the port); fit_sharded raises."""
+    from node2vec_torch.constants import Node2VecParams
+    from node2vec_torch.graph import from_edge_arrays
+    from node2vec_torch.walk import random_walks
+
+    g = from_edge_arrays(*karate_edges, directed=False)
+    walks = random_walks(g, Node2VecParams(num_walks=10, walk_length=10), seed=0, device="cpu")
+    params = Word2VecParams(min_count=1, max_iter=5, vector_size=32, batch_walks=128, seed=3,
+                            step_size=0.025, **override)
+    for fit in (lambda m: m.fit(walks), lambda m: m.fit_host(walks),
+                lambda m: m.fit_streaming(lambda i: torch.from_numpy(walks), 1, 34)):
+        model = fit(Word2VecTorch(params, device="cpu"))
+        assert np.isfinite(model.vectors).all() and model.losses[-1] < model.losses[0]
+        assert not model.acc_in.any() and not model.acc_out.any()
     with pytest.raises(NotImplementedError):
-        model.fit_sharded()
+        Word2VecTorch(params, device="cpu").fit_sharded()
 
 
 def test_sample_fits(karate_edges):

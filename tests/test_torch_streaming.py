@@ -558,10 +558,15 @@ def test_multilabel_quality_close_to_jax(trainer):
 
 
 def test_trainers_raise_for_unported_objectives():
+    """optimizer="sgd" (SGNS's pre-aggregated SGD) no longer raises: the
+    host-corpus and streaming trainers train with it, away from Adagrad."""
     walks = _corpus(64, 20, 6)
-    for override in ({"optimizer": "sgd"},):  # HS (item 8) and CBOW (item 9) are ported
-        model = Word2VecTorch(Word2VecParams(min_count=1, **override), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
-            model.fit_host(walks)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
-            model.fit_streaming(lambda i: torch.from_numpy(walks), 1, 20)
+    for override in ({"optimizer": "sgd", "step_size": 0.025},):
+        kw = dict(min_count=1, max_iter=2, vector_size=32, **override)
+        for train in (lambda m: m.fit_host(walks),
+                      lambda m: m.fit_streaming(lambda i: torch.from_numpy(walks), 1, 20)):
+            model = train(Word2VecTorch(Word2VecParams(**kw), device="cpu"))
+            ada = train(Word2VecTorch(Word2VecParams(min_count=1, max_iter=2, vector_size=32),
+                                      device="cpu"))
+            assert np.isfinite(model.vectors).all() and len(model.losses) == 2
+            assert not np.allclose(model.vectors, ada.vectors)

@@ -90,14 +90,18 @@ def test_walk_transition_pvalue_general_weights(p, q):
 
 
 def test_unported_strategies_raise():
-    """csr, ep_blocked and mesh raise naming their ROADMAP item; "blocked"
-    and a graph above dense_max_degree select the blocked engine."""
+    """ep_blocked and mesh raise naming their ROADMAP item; "csr" builds
+    (its DeviceGraph uploaded at the first chunk); "blocked" and a graph
+    above dense_max_degree select the blocked engine."""
     g = _dyadic_graph()
-    for strategy in ("csr", "ep_blocked"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            WalkEngine(g, Node2VecParams(), strategy=strategy, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        WalkEngine(g, Node2VecParams(), strategy="ep_blocked", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         WalkEngine(g, Node2VecParams(), mesh=object(), device="cpu")
+    csr = WalkEngine(g, Node2VecParams(), strategy="csr", device="cpu")
+    assert csr.strategy == "csr" and csr._dgraph is None
+    assert csr.packed_adj is None and csr.bgraph is None
+    assert csr.dgraph.n_edges == g.n_edges and csr._dgraph is not None
     forced = WalkEngine(g, Node2VecParams(), strategy="blocked", device="cpu")
     assert forced.strategy == "blocked" and forced.bgraph is not None
     assert forced.packed_adj is None
