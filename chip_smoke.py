@@ -89,6 +89,20 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    K1 and K5 never; walk steps/s, DeviceGraph bytes), then
    ``Word2VecTorch.fit`` for one epoch on that corpus; each followed by its
    ``breakdown`` line;
+9c. ``surface`` (right after 5., on its model): ``save_model`` ->
+   ``load_model`` into a new ``Node2Vec(device="cuda")`` (tables, counts,
+   mask and names bit-equal), ``save_vectors`` -> ``load_vectors``, the
+   functional ``trim_index`` -> ``random_walk`` on the edge list (walks
+   equal to ``WalkEngine.run``'s), a ``StepTimer`` through
+   ``WalkEngine.run`` and ``fit`` (max_iter 2), and one ``alias_draw``
+   (K15) from every vertex; then ``main_path_pairs``: the Quickstart walks
+   (K1), ``build_vocab`` (K6) and one epoch of ``sgns_train_step`` at
+   B = 2,560 (512 steps: K13's pair lists and gradients and K3/K4 512
+   times each, K2 never), and ``main_path_fused``: ``sgns_epoch_fused``
+   from ``init_fused_embeddings`` on the same corpus and draws (K2 at row
+   stride 129 and K14 512 times each, K3/K4 never), each holding its
+   first 3 steps to the plain versions and printing its losses (no
+   quality gate: no JAX trainer reaches these steps);
 10. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
    walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1: held-out
    link-prediction AUC >= 0.60, and the same-label minus no-shared-label
@@ -106,9 +120,9 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    fit (AUC >= 0.58, gap >= 0.145) and run_pipeline() at walker_chunk 2048
    (AUC >= 0.575, gap >= 0.135);
 11. the ``kernels`` line (times, bounds, launches, errors; K6 once for each
-   JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists
-   and once for CBOW-HS's), then the last line ``{"ok": true, "device":
-   {...}}``.
+   JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists,
+   once for CBOW-HS's and once for the pair step's, K2 once more at row
+   stride D + 1), then the last line ``{"ok": true, "device": {...}}``.
 
 Kernel checks of 3. also hold K8 hs_grads and K3/K4 over HS's three row
 lists (emb_in rows, theta's tail rows, theta's head rows) against their
@@ -137,7 +151,15 @@ heads.  They hold K12 csr_walk bit-equal to its plain version on the
 dense graph and the RMAT (131,072 walkers x 20) at (p, q) = (0.25, 4),
 (1, 1) and (1, 5) (K = 2 by Python's half-even rounding); edge cases add
 sinks and dead lanes, the forced back edge at a degree-1 vertex, and a
-chi-square on general weights.
+chi-square on general weights.  They hold K13 (pair lists bit-equal,
+per-lane gradients elementwise) and K3/K4 over its pair lists, with and
+without the shrink and with 40% of the vertices out of the vocabulary, K2
+at row stride D + 1 against its plain version and against K2 at stride D
+(both timed), K14 with repeated rows, dead rows and a negative that is
+also a center, and K15 bit-equal on the dense graph's CSR alias tables and
+on degree-0/1 lanes, with a chi-square against general edge weights, at
+the main paths' batch (B = 2,560); and K2-K4 at dim 64, the width the JAX
+package packs.
 
 ``--quick`` runs 2-4 at small shapes (K5 and K12 on the RMAT at scale 12,
 K6 and its streaming form on its walks, K7 on them, K8, K9 and K10 on a
@@ -159,7 +181,7 @@ import time
 import numpy as np
 import torch
 
-from node2vec_torch import Node2Vec, _build
+from node2vec_torch import Node2Vec, _build, ops, random_walk, trim_index
 from node2vec_torch.constants import Node2VecParams, Word2VecParams
 from node2vec_torch.datasets import (
     holdout_link_prediction,
@@ -173,6 +195,7 @@ from node2vec_torch.models import cbow
 from node2vec_torch.models import hsoftmax as hs
 from node2vec_torch.models import skipgram as sg
 from node2vec_torch.models.vocab import (
+    build_vocab,
     build_vocab_from_counts,
     subsample_keep_prob,
     subsample_walks,
@@ -181,6 +204,8 @@ from node2vec_torch.models.vocab import (
     vertex_counts_plain,
 )
 from node2vec_torch.models.word2vec import Word2VecTorch, _effective_batch, _streaming_counts
+from node2vec_torch.ops import alias as alias_mod
+from node2vec_torch.utils import StepTimer
 from node2vec_torch.utils.checkpoint import load_stream_state, save_stream_state, stream_fingerprint
 from node2vec_torch.walk import WalkEngine, blocked, csr, dense
 
@@ -221,6 +246,20 @@ SOURCES = {
     "preagg_rows": ("node2vec_torch/csrc/preagg.cu", "node2vec_tpu/models/skipgram.py:405"),
     "sgd_apply": ("node2vec_torch/csrc/preagg.cu", "node2vec_tpu/models/skipgram.py:434"),
     "csr_walk": ("node2vec_torch/csrc/csr_walk.cu", "node2vec_tpu/walk/engine.py:66"),
+    # K13: the pair lists (make_pairs), then the per-lane gradients
+    "pair_lists": ("node2vec_torch/csrc/sgns_pairs.cu", "node2vec_tpu/models/skipgram.py:130"),
+    "sgns_pair_grads": ("node2vec_torch/csrc/sgns_pairs.cu",
+                        "node2vec_tpu/models/skipgram.py:168"),
+    # K3 and K4 over the pair step's lists (centers, contexts, negatives)
+    "adagrad_accumulate_pairs": ("node2vec_torch/csrc/adagrad.cu",
+                                 "node2vec_tpu/models/skipgram.py:241"),
+    "adagrad_apply_pairs": ("node2vec_torch/csrc/adagrad.cu",
+                            "node2vec_tpu/models/skipgram.py:248"),
+    # K2 at row stride D + 1 on the fused tables
+    "sgns_grads_fused": ("node2vec_torch/csrc/sgns.cu", "node2vec_tpu/models/skipgram.py:541"),
+    "fused_adagrad": ("node2vec_torch/csrc/fused_adagrad.cu",
+                      "node2vec_tpu/models/skipgram.py:597"),
+    "alias_draw": ("node2vec_torch/csrc/alias_draw.cu", "node2vec_tpu/ops/alias.py:165"),
 }
 # the kernels line: (row, launch counter, main path whose launches it reads)
 ROWS = (("dense_walk", "dense_walk", "main_path"),
@@ -240,7 +279,14 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("adagrad_apply_cbow_hs", "adagrad_apply", "main_path_cbow_hs"),
         ("preagg_rows", "preagg_rows", "main_path_sgd"),
         ("sgd_apply", "sgd_apply", "main_path_sgd"),
-        ("csr_walk", "csr_walk", "main_path_csr"))
+        ("csr_walk", "csr_walk", "main_path_csr"),
+        ("pair_lists", "pair_lists", "main_path_pairs"),
+        ("sgns_pair_grads", "sgns_pair_grads", "main_path_pairs"),
+        ("adagrad_accumulate_pairs", "adagrad_accumulate", "main_path_pairs"),
+        ("adagrad_apply_pairs", "adagrad_apply", "main_path_pairs"),
+        ("sgns_grads_fused", "sgns_grads", "main_path_fused"),
+        ("fused_adagrad", "fused_adagrad", "main_path_fused"),
+        ("alias_draw", "alias_draw", "surface"))
 GRADS = ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads")  # one per objective
 ADAGRAD = ("adagrad_accumulate", "adagrad_apply")
 SGD = ("preagg_rows", "sgd_apply")  # SGNS with optimizer="sgd"
@@ -1627,6 +1673,334 @@ def edge_cases_csr() -> None:
 # --------------------------------------------------------------------------- #
 
 
+def _pair_walks(n_vertices: int, n_walks: int, length: int, seed: int) -> np.ndarray:
+    """Random walks with -1 tails; about one walk in L1 has length 1."""
+    rng = np.random.default_rng(seed)
+    walks = rng.integers(0, n_vertices, (n_walks, length)).astype(np.int32)
+    ends = rng.integers(1, length + 1, n_walks)
+    walks[np.arange(length)[None, :] >= ends[:, None]] = -1
+    return walks
+
+
+def _emit_rows(rec: dict, record: bool, results: dict, **line) -> None:
+    """One check line per kernel of ``rec`` (name: (err, ms, plain ms, (bound ms, bound by),
+    library ms)), kept in ``results`` for the kernels line when ``record``."""
+    for name, (err, ms, plain_ms, bound, lib_ms) in rec.items():
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+               "bound_by": bound[1], "library_ms": lib_ms}
+        emit({"phase": "check", "kernel": name, **line, **row})
+        if record:
+            results[name] = row
+
+
+def _batch_inputs(n_vertices, n_walks, length, dim, window, seed, oov, batch):
+    """_preagg_inputs on ``batch`` = (walks [B, L1], vocabulary mask), a
+    batch of a main path's own epoch, or on random walks with -1 tails and
+    ``oov`` of the vertices out of the vocabulary when ``batch`` is None."""
+    if batch is None:
+        return _preagg_inputs(n_vertices, _pair_walks(n_vertices, n_walks, length, seed), dim,
+                              window, seed + 1, oov=oov)
+    inp = _preagg_inputs(n_vertices, batch[0].cpu().numpy(), dim, window, seed + 1)
+    inp["mask"] = batch[1]
+    return inp
+
+
+def check_pairs(n_vertices: int, n_walks: int, length: int, dim: int, window: int,
+                record: bool, results: dict, case: str, shrink: bool = True,
+                oov: float = 0.1, batch=None) -> None:
+    """K13 (pair lists, then per-lane gradients) and K3/K4 over the pair
+    lists, each against its plain version on the same inputs, and the
+    whole pair step: the lists bit-equal; d_ci, d_co and the loss
+    elementwise; d_no and the tables after K4, which sum many signed terms
+    through atomics, to rtol of their largest entry.  The walks: ``batch``
+    (_batch_inputs), whose liveness sets the times and bounds."""
+    inp = _batch_inputs(n_vertices, n_walks, length, dim, window, 11, oov, batch)
+    walks, mask, neg = inp["walks"], inp["mask"], inp["neg"]
+    n_walks, length = walks.shape
+    emb_in, emb_out, acc_in, acc_out = inp["state"]
+    b_sh = inp["b_sh"] if shrink else None
+    kw = dict(window=window, negatives=5)
+    lr = 0.05
+
+    centers, contexts = sg.pair_lists(walks, b_sh, mask, window)
+    pc, px = sg.pair_lists_plain(walks, b_sh, mask, window)
+    n_diff = int((centers != pc).sum()) + int((contexts != px).sum())
+    require(n_diff == 0, f"pair_lists differs from its plain version in {n_diff} entries ({case})")
+    got = sg.sgns_pair_grads(emb_in, emb_out, walks, pc, px, neg, **kw)
+    want = sg.sgns_pair_grads_plain(emb_in, emb_out, walks, pc, px, neg, **kw)
+    k13_err = max(_close("sgns_pair_grads[d_ci]", got[0], want[0]),
+                  _close("sgns_pair_grads[d_co]", got[1], want[1]),
+                  _close_to_largest("sgns_pair_grads[d_no]", got[2], want[2]),
+                  _close("sgns_pair_grads[loss]", got[3], want[3]))
+    n_lanes_valid = int((pc >= 0).sum())
+    require(int(got[4]) == int(want[4]) == n_lanes_valid,
+            f"sgns_pair_grads counts {float(got[4])} valid lanes, not {n_lanes_valid} ({case})")
+    d_ci, d_co, d_no = want[:3]
+    lists = (d_ci, pc, d_co, px, d_no, neg)  # the pair step's three row lists
+    a_in, a_out = acc_in.clone(), acc_out.clone()
+    sg.adagrad_accumulate(a_in, a_out, *lists)
+    p_in, p_out = acc_in.clone(), acc_out.clone()
+    sg.adagrad_accumulate_plain(p_in, p_out, *lists)
+    k3_err = max(_close("adagrad_accumulate[pairs, acc_in]", a_in, p_in),
+                 _close("adagrad_accumulate[pairs, acc_out]", a_out, p_out))
+    t_in, t_out = emb_in.clone(), emb_out.clone()
+    sg.adagrad_apply(t_in, t_out, p_in, p_out, *lists, lr)
+    q_in, q_out = emb_in.clone(), emb_out.clone()
+    sg.adagrad_apply_plain(q_in, q_out, p_in, p_out, *lists, lr)
+    k4_err = max(_close_to_largest("adagrad_apply[pairs, emb_in]", t_in, q_in),
+                 _close_to_largest("adagrad_apply[pairs, emb_out]", t_out, q_out))
+    k_state = [t.clone() for t in inp["state"]]
+    p_state = [t.clone() for t in inp["state"]]
+    loss_k = sg.sgns_train_step(*k_state, walks, b_sh, *inp["r"], lr, *inp["noise"], mask, **kw)
+    loss_p = sg.sgns_train_step_plain(*p_state, walks, b_sh, *inp["r"], lr, *inp["noise"], mask,
+                                      **kw)
+    step_err = _close_state("pair step", k_state, loss_k, p_state, loss_p)
+
+    l_ms = time_ms(lambda: sg.pair_lists(walks, b_sh, mask, window))
+    l_plain = time_ms(lambda: sg.pair_lists_plain(walks, b_sh, mask, window))
+    g_ms = time_ms(lambda: sg.sgns_pair_grads(emb_in, emb_out, walks, pc, px, neg, **kw))
+    g_plain = time_ms(lambda: sg.sgns_pair_grads_plain(emb_in, emb_out, walks, pc, px, neg, **kw),
+                      reps=3, warmup=1)
+    k3_ms = time_ms(lambda: sg.adagrad_accumulate(a_in, a_out, *lists))
+    k3_plain = time_ms(lambda: sg.adagrad_accumulate_plain(a_in, a_out, *lists), reps=3)
+    k4_ms = time_ms(lambda: sg.adagrad_apply(t_in, t_out, p_in, p_out, *lists, lr))
+    k4_plain = time_ms(lambda: sg.adagrad_apply_plain(q_in, q_out, p_in, p_out, *lists, lr),
+                       reps=3)
+    # library yardsticks (never used by the port): index_add_ of the valid
+    # lanes' precomputed squares (K3) and updates (K4)
+    ok = pc >= 0
+    rows_c, rows_x, negl = pc[ok].long(), px[ok].long(), neg.long()
+    sq_c = (d_ci[ok] * d_ci[ok]).mean(-1)
+    sq_x = torch.cat([(d_co[ok] * d_co[ok]).mean(-1), (d_no * d_no).mean(-1)])
+    rows_out = torch.cat([rows_x, negl])
+    k3_lib = time_ms(lambda: (a_in.index_add_(0, rows_c, sq_c), a_out.index_add_(0, rows_out, sq_x)))
+    upd_in = -lr * d_ci[ok] * torch.rsqrt(p_in[rows_c] + 1e-12)[:, None]
+    upd_out = torch.cat([-lr * d_co[ok] * torch.rsqrt(p_out[rows_x] + 1e-12)[:, None],
+                         -lr * d_no * torch.rsqrt(p_out[negl] + 1e-12)[:, None]])
+    k4_lib = time_ms(lambda: (t_in.index_add_(0, rows_c, upd_in),
+                              t_out.index_add_(0, rows_out, upd_out)))
+
+    # bounds, from this run's data: each input read once (the rows of the
+    # distinct centers, contexts and negatives), each output written once
+    # (the per-lane gradients are the function's output); the gradient
+    # flops counted per live center (S negative logits, gn, d_no) and per
+    # valid lane (the positive logit, d_ci, d_co)
+    n_lanes, n_valid, n_neg = int(pc.numel()), int(ok.sum()), int(neg.numel())
+    n_pos = n_walks * length
+    u_c = int(torch.unique(rows_c).numel())
+    u_out = int(torch.unique(rows_out).numel())
+    lane = torch.nonzero(ok).squeeze(1)
+    live_centers = int(torch.unique(lane // (2 * window * length) * length + lane % length).numel())
+    lists_bytes = 2 * n_pos * 4 + u_c + int(torch.unique(rows_x).numel()) + 2 * n_lanes * 4
+    grads_bytes = ((n_pos + n_lanes) * 4 + (u_c + u_out) * dim * 4 + 2 * n_lanes * dim * 4
+                   + n_neg * dim * 4 + n_walks * 12)
+    grads_ops = 6 * live_centers * n_neg * dim + 5 * n_valid * dim
+    valid_grads = (2 * n_valid + n_neg) * dim * 4
+    k3_bytes = valid_grads + 2 * n_lanes * 4 + n_neg * 4 + 8 * (u_c + u_out)
+    k4_bytes = (valid_grads + 2 * n_lanes * 4 + n_neg * 4 + 4 * (u_c + u_out)
+                + 8 * dim * (u_c + u_out))
+    emit({"phase": "check", "kernel": "sgns_train_step (K13+K3+K4)", "case": case,
+          "shrink": shrink, "B": n_walks, "L1": length, "D": dim, "lanes": n_lanes,
+          "valid_lanes": n_valid, "max_abs_err": step_err, "rtol": RTOL, "atol": ATOL})
+    _emit_rows({
+        "pair_lists": (n_diff, l_ms, l_plain, bound_ms(lists_bytes, 0), None),
+        "sgns_pair_grads": (k13_err, g_ms, g_plain, bound_ms(grads_bytes, grads_ops), None),
+        "adagrad_accumulate_pairs": (k3_err, k3_ms, k3_plain,
+                                     bound_ms(k3_bytes, 2 * (2 * n_valid + n_neg) * dim), k3_lib),
+        "adagrad_apply_pairs": (k4_err, k4_ms, k4_plain,
+                                bound_ms(k4_bytes, 3 * (2 * n_valid + n_neg) * dim), k4_lib),
+    }, record, results, case=case, B=n_walks, L1=length, D=dim, S=n_neg, V=n_vertices)
+
+
+def _close_state(name: str, got_state, got_loss, want_state, want_loss) -> float:
+    """A step's (emb_in, emb_out, acc_in, acc_out, loss) against another's:
+    the tables, which sum many signed terms through atomics, to rtol of
+    their largest entry; the accumulators and the loss elementwise."""
+    return max(_close_to_largest(f"{name}[emb_in]", got_state[0], want_state[0]),
+               _close_to_largest(f"{name}[emb_out]", got_state[1], want_state[1]),
+               _close(f"{name}[acc_in]", got_state[2], want_state[2]),
+               _close(f"{name}[acc_out]", got_state[3], want_state[3]),
+               _close(f"{name}[loss]", got_loss, want_loss))
+
+
+def _close_fused(name: str, got, want) -> float:
+    """Fused tables: the vectors to rtol of their largest entry (atomics
+    over repeated rows), the accumulator column elementwise."""
+    return max(_close_to_largest(f"{name}[vectors]", got[:, :-1], want[:, :-1]),
+               _close(f"{name}[accumulator]", got[:, -1], want[:, -1]))
+
+
+def check_fused(n_vertices: int, n_walks: int, length: int, dim: int, window: int,
+                record: bool, results: dict, case: str, batch=None) -> None:
+    """K2 at row stride D + 1 on [V, D+1] tables against its plain version
+    and against K2 at stride D on the same vectors, timed at both strides;
+    K14 against its plain version with repeated rows, rows at -1 (on
+    random walks) and a negative that is also a center; and the whole
+    fused step.  The walks as in check_pairs."""
+    inp = _batch_inputs(n_vertices, n_walks, length, dim, window, 13, 0.1, batch)
+    walks, mask, b_sh = inp["walks"], inp["mask"], inp["b_sh"]
+    n_walks, length = walks.shape
+    emb_in, emb_out, acc_in, acc_out = inp["state"]
+    tab_in = torch.cat([emb_in, acc_in[:, None]], dim=1).contiguous()
+    tab_out = torch.cat([emb_out, acc_out[:, None]], dim=1).contiguous()
+    walks_flat = walks.reshape(-1)
+    neg = inp["neg"].clone()
+    neg[0] = walks_flat[int(torch.nonzero(walks_flat >= 0)[0])]  # a negative that is a center
+    kw = dict(window=window, negatives=5)
+    lr = 0.05
+
+    got = sg.sgns_grads(tab_in, tab_out, walks, mask, b_sh, neg, dim=dim, **kw)
+    want = sg.sgns_grads_plain(tab_in, tab_out, walks, mask, b_sh, neg, dim=dim, **kw)
+    flat = sg.sgns_grads(emb_in, emb_out, walks, mask, b_sh, neg, **kw)
+    k2_err = max(_close("sgns_grads[ld=D+1, g_in]", got[0], want[0]),
+                 _close("sgns_grads[ld=D+1, g_out]", got[1], want[1]),
+                 _close_to_largest("sgns_grads[ld=D+1, d_no]", got[2], want[2]),
+                 _close("sgns_grads[ld=D+1, loss]", got[3], want[3]))
+    same_as_ld_d = max(float((a - b).abs().max()) for a, b in zip(got[:4], flat[:4]))
+    require(same_as_ld_d <= RTOL * float(flat[2].abs().max()),
+            f"K2 at ld = D + 1 differs from K2 at ld = D by {same_as_ld_d}")
+    g_in, g_out, d_no = want[:3]
+    lists = (g_in, walks_flat, g_out, walks_flat, d_no, neg)
+    t_in, t_out = tab_in.clone(), tab_out.clone()
+    sg.fused_adagrad(t_in, t_out, *lists, lr)
+    q_in, q_out = tab_in.clone(), tab_out.clone()
+    sg.fused_adagrad_plain(q_in, q_out, *lists, lr)
+    k14_err = max(_close_fused("fused_adagrad[tab_in]", t_in, q_in),
+                  _close_fused("fused_adagrad[tab_out]", t_out, q_out))
+    k_tabs = [tab_in.clone(), tab_out.clone()]
+    p_tabs = [tab_in.clone(), tab_out.clone()]
+    loss_k = sg.sgns_walk_step_fused(*k_tabs, walks, b_sh, *inp["r"], lr, *inp["noise"], mask,
+                                     **kw)
+    loss_p = sg.sgns_walk_step_fused_plain(*p_tabs, walks, b_sh, *inp["r"], lr, *inp["noise"],
+                                           mask, **kw)
+    step_err = max(_close_fused("fused step[tab_in]", k_tabs[0], p_tabs[0]),
+                   _close_fused("fused step[tab_out]", k_tabs[1], p_tabs[1]),
+                   _close("fused step[loss]", loss_k, loss_p))
+
+    k2_ms = time_ms(lambda: sg.sgns_grads(tab_in, tab_out, walks, mask, b_sh, neg, dim=dim, **kw))
+    k2_ms_ld_d = time_ms(lambda: sg.sgns_grads(emb_in, emb_out, walks, mask, b_sh, neg, **kw))
+    k2_plain = time_ms(lambda: sg.sgns_grads_plain(tab_in, tab_out, walks, mask, b_sh, neg,
+                                                   dim=dim, **kw), reps=3, warmup=1)
+    k14_ms = time_ms(lambda: sg.fused_adagrad(t_in, t_out, *lists, lr))
+    k14_plain = time_ms(lambda: sg.fused_adagrad_plain(q_in, q_out, *lists, lr), reps=3)
+    # library yardstick: index_add_ of the precomputed (delta vector,
+    # square) rows of the live occurrences into both tables
+    live = walks_flat >= 0
+    rows = walks_flat[live].long()
+    negl = neg.long()
+
+    def upd(tab, g, r):
+        sq = (g * g).mean(-1)
+        scale = torch.rsqrt(tab[r, dim] + sq + 1e-12)
+        return torch.cat([-lr * g * scale[:, None], sq[:, None]], dim=1)
+
+    u_in = upd(tab_in, g_in[live], rows)
+    u_out = torch.cat([upd(tab_out, g_out[live], rows), upd(tab_out, d_no, negl)])
+    rows_out = torch.cat([rows, negl])
+    k14_lib = time_ms(lambda: (t_in.index_add_(0, rows, u_in),
+                               t_out.index_add_(0, rows_out, u_out)))
+
+    # bounds: K2 reads the D vector columns of each position's rows, so its
+    # bound is the one at stride D (check_sgns); K14 reads the valid
+    # occurrences' grads and rows once and read-modify-writes each touched
+    # table row of D + 1 floats once
+    n_rows, n_live, n_neg = n_walks * length, int(live.sum()), int(neg.numel())
+    grads_bytes = (2 * n_rows + n_neg) * dim * 4
+    k2_bytes = 2 * n_rows * dim * 4 + n_neg * dim * 4 + 2 * n_rows * 4 + grads_bytes
+    k2_ops = 6 * n_rows * dim * (n_neg + 2 * window)
+    u_rows = int(torch.unique(rows).numel()) + int(torch.unique(rows_out).numel())
+    k14_bytes = ((2 * n_live + n_neg) * dim * 4 + (n_rows + n_neg) * 4
+                 + 8 * (dim + 1) * u_rows)
+    emit({"phase": "check", "kernel": "sgns_walk_step_fused (K2 at ld=D+1, K14)", "case": case,
+          "B": n_walks, "L1": length, "D": dim, "max_abs_err": step_err,
+          "k2_ld_d_plus_1_vs_ld_d_max_abs_diff": same_as_ld_d, "rtol": RTOL, "atol": ATOL})
+    _emit_rows({
+        "sgns_grads_fused": (k2_err, k2_ms, k2_plain, bound_ms(k2_bytes, k2_ops), None),
+        "fused_adagrad": (k14_err, k14_ms, k14_plain,
+                          bound_ms(k14_bytes, 4 * (2 * n_live + n_neg) * dim), k14_lib),
+    }, record, results, case=case, B=n_walks, L1=length, D=dim, S=n_neg, V=n_vertices)
+    emit({"phase": "check", "kernel": "sgns_grads at two row strides", "case": case,
+          "ms_ld_d_plus_1": k2_ms, "ms_ld_d": k2_ms_ld_d, "ratio": k2_ms / k2_ms_ld_d})
+    if record:
+        results["sgns_grads_fused"]["ms_ld_d"] = k2_ms_ld_d
+
+
+def _alias_bound(start, degree, r1, r2, dg) -> tuple:
+    """K15's bound: the per-walker inputs and output, and each prob /
+    alias / indices entry the draws touch, read once."""
+    live = degree > 0
+    deg = torch.clamp(degree, min=1)
+    slot = torch.minimum((r1 * deg).to(torch.int32), deg - 1)
+    e = (start + slot)[live].long()
+    j = torch.where(r2[live] < dg.prob[e], slot[live], dg.alias[e])
+    n_tab = 2 * int(torch.unique(e).numel()) + int(torch.unique(start[live] + j).numel())
+    return bound_ms(20 * start.numel() + 4 * n_tab, 0)
+
+
+def check_alias_draw(graph, record: bool, results: dict, case: str) -> None:
+    """K15 against its plain version, bit-equal: a walker at every vertex
+    of ``graph`` on its CSR alias tables; then a CSR with degree-0 and
+    degree-1 vertices and general weights (bit-equal, degree-0 lanes -1,
+    degree-1 lanes their one neighbour) and a chi-square of 131,072 draws
+    at one vertex of degree 12 against its edge weights."""
+    dev = torch.device("cuda")
+    dg = graph.to_device(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    start = dg.indptr[:-1].contiguous()
+    degree = (dg.indptr[1:] - dg.indptr[:-1]).contiguous()
+    r1 = torch.rand(start.shape, generator=gen, device=dev)
+    r2 = torch.rand(start.shape, generator=gen, device=dev)
+    args = (start, degree, r1, r2, dg.alias, dg.prob, dg.indices)
+    got = ops.alias_draw(*args)
+    want = alias_mod.alias_draw_plain(*args)
+    n_diff = int((got != want).sum())
+    require(n_diff == 0, f"alias_draw differs from its plain version in {n_diff} lanes")
+    ms = time_ms(lambda: ops.alias_draw(*args))
+    plain_ms = time_ms(lambda: alias_mod.alias_draw_plain(*args))
+    bound = _alias_bound(*args[:4], dg)
+
+    rng = np.random.default_rng(6)
+    deg = rng.integers(0, 13, 4096)
+    deg[:64], deg[64:128], deg[128] = 0, 1, 12
+    indptr = np.zeros(len(deg) + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    weights = (rng.random(int(indptr[-1])) * 3 + 0.05).astype(np.float32)
+    indices = rng.integers(0, len(deg), int(indptr[-1])).astype(np.int32)
+    al, pr = alias_mod.build_alias_csr(indptr, weights)
+    verts = np.tile(np.arange(len(deg)), 8)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    e_args = (t(indptr[verts].astype(np.int32)), t(deg[verts].astype(np.int32)),
+              t(rng.random(len(verts), dtype=np.float32)),
+              t(rng.random(len(verts), dtype=np.float32)), t(al), t(pr), t(indices))
+    e_got = ops.alias_draw(*e_args).cpu().numpy()
+    e_diff = int((e_got != alias_mod.alias_draw_plain(*e_args).cpu().numpy()).sum())
+    dv = deg[verts]
+    require(e_diff == 0 and bool((e_got[dv == 0] == -1).all())
+            and bool((e_got[dv == 1] == indices[indptr[verts[dv == 1]]]).all()),
+            f"alias_draw edge cases: {e_diff} lanes differ, or a degree-0/1 lane is wrong")
+    from scipy import stats
+
+    n = 131072
+    lo, hi = int(indptr[128]), int(indptr[129])
+    c_args = (torch.full((n,), lo, dtype=torch.int32, device=dev),
+              torch.full((n,), 12, dtype=torch.int32, device=dev),
+              torch.rand(n, generator=gen, device=dev), torch.rand(n, generator=gen, device=dev),
+              t(al), t(pr), torch.arange(len(indices), dtype=torch.int32, device=dev))
+    slots = (ops.alias_draw(*c_args) - lo).cpu().numpy()
+    counts = np.bincount(slots, minlength=12)
+    w = weights[lo:hi].astype(np.float64)
+    pval = float(stats.chisquare(counts, w / w.sum() * n).pvalue)
+    require(pval > 1e-4, f"alias_draw chi-square p {pval}")
+    emit({"phase": "edge_case", "kernel": "alias_draw", "case": case,
+          "degree_0_and_1_lanes": int((dv <= 1).sum()), "lanes_differing": e_diff,
+          "chi2_pvalue": pval})
+    _emit_rows({"alias_draw": (n_diff, ms, plain_ms, bound, None)}, record, results, case=case,
+               walkers=int(start.numel()), bit_equal=n_diff == 0)
+
+
 def small_reference() -> None:
     """Quickstart on karate: the card's walks equal the CPU plain path's."""
     edges = np.array([
@@ -1718,7 +2092,7 @@ def main_path(src, dst, max_iter: int) -> dict:
         require(launches[k] == n_batches * max_iter, f"{k} launched {launches[k]} times")
     require(all(launches[k] > 0 for k in DENSE_PATH), f"a kernel never ran: {launches}")
     breakdown((("random_walk", n2v.random_walk), ("fit", n2v.fit)))
-    return out
+    return out, n2v
 
 
 def check_steps(graph, walks: np.ndarray, n_check: int = 2000) -> None:
@@ -2245,6 +2619,218 @@ def main_path_csr(graph, max_iter: int) -> dict:
     return out
 
 
+def _pair_epoch(graph):
+    """The corpus, noise tables and geometry of main_path_pairs and
+    main_path_fused: the Quickstart walks (K1) on ``graph``, their
+    vocabulary (K6), shuffled once, cut into batches of 2,560 walks."""
+    dev = torch.device("cuda")
+    p = Word2VecParams(**W2V_MAIN, max_iter=1)
+    walks = WalkEngine(graph, Node2VecParams(**N2V_MAIN), device="cuda").run_device(seed=0)
+    vocab = build_vocab(walks, graph.n_vertices, min_count=p.min_count)
+    n_walks, length = walks.shape
+    batch = _effective_batch(p.batch_walks, n_walks)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    corpus = walks[torch.randperm(n_walks, generator=gen, device=dev)]
+    tables = tuple(torch.from_numpy(a).to(dev) for a in (vocab.ns_alias, vocab.ns_prob,
+                                                         vocab.mask))
+    n_batches = n_walks // batch
+
+    def draws(gstep: int):  # the step's (b_sh, r1, r2), from a generator seeded by the step
+        g = torch.Generator(device=dev).manual_seed(1000 + gstep)
+        return sg.draw_step(g, batch, length, p.window_size, 64, True, dev)
+
+    return dict(corpus=corpus, tables=tables, batch=batch, n_batches=n_batches, draws=draws,
+                lr0=p.step_size, slope=p.step_size / n_batches, min_lr=p.min_step_size,
+                V=graph.n_vertices, dim=p.vector_size, window=p.window_size,
+                negatives=p.negative, walks=[int(n_walks), int(length)])
+
+
+def _pair_steps(state, ep, steps, step=sg.sgns_train_step, pairs=None):
+    kw = dict(window=ep["window"], negatives=ep["negatives"], pairs=pairs)
+    losses = []
+    for b in steps:
+        lr = sg.step_lr(ep["lr0"], ep["slope"], b, ep["min_lr"])
+        wb = ep["corpus"][b * ep["batch"]:(b + 1) * ep["batch"]]
+        losses.append(step(*state, wb, *ep["draws"](b), lr, *ep["tables"], **kw))
+    return torch.stack(losses)
+
+
+def _fused_epoch(tabs, ep, pairs=None):
+    return sg.sgns_epoch_fused(*tabs, ep["corpus"], ep["draws"], 0, ep["lr0"], ep["slope"],
+                               *ep["tables"], batch=ep["batch"], n_batches=ep["n_batches"],
+                               window=ep["window"], negatives=ep["negatives"],
+                               min_lr=ep["min_lr"], pairs=pairs)
+
+
+def _trained_line(phase: str, ep, t0, t1, t2, losses, n_valid: int) -> dict:
+    return {"phase": phase, "walks": ep["walks"], "batch_walks": ep["batch"],
+            "n_batches": ep["n_batches"], "walk_and_vocab_s": t1 - t0, "train_s": t2 - t1,
+            "valid_pairs": n_valid, "pair_updates_per_s": n_valid / (t2 - t1),
+            "loss_first_step": float(losses[0]), "loss_last_step": float(losses[-1]),
+            "peak_device_memory_bytes": int(torch.cuda.max_memory_allocated()),
+            "launches": _launches()}
+
+
+def main_path_pairs(graph):
+    """``sgns_train_step``, the pair-based step a user drives in a loop:
+    the Quickstart walks on the dense graph (K1), ``build_vocab`` on the
+    card (K6), then one epoch at B = 2,560 (512 steps) with ``step_lr`` and
+    draws from seeded torch.Generators: K13 (pair lists and gradients) and
+    K3/K4 512 times each, K2 never.  Then the first 3 steps against
+    ``sgns_train_step_plain`` from the same state, and the epoch profiled."""
+    _fresh_run()
+    t0 = time.perf_counter()
+    ep = _pair_epoch(graph)
+    state0 = sg.init_embeddings(ep["V"], ep["dim"], seed=1, device="cuda")
+    state = [t.clone() for t in state0]
+    pairs = torch.zeros((), dtype=torch.int64, device="cuda")  # K13's valid lanes
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = _pair_steps(state, ep, range(ep["n_batches"]), pairs=pairs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = _trained_line("main_path_pairs", ep, t0, t1, t2, losses.cpu(), int(pairs))
+    launches = out["launches"]
+    emit(out)
+    nb = ep["n_batches"]
+    for k in ("pair_lists", "sgns_pair_grads", "adagrad_accumulate", "adagrad_apply"):
+        require(launches[k] == nb, f"main_path_pairs launched {k} {launches[k]} times")
+    require(launches["sgns_grads"] == 0 and launches["dense_walk"] > 0
+            and launches["vertex_counts"] == 1, f"main_path_pairs launches {launches}")
+    require(bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(t).all())
+                                                       for t in state),
+            "main_path_pairs: non-finite loss or tables")
+    k_state = [t.clone() for t in state0]
+    p_state = [t.clone() for t in state0]
+    err = 0.0
+    for b in range(3):
+        loss_k = _pair_steps(k_state, ep, [b])
+        loss_p = _pair_steps(p_state, ep, [b], sg.sgns_train_step_plain)
+        err = max(err, _close_state(f"main_path_pairs step {b}", k_state, loss_k, p_state,
+                                    loss_p))
+    emit({"phase": "check", "kernel": "main_path_pairs: 3 steps against sgns_train_step_plain",
+          "max_abs_err": err})
+    breakdown((("sgns_train_step epoch",
+                lambda: _pair_steps([t.clone() for t in state0], ep, range(nb))),))
+    return out, ep
+
+
+def main_path_fused(ep, results: dict):
+    """``sgns_epoch_fused`` on the corpus and draws of main_path_pairs,
+    from ``init_fused_embeddings``: K2 at row stride 129 and K14 512 times
+    each, K3/K4 never.  The JAX package documents this step as diverging on
+    duplicate-dense small graphs and gates no quality on it; the losses are
+    printed.  Then its first 3 steps against the plain versions, and the
+    epoch profiled."""
+    _fresh_run()
+    tabs0 = sg.init_fused_embeddings(ep["V"], ep["dim"], seed=1, device="cuda")
+    tabs = [t.clone() for t in tabs0]
+    pairs = torch.zeros((), dtype=torch.int64, device="cuda")  # K2's valid pairs
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = _fused_epoch(tabs, ep, pairs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = _trained_line("main_path_fused", ep, t1, t1, t2, losses.cpu(), int(pairs))
+    out["sgns_grads_ms_ld_129"] = results["sgns_grads_fused"]["ms"]
+    out["sgns_grads_ms_ld_128"] = results["sgns_grads_fused"]["ms_ld_d"]
+    launches = out["launches"]
+    emit(out)
+    nb = ep["n_batches"]
+    require(launches["sgns_grads"] == nb and launches["fused_adagrad"] == nb,
+            f"main_path_fused launches {launches}")
+    require(launches["adagrad_accumulate"] == 0 and launches["adagrad_apply"] == 0
+            and launches["sgns_pair_grads"] == 0, f"main_path_fused launches {launches}")
+    require(bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(t).all())
+                                                       for t in tabs),
+            "main_path_fused: non-finite loss or tables")
+    kw = dict(window=ep["window"], negatives=ep["negatives"])
+    k_tabs = [t.clone() for t in tabs0]
+    p_tabs = [t.clone() for t in tabs0]
+    err = 0.0
+    for b in range(3):
+        lr = sg.step_lr(ep["lr0"], ep["slope"], b, ep["min_lr"])
+        wb = ep["corpus"][b * ep["batch"]:(b + 1) * ep["batch"]]
+        loss_k = sg.sgns_walk_step_fused(*k_tabs, wb, *ep["draws"](b), lr, *ep["tables"], **kw)
+        loss_p = sg.sgns_walk_step_fused_plain(*p_tabs, wb, *ep["draws"](b), lr, *ep["tables"],
+                                               **kw)
+        err = max(err,
+                  _close_fused(f"main_path_fused step {b}[tab_in]", k_tabs[0], p_tabs[0]),
+                  _close_fused(f"main_path_fused step {b}[tab_out]", k_tabs[1], p_tabs[1]),
+                  _close(f"main_path_fused step {b}[loss]", loss_k, loss_p))
+    emit({"phase": "check", "kernel": "main_path_fused: 3 steps against the plain versions",
+          "max_abs_err": err})
+    breakdown((("sgns_epoch_fused", lambda: _fused_epoch([t.clone() for t in tabs0], ep)),))
+    return out
+
+
+def surface(n2v, graph, src, dst) -> dict:
+    """The rest of the one-device surface a user reaches on the card:
+    ``save_model`` of the dense main path's model and ``load_model`` into a
+    new ``Node2Vec(device="cuda")`` (vectors, counts, mask and names
+    bit-equal), ``load_vectors`` of ``save_vectors``' file, the functional
+    ``trim_index`` -> ``random_walk`` on the edge list (walks equal to
+    ``WalkEngine.run``'s), a ``StepTimer`` through ``WalkEngine.run`` and
+    ``fit``, and one first-order ``alias_draw`` (K15) from every vertex on
+    the graph's CSR alias tables."""
+    import pandas as pd
+
+    _fresh_run()
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_surface")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    n2v.save_model(out_dir, "model")
+    loaded = Node2Vec(w2v_params=n2v.w2v_params, device="cuda")
+    model = loaded.load_model(out_dir, "model")
+    ref = n2v.backend.model
+    same = {"vectors": bool(np.array_equal(model.vectors, ref.vectors)),
+            "emb_out": bool(np.array_equal(model.emb_out, ref.emb_out)),
+            "counts": bool(np.array_equal(model.vocab.counts, ref.vocab.counts)),
+            "mask": bool(np.array_equal(model.vocab.mask, ref.vocab.mask)),
+            "names": loaded.backend.name_id == n2v.backend.name_id}
+    t1 = time.perf_counter()
+    n2v.save_vectors(out_dir, "vectors.txt")
+    frame = loaded.load_vectors(out_dir, "vectors.txt")
+    names, vectors = n2v.embedding(as_frame=False)
+    vec_err = float(np.abs(np.stack(frame["vector"]) - vectors).max() / np.abs(vectors).max())
+    same["vector_names"] = frame["name"].tolist() == [str(x) for x in names]
+    t2 = time.perf_counter()
+
+    n2v_one = {**N2V_MAIN, "num_walks": 1}
+    edges, _ = trim_index(pd.DataFrame({"src": src, "dst": dst}), indexed=True, directed=False)
+    frame_w = random_walk(edges, n2v_one, random_seed=0, device="cuda")
+    timer = StepTimer()
+    walks = WalkEngine(graph, Node2VecParams(**n2v_one), device="cuda").run(seed=0, timer=timer)
+    same["functional_walks"] = frame_w["walk"].tolist() == [r[r >= 0].tolist() for r in walks]
+    t3 = time.perf_counter()
+    Word2VecTorch(Word2VecParams(**W2V_MAIN, max_iter=2), device="cuda").fit(
+        walks, n_vertices=graph.n_vertices, timer=timer)
+
+    dg = graph.to_device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    start = dg.indptr[:-1].contiguous()
+    degree = (dg.indptr[1:] - dg.indptr[:-1]).contiguous()
+    r1 = torch.rand(start.shape, generator=gen, device="cuda")
+    r2 = torch.rand(start.shape, generator=gen, device="cuda")
+    step = ops.alias_draw(start, degree, r1, r2, dg.alias, dg.prob, dg.indices).cpu().numpy()
+    launches = _launches()
+    nbrs = [step[v] in graph.indices[graph.indptr[v]:graph.indptr[v + 1]]
+            for v in range(0, graph.n_vertices, 97)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out = {"phase": "surface", "bit_equal": same, "vectors_text_rel_err": vec_err,
+           "save_load_model_s": t1 - t0, "save_load_vectors_s": t2 - t1,
+           "functional_walk_s": t3 - t2, "timer_summary": timer.summary(),
+           "alias_draw_walkers": int(step.size), "launches": launches}
+    emit(out)
+    require(all(same.values()), f"surface: not equal {same}")
+    require(vec_err <= 1e-5, f"save_vectors/load_vectors relative error {vec_err}")
+    require({k: len(v) for k, v in timer.times.items()} == {"walk_chunk": 1, "sgns_epoch": 2},
+            f"timer recorded {timer.summary()}")
+    require(launches["alias_draw"] == 1, f"surface launched alias_draw {launches['alias_draw']} times")
+    require(all(nbrs), "surface: an alias_draw draw is not a neighbour")
+    return out
+
+
 def breakdown(stages) -> None:
     """Device time by kernel and the idle share of each (name, fn) stage,
     from torch.profiler over a second run of it (launch counts of the main
@@ -2370,6 +2956,12 @@ def main() -> int:
         check_csr_walk(g, "dense ER, 4,096 vertices", 4096, 20, False, results)
         check_csr_walk(g_rmat, "RMAT scale 12", 4096, 20, True, results)
         edge_cases_csr()
+        check_pairs(4096, 64, 21, 128, 5, True, results, "quick")
+        check_pairs(4096, 64, 21, 128, 5, False, results, "quick, no shrink", shrink=False)
+        check_pairs(512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
+        check_fused(4096, 64, 21, 128, 5, True, results, "quick")
+        check_fused(512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
+        check_alias_draw(g, True, results, "quick, dense ER 4,096 vertices")
         edge_cases()
         edge_cases_blocked()
         small_reference()
@@ -2405,6 +2997,25 @@ def main() -> int:
     check_preagg(131072, hs_walks[:hs_batch], 128, 5, True, results, "main_path_sgd batch")
     check_preagg(131072, hs_walks[:8192], 128, 5, False, results, "B=8192")
     edge_cases_preagg()
+    # K13 and K3/K4 over its pair lists, K2 at row stride D + 1 and K14, timed
+    # on the walks main_path_pairs and main_path_fused train (their epoch's
+    # first batch), then on random walks with dead tails and
+    # out-of-vocabulary rows; K2-K4 at dim 64 (the TPU's packed width)
+    ep = _pair_epoch(g)
+    first = (ep["corpus"][:ep["batch"]].contiguous(), ep["tables"][2])
+    del ep
+    check_pairs(131072, main_batch, 21, 128, 5, True, results, "main_path_pairs batch 0",
+                batch=first)
+    check_pairs(131072, main_batch, 21, 128, 5, False, results, "random walks, dead tails")
+    check_pairs(131072, main_batch, 21, 128, 5, False, results, "no shrink", shrink=False)
+    check_pairs(4096, 64, 21, 128, 5, False, results, "V = 4,096, 40% out of vocabulary",
+                oov=0.4)
+    check_fused(131072, main_batch, 21, 128, 5, True, results, "main_path_fused batch 0",
+                batch=first)
+    check_fused(131072, main_batch, 21, 128, 5, False, results, "random walks, dead tails")
+    del first
+    check_sgns(131072, main_batch, 21, 64, 5, 64, False, results)
+    check_alias_draw(g, True, results, "dense ER, a walker at every vertex")
     rmat_src, rmat_dst, g_rmat = rmat_graph(19)
     check_blocked_walk(g_rmat, 131072, 20, results)
     check_csr_walk(g, "dense ER", 131072, 20, False, results)
@@ -2413,7 +3024,10 @@ def main() -> int:
     edge_cases()
     edge_cases_blocked()
     small_reference()
-    paths = {"main_path": main_path(src, dst, max_iter=1)}
+    paths = {}
+    paths["main_path"], n2v = main_path(src, dst, max_iter=1)
+    paths["surface"] = surface(n2v, g, src, dst)
+    del n2v
     paths["main_path_blocked"], walks_dev, n_v = main_path_blocked(rmat_src, rmat_dst, max_iter=1)
     check_vertex_counts(walks_dev, n_v, results)
     del walks_dev
@@ -2434,6 +3048,9 @@ def main() -> int:
                                                 "sgns_grads", SGD)
     paths["main_path_csr"] = main_path_csr(g_rmat, max_iter=1)
     del g_rmat
+    paths["main_path_pairs"], ep = main_path_pairs(g)
+    paths["main_path_fused"] = main_path_fused(ep, results)
+    del ep
     quality_gates()
     quality_gates(blocked_widths=(8, 64))
     quality_gates(trainer="run_pipeline", walker_chunk=2048)

@@ -31,7 +31,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 KERNELS = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply",
            "blocked_walk", "vertex_counts", "subsample_walks", "hs_grads", "cbow_grads",
-           "cbow_hs_grads", "preagg_rows", "sgd_apply", "csr_walk")
+           "cbow_hs_grads", "preagg_rows", "sgd_apply", "csr_walk", "pair_lists",
+           "sgns_pair_grads", "fused_adagrad", "alias_draw")
 
 launches: collections.Counter = collections.Counter()
 build_seconds: Optional[float] = None
@@ -114,7 +115,7 @@ def lib() -> ctypes.CDLL:
         f32, u32 = ctypes.c_float, ctypes.c_uint32
         signatures = {
             "n2v_dense_walk": [vp, i32, vp, vp, i64, i32, i64, u32, f32, f32, i32, vp],
-            "n2v_sgns_grads": [vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, f32,
+            "n2v_sgns_grads": [vp, vp, i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, f32,
                                vp, vp, vp, vp, vp],
             "n2v_adagrad_accumulate": [vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32,
                                        vp],
@@ -134,6 +135,12 @@ def lib() -> ctypes.CDLL:
             "n2v_sgd_apply": [vp, vp, i32, vp, vp, vp, vp, i64, vp, vp, i64, vp, f32, f32, vp],
             "n2v_csr_walk": [vp, vp, vp, vp, vp, vp, i64, vp, vp, i64, i32, i64, u32, f32, f32,
                              f32, i32, i32, i32, i32, vp],
+            "n2v_pair_lists": [vp, vp, vp, i32, i32, i32, vp, vp, vp],
+            "n2v_sgns_pair_grads": [vp, vp, i32, vp, vp, vp, i32, i32, i32, i32, f32, vp, vp,
+                                    vp, vp, vp],
+            "n2v_fused_adagrad": [vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32, f32, vp,
+                                  vp, vp],
+            "n2v_alias_draw": [vp, vp, vp, vp, vp, vp, vp, i64, vp, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(handle, name)
@@ -141,6 +148,8 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.n2v_sgns_grads_smem.argtypes = [i32, i32, i32, i32]
         handle.n2v_sgns_grads_smem.restype = ctypes.c_size_t
+        handle.n2v_sgns_pair_grads_smem.argtypes = [i32, i32, i32, i32]
+        handle.n2v_sgns_pair_grads_smem.restype = ctypes.c_size_t
         handle.n2v_hs_grads_smem.argtypes = [i32, i32, i32, i32, i32]
         handle.n2v_hs_grads_smem.restype = ctypes.c_size_t
         handle.n2v_cbow_grads_smem.argtypes = [i32, i32, i32]

@@ -7,15 +7,18 @@ kernel's plain PyTorch version.  Graphs with a max degree above 256 walk on
 the blocked engine (K5), as in the JAX package.  ``run_pipeline()`` streams
 over a virtual corpus when it spans several walker chunks, trains from host
 slabs with ``host_corpus=True``, and every stage resumes from
-``checkpoint_dir``.  The mesh and graph-sharded branches of the JAX
-pipeline are not ported yet and raise ``NotImplementedError``.
+``checkpoint_dir``.  A trained model is kept with ``save_model`` and read
+back with ``load_model`` (the JAX package's file; either package loads the
+other's).  The functional forms ``trim_index`` and ``random_walk`` return
+DataFrames, as the JAX package's do.  The mesh and graph-sharded branches
+of the JAX pipeline are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import gc
 import logging
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,9 +26,11 @@ import torch
 from node2vec_torch.constants import MAX_OUT_DEGREES, Node2VecParams, Word2VecParams
 from node2vec_torch.device import resolve_device
 from node2vec_torch.embedding import Node2VecTorchEmbedding
-from node2vec_torch.graph import Graph, build_graph
+from node2vec_torch.graph import Graph, build_graph, mirror_dedup, trim_hotspot_edges
+from node2vec_torch.graph.indexer import index_graph_pandas
 from node2vec_torch.models.word2vec import Word2VecTorch
 from node2vec_torch.walk import WalkEngine
+from node2vec_torch.walk.engine import random_walks as _random_walks_fn
 
 logger = logging.getLogger(__name__)
 
@@ -249,7 +254,95 @@ class Node2Vec:
             raise RuntimeError("model not fitted yet!")
         return self.backend.get_vector(vertex_name)
 
+    # -- persistence -------------------------------------------------------- #
+
+    def save_model(self, cloud_path: str, model_name: str) -> None:
+        if self.backend is None:
+            raise RuntimeError("model not fitted yet!")
+        self.backend.save_model(cloud_path, model_name)
+
+    def load_model(self, cloud_path: str, model_name: str) -> Word2VecTorch:
+        """A model file of either package, its tables on this run's device."""
+        if self.backend is None:
+            self.backend = Node2VecTorchEmbedding(w2v_params=self.w2v_params,
+                                                  device=self.device)
+        return self.backend.load_model(cloud_path, model_name)
+
     def save_vectors(self, cloud_path: str, file_name: str) -> None:
         if self.backend is None:
             raise RuntimeError("model not fitted yet!")
         self.backend.save_vectors(cloud_path, file_name)
+
+    def load_vectors(self, cloud_path: str, file_name: str):
+        """A word2vec text file as DataFrame[name, vector]."""
+        if self.backend is None:
+            self.backend = Node2VecTorchEmbedding(w2v_params=self.w2v_params,
+                                                  device=self.device)
+        return self.backend.load_vectors(cloud_path, file_name)
+
+
+# --------------------------------------------------------------------------- #
+# Functional forms (the JAX package's api.py:340-402)
+# --------------------------------------------------------------------------- #
+
+
+def trim_index(
+    df,
+    indexed: bool = False,
+    directed: bool = False,
+    max_out_deg: int = 0,
+    random_seed: Optional[int] = None,
+) -> Tuple[Any, Optional[Any]]:
+    """Trim hotspot vertices, then index (fugue order): returns (edges
+    DataFrame with int32 src/dst and float32 weight, name_id DataFrame or
+    None).  Undirected graphs are mirrored after indexing."""
+    import pandas as pd
+
+    if "src" not in df.columns or "dst" not in df.columns:
+        raise ValueError(f"Input graph NOT in the right format: {list(df.columns)}")
+    w = df["weight"].to_numpy() if "weight" in df.columns else None
+    src, dst, w = trim_hotspot_edges(
+        df["src"].to_numpy(), df["dst"].to_numpy(), w, max_out_deg, random_seed
+    )
+    trimmed = pd.DataFrame({"src": src, "dst": dst})
+    if w is not None:
+        trimmed["weight"] = w
+    edges, name_id = index_graph_pandas(trimmed, indexed=indexed)
+    if not directed:
+        s, d, wt = mirror_dedup(
+            edges["src"].to_numpy(), edges["dst"].to_numpy(), edges["weight"].to_numpy()
+        )
+        edges = pd.DataFrame({"src": s, "dst": d, "weight": wt})
+    return edges, name_id
+
+
+def random_walk(
+    df,
+    n2v_params: Optional[Mapping[str, Any]] = None,
+    walk_seed: Optional[np.ndarray] = None,
+    random_seed: Optional[int] = None,
+    checkpoint_dir: Optional[str] = None,
+    device="cuda",
+):
+    """Walk corpus as DataFrame[src, walk] from an indexed edge DataFrame
+    (src/dst[/weight] int columns) or a prebuilt Graph, walked on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    import pandas as pd
+
+    graph = df if isinstance(df, Graph) else build_graph(df, indexed=True, directed=True)
+    params = (
+        n2v_params
+        if isinstance(n2v_params, Node2VecParams)
+        else Node2VecParams.from_dict(n2v_params)
+    )
+    walks = _random_walks_fn(
+        graph,
+        params,
+        seed=random_seed if random_seed is not None else 0,
+        start_vertices=walk_seed,
+        device=device,
+        checkpoint_dir=checkpoint_dir,
+    )
+    return pd.DataFrame(
+        {"src": walks[:, 0], "walk": [row[row >= 0].tolist() for row in walks]}
+    )

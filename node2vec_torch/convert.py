@@ -4,10 +4,13 @@ The JAX trainer keeps numpy-convertible tables in the logical ``[N, D]``
 layout at its boundaries (checkpoints, ``emb_in``/``emb_out``), never the
 packed dim-64 device layout, and the port works on that layout throughout.
 ``from_reference_state`` and ``to_reference_state`` turn one side's trainer
-state into the other's, so both trainers can start from the same tables.
+state into the other's, so both trainers can start from the same tables;
+``from_reference_fused`` and ``to_reference_fused`` do the same for the
+fused-table step's [V, D+1] tables (the accumulator in column D).
 ``blocked_graph_from_arrays`` takes the blocked walk engine's tables, which
 have one layout in both packages, so both walk kernels can run on the very
-tables one package packed.
+tables one package packed.  Like every entry point of the port, each puts
+its tensors on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,16 +20,18 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from node2vec_torch.device import resolve_device
 from node2vec_torch.walk.blocked import BlockedGraph
 
 
 def from_reference_state(
-    emb_in, emb_out, acc_in, acc_out, device="cpu"
+    emb_in, emb_out, acc_in, acc_out, device="cuda"
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(emb_in [V, D], emb_out [N_out, D], acc_in [V], acc_out [N_out])
     arrays -> contiguous float32 tensors on ``device`` (copies, never
     views).  The output table has its own row count: V for SGNS, the
     Huffman tree's n_inner for hierarchical softmax (theta)."""
+    device = resolve_device(device)
     out = []
     for a, ndim in ((emb_in, 2), (emb_out, 2), (acc_in, 1), (acc_out, 1)):
         a = np.array(a, dtype=np.float32, copy=True)
@@ -50,13 +55,32 @@ def to_reference_state(
                  for t in (emb_in, emb_out, acc_in, acc_out))
 
 
+def from_reference_fused(tab_in, tab_out, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX fused tables (``init_fused_embeddings``, ``sgns_epoch_fused``:
+    [V, D+1] arrays) -> contiguous float32 tensors on ``device`` (copies)."""
+    device = resolve_device(device)
+    out = [torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
+           for a in (tab_in, tab_out)]
+    if out[0].dim() != 2 or out[0].shape != out[1].shape or out[0].shape[1] < 2:
+        raise ValueError(f"fused tables must both be [V, D+1], got {tuple(out[0].shape)} "
+                         f"and {tuple(out[1].shape)}")
+    return tuple(out)
+
+
+def to_reference_fused(tab_in: torch.Tensor, tab_out: torch.Tensor
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """The port's fused tables -> host float32 numpy arrays [V, D+1]."""
+    return tuple(t.detach().to("cpu", torch.float32).numpy().copy() for t in (tab_in, tab_out))
+
+
 def blocked_graph_from_arrays(
     light, biw, bids, brp, light_width: int, block_width: int, has_heavy: bool,
-    device="cpu",
+    device="cuda",
 ) -> BlockedGraph:
     """The port's BlockedGraph from host copies of the four tables (e.g.
     ``np.asarray`` of a JAX BlockedGraph's), as contiguous int32 tensors on
     ``device``."""
+    device = resolve_device(device)
     tables = [torch.from_numpy(np.array(a, dtype=np.int32, copy=True)).to(device)
               for a in (light, biw, bids, brp)]
     c = int(block_width)

@@ -22,6 +22,13 @@
 // Bound on an H100: 3 * 2 * B * L1 * S * D flops (nl, g_neg . no and
 // g_neg^T . x_in) on the fp32 CUDA cores, against 2 * B * L1 * D * 4 bytes of
 // row reads and the same again of grads written.
+//
+// ld is the tables' row stride in floats: D for the [V, D] tables of every
+// trainer, D + 1 for the fused [V, D+1] tables of sgns_walk_step_fused
+// (skipgram.py:541-596 compute the same gradients from the first D columns;
+// the accumulator in column D is read by K14, fused_adagrad.cu).  A row of
+// D + 1 floats starts 4-byte aligned only, so its gather cannot use wider
+// loads; the kernel reads one float a thread either way.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,7 +59,7 @@ __device__ __forceinline__ int offset_of(int o, int window) {
 
 __global__ void __launch_bounds__(kThreads)
 sgns_grads_kernel(const float* __restrict__ emb_in,
-                  const float* __restrict__ emb_out, int dim,
+                  const float* __restrict__ emb_out, int dim, int ld,
                   const int32_t* __restrict__ walks,
                   const uint8_t* __restrict__ vocab_mask,
                   const int32_t* __restrict__ b_sh,
@@ -76,7 +83,7 @@ sgns_grads_kernel(const float* __restrict__ emb_in,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < S * D; i += kThreads) {
-    no[i] = emb_out[static_cast<int64_t>(neg_ids[i / D]) * D + i % D];
+    no[i] = emb_out[static_cast<int64_t>(neg_ids[i / D]) * ld + i % D];
     dno[i] = 0.f;
   }
   float pos_acc = 0.f, neg_acc = 0.f, mult_acc = 0.f;
@@ -92,7 +99,7 @@ sgns_grads_kernel(const float* __restrict__ emb_in,
     }
     __syncthreads();
     for (int i = tid; i < L * D; i += kThreads) {
-      const int64_t r = static_cast<int64_t>(rows[i / D]) * D + i % D;
+      const int64_t r = static_cast<int64_t>(rows[i / D]) * ld + i % D;
       xin[i] = emb_in[r];
       xout[i] = emb_out[r];
     }
@@ -194,9 +201,10 @@ extern "C" size_t n2v_sgns_grads_smem(int length, int dim, int n_neg, int window
   return smem_bytes(length, dim, n_neg, window);
 }
 
-// loss_parts must hold 3 * n_walks zeros; d_no must be zeroed [n_neg, dim].
+// loss_parts must hold 3 * n_walks zeros; d_no must be zeroed [n_neg, dim];
+// the tables are [V, ld] with ld >= dim, their first dim columns read.
 extern "C" int n2v_sgns_grads(const float* emb_in, const float* emb_out, int dim,
-                              const int32_t* walks, const uint8_t* vocab_mask,
+                              int ld, const int32_t* walks, const uint8_t* vocab_mask,
                               const int32_t* b_sh, const int32_t* neg_ids,
                               int n_walks, int length, int window, int n_neg,
                               float neg_scale, float* g_in, float* g_out,
@@ -217,7 +225,7 @@ extern "C" int n2v_sgns_grads(const float* emb_in, const float* emb_out, int dim
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int grid = n_walks < per_sm * n_sm ? n_walks : per_sm * n_sm;
   sgns_grads_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      emb_in, emb_out, dim, walks, vocab_mask, b_sh, neg_ids, n_walks, length,
+      emb_in, emb_out, dim, ld, walks, vocab_mask, b_sh, neg_ids, n_walks, length,
       window, n_neg, neg_scale, g_in, g_out, d_no, loss_parts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 """Synthetic labelled graphs and the quality protocols (port of part of
 ``node2vec_tpu/datasets.py``).
 
-``synthetic_multilabel`` builds the overlapping-community graph of the JAX
-package (the same graph from the same seed).  ``holdout_link_prediction``
+``load_mat_dataset`` reads a DeepWalk/node2vec-format ``.mat`` file (scipy
+imported inside).  ``synthetic_multilabel`` builds the overlapping-community
+graph of the JAX package (the same graph from the same seed).  ``holdout_link_prediction``
 and ``run_quality`` train, so they take ``device=``.  ``multilabel_f1``
 needs sklearn and imports it lazily; ``label_cosine_gap`` is a label check
 that needs nothing beyond numpy.
@@ -15,6 +16,32 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 
 from node2vec_torch.graph.csr import Graph, from_edge_arrays
+
+
+def load_mat_dataset(path: str) -> Tuple[Graph, np.ndarray]:
+    """(Graph, labels[V, L] bool) from a DeepWalk/node2vec-format .mat file
+    (keys ``network``, a sparse adjacency, and ``group``, a sparse
+    node-label matrix; BlogCatalog, PPI and Wikipedia are undirected)."""
+    from scipy import io as sio
+    from scipy import sparse
+
+    m = sio.loadmat(path)
+    if "network" not in m or "group" not in m:
+        raise ValueError(
+            f"{path} is not a DeepWalk-format dataset "
+            f"(need 'network' and 'group' keys, got {sorted(m)})"
+        )
+    adj = sparse.csr_matrix(m["network"])
+    labels = np.asarray(sparse.csr_matrix(m["group"]).todense()) > 0
+    coo = adj.tocoo()
+    g = from_edge_arrays(
+        coo.row.astype(np.int32),
+        coo.col.astype(np.int32),
+        coo.data.astype(np.float32),
+        n_vertices=adj.shape[0],
+        directed=False,
+    )
+    return g, labels
 
 
 def synthetic_multilabel(

@@ -1,11 +1,13 @@
 """Embedding backend API (port of ``node2vec_tpu/embedding.py``).
 
-``Node2VecTorchEmbedding`` wraps the SGNS trainer with the reference's
-backend surface: ``fit``, ``embedding``, ``get_vector`` and the word2vec
-text format of ``save_vectors``/``load_vectors``, which is the same format
-the JAX package writes (gensim ``KeyedVectors``-compatible), so either
-package loads the other's vectors.  pandas is imported only by the
-functions that take or return a DataFrame.
+``Node2VecBase`` is the reference's backend contract.
+``Node2VecTorchEmbedding`` implements it on the PyTorch trainer: ``fit``,
+``embedding``, ``get_vector``, the model file of ``save_model``/
+``load_model`` (an npz of the tables, the vertex counts, the vocabulary
+mask and the names) and the word2vec text format of ``save_vectors``/
+``load_vectors`` (gensim ``KeyedVectors``-compatible).  Both files have the
+JAX package's keys and dtypes, so either package loads the other's.
+pandas is imported only by the functions that take or return a DataFrame.
 """
 
 from __future__ import annotations
@@ -17,7 +19,27 @@ from typing import Any, Dict, Mapping, Optional, Union
 import numpy as np
 
 from node2vec_torch.constants import Word2VecParams
+from node2vec_torch.models.vocab import build_vocab_from_counts
 from node2vec_torch.models.word2vec import Word2VecTorch
+
+
+class Node2VecBase:
+    """Abstract embedding-backend contract (reference embedding.py:22-66)."""
+
+    def fit(self):
+        raise NotImplementedError()
+
+    def embedding(self):
+        raise NotImplementedError()
+
+    def get_vector(self, vertex_name: Union[str, int]):
+        raise NotImplementedError()
+
+    def save_model(self, cloud_path: str, model_name: str):
+        raise NotImplementedError()
+
+    def load_model(self, cloud_path: str, model_name: str):
+        raise NotImplementedError()
 
 
 def _as_name_id(name_id) -> Optional[Dict[int, Any]]:
@@ -32,7 +54,7 @@ def _as_name_id(name_id) -> Optional[Dict[int, Any]]:
     return {int(k): v for k, v in name_id.items()}
 
 
-class Node2VecTorchEmbedding:
+class Node2VecTorchEmbedding(Node2VecBase):
     """SGNS embedding backend on the PyTorch trainer.
 
     Args:
@@ -42,6 +64,8 @@ class Node2VecTorchEmbedding:
       w2v_params: Word2VecParams or reference-style dict.
       device: where the trainer runs ("cuda" by default).
     """
+
+    MODEL_SUFFIX = ".npz"
 
     def __init__(
         self,
@@ -113,6 +137,49 @@ class Node2VecTorchEmbedding:
         else:
             vid = int(vertex_name)
         return self.model.vector(vid)
+
+    # -- persistence ------------------------------------------------------- #
+
+    def save_model(self, cloud_path: str, model_name: str) -> None:
+        """Both tables, the vertex counts, the vocabulary mask and the names
+        as a compressed npz (the JAX package's keys and dtypes; ``names`` is
+        empty without a name table)."""
+        self._check_fitted()
+        if not model_name.endswith(self.MODEL_SUFFIX):
+            model_name += self.MODEL_SUFFIX
+        os.makedirs(cloud_path, exist_ok=True)
+        names = (
+            np.array([self.name_id.get(i, i) for i in range(len(self.model.vectors))])
+            if self.name_id is not None
+            else np.array([])
+        )
+        np.savez_compressed(
+            os.path.join(cloud_path, model_name),
+            emb_in=self.model.emb_in,
+            emb_out=self.model.emb_out,
+            counts=self.model.vocab.counts,
+            mask=self.model.vocab.mask,
+            names=names,
+        )
+
+    def load_model(self, cloud_path: str, model_name: str) -> Word2VecTorch:
+        """A model file of either package: the tables go to the model's
+        device, and the vocabulary (mask and noise table) is rebuilt from
+        the saved counts with this backend's min_count and ns_exponent."""
+        if not model_name.endswith(self.MODEL_SUFFIX):
+            model_name += self.MODEL_SUFFIX
+        with np.load(os.path.join(cloud_path, model_name), allow_pickle=True) as z:
+            self.model.emb_in = z["emb_in"]
+            self.model.emb_out = z["emb_out"]
+            self.model.vocab = build_vocab_from_counts(
+                z["counts"],
+                min_count=self.params.min_count,
+                ns_exponent=self.params.ns_exponent,
+            )
+            if len(z["names"]):
+                self.name_id = dict(enumerate(z["names"]))
+                self._name_to_id = None
+        return self.model
 
     def save_vectors(self, cloud_path: str, file_name: str) -> None:
         """word2vec text format (gensim KeyedVectors-compatible):

@@ -1,14 +1,16 @@
 """Embedding-quality evaluation (port of ``node2vec_tpu/eval.py``).
 
-Link-prediction AUC, and chi-square agreement of walk transitions with the
-analytic p/q distribution.  ``link_prediction_auc`` ranks with scipy
-(Mann–Whitney U with ties averaged), which is the number sklearn's
-``roc_auc_score`` gives, so the port needs no sklearn here.
+Link-prediction AUC, node-classification F1, and chi-square agreement of
+walk transitions with the analytic p/q distribution.
+``link_prediction_auc`` ranks with scipy (Mann–Whitney U with ties
+averaged), which is the number sklearn's ``roc_auc_score`` gives, so the
+port needs no sklearn there; ``node_classification_f1`` imports sklearn
+inside.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -72,6 +74,30 @@ def link_prediction_auc(
     y = np.concatenate([np.ones(len(pos_scores)), np.zeros(len(neg_scores))])
     s = np.concatenate([pos_scores, neg_scores])
     return roc_auc(y, s)
+
+
+def node_classification_f1(
+    embeddings: np.ndarray,
+    labels: np.ndarray,
+    train_ratio: float = 0.5,
+    seed: int = 0,
+) -> Dict[str, float]:
+    """Micro/macro F1 of one-vs-rest logistic regression on the embeddings
+    (the node2vec paper's evaluation protocol)."""
+    from sklearn.linear_model import LogisticRegression
+    from sklearn.metrics import f1_score
+    from sklearn.model_selection import train_test_split
+
+    x_tr, x_te, y_tr, y_te = train_test_split(
+        embeddings, labels, train_size=train_ratio, random_state=seed, stratify=labels
+    )
+    clf = LogisticRegression(max_iter=1000)
+    clf.fit(x_tr, y_tr)
+    pred = clf.predict(x_te)
+    return {
+        "micro_f1": float(f1_score(y_te, pred, average="micro")),
+        "macro_f1": float(f1_score(y_te, pred, average="macro")),
+    }
 
 
 def analytic_second_order_probs(

@@ -45,3 +45,35 @@ def index_edges(
     inverse = inverse.reshape(-1).astype(np.int32)
     n = len(src)
     return inverse[:n], inverse[n:], names
+
+
+def index_graph_pandas(df, indexed: bool = False):
+    """DataFrame-level indexing (``node2vec_tpu/graph/indexer.py:73``).
+
+    Input must have columns src/dst (+ optional weight, defaulted to 1.0).
+    Returns (edges with int32 src/dst ids, name_id frame with columns
+    [name, id]) — or (df, None) if already indexed.  pandas is imported
+    here, by the one function that builds frames.
+    """
+    import pandas as pd
+
+    if "src" not in df.columns or "dst" not in df.columns:
+        raise ValueError(f"Input graph NOT in the right format: {list(df.columns)}")
+    if "weight" not in df.columns:
+        df = df.assign(weight=np.float32(1.0))
+    if indexed:
+        out = df[["src", "dst", "weight"]].copy()
+        out["src"] = out["src"].astype(np.int32)
+        out["dst"] = out["dst"].astype(np.int32)
+        out["weight"] = out["weight"].astype(np.float32)
+        return out, None
+    src_ids, dst_ids, names = index_edges(df["src"].to_numpy(), df["dst"].to_numpy())
+    edges = pd.DataFrame(
+        {
+            "src": src_ids,
+            "dst": dst_ids,
+            "weight": df["weight"].to_numpy().astype(np.float32),
+        }
+    )
+    name_id = pd.DataFrame({"name": names, "id": np.arange(len(names), dtype=np.int32)})
+    return edges, name_id

@@ -29,6 +29,17 @@ The step is five kernels, each beside its plain PyTorch version:
 * K11 ``preagg_rows`` and ``sgd_apply`` (``csrc/preagg.cu``): the segment
   sums and counts of the batch's rows by vertex, and the SGD update.
 
+Beside the trainers' step, the module has the JAX package's other SGNS
+steps, which no trainer of either package calls:
+
+* ``sgns_train_step``, the pair-based step, with ``make_pairs``: K13
+  ``sgns_pair_grads`` (``csrc/sgns_pairs.cu``: the pair lists, then
+  per-lane gradients), then K3/K4 over the pair lists;
+* ``sgns_walk_step_fused`` and ``sgns_epoch_fused`` on [V, D+1] tables
+  with the accumulator in column D: K2 with the tables' width as its row
+  stride, then K14 ``fused_adagrad`` (``csrc/fused_adagrad.cu``);
+* ``sgns_corpus_step``, ``sgns_walk_step`` on a slice of a corpus.
+
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.  Unlike the JAX step, which draws its randomness inside, this step
 takes the draws as tensors: ``b_sh`` [B, L1] int32 in [1, w], ``r1``/``r2``
@@ -46,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from node2vec_torch import _build
+from node2vec_torch.device import resolve_device
 
 _EPS = 1e-12
 SLOT_EMPTY = int(np.iinfo(np.int32).max)  # an unclaimed entry of K11's slot map
@@ -53,11 +65,13 @@ OPTIMIZERS = ("adagrad", "sgd")
 
 
 def init_embeddings(
-    n_vertices: int, dim: int, seed: int = 1, device="cpu"
+    n_vertices: int, dim: int, seed: int = 1, device="cuda"
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """word2vec-standard init: input ~ U(-0.5/dim, 0.5/dim), output zeros,
     plus the two row-wise Adagrad accumulators (zeros).  The uniform comes
-    from a torch.Generator seeded with ``seed`` on ``device``."""
+    from a torch.Generator seeded with ``seed`` on ``device``, which is the
+    card unless the caller passes ``device="cpu"``."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     emb_in = torch.rand((n_vertices, dim), generator=gen, device=device)
     emb_in = (emb_in - 0.5) / dim
@@ -115,11 +129,15 @@ def window_shift(x: torch.Tensor, d: int) -> torch.Tensor:
 
 def sgns_grads_plain(
     emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids, *, window: int, negatives: int,
+    dim=None,
 ):
     """skipgram.py:344-398 op for op: (g_in [B*L1, D], g_out [B*L1, D],
     d_no [S, D], loss, pairs), ``pairs`` the batch's valid-pair count
     (sum of mult, a float32 scalar: the SGD step scales the negatives by
-    it)."""
+    it).  ``dim``: the tables' first ``dim`` columns are the vectors (the
+    fused [V, D+1] tables, :541-596); None reads every column."""
+    if dim is not None:
+        emb_in, emb_out = emb_in[:, :dim], emb_out[:, :dim]
     n_walks, length = walks.shape
     dim = emb_in.shape[1]
     walks_safe = torch.where(walks >= 0, walks, 0).long()
@@ -158,12 +176,15 @@ def sgns_grads_plain(
 
 def sgns_grads(
     emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids, *, window: int, negatives: int,
+    dim=None,
 ):
-    """K2 for CUDA tensors, the plain version for CPU tensors."""
+    """K2 for CUDA tensors, the plain version for CPU tensors.  ``dim``:
+    as in the plain version; K2 then reads rows of the tables' width (its
+    ``ld``) and their first ``dim`` columns."""
     if not emb_in.is_cuda:
         return sgns_grads_plain(
             emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids,
-            window=window, negatives=negatives,
+            window=window, negatives=negatives, dim=dim,
         )
     _build.require_cuda("sgns_grads", emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids)
     if (emb_in.dtype, emb_out.dtype) != (torch.float32, torch.float32):
@@ -177,7 +198,10 @@ def sgns_grads(
     if emb_out.shape != emb_in.shape or emb_in.dim() != 2:
         raise ValueError("emb_in and emb_out must both be [V, D]")
     n_walks, length = walks.shape
-    dim = emb_in.shape[1]
+    ld = emb_in.shape[1]
+    dim = ld if dim is None else int(dim)
+    if not 0 < dim <= ld:
+        raise ValueError(f"dim {dim} must be in 1..{ld}, the tables' width")
     s = neg_ids.shape[0]
     lib = _build.lib()
     _build.require_smem("sgns_grads", lib.n2v_sgns_grads_smem(length, dim, s, window),
@@ -189,7 +213,7 @@ def sgns_grads(
     parts = torch.zeros((n_walks, 3), dtype=torch.float32, device=dev)
     neg_scale = negatives / s
     rc = lib.n2v_sgns_grads(
-        _build.ptr(emb_in), _build.ptr(emb_out), dim, _build.ptr(walks),
+        _build.ptr(emb_in), _build.ptr(emb_out), dim, ld, _build.ptr(walks),
         _build.ptr(vocab_mask), _build.ptr(b_sh), _build.ptr(neg_ids),
         n_walks, length, window, s, float(np.float32(neg_scale)),
         _build.ptr(g_in), _build.ptr(g_out), _build.ptr(d_no), _build.ptr(parts),
@@ -519,3 +543,329 @@ def sgns_epoch(
 
 def pairs_per_batch(n_walks: int, walk_length: int, window: int) -> int:
     return n_walks * (walk_length + 1) * 2 * window
+
+
+def sgns_corpus_step(
+    emb_in, emb_out, acc_in, acc_out, corpus: torch.Tensor, offset: int, b_sh, r1, r2,
+    lr: float, ns_alias, ns_prob, vocab_mask, *, batch: int, window: int, negatives: int,
+    optimizer: str = "adagrad", slot=None,
+) -> torch.Tensor:
+    """``sgns_walk_step`` on rows [offset, offset + batch) of a corpus on
+    the device (``_sgns_corpus_step_impl``, skipgram.py:670-696); the start
+    is clamped so the slice stays inside the corpus, as
+    ``dynamic_slice_in_dim`` clamps it."""
+    start = min(max(int(offset), 0), max(corpus.shape[0] - batch, 0))
+    return sgns_walk_step(
+        emb_in, emb_out, acc_in, acc_out, corpus[start: start + batch], b_sh, r1, r2, lr,
+        ns_alias, ns_prob, vocab_mask, window=window, negatives=negatives,
+        optimizer=optimizer, slot=slot,
+    )
+
+
+# --------------------------------------------------------------------------- #
+# K13: the pair-based step (sgns_train_step)
+# --------------------------------------------------------------------------- #
+#
+# The step of ``node2vec_tpu.models.sgns_train_step``: the batch becomes a
+# flat list of P = B * 2w * L1 (center, context) lanes in the JAX order
+# (walk, offset, position), each lane gathers its own rows, and row-wise
+# Adagrad is applied per occurrence over three lists: d_ci at the center
+# rows, d_co at the context rows and d_no at the shared negatives (K3/K4,
+# invalid lanes at row -1).  No trainer of either package calls it; the
+# JAX column-TP trainer builds on it.
+
+
+def _offsets(window: int):
+    return [d for d in range(-window, window + 1) if d != 0]
+
+
+def pair_lists_plain(walks, b_sh, vocab_mask, window: int):
+    """make_pairs' rule (skipgram.py:130-165) as two int32 lists [P]:
+    (centers, contexts), -1 where the lane is invalid.  ``b_sh``: the
+    shrunk window of each (walk, position), B * L1 int32 entries ([B, 1,
+    L1] in the JAX draw), or None for the full window."""
+    n_walks, length = walks.shape
+    pad = torch.full((n_walks, window), -1, dtype=walks.dtype, device=walks.device)
+    padded = torch.cat([pad, walks, pad], dim=1)
+    offsets = _offsets(window)
+    ctx = torch.stack([padded[:, d + window: d + window + length] for d in offsets], dim=1)
+    center = walks[:, None, :].expand_as(ctx)
+    valid = (center >= 0) & (ctx >= 0)
+    if b_sh is not None:
+        dist = torch.tensor([abs(d) for d in offsets], dtype=torch.int32,
+                            device=walks.device)[None, :, None]
+        valid &= dist <= b_sh.reshape(n_walks, 1, length)
+    valid &= (vocab_mask[torch.where(valid, center, 0).long()]
+              & vocab_mask[torch.where(valid, ctx, 0).long()])
+    return (torch.where(valid, center, -1).reshape(-1).to(torch.int32),
+            torch.where(valid, ctx, -1).reshape(-1).to(torch.int32))
+
+
+def pair_lists(walks, b_sh, vocab_mask, window: int):
+    """K13's first launch for CUDA tensors, the plain version for CPU
+    tensors."""
+    if not walks.is_cuda:
+        return pair_lists_plain(walks, b_sh, vocab_mask, window)
+    n_walks, length = walks.shape
+    if b_sh is None:
+        b_sh = torch.full_like(walks, window)
+    b_sh = b_sh.reshape(n_walks, length)
+    _build.require_cuda("pair_lists", walks, b_sh, vocab_mask)
+    if (walks.dtype, b_sh.dtype, vocab_mask.dtype) != (torch.int32, torch.int32, torch.bool):
+        raise TypeError("pair_lists takes int32 walks and b_sh and a bool mask")
+    n = n_walks * 2 * window * length
+    centers = torch.empty((n,), dtype=torch.int32, device=walks.device)
+    contexts = torch.empty_like(centers)
+    rc = _build.lib().n2v_pair_lists(
+        _build.ptr(walks), _build.ptr(b_sh), _build.ptr(vocab_mask), n_walks, length, window,
+        _build.ptr(centers), _build.ptr(contexts), _build.stream_of(walks),
+    )
+    _build.check(rc, "pair_lists")
+    _build.launches["pair_lists"] += 1
+    return centers, contexts
+
+
+def make_pairs(walks, b_sh, vocab_mask, window: int):
+    """(center, context, valid) flattened to [B * 2w * L1] in the JAX order
+    (skipgram.py:130-165): invalid lanes (-1 tails, out of the vocabulary,
+    beyond the shrunk window) carry valid=False and id 0.  ``b_sh`` is the
+    shrink draw the JAX version makes inside ([B, 1, L1] in 1..w), or None
+    for the full window.  On the card this is K13's first launch."""
+    centers, contexts = pair_lists(walks, b_sh, vocab_mask, window)
+    valid = centers >= 0
+    return torch.where(valid, centers, 0), torch.where(valid, contexts, 0), valid
+
+
+def sgns_pair_grads_plain(emb_in, emb_out, walks, centers, contexts, neg_ids, *,
+                          window: int, negatives: int):
+    """skipgram.py:205-235 op for op on the pair lists: (d_ci [P, D], d_co
+    [P, D], d_no [S, D], loss, pairs), ``pairs`` the valid-lane count (a
+    float32 scalar, as K2's); invalid lanes get zero gradients.  ``walks``
+    and ``window`` are the kernel's inputs and unused here."""
+    valid = centers >= 0
+    w_valid = valid.to(torch.float32)
+    pairs = w_valid.sum()
+    n_valid = torch.clamp(pairs, min=1.0)
+    ci = emb_in[torch.where(valid, centers, 0).long()]
+    co = emb_out[torch.where(valid, contexts, 0).long()]
+    no = emb_out[neg_ids.long()]
+    pos_logit = torch.sum(ci * co, dim=-1)
+    neg_logit = ci @ no.T
+    neg_scale = negatives / neg_ids.shape[0]
+    loss = -(torch.sum(F.logsigmoid(pos_logit) * w_valid)
+             + neg_scale * torch.sum(F.logsigmoid(-neg_logit) * w_valid[:, None])) / n_valid
+    g_pos = (torch.sigmoid(pos_logit) - 1.0) * w_valid
+    g_neg = torch.sigmoid(neg_logit) * w_valid[:, None] * neg_scale
+    d_ci = g_pos[:, None] * co + g_neg @ no
+    d_co = g_pos[:, None] * ci
+    d_no = g_neg.T @ ci
+    return d_ci, d_co, d_no, loss, pairs
+
+
+def sgns_pair_grads(emb_in, emb_out, walks, centers, contexts, neg_ids, *, window: int,
+                    negatives: int):
+    """K13's second launch for CUDA tensors (on the walks and the centers of
+    the first), the plain version for CPU tensors."""
+    if not emb_in.is_cuda:
+        return sgns_pair_grads_plain(emb_in, emb_out, walks, centers, contexts, neg_ids,
+                                     window=window, negatives=negatives)
+    _build.require_cuda("sgns_pair_grads", emb_in, emb_out, walks, centers, contexts, neg_ids)
+    if (emb_in.dtype, emb_out.dtype) != (torch.float32, torch.float32):
+        raise TypeError("sgns_pair_grads takes float32 tables")
+    if any(t.dtype != torch.int32 for t in (walks, centers, contexts, neg_ids)):
+        raise TypeError("sgns_pair_grads takes int32 walks, pair lists and neg_ids")
+    if emb_out.shape != emb_in.shape or emb_in.dim() != 2 or walks.dim() != 2:
+        raise ValueError("emb_in and emb_out must both be [V, D], walks [B, L1]")
+    n_walks, length = walks.shape
+    n = n_walks * 2 * window * length
+    if centers.shape != (n,) or contexts.shape != (n,):
+        raise ValueError(f"the pair lists must be [B * 2w * L1] = [{n}]")
+    dim = emb_in.shape[1]
+    s = neg_ids.shape[0]
+    lib = _build.lib()
+    _build.require_smem("sgns_pair_grads", lib.n2v_sgns_pair_grads_smem(length, dim, s, window),
+                        f"walk length {length}, dim {dim}, {s} negatives", emb_in.device, 16)
+    dev = emb_in.device
+    d_ci = torch.empty((n, dim), dtype=torch.float32, device=dev)
+    d_co = torch.empty_like(d_ci)
+    d_no = torch.zeros((s, dim), dtype=torch.float32, device=dev)
+    parts = torch.zeros((n_walks, 3), dtype=torch.float32, device=dev)
+    neg_scale = negatives / s
+    rc = lib.n2v_sgns_pair_grads(
+        _build.ptr(emb_in), _build.ptr(emb_out), dim, _build.ptr(walks), _build.ptr(centers),
+        _build.ptr(neg_ids), n_walks, length, window, s, float(np.float32(neg_scale)),
+        _build.ptr(d_ci), _build.ptr(d_co), _build.ptr(d_no), _build.ptr(parts),
+        _build.stream_of(emb_in),
+    )
+    _build.check(rc, "sgns_pair_grads")
+    _build.launches["sgns_pair_grads"] += 1
+    tot = parts.sum(dim=0)
+    loss = -(tot[0] + neg_scale * tot[1]) / torch.clamp(tot[2], min=1.0)
+    return d_ci, d_co, d_no, loss, tot[2]
+
+
+def _add_pairs(pairs, n) -> None:
+    if pairs is not None:
+        pairs.add_(n.to(pairs.dtype))
+
+
+def _pair_step(lists, grads, accumulate, apply, emb_in, emb_out, acc_in, acc_out, walks,
+               b_sh, r1, r2, lr, ns_alias, ns_prob, vocab_mask, window, negatives, pairs):
+    neg_ids = negative_ids(r1, r2, ns_alias, ns_prob)
+    centers, contexts = lists(walks, b_sh, vocab_mask, window)
+    d_ci, d_co, d_no, loss, n = grads(emb_in, emb_out, walks, centers, contexts, neg_ids,
+                                      window=window, negatives=negatives)
+    _add_pairs(pairs, n)
+    # K3/K4's two launches keep the JAX order (:237-246): every square
+    # lands before any scale is read; invalid lanes (row -1) have zero
+    # gradients, so JAX's writes of zeros to row 0 change nothing
+    rows = (d_ci, centers, d_co, contexts, d_no, neg_ids)
+    accumulate(acc_in, acc_out, *rows)
+    apply(emb_in, emb_out, acc_in, acc_out, *rows, lr)
+    return loss
+
+
+def sgns_train_step(
+    emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1, r2, lr: float,
+    ns_alias, ns_prob, vocab_mask, *, window: int, negatives: int, pairs=None,
+) -> torch.Tensor:
+    """The pair-based SGNS step (``sgns_train_step_impl``, skipgram.py:168),
+    in place on the four state tensors; returns the loss.  ``b_sh`` is the
+    shrink draw ([B, 1, L1] or [B, L1], 1..w; None for the full window),
+    ``r1``/``r2`` [S] the negatives' uniforms.  ``pairs``, a scalar tensor
+    or None, gains the step's valid-lane count on its device, without a
+    sync.  K13 and K3/K4 on CUDA tensors, their plain versions on CPU
+    tensors."""
+    return _pair_step(pair_lists, sgns_pair_grads, adagrad_accumulate, adagrad_apply,
+                      emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1, r2, lr, ns_alias,
+                      ns_prob, vocab_mask, window, negatives, pairs)
+
+
+def sgns_train_step_plain(
+    emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1, r2, lr: float,
+    ns_alias, ns_prob, vocab_mask, *, window: int, negatives: int, pairs=None,
+) -> torch.Tensor:
+    """``sgns_train_step`` through the plain versions, on any device."""
+    return _pair_step(pair_lists_plain, sgns_pair_grads_plain, adagrad_accumulate_plain,
+                      adagrad_apply_plain, emb_in, emb_out, acc_in, acc_out, walks, b_sh, r1,
+                      r2, lr, ns_alias, ns_prob, vocab_mask, window, negatives, pairs)
+
+
+# --------------------------------------------------------------------------- #
+# K14: the fused-table step (sgns_walk_step_fused)
+# --------------------------------------------------------------------------- #
+#
+# [V, D+1] tables with each row's Adagrad accumulator in column D
+# (skipgram.py:489-667).  The gradients are the positional step's, so they
+# run on K2 with the tables' width as its row stride; the update is one
+# pass: each occurrence is scaled by rsqrt(acc0 + its own square), acc0 the
+# accumulator from before the batch, and adds (delta vector, square) to its
+# row.  Not on either package's production path: the JAX package measured
+# it slower on the TPU and keeps it as a negative result.
+
+
+def init_fused_embeddings(n_vertices: int, dim: int, seed: int = 1, device="cuda"):
+    """[V, D+1] tables: ``init_embeddings``' values with the accumulator
+    (zeros) in column D."""
+    emb_in, emb_out, acc_in, acc_out = init_embeddings(n_vertices, dim, seed, device)
+    return (torch.cat([emb_in, acc_in[:, None]], dim=1),
+            torch.cat([emb_out, acc_out[:, None]], dim=1))
+
+
+def split_fused(table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[V, D+1] fused table -> ([V, D] embeddings, [V] accumulator), views."""
+    return table[:, :-1], table[:, -1]
+
+
+def fused_adagrad_plain(tab_in, tab_out, g_in, rows_in, g_out, rows_out, d_no, neg_ids,
+                        lr: float):
+    """skipgram.py:597-620 in place on the fused tables: every scale reads
+    the accumulators as they stood before the batch; rows < 0 add nothing."""
+    dim = tab_in.shape[1] - 1
+    updates = []
+    for tab, g, rows in ((tab_in, g_in, rows_in), (tab_out, g_out, rows_out),
+                         (tab_out, d_no, neg_ids)):
+        ok = (rows >= 0).to(torch.float32)
+        safe = torch.where(rows >= 0, rows, 0).long()
+        sq = torch.mean(g * g, dim=-1) * ok
+        scale = torch.rsqrt(tab[safe, dim] + sq + _EPS) * ok
+        updates.append((tab, safe, torch.cat([-lr * g * scale[:, None], sq[:, None]], dim=1)))
+    for tab, safe, upd in updates:
+        tab.index_add_(0, safe, upd)
+
+
+def fused_adagrad(tab_in, tab_out, g_in, rows_in, g_out, rows_out, d_no, neg_ids, lr: float):
+    """K14 for CUDA tensors, the plain version for CPU tensors."""
+    args = (g_in, rows_in, g_out, rows_out, d_no, neg_ids)
+    if not tab_in.is_cuda:
+        return fused_adagrad_plain(tab_in, tab_out, *args, lr)
+    _build.require_cuda("fused_adagrad", tab_in, tab_out, *args)
+    _check_adagrad_args((tab_in, tab_out), *args)
+    dim = g_in.shape[1]
+    if tab_in.dim() != 2 or tab_in.shape[1] != dim + 1 or tab_out.shape[1] != dim + 1:
+        raise ValueError("fused tables must be [rows, D+1] with the grads' D")
+    n = sum(r.shape[0] for r in (rows_in, rows_out, neg_ids))
+    scale = torch.empty((n,), dtype=torch.float32, device=tab_in.device)
+    sq = torch.empty_like(scale)
+    rc = _build.lib().n2v_fused_adagrad(
+        _build.ptr(tab_in), _build.ptr(tab_out), *_list_ptrs(*args), dim,
+        float(np.float32(lr)), _build.ptr(scale), _build.ptr(sq), _build.stream_of(tab_in),
+    )
+    _build.check(rc, "fused_adagrad")
+    _build.launches["fused_adagrad"] += 1
+
+
+def _fused_step(grads, apply, tab_in, tab_out, walks, b_sh, r1, r2, lr, ns_alias, ns_prob,
+                vocab_mask, window, negatives, pairs):
+    neg_ids = negative_ids(r1, r2, ns_alias, ns_prob)
+    g_in, g_out, d_no, loss, n = grads(tab_in, tab_out, walks, vocab_mask, b_sh, neg_ids,
+                                       window=window, negatives=negatives,
+                                       dim=tab_in.shape[1] - 1)
+    _add_pairs(pairs, n)
+    walks_flat = walks.reshape(-1)
+    apply(tab_in, tab_out, g_in, walks_flat, g_out, walks_flat, d_no, neg_ids, lr)
+    return loss
+
+
+def sgns_walk_step_fused(
+    tab_in, tab_out, walks, b_sh, r1, r2, lr: float, ns_alias, ns_prob, vocab_mask, *,
+    window: int, negatives: int, pairs=None,
+) -> torch.Tensor:
+    """The fused-table SGNS step (``sgns_walk_step_fused_impl``,
+    skipgram.py:506), in place on the [V, D+1] tables; returns the loss.
+    K2 (row stride D + 1) and K14 on CUDA tensors, their plain versions on
+    CPU tensors; the draws as in ``sgns_walk_step``, ``pairs`` as in
+    ``sgns_train_step``."""
+    return _fused_step(sgns_grads, fused_adagrad, tab_in, tab_out, walks, b_sh, r1, r2, lr,
+                       ns_alias, ns_prob, vocab_mask, window, negatives, pairs)
+
+
+def sgns_walk_step_fused_plain(
+    tab_in, tab_out, walks, b_sh, r1, r2, lr: float, ns_alias, ns_prob, vocab_mask, *,
+    window: int, negatives: int, pairs=None,
+) -> torch.Tensor:
+    """``sgns_walk_step_fused`` through the plain versions, on any device."""
+    return _fused_step(sgns_grads_plain, fused_adagrad_plain, tab_in, tab_out, walks, b_sh,
+                       r1, r2, lr, ns_alias, ns_prob, vocab_mask, window, negatives, pairs)
+
+
+def sgns_epoch_fused(
+    tab_in, tab_out, corpus: torch.Tensor,
+    draws: Callable[[int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    step0: int, lr0: float, lr_slope: float, ns_alias, ns_prob, vocab_mask, *,
+    batch: int, n_batches: int, window: int, negatives: int, min_lr: float, pairs=None,
+) -> torch.Tensor:
+    """A fused-table epoch (``_sgns_epoch_fused_impl``, skipgram.py:631, as
+    a Python loop): ``draws(gstep)`` returns the step's (b_sh, r1, r2);
+    ``pairs`` as in ``sgns_train_step``.  Returns the per-batch losses
+    [n_batches]."""
+    losses = []
+    for b in range(n_batches):
+        gstep = step0 + b
+        b_sh, r1, r2 = draws(gstep)
+        losses.append(sgns_walk_step_fused(
+            tab_in, tab_out, corpus[b * batch: (b + 1) * batch], b_sh, r1, r2,
+            step_lr(lr0, lr_slope, gstep, min_lr), ns_alias, ns_prob, vocab_mask,
+            window=window, negatives=negatives, pairs=pairs,
+        ))
+    return torch.stack(losses)

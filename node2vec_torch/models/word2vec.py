@@ -90,6 +90,7 @@ from node2vec_torch.utils.checkpoint import (
     save_train_state,
     stream_fingerprint,
 )
+from node2vec_torch.utils.metrics import measure
 
 logger = logging.getLogger(__name__)
 
@@ -394,6 +395,14 @@ class Word2VecTorch:
                           negatives=p.negative, optimizer=p.optimizer,
                           slot=self._slot_map(state[2].shape[0]), **kw)
 
+    def _epoch_name(self) -> str:
+        """The name ``fit`` records an epoch under (word2vec.py:238, :878,
+        :1000)."""
+        p = self.params
+        if p.sg == 0:
+            return "cbow_epoch"
+        return "hs_epoch" if p.negative == 0 else "sgns_epoch"
+
     def _slot_map(self, n_vertices: int) -> Optional[torch.Tensor]:
         """K11's slot map for SGD, made once a fit (scratch: never saved)."""
         if self.params.optimizer != "sgd":
@@ -416,13 +425,17 @@ class Word2VecTorch:
         verbose: bool = False,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 1,
+        timer=None,
     ) -> "Word2VecTorch":
         """Train embeddings over a walk corpus [N, L+1] int32 (-1 padded),
         given as a numpy array (counted on the host before the upload) or a
         torch tensor (counted on its device, by K6 on the card).
 
         With ``checkpoint_dir``, state is saved every ``checkpoint_every``
-        epochs and fit() resumes from the newest saved epoch.
+        epochs and fit() resumes from the newest saved epoch.  ``timer``
+        (a ``StepTimer``) records each epoch's training and loss readback
+        under the JAX package's name for the objective: "sgns_epoch",
+        "hs_epoch" or "cbow_epoch".
         """
         self._begin()
         p = self.params
@@ -459,9 +472,10 @@ class Word2VecTorch:
             shuffled = corpus[draws.permutation(1_000_000 + epoch, n_padded)]
             if keep is not None:  # gensim subsampling, redrawn per epoch
                 shuffled = draws.subsample(shuffled, keep, 2_000_000 + epoch)
-            losses = self._train(state, shuffled, draws, epoch * n_batches, lr_slope,
-                                 batch, n_batches, tables)
-            epoch_loss = float(losses.mean())  # mean over batches
+            with measure(timer, self._epoch_name()):
+                losses = self._train(state, shuffled, draws, epoch * n_batches, lr_slope,
+                                     batch, n_batches, tables)
+                epoch_loss = float(losses.mean())  # mean over batches
             self._losses.append(epoch_loss)
             if verbose:
                 logger.info("epoch %d/%d loss=%.4f", epoch + 1, p.max_iter, epoch_loss)
@@ -477,6 +491,7 @@ class Word2VecTorch:
         verbose: bool = False,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 1,
+        timer=None,
     ) -> "Word2VecTorch":
         """Host-resident-corpus trainer: the corpus never lives on the device.
 
@@ -491,6 +506,7 @@ class Word2VecTorch:
         each slab's (train start, train end) on the card.  With
         ``checkpoint_dir``, the train state is saved every
         ``checkpoint_every`` epochs and fit_host resumes from the newest.
+        ``timer`` records each epoch's slab loop as "host_epoch".
         """
         self._begin()
         p = self.params
@@ -523,29 +539,31 @@ class Word2VecTorch:
         self._slab_events = []
         for epoch in range(start_epoch, p.max_iter):
             perm = np.random.default_rng(p.seed * 1_000_003 + 17 + epoch).permutation(n_walks)
-            pending = uploader.upload(perm, 0)
-            epoch_losses = []
-            for s in range(n_slabs):
-                slab_dev = uploader.ready(pending)
-                if timing:
-                    t_start = torch.cuda.Event(enable_timing=True)
-                    t_start.record()
-                if keep is not None:  # gensim subsampling, redrawn per slab
-                    slab_dev = draws.subsample(slab_dev, keep, 4_000_000 + epoch * n_slabs + s)
-                step0 = (epoch * n_slabs + s) * slab_batches
-                losses = self._train(state, slab_dev, draws, step0, lr_slope, batch,
-                                     slab_batches, tables)
-                if timing:
-                    t_end = torch.cuda.Event(enable_timing=True)
-                    t_end.record()
-                    self._slab_events.append((t_start, t_end))
-                if s + 1 < n_slabs:  # gather and copy the next slab while this one trains
-                    pending = uploader.upload(perm, s + 1)
-                if s == n_slabs - 1:
-                    losses = losses[:tail_real_batches]
-                epoch_losses.append(losses)
-                if (s + 1) % 4 == 0:
-                    _sync(losses)  # bound the enqueue depth
+            with measure(timer, "host_epoch"):
+                pending = uploader.upload(perm, 0)
+                epoch_losses = []
+                for s in range(n_slabs):
+                    slab_dev = uploader.ready(pending)
+                    if timing:
+                        t_start = torch.cuda.Event(enable_timing=True)
+                        t_start.record()
+                    if keep is not None:  # gensim subsampling, redrawn per slab
+                        slab_dev = draws.subsample(slab_dev, keep,
+                                                   4_000_000 + epoch * n_slabs + s)
+                    step0 = (epoch * n_slabs + s) * slab_batches
+                    losses = self._train(state, slab_dev, draws, step0, lr_slope, batch,
+                                         slab_batches, tables)
+                    if timing:
+                        t_end = torch.cuda.Event(enable_timing=True)
+                        t_end.record()
+                        self._slab_events.append((t_start, t_end))
+                    if s + 1 < n_slabs:  # gather and copy the next slab while it trains
+                        pending = uploader.upload(perm, s + 1)
+                    if s == n_slabs - 1:
+                        losses = losses[:tail_real_batches]
+                    epoch_losses.append(losses)
+                    if (s + 1) % 4 == 0:
+                        _sync(losses)  # bound the enqueue depth
             self._slab_losses.append([float(x.mean()) for x in epoch_losses])
             self._losses.append(float(torch.cat(epoch_losses).mean()))
             if verbose:
@@ -562,6 +580,7 @@ class Word2VecTorch:
         n_chunks: int,
         n_vertices: int,
         verbose: bool = False,
+        timer=None,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every_chunks: int = 0,
         source_token: str = "",
@@ -582,6 +601,8 @@ class Word2VecTorch:
         call resumes from it without the counting pass.  ``source_token``
         identifies the walk source (graph digest, walk params, walk seed),
         so a snapshot is never resumed against another virtual corpus.
+        ``timer`` records each chunk's training call as "stream_chunk" (its
+        enqueue on the card: the JAX package times the dispatch there too).
         """
         self._begin()
         p = self.params
@@ -665,8 +686,9 @@ class Word2VecTorch:
                 shuffled = corpus[perm][: n_batches * batch]
                 if keep is not None:
                     shuffled = draws.subsample(shuffled, keep, 8_000_000 + epoch * n_chunks + i)
-                losses = self._train(state, shuffled, draws, step0, lr_slope, batch,
-                                     n_batches, tables)
+                with measure(timer, "stream_chunk"):
+                    losses = self._train(state, shuffled, draws, step0, lr_slope, batch,
+                                         n_batches, tables)
                 step0 += n_batches
                 epoch_losses.append(losses)
                 pending = nxt

@@ -36,6 +36,7 @@ from node2vec_torch.utils.checkpoint import (
     save_walk_chunk,
     walk_fingerprint,
 )
+from node2vec_torch.utils.metrics import measure
 from node2vec_torch.walk.blocked import (
     SHARED_LISTS_NOT_PORTED,
     BlockedGraph,
@@ -246,6 +247,7 @@ class WalkEngine:
         seed: int = 0,
         start_vertices: Optional[np.ndarray] = None,
         checkpoint_dir: Optional[str] = None,
+        timer=None,
     ) -> np.ndarray:
         """All walks as a host array [num_starts * num_walks, walk_length+1].
 
@@ -254,7 +256,9 @@ class WalkEngine:
         chunk is saved (the JAX package's file format and fingerprint) and
         a restarted run with the same configuration skips the chunks on
         disk.  On the card each chunk is copied to a pinned host buffer on
-        a copy stream while the next chunk's kernel runs.
+        a copy stream while the next chunk's kernel runs.  ``timer`` (a
+        ``StepTimer``) records each walked chunk, with the fetch of the
+        chunk before it, as "walk_chunk".
         """
         p = self.params
         starts_one = self._starts_one(start_vertices)
@@ -277,9 +281,11 @@ class WalkEngine:
             if c_idx in done and done[c_idx].shape == (hi - lo, p.walk_length + 1):
                 out[lo:hi] = done[c_idx]
                 continue
-            paths = self._run_chunk(self._chunk_starts(starts, lo, chunk), gid_base=lo, seed=seed)
-            # the previous chunk reaches the host while this one walks
-            persist(fetch.push(paths, (c_idx, lo, hi), out))
+            with measure(timer, "walk_chunk"):
+                paths = self._run_chunk(self._chunk_starts(starts, lo, chunk), gid_base=lo,
+                                        seed=seed)
+                # the previous chunk reaches the host while this one walks
+                persist(fetch.push(paths, (c_idx, lo, hi), out))
         persist(fetch.drain(out))
         return out
 

@@ -156,7 +156,7 @@ def test_chip_smoke_rmat_is_the_reference_generator():
 def _walk_both(bg_ref, starts, gid_base, seed, **kw):
     bg = convert.blocked_graph_from_arrays(
         *(np.asarray(t) for t in bg_ref[:4]), bg_ref.light_width, bg_ref.block_width,
-        bg_ref.has_heavy,
+        bg_ref.has_heavy, device="cpu",
     )
     shapes = dict(light_width=bg.light_width, block_width=bg.block_width,
                   has_heavy=bg.has_heavy)
@@ -287,4 +287,4 @@ def test_unported_and_invalid_inputs_raise():
         blocked.blocked_walk_chunk(bg.light, bg.biw, bg.biw, bg.brp, starts, 0, 0, **kw)
     with pytest.raises(ValueError):
         convert.blocked_graph_from_arrays(*(t.numpy() for t in bg[:4]), bg.light_width, 128,
-                                          True)
+                                          True, device="cpu")

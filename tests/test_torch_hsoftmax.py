@@ -385,16 +385,17 @@ def test_sgns_checkpoint_refused_by_hs(tmp_path):
 def test_reference_state_with_theta_rows():
     rng = np.random.default_rng(0)
     tables = [rng.random((20, 8)), rng.random((19, 8)), rng.random(20), rng.random(19)]
-    state = convert.from_reference_state(*tables)
+    state = convert.from_reference_state(*tables, device="cpu")
     assert [tuple(t.shape) for t in state] == [(20, 8), (19, 8), (20,), (19,)]
     for a, b in zip(convert.to_reference_state(*state), tables):
         np.testing.assert_array_equal(a, b.astype(np.float32))
     with pytest.raises(ValueError, match="D"):
-        convert.from_reference_state(tables[0], rng.random((19, 7)), *tables[2:])
+        convert.from_reference_state(tables[0], rng.random((19, 7)), *tables[2:], device="cpu")
     with pytest.raises(ValueError):
-        convert.from_reference_state(*tables[:3], rng.random(18))
+        convert.from_reference_state(*tables[:3], rng.random(18), device="cpu")
     with pytest.raises(ValueError):
-        convert.from_reference_state(tables[0], tables[1], rng.random(21), tables[3])
+        convert.from_reference_state(tables[0], tables[1], rng.random(21), tables[3],
+                                     device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["in_memory", "streaming", "host_corpus"])

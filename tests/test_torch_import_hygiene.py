@@ -16,7 +16,8 @@ import node2vec_torch.models.skipgram, node2vec_torch.models.word2vec
 import node2vec_torch.walk.dense, node2vec_torch.walk.engine, node2vec_torch.ops
 import node2vec_torch.walk.blocked, node2vec_torch.walk.csr, node2vec_torch.models.vocab
 import node2vec_torch.models.hsoftmax, node2vec_torch.models.cbow, node2vec_torch.native
-import node2vec_torch.utils.checkpoint
+import node2vec_torch.utils.checkpoint, node2vec_torch.utils.metrics, node2vec_torch.utils
+import node2vec_torch.ops.alias, node2vec_torch.models, node2vec_torch.graph.indexer
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "node2vec_tpu", "pandas", "sklearn"))

@@ -103,7 +103,7 @@ def test_sgns_epoch_matches_jax():
         jnp.asarray(mask), batch=B, n_batches=n_batches, window=W, negatives=K,
         shared_negatives=S, shrink_window=True, min_lr=min_lr,
     )
-    state = from_reference_state(*tables)
+    state = from_reference_state(*tables, device="cpu")
     losses = sg.sgns_epoch(
         *state, torch.from_numpy(corpus),
         lambda gstep: _draws(jax.random.fold_in(key, gstep), B, True),
@@ -117,12 +117,12 @@ def test_sgns_epoch_matches_jax():
 
 def test_convert_round_trip():
     _, _, tables, _, _ = _state(32)
-    state = from_reference_state(*tables)
+    state = from_reference_state(*tables, device="cpu")
     assert all(t.dtype == torch.float32 and t.is_contiguous() for t in state)
     for a, b in zip(to_reference_state(*state), tables):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
-        from_reference_state(tables[0], tables[1][:5], tables[2], tables[3])
+        from_reference_state(tables[0], tables[1][:5], tables[2], tables[3], device="cpu")
 
 
 def test_fit_runs_and_is_deterministic(karate_edges):
