@@ -103,6 +103,14 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    stride 129 and K14 512 times each, K3/K4 never), each holding its
    first 3 steps to the plain versions and printing its losses (no
    quality gate: no JAX trainer reaches these steps);
+9d. the shared-list main paths: ``main_path_shared_lists``,
+   ``Node2Vec(..., shared_lists=True).run_pipeline()`` on the RMAT of 3.,
+   streamed as 7. (K5 in its mixed shared-list mode 80 times, K6 40,
+   K2-K4 40 x 16; token "blocked+sl"), and ``main_path_shared_lists_er``,
+   ``WalkEngine(strategy="blocked", shared_lists=True).run_device()`` on the
+   dense graph of 5., whose lists are exhaustive (K5 in that mode 10
+   times, token "blocked+slx"), then ``fit`` for one epoch; each followed
+   by its ``breakdown`` lines;
 10. quality gates on synthetic_multilabel(2000, seed=0) with num_walks 8,
    walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1: held-out
    link-prediction AUC >= 0.60, and the same-label minus no-shared-label
@@ -118,11 +126,20 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    run_pipeline() at walker_chunk 2048 (AUC >= 0.55, gap >= 0.033); then
    SGNS with optimizer="sgd", step_size 0.025, by the same rule: through
    fit (AUC >= 0.58, gap >= 0.145) and run_pipeline() at walker_chunk 2048
-   (AUC >= 0.575, gap >= 0.135);
+   (AUC >= 0.575, gap >= 0.135); then the shared-list sampler on blocked
+   tables at P = 8, C = 64 through fit at (p, q) = (1, 2) (the sampler is
+   off at q == 1), at the blocked SGNS limits; then ``main_path_wide``: the
+   node2vec paper's walk_length 80 and window 10 at widths past shared
+   memory, SGNS and HS at dim 256 through fit at the SGNS and HS limits,
+   CBOW-NS at dim 256 and CBOW-HS at dim 512 through fit for one epoch and
+   8 steps of ``sgns_train_step`` at dim 256 (every K2, K8, K9, K10, K13
+   launch staged in global memory, losses and tables finite);
 11. the ``kernels`` line (times, bounds, launches, errors; K6 once for each
    JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists,
    once for CBOW-HS's and once for the pair step's, K2 once more at row
-   stride D + 1), then the last line ``{"ok": true, "device": {...}}``.
+   stride D + 1, K5 once for each shared-list mode, and K2, K8, K9, K10 and
+   K13 once more in global staging; the staging kernels' rows say their
+   mode), then the last line ``{"ok": true, "device": {...}}``.
 
 Kernel checks of 3. also hold K8 hs_grads and K3/K4 over HS's three row
 lists (emb_in rows, theta's tail rows, theta's head rows) against their
@@ -159,11 +176,29 @@ at row stride D + 1 against its plain version and against K2 at stride D
 also a center, and K15 bit-equal on the dense graph's CSR alias tables and
 on degree-0/1 lanes, with a chi-square against general edge weights, at
 the main paths' batch (B = 2,560); and K2-K4 at dim 64, the width the JAX
-package packs.
+package packs.  They hold K5's shared-list modes (check_blocked_walk_sl)
+bit-equal to the plain version at (p, q) = (0.25, 4) and (1, 5) on the RMAT
+(mixed) and on the dense graph packed as blocked tables at P = 31
+(exhaustive), 131,072 walkers x 20, with attempts/step and times on the
+same walkers without the lists, the slq bytes, build seconds and overflow
+share (bound: check_blocked_walk's plus 64 B an slq entry fetched); edge
+cases for them (edge_cases_sl: P = 32's 256-lane rows, absent reverse
+edges, sinks and dead lanes, the exhaustive ring hub, the two-hub overflow
+edge with a chi-square, q == 1 with the table bit-equal to none); and
+check_wide: K2, K13, K9 and K8 at L1 = 81, D = 256, window 10, S = 64
+and K10 at D = 512, which stage in global memory, against their plain
+versions at their checks' tolerances, timed with their bounds, at the
+shapes main_path_wide launches (K2, K8, K9, K10: its fits' 64-walk batch
+of the quality graph's corpus, with that corpus's vocabulary and Huffman
+tree; K13: its B = 256 batch of the dense graph's walks), the kernels
+line's global-staging rows; then K2, K9, K8 and K10 at B = 256 random
+walks on the dense graph's tree.
 
-``--quick`` runs 2-4 at small shapes (K5 and K12 on the RMAT at scale 12,
+``--quick`` runs 2-4 at small shapes (K5, its shared-list modes and K12 on
+the RMAT at scale 12,
 K6 and its streaming form on its walks, K7 on them, K8, K9 and K10 on a
-4,096-vertex tree, K11 and sgd_apply on 64 walks) and stops.  Exits non-zero, printing no result, when CUDA is missing
+4,096-vertex tree, K11 and sgd_apply on 64 walks, check_wide at its own
+shapes) and stops.  Exits non-zero, printing no result, when CUDA is missing
 or any phase fails.  Imports neither jax nor the JAX package.
 """
 
@@ -260,7 +295,15 @@ SOURCES = {
     "fused_adagrad": ("node2vec_torch/csrc/fused_adagrad.cu",
                       "node2vec_tpu/models/skipgram.py:597"),
     "alias_draw": ("node2vec_torch/csrc/alias_draw.cu", "node2vec_tpu/ops/alias.py:165"),
+    # K5's shared-list branch: some edges overflow (N(prev) kept), or none do
+    "blocked_walk_sl_mixed": ("node2vec_torch/csrc/blocked_walk.cu",
+                              "node2vec_tpu/walk/blocked.py:772"),
+    "blocked_walk_sl_exhaustive": ("node2vec_torch/csrc/blocked_walk.cu",
+                                   "node2vec_tpu/walk/blocked.py:983"),
 }
+# the walk-at-a-time step kernels staging in global memory (csrc/staging.cuh)
+for _k in ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads", "sgns_pair_grads"):
+    SOURCES[_k + "_global"] = SOURCES[_k]
 # the kernels line: (row, launch counter, main path whose launches it reads)
 ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("sgns_grads", "sgns_grads", "main_path"),
@@ -286,7 +329,14 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("adagrad_apply_pairs", "adagrad_apply", "main_path_pairs"),
         ("sgns_grads_fused", "sgns_grads", "main_path_fused"),
         ("fused_adagrad", "fused_adagrad", "main_path_fused"),
-        ("alias_draw", "alias_draw", "surface"))
+        ("alias_draw", "alias_draw", "surface"),
+        ("blocked_walk_sl_mixed", "blocked_walk_sl_mixed", "main_path_shared_lists"),
+        ("blocked_walk_sl_exhaustive", "blocked_walk_sl_exhaustive", "main_path_shared_lists_er"),
+        ("sgns_grads_global", "sgns_grads_global", "main_path_wide"),
+        ("sgns_pair_grads_global", "sgns_pair_grads_global", "main_path_wide"),
+        ("cbow_grads_global", "cbow_grads_global", "main_path_wide"),
+        ("hs_grads_global", "hs_grads_global", "main_path_wide"),
+        ("cbow_hs_grads_global", "cbow_hs_grads_global", "main_path_wide"))
 GRADS = ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads")  # one per objective
 ADAGRAD = ("adagrad_accumulate", "adagrad_apply")
 SGD = ("preagg_rows", "sgd_apply")  # SGNS with optimizer="sgd"
@@ -304,6 +354,18 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
+
+
+def _with_staging(name: str, row: dict, before: dict) -> dict:
+    """A results row, with where its check staged the walks when the row's
+    kernel stages them (csrc/staging.cuh): "global" when the kernel's
+    global-staging launch counter rose since ``before`` (a copy of
+    _build.launches taken as the check began), else "shared"."""
+    kernel = name.removesuffix("_fused")  # K2 at row stride D + 1
+    if kernel + "_global" in _build.MODE_COUNTS:
+        rose = _build.launches[kernel + "_global"] > before.get(kernel + "_global", 0)
+        row["staging"] = "global" if rose else "shared"
+    return row
 
 
 def require(cond: bool, msg: str) -> None:
@@ -431,20 +493,27 @@ def _close_to_largest(name: str, got: torch.Tensor, want: torch.Tensor) -> float
 
 
 def check_sgns(n_vertices: int, n_walks: int, length: int, dim: int, window: int,
-               n_neg: int, record: bool, results: dict) -> None:
-    """K2, K3, K4 each against its plain version on the same inputs."""
+               n_neg: int, record: bool, results: dict, corpus=None) -> None:
+    """K2, K3, K4 each against its plain version on the same inputs: the
+    first ``n_walks`` rows of ``corpus`` [*, length] and its vocabulary
+    (min_count 1) where given, else random walks with dead tails."""
+    before = _build.launches.copy()
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     emb_in = torch.from_numpy(rng.normal(0, 0.1, (n_vertices, dim)).astype(np.float32)).to(dev)
     emb_out = torch.from_numpy(rng.normal(0, 0.1, (n_vertices, dim)).astype(np.float32)).to(dev)
     acc_in = torch.from_numpy(rng.random(n_vertices).astype(np.float32)).to(dev)
     acc_out = torch.from_numpy(rng.random(n_vertices).astype(np.float32)).to(dev)
-    walks_np = rng.integers(0, n_vertices, (n_walks, length)).astype(np.int32)
-    dead = rng.integers(length // 2, length + 1, n_walks)  # some walks end early
-    walks_np[np.arange(length)[None, :] >= dead[:, None]] = -1
+    if corpus is None:
+        walks_np = rng.integers(0, n_vertices, (n_walks, length)).astype(np.int32)
+        dead = rng.integers(length // 2, length + 1, n_walks)  # some walks end early
+        walks_np[np.arange(length)[None, :] >= dead[:, None]] = -1
+        counts = np.bincount(walks_np[walks_np >= 0], minlength=n_vertices)
+    else:
+        walks_np = np.ascontiguousarray(corpus[:n_walks])
+        counts = np.bincount(corpus[corpus >= 0], minlength=n_vertices)
     walks = torch.from_numpy(walks_np).to(dev)
-    counts = np.bincount(walks_np[walks_np >= 0], minlength=n_vertices)
-    vocab = build_vocab_from_counts(counts, min_count=2)
+    vocab = build_vocab_from_counts(counts, min_count=2 if corpus is None else 1)
     mask = torch.from_numpy(vocab.mask).to(dev)
     b_sh = torch.from_numpy(rng.integers(1, window + 1, (n_walks, length)).astype(np.int32)).to(dev)
     r1 = torch.from_numpy(rng.random(n_neg).astype(np.float32)).to(dev)
@@ -547,8 +616,9 @@ def check_sgns(n_vertices: int, n_walks: int, length: int, dim: int, window: int
               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
               "library_ms": lib_ms})
         if record:
-            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            results[name] = _with_staging(name, {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}, before)
 
 
 def edge_cases() -> None:
@@ -701,14 +771,11 @@ def _hub_edges(hub_deg: int, seed: int, dyadic: bool, with_far: bool = False):
     return src, dst, w
 
 
-def edge_cases_blocked() -> None:
-    """K5 where the main path does not go, each against the plain version:
-    sinks and dead lanes on a dyadic graph at P = 31 / C = 256 and at
-    P = 8 / C = 64, a hub of degree 20,000 (C = 512), every setting of
-    BLOCKED_SETTINGS plus (4, 0.25) bit-equal; general weights by
-    chi-square (p-value > 1e-4) with the heavy vertex as current and as
-    previous vertex."""
-    dev = torch.device("cuda")
+def _dyadic_heavy_graph():
+    """A directed graph of 500 vertices with weights {0.5, 1, 2}: three
+    multi-block hubs (degree 300, 520, 700), light vertices of degree 1..40,
+    reverse edges for half of the edges (1/p atoms and triangles; the other
+    half have none) and 15 sinks."""
     rng = np.random.default_rng(3)
     n = 500
     deg = rng.integers(1, 41, n - 15)  # the last 15 vertices are sinks
@@ -719,7 +786,18 @@ def edge_cases_blocked() -> None:
     src, dst = np.concatenate([src, dst[back]]), np.concatenate([dst, src[back]])
     keep = src < n - 15
     w = rng.choice(np.float32([0.5, 1.0, 2.0]), int(keep.sum()))
-    dyadic = from_edge_arrays(src[keep], dst[keep], w, n_vertices=n, directed=True)
+    return from_edge_arrays(src[keep], dst[keep], w, n_vertices=n, directed=True)
+
+
+def edge_cases_blocked() -> None:
+    """K5 where the main path does not go, each against the plain version:
+    sinks and dead lanes on a dyadic graph at P = 31 / C = 256 and at
+    P = 8 / C = 64, a hub of degree 20,000 (C = 512), every setting of
+    BLOCKED_SETTINGS plus (4, 0.25) bit-equal; general weights by
+    chi-square (p-value > 1e-4) with the heavy vertex as current and as
+    previous vertex."""
+    dev = torch.device("cuda")
+    dyadic = _dyadic_heavy_graph()
     hub = from_edge_arrays(*_hub_edges(20000, 4, dyadic=True), directed=True)
     for name, g, widths in (("sinks_dead_lanes", dyadic, (None, None)),
                             ("narrow_P8_C64", dyadic, (8, 64)),
@@ -754,6 +832,265 @@ def edge_cases_blocked() -> None:
             emit({"phase": "edge_case", "kernel": "blocked_walk", "case": role, "p": p, "q": q,
                   "general_weights_chi2_pvalue": pval})
             require(pval is not None and pval > 1e-4, f"{role} chi-square p-value {pval}")
+
+
+# --------------------------------------------------------------------------- #
+# K5's shared-list modes
+# --------------------------------------------------------------------------- #
+
+SL_SETTINGS = ((0.25, 4.0, 64), (1.0, 5.0, 64))
+
+
+def _sl_tables(graph, widths=(None, None)):
+    """Blocked tables with the shared lists, built and uploaded (timed),
+    and what a line says of them."""
+    t0 = time.perf_counter()
+    bg = blocked.build_blocked_graph(graph.indptr, graph.indices, graph.weights, *widths,
+                                     shared_lists=True, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    entries = bg.slq.reshape(-1, blocked.SL_LANES)[: graph.n_edges]
+    n_ovf = int((entries[:, 13] & 1).sum())
+    deg = np.diff(graph.indptr)
+    info = {"n_vertices": graph.n_vertices, "n_edges": graph.n_edges,
+            "max_degree": int(deg.max()), "heavy_vertices": int((deg > bg.light_width).sum()),
+            "P": bg.light_width, "C": bg.block_width, "light_row_lanes": int(bg.light.shape[1]),
+            "slq_bytes": int(bg.slq.numel() * 4), "build_s": build_s,
+            "overflow_edges": n_ovf, "overflow_edge_share": n_ovf / max(graph.n_edges, 1),
+            "absent_reverse_edges": int((entries[:, 12] < 0).sum()),
+            "sl_ovf_wfrac": bg.sl_ovf_wfrac, "sl_exhaustive": bg.sl_exhaustive}
+    return bg, info
+
+
+def check_blocked_walk_sl(graph, name: str, n_walkers: int, walk_length: int,
+                          results: dict) -> None:
+    """K5 in its shared-list mode on ``graph`` (exhaustive when no edge
+    overflowed, mixed otherwise) against its plain version: bit-equal paths,
+    fallbacks and attempts at every setting of SL_SETTINGS.  The same
+    walkers without the lists give attempts/step and the kernel's time
+    without them.  The bound is check_blocked_walk's plus 64 B for each slq
+    entry the run fetches (one a live walker-step after the first)."""
+    dev = torch.device("cuda")
+    bg, info = _sl_tables(graph)
+    mode = "sl_exhaustive" if bg.sl_exhaustive else "sl_mixed"
+    emit({"phase": "blocked_tables_sl", "graph": name, "mode": mode, **info})
+    if not bg.sl_exhaustive:
+        emit({"phase": "blocked_tables_sl", "graph": name,
+              "note": f"{info['overflow_edges']} edges overflow: the mixed mode runs here"})
+    starts = torch.arange(n_walkers, dtype=torch.int32, device=dev) % graph.n_vertices
+    shapes = dict(light_width=bg.light_width, block_width=bg.block_width,
+                  has_heavy=bg.has_heavy)
+    sl = dict(slq=bg.slq, shared_lists=True, sl_exhaustive=bg.sl_exhaustive)
+    for p, q, trials in SL_SETTINGS:
+        kw = dict(walk_length=walk_length, return_param=p, inout_param=q, max_trials=trials,
+                  **shapes)
+        got = blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, **kw, **sl)
+        off = blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, **kw)  # the same, no lists
+        stats: dict = {}
+        want = blocked.blocked_walk_chunk_plain(*bg[:4], starts, 0, 0, stats=stats, **kw, **sl)
+        torch.cuda.synchronize()
+        n_diff = int((got[0] != want[0]).sum())
+        counters = [int(got[1]), int(got[2])]
+        counters_plain = [int(want[1]), int(want[2])]
+        err = int((got[0].long() - want[0].long()).abs().max())
+        ms = time_ms(lambda: blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, **kw, **sl),
+                     reps=5)
+        ms_off = time_ms(lambda: blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, **kw), reps=5)
+        plain_ms = time_ms(lambda: blocked.blocked_walk_chunk_plain(*bg[:4], starts, 0, 0, **kw,
+                                                                    **sl), reps=1, warmup=0)
+        steps = int((got[0][:, 1:] >= 0).sum())
+        steps_off = int((off[0][:, 1:] >= 0).sum())
+        row_bytes = bg.light.shape[1] * 4
+        n_bytes = (blocked_bytes(got[0], stats, row_bytes, bg.block_width)
+                   + stats["slq_fetches"] * 64)
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        emit({"phase": "check", "kernel": "blocked_walk", "mode": mode, "graph": name, "p": p,
+              "q": q, "max_trials": trials, "walkers": n_walkers, "walk_length": walk_length,
+              "P": bg.light_width, "C": bg.block_width, "bit_equal": n_diff == 0,
+              "entries_differing": n_diff, "fallbacks_attempts": counters,
+              "fallbacks_attempts_plain": counters_plain, "walk_steps": steps,
+              "attempts_per_step": counters[1] / max(steps, 1),
+              "attempts_per_step_without_lists": int(off[2]) / max(steps_off, 1),
+              "slq_fetches": stats["slq_fetches"],
+              "heavy_prev_probes": stats.get("heavy_prev_probes", 0),
+              "ms": ms, "ms_without_lists": ms_off, "plain_ms": plain_ms,
+              "walk_steps_per_s": steps / (ms / 1e3),
+              "walk_steps_per_s_without_lists": steps_off / (ms_off / 1e3),
+              "bound_bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by})
+        require(n_diff == 0, f"blocked_walk ({mode}) differs from its plain version on {name} "
+                             f"at p={p} q={q}")
+        require(counters == counters_plain,
+                f"blocked_walk ({mode}) counters {counters} != plain {counters_plain} on {name}")
+        if (p, q, trials) == SL_SETTINGS[0]:
+            results["blocked_walk_" + mode] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None, "mode": mode}
+
+
+def _two_hub_edges(dyadic: bool, n_shared: int = 20, n_spokes: int = 300):
+    """Hubs A = 0 and B = 1 joined by a heavy edge and sharing ``n_shared``
+    neighbours, each with ``n_spokes`` of its own (undirected;
+    tests/test_blocked.py:401): the edge A -> B overflows SL_K, the hub ->
+    shared-neighbour edges keep complete lists."""
+    shared = np.arange(2, 2 + n_shared, dtype=np.int32)
+    a_only = np.arange(2 + n_shared, 2 + n_shared + n_spokes, dtype=np.int32)
+    src = np.concatenate([np.zeros(1, np.int32), np.zeros(n_shared, np.int32),
+                          np.ones(n_shared, np.int32), np.zeros(n_spokes, np.int32),
+                          np.ones(n_spokes, np.int32)])
+    dst = np.concatenate([np.ones(1, np.int32), shared, shared, a_only, a_only + n_spokes])
+    rng = np.random.default_rng(3)
+    w = (rng.choice(np.float32([0.5, 1.0, 2.0]), len(src)) if dyadic
+         else rng.uniform(0.5, 2.0, len(src)).astype(np.float32))
+    w[0] = 32.0 if dyadic else 60.0  # most first hops from A take A -> B
+    return src, dst, w
+
+
+def edge_cases_sl() -> None:
+    """K5's shared-list modes where the main paths do not go, each against
+    the plain version, bit-equal at SL_SETTINGS, (4, 0.25) and a trial cap
+    of 2: a directed graph with sinks, dead lanes and absent reverse edges
+    (mixed: its hubs overflow), the same graph at P = 32 (256-lane rows: the
+    ebase lane past the loaded 128), the exhaustive ring hub, and the
+    two-hub graph whose hub-hub edge overflows; on each, q == 1 with the
+    table bit-equal to no table.  Then general weights through the overflow
+    edge by chi-square (transitions out of B with prev = A)."""
+    dev = torch.device("cuda")
+    dyadic = _dyadic_heavy_graph()
+    cases = (("directed_sinks_dead_lanes", dyadic, (None, None)),
+             ("P32_256_lane_rows", dyadic, (32, None)),
+             ("exhaustive_ring_hub", from_edge_arrays(*_hub_edges(600, 0, dyadic=True),
+                                                      directed=True), (None, None)),
+             ("two_hub_overflow", from_edge_arrays(*_two_hub_edges(dyadic=True),
+                                                   directed=False), (None, None)))
+    for name, g, widths in cases:
+        bg, info = _sl_tables(g, widths)
+        starts = torch.arange(3 * g.n_vertices, dtype=torch.int32, device=dev) % g.n_vertices
+        starts[::13] = -1
+        shapes = dict(light_width=bg.light_width, block_width=bg.block_width,
+                      has_heavy=bg.has_heavy)
+        sl = dict(slq=bg.slq, shared_lists=True, sl_exhaustive=bg.sl_exhaustive)
+        for p, q, trials in SL_SETTINGS + ((4.0, 0.25, 64), (0.25, 4.0, 2)):
+            kw = dict(walk_length=30, return_param=p, inout_param=q, max_trials=trials, **shapes)
+            got = blocked.blocked_walk_chunk(*bg[:4], starts, 1000, 99, **kw, **sl)
+            want = blocked.blocked_walk_chunk_plain(*bg[:4], starts, 1000, 99, **kw, **sl)
+            require(bool(torch.equal(got[0], want[0]))
+                    and [int(x) for x in got[1:]] == [int(x) for x in want[1:]],
+                    f"blocked_walk (shared lists) differs on {name} at p={p} q={q} "
+                    f"max_trials={trials}")
+        kw = dict(walk_length=30, return_param=0.5, inout_param=1.0, max_trials=64, **shapes)
+        with_table = blocked.blocked_walk_chunk(*bg[:4], starts, 1000, 99, **kw, **sl)
+        without = blocked.blocked_walk_chunk(*bg[:4], starts, 1000, 99, **kw)
+        require(all(bool(torch.equal(a, b)) for a, b in zip(with_table, without)),
+                f"q == 1 walks with the lists differ from walks without on {name}")
+        emit({"phase": "edge_case", "kernel": "blocked_walk", "case": name,
+              "mode": "sl_exhaustive" if bg.sl_exhaustive else "sl_mixed",
+              "walkers": int(starts.numel()), "sink_ended_walks": int((got[0][:, -1] < 0).sum()),
+              "bit_equal": True, "q1_with_table_equals_without": True, **info})
+
+    p, q = 0.25, 4.0
+    g = from_edge_arrays(*_two_hub_edges(dyadic=False), directed=False)
+    engine = WalkEngine(g, Node2VecParams(num_walks=30000, walk_length=2, return_param=p,
+                                          inout_param=q, walker_chunk=1 << 15),
+                        strategy="blocked", shared_lists=True, device="cuda")
+    walks = engine.run(seed=23, start_vertices=np.array([0], np.int32))
+    pval = walk_transition_pvalue(g, walks, 0, 1, p, q)
+    emit({"phase": "edge_case", "kernel": "blocked_walk", "case": "overflow_edge_chi2",
+          "strategy_token": engine._strategy_token(),
+          "transitions_A_B": int((walks[:, 1] == 1).sum()),
+          "general_weights_chi2_pvalue": pval})
+    require(engine._strategy_token() == "blocked+sl", f"token {engine._strategy_token()}")
+    require(pval is not None and pval > 1e-4, f"overflow-edge chi-square p-value {pval}")
+
+
+# --------------------------------------------------------------------------- #
+# the step kernels past shared memory (global staging)
+# --------------------------------------------------------------------------- #
+
+# the node2vec paper's walk_length 80 (L1 = 81) and window 10, at dim 256
+# (K10 at 512), S = 64 shared negatives; B = 256 walks, main_path_wide's
+# sgns_train_step batch
+WIDE = dict(B=256, L1=81, D=256, window=10)
+
+
+def check_wide(graph, tree, counts, results: dict) -> None:
+    """The step kernels past shared memory, each against its plain version
+    at the tolerances of its own check (check_sgns, check_pairs, check_cbow,
+    check_hs), timed with its bound, and each staged in global memory.
+
+    The kernels line's *_global rows are taken at the shapes main_path_wide
+    launches: K2, K9, K8 and K10 on a batch of the quality graph's corpus (8
+    walks of 80 a vertex, in an epoch's shuffled order; the fit's batch,
+    _effective_batch: 64 walks) with that corpus's vocabulary and Huffman
+    tree, at dim 256 (K10 512); K13 on the first B = 256 of ``graph``'s walks
+    of 80, as main_path_wide steps it.  K2, K9, K8 and K10 then run at
+    B = 256 random walks on ``tree`` (lines only)."""
+    b, l1, d, w = WIDE["B"], WIDE["L1"], WIDE["D"], WIDE["window"]
+    lib = _build.lib()
+    w2v = Word2VecParams()
+    g_q, _ = synthetic_multilabel(2000, seed=0)
+    corpus = WalkEngine(g_q, Node2VecParams(num_walks=8, walk_length=l1 - 1),
+                        device="cuda").run_device(seed=0).cpu().numpy()
+    q_counts = np.bincount(corpus[corpus >= 0], minlength=g_q.n_vertices)
+    q_tree = hs.cap_code_length(hs.build_huffman(q_counts), q_counts,
+                                max_len=w2v.hs_max_code_length or None)
+    corpus = corpus[np.random.default_rng(0).permutation(len(corpus))]
+    q_b = _effective_batch(w2v.batch_walks, len(corpus))
+    pair_walks = WalkEngine(graph, Node2VecParams(num_walks=1, walk_length=l1 - 1),
+                            device="cuda").run_device(seed=0)
+    pair_mask = torch.from_numpy(build_vocab(pair_walks, graph.n_vertices, min_count=1).mask)
+    pair_batch = (pair_walks[:b].contiguous(), pair_mask.to(pair_walks.device))
+    del pair_walks
+
+    def hs_smem(t):
+        k_rows = hs.head_split(hs.head_level_offsets(t, table_rows=t.n_inner),
+                               int(t.points.shape[1]))[1]
+        return lib.n2v_hs_grads_smem(l1, d, int(t.points.shape[1]), w, k_rows)
+
+    def cbow_run(t, c, n, dim, case, walks):
+        return lambda r: check_cbow(t, c, n, l1, dim, w, True, True, True, r, case=case,
+                                    walks=walks)
+
+    def hs_run(t, c, n, case, walks):
+        head = hs.head_level_offsets(t, table_rows=t.n_inner)
+        return lambda r: check_hs(t, c, n, l1, d, w, head, True, True, r, case=case,
+                                  walks=walks)
+
+    main = f"main_path_wide: quality corpus, B = {q_b}"
+    runs = (  # (kernel, smem, check, case, recorded)
+        ("sgns_grads", lib.n2v_sgns_grads_smem(l1, d, 64, w),
+         lambda r: check_sgns(g_q.n_vertices, q_b, l1, d, w, 64, True, r, corpus=corpus),
+         main, True),
+        ("sgns_pair_grads", lib.n2v_sgns_pair_grads_smem(l1, d, 64, w),
+         lambda r: check_pairs(graph.n_vertices, b, l1, d, w, True, r, "wide",
+                               batch=pair_batch),
+         f"main_path_wide: sgns_train_step batch 0, B = {b}", True),
+        ("cbow_grads", lib.n2v_cbow_grads_smem(l1, d, 64),
+         cbow_run(q_tree, q_counts, q_b, d, "wide", corpus), main, True),
+        ("hs_grads", hs_smem(q_tree), hs_run(q_tree, q_counts, q_b, "wide", corpus), main,
+         True),
+        ("cbow_hs_grads", lib.n2v_cbow_hs_grads_smem(l1, 2 * d),
+         cbow_run(q_tree, q_counts, q_b, 2 * d, "wide, D = 512", corpus), main, True),
+        ("sgns_grads", lib.n2v_sgns_grads_smem(l1, d, 64, w),
+         lambda r: check_sgns(4096, b, l1, d, w, 64, True, r), "B = 256, random walks", False),
+        ("cbow_grads", lib.n2v_cbow_grads_smem(l1, d, 64),
+         cbow_run(tree, counts, b, d, "wide, B = 256", None), "B = 256, random walks", False),
+        ("hs_grads", hs_smem(tree), hs_run(tree, counts, b, "wide, B = 256", None),
+         "B = 256, random walks", False),
+        ("cbow_hs_grads", lib.n2v_cbow_hs_grads_smem(l1, 2 * d),
+         cbow_run(tree, counts, b, 2 * d, "wide, B = 256, D = 512", None),
+         "B = 256, random walks", False),
+    )
+    limit = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 232448)
+    for name, smem, run, case, recorded in runs:
+        tmp: dict = {}
+        run(tmp)
+        row = tmp[name]
+        emit({"phase": "wide", "kernel": name, "case": case, "smem_bytes": int(smem),
+              "shared_memory_per_block_optin": int(limit), **row})
+        require(row["staging"] == "global",
+                f"{name} at {smem} B ({case}) staged in {row['staging']} memory, not global")
+        if recorded:
+            results[name + "_global"] = row
 
 
 def check_vertex_counts(walks: torch.Tensor, n_vertices: int, results: dict) -> None:
@@ -952,8 +1289,10 @@ def check_hs(tree, counts, n_walks: int, length: int, dim: int, window: int, hea
     exact, d_head (sums over every head entry of the batch, through fp32
     atomics) to rtol of its largest entry; the Adagrad kernels and the
     step's tables elementwise."""
+    before = _build.launches.copy()
     dev = torch.device("cuda")
-    walks_from = "random, dead tails" if walks is None else "main_path_hs chunk 0"
+    walks_from = ("random, dead tails" if walks is None else "main_path_wide's quality corpus"
+                  if case.startswith("wide") else "main_path_hs chunk 0")
     (emb_in, theta, acc_in, acc_th), walks, mask, b_sh, tables = _hs_inputs(
         tree, counts, n_walks, length, dim, window, seed=5, walks=walks)
     kw = dict(window=window, head_offsets=head_offsets)
@@ -1070,8 +1409,9 @@ def check_hs(tree, counts, n_walks: int, length: int, dim: int, window: int, hea
               "atol": ATOL, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
               "library_ms": lib_ms})
         if record:
-            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            results[name] = _with_staging(name, {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}, before)
 
 
 def edge_cases_hs(tree, counts) -> None:
@@ -1221,9 +1561,11 @@ def check_cbow(tree, counts, n_walks: int, length: int, dim: int, window: int,
     each against its plain version (``_verify_cbow``), on the tree's
     vocabulary; timed at the main paths' shapes.  K10 runs on the tree
     without its head: CBOW-HS updates every path entry per occurrence."""
+    before = _build.launches.copy()
     inp = _cbow_inputs(tree, counts, n_walks, length, dim, window, seed=6, walks=walks)
     v = _verify_cbow(inp, cbow_mean, case)
-    walks_from = "random, dead tails" if walks is None else "main_path_cbow chunk 0"
+    walks_from = ("random, dead tails" if walks is None else "main_path_wide's quality corpus"
+                  if case.startswith("wide") else "main_path_cbow chunk 0")
     cl = int(tree.points.shape[1])
     line = {"phase": "check" if timed else "edge_case", "kernel": "cbow_grads, cbow_hs_grads "
             "+ K3/K4 (CBOW-HS)", "case": case, "cbow_mean": cbow_mean, "B": n_walks,
@@ -1314,8 +1656,9 @@ def check_cbow(tree, counts, n_walks: int, length: int, dim: int, window: int,
               "rtol": RTOL, "atol": ATOL, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
               "bound_by": b_by, "library_ms": lib_ms})
         if record:
-            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            results[name] = _with_staging(name, {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}, before)
 
 
 def edge_cases_cbow(tree, counts) -> None:
@@ -1525,8 +1868,9 @@ def check_preagg(n_vertices: int, walks_np: np.ndarray, dim: int, window: int, r
               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
               "library_ms": lib_ms})
         if record:
-            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            results[name] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}
 
 
 def edge_cases_preagg() -> None:
@@ -1682,12 +2026,14 @@ def _pair_walks(n_vertices: int, n_walks: int, length: int, seed: int) -> np.nda
     return walks
 
 
-def _emit_rows(rec: dict, record: bool, results: dict, **line) -> None:
+def _emit_rows(rec: dict, record: bool, results: dict, before: dict, **line) -> None:
     """One check line per kernel of ``rec`` (name: (err, ms, plain ms, (bound ms, bound by),
-    library ms)), kept in ``results`` for the kernels line when ``record``."""
+    library ms)), kept in ``results`` for the kernels line when ``record``;
+    ``before`` as _with_staging takes it."""
     for name, (err, ms, plain_ms, bound, lib_ms) in rec.items():
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-               "bound_by": bound[1], "library_ms": lib_ms}
+        row = _with_staging(name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": bound[0], "bound_by": bound[1],
+                                   "library_ms": lib_ms}, before)
         emit({"phase": "check", "kernel": name, **line, **row})
         if record:
             results[name] = row
@@ -1714,6 +2060,7 @@ def check_pairs(n_vertices: int, n_walks: int, length: int, dim: int, window: in
     elementwise; d_no and the tables after K4, which sum many signed terms
     through atomics, to rtol of their largest entry.  The walks: ``batch``
     (_batch_inputs), whose liveness sets the times and bounds."""
+    before = _build.launches.copy()
     inp = _batch_inputs(n_vertices, n_walks, length, dim, window, 11, oov, batch)
     walks, mask, neg = inp["walks"], inp["mask"], inp["neg"]
     n_walks, length = walks.shape
@@ -1809,7 +2156,8 @@ def check_pairs(n_vertices: int, n_walks: int, length: int, dim: int, window: in
                                      bound_ms(k3_bytes, 2 * (2 * n_valid + n_neg) * dim), k3_lib),
         "adagrad_apply_pairs": (k4_err, k4_ms, k4_plain,
                                 bound_ms(k4_bytes, 3 * (2 * n_valid + n_neg) * dim), k4_lib),
-    }, record, results, case=case, B=n_walks, L1=length, D=dim, S=n_neg, V=n_vertices)
+    }, record, results, before, case=case, B=n_walks, L1=length, D=dim, S=n_neg,
+       V=n_vertices)
 
 
 def _close_state(name: str, got_state, got_loss, want_state, want_loss) -> float:
@@ -1837,6 +2185,7 @@ def check_fused(n_vertices: int, n_walks: int, length: int, dim: int, window: in
     K14 against its plain version with repeated rows, rows at -1 (on
     random walks) and a negative that is also a center; and the whole
     fused step.  The walks as in check_pairs."""
+    before = _build.launches.copy()
     inp = _batch_inputs(n_vertices, n_walks, length, dim, window, 13, 0.1, batch)
     walks, mask, b_sh = inp["walks"], inp["mask"], inp["b_sh"]
     n_walks, length = walks.shape
@@ -1918,7 +2267,8 @@ def check_fused(n_vertices: int, n_walks: int, length: int, dim: int, window: in
         "sgns_grads_fused": (k2_err, k2_ms, k2_plain, bound_ms(k2_bytes, k2_ops), None),
         "fused_adagrad": (k14_err, k14_ms, k14_plain,
                           bound_ms(k14_bytes, 4 * (2 * n_live + n_neg) * dim), k14_lib),
-    }, record, results, case=case, B=n_walks, L1=length, D=dim, S=n_neg, V=n_vertices)
+    }, record, results, before, case=case, B=n_walks, L1=length, D=dim, S=n_neg,
+       V=n_vertices)
     emit({"phase": "check", "kernel": "sgns_grads at two row strides", "case": case,
           "ms_ld_d_plus_1": k2_ms, "ms_ld_d": k2_ms_ld_d, "ratio": k2_ms / k2_ms_ld_d})
     if record:
@@ -1997,8 +2347,8 @@ def check_alias_draw(graph, record: bool, results: dict, case: str) -> None:
     emit({"phase": "edge_case", "kernel": "alias_draw", "case": case,
           "degree_0_and_1_lanes": int((dv <= 1).sum()), "lanes_differing": e_diff,
           "chi2_pvalue": pval})
-    _emit_rows({"alias_draw": (n_diff, ms, plain_ms, bound, None)}, record, results, case=case,
-               walkers=int(start.numel()), bit_equal=n_diff == 0)
+    _emit_rows({"alias_draw": (n_diff, ms, plain_ms, bound, None)}, record, results, {},
+               case=case, walkers=int(start.numel()), bit_equal=n_diff == 0)
 
 
 def small_reference() -> None:
@@ -2213,7 +2563,7 @@ def _fresh_run() -> None:
 
 
 def _launches() -> dict:
-    return {k: int(_build.launches[k]) for k in _build.KERNELS}
+    return {k: int(_build.launches[k]) for k in _build.KERNELS + _build.MODE_COUNTS}
 
 
 def main_path_streaming(src, dst, max_iter: int):
@@ -2831,6 +3181,215 @@ def surface(n2v, graph, src, dst) -> dict:
     return out
 
 
+def main_path_shared_lists(src, dst, max_iter: int):
+    """``Node2Vec(..., shared_lists=True)`` on the heavy-tail RMAT through
+    ``run_pipeline()`` with no argument, streamed as main_path_streaming (40
+    chunks, max_iter cut to 1): K5 in its mixed shared-list mode 40 times to
+    count and 40 to train, K6 streaming 40, K2-K4 40 x 16; the engine's
+    walk-checkpoint token ends in "+sl"."""
+    n2v = Node2Vec(n2v_params=N2V_MAIN, w2v_params={**W2V_MAIN, "max_iter": max_iter},
+                   max_out_degree=10_000, random_seed=0, shared_lists=True, device="cuda")
+    _fresh_run()
+    t0 = time.perf_counter()
+    graph = n2v.preprocess_input_graph((src, dst), indexed=True, directed=False)
+    t1 = time.perf_counter()
+    engine = n2v._walk_engine()  # packs the tables and lists, and uploads them
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    walk_events = []
+    run_chunk = engine._run_chunk
+
+    def timed_chunk(*args, **kwargs):  # device time of every regenerated chunk
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_chunk(*args, **kwargs)
+        end.record()
+        walk_events.append((start, end))
+        return out
+
+    engine._run_chunk = timed_chunk
+    model = n2v.run_pipeline()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del engine._run_chunk
+    names, vectors = n2v.embedding(as_frame=False)
+    t4 = time.perf_counter()
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    attempts = engine.attempt_count
+    fallbacks = engine.fallback_count
+
+    n_chunks, chunk, source = engine.chunk_source(seed=0)
+    p = model.params
+    batch = _effective_batch(p.batch_walks, chunk, target_updates=max(512 // n_chunks, 1))
+    n_batches = chunk // batch
+    walk_s = sum(a.elapsed_time(b) for a, b in walk_events) / 1e3
+    chunk0 = source(0)
+    steps = sum(int((source(i)[:, 1:] >= 0).sum()) for i in range(1, n_chunks)) + int(
+        (chunk0[:, 1:] >= 0).sum())
+    bg = engine.bgraph
+    out = {
+        "phase": "main_path_shared_lists", "cuts": {"max_iter": f"10 -> {max_iter}"},
+        "n_vertices": graph.n_vertices, "n_edges": graph.n_edges,
+        "strategy_token": engine._strategy_token(), "sl_exhaustive": bg.sl_exhaustive,
+        "sl_ovf_wfrac": bg.sl_ovf_wfrac, "slq_bytes": int(bg.slq.numel() * 4),
+        "walker_chunk": chunk, "n_chunks": n_chunks, "batch_walks": batch,
+        "n_batches_per_chunk": n_batches, "preprocess_s": t1 - t0, "tables_and_lists_s": t2 - t1,
+        "pipeline_s": t3 - t2, "walk_regeneration_device_s": walk_s,
+        "walk_regenerations": len(walk_events), "walk_steps_per_pass": steps,
+        "walk_steps_per_s": steps * len(walk_events) / n_chunks / walk_s,
+        "attempts_per_step": attempts / max(steps * len(walk_events) / n_chunks, 1),
+        "fallback_count": fallbacks, "fit_s": t3 - t2 - walk_s, "embedding_s": t4 - t3,
+        "epoch_losses": model.losses, "peak_device_memory_bytes": int(peak),
+        "launches": launches, "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+    }
+    emit(out)
+    require(engine.strategy == "blocked", f"strategy {engine.strategy}")
+    require(engine._strategy_token() == "blocked+sl", f"token {engine._strategy_token()}")
+    require(n2v.walks is None, "run_pipeline() did not stream")
+    require(n_chunks == 40 and n_batches == 16, f"{n_chunks} chunks of {n_batches} batches")
+    require(vectors.shape == (graph.n_vertices, 128), f"vectors shape {vectors.shape}")
+    require(bool(np.isfinite(vectors).all()), "non-finite embedding values")
+    require(len(model.losses) == max_iter and all(np.isfinite(x) for x in model.losses),
+            f"losses {model.losses}")
+    n_walk = n_chunks * (1 + max_iter)
+    require(launches["blocked_walk"] == n_walk == launches["blocked_walk_sl_mixed"],
+            f"blocked_walk launched {launches['blocked_walk']} times, "
+            f"{launches['blocked_walk_sl_mixed']} in the mixed shared-list mode")
+    require(launches["vertex_counts"] == n_chunks,
+            f"vertex_counts launched {launches['vertex_counts']} times")
+    for k in ("sgns_grads", "adagrad_accumulate", "adagrad_apply"):
+        require(launches[k] == n_chunks * n_batches * max_iter,
+                f"{k} launched {launches[k]} times")
+    require(launches["dense_walk"] == 0 and launches["sgns_grads_global"] == 0,
+            f"a kernel or mode off this path ran: {launches}")
+    check_steps(graph, chunk0.cpu().numpy())
+    breakdown((("chunk walks (shared lists, mixed)",
+                lambda: [source(i) for i in range(n_chunks)]),
+               ("run_pipeline (streaming, shared lists)", lambda: Word2VecTorch(p, device="cuda")
+                .fit_streaming(source, n_chunks, graph.n_vertices))))
+    return out
+
+
+def main_path_shared_lists_er(graph, max_iter: int) -> dict:
+    """The exhaustive shared-list mode on the dense-engine ER graph, whose
+    edges share far fewer than SL_K neighbours:
+    ``WalkEngine(graph, params, strategy="blocked", shared_lists=True,
+    device="cuda").run_device()`` (10 chunks of K5 in mode sl_exhaustive),
+    then ``Word2VecTorch.fit`` for one epoch on the corpus (K6, K2-K4)."""
+    params = Node2VecParams(**N2V_MAIN)
+    w2v = Word2VecParams(**W2V_MAIN, max_iter=max_iter)
+    _fresh_run()
+    t0 = time.perf_counter()
+    engine = WalkEngine(graph, params, strategy="blocked", shared_lists=True, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    walks = engine.run_device(seed=0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    model = Word2VecTorch(w2v, device="cuda").fit(walks, n_vertices=graph.n_vertices)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_walks, length = walks.shape
+    chunk = engine._effective_chunk(n_walks)
+    n_chunks = -(-n_walks // chunk)
+    steps = int((walks[:, 1:] >= 0).sum())
+    batch = _effective_batch(w2v.batch_walks, n_walks)
+    n_batches = -(-n_walks // batch)
+    bg = engine.bgraph
+    out = {
+        "phase": "main_path_shared_lists_er", "cuts": {"max_iter": f"10 -> {max_iter}"},
+        "strategy_token": engine._strategy_token(), "sl_exhaustive": bg.sl_exhaustive,
+        "n_vertices": graph.n_vertices, "n_edges": graph.n_edges, "P": bg.light_width,
+        "C": bg.block_width, "slq_bytes": int(bg.slq.numel() * 4), "tables_and_lists_s": t1 - t0,
+        "walks": [int(n_walks), int(length)], "walk_steps": steps, "walker_chunk": chunk,
+        "n_chunks": n_chunks, "walk_s": t2 - t1, "walk_steps_per_s": steps / (t2 - t1),
+        "attempts_per_step": engine.attempt_count / max(steps, 1), "fit_s": t3 - t2,
+        "epoch_losses": model.losses, "peak_device_memory_bytes": int(peak),
+        "launches": launches,
+    }
+    emit(out)
+    require(engine._strategy_token() == "blocked+slx", f"token {engine._strategy_token()}")
+    require(walks.shape == (10 * graph.n_vertices, 21), f"walk corpus shape {walks.shape}")
+    walks_np = walks.cpu().numpy()
+    require(bool((walks_np[:, 0] >= 0).all()), "a start vertex is missing")
+    check_steps(graph, walks_np)
+    require(launches["blocked_walk"] == n_chunks == launches["blocked_walk_sl_exhaustive"],
+            f"blocked_walk launched {launches['blocked_walk']} times, "
+            f"{launches['blocked_walk_sl_exhaustive']} in the exhaustive mode, {n_chunks} chunks")
+    require(launches["dense_walk"] == 0 and launches["vertex_counts"] == 1,
+            f"launches {launches}")
+    for k in ("sgns_grads", *ADAGRAD):
+        require(launches[k] == n_batches * max_iter, f"{k} launched {launches[k]} times")
+    require(bool(np.isfinite(model.vectors).all()) and all(np.isfinite(model.losses)),
+            "non-finite vectors or losses")
+    breakdown((("run_device (blocked, exhaustive shared lists)",
+                lambda: engine.run_device(seed=0)),))
+    return out
+
+
+def main_path_wide(graph) -> dict:
+    """Training at the node2vec paper's walk_length 80 and window 10 at
+    widths whose walks do not fit in shared memory: on the quality graph,
+    SGNS (K2) and HS (K8) at dim 256 through fit, gated at the SGNS and HS
+    limits (two trainings each: held-out and full graph), and CBOW-NS (K9)
+    at dim 256 and CBOW-HS (K10) at dim 512 through fit for one epoch; on
+    ``graph`` (the dense graph of 5.: few repeated rows in a batch), 8
+    steps of ``sgns_train_step`` (K13) at B = 256, dim 256; losses and
+    tables finite.  Every launch of the five stages in global memory."""
+    dev = torch.device("cuda")
+    _fresh_run()
+    t0 = time.perf_counter()
+    wide = dict(dim=WIDE["D"], walk_length=WIDE["L1"] - 1, window=WIDE["window"])
+    gates = {"sgns": quality_gates(**wide), "hs": quality_gates(negative=0, **wide)}
+    g, _ = synthetic_multilabel(2000, seed=0)
+    walks = WalkEngine(g, Node2VecParams(num_walks=8, walk_length=80),
+                       device="cuda").run_device(seed=0)
+    w2v = dict(min_count=1, max_iter=1, window_size=WIDE["window"], sg=0)
+    cbow_ns = Word2VecTorch(Word2VecParams(vector_size=WIDE["D"], **w2v),
+                            device="cuda").fit(walks, n_vertices=g.n_vertices)
+    cbow_hs = Word2VecTorch(Word2VecParams(vector_size=2 * WIDE["D"], negative=0, **w2v),
+                            device="cuda").fit(walks, n_vertices=g.n_vertices)
+    walks = WalkEngine(graph, Node2VecParams(num_walks=1, walk_length=80),
+                       device="cuda").run_device(seed=0)
+    vocab = build_vocab(walks, graph.n_vertices, min_count=1)
+    tables = tuple(torch.from_numpy(a).to(dev) for a in (vocab.ns_alias, vocab.ns_prob,
+                                                         vocab.mask))
+    state = sg.init_embeddings(graph.n_vertices, WIDE["D"], seed=1, device="cuda")
+    losses = []
+    for b in range(8):
+        draws = sg.draw_step(torch.Generator(device=dev).manual_seed(1000 + b), WIDE["B"],
+                             WIDE["L1"], WIDE["window"], 64, True, dev)
+        losses.append(sg.sgns_train_step(*state, walks[b * WIDE["B"]:(b + 1) * WIDE["B"]],
+                                         *draws, 0.025, *tables, window=WIDE["window"],
+                                         negatives=5))
+    losses = torch.stack(losses).cpu()
+    torch.cuda.synchronize()
+    launches = _launches()
+    out = {"phase": "main_path_wide", "shapes": {**WIDE, "K10 D": 2 * WIDE["D"]},
+           "seconds": time.perf_counter() - t0,
+           "gates": {k: {m: v[m] for m in ("holdout_link_auc", "label_cosine_gap")}
+                     for k, v in gates.items()},
+           "cbow_ns_losses": cbow_ns.losses, "cbow_hs_losses": cbow_hs.losses,
+           "pair_step_losses": [float(x) for x in losses],
+           "peak_device_memory_bytes": int(torch.cuda.max_memory_allocated()),
+           "launches": launches}
+    emit(out)
+    for k in ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads", "sgns_pair_grads"):
+        require(launches[k] > 0 and launches[k + "_global"] == launches[k],
+                f"main_path_wide: {k} launched {launches[k]} times, "
+                f"{launches[k + '_global']} staged in global memory")
+    require(all(np.isfinite(x) for x in cbow_ns.losses + cbow_hs.losses)
+            and bool(torch.isfinite(losses).all())
+            and all(bool(torch.isfinite(t).all()) for t in state)
+            and bool(np.isfinite(cbow_ns.vectors).all() and np.isfinite(cbow_hs.vectors).all()),
+            "main_path_wide: non-finite losses or tables")
+    return out
+
+
 def breakdown(stages) -> None:
     """Device time by kernel and the idle share of each (name, fn) stage,
     from torch.profiler over a second run of it (launch counts of the main
@@ -2861,30 +3420,37 @@ def breakdown(stages) -> None:
 
 def quality_gates(blocked_widths=None, trainer: str = "fit", walker_chunk=None,
                   sample: float = 0.0, negative: int = 5, sg_arch: int = 1,
-                  auc_min: float = 0.60, gap_min: float = 0.05, sgd: bool = False) -> dict:
+                  auc_min: float = 0.60, gap_min: float = 0.05, sgd: bool = False,
+                  dim: int = 128, walk_length: int = 40, window: int = 5,
+                  shared_lists: bool = False, pq=(1.0, 1.0)) -> dict:
     """The gates on synthetic_multilabel(2000, seed=0), trained through
     ``trainer`` (see datasets._train); ``negative=0`` trains hierarchical
     softmax, ``sg_arch=0`` CBOW, ``sgd`` SGNS with optimizer="sgd" at
-    step_size 0.025."""
+    step_size 0.025; ``shared_lists`` walks the blocked tables with the
+    shared-list sampler at ``pq`` = (p, q)."""
     g, labels = synthetic_multilabel(2000, seed=0)
-    n2v = Node2VecParams(num_walks=8, walk_length=40,
+    n2v = Node2VecParams(num_walks=8, walk_length=walk_length, return_param=pq[0],
+                         inout_param=pq[1],
                          **({"walker_chunk": walker_chunk} if walker_chunk else {}))
-    w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128, sample=sample,
-                         negative=negative, sg=sg_arch,
+    w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=dim, window_size=window,
+                         sample=sample, negative=negative, sg=sg_arch,
                          **({"optimizer": "sgd", "step_size": 0.025} if sgd else {}))
     t0 = time.perf_counter()
     auc = holdout_link_prediction(g, n2v_params=n2v, w2v_params=w2v, seed=0, device="cuda",
-                                  blocked_widths=blocked_widths,
-                                  trainer=trainer)["holdout_link_auc"]
+                                  blocked_widths=blocked_widths, trainer=trainer,
+                                  shared_lists=shared_lists)["holdout_link_auc"]
     emb, strategy = train_embeddings(g, n2v, w2v, seed=0, device="cuda",
-                                     blocked_widths=blocked_widths, trainer=trainer)
+                                     blocked_widths=blocked_widths, trainer=trainer,
+                                     shared_lists=shared_lists)
     gap = label_cosine_gap(emb, labels, n_pairs=200_000, seed=0)
     deg = np.diff(g.indptr)
     out = {"phase": "quality", "graph": "synthetic_multilabel(2000, seed=0)",
            "trainer": trainer,
            "objective": (("cbow_hs" if negative == 0 else "cbow_ns") if sg_arch == 0
                          else ("hs" if negative == 0 else "sgns_sgd" if sgd else "sgns")),
-           "walker_chunk": n2v.walker_chunk, "sample": sample,
+           "walker_chunk": n2v.walker_chunk, "sample": sample, "dim": dim,
+           "walk_length": walk_length, "window": window, "p": pq[0], "q": pq[1],
+           "shared_lists": shared_lists,
            "walk_strategy": strategy, "blocked_widths": blocked_widths,
            "heavy_vertex_share": (float((deg > blocked_widths[0]).mean())
                                   if blocked_widths else None),
@@ -2924,8 +3490,9 @@ def main() -> int:
     _build.lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds,
-          "ptxas": [ln.strip() for ln in _build.ptxas_report.splitlines()
-                    if "registers" in ln or "spill" in ln or ln.startswith("==")]})
+          "ptxas": [ln.strip()[:160] for ln in _build.ptxas_report.splitlines()
+                    if "registers" in ln or "spill" in ln or ln.startswith("==")
+                    or "Compiling entry function" in ln]})
 
     results: dict = {}
     if args.quick:
@@ -2936,6 +3503,8 @@ def main() -> int:
         check_sgns(512, 16, 41, 32, 5, 64, False, results)
         _, _, g_rmat = rmat_graph(12)
         check_blocked_walk(g_rmat, 4096, 20, results)
+        check_blocked_walk_sl(g_rmat, "RMAT scale 12", 4096, 20, results)
+        check_blocked_walk_sl(g, "dense ER, 4,096 vertices", 4096, 20, results)
         engine = WalkEngine(g_rmat, Node2VecParams(num_walks=2, walker_chunk=2048), device="cuda")
         walks = engine.run_device()
         check_vertex_counts(walks, g_rmat.n_vertices, results)
@@ -2964,6 +3533,8 @@ def main() -> int:
         check_alias_draw(g, True, results, "quick, dense ER 4,096 vertices")
         edge_cases()
         edge_cases_blocked()
+        edge_cases_sl()
+        check_wide(g, tree, tree_counts, results)
         small_reference()
         emit({"phase": "quick", "ok": True})
         return 0
@@ -3018,11 +3589,15 @@ def main() -> int:
     check_alias_draw(g, True, results, "dense ER, a walker at every vertex")
     rmat_src, rmat_dst, g_rmat = rmat_graph(19)
     check_blocked_walk(g_rmat, 131072, 20, results)
+    check_blocked_walk_sl(g_rmat, "RMAT scale 19", 131072, 20, results)
+    check_blocked_walk_sl(g, "dense ER", 131072, 20, results)
+    check_wide(g, tree, tree_counts, results)
     check_csr_walk(g, "dense ER", 131072, 20, False, results)
     check_csr_walk(g_rmat, "RMAT scale 19", 131072, 20, True, results)
     edge_cases_csr()
     edge_cases()
     edge_cases_blocked()
+    edge_cases_sl()
     small_reference()
     paths = {}
     paths["main_path"], n2v = main_path(src, dst, max_iter=1)
@@ -3034,6 +3609,8 @@ def main() -> int:
     paths["main_path_streaming"], engine, n_v = main_path_streaming(rmat_src, rmat_dst, max_iter=1)
     check_streaming_counts(engine, n_v, results)
     del engine
+    paths["main_path_shared_lists"] = main_path_shared_lists(rmat_src, rmat_dst, max_iter=1)
+    paths["main_path_shared_lists_er"] = main_path_shared_lists_er(g, max_iter=1)
     paths["main_path_host"], walks, vocab, slab = main_path_host(src, dst, max_iter=1)
     check_subsample(walks, vocab, slab, results)
     del walks
@@ -3067,6 +3644,10 @@ def main() -> int:
     quality_gates(sgd=True, auc_min=0.58, gap_min=0.145)
     quality_gates(trainer="run_pipeline", walker_chunk=2048, sgd=True, auc_min=0.575,
                   gap_min=0.135)
+    # the shared-list sampler on blocked tables at P = 8, C = 64, at q = 2
+    # (the sampler is off at q == 1), held to the blocked SGNS limits
+    quality_gates(blocked_widths=(8, 64), shared_lists=True, pq=(1.0, 2.0))
+    paths["main_path_wide"] = main_path_wide(g)
 
     kernels = []
     for name, counter, path in ROWS:
@@ -3076,7 +3657,8 @@ def main() -> int:
                         "replaces": replaces, "launches": paths[path]["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **{k: r[k] for k in ("staging", "mode") if k in r}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -8,9 +8,11 @@ returns ``cudaGetLastError()`` and ``check`` raises when it is not 0.  Nothing
 here runs at import: the CPU tests import every module, and this machine
 may have no ``nvcc``.
 
-``launches`` counts kernel launches by name.  Each wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.
+``launches`` counts kernel launches by name (and, under ``MODE_COUNTS``,
+those in a kernel's shared-list or global-staging mode).  Each wrapper adds
+one where it launches its kernel and nowhere else, so a run can show that
+its main path went through the kernels.  ``staging`` picks where the
+walk-at-a-time step kernels (K2, K8, K9, K10, K13) stage a walk.
 """
 
 from __future__ import annotations
@@ -33,8 +35,13 @@ KERNELS = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply",
            "blocked_walk", "vertex_counts", "subsample_walks", "hs_grads", "cbow_grads",
            "cbow_hs_grads", "preagg_rows", "sgd_apply", "csr_walk", "pair_lists",
            "sgns_pair_grads", "fused_adagrad", "alias_draw")
+# launches of a kernel in one of its modes, counted beside the kernel's own
+MODE_COUNTS = ("blocked_walk_sl_mixed", "blocked_walk_sl_exhaustive", "sgns_grads_global",
+               "hs_grads_global", "cbow_grads_global", "cbow_hs_grads_global",
+               "sgns_pair_grads_global")
 
 launches: collections.Counter = collections.Counter()
+STAGING_BLOCKS_PER_SM = 4  # global staging's grid: a small multiple of the SMs
 build_seconds: Optional[float] = None
 ptxas_report: str = ""
 
@@ -116,28 +123,28 @@ def lib() -> ctypes.CDLL:
         signatures = {
             "n2v_dense_walk": [vp, i32, vp, vp, i64, i32, i64, u32, f32, f32, i32, vp],
             "n2v_sgns_grads": [vp, vp, i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, f32,
-                               vp, vp, vp, vp, vp],
+                               vp, vp, vp, vp, vp, i32, vp],
             "n2v_adagrad_accumulate": [vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32,
                                        vp],
             "n2v_adagrad_apply": [vp, vp, vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32,
                                   f32, vp],
-            "n2v_blocked_walk": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i64, u32, f32, f32,
-                                 f32, i32, i32, i32, i32, i32, vp],
+            "n2v_blocked_walk": [vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i64, u32, f32,
+                                 f32, f32, i32, i32, i32, i32, i32, vp],
             "n2v_vertex_counts": [vp, i64, vp, i32, vp],
             "n2v_subsample_walks": [vp, i64, vp, i32, u32, u32, vp, vp],
             "n2v_hs_grads": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                             i32, vp, vp, vp, vp, vp, vp],
+                             i32, vp, vp, vp, vp, vp, vp, i32, vp],
             "n2v_cbow_grads": [vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, f32, i32,
-                               vp, vp, vp, vp, vp],
+                               vp, vp, vp, vp, vp, i32, vp],
             "n2v_cbow_hs_grads": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                  i32, vp, vp, vp, vp, vp],
+                                  i32, vp, vp, vp, vp, vp, i32, vp],
             "n2v_preagg_rows": [vp, i64, vp, vp, i32, vp, vp, vp, vp, vp, vp],
             "n2v_sgd_apply": [vp, vp, i32, vp, vp, vp, vp, i64, vp, vp, i64, vp, f32, f32, vp],
             "n2v_csr_walk": [vp, vp, vp, vp, vp, vp, i64, vp, vp, i64, i32, i64, u32, f32, f32,
                              f32, i32, i32, i32, i32, vp],
             "n2v_pair_lists": [vp, vp, vp, i32, i32, i32, vp, vp, vp],
             "n2v_sgns_pair_grads": [vp, vp, i32, vp, vp, vp, i32, i32, i32, i32, f32, vp, vp,
-                                    vp, vp, vp],
+                                    vp, vp, vp, i32, vp],
             "n2v_fused_adagrad": [vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32, f32, vp,
                                   vp, vp],
             "n2v_alias_draw": [vp, vp, vp, vp, vp, vp, vp, i64, vp, vp],
@@ -180,18 +187,38 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def require_smem(name: str, smem: int, shape: str, device, item: int) -> None:
-    """Refuse a launch whose dynamic shared memory exceeds the card's opt-in
-    limit per block; ``item`` is the ROADMAP Queue A item that tiles it."""
+def staging_stride(smem: int) -> int:
+    """Floats of workspace one block stages in: the shared carve of ``smem``
+    bytes rounded up to 128 B (csrc/staging.cuh: n2v::staging_stride)."""
+    return -(-int(smem) // 128) * 32
+
+
+def staging_mode(smem: int, limit: int) -> str:
+    """"shared" when a walk's ``smem`` bytes fit the card's opt-in shared
+    memory per block (``limit``), "global" otherwise."""
+    return "shared" if smem <= limit else "global"
+
+
+def staging(smem: int, n_walks: int, device):
+    """Where a step kernel stages a walk of ``smem`` bytes, chosen from its shape before the
+    launch: ``(None, 0)`` for shared memory, else a workspace tensor of
+    ``blocks`` slices and ``blocks``, the launch's grid (at most one block a
+    walk, at most ``STAGING_BLOCKS_PER_SM`` a multiprocessor, so the
+    workspace stays bounded).  Pass ``ptr_or_null(ws)`` and ``blocks`` to the
+    C entry, and keep ``ws`` alive across the call."""
     import torch
 
-    limit = getattr(torch.cuda.get_device_properties(device), "shared_memory_per_block_optin",
-                    232448)
-    if smem > limit:
-        raise ValueError(
-            f"{name} kernel needs {smem} B of shared memory for {shape}; the card allows "
-            f"{limit} (tiling over dim is ROADMAP Queue A item {item})"
-        )
+    props = torch.cuda.get_device_properties(device)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    if staging_mode(smem, limit) == "shared":
+        return None, 0
+    blocks = max(1, min(int(n_walks), STAGING_BLOCKS_PER_SM * props.multi_processor_count))
+    ws = torch.empty(blocks * staging_stride(smem), dtype=torch.float32, device=device)
+    return ws, blocks
+
+
+def ptr_or_null(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -69,10 +69,11 @@ class Node2Vec:
         (``Word2VecTorch.fit_host``), for corpora that do not fit on the
         card beside the tables.
 
-        ``shared_lists`` keeps the JAX signature and is passed to
-        ``WalkEngine``: "auto" (the default) and False run without the
-        shared-list sampler, True raises ``NotImplementedError`` (not
-        ported).
+        ``shared_lists`` is passed to ``WalkEngine``, as in the JAX package:
+        True builds the blocked engine's per-edge shared-neighbour lists and
+        walks with the exact 3-atom sampler at q != 1; "auto" (the default)
+        and False walk without them (auto uses only a prebuilt table, which
+        the pipeline never passes).
 
         ``table_sharding`` ("column", the default, or "row") picks the
         mesh trainer's table layout in the JAX package; it is validated as

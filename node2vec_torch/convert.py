@@ -75,11 +75,11 @@ def to_reference_fused(tab_in: torch.Tensor, tab_out: torch.Tensor
 
 def blocked_graph_from_arrays(
     light, biw, bids, brp, light_width: int, block_width: int, has_heavy: bool,
-    device="cuda",
+    device="cuda", slq=None, sl_ovf_wfrac: float = 1.0,
 ) -> BlockedGraph:
     """The port's BlockedGraph from host copies of the four tables (e.g.
-    ``np.asarray`` of a JAX BlockedGraph's), as contiguous int32 tensors on
-    ``device``."""
+    ``np.asarray`` of a JAX BlockedGraph's), and of its shared lists
+    ``slq`` when it has them, as contiguous int32 tensors on ``device``."""
     device = resolve_device(device)
     tables = [torch.from_numpy(np.array(a, dtype=np.int32, copy=True)).to(device)
               for a in (light, biw, bids, brp)]
@@ -90,4 +90,9 @@ def blocked_graph_from_arrays(
     if (tuple(tables[1].shape) != (nb, 2 * c) or tuple(tables[2].shape) != (nb, c)
             or tuple(tables[3].shape) != (nb * c // 64, 128)):
         raise ValueError("biw, bids and brp must be [NB, 2C], [NB, C] and [NB*C/64, 128]")
-    return BlockedGraph(*tables, int(light_width), c, bool(has_heavy))
+    if slq is not None:
+        slq = torch.from_numpy(np.array(slq, dtype=np.int32, copy=True)).to(device)
+        if slq.dim() != 2 or slq.shape[1] != 128:
+            raise ValueError(f"slq must be [*, 128], got {tuple(slq.shape)}")
+    return BlockedGraph(*tables, int(light_width), c, bool(has_heavy), slq,
+                        float(sl_ovf_wfrac))

@@ -2,9 +2,10 @@
 // CSR of heavy-tailed graphs, the whole walk inside one launch.
 //
 // Replaces node2vec_tpu/walk/blocked.py:732 blocked_walk_chunk_impl (loop
-// body :791-1093) with shared_lists=False, together with ops/hashrng.py and
-// ops/sampling.py:60 prefix_sums.  It computes what the plain version
-// walk/blocked.py:blocked_walk_chunk_plain computes, walker by walker.
+// body :791-1093), its shared-list branch (:772-1077) included, together
+// with ops/hashrng.py and ops/sampling.py:60 prefix_sums.  It computes what
+// the plain version walk/blocked.py:blocked_walk_chunk_plain computes,
+// walker by walker.
 //
 // Design: one warp per walker, the walker's state in registers (every lane
 // holds the same copy, so every branch is warp-uniform).  The current
@@ -25,6 +26,22 @@
 // iterations, and warps retire independently (the TPU cascade exists only
 // because its lanes advance in lockstep).
 //
+// Shared lists (modes 3 and 4): at each entry the warp reads the arrival
+// edge's 64-byte slq entry, one int a lane on lanes 0-15, and shuffles it so
+// that lane k < 8 holds the k-th stored (slot, weight); their sum and the
+// 8-weight inclusive scan are warp shuffles.  The 3-atom branch draws
+// back | shared | proportional-to-w from u_branch (the shared atom's slot by
+// ballot over the scan against u_prop * w_sh), forces the proposal's slot
+// (and a heavy vertex's block, before its weights are read) to the shared
+// pick, and accepts a proportional-to-w proposal unless it lands on a
+// stored slot.  Mode 3 (some edges overflowed) keeps the N(prev) probe for
+// lanes without a complete list; mode 4 (none did) drops the probe and the
+// prev-row swap.  The walker carries its arrival edge's global id: the
+// row's ebase lane (lane 4P: in the shared buffer for P <= 31, one scalar
+// load of a 256-lane row for P = 32) plus the accepted slot, or the stored
+// reverse-edge id after a return hop.  Draws stay keyed on att * 4, so a
+// lane that consumes no u_acc keeps every later draw where it was.
+//
 // Rounding: every float op is a _rn intrinsic so nvcc cannot contract it
 // into an FMA, and the operands are those of the plain version; where every
 // partial sum is exact (dyadic weights, p and q powers of two) the paths and
@@ -35,7 +52,8 @@
 // a heavy vertex's blocks in order, so it equals the count of non-PAD ids
 // that the plain version takes from the row, without reading the ids.
 //
-// Bound on an H100: bytes.  Per live walker-step one 512-byte light row; per
+// Bound on an H100: bytes.  Per live walker-step one 512-byte light row (and
+// with shared lists one 64-byte slq entry); per
 // attempt at a heavy vertex the block's C*4 weight bytes plus a 32-byte
 // sector each for the chosen id, its brp pair and the membership probe;
 // the paths written.  The kernel also reads the whole bids row (C*4 bytes)
@@ -68,11 +86,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+constexpr int kSlK = 8;         // shared-list entries an edge
+constexpr int kSlLanes = 16;    // int32 lanes of an edge's slq entry
+constexpr int kSlPadSlot = 0xFFFF;
+
 // mode: 0 = p = q = 1 (every proposal accepted), 1 = q == 1 (only the
-// return edge is biased), 2 = q != 1 (membership against N(prev))
+// return edge is biased), 2 = q != 1 (membership against N(prev)), 3 = q != 1
+// with shared lists, some overflowed (N(prev) for lanes without a list), 4 =
+// q != 1 with shared lists, none overflowed (no N(prev)).  kSl is mode >= 3:
+// the instantiation without shared lists carries none of their state.
+template <bool kSl>
 __global__ void __launch_bounds__(kWarps * 32)
-blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict__ biw,
+blocked_walk_kernel(const int32_t* __restrict__ light, int row_width,
+                    const int32_t* __restrict__ biw,
                     const int32_t* __restrict__ bids, const int32_t* __restrict__ brp,
+                    const int32_t* __restrict__ slq,  // read in modes 3 and 4 only
                     const int32_t* __restrict__ starts, int32_t* __restrict__ paths,
                     unsigned long long* __restrict__ counters, int64_t n_walkers,
                     int walk_length, int64_t gid_base, uint32_t seed, float inv_p,
@@ -94,6 +122,7 @@ blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict
     const int col0 = lane * k;
     int32_t* out = paths + w * (walk_length + 1);
     const uint32_t gid = static_cast<uint32_t>(gid_base + w);
+    const bool need_prev = mode == 2 || mode == 3;
 
     const int32_t start = starts[w];
     bool alive = start >= 0;
@@ -112,6 +141,13 @@ blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict
     int32_t my_id = kPadId;              // light column `lane`
     float my_w = 0.f, my_cdf = 0.f;
     float cum0 = 0.f, cum1 = 0.f;        // header CDF entries lane, lane + 32
+    // shared lists: the arrival edge's list (lane k < 8 holds entry k; the
+    // plain version's carried sl_row starts as zeros), decoded at entry
+    int64_t aedge = -1;
+    int32_t ebase_cur = 0, sl_rev = 0, sl_flags = 0;
+    int sl_slot = 0, n_sh = 0;
+    float sl_w = 0.f, sl_cdf = 0.f, w_sh = 0.f;
+    bool sl_valid = false;
 
     const uint32_t it_bound =
         static_cast<uint32_t>(walk_length) * static_cast<uint32_t>(max_trials + 2);
@@ -120,9 +156,26 @@ blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict
       if (need_entry) {
         need_entry = false;
         __syncwarp();  // every lane is done with the buffer overwritten here
-        reinterpret_cast<int4*>(cur_row)[lane] =
-            __ldg(reinterpret_cast<const int4*>(light + static_cast<int64_t>(cur) * kRow) + lane);
+        const int32_t* row_g = light + static_cast<int64_t>(cur) * row_width;
+        reinterpret_cast<int4*>(cur_row)[lane] = __ldg(reinterpret_cast<const int4*>(row_g) + lane);
         __syncwarp();
+        if (kSl) {
+          ebase_cur = 4 * p_l < kRow ? cur_row[4 * p_l] : __ldg(row_g + 4 * p_l);
+          if (aedge >= 0) {  // one slq entry per accepted step: the arrival edge's
+            const int32_t v = lane < kSlLanes ? __ldg(slq + aedge * kSlLanes + lane) : 0;
+            const int e = lane & (kSlK - 1);  // the entry this lane holds
+            const int32_t packed = __shfl_sync(kFull, v, e >> 1);
+            sl_slot = (e & 1) ? (packed >> 16) & 0xFFFF : packed & 0xFFFF;
+            sl_w = __int_as_float(__shfl_sync(kFull, v, kSlK / 2 + e));
+            sl_rev = __shfl_sync(kFull, v, 12);
+            sl_flags = __shfl_sync(kFull, v, 13);
+          }
+          const float wk = lane < kSlK ? sl_w : 0.f;
+          w_sh = warp_sum(wk);
+          sl_cdf = warp_incl_scan(wk, lane);
+          n_sh = __popc(__ballot_sync(kFull, lane < kSlK && sl_slot != kSlPadSlot));
+          sl_valid = aedge >= 0 && (sl_flags & 1) == 0;
+        }
         is_heavy = has_heavy && cur_row[0] < -1;
         if (is_heavy) {
           h_bs = cur_row[1];
@@ -151,17 +204,31 @@ blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict
       const float u_acc = n2v::hash_uniform(seed, gid, ctr + 2u);
 
       // --- mixture: back-edge atom vs prev-excluded proportional-to-w -------
-      bool take_back = false;
+      bool take_back = false, take_sh = false;
       float alpha2 = inv_q;
       float target;
+      int sh_slot = 0;
       if (mode == 0) {
         target = __fmul_rn(u_prop, wtot);
       } else {
         alpha2 = back_shared ? alpha_shared : inv_q;
         const float m1 = __fmul_rn(w_back, inv_p);
         const float rest = fmaxf(__fsub_rn(wtot, w_back), 0.f);
-        const float m2 = __fmul_rn(rest, alpha2);
-        take_back = u_branch < __fdiv_rn(m1, fmaxf(__fadd_rn(m1, m2), 1e-30f));
+        if (kSl) {
+          // the exact 3-atom mixture on lanes with a complete list
+          if (sl_valid) alpha2 = inv_q;
+          const float m1sh = __fadd_rn(m1, sl_valid ? w_sh : 0.f);
+          const float m2 = __fmul_rn(rest, alpha2);
+          const float ub = __fmul_rn(u_branch, __fadd_rn(m1sh, m2));
+          take_back = ub < m1;
+          take_sh = sl_valid && !take_back && ub < m1sh;
+          const float u_sh = __fmul_rn(u_prop, w_sh);
+          const int k_below = __popc(__ballot_sync(kFull, lane < kSlK && sl_cdf < u_sh));
+          sh_slot = __shfl_sync(kFull, sl_slot, min(k_below, max(n_sh - 1, 0)));
+        } else {
+          const float m2 = __fmul_rn(rest, alpha2);
+          take_back = u_branch < __fdiv_rn(m1, fmaxf(__fadd_rn(m1, m2), 1e-30f));
+        }
         const float u2 = __fmul_rn(u_prop, rest);
         target = u2 < back_pfx ? u2 : __fadd_rn(u2, w_back);
       }
@@ -169,9 +236,11 @@ blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict
       // --- proposal: two-level exact inverse CDF ----------------------------
       int32_t cand, rev_enc = 0;
       float w_cand, ppfx, pfx_c = 0.f;
+      int row_slot;  // the proposal's slot within N(cur)
       if (!is_heavy) {
         const int below = __popc(__ballot_sync(kFull, lane < p_l && my_cdf < target));
-        const int slot = min(below, max(degree - 1, 0));
+        const int slot = take_sh ? sh_slot : min(below, max(degree - 1, 0));
+        row_slot = slot;
         cand = __shfl_sync(kFull, my_id, slot);
         w_cand = __shfl_sync(kFull, my_w, slot);
         const float pc = __shfl_sync(kFull, my_cdf, max(slot - 1, 0));
@@ -183,7 +252,8 @@ blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict
       } else {
         const int nb_below = __popc(__ballot_sync(kFull, lane < maxb && cum0 < target)) +
                              __popc(__ballot_sync(kFull, lane + 32 < maxb && cum1 < target));
-        const int blk = min(nb_below, max(h_nb - 1, 0));
+        // a shared pick forces its block before the block's weights are read
+        const int blk = take_sh ? sh_slot / c : min(nb_below, max(h_nb - 1, 0));
         const float base = blk > 0 ? __int_as_float(cur_row[5 + maxb + blk - 1]) : 0.f;
         const float resid = __fsub_rn(target, base);
         const int64_t brow = static_cast<int64_t>(h_bs) + blk;
@@ -201,7 +271,8 @@ blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict
         }
         below = __reduce_add_sync(kFull, below);
         const int nvalid = min(c, degree - blk * c);
-        const int slot = min(below, max(nvalid - 1, 0));
+        const int slot = take_sh ? sh_slot % c : min(below, max(nvalid - 1, 0));
+        row_slot = blk * c + slot;
         float pc = 0.f;
         if (slot > 0) {  // cdf[slot - 1], recomputed by the lane that owns it
           const int j = slot - 1;
@@ -229,6 +300,12 @@ blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict
         accept = true;
       } else if (mode == 1) {
         accept = take_back || first_order || cand != prev;
+      } else if (kSl && (mode == 4 || (mode == 3 && sl_valid))) {
+        // a list lane: the only rejection is a proportional-to-w proposal on
+        // a stored shared slot (it belongs to the shared atom)
+        const bool hit =
+            __any_sync(kFull, lane < kSlK && sl_slot != kSlPadSlot && sl_slot == row_slot);
+        accept = (mode == 4 && first_order) || take_back || take_sh || (cand != prev && !hit);
       } else {
         bool shared;
         if (has_heavy && prev_row[0] < -1) {
@@ -268,9 +345,12 @@ blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict
           back_pfx = nb_pfx;
           back_shared = nb_shared;
         }
-        int32_t* tmp = prev_row;  // the frontier row becomes next step's N(prev)
-        prev_row = cur_row;
-        cur_row = tmp;
+        if (kSl) aedge = take ? sl_rev : static_cast<int64_t>(ebase_cur) + row_slot;
+        if (need_prev) {  // the frontier row becomes next step's N(prev)
+          int32_t* tmp = prev_row;
+          prev_row = cur_row;
+          cur_row = tmp;
+        }
         prev = cur;
         cur = nxt;
         ++t;
@@ -300,21 +380,24 @@ blocked_walk_kernel(const int32_t* __restrict__ light, const int32_t* __restrict
 
 }  // namespace
 
-extern "C" int n2v_blocked_walk(const int32_t* light, const int32_t* biw, const int32_t* bids,
-                                const int32_t* brp, const int32_t* starts, int32_t* paths,
+extern "C" int n2v_blocked_walk(const int32_t* light, int row_width, const int32_t* biw,
+                                const int32_t* bids, const int32_t* brp, const int32_t* slq,
+                                const int32_t* starts, int32_t* paths,
                                 int64_t* counters, int64_t n_walkers, int walk_length,
                                 int64_t gid_base, uint32_t seed, float inv_p, float inv_q,
                                 float alpha_shared, int max_trials, int light_width,
                                 int block_width, int has_heavy, int mode, void* stream) {
   if (light_width < 1 || light_width > 32 || block_width < 64 || block_width % 64 ||
-      block_width > 2048 || max_trials < 1 || mode < 0 || mode > 2 ||
+      block_width > 2048 || max_trials < 1 || mode < 0 || mode > 4 ||
+      (row_width != 128 && row_width != 256) || (mode >= 3 && row_width < 4 * light_width + 1) ||
       reinterpret_cast<uintptr_t>(light) % 16 || reinterpret_cast<uintptr_t>(brp) % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_walkers == 0) return 0;
   const int64_t blocks = (n_walkers + kWarps - 1) / kWarps;
-  blocked_walk_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      light, biw, bids, brp, starts, paths, reinterpret_cast<unsigned long long*>(counters),
+  auto kernel = mode >= 3 ? blocked_walk_kernel<true> : blocked_walk_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      light, row_width, biw, bids, brp, slq, starts, paths,
+      reinterpret_cast<unsigned long long*>(counters),
       n_walkers, walk_length, gid_base, seed, inv_p, inv_q, alpha_shared, max_trials,
       light_width, block_width, has_heavy, mode);
   return static_cast<int>(cudaGetLastError());

@@ -27,6 +27,10 @@
 // over the block's walks in shared memory and added with one fp32 atomic per
 // element per block at the end.  Loss parts go to loss_parts[block].
 //
+// Staging: a walk whose arrays exceed the card's shared memory per block
+// stages them in a per-block slice of a global workspace instead, with the
+// same body (staging.cuh); the wrapper picks the mode from the shape.
+//
 // Bound on an H100: about (6 S + 8 w + 5) flops per (position, column) on
 // the fp32 CUDA cores (the [B*L1, S] logits, g_neg . no and g_neg^T . h
 // dominate), against the distinct rows read and the live rows' grads written.
@@ -37,15 +41,16 @@ namespace {
 
 using namespace cbow;
 
-__global__ void __launch_bounds__(kThreads)
-cbow_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ emb_out,
-                  int dim, const int32_t* __restrict__ walks,
-                  const uint8_t* __restrict__ vocab_mask, const int32_t* __restrict__ b_sh,
-                  const int32_t* __restrict__ neg_ids, int n_walks, int length, int window,
-                  int n_neg, float neg_scale, int cbow_mean, float* __restrict__ g_in,
-                  float* __restrict__ d_out, float* __restrict__ d_no,
-                  float* __restrict__ loss_parts) {
-  extern __shared__ float sm[];
+// One block's work, every array of a walk carved from sm: the dynamic shared
+// memory, or the block's slice of a global workspace (staging.cuh).
+__device__ __forceinline__ void
+cbow_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restrict__ emb_out,
+                 int dim, const int32_t* __restrict__ walks,
+                 const uint8_t* __restrict__ vocab_mask, const int32_t* __restrict__ b_sh,
+                 const int32_t* __restrict__ neg_ids, int n_walks, int length, int window,
+                 int n_neg, float neg_scale, int cbow_mean, float* __restrict__ g_in,
+                 float* __restrict__ d_out, float* __restrict__ d_no,
+                 float* __restrict__ loss_parts) {
   const int L = length, D = dim, S = n_neg;
   float* xin = sm;             // [L, D] emb_in rows of the walk, then g_h
   float* xout = xin + L * D;   // [L, D] emb_out rows of the walk (each center's own)
@@ -155,6 +160,32 @@ cbow_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ em
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+cbow_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ emb_out, int dim,
+                  const int32_t* __restrict__ walks, const uint8_t* __restrict__ vocab_mask,
+                  const int32_t* __restrict__ b_sh, const int32_t* __restrict__ neg_ids,
+                  int n_walks, int length, int window, int n_neg, float neg_scale,
+                  int cbow_mean, float* __restrict__ g_in, float* __restrict__ d_out,
+                  float* __restrict__ d_no, float* __restrict__ loss_parts) {
+  extern __shared__ float sm[];
+  cbow_grads_block(sm, emb_in, emb_out, dim, walks, vocab_mask, b_sh, neg_ids, n_walks, length,
+                   window, n_neg, neg_scale, cbow_mean, g_in, d_out, d_no, loss_parts);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cbow_grads_kernel_staged(const float* __restrict__ emb_in, const float* __restrict__ emb_out,
+                         int dim, const int32_t* __restrict__ walks,
+                         const uint8_t* __restrict__ vocab_mask,
+                         const int32_t* __restrict__ b_sh, const int32_t* __restrict__ neg_ids,
+                         int n_walks, int length, int window, int n_neg, float neg_scale,
+                         int cbow_mean, float* __restrict__ g_in, float* __restrict__ d_out,
+                         float* __restrict__ d_no, float* __restrict__ loss_parts,
+                         float* __restrict__ ws, int64_t ws_stride) {
+  cbow_grads_block(ws + static_cast<int64_t>(blockIdx.x) * ws_stride, emb_in, emb_out, dim,
+                   walks, vocab_mask, b_sh, neg_ids, n_walks, length, window, n_neg, neg_scale,
+                   cbow_mean, g_in, d_out, d_no, loss_parts);
+}
+
 size_t smem_bytes(int length, int dim, int n_neg) {
   const size_t floats = 3 * static_cast<size_t>(length) * dim +
                         2 * static_cast<size_t>(n_neg) * dim +
@@ -170,20 +201,18 @@ extern "C" size_t n2v_cbow_grads_smem(int length, int dim, int n_neg) {
 }
 
 // loss_parts must hold 3 * n_walks zeros; d_no must be zeroed [n_neg, dim].
-// g_in and d_out [n_walks * length, dim] are written whole.
+// g_in and d_out [n_walks * length, dim] are written whole.  ws null: the
+// walk stages in shared memory; else in ws (staging.cuh).
 extern "C" int n2v_cbow_grads(const float* emb_in, const float* emb_out, int dim,
                               const int32_t* walks, const uint8_t* vocab_mask,
                               const int32_t* b_sh, const int32_t* neg_ids, int n_walks,
                               int length, int window, int n_neg, float neg_scale,
                               int cbow_mean, float* g_in, float* d_out, float* d_no,
-                              float* loss_parts, void* stream) {
+                              float* loss_parts, float* ws, int ws_blocks, void* stream) {
   if (n_walks == 0) return 0;
-  const size_t smem = smem_bytes(length, dim, n_neg);
-  int grid = 0;
-  const cudaError_t err = grid_size(cbow_grads_kernel, smem, n_walks, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cbow_grads_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      emb_in, emb_out, dim, walks, vocab_mask, b_sh, neg_ids, n_walks, length, window, n_neg,
-      neg_scale, cbow_mean, g_in, d_out, d_no, loss_parts);
-  return static_cast<int>(cudaGetLastError());
+  return n2v::launch_staged(
+      cbow_grads_kernel, cbow_grads_kernel_staged, kThreads,
+      smem_bytes(length, dim, n_neg), n_walks, ws, ws_blocks,
+      static_cast<cudaStream_t>(stream), emb_in, emb_out, dim, walks, vocab_mask, b_sh, neg_ids,
+      n_walks, length, window, n_neg, neg_scale, cbow_mean, g_in, d_out, d_no, loss_parts);
 }

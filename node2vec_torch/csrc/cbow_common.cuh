@@ -3,7 +3,8 @@
 // vector h (node2vec_tpu/models/cbow.py:60 _context_mean) and the scatter
 // of its gradient back onto the contexts (:94 _scatter_context_grads).
 //
-// Both kernels hold one walk at a time in shared memory: vpos[L] (position
+// Both kernels hold one walk at a time in shared memory (or their global
+// staging slice, staging.cuh): vpos[L] (position
 // valid and in the vocabulary), bsh[L] (its shrunk half-window) and cnt[L]
 // (its context count), beside [L, D] rows.
 
@@ -11,6 +12,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "staging.cuh"
 
 namespace cbow {
 
@@ -83,25 +86,6 @@ __device__ __forceinline__ void scatter_context(const float* gh, const int* vpos
     }
     g_in[e] = acc;
   }
-}
-
-// launch geometry shared by both kernels: as many blocks as fit on the card
-// at this shared-memory size, at most one a walk
-template <typename Kernel>
-cudaError_t grid_size(Kernel kernel, size_t smem, int n_walks, int* grid) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
-      cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *grid = n_walks < per_sm * n_sm ? n_walks : per_sm * n_sm;
-  return cudaSuccess;
 }
 
 }  // namespace cbow

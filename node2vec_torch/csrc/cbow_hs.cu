@@ -24,6 +24,10 @@
 // of its emb_in row: no other warp writes it, and the entries are summed in
 // path order).  g_in is then gathered from g_h per (position, column).
 //
+// Staging: a walk whose arrays exceed the card's shared memory per block
+// stages them in a per-block slice of a global workspace instead, with the
+// same body (staging.cuh); the wrapper picks the mode from the shape.
+//
 // Bound on an H100: bytes — the per-occurrence path gradients written
 // (B * L1 * CL * D * 4) and the theta rows on the paths read, against
 // 5 * D flops per live path entry on the fp32 CUDA cores.
@@ -34,16 +38,17 @@ namespace {
 
 using namespace cbow;
 
-__global__ void __launch_bounds__(kThreads)
-cbow_hs_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ theta,
-                     int dim, const int32_t* __restrict__ walks,
-                     const uint8_t* __restrict__ vocab_mask, const int32_t* __restrict__ b_sh,
-                     const int32_t* __restrict__ points, const int8_t* __restrict__ codes,
-                     const int32_t* __restrict__ lengths, int cl, int n_walks, int length,
-                     int window, int cbow_mean, float* __restrict__ g_in,
-                     float* __restrict__ g_theta, int32_t* __restrict__ theta_rows,
-                     float* __restrict__ loss_parts) {
-  extern __shared__ float sm[];
+// One block's work, every array of a walk carved from sm: the dynamic shared
+// memory, or the block's slice of a global workspace (staging.cuh).
+__device__ __forceinline__ void
+cbow_hs_grads_block(float* sm, const float* __restrict__ emb_in,
+                    const float* __restrict__ theta, int dim, const int32_t* __restrict__ walks,
+                    const uint8_t* __restrict__ vocab_mask, const int32_t* __restrict__ b_sh,
+                    const int32_t* __restrict__ points, const int8_t* __restrict__ codes,
+                    const int32_t* __restrict__ lengths, int cl, int n_walks, int length,
+                    int window, int cbow_mean, float* __restrict__ g_in,
+                    float* __restrict__ g_theta, int32_t* __restrict__ theta_rows,
+                    float* __restrict__ loss_parts) {
   const int L = length, D = dim;
   float* xin = sm;           // [L, D] emb_in rows of the walk, then g_h
   float* h = xin + L * D;    // [L, D] hidden vectors
@@ -126,6 +131,37 @@ cbow_hs_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+cbow_hs_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ theta, int dim,
+                     const int32_t* __restrict__ walks, const uint8_t* __restrict__ vocab_mask,
+                     const int32_t* __restrict__ b_sh, const int32_t* __restrict__ points,
+                     const int8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
+                     int cl, int n_walks, int length, int window, int cbow_mean,
+                     float* __restrict__ g_in, float* __restrict__ g_theta,
+                     int32_t* __restrict__ theta_rows, float* __restrict__ loss_parts) {
+  extern __shared__ float sm[];
+  cbow_hs_grads_block(sm, emb_in, theta, dim, walks, vocab_mask, b_sh, points, codes, lengths,
+                      cl, n_walks, length, window, cbow_mean, g_in, g_theta, theta_rows,
+                      loss_parts);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cbow_hs_grads_kernel_staged(const float* __restrict__ emb_in, const float* __restrict__ theta,
+                            int dim, const int32_t* __restrict__ walks,
+                            const uint8_t* __restrict__ vocab_mask,
+                            const int32_t* __restrict__ b_sh,
+                            const int32_t* __restrict__ points,
+                            const int8_t* __restrict__ codes,
+                            const int32_t* __restrict__ lengths, int cl, int n_walks,
+                            int length, int window, int cbow_mean, float* __restrict__ g_in,
+                            float* __restrict__ g_theta, int32_t* __restrict__ theta_rows,
+                            float* __restrict__ loss_parts, float* __restrict__ ws,
+                            int64_t ws_stride) {
+  cbow_hs_grads_block(ws + static_cast<int64_t>(blockIdx.x) * ws_stride, emb_in, theta, dim,
+                      walks, vocab_mask, b_sh, points, codes, lengths, cl, n_walks, length,
+                      window, cbow_mean, g_in, g_theta, theta_rows, loss_parts);
+}
+
 size_t smem_bytes(int length, int dim) {
   const size_t floats = 2 * static_cast<size_t>(length) * dim + length + 2 * kWarps;
   return floats * sizeof(float) + 4 * sizeof(int) * static_cast<size_t>(length);
@@ -139,21 +175,19 @@ extern "C" size_t n2v_cbow_hs_grads_smem(int length, int dim) {
 
 // loss_parts must hold 2 * n_walks zeros.  g_in [n_walks * length, dim],
 // g_theta [n_walks * length * cl, dim] and theta_rows [n_walks * length * cl]
-// are written whole.
+// are written whole.  ws null: the walk stages in shared memory; else in ws
+// (staging.cuh).
 extern "C" int n2v_cbow_hs_grads(const float* emb_in, const float* theta, int dim,
                                  const int32_t* walks, const uint8_t* vocab_mask,
                                  const int32_t* b_sh, const int32_t* points,
                                  const int8_t* codes, const int32_t* lengths, int cl,
                                  int n_walks, int length, int window, int cbow_mean,
                                  float* g_in, float* g_theta, int32_t* theta_rows,
-                                 float* loss_parts, void* stream) {
+                                 float* loss_parts, float* ws, int ws_blocks, void* stream) {
   if (n_walks == 0) return 0;
-  const size_t smem = smem_bytes(length, dim);
-  int grid = 0;
-  const cudaError_t err = grid_size(cbow_hs_grads_kernel, smem, n_walks, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cbow_hs_grads_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  return n2v::launch_staged(
+      cbow_hs_grads_kernel, cbow_hs_grads_kernel_staged, kThreads,
+      smem_bytes(length, dim), n_walks, ws, ws_blocks, static_cast<cudaStream_t>(stream),
       emb_in, theta, dim, walks, vocab_mask, b_sh, points, codes, lengths, cl, n_walks, length,
       window, cbow_mean, g_in, g_theta, theta_rows, loss_parts);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -33,12 +33,18 @@
 // take global atomics, one per (position, column) of the walk.  Loss parts
 // go to loss_parts[block] (the log-sigmoid sum and the pair count).
 //
+// Staging: a walk whose arrays exceed the card's shared memory per block
+// stages them in a per-block slice of a global workspace instead, with the
+// same body (staging.cuh); the wrapper picks the mode from the shape.
+//
 // Bound on an H100: the per-occurrence tail gradients written (B * L1 * CLT
 // * D * 4 bytes) against 6 * D flops per live (pair, path entry) on the fp32
 // CUDA cores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "staging.cuh"
 
 namespace {
 
@@ -69,19 +75,17 @@ __host__ __device__ __forceinline__ int shared_head_rows(int k_rows) {
   return k_rows < kSharedHeadRows ? k_rows : kSharedHeadRows;
 }
 
-__global__ void __launch_bounds__(kThreads)
-hs_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ theta,
-                int dim, const int32_t* __restrict__ walks,
-                const uint8_t* __restrict__ vocab_mask,
-                const int32_t* __restrict__ b_sh,
-                const int32_t* __restrict__ points,
-                const int8_t* __restrict__ codes,
-                const int32_t* __restrict__ lengths, int cl, int n_walks,
-                int length, int window, int n_head, int k_rows,
-                float* __restrict__ g_in, float* __restrict__ g_tail,
-                int32_t* __restrict__ tail_rows, float* __restrict__ d_head,
-                float* __restrict__ loss_parts) {
-  extern __shared__ float sm[];
+// One block's work, every array of a walk carved from sm: the dynamic shared
+// memory, or the block's slice of a global workspace (staging.cuh).
+__device__ __forceinline__ void
+hs_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restrict__ theta,
+               int dim, const int32_t* __restrict__ walks,
+               const uint8_t* __restrict__ vocab_mask, const int32_t* __restrict__ b_sh,
+               const int32_t* __restrict__ points, const int8_t* __restrict__ codes,
+               const int32_t* __restrict__ lengths, int cl, int n_walks, int length, int window,
+               int n_head, int k_rows, float* __restrict__ g_in, float* __restrict__ g_tail,
+               int32_t* __restrict__ tail_rows, float* __restrict__ d_head,
+               float* __restrict__ loss_parts) {
   const int L = length, D = dim, W2 = 2 * window, CLT = cl - n_head;
   const int KS = shared_head_rows(k_rows);
   float* xin = sm;              // [L, D] emb_in rows of the walk
@@ -210,6 +214,36 @@ hs_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ thet
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+hs_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ theta, int dim,
+                const int32_t* __restrict__ walks, const uint8_t* __restrict__ vocab_mask,
+                const int32_t* __restrict__ b_sh, const int32_t* __restrict__ points,
+                const int8_t* __restrict__ codes, const int32_t* __restrict__ lengths, int cl,
+                int n_walks, int length, int window, int n_head, int k_rows,
+                float* __restrict__ g_in, float* __restrict__ g_tail,
+                int32_t* __restrict__ tail_rows, float* __restrict__ d_head,
+                float* __restrict__ loss_parts) {
+  extern __shared__ float sm[];
+  hs_grads_block(sm, emb_in, theta, dim, walks, vocab_mask, b_sh, points, codes, lengths, cl,
+                 n_walks, length, window, n_head, k_rows, g_in, g_tail, tail_rows, d_head,
+                 loss_parts);
+}
+
+__global__ void __launch_bounds__(kThreads)
+hs_grads_kernel_staged(const float* __restrict__ emb_in, const float* __restrict__ theta,
+                       int dim, const int32_t* __restrict__ walks,
+                       const uint8_t* __restrict__ vocab_mask, const int32_t* __restrict__ b_sh,
+                       const int32_t* __restrict__ points, const int8_t* __restrict__ codes,
+                       const int32_t* __restrict__ lengths, int cl, int n_walks, int length,
+                       int window, int n_head, int k_rows, float* __restrict__ g_in,
+                       float* __restrict__ g_tail, int32_t* __restrict__ tail_rows,
+                       float* __restrict__ d_head, float* __restrict__ loss_parts,
+                       float* __restrict__ ws, int64_t ws_stride) {
+  hs_grads_block(ws + static_cast<int64_t>(blockIdx.x) * ws_stride, emb_in, theta, dim, walks,
+                 vocab_mask, b_sh, points, codes, lengths, cl, n_walks, length, window, n_head,
+                 k_rows, g_in, g_tail, tail_rows, d_head, loss_parts);
+}
+
 size_t smem_bytes(int length, int dim, int cl, int window, int k_rows) {
   const size_t floats = 3 * static_cast<size_t>(length) * dim +
                         static_cast<size_t>(shared_head_rows(k_rows)) * dim +
@@ -226,30 +260,21 @@ extern "C" size_t n2v_hs_grads_smem(int length, int dim, int cl, int window, int
 
 // loss_parts must hold 2 * n_walks zeros; d_head must be zeroed [k_rows, dim].
 // g_in [n_walks * length, dim], g_tail [n_walks * length * (cl - n_head), dim]
-// and tail_rows [n_walks * length * (cl - n_head)] are written whole.
+// and tail_rows [n_walks * length * (cl - n_head)] are written whole.  ws
+// null: the walk stages in shared memory; else in ws (staging.cuh).
 extern "C" int n2v_hs_grads(const float* emb_in, const float* theta, int dim,
                             const int32_t* walks, const uint8_t* vocab_mask,
                             const int32_t* b_sh, const int32_t* points,
                             const int8_t* codes, const int32_t* lengths, int cl,
                             int n_walks, int length, int window, int n_head,
                             int k_rows, float* g_in, float* g_tail, int32_t* tail_rows,
-                            float* d_head, float* loss_parts, void* stream) {
+                            float* d_head, float* loss_parts, float* ws, int ws_blocks,
+                            void* stream) {
   if (n_walks == 0) return 0;
-  const size_t smem = smem_bytes(length, dim, cl, window, k_rows);
-  cudaError_t err = cudaFuncSetAttribute(
-      hs_grads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hs_grads_kernel, kThreads,
-                                                           smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int grid = n_walks < per_sm * n_sm ? n_walks : per_sm * n_sm;
-  hs_grads_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      emb_in, theta, dim, walks, vocab_mask, b_sh, points, codes, lengths, cl, n_walks,
-      length, window, n_head, k_rows, g_in, g_tail, tail_rows, d_head, loss_parts);
-  return static_cast<int>(cudaGetLastError());
+  return n2v::launch_staged(
+      hs_grads_kernel, hs_grads_kernel_staged, kThreads,
+      smem_bytes(length, dim, cl, window, k_rows), n_walks, ws, ws_blocks,
+      static_cast<cudaStream_t>(stream), emb_in, theta, dim, walks, vocab_mask, b_sh, points,
+      codes, lengths, cl, n_walks, length, window, n_head, k_rows, g_in, g_tail, tail_rows,
+      d_head, loss_parts);
 }

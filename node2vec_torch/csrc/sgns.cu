@@ -19,6 +19,10 @@
 // partials go to loss_parts[block] (pos, neg without the K/S factor, sum of
 // mult) and are summed by the wrapper.
 //
+// Staging: a walk whose arrays exceed the card's shared memory per block
+// stages them in a per-block slice of a global workspace instead, with the
+// same body (staging.cuh); the wrapper picks the mode from the shape.
+//
 // Bound on an H100: 3 * 2 * B * L1 * S * D flops (nl, g_neg . no and
 // g_neg^T . x_in) on the fp32 CUDA cores, against 2 * B * L1 * D * 4 bytes of
 // row reads and the same again of grads written.
@@ -32,6 +36,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "staging.cuh"
 
 namespace {
 
@@ -57,17 +63,16 @@ __device__ __forceinline__ int offset_of(int o, int window) {
   return o < window ? o - window : o - window + 1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-sgns_grads_kernel(const float* __restrict__ emb_in,
-                  const float* __restrict__ emb_out, int dim, int ld,
-                  const int32_t* __restrict__ walks,
-                  const uint8_t* __restrict__ vocab_mask,
-                  const int32_t* __restrict__ b_sh,
-                  const int32_t* __restrict__ neg_ids, int n_walks, int length,
-                  int window, int n_neg, float neg_scale,
-                  float* __restrict__ g_in, float* __restrict__ g_out,
-                  float* __restrict__ d_no, float* __restrict__ loss_parts) {
-  extern __shared__ float sm[];
+// One block's work, every array of a walk carved from sm: the dynamic shared
+// memory, or the block's slice of a global workspace (staging.cuh).
+__device__ __forceinline__ void
+sgns_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restrict__ emb_out,
+                 int dim, int ld, const int32_t* __restrict__ walks,
+                 const uint8_t* __restrict__ vocab_mask, const int32_t* __restrict__ b_sh,
+                 const int32_t* __restrict__ neg_ids, int n_walks, int length, int window,
+                 int n_neg, float neg_scale, float* __restrict__ g_in,
+                 float* __restrict__ g_out, float* __restrict__ d_no,
+                 float* __restrict__ loss_parts) {
   const int L = length, D = dim, S = n_neg, W2 = 2 * window;
   float* xin = sm;              // [L, D]
   float* xout = xin + L * D;    // [L, D]
@@ -186,6 +191,33 @@ sgns_grads_kernel(const float* __restrict__ emb_in,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+sgns_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ emb_out, int dim,
+                  int ld, const int32_t* __restrict__ walks,
+                  const uint8_t* __restrict__ vocab_mask, const int32_t* __restrict__ b_sh,
+                  const int32_t* __restrict__ neg_ids, int n_walks, int length, int window,
+                  int n_neg, float neg_scale, float* __restrict__ g_in,
+                  float* __restrict__ g_out, float* __restrict__ d_no,
+                  float* __restrict__ loss_parts) {
+  extern __shared__ float sm[];
+  sgns_grads_block(sm, emb_in, emb_out, dim, ld, walks, vocab_mask, b_sh, neg_ids, n_walks,
+                   length, window, n_neg, neg_scale, g_in, g_out, d_no, loss_parts);
+}
+
+__global__ void __launch_bounds__(kThreads)
+sgns_grads_kernel_staged(const float* __restrict__ emb_in, const float* __restrict__ emb_out,
+                         int dim, int ld, const int32_t* __restrict__ walks,
+                         const uint8_t* __restrict__ vocab_mask,
+                         const int32_t* __restrict__ b_sh, const int32_t* __restrict__ neg_ids,
+                         int n_walks, int length, int window, int n_neg, float neg_scale,
+                         float* __restrict__ g_in, float* __restrict__ g_out,
+                         float* __restrict__ d_no, float* __restrict__ loss_parts,
+                         float* __restrict__ ws, int64_t ws_stride) {
+  sgns_grads_block(ws + static_cast<int64_t>(blockIdx.x) * ws_stride, emb_in, emb_out, dim, ld,
+                   walks, vocab_mask, b_sh, neg_ids, n_walks, length, window, n_neg, neg_scale,
+                   g_in, g_out, d_no, loss_parts);
+}
+
 size_t smem_bytes(int length, int dim, int n_neg, int window) {
   const size_t floats = 2 * static_cast<size_t>(length) * dim +
                         2 * static_cast<size_t>(n_neg) * dim +
@@ -202,30 +234,20 @@ extern "C" size_t n2v_sgns_grads_smem(int length, int dim, int n_neg, int window
 }
 
 // loss_parts must hold 3 * n_walks zeros; d_no must be zeroed [n_neg, dim];
-// the tables are [V, ld] with ld >= dim, their first dim columns read.
+// the tables are [V, ld] with ld >= dim, their first dim columns read.  ws
+// null: the walk stages in shared memory; else in ws, ws_blocks blocks of
+// n2v::staging_stride(n2v_sgns_grads_smem(...)) floats (staging.cuh).
 extern "C" int n2v_sgns_grads(const float* emb_in, const float* emb_out, int dim,
                               int ld, const int32_t* walks, const uint8_t* vocab_mask,
                               const int32_t* b_sh, const int32_t* neg_ids,
                               int n_walks, int length, int window, int n_neg,
                               float neg_scale, float* g_in, float* g_out,
-                              float* d_no, float* loss_parts, void* stream) {
+                              float* d_no, float* loss_parts, float* ws, int ws_blocks,
+                              void* stream) {
   if (n_walks == 0) return 0;
-  const size_t smem = smem_bytes(length, dim, n_neg, window);
-  cudaError_t err = cudaFuncSetAttribute(
-      sgns_grads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, sgns_grads_kernel, kThreads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int grid = n_walks < per_sm * n_sm ? n_walks : per_sm * n_sm;
-  sgns_grads_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      emb_in, emb_out, dim, ld, walks, vocab_mask, b_sh, neg_ids, n_walks, length,
-      window, n_neg, neg_scale, g_in, g_out, d_no, loss_parts);
-  return static_cast<int>(cudaGetLastError());
+  return n2v::launch_staged(
+      sgns_grads_kernel, sgns_grads_kernel_staged, kThreads,
+      smem_bytes(length, dim, n_neg, window), n_walks, ws, ws_blocks,
+      static_cast<cudaStream_t>(stream), emb_in, emb_out, dim, ld, walks, vocab_mask, b_sh,
+      neg_ids, n_walks, length, window, n_neg, neg_scale, g_in, g_out, d_no, loss_parts);
 }

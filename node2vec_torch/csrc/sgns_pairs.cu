@@ -26,6 +26,10 @@
 //                 shared memory, one fp32 atomic per entry per block)
 //     This is the JAX function, with its sums taken in another order.
 //
+// Staging: a walk whose arrays exceed the card's shared memory per block
+// stages them in a per-block slice of a global workspace instead, with the
+// same body (staging.cuh); the wrapper picks the mode from the shape.
+//
 // Bound on an H100: memory.  The per-lane gradients the JAX function defines
 // are the largest output: 2 * P * D * 4 bytes written (550 MB at B = 2,560,
 // L1 = 21, w = 5, D = 128), which K3/K4 then read back per occurrence.  The
@@ -35,6 +39,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "staging.cuh"
 
 namespace {
 
@@ -82,15 +88,15 @@ pair_lists_kernel(const int32_t* __restrict__ walks, const int32_t* __restrict__
   contexts[p] = valid ? x : -1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-pair_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ emb_out,
-                  int dim, const int32_t* __restrict__ walks,
-                  const int32_t* __restrict__ centers,
-                  const int32_t* __restrict__ neg_ids, int n_walks, int length,
-                  int window, int n_neg, float neg_scale, float* __restrict__ d_ci,
-                  float* __restrict__ d_co, float* __restrict__ d_no,
-                  float* __restrict__ loss_parts) {
-  extern __shared__ float sm[];
+// One block's work, every array of a walk carved from sm: the dynamic shared
+// memory, or the block's slice of a global workspace (staging.cuh).
+__device__ __forceinline__ void
+pair_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restrict__ emb_out,
+                 int dim, const int32_t* __restrict__ walks,
+                 const int32_t* __restrict__ centers, const int32_t* __restrict__ neg_ids,
+                 int n_walks, int length, int window, int n_neg, float neg_scale,
+                 float* __restrict__ d_ci, float* __restrict__ d_co, float* __restrict__ d_no,
+                 float* __restrict__ loss_parts) {
   const int L = length, D = dim, S = n_neg, W2 = 2 * window;
   float* xin = sm;              // [L, D] emb_in at the walk's positions
   float* xout = xin + L * D;    // [L, D] emb_out at the walk's positions
@@ -211,6 +217,32 @@ pair_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ em
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+pair_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ emb_out, int dim,
+                  const int32_t* __restrict__ walks, const int32_t* __restrict__ centers,
+                  const int32_t* __restrict__ neg_ids, int n_walks, int length, int window,
+                  int n_neg, float neg_scale, float* __restrict__ d_ci,
+                  float* __restrict__ d_co, float* __restrict__ d_no,
+                  float* __restrict__ loss_parts) {
+  extern __shared__ float sm[];
+  pair_grads_block(sm, emb_in, emb_out, dim, walks, centers, neg_ids, n_walks, length, window,
+                   n_neg, neg_scale, d_ci, d_co, d_no, loss_parts);
+}
+
+__global__ void __launch_bounds__(kThreads)
+pair_grads_kernel_staged(const float* __restrict__ emb_in, const float* __restrict__ emb_out,
+                         int dim, const int32_t* __restrict__ walks,
+                         const int32_t* __restrict__ centers,
+                         const int32_t* __restrict__ neg_ids, int n_walks, int length,
+                         int window, int n_neg, float neg_scale, float* __restrict__ d_ci,
+                         float* __restrict__ d_co, float* __restrict__ d_no,
+                         float* __restrict__ loss_parts, float* __restrict__ ws,
+                         int64_t ws_stride) {
+  pair_grads_block(ws + static_cast<int64_t>(blockIdx.x) * ws_stride, emb_in, emb_out, dim,
+                   walks, centers, neg_ids, n_walks, length, window, n_neg, neg_scale, d_ci,
+                   d_co, d_no, loss_parts);
+}
+
 size_t smem_bytes(int length, int dim, int n_neg, int window) {
   const size_t floats = 3 * static_cast<size_t>(length) * dim +
                         2 * static_cast<size_t>(n_neg) * dim +
@@ -241,30 +273,18 @@ extern "C" int n2v_pair_lists(const int32_t* walks, const int32_t* b_sh,
 }
 
 // Launch 2, on launch 1's centers.  loss_parts must hold 3 * n_walks zeros;
-// d_no must be zeroed [n_neg, dim].
+// d_no must be zeroed [n_neg, dim].  ws null: the walk stages in shared
+// memory; else in ws (staging.cuh).
 extern "C" int n2v_sgns_pair_grads(const float* emb_in, const float* emb_out, int dim,
                                    const int32_t* walks, const int32_t* centers,
                                    const int32_t* neg_ids, int n_walks, int length,
                                    int window, int n_neg, float neg_scale, float* d_ci,
-                                   float* d_co, float* d_no, float* loss_parts,
-                                   void* stream) {
+                                   float* d_co, float* d_no, float* loss_parts, float* ws,
+                                   int ws_blocks, void* stream) {
   if (n_walks == 0) return 0;
-  const size_t smem = smem_bytes(length, dim, n_neg, window);
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_grads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, pair_grads_kernel, kThreads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int grid = n_walks < per_sm * n_sm ? n_walks : per_sm * n_sm;
-  pair_grads_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      emb_in, emb_out, dim, walks, centers, neg_ids, n_walks, length, window, n_neg,
-      neg_scale, d_ci, d_co, d_no, loss_parts);
-  return static_cast<int>(cudaGetLastError());
+  return n2v::launch_staged(
+      pair_grads_kernel, pair_grads_kernel_staged, kThreads,
+      smem_bytes(length, dim, n_neg, window), n_walks, ws, ws_blocks,
+      static_cast<cudaStream_t>(stream), emb_in, emb_out, dim, walks, centers, neg_ids, n_walks,
+      length, window, n_neg, neg_scale, d_ci, d_co, d_no, loss_parts);
 }

@@ -150,23 +150,27 @@ def label_cosine_gap(
     return float(cos[share].mean() - cos[~share].mean())
 
 
-def _walk_engine(graph: Graph, n2v_params, device, blocked_widths=None):
+def _walk_engine(graph: Graph, n2v_params, device, blocked_widths=None,
+                 shared_lists: bool = False):
     """WalkEngine over ``graph``; with ``blocked_widths = (P, C)`` on the
-    blocked engine, its tables built at those widths."""
+    blocked engine, its tables built at those widths (with the shared-list
+    sampler's lists when ``shared_lists``)."""
     from node2vec_torch.walk import WalkEngine
     from node2vec_torch.walk.blocked import build_blocked_graph
 
     if blocked_widths is None:
-        return WalkEngine(graph, n2v_params, device=device)
+        return WalkEngine(graph, n2v_params, device=device, shared_lists=shared_lists)
     bg = build_blocked_graph(graph.indptr, graph.indices, graph.weights,
-                             *blocked_widths, device=device)
-    return WalkEngine(graph, n2v_params, strategy="blocked", device=device, blocked_graph=bg)
+                             *blocked_widths, shared_lists=shared_lists, device=device)
+    return WalkEngine(graph, n2v_params, strategy="blocked", device=device, blocked_graph=bg,
+                      shared_lists=shared_lists)
 
 
 TRAINERS = ("fit", "run_pipeline", "host_corpus")
 
 
-def _train(graph: Graph, n2v, w2v, seed: int, device, blocked_widths, trainer: str):
+def _train(graph: Graph, n2v, w2v, seed: int, device, blocked_widths, trainer: str,
+           shared_lists: bool = False):
     """Walk ``graph`` and train; returns (model, walk strategy).  ``trainer``
     is "fit" (walks to the host, then ``Word2VecTorch.fit``),
     "run_pipeline" (``Node2Vec.run_pipeline()`` with its defaults: it
@@ -176,7 +180,7 @@ def _train(graph: Graph, n2v, w2v, seed: int, device, blocked_widths, trainer: s
 
     if trainer not in TRAINERS:
         raise ValueError(f"trainer must be one of {TRAINERS}, got {trainer!r}")
-    engine = _walk_engine(graph, n2v, device, blocked_widths)
+    engine = _walk_engine(graph, n2v, device, blocked_widths, shared_lists)
     if trainer == "fit":
         walks = engine.run(seed=seed)
         return Word2VecTorch(w2v, device=device).fit(walks, n_vertices=graph.n_vertices), \
@@ -191,16 +195,18 @@ def _train(graph: Graph, n2v, w2v, seed: int, device, blocked_widths, trainer: s
 
 def train_embeddings(graph: Graph, n2v_params=None, w2v_params=None, seed: int = 0,
                      device="cuda", blocked_widths=None,
-                     trainer: str = "fit") -> Tuple[np.ndarray, str]:
+                     trainer: str = "fit", shared_lists: bool = False) -> Tuple[np.ndarray, str]:
     """Walks -> SGNS on the full graph, as ``run_quality`` trains:
     returns (input vectors [V, D], walk strategy).  ``blocked_widths =
     (light_width, block_width)`` walks on the blocked engine at those
-    widths whatever the graph's degrees; ``trainer`` as in ``_train``."""
+    widths whatever the graph's degrees, with the shared-list sampler when
+    ``shared_lists``; ``trainer`` as in ``_train``."""
     from node2vec_torch.constants import Node2VecParams, Word2VecParams
 
     n2v = n2v_params or Node2VecParams(num_walks=10, walk_length=80)
     w2v = w2v_params or Word2VecParams(min_count=1, max_iter=5)
-    model, strategy = _train(graph, n2v, w2v, seed, device, blocked_widths, trainer)
+    model, strategy = _train(graph, n2v, w2v, seed, device, blocked_widths, trainer,
+                             shared_lists)
     return model.vectors, strategy
 
 
@@ -240,10 +246,12 @@ def holdout_link_prediction(
     device="cuda",
     blocked_widths=None,
     trainer: str = "fit",
+    shared_lists: bool = False,
 ) -> Dict[str, float]:
     """Honest link-prediction AUC: hold out edges BEFORE walk generation,
     embed on the rest, score held-out edges vs sampled non-edges.
-    ``blocked_widths`` and ``trainer`` as in ``train_embeddings``."""
+    ``blocked_widths``, ``trainer`` and ``shared_lists`` as in
+    ``train_embeddings``."""
     from node2vec_torch.constants import Node2VecParams, Word2VecParams
     from node2vec_torch.eval import link_prediction_auc
 
@@ -251,7 +259,7 @@ def holdout_link_prediction(
     g_train = from_edge_arrays(*kept, n_vertices=graph.n_vertices, directed=True)
     model, _ = _train(g_train, n2v_params or Node2VecParams(),
                       w2v_params or Word2VecParams(min_count=1, max_iter=5), seed, device,
-                      blocked_widths, trainer)
+                      blocked_widths, trainer, shared_lists)
     emb = model.vectors
     emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
     return {"holdout_link_auc": link_prediction_auc(emb, pos, neg)}

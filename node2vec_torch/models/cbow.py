@@ -149,8 +149,8 @@ def cbow_grads(emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids, *, window: int
     dim = emb_in.shape[1]
     s = neg_ids.shape[0]
     lib = _build.lib()
-    _build.require_smem("cbow_grads", lib.n2v_cbow_grads_smem(length, dim, s),
-                        f"walk length {length}, dim {dim}, {s} negatives", emb_in.device, 16)
+    ws, ws_blocks = _build.staging(lib.n2v_cbow_grads_smem(length, dim, s), n_walks,
+                                   emb_in.device)
     dev = emb_in.device
     g_in = torch.empty((n_walks * length, dim), dtype=torch.float32, device=dev)
     d_out = torch.empty_like(g_in)
@@ -162,10 +162,12 @@ def cbow_grads(emb_in, emb_out, walks, vocab_mask, b_sh, neg_ids, *, window: int
         _build.ptr(vocab_mask), _build.ptr(b_sh), _build.ptr(neg_ids),
         n_walks, length, window, s, float(np.float32(neg_scale)), int(cbow_mean),
         _build.ptr(g_in), _build.ptr(d_out), _build.ptr(d_no), _build.ptr(parts),
-        _build.stream_of(emb_in),
+        _build.ptr_or_null(ws), ws_blocks, _build.stream_of(emb_in),
     )
     _build.check(rc, "cbow_grads")
     _build.launches["cbow_grads"] += 1
+    if ws is not None:
+        _build.launches["cbow_grads_global"] += 1
     tot = parts.sum(dim=0)
     loss = -(tot[0] + neg_scale * tot[1]) / torch.clamp(tot[2], min=1.0)
     return g_in, d_out, d_no, loss
@@ -232,8 +234,8 @@ def cbow_hs_grads(emb_in, theta, walks, vocab_mask, b_sh, points, codes, lengths
     dim = emb_in.shape[1]
     cl = points.shape[1]
     lib = _build.lib()
-    _build.require_smem("cbow_hs_grads", lib.n2v_cbow_hs_grads_smem(length, dim),
-                        f"walk length {length}, dim {dim}", emb_in.device, 16)
+    ws, ws_blocks = _build.staging(lib.n2v_cbow_hs_grads_smem(length, dim), n_walks,
+                                   emb_in.device)
     dev = emb_in.device
     g_in = torch.empty((n_walks * length, dim), dtype=torch.float32, device=dev)
     g_theta = torch.empty((n_walks * length * cl, dim), dtype=torch.float32, device=dev)
@@ -244,10 +246,12 @@ def cbow_hs_grads(emb_in, theta, walks, vocab_mask, b_sh, points, codes, lengths
         _build.ptr(vocab_mask), _build.ptr(b_sh), _build.ptr(points), _build.ptr(codes),
         _build.ptr(lengths), cl, n_walks, length, window, int(cbow_mean),
         _build.ptr(g_in), _build.ptr(g_theta), _build.ptr(theta_rows), _build.ptr(parts),
-        _build.stream_of(emb_in),
+        _build.ptr_or_null(ws), ws_blocks, _build.stream_of(emb_in),
     )
     _build.check(rc, "cbow_hs_grads")
     _build.launches["cbow_hs_grads"] += 1
+    if ws is not None:
+        _build.launches["cbow_hs_grads_global"] += 1
     tot = parts.sum(dim=0)
     loss = -tot[0] / torch.clamp(tot[1], min=1.0)
     return g_in, g_theta, theta_rows, loss

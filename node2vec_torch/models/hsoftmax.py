@@ -289,8 +289,8 @@ def hs_grads(emb_in, theta, walks, vocab_mask, b_sh, points, codes, lengths, *,
     n_head, k_rows = head_split(head_offsets, cl)
     clt = cl - n_head
     lib = _build.lib()
-    _build.require_smem("hs_grads", lib.n2v_hs_grads_smem(length, dim, cl, window, k_rows),
-                        f"walk length {length}, dim {dim}, code length {cl}", emb_in.device, 21)
+    ws, ws_blocks = _build.staging(lib.n2v_hs_grads_smem(length, dim, cl, window, k_rows),
+                                   n_walks, emb_in.device)
     dev = emb_in.device
     g_in = torch.empty((n_walks * length, dim), dtype=torch.float32, device=dev)
     g_tail = torch.empty((n_walks * length * clt, dim), dtype=torch.float32, device=dev)
@@ -302,10 +302,12 @@ def hs_grads(emb_in, theta, walks, vocab_mask, b_sh, points, codes, lengths, *,
         _build.ptr(vocab_mask), _build.ptr(b_sh), _build.ptr(points), _build.ptr(codes),
         _build.ptr(lengths), cl, n_walks, length, window, n_head, k_rows,
         _build.ptr(g_in), _build.ptr(g_tail), _build.ptr(tail_rows), _build.ptr(d_head),
-        _build.ptr(parts), _build.stream_of(emb_in),
+        _build.ptr(parts), _build.ptr_or_null(ws), ws_blocks, _build.stream_of(emb_in),
     )
     _build.check(rc, "hs_grads")
     _build.launches["hs_grads"] += 1
+    if ws is not None:
+        _build.launches["hs_grads_global"] += 1
     tot = parts.sum(dim=0)
     loss = -tot[0] / torch.clamp(tot[1], min=1.0)
     return g_in, g_tail, tail_rows, d_head, loss

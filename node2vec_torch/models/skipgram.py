@@ -204,8 +204,8 @@ def sgns_grads(
         raise ValueError(f"dim {dim} must be in 1..{ld}, the tables' width")
     s = neg_ids.shape[0]
     lib = _build.lib()
-    _build.require_smem("sgns_grads", lib.n2v_sgns_grads_smem(length, dim, s, window),
-                        f"walk length {length}, dim {dim}, {s} negatives", emb_in.device, 16)
+    ws, ws_blocks = _build.staging(lib.n2v_sgns_grads_smem(length, dim, s, window), n_walks,
+                                   emb_in.device)
     dev = emb_in.device
     g_in = torch.empty((n_walks * length, dim), dtype=torch.float32, device=dev)
     g_out = torch.empty_like(g_in)
@@ -217,10 +217,12 @@ def sgns_grads(
         _build.ptr(vocab_mask), _build.ptr(b_sh), _build.ptr(neg_ids),
         n_walks, length, window, s, float(np.float32(neg_scale)),
         _build.ptr(g_in), _build.ptr(g_out), _build.ptr(d_no), _build.ptr(parts),
-        _build.stream_of(emb_in),
+        _build.ptr_or_null(ws), ws_blocks, _build.stream_of(emb_in),
     )
     _build.check(rc, "sgns_grads")
     _build.launches["sgns_grads"] += 1
+    if ws is not None:
+        _build.launches["sgns_grads_global"] += 1
     tot = parts.sum(dim=0)
     loss = -(tot[0] + neg_scale * tot[1]) / torch.clamp(tot[2], min=1.0)
     return g_in, g_out, d_no, loss, tot[2]
@@ -683,8 +685,8 @@ def sgns_pair_grads(emb_in, emb_out, walks, centers, contexts, neg_ids, *, windo
     dim = emb_in.shape[1]
     s = neg_ids.shape[0]
     lib = _build.lib()
-    _build.require_smem("sgns_pair_grads", lib.n2v_sgns_pair_grads_smem(length, dim, s, window),
-                        f"walk length {length}, dim {dim}, {s} negatives", emb_in.device, 16)
+    ws, ws_blocks = _build.staging(lib.n2v_sgns_pair_grads_smem(length, dim, s, window),
+                                   n_walks, emb_in.device)
     dev = emb_in.device
     d_ci = torch.empty((n, dim), dtype=torch.float32, device=dev)
     d_co = torch.empty_like(d_ci)
@@ -695,10 +697,12 @@ def sgns_pair_grads(emb_in, emb_out, walks, centers, contexts, neg_ids, *, windo
         _build.ptr(emb_in), _build.ptr(emb_out), dim, _build.ptr(walks), _build.ptr(centers),
         _build.ptr(neg_ids), n_walks, length, window, s, float(np.float32(neg_scale)),
         _build.ptr(d_ci), _build.ptr(d_co), _build.ptr(d_no), _build.ptr(parts),
-        _build.stream_of(emb_in),
+        _build.ptr_or_null(ws), ws_blocks, _build.stream_of(emb_in),
     )
     _build.check(rc, "sgns_pair_grads")
     _build.launches["sgns_pair_grads"] += 1
+    if ws is not None:
+        _build.launches["sgns_pair_grads_global"] += 1
     tot = parts.sum(dim=0)
     loss = -(tot[0] + neg_scale * tot[1]) / torch.clamp(tot[2], min=1.0)
     return d_ci, d_co, d_no, loss, tot[2]

@@ -110,6 +110,8 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.n2v_edge_metadata.argtypes = [
         ctypes.c_int32, i64p, i32p, f32p, i32p, f32p, ctypes.c_int32,
     ]
+    lib.n2v_edge_shared_list.restype = ctypes.c_int
+    lib.n2v_edge_shared_list.argtypes = [ctypes.c_int32, i64p, i32p, f32p, i32p, ctypes.c_int32]
     lib.n2v_pack_blocked.restype = ctypes.c_int
     lib.n2v_pack_blocked.argtypes = [
         ctypes.c_int64, ctypes.c_int64, i64p, i32p, f32p, i32p, f32p, i64p,
@@ -313,6 +315,34 @@ def edge_metadata(
         _N_THREADS,
     )
     return rev_enc, pfx
+
+
+def edge_shared_list(
+    indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray
+) -> np.ndarray:
+    """Per-edge shared-neighbour (slot, weight) lists and reverse edge id for
+    the blocked engine's exact 3-atom mixture (walk/blocked.py shared_lists).
+
+    Returns [E, 16] int32 in the SL_* layout documented on the C++ side: 4
+    lanes of 2 x uint16 slots (0xFFFF pad), 8 lanes of f32 weight bits, the
+    reverse edge id, flags (bit0 = overflow beyond K = 8 shared entries), 2
+    reserved.
+    """
+    lib = _load()
+    assert lib is not None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    weights = np.ascontiguousarray(weights, dtype=np.float32)
+    out = np.empty((len(indices), 16), dtype=np.int32)
+    lib.n2v_edge_shared_list(
+        len(indptr) - 1,
+        _ptr(indptr, ctypes.c_int64),
+        _ptr(indices, ctypes.c_int32),
+        _ptr(weights, ctypes.c_float),
+        _ptr(out, ctypes.c_int32),
+        _N_THREADS,
+    )
+    return out
 
 
 def pack_blocked(

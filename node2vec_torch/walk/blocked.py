@@ -1,5 +1,5 @@
 """Blocked-CSR walk engine for heavy-tailed graphs (port of
-``node2vec_tpu/walk/blocked.py`` without the shared-list sampler).
+``node2vec_tpu/walk/blocked.py``).
 
 The dense engine pads every vertex to the graph's max degree, which a graph
 with hubs cannot afford.  This engine packs the CSR into two tables:
@@ -25,20 +25,32 @@ bound alpha dropping to 1/q when the arrival edge closes no triangle.  A
 walker that fails ``max_trials`` attempts in a row takes its ∝w proposal and
 is counted (``n_fallback``).  Step 0 is first-order and sinks end a walk.
 
+``shared_lists=True`` adds the exact 3-atom sampler.  ``build_blocked_graph``
+lists each edge's shared neighbours (up to SL_K = 8 (slot, weight) pairs, 64 B an edge
+in the ``slq`` table; light rows gain an ebase lane, the row's first global
+edge id).  At q != 1 a lane whose arrival edge has a complete list draws
+from three atoms: the back atom (w_back/p), the shared atom (their total
+weight, picked by inverse CDF over the stored pairs, never rejected) and the
+∝w atom ((wtot - w_back)/q), rejected only when its proposal lands on a
+stored slot.  An edge with more shared neighbours overflows, and its lanes
+keep the rejection-bound sampler; with no overflow at all
+(``sl_exhaustive``) the membership probe against N(prev) drops out.  The
+walker carries its arrival edge's global id: ebase[cur] + the accepted row
+slot, or the stored reverse-edge id after a return hop.
+
 ``blocked_walk_chunk`` launches kernel K5 (``csrc/blocked_walk.cu``) for CUDA
 tensors and runs ``blocked_walk_chunk_plain``, the JAX loop body op for op
 in plain PyTorch, for CPU tensors.  The plain version runs the whole chunk
 in one loop: the JAX package's tail-compaction cascade only regroups live
 walkers and leaves every walk bit-identical.
 
-Not ported: the shared-list 3-atom sampler (``shared_lists=True``, the
-``slq`` table; ROADMAP Queue A item 18) and the range-exchange and
-partitioned table packing (Queue A item 12).
+Not ported: the range-exchange and partitioned table packing (ROADMAP
+Queue A item 12).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,14 +64,22 @@ PAD_ID = np.int32(np.iinfo(np.int32).max)  # sorts above any real id
 SIGN = np.int32(-(1 << 31))  # triangle flag bit in rev_enc
 MAG = np.int32(0x7FFFFFFF)
 QUADS_PER_ROW = 64  # (rev, pfx) pairs per 128-lane brp row
-KERNEL_MAX_P = 32  # K5 holds one light column per lane: rows of 128 lanes
+KERNEL_MAX_P = 32  # K5 holds one light column per lane: 4P <= 128 data lanes
 KERNEL_MAX_C = 2048
 _PAD, _MAG = int(PAD_ID), int(MAG)  # as Python ints for torch expressions
 
-SHARED_LISTS_NOT_PORTED = (
-    "the shared-list 3-atom sampler (shared_lists=True) is not ported yet "
-    "(ROADMAP Queue A item 18)"
-)
+# shared-list (slq) table: per edge 16 int32 lanes, 8 edges per 128-lane row
+# (must match native/graph_core.cpp n2v_edge_shared_list):
+#   [0:4]   up to K = 8 shared-neighbour positions within the sorted
+#           destination row, 2 x uint16 per lane (0xFFFF pad)
+#   [4:12]  f32 weight bits of those entries (0.0 pad)
+#   [12]    global CSR index of the reverse edge (-1 absent)
+#   [13]    flags: bit0 = overflow (more than K shared entries: the lane
+#           falls back to the rejection-bound sampler)
+SL_K = 8
+SL_LANES = 16
+SL_EDGES_PER_ROW = 8
+SL_PAD_SLOT = 0xFFFF
 
 
 def _max_blocks(light_width: int) -> int:
@@ -67,25 +87,43 @@ def _max_blocks(light_width: int) -> int:
     return (4 * light_width - 5) // 2
 
 
-def _light_row_width(light_width: int) -> int:
-    """Physical light-row lanes: 4P data lanes rounded up to 128."""
-    return -(-4 * light_width // 128) * 128
+def _light_row_width(light_width: int, ebase: bool = False) -> int:
+    """Physical light-row lanes: 4P data lanes (+ 1 ebase lane when the
+    shared-list sampler needs it) rounded up to 128.  The default P = 31
+    makes 4P + 1 exactly 128; P = 32 with the ebase lane takes 256."""
+    return -(-(4 * light_width + (1 if ebase else 0)) // 128) * 128
 
 
 class BlockedGraph(NamedTuple):
     """Device tables of the blocked engine (see build_blocked_graph)."""
 
-    light: torch.Tensor  # [V, RW] int32 light rows / heavy headers
+    light: torch.Tensor  # [V, RW] int32 light rows / heavy headers (+ ebase)
     biw: torch.Tensor  # [NB, 2C] int32 heavy blocks: ids | w bits
     bids: torch.Tensor  # [NB, C] int32 heavy block ids (membership probes)
     brp: torch.Tensor  # [NB*C/64, 128] int32 per-slot (rev_enc, pfx) pairs
     light_width: int  # P
     block_width: int  # C
     has_heavy: bool
+    # per-edge shared-neighbour lists ([ceil(E/8), 128] int32, SL_* layout),
+    # or None when the graph was built without them
+    slq: Optional[torch.Tensor] = None
+    # weight fraction of overflow edges (> SL_K shared entries): the engine's
+    # auto policy uses the lists only when it is small
+    sl_ovf_wfrac: float = 1.0
 
     @property
     def n_vertices(self) -> int:
         return self.light.shape[0]
+
+    @property
+    def shared_lists(self) -> bool:
+        return self.slq is not None
+
+    @property
+    def sl_exhaustive(self) -> bool:
+        """True when no edge overflowed: every q != 1 lane runs the 3-atom
+        sampler, and the kernel skips the membership probe."""
+        return self.slq is not None and self.sl_ovf_wfrac == 0.0
 
 
 def _edge_has_shared(
@@ -149,6 +187,7 @@ def _pack_range(
     hi: int,
     p_l: int,
     c: int,
+    ebase: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Pack vertices [lo, hi) into (light, biw, bids, brp) host arrays.
 
@@ -157,6 +196,7 @@ def _pack_range(
       [3] wtot (f32 bits)  [4] degree
       [5 : 5+MAXB]        per-block minimum neighbor id (PAD_ID padded)
       [5+MAXB : 5+2*MAXB] inclusive block-mass CDF (f32 bits; padded w/ wtot)
+    ``ebase`` (shared-list builds): lane 4P of every row holds indptr[v].
 
     The threaded C++ packer when available; the numpy chain below otherwise.
     The two differ only in heavy-block CDF rounding (row-local double
@@ -170,7 +210,8 @@ def _pack_range(
         bs_r = np.concatenate([[0], np.cumsum(nb_r)])
         return native.pack_blocked(
             indptr, indices, weights, rev_enc, pfx, lo, hi, p_l, c,
-            _light_row_width(p_l), bs_r[:-1], int(bs_r[-1]), False,
+            _light_row_width(p_l, ebase), bs_r[:-1], int(bs_r[-1]),
+            ebase and indptr[hi] <= np.iinfo(np.int32).max,
         )
     maxb = _max_blocks(p_l)
     n_range = hi - lo
@@ -187,9 +228,11 @@ def _pack_range(
     r_rev = rev_enc[e_lo:e_hi]
     r_pfx = pfx[e_lo:e_hi]
 
-    light = np.empty((n_range, _light_row_width(p_l)), dtype=np.int32)
+    light = np.empty((n_range, _light_row_width(p_l, ebase)), dtype=np.int32)
     light[:, :p_l] = PAD_ID
     light[:, p_l:] = zero_bits
+    if ebase and indptr[hi] <= np.iinfo(np.int32).max:
+        light[:, 4 * p_l] = indptr[lo:hi].astype(np.int32)
     e_light = np.repeat(~heavy, deg)
     lr = src_rep[e_light]
     lc = col[e_light]
@@ -255,6 +298,43 @@ def _check_capacity(max_deg: int, p_l: int, c: int) -> None:
         )
 
 
+def _edge_shared_list(
+    indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray
+) -> Optional[np.ndarray]:
+    """Per-edge [E, SL_LANES] shared lists (SL_* layout): the native core's,
+    or a per-edge loop for graphs of at most 200,000 edges; None otherwise."""
+    from node2vec_torch import native
+
+    if native.available():
+        return native.edge_shared_list(indptr, indices, weights)
+    n_e = len(indices)
+    if n_e > 200_000:  # the per-edge loop below is too slow beyond
+        return None
+    n_v = len(indptr) - 1
+    out = np.zeros((n_e, SL_LANES), dtype=np.int32)
+    src_rep = np.repeat(np.arange(n_v), np.diff(indptr))
+    rows = [indices[indptr[v] : indptr[v + 1]] for v in range(n_v)]
+    sets = [set(r.tolist()) for r in rows]
+    for e in range(n_e):
+        u, v = int(src_rep[e]), int(indices[e])
+        nv = rows[v]
+        su = sets[u]
+        slots = [j for j, x in enumerate(nv.tolist()) if x in su and x != u]
+        ovf = len(slots) > SL_K or bool(slots and slots[-1] >= SL_PAD_SLOT)
+        packed = np.full(SL_K, SL_PAD_SLOT, np.uint32)
+        ws = np.zeros(SL_K, np.float32)
+        if not ovf:
+            packed[: len(slots)] = slots
+            ws[: len(slots)] = weights[indptr[v] + np.asarray(slots, int)]
+        out[e, : SL_K // 2] = (packed[0::2] | (packed[1::2] << np.uint32(16))).view(np.int32)
+        out[e, SL_K // 2 : SL_K // 2 + SL_K] = ws.view(np.int32)
+        pos = indptr[v] + np.searchsorted(nv, u)
+        has_rev = pos < indptr[v + 1] and indices[pos] == u
+        out[e, 12] = int(pos) if has_rev else -1
+        out[e, 13] = 1 if ovf else 0
+    return out
+
+
 def build_blocked_graph(
     indptr: np.ndarray,
     indices: np.ndarray,
@@ -267,12 +347,16 @@ def build_blocked_graph(
     """Host-side packing of a sorted CSR graph into the blocked layout, the
     tables uploaded to ``device``.
 
-    P defaults to 31 (4P rounds up to one 128-lane row, with the light/heavy
-    split at degree 31); C to the smallest power of two >= 256 that holds
-    the max degree in MAXB blocks.
+    P defaults to 31 (4P + 1 rounds up to one 128-lane row, with the
+    light/heavy split at degree 31); C to the smallest power of two >= 256
+    that holds the max degree in MAXB blocks.
+
+    ``shared_lists=True`` also builds the per-edge shared-neighbour lists of
+    the exact 3-atom sampler (64 B an edge on the device and one native merge
+    pass; off by default, as in the JAX package: on heavy-tailed graphs the
+    hub-hub edges overflow the lists, and the per-step fetch costs more than
+    the attempts it saves).
     """
-    if shared_lists:
-        raise NotImplementedError(SHARED_LISTS_NOT_PORTED)
     dev = resolve_device(device)
     indptr = np.asarray(indptr, dtype=np.int64)
     indices = np.asarray(indices, dtype=np.int32)
@@ -291,9 +375,45 @@ def build_blocked_graph(
     c = block_width
     _check_capacity(max_deg, p_l, c)
 
-    tables = _pack_range(indptr, indices, weights, rev_enc, pfx, 0, n_v, p_l, c)
+    tables = _pack_range(indptr, indices, weights, rev_enc, pfx, 0, n_v, p_l, c,
+                         ebase=shared_lists)
     light, biw, bids, brp = (torch.from_numpy(a).to(dev) for a in tables)
-    return BlockedGraph(light, biw, bids, brp, p_l, c, bool(n_heavy))
+    slq = None
+    ovf_wfrac = 1.0
+    if shared_lists:
+        if len(indices) > np.iinfo(np.int32).max:
+            raise ValueError(
+                "shared_lists=True requires edge ids to fit int32 "
+                f"(graph has {len(indices)} edges)"
+            )
+        sl = _edge_shared_list(indptr, indices, weights)
+        if sl is None:
+            raise ValueError(
+                "shared_lists=True requires the native graph core "
+                "(or a graph small enough for the numpy fallback)"
+            )
+        n_rows = -(-len(indices) // SL_EDGES_PER_ROW)
+        slq_host = np.zeros((max(n_rows, 1), 128), dtype=np.int32)
+        slq_host.reshape(-1)[: sl.size] = sl.reshape(-1)
+        slq = torch.from_numpy(slq_host).to(dev)
+        ovf = (sl[:, 13] & 1).astype(bool)
+        if ovf.any():
+            # clamped away from 0: sl_exhaustive means no edge overflowed, even
+            # a zero-weight one
+            wtot_all = float(weights.sum())
+            frac = float(weights[ovf].sum()) / wtot_all if wtot_all > 0 else 1.0
+            ovf_wfrac = max(frac, float(np.finfo(np.float32).tiny))
+        else:
+            ovf_wfrac = 0.0
+    return BlockedGraph(light, biw, bids, brp, p_l, c, bool(n_heavy), slq, ovf_wfrac)
+
+
+def slq_or_dummy(bg: BlockedGraph) -> torch.Tensor:
+    """The slq operand for blocked_walk_chunk: the table, or a 1-row dummy
+    for a graph built without shared lists."""
+    if bg.slq is not None:
+        return bg.slq
+    return torch.zeros((1, 128), dtype=torch.int32, device=bg.light.device)
 
 
 def _f32(bits: torch.Tensor) -> torch.Tensor:
@@ -323,9 +443,13 @@ def blocked_walk_chunk_plain(
     light_width: int,
     block_width: int,
     has_heavy: bool,
+    slq: Optional[torch.Tensor] = None,
+    shared_lists: bool = False,
+    sl_exhaustive: bool = False,
     stats: dict | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The JAX ``blocked_walk_chunk_impl`` (shared_lists=False) op for op.
+    """The JAX ``blocked_walk_chunk_impl`` op for op, its shared-list
+    branch included (``slq``, ``shared_lists``, ``sl_exhaustive`` as there).
 
     ``stats``, when given, gains what the run reads, for a bound on the
     kernel's traffic: boolean masks of the distinct "light_rows" [V],
@@ -333,7 +457,7 @@ def blocked_walk_chunk_plain(
     biw holding a chosen id), "bids_rows" [NB] (membership probes of a heavy
     prev) and "brp_sectors" (32 B sectors of brp holding a chosen (rev, pfx)
     pair); and the per-access counts "heavy_attempts" (attempts at a heavy
-    vertex) and "heavy_prev_probes".
+    vertex), "heavy_prev_probes" and "slq_fetches" (64 B list entries read).
     """
     p_l, c = light_width, block_width
     maxb = _max_blocks(p_l)
@@ -349,6 +473,10 @@ def blocked_walk_chunk_plain(
     zero = torch.tensor(0.0, dtype=f32, device=dev)
     uniform_bias = return_param == 1.0 and inout_param == 1.0
     need_membership = inout_param != 1.0
+    use_sl = shared_lists and need_membership
+    # exhaustive lists: no lane falls back, so N(prev) is never consulted
+    sl_total = use_sl and sl_exhaustive
+    need_mem_rows = need_membership and not sl_total
     prev_keep = max(p_l, 5 + maxb)
     gids = torch.arange(gid_base, gid_base + n_w, dtype=torch.int64, device=dev)
     lanes = torch.arange(n_w, device=dev)
@@ -370,7 +498,12 @@ def blocked_walk_chunk_plain(
     need_entry = torch.ones(n_w, dtype=torch.bool, device=dev)
     n_fb = torch.zeros((), dtype=torch.int64, device=dev)
     att = torch.zeros(n_w, dtype=torch.int64, device=dev)
+    if use_sl:
+        slq_edges = slq.reshape(-1, SL_LANES)  # row e: edge e's list
+        aedge = torch.full((n_w,), -1, dtype=torch.int64, device=dev)  # arrival edge id
+        sl_row = torch.zeros((n_w, SL_LANES), dtype=torch.int32, device=dev)
     if stats is not None:
+        stats.setdefault("slq_fetches", 0)
         for key, n in (("light_rows", light.shape[0]), ("biw_rows", biw.shape[0]),
                        ("biw_id_sectors", biw.numel() // 8), ("bids_rows", bids.shape[0]),
                        ("brp_sectors", brp.numel() // 8)):
@@ -386,6 +519,21 @@ def blocked_walk_chunk_plain(
             stats["light_rows"][cur[entry].long()] = True
         lr = light[torch.where(entry, cur, 0).long()]
         cur_row = torch.where(entry[:, None], lr, cur_row)
+        if use_sl:
+            # one list entry per accepted step: the arrival edge's
+            fetch = entry & (aedge >= 0)
+            if stats is not None:
+                stats["slq_fetches"] += int(fetch.sum())
+            sl_row = torch.where(fetch[:, None], slq_edges[torch.where(fetch, aedge, 0)], sl_row)
+            ebase_cur = cur_row[:, 4 * p_l].long()
+            # decode: K slots (2 x uint16 a lane, 0xFFFF pad) and K f32 weights
+            packed = sl_row[:, : SL_K // 2]
+            slot_k = torch.stack([packed & 0xFFFF, (packed >> 16) & 0xFFFF], dim=2).reshape(
+                n_w, SL_K)
+            valid_k = slot_k != SL_PAD_SLOT
+            w_k = _f32(sl_row[:, SL_K // 2 : SL_K // 2 + SL_K])
+            w_sh = w_k.sum(1)
+            sl_valid = (aedge >= 0) & ((sl_row[:, 13] & 1) == 0)
         ids = cur_row[:, :p_l]
         w_light = _f32(cur_row[:, p_l : 2 * p_l])
         if has_heavy:
@@ -418,8 +566,25 @@ def blocked_walk_chunk_plain(
             alpha2 = torch.where(back_shared, alpha_sh, inv_q)
             m1 = w_back * inv_p  # w_back == 0 at step 0
             rest = torch.clamp(wtot - w_back, min=0.0)
-            m2 = rest * alpha2
-            take_back = u_branch < m1 / torch.clamp(m1 + m2, min=1e-30)
+            if use_sl:
+                # the exact 3-atom mixture on lanes with a complete list: the
+                # shared mass is an atom of its own, so the ∝w atom needs no
+                # bias headroom
+                alpha2 = torch.where(sl_valid, inv_q, alpha2)
+                msh = torch.where(sl_valid, w_sh, zero)
+                m2 = rest * alpha2
+                ub = u_branch * (m1 + msh + m2)
+                take_back = ub < m1
+                take_sh = sl_valid & ~take_back & (ub < m1 + msh)
+                # the shared atom's pick: inverse CDF over the stored weights
+                cdf_sh = prefix_sums(w_k)
+                n_sh = valid_k.sum(1)
+                k_idx = torch.minimum((cdf_sh < (u_prop * w_sh)[:, None]).sum(1),
+                                      torch.clamp(n_sh - 1, min=0))
+                sh_slot = _pick(slot_k, k_idx).long()
+            else:
+                m2 = rest * alpha2
+                take_back = u_branch < m1 / torch.clamp(m1 + m2, min=1e-30)
             u2 = u_prop * rest  # u2 in [0, wtot - w_back) skips prev's interval
             target = torch.where(u2 < back_pfx, u2, u2 + w_back)
 
@@ -427,6 +592,8 @@ def blocked_walk_chunk_plain(
         cdf_l = prefix_sums(w_light)
         slot_l = (cdf_l < target[:, None]).sum(1)
         slot_l = torch.minimum(slot_l, torch.clamp(degree - 1, min=0))
+        if use_sl:  # a shared-atom pick overrides the ∝w slot
+            slot_l = torch.where(take_sh, sh_slot, slot_l)
         cand_l = _pick(ids, slot_l)
         w_l = _pick(w_light, slot_l)
         ppfx_l = torch.where(slot_l > 0, _pick(cdf_l, slot_l - 1), zero)
@@ -437,6 +604,8 @@ def blocked_walk_chunk_plain(
         if has_heavy:
             blk = (h_cum < target[:, None]).sum(1)
             blk = torch.minimum(blk, torch.clamp(h_nb - 1, min=0))
+            if use_sl:  # forced before the block's gather: its block is fetched
+                blk = torch.where(take_sh, sh_slot // c, blk)
             base = torch.where(blk > 0, _pick(h_cum, blk - 1), zero)
             resid = target - base
             brow = biw[torch.where(alive & is_heavy, h_bs + blk, 0)]
@@ -445,6 +614,8 @@ def blocked_walk_chunk_plain(
             cdf_b = prefix_sums(bw)
             slot_b = (cdf_b < resid[:, None]).sum(1)
             slot_b = torch.minimum(slot_b, torch.clamp(nvalid - 1, min=0))
+            if use_sl:
+                slot_b = torch.where(take_sh, sh_slot % c, slot_b)
             if stats is not None:
                 hv = alive & is_heavy
                 stats["biw_rows"][(h_bs + blk)[hv]] = True
@@ -471,11 +642,18 @@ def blocked_walk_chunk_plain(
                 rev_enc_c, pfx_c = rev_l, pfx_l
 
         # --- acceptance ----------------------------------------------------
+        if use_sl:
+            # the accepted slot within N(cur), and whether the ∝w proposal
+            # landed on a stored shared slot (it belongs to the shared atom)
+            row_slot = torch.where(is_heavy, blk * c + slot_b, slot_l) if has_heavy else slot_l
+            hit = (valid_k & (slot_k == row_slot[:, None])).any(1)
         if uniform_bias:
             accept = torch.ones(n_w, dtype=torch.bool, device=dev)
         elif not need_membership:
             # q == 1: every non-return bias is 1 and prev is excluded
             accept = take_back | first_order | (cand != prev)
+        elif sl_total:
+            accept = first_order | take_back | take_sh | ((cand != prev) & ~hit)
         else:
             shared = (prev_mem[:, :p_l] == cand[:, None]).any(1)
             if has_heavy:
@@ -490,8 +668,14 @@ def blocked_walk_chunk_plain(
                 shared = torch.where(prev_is_heavy, shared_heavy, shared)
             bias2 = torch.where(shared, one, inv_q)
             accept = take_back | first_order | ((cand != prev) & (u_acc * alpha2 <= bias2))
+            if use_sl:
+                # list lanes are exact without a coin or N(prev)
+                accept_sl = take_back | take_sh | ((cand != prev) & ~hit)
+                accept = torch.where(sl_valid, accept_sl, accept)
             if stats is not None and has_heavy:
                 probes = alive & prev_is_heavy & ~(take_back | first_order) & (cand != prev)
+                if use_sl:  # the kernel probes only for lanes without a list
+                    probes = probes & ~sl_valid
                 stats["bids_rows"][(p_bs + jm)[probes]] = True
                 stats["heavy_prev_probes"] = stats.get("heavy_prev_probes", 0) + int(probes.sum())
         if stats is not None:
@@ -521,8 +705,13 @@ def blocked_walk_chunk_plain(
             w_back = torch.where(adv, nw_back, w_back)
             back_pfx = torch.where(adv, nb_pfx, back_pfx)
             back_shared = torch.where(adv, nb_shared, back_shared)
-        if need_membership:
+        if need_mem_rows:
             prev_mem = torch.where(adv[:, None], cur_row[:, :prev_keep], prev_mem)
+        if use_sl:
+            # a return hop traverses the arrival edge's stored reverse edge;
+            # any other hop the edge ebase[cur] + its slot
+            new_ae = torch.where(take, sl_row[:, 12].long(), ebase_cur + row_slot)
+            aedge = torch.where(adv, new_ae, aedge)
         prev = torch.where(adv, cur, prev)
         cur = torch.where(adv, nxt, cur)
         t = torch.where(adv, t + 1, t)
@@ -536,7 +725,7 @@ def blocked_walk_chunk_plain(
 
 
 def blocked_walk_chunk(
-    light: torch.Tensor,  # [V, 128] int32 light rows / heavy headers
+    light: torch.Tensor,  # [V, 128 or 256] int32 light rows / heavy headers
     biw: torch.Tensor,  # [NB, 2C] int32
     bids: torch.Tensor,  # [NB, C] int32
     brp: torch.Tensor,  # [NB*C/64, 128] int32
@@ -551,9 +740,17 @@ def blocked_walk_chunk(
     light_width: int,
     block_width: int,
     has_heavy: bool,
+    slq: Optional[torch.Tensor] = None,  # [*, 128] int32 shared lists
+    shared_lists: bool = False,
+    sl_exhaustive: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Async blocked walks: (paths [W, L+1] int32, n_fallback, n_attempts),
     the two counts as int64 scalars on the tables' device.
+
+    ``shared_lists=True`` (with ``build_blocked_graph``'s ``slq`` table and a light row
+    carrying the ebase lane) runs the 3-atom sampler at q != 1;
+    ``sl_exhaustive`` says no edge overflowed.  At q == 1 both are ignored,
+    and walks are bit-identical with or without the table.
 
     CPU tensors take the plain version; CUDA tensors launch K5 or raise.
     """
@@ -574,28 +771,38 @@ def blocked_walk_chunk(
         )
     if max_trials < 1:
         raise ValueError(f"max_trials must be >= 1, got {max_trials}")
+    use_sl = bool(shared_lists) and inout_param != 1.0
+    if use_sl and (slq is None or slq.dtype != torch.int32 or slq.dim() != 2
+                   or slq.shape[1] != 128 or light.shape[1] < 4 * p_l + 1):
+        raise ValueError("shared_lists=True takes an int32 slq [*, 128] and light rows "
+                         "with the ebase lane (build_blocked_graph(shared_lists=True))")
     kw = dict(walk_length=walk_length, return_param=return_param,
               inout_param=inout_param, max_trials=max_trials,
               light_width=p_l, block_width=c, has_heavy=has_heavy)
     if not light.is_cuda:
-        return blocked_walk_chunk_plain(light, biw, bids, brp, starts, gid_base, seed, **kw)
-    if p_l > KERNEL_MAX_P or light.shape[1] != 128:
-        raise ValueError(f"blocked_walk kernel takes light_width <= {KERNEL_MAX_P} (128-lane rows)")
+        return blocked_walk_chunk_plain(light, biw, bids, brp, starts, gid_base, seed, slq=slq,
+                                        shared_lists=use_sl, sl_exhaustive=sl_exhaustive, **kw)
+    if p_l > KERNEL_MAX_P or light.shape[1] not in (128, 256):
+        raise ValueError(f"blocked_walk kernel takes light_width <= {KERNEL_MAX_P} "
+                         "(rows of 128 or 256 lanes)")
     if c > KERNEL_MAX_C:
         raise ValueError(f"blocked_walk kernel takes block_width <= {KERNEL_MAX_C}")
-    _build.require_cuda("blocked_walk", *tables)
+    _build.require_cuda("blocked_walk", *tables, *((slq,) if use_sl else ()))
     n_w = starts.shape[0]
     paths = torch.empty((n_w, walk_length + 1), dtype=torch.int32, device=starts.device)
     counters = torch.zeros(2, dtype=torch.int64, device=starts.device)
-    if inout_param != 1.0:
+    if use_sl:
+        mode = 4 if sl_exhaustive else 3  # the 3-atom sampler; 3 keeps N(prev) probes
+    elif inout_param != 1.0:
         mode = 2  # membership against N(prev)
     elif return_param != 1.0:
         mode = 1  # q == 1: only the return edge is biased
     else:
         mode = 0  # uniform bias: every proposal is accepted
     rc = _build.lib().n2v_blocked_walk(
-        _build.ptr(light), _build.ptr(biw), _build.ptr(bids), _build.ptr(brp),
-        _build.ptr(starts), _build.ptr(paths), _build.ptr(counters),
+        _build.ptr(light), light.shape[1], _build.ptr(biw), _build.ptr(bids), _build.ptr(brp),
+        _build.ptr_or_null(slq if use_sl else None), _build.ptr(starts), _build.ptr(paths),
+        _build.ptr(counters),
         n_w, walk_length, int(gid_base), seed & 0xFFFFFFFF,
         float(np.float32(1.0 / return_param)), float(np.float32(1.0 / inout_param)),
         float(np.float32(max(1.0, 1.0 / inout_param))),
@@ -603,4 +810,6 @@ def blocked_walk_chunk(
     )
     _build.check(rc, "blocked_walk")
     _build.launches["blocked_walk"] += 1
+    if use_sl:
+        _build.launches["blocked_walk_sl_exhaustive" if mode == 4 else "blocked_walk_sl_mixed"] += 1
     return paths, counters[0], counters[1]

@@ -15,8 +15,9 @@ walks can be restricted to seed start vertices, and every draw is keyed on
 skips them), ``run_device`` keeps it on the device, and ``chunk_source``
 regenerates any chunk on demand for the streaming trainer.
 
-The edge-partitioned engine, mesh sharding (``mesh``, ``graph_sharded``,
-``partitioned_graph``) and the blocked engine's shared-list sampler raise
+The blocked engine runs the shared-list 3-atom sampler as the JAX engine
+does (``shared_lists``).  The edge-partitioned engine and mesh sharding
+(``mesh``, ``graph_sharded``, ``partitioned_graph``) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -38,10 +39,10 @@ from node2vec_torch.utils.checkpoint import (
 )
 from node2vec_torch.utils.metrics import measure
 from node2vec_torch.walk.blocked import (
-    SHARED_LISTS_NOT_PORTED,
     BlockedGraph,
     blocked_walk_chunk,
     build_blocked_graph,
+    slq_or_dummy,
 )
 from node2vec_torch.walk.csr import csr_walk_chunk, search_iters
 from node2vec_torch.walk.dense import build_padded_adjacency, dense_walk_chunk
@@ -59,10 +60,11 @@ class WalkEngine:
     takes).  ``blocked_graph``: prebuilt blocked tables to reuse across
     engines over the same graph (host packing and upload of a
     multi-million-edge graph take seconds; p, q and the trial cap live in
-    the kernel, not the tables).  ``shared_lists`` keeps the JAX engine's
-    signature: "auto" and False both run the rejection-bound sampler (the
-    JAX "auto" resolves to False too); True asks for the shared-list
-    sampler, which is not ported.  ``graph_sharded=True`` needs a mesh, as
+    the kernel, not the tables).  ``shared_lists``: the blocked engine's
+    exact 3-atom sampler, as in the JAX engine.  True builds the per-edge
+    lists and uses them; "auto" (the default) uses only a prebuilt table
+    (``blocked_graph=``) whose overflow weight fraction is <= 0.15, and never
+    builds one; False never uses them.  ``graph_sharded=True`` needs a mesh, as
     in the JAX package (``ValueError`` without one); ``partitioned_graph``
     is read only by the graph-sharded engine.
     """
@@ -84,8 +86,6 @@ class WalkEngine:
             raise ValueError("graph_sharded=True requires a mesh")
         if mesh is not None:
             raise NotImplementedError(_MESH_NOT_PORTED)
-        if shared_lists is True:
-            raise NotImplementedError(SHARED_LISTS_NOT_PORTED)
         self.device = resolve_device(device)
         self.params = params
         self.n_vertices = int(graph.n_vertices)
@@ -109,6 +109,7 @@ class WalkEngine:
         self.strategy = strategy
         # checkpoint fingerprints change when the edges change, not just V
         self.graph_token = graph_digest(indices, weights)
+        self._sl_policy = shared_lists
         self.packed_adj = None
         self.bgraph = None
         # blocked engine: trial-capped accepts and sampling attempts, kept as
@@ -128,7 +129,9 @@ class WalkEngine:
             self._check_device("blocked_graph", blocked_graph.light)
             self.bgraph = blocked_graph
         else:
-            self.bgraph = build_blocked_graph(indptr, indices, weights, device=self.device)
+            self.bgraph = build_blocked_graph(indptr, indices, weights,
+                                              shared_lists=shared_lists is True,
+                                              device=self.device)
 
     def _check_device(self, name: str, t: torch.Tensor) -> None:
         if t.device.type != self.device.type or self.device.index not in (None, t.device.index):
@@ -170,10 +173,26 @@ class WalkEngine:
         self._att_parts = []
         self._att_base = int(value)
 
+    def _sl_flags(self) -> Tuple[bool, bool]:
+        """(shared_lists, sl_exhaustive) for the blocked kernel, under the
+        auto policy of the class docstring."""
+        bg = self.bgraph
+        if bg is None or bg.slq is None:
+            return False, False
+        pol = self._sl_policy
+        on = pol if isinstance(pol, bool) else bg.sl_ovf_wfrac <= 0.15
+        return on, on and bg.sl_exhaustive
+
     def _strategy_token(self) -> str:
         """Strategy string for walk fingerprints, as the JAX engine's: the
-        shared-list sampler is not ported, so it is the strategy's name."""
-        return self.strategy
+        applied shared-list flags change the walks at q != 1, so they are
+        part of it ("+sl", "+slx"); at q == 1 the sampler is off."""
+        tok = self.strategy
+        if self.strategy == "blocked" and self.params.inout_param != 1.0:
+            use_sl, sl_ex = self._sl_flags()
+            if use_sl:
+                tok += "+slx" if sl_ex else "+sl"
+        return tok
 
     def _effective_chunk(self, n_total: int) -> int:
         chunk = min(self.params.walker_chunk, max(n_total, 1))
@@ -181,8 +200,11 @@ class WalkEngine:
             # bound the [W, P] working set: W * P <= 2^24 elements
             return min(chunk, max(1024, (1 << 25) // self.packed_adj.shape[1]))
         if self.strategy == "blocked":
-            # bound the carried per-walker state (row + prev_mem + path)
+            # bound the carried per-walker state (row + prev_mem + path, + the
+            # shared-list row and its fetch when the sampler is on)
             per_walker = 6 * self.bgraph.light_width + self.params.walk_length
+            if self._sl_flags()[0]:
+                per_walker += 144
             return min(chunk, max(1024, (1 << 26) // per_walker))
         return chunk  # csr: no cap, as in the JAX engine
 
@@ -201,10 +223,12 @@ class WalkEngine:
                                   gid_base, seed & 0xFFFFFFFF, max_trials=p.max_rejection_trials,
                                   search_iters=self.search_iters, **kw)
         bg = self.bgraph
+        use_sl, sl_ex = self._sl_flags()
         paths, n_fb, n_att = blocked_walk_chunk(
             bg.light, bg.biw, bg.bids, bg.brp, starts, gid_base, seed & 0xFFFFFFFF,
             max_trials=p.max_rejection_trials, light_width=bg.light_width,
-            block_width=bg.block_width, has_heavy=bg.has_heavy, **kw,
+            block_width=bg.block_width, has_heavy=bg.has_heavy, slq=slq_or_dummy(bg),
+            shared_lists=use_sl, sl_exhaustive=sl_ex, **kw,
         )
         self._fb_parts.append(n_fb)  # device scalars, drained lazily
         self._att_parts.append(n_att)

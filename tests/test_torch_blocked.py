@@ -270,11 +270,6 @@ def test_pipeline_blocked_end_to_end():
 
 def test_unported_and_invalid_inputs_raise():
     g = from_edge_arrays(*_hub_graph(1000)[:2], directed=True)  # 1000 > MAXB(8) * 64
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 18"):
-        WalkEngine(g, Node2VecParams(), device="cpu", shared_lists=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 18"):
-        blocked.build_blocked_graph(g.indptr, g.indices, g.weights, shared_lists=True,
-                                    device="cpu")
     with pytest.raises(ValueError, match="capacity"):
         blocked.build_blocked_graph(g.indptr, g.indices, g.weights, 8, 64, device="cpu")
     bg = blocked.build_blocked_graph(g.indptr, g.indices, g.weights, device="cpu")
