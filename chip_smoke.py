@@ -46,6 +46,24 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    streaming forced off: the in-memory trainer on the RMAT); K5, K6 and
    K2-K4 must have run the expected number of times; then K6 against its
    plain version and torch.bincount on that run's corpus;
+6a. the mesh main path, ``main_path_mesh``: ``Node2Vec(mesh=make_mesh(1,
+   1))``, a world of one over NCCL, through ``run_pipeline()`` on the dense
+   graph of 5. with its parameters (max_iter cut to 1): walks sharded over
+   the data axis (K1 10 times through sharded_dense_walk_chunk, bit-equal
+   to 5.'s) and ``fit_sharded`` with the column layout (K13's pair lists,
+   K16 col_pair_logits, K17 col_pair_grads, K3's squares mode and K4 512
+   times each, K2 never), its rates beside 5.'s, the collectives' share of
+   a second fit with every collective synchronised and timed, the profiled
+   fit; then ``random_walk()`` on the RMAT at 1 x 1 (K5 through
+   sharded_blocked_walk_chunk) bit-equal to 6.'s walks;
+6b. ``mesh_ranks``: two ranks sharing the card over gloo
+   (``parallel.launch.spawn``; every collective copied through host
+   memory), at meshes 2 x 1 and 1 x 2: the dense, blocked and CSR engines'
+   sharded walks bit-equal to the single-device engine's, one column step
+   at the main path's batch against ``sharded_sgns_step_plain`` (its wall
+   and collective time), the dense delta all-reduce at 2 x 1 timed, and the
+   quality gate of 10. through ``Node2Vec(mesh=).run_pipeline()`` at the
+   SGNS limits;
 7. the streaming main path: the same Node2Vec on the same RMAT through
    ``run_pipeline()`` with no argument, which streams over its 40 walker
    chunks (max_iter cut to 1): K5 40 times for the counting pass and 40
@@ -134,7 +152,8 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    CBOW-NS at dim 256 and CBOW-HS at dim 512 through fit for one epoch and
    8 steps of ``sgns_train_step`` at dim 256 (every K2, K8, K9, K10, K13
    launch staged in global memory, losses and tables finite);
-11. the ``kernels`` line (times, bounds, launches, errors; K6 once for each
+11. the ``kernels`` line (times, bounds, launches, errors; K16, K17 and K3's
+   squares mode from 6a.; K6 once for each
    JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists,
    once for CBOW-HS's and once for the pair step's, K2 once more at row
    stride D + 1, K5 once for each shared-list mode, and K2, K8, K9, K10 and
@@ -192,9 +211,14 @@ shapes main_path_wide launches (K2, K8, K9, K10: its fits' 64-walk batch
 of the quality graph's corpus, with that corpus's vocabulary and Huffman
 tree; K13: its B = 256 batch of the dense graph's walks), the kernels
 line's global-staging rows; then K2, K9, K8 and K10 at B = 256 random
-walks on the dense graph's tree.
+walks on the dense graph's tree.  They hold K16 col_pair_logits, K17
+col_pair_grads and K3's squares mode against their plain versions on the
+same batch at Dm = 128 (one model rank) and Dm = 64 (two, their all-reduce
+summed in the check), K16 then K17 against K13 at Dm = 128, and the whole
+column step on the 1 x 1 NCCL mesh against its plain version.
 
-``--quick`` runs 2-4 at small shapes (K5, its shared-list modes and K12 on
+``--quick`` runs 2-4 at small shapes (with K16, K17, K3's squares mode and
+``mesh_ranks`` on a 4,096-vertex graph, without the gate) (K5, its shared-list modes and K12 on
 the RMAT at scale 12,
 K6 and its streaming form on its walks, K7 on them, K8, K9 and K10 on a
 4,096-vertex tree, K11 and sgd_apply on 64 walks, check_wide at its own
@@ -205,6 +229,7 @@ or any phase fails.  Imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -240,6 +265,8 @@ from node2vec_torch.models.vocab import (
 )
 from node2vec_torch.models.word2vec import Word2VecTorch, _effective_batch, _streaming_counts
 from node2vec_torch.ops import alias as alias_mod
+from node2vec_torch.parallel import launch, make_mesh
+from node2vec_torch.parallel import sharded_sgns as col
 from node2vec_torch.utils import StepTimer
 from node2vec_torch.utils.checkpoint import load_stream_state, save_stream_state, stream_fingerprint
 from node2vec_torch.walk import WalkEngine, blocked, csr, dense
@@ -300,9 +327,18 @@ SOURCES = {
                               "node2vec_tpu/walk/blocked.py:772"),
     "blocked_walk_sl_exhaustive": ("node2vec_torch/csrc/blocked_walk.cu",
                                    "node2vec_tpu/walk/blocked.py:983"),
+    # the column-sharded step (parallel/sharded_sgns.py:57 _col_step): partial
+    # logits, gradients and squares, and the accumulator increments
+    "col_pair_logits": ("node2vec_torch/csrc/col_sgns.cu",
+                        "node2vec_tpu/parallel/sharded_sgns.py:85"),
+    "col_pair_grads": ("node2vec_torch/csrc/col_sgns.cu",
+                       "node2vec_tpu/parallel/sharded_sgns.py:97"),
+    "adagrad_accumulate_squares": ("node2vec_torch/csrc/adagrad.cu",
+                                   "node2vec_tpu/parallel/sharded_sgns.py:112"),
 }
 # the walk-at-a-time step kernels staging in global memory (csrc/staging.cuh)
-for _k in ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads", "sgns_pair_grads"):
+for _k in ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads", "sgns_pair_grads",
+           "col_pair_logits", "col_pair_grads"):
     SOURCES[_k + "_global"] = SOURCES[_k]
 # the kernels line: (row, launch counter, main path whose launches it reads)
 ROWS = (("dense_walk", "dense_walk", "main_path"),
@@ -336,7 +372,10 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("sgns_pair_grads_global", "sgns_pair_grads_global", "main_path_wide"),
         ("cbow_grads_global", "cbow_grads_global", "main_path_wide"),
         ("hs_grads_global", "hs_grads_global", "main_path_wide"),
-        ("cbow_hs_grads_global", "cbow_hs_grads_global", "main_path_wide"))
+        ("cbow_hs_grads_global", "cbow_hs_grads_global", "main_path_wide"),
+        ("col_pair_logits", "col_pair_logits", "main_path_mesh"),
+        ("col_pair_grads", "col_pair_grads", "main_path_mesh"),
+        ("adagrad_accumulate_squares", "adagrad_accumulate_squares", "main_path_mesh"))
 GRADS = ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads")  # one per objective
 ADAGRAD = ("adagrad_accumulate", "adagrad_apply")
 SGD = ("preagg_rows", "sgd_apply")  # SGNS with optimizer="sgd"
@@ -3390,6 +3429,390 @@ def main_path_wide(graph) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# the mesh: K16, K17 and K3's squares mode, main_path_mesh, mesh_ranks
+# --------------------------------------------------------------------------- #
+
+
+def _col_slices(state, dm: int):
+    """The model coordinates' column slices [V, dm] of (emb_in, emb_out)."""
+    dim = state[0].shape[1]
+    return [(state[0][:, m * dm:(m + 1) * dm].contiguous(),
+             state[1][:, m * dm:(m + 1) * dm].contiguous()) for m in range(dim // dm)]
+
+
+def check_col_sgns(mesh, n_vertices: int, n_walks: int, length: int, dim: int, window: int,
+                   record: bool, results: dict, case: str, batch=None) -> None:
+    """K16 col_pair_logits, K17 col_pair_grads and K3's squares mode against
+    their plain versions on one batch (``_batch_inputs``), at Dm = D (one
+    model rank, the 1 x 1 mesh) and Dm = D / 2 (two model ranks, their
+    all-reduce a sum taken here): logits, d_ci, d_co elementwise; d_no, the
+    squares and the loss partials to rtol of their largest entry (fp32
+    atomics); at Dm = D, K16 then K17 against K13 on the same lists; then
+    ``sharded_sgns_step`` against ``sharded_sgns_step_plain`` on ``mesh``
+    (1 x 1, NCCL).  Times and bounds at each Dm; the kernels line takes Dm
+    = D, main_path_mesh's width."""
+    before = _build.launches.copy()
+    inp = _batch_inputs(n_vertices, n_walks, length, dim, window, 11, 0.1, batch)
+    walks, mask, neg, b_sh = inp["walks"], inp["mask"], inp["neg"], inp["b_sh"]
+    n_walks, length = walks.shape
+    kw = dict(window=window, negatives=5)
+    pc, px = sg.pair_lists_plain(walks, b_sh, mask, window)
+    n = pc.shape[0]
+    ok = pc >= 0
+    n_valid, s = int(ok.sum()), int(neg.numel())
+    n_pos = n_walks * length
+    lane = torch.nonzero(ok).squeeze(1)
+    live = int(torch.unique(lane // (2 * window * length) * length + lane % length).numel())
+    u_c = int(torch.unique(pc[ok]).numel())
+    u_out = int(torch.unique(torch.cat([px[ok], neg])).numel())
+    for dm in (dim, dim // 2):
+        slices = _col_slices(inp["state"], dm)
+        lg_err, logits = 0.0, 0
+        for e_in, e_out in slices:
+            got = col.col_pair_logits(e_in, e_out, walks, pc, px, neg, window=window)
+            want = col.col_pair_logits_plain(e_in, e_out, walks, pc, px, neg, window=window)
+            lg_err = max(lg_err, _close(f"col_pair_logits[Dm={dm}]", got, want))
+            logits = logits + want  # the model all-reduce
+        e_in, e_out = slices[0]
+        got = col.col_pair_grads(e_in, e_out, walks, pc, px, neg, logits, **kw)
+        want = col.col_pair_grads_plain(e_in, e_out, walks, pc, px, neg, logits, **kw)
+        gr_err = max(_close(f"col_pair_grads[Dm={dm}, d_ci]", got[0], want[0]),
+                     _close(f"col_pair_grads[Dm={dm}, d_co]", got[1], want[1]),
+                     _close_to_largest(f"col_pair_grads[Dm={dm}, d_no]", got[2], want[2]),
+                     _close_to_largest(f"col_pair_grads[Dm={dm}, squares]", got[3], want[3]),
+                     _close_to_largest(f"col_pair_grads[Dm={dm}, loss parts]", got[4], want[4]))
+        sq = sum(col.col_pair_grads_plain(a, b, walks, pc, px, neg, logits, **kw)[3]
+                 for a, b in slices)  # the model all-reduce of the squares
+        sq_lists = (sq[:n], pc, sq[n:2 * n], px, sq[2 * n:], neg)
+        acc_in, acc_out = inp["state"][2], inp["state"][3]
+        k_acc = [acc_in.clone(), acc_out.clone()]
+        p_acc = [acc_in.clone(), acc_out.clone()]
+        sg.adagrad_accumulate_squares(*k_acc, *sq_lists, dim)
+        sg.adagrad_accumulate_squares_plain(*p_acc, *sq_lists, dim)
+        k3_err = max(_close(f"adagrad_accumulate_squares[Dm={dm}, acc_in]", k_acc[0], p_acc[0]),
+                     _close(f"adagrad_accumulate_squares[Dm={dm}, acc_out]", k_acc[1], p_acc[1]))
+        if dm == dim:  # one model rank: K16 then K17 is K13
+            k13 = sg.sgns_pair_grads(e_in, e_out, walks, pc, px, neg, **kw)
+            tot = got[4]
+            loss = -(tot[0] + 5 / s * tot[1]) / torch.clamp(tot[2], min=1.0)
+            k13_err = max(_close("K16+K17 vs K13[d_ci]", got[0], k13[0]),
+                          _close("K16+K17 vs K13[d_co]", got[1], k13[1]),
+                          _close_to_largest("K16+K17 vs K13[d_no]", got[2], k13[2]),
+                          _close("K16+K17 vs K13[loss]", loss, k13[3]))
+            emit({"phase": "check", "kernel": "col_pair_logits + col_pair_grads vs "
+                  "sgns_pair_grads (n_model = 1)", "case": case, "max_abs_err": k13_err})
+        lg_ms = time_ms(lambda: col.col_pair_logits(e_in, e_out, walks, pc, px, neg,
+                                                    window=window))
+        lg_plain = time_ms(lambda: col.col_pair_logits_plain(e_in, e_out, walks, pc, px, neg,
+                                                             window=window), reps=3, warmup=1)
+        gr_ms = time_ms(lambda: col.col_pair_grads(e_in, e_out, walks, pc, px, neg, logits,
+                                                   **kw))
+        gr_plain = time_ms(lambda: col.col_pair_grads_plain(e_in, e_out, walks, pc, px, neg,
+                                                            logits, **kw), reps=3, warmup=1)
+        k3_ms = time_ms(lambda: sg.adagrad_accumulate_squares(*k_acc, *sq_lists, dim))
+        k3_plain = time_ms(lambda: sg.adagrad_accumulate_squares_plain(*p_acc, *sq_lists, dim),
+                           reps=3)
+        # library yardstick (never used by the port): index_add_ of the valid
+        # lanes' squares over D
+        rows_c, rows_out = pc[ok].long(), torch.cat([px[ok], neg]).long()
+        sq_c = sq[:n][ok] / dim
+        sq_x = torch.cat([sq[n:2 * n][ok], sq[2 * n:]]) / dim
+        k3_lib = time_ms(lambda: (k_acc[0].index_add_(0, rows_c, sq_c),
+                                  k_acc[1].index_add_(0, rows_out, sq_x)))
+        # bounds, from this run's data: the walks and the lists read once,
+        # the distinct rows of both tables at Dm columns, the outputs written
+        # once (K16: P + B*L1*S logits; K17: the per-lane gradients, d_no,
+        # the squares, the loss partials); flops per valid lane and per live
+        # center
+        rows_bytes = (n_pos + n) * 4 + (u_c + u_out) * dm * 4
+        k16_bytes = rows_bytes + (n + n_pos * s) * 4
+        k16_ops = 2 * dm * n_valid + 2 * dm * s * live
+        k17_bytes = (rows_bytes + (n + n_pos * s) * 4 + 2 * n * dm * 4 + s * dm * 4
+                     + (2 * n + s) * 4 + n_walks * 12)
+        k17_ops = 4 * s * dm * live + 7 * dm * n_valid
+        k3_bytes = (2 * n + s) * 8 + 8 * (u_c + u_out)
+        rec = {"col_pair_logits": (lg_err, lg_ms, lg_plain, bound_ms(k16_bytes, k16_ops), None),
+               "col_pair_grads": (gr_err, gr_ms, gr_plain, bound_ms(k17_bytes, k17_ops), None),
+               "adagrad_accumulate_squares": (k3_err, k3_ms, k3_plain,
+                                              bound_ms(k3_bytes, 2 * (2 * n_valid + s)),
+                                              k3_lib)}
+        _emit_rows(rec, record and dm == dim, results, before, case=case, B=n_walks, L1=length,
+                   D=dim, Dm=dm, S=s, V=n_vertices, lanes=n, valid_lanes=n_valid)
+    # the whole step on the 1 x 1 mesh, kernels against plain versions
+    k_state = col.ShardedSGNSState(*(t.clone() for t in inp["state"]))
+    p_state = col.ShardedSGNSState(*(t.clone() for t in inp["state"]))
+    args = (walks, b_sh, *inp["r"], 0.05, *inp["noise"], mask)
+    loss_k = col.sharded_sgns_step(mesh, k_state, *args, **kw)
+    loss_p = col.sharded_sgns_step_plain(mesh, p_state, *args, **kw)
+    err = _close_state("sharded_sgns_step 1x1", k_state, loss_k, p_state, loss_p)
+    emit({"phase": "check", "kernel": "sharded_sgns_step (1 x 1, NCCL) vs plain", "case": case,
+          "backend": mesh.backend, "max_abs_err": err})
+
+
+@contextlib.contextmanager
+def collective_timing(mesh):
+    """While active, each collective of ``mesh`` synchronises the card
+    before and after it; yields a one-entry list that sums their wall
+    times."""
+    total = [0.0]
+    saved = {name: getattr(mesh, name) for name in ("all_reduce_sum", "all_gather")}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            total[0] += time.perf_counter() - ts
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(mesh, name, timed(fn))
+    try:
+        yield total
+    finally:
+        for name in saved:
+            delattr(mesh, name)
+
+
+def _timed_fit(model, into: list) -> None:
+    """Wrap ``model.fit_sharded`` to record its synchronised wall time."""
+    fit = model.fit_sharded
+
+    def run(*args, **kwargs):
+        ts = time.perf_counter()
+        out = fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - ts)
+        return out
+
+    model.fit_sharded = run
+
+
+def main_path_mesh(mesh, src, dst, main_line: dict, main_walks: np.ndarray, rmat_src, rmat_dst,
+                   blocked_walks: torch.Tensor, max_iter: int) -> dict:
+    """``Node2Vec(mesh=make_mesh(1, 1))`` over NCCL through
+    ``run_pipeline()`` on the dense graph at main_path's parameters: the
+    walks shard over the data axis (K1 through sharded_dense_walk_chunk,
+    10 chunks) and ``fit_sharded`` trains the column layout (K13's pair
+    lists, K16, K17, K3's squares mode and K4 512 times each, K2 never).
+    Its walks equal main_path's; its rates stand beside main_path's.  Then a
+    second fit with the mesh's collective timing on (each collective
+    synchronised) for the collectives' share of the fit's wall time, the
+    profiled fit, and ``random_walk()`` on the RMAT at 1 x 1 (K5 through
+    sharded_blocked_walk_chunk) against main_path_blocked's walks."""
+    n2v = Node2Vec(n2v_params=N2V_MAIN, w2v_params={**W2V_MAIN, "max_iter": max_iter},
+                   random_seed=0, mesh=mesh, device="cuda")
+    _fresh_run()
+    mesh.collectives.clear()
+    t0 = time.perf_counter()
+    graph = n2v.preprocess_input_graph((src, dst), indexed=True, directed=False)
+    t1 = time.perf_counter()
+    engine = n2v._walk_engine()
+    walk_s, fit_s = [], []
+    run_device = engine.run_device
+
+    def timed_walk(*args, **kwargs):
+        ts = time.perf_counter()
+        out = run_device(*args, **kwargs)
+        torch.cuda.synchronize()
+        walk_s.append(time.perf_counter() - ts)
+        return out
+
+    new_backend = n2v._new_backend
+
+    def timed_backend(*args, **kwargs):
+        backend = new_backend(*args, **kwargs)
+        _timed_fit(backend.model, fit_s)
+        return backend
+
+    engine.run_device = timed_walk
+    n2v._new_backend = timed_backend
+    model = n2v.run_pipeline()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del engine.run_device, n2v._new_backend, model.fit_sharded
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    collectives = {f"{op}:{axis}": k for (op, axis), k in mesh.collectives.items()}
+    names, vectors = n2v.embedding(as_frame=False)
+
+    walks = n2v.walks
+    n_walks, length = walks.shape
+    steps = int((walks[:, 1:] >= 0).sum())
+    p = model.params
+    batch = _effective_batch(p.batch_walks, n_walks)
+    n_batches = -(-n_walks // batch)
+    pairs = sg.pairs_per_batch(batch, length - 1, p.window_size) * n_batches * max_iter
+    n_chunks = engine.chunk_source(seed=0)[0]
+    # the collectives' share: the same fit again, every collective synchronised and timed
+    with collective_timing(mesh) as coll_s:
+        ts = time.perf_counter()
+        model.fit_sharded(walks, mesh, n_vertices=graph.n_vertices)
+        torch.cuda.synchronize()
+        timed_fit_s = time.perf_counter() - ts
+    out = {
+        "phase": "main_path_mesh", "mesh": mesh.shape, "backend": mesh.backend,
+        "table_sharding": n2v.table_sharding, "max_iter_cut_to": max_iter,
+        "n_vertices": graph.n_vertices, "walks": [int(n_walks), int(length)],
+        "walk_steps": steps, "walk_chunks": n_chunks, "batch_walks": batch,
+        "n_batches": n_batches, "preprocess_s": t1 - t0, "walk_s": walk_s[0],
+        "fit_s": fit_s[0], "pipeline_s": t2 - t1,
+        "walk_steps_per_s": steps / walk_s[0],
+        "sgns_pair_updates_per_s": pairs / fit_s[0],
+        "main_path_walk_steps_per_s": main_line["walk_steps_per_s"],
+        "main_path_sgns_pair_updates_per_s": main_line["sgns_pair_updates_per_s"],
+        "collectives": collectives,
+        "timed_fit_s": timed_fit_s, "collective_s": coll_s[0],
+        "collective_share_of_fit": coll_s[0] / timed_fit_s,
+        "epoch_losses": model.losses, "peak_device_memory_bytes": int(peak),
+        "launches": launches, "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+    }
+    emit(out)
+    require(np.array_equal(walks, main_walks), "the 1 x 1 mesh's walks differ from main_path's")
+    require(vectors.shape == (graph.n_vertices, 128) and bool(np.isfinite(vectors).all()),
+            "main_path_mesh: bad vectors")
+    require(all(np.isfinite(x) for x in model.losses), "main_path_mesh: non-finite loss")
+    require(launches["dense_walk"] == launches["dense_walk_sharded"] == n_chunks,
+            f"main_path_mesh: dense walks {launches}")
+    for k in ("pair_lists", "col_pair_logits", "col_pair_grads", "adagrad_accumulate_squares",
+              "adagrad_apply"):
+        require(launches[k] == n_batches * max_iter, f"main_path_mesh launched {k} {launches[k]}")
+    for k in ("sgns_grads", "sgns_pair_grads", "adagrad_accumulate"):
+        require(launches[k] == 0, f"main_path_mesh launched {k} {launches[k]} times")
+    breakdown((("fit_sharded (1 x 1)",
+                lambda: model.fit_sharded(walks, mesh, n_vertices=graph.n_vertices)),))
+
+    _fresh_run()
+    rmat = Node2Vec(n2v_params=N2V_MAIN, w2v_params=W2V_MAIN, max_out_degree=10_000,
+                    random_seed=0, mesh=mesh, device="cuda")
+    rmat.preprocess_input_graph((rmat_src, rmat_dst), indexed=True, directed=False)
+    ts = time.perf_counter()
+    rmat_walks = rmat.random_walk()
+    walk_s = time.perf_counter() - ts
+    r_launches = _launches()
+    equal = bool(np.array_equal(rmat_walks, blocked_walks.cpu().numpy()))
+    emit({"phase": "main_path_mesh", "graph": "RMAT scale 19", "entry": "random_walk()",
+          "strategy": rmat._walk_engine().strategy, "walks": list(rmat_walks.shape),
+          "walk_s": walk_s, "bit_equal_to_main_path_blocked": equal,
+          "launches": {k: r_launches[k] for k in ("blocked_walk", "blocked_walk_sharded")}})
+    require(equal, "the 1 x 1 mesh's RMAT walks differ from main_path_blocked's")
+    require(r_launches["blocked_walk"] == r_launches["blocked_walk_sharded"] > 0,
+            f"the RMAT walks on the mesh: {r_launches}")
+    return out
+
+
+MESH_GATE = dict(auc_min=0.60, gap_min=0.05)  # the SGNS limits (PERF.md section 2)
+
+
+def _mesh_rank(quick: bool) -> list:
+    """One rank of ``mesh_ranks``: at meshes 2 x 1 and 1 x 2 over gloo on a
+    card the two ranks share, the sharded walks (dense and CSR on the dense
+    graph, blocked on an RMAT) against the single-device engine, one column
+    step against ``sharded_sgns_step_plain``, the dense delta all-reduce
+    timed, and (not with ``quick``) the quality gate through
+    ``Node2Vec(mesh=).run_pipeline()``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_v = 4096 if quick else 131072
+    g = build_graph(smoke_edges(n_v, 16 * n_v), directed=False)
+    g_rmat = rmat_graph(12 if quick else 14)[2]
+    lines = []
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_mesh(*shape, device="cuda")
+        line = {"phase": "mesh_ranks", "mesh": mesh.shape, "rank": mesh.rank,
+                "coords": mesh.coords, "backend": mesh.backend,
+                "cuda_collectives": ("copied through host memory (gloo)" if mesh.host_staged
+                                     else "on the device")}
+        _build.reset_launches()
+        for name, graph, strategy in (("dense ER", g, "dense"), ("RMAT", g_rmat, "blocked"),
+                                      ("dense ER", g, "csr")):
+            params = Node2VecParams(**N2V_MAIN)
+            sharded = WalkEngine(graph, params, strategy=strategy, mesh=mesh, device="cuda")
+            one = WalkEngine(graph, params, strategy=strategy, device="cuda")
+            equal = bool(torch.equal(sharded.run_device(seed=0), one.run_device(seed=0)))
+            require(equal, f"{strategy} walks at {shape} differ from the single-device engine's")
+            line[f"{strategy}_walks_bit_equal ({name})"] = equal
+            if strategy == "blocked":
+                require((sharded.fallback_count, sharded.attempt_count)
+                        == (one.fallback_count, one.attempt_count), "blocked counts differ")
+        line["walk_launches"] = {k: int(_build.launches[k]) for k in (
+            "dense_walk_sharded", "blocked_walk_sharded", "csr_walk_sharded")}
+        # one column step at the main path's batch, B = 2,560 split over data
+        dim, n_walks, length = 128, 2560, 21
+        rng = np.random.default_rng(5)
+        full = [torch.from_numpy(rng.normal(0, 0.1, (n_v, dim)).astype(np.float32)).cuda()
+                for _ in range(2)]
+        accs = [torch.from_numpy(rng.random(n_v).astype(np.float32)).cuda() for _ in range(2)]
+        walks = torch.from_numpy(_pair_walks(n_v, n_walks, length, 7)).cuda()
+        vocab = build_vocab(walks, n_v, min_count=1)
+        noise = [torch.from_numpy(a).cuda() for a in (vocab.ns_alias, vocab.ns_prob, vocab.mask)]
+        d = mesh.coords["data"]
+        b_local = n_walks // shape[0]
+        local = walks[d * b_local:(d + 1) * b_local].contiguous()
+        gen = torch.Generator(device="cuda").manual_seed(1000 + d)  # the data coordinate's
+        draws = sg.draw_step(gen, b_local, length, 5, 64, True, "cuda")
+        states = [col.ShardedSGNSState(*(col.shard_columns(mesh, t.clone()) for t in full),
+                                       *(a.clone() for a in accs)) for _ in range(3)]
+        kw = dict(window=5, negatives=5)
+        # a first step on a spare state warms the groups and the allocator
+        col.sharded_sgns_step(mesh, states[2], local, *draws, 0.05, *noise, **kw)
+        torch.cuda.synchronize()
+        with collective_timing(mesh) as coll_s:
+            ts = time.perf_counter()
+            loss_k = col.sharded_sgns_step(mesh, states[0], local, *draws, 0.05, *noise, **kw)
+            torch.cuda.synchronize()
+            line["step_s"], line["step_collective_s"] = time.perf_counter() - ts, coll_s[0]
+        loss_p = col.sharded_sgns_step_plain(mesh, states[1], local, *draws, 0.05, *noise, **kw)
+        line["step_vs_plain_max_abs_err"] = _close_state(f"column step {shape}", states[0],
+                                                         loss_k, states[1], loss_p)
+        if shape[0] > 1:  # the step's dense [2, V, Dm] delta all-reduce over the data axis
+            delta = torch.zeros((2, n_v, dim // shape[1]), device="cuda")
+            mesh.all_reduce_sum(delta, "data")
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            for _ in range(3):
+                mesh.all_reduce_sum(delta, "data")
+            torch.cuda.synchronize()
+            line["dense_delta_all_reduce_ms"] = (time.perf_counter() - ts) / 3 * 1e3
+            line["dense_delta_bytes"] = delta.numel() * 4
+            del delta
+        del full, accs, states
+        if not quick:
+            gq, labels = synthetic_multilabel(2000, seed=0)
+            n2v = Node2VecParams(num_walks=8, walk_length=40, walker_chunk=2048)
+            w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128)
+            ts = time.perf_counter()
+            auc = holdout_link_prediction(gq, n2v_params=n2v, w2v_params=w2v, seed=0,
+                                          device="cuda", trainer="run_pipeline",
+                                          mesh=mesh)["holdout_link_auc"]
+            emb, _ = train_embeddings(gq, n2v, w2v, seed=0, device="cuda",
+                                      trainer="run_pipeline", mesh=mesh)
+            gap = label_cosine_gap(emb, labels, n_pairs=200_000, seed=0)
+            line.update({"quality": "synthetic_multilabel(2000, seed=0)",
+                         "trainer": "Node2Vec(mesh=).run_pipeline() -> fit_sharded (column)",
+                         "holdout_link_auc": auc, "label_cosine_gap": gap, **MESH_GATE,
+                         "quality_s": time.perf_counter() - ts})
+            require(auc >= MESH_GATE["auc_min"], f"mesh {shape}: AUC {auc}")
+            require(gap >= MESH_GATE["gap_min"], f"mesh {shape}: gap {gap}")
+        lines.append(line)
+    return lines
+
+
+def mesh_ranks(quick: bool = False) -> None:
+    """Two ranks sharing the card over gloo (``parallel.launch.spawn``; NCCL
+    refuses two ranks on one GPU), each running ``_mesh_rank``; any rank's
+    failure fails the phase."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks allocate on the same card
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_mesh_rank, 2, "gloo", "cuda", quick, timeout=900)
+    for lines in ranks:
+        for line in lines:
+            emit({**line, "spawn_s": time.perf_counter() - t0})
+
+
 def breakdown(stages) -> None:
     """Device time by kernel and the idle share of each (name, fn) stage,
     from torch.profiler over a second run of it (launch counts of the main
@@ -3403,19 +3826,22 @@ def breakdown(stages) -> None:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name = {}
+        by_name, host = {}, {}
         for ev in prof.key_averages():
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(ev, "self_cuda_time_total", 0)
             if dev_us > 0 and getattr(ev, "device_type", None) != torch.autograd.DeviceType.CPU:
                 by_name[ev.key[:80]] = dev_us / 1e3
+            elif ev.self_cpu_time_total > 0:
+                host[ev.key[:80]] = ev.self_cpu_time_total / 1e3
         busy = sum(by_name.values())
         top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
         emit({"phase": "breakdown", "stage": stage, "wall_ms": wall_ms,
               "device_busy_ms": busy if busy > 0 else None,
               "idle_share": 1 - busy / wall_ms if busy > 0 else None,
-              "top_device_ms": top})
+              "top_device_ms": top,
+              "top_host_self_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:6])})
 
 
 def quality_gates(blocked_widths=None, trainer: str = "fit", walker_chunk=None,
@@ -3531,11 +3957,16 @@ def main() -> int:
         check_fused(4096, 64, 21, 128, 5, True, results, "quick")
         check_fused(512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
         check_alias_draw(g, True, results, "quick, dense ER 4,096 vertices")
+        mesh = make_mesh(1, 1, device="cuda")  # a world of one, over NCCL
+        check_col_sgns(mesh, 4096, 64, 21, 128, 5, True, results, "quick")
+        check_col_sgns(mesh, 512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
+        mesh_ranks(quick=True)
         edge_cases()
         edge_cases_blocked()
         edge_cases_sl()
         check_wide(g, tree, tree_counts, results)
         small_reference()
+        torch.distributed.destroy_process_group()
         emit({"phase": "quick", "ok": True})
         return 0
 
@@ -3583,6 +4014,11 @@ def main() -> int:
                 oov=0.4)
     check_fused(131072, main_batch, 21, 128, 5, True, results, "main_path_fused batch 0",
                 batch=first)
+    mesh = make_mesh(1, 1, device="cuda")  # a world of one, over NCCL
+    check_col_sgns(mesh, 131072, main_batch, 21, 128, 5, True, results,
+                   "main_path_pairs batch 0", batch=first)
+    check_col_sgns(mesh, 131072, main_batch, 21, 128, 5, False, results,
+                   "random walks, dead tails")
     check_fused(131072, main_batch, 21, 128, 5, False, results, "random walks, dead tails")
     del first
     check_sgns(131072, main_batch, 21, 64, 5, 64, False, results)
@@ -3601,11 +4037,15 @@ def main() -> int:
     small_reference()
     paths = {}
     paths["main_path"], n2v = main_path(src, dst, max_iter=1)
+    main_walks = n2v.walks
     paths["surface"] = surface(n2v, g, src, dst)
     del n2v
     paths["main_path_blocked"], walks_dev, n_v = main_path_blocked(rmat_src, rmat_dst, max_iter=1)
     check_vertex_counts(walks_dev, n_v, results)
-    del walks_dev
+    paths["main_path_mesh"] = main_path_mesh(mesh, src, dst, paths["main_path"], main_walks,
+                                             rmat_src, rmat_dst, walks_dev, max_iter=1)
+    del walks_dev, main_walks
+    mesh_ranks()
     paths["main_path_streaming"], engine, n_v = main_path_streaming(rmat_src, rmat_dst, max_iter=1)
     check_streaming_counts(engine, n_v, results)
     del engine
@@ -3660,6 +4100,7 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **{k: r[k] for k in ("staging", "mode") if k in r}})
     emit({"kernels": kernels})
+    torch.distributed.destroy_process_group()  # the 1 x 1 mesh's world of one
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -2,7 +2,8 @@
 on the CPU (and, with --port, from the PyTorch port's plain path).
 
     JAX_PLATFORMS=cpu python experiments/port_gate_reference.py [--port] [--hs] [--cbow]
-        [--sgd] [--trainers fit run_pipeline host_corpus] [--seeds 0 1]
+        [--sgd] [--mesh N_DATA,N_MODEL] [--trainers fit run_pipeline host_corpus]
+        [--seeds 0 1]
 
 The gates train on ``synthetic_multilabel(2000, seed=0)`` with num_walks 8,
 walk_length 40, dim 128, max_iter 5, min_count 1, p = q = 1, and read the
@@ -16,8 +17,12 @@ reference's default objective, instead of negative sampling; ``--cbow``
 trains CBOW (sg=0, gensim's default architecture) instead of skip-gram, so
 ``--cbow --hs`` trains CBOW with hierarchical softmax; ``--sgd`` trains
 SGNS with ``optimizer="sgd"`` at ``step_size=0.025`` (the reference
-trainers' update rule).  Prints one JSON line per (package, objective,
-trainer, seed).
+trainers' update rule).  ``--mesh 2,1`` runs the JAX package on a (data ×
+model) mesh of virtual CPU devices: "fit" trains ``fit_sharded`` and
+"run_pipeline" ``Node2Vec(mesh=).run_pipeline()``, both the column-sharded
+trainer (``--port`` does not run with it: the port's mesh runs in ranks of
+their own, ``chip_smoke.py``'s ``mesh_ranks``).  Prints one JSON line per
+(package, objective, trainer, seed).
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+if "--mesh" in sys.argv:  # virtual CPU devices for the mesh, before jax starts
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8").strip()
 
 import jax  # noqa: E402
 
@@ -58,17 +67,20 @@ TRAINERS = {
 }
 
 
-def jax_vectors(indptr, indices, weights, n_vertices, n2v, w2v, seed, trainer):
+def jax_vectors(indptr, indices, weights, n_vertices, n2v, w2v, seed, trainer, mesh=None):
     src = np.repeat(np.arange(n_vertices), np.diff(indptr)).astype(np.int32)
     g = ref_from_edge_arrays(src, indices, weights, n_vertices=n_vertices, directed=True)
     if trainer == "fit":
         walks = ref_random_walks(g, n2v, seed=seed)
-        return np.asarray(Word2VecTPU(w2v).fit(walks, n_vertices=n_vertices).vectors)
+        model = Word2VecTPU(w2v)
+        if mesh is not None:
+            return np.asarray(model.fit_sharded(walks, mesh, n_vertices=n_vertices).vectors)
+        return np.asarray(model.fit(walks, n_vertices=n_vertices).vectors)
     pipe = node2vec_tpu.Node2Vec(n2v, w2v, random_seed=seed,
-                                 host_corpus=trainer == "host_corpus")
+                                 host_corpus=trainer == "host_corpus", mesh=mesh)
     pipe.graph = g
     model = pipe.run_pipeline()
-    if trainer == "run_pipeline":
+    if trainer == "run_pipeline" and mesh is None:
         assert pipe.walks is None, "the JAX pipeline did not stream"
     return np.asarray(model.vectors)
 
@@ -83,7 +95,17 @@ def main() -> None:
     ap.add_argument("--cbow", action="store_true", help="CBOW (sg=0) instead of skip-gram")
     ap.add_argument("--sgd", action="store_true",
                     help='SGNS with optimizer="sgd", step_size=0.025 instead of Adagrad')
+    ap.add_argument("--mesh", default=None,
+                    help="N_DATA,N_MODEL: the JAX package's column-sharded trainer on a mesh")
     args = ap.parse_args()
+    mesh = None
+    if args.mesh:
+        from node2vec_tpu.parallel import make_mesh
+
+        if args.port:
+            ap.error("--port does not run with --mesh")
+        n_data, n_model = (int(x) for x in args.mesh.split(","))
+        mesh = make_mesh(n_data, n_model, devices=jax.devices()[: n_data * n_model])
     g, labels = synthetic_multilabel(2000, seed=0)
     for trainer in args.trainers:
         n2v_kw, w2v_kw = TRAINERS[trainer]
@@ -99,13 +121,15 @@ def main() -> None:
                                                       "ns" if args.cbow else "sgns")
         if args.sgd:
             objective += "_sgd"
+        if mesh is not None:
+            objective += f"_mesh{args.mesh.replace(',', 'x')}"
         for seed in args.seeds:
             kept, pos, neg = holdout_split(g, 0.2, seed)
             emb = jax_vectors(*_csr(kept, g.n_vertices), g.n_vertices, RefN2V(**n2v_kw),
-                              RefW2V(**w2v_kw), seed, trainer)
+                              RefW2V(**w2v_kw), seed, trainer, mesh)
             emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
             full = jax_vectors(g.indptr, g.indices, g.weights, g.n_vertices,
-                               RefN2V(**n2v_kw), RefW2V(**w2v_kw), seed, trainer)
+                               RefN2V(**n2v_kw), RefW2V(**w2v_kw), seed, trainer, mesh)
             print(json.dumps({"package": "node2vec_tpu (CPU)", "objective": objective,
                               "trainer": trainer, "seed": seed,
                               "holdout_link_auc": link_prediction_auc(emb, pos, neg),

@@ -9,7 +9,9 @@ CBOW with negative sampling or hierarchical softmax and row-wise Adagrad
 (K2–K4, K8–K10), or SGNS with pre-aggregated SGD (K11), trained in memory,
 over a streamed virtual corpus or from host slabs, and driven by
 ``Node2Vec``; beside them the pair-based and fused-table SGNS steps (K13,
-K14) and the batched alias draw (K15).  Each kernel's wrapper
+K14) and the batched alias draw (K15).  Over a (data × model) process mesh
+(``node2vec_torch.parallel``) the walks shard their walkers and SGNS
+shards the tables' columns (K16, K17).  Each kernel's wrapper
 launches it for CUDA tensors and runs its plain PyTorch version for CPU
 tensors.  Kernels are built with nvcc at first use
 (``node2vec_torch._build``); importing the package builds nothing and needs

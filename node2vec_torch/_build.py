@@ -12,7 +12,7 @@ may have no ``nvcc``.
 those in a kernel's shared-list or global-staging mode).  Each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels.  ``staging`` picks where the
-walk-at-a-time step kernels (K2, K8, K9, K10, K13) stage a walk.
+walk-at-a-time step kernels (K2, K8, K9, K10, K13, K16, K17) stage a walk.
 """
 
 from __future__ import annotations
@@ -34,11 +34,14 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 KERNELS = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply",
            "blocked_walk", "vertex_counts", "subsample_walks", "hs_grads", "cbow_grads",
            "cbow_hs_grads", "preagg_rows", "sgd_apply", "csr_walk", "pair_lists",
-           "sgns_pair_grads", "fused_adagrad", "alias_draw")
-# launches of a kernel in one of its modes, counted beside the kernel's own
+           "sgns_pair_grads", "fused_adagrad", "alias_draw", "col_pair_logits",
+           "col_pair_grads", "adagrad_accumulate_squares")
+# launches of a kernel in one of its modes, counted beside the kernel's own;
+# "*_sharded": a walk kernel launched for one data shard of a mesh
 MODE_COUNTS = ("blocked_walk_sl_mixed", "blocked_walk_sl_exhaustive", "sgns_grads_global",
                "hs_grads_global", "cbow_grads_global", "cbow_hs_grads_global",
-               "sgns_pair_grads_global")
+               "sgns_pair_grads_global", "col_pair_logits_global", "col_pair_grads_global",
+               "dense_walk_sharded", "blocked_walk_sharded", "csr_walk_sharded")
 
 launches: collections.Counter = collections.Counter()
 STAGING_BLOCKS_PER_SM = 4  # global staging's grid: a small multiple of the SMs
@@ -131,7 +134,7 @@ def lib() -> ctypes.CDLL:
             "n2v_blocked_walk": [vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i64, u32, f32,
                                  f32, f32, i32, i32, i32, i32, i32, vp],
             "n2v_vertex_counts": [vp, i64, vp, i32, vp],
-            "n2v_subsample_walks": [vp, i64, vp, i32, u32, u32, vp, vp],
+            "n2v_subsample_walks": [vp, i64, vp, i32, u32, u32, i64, vp, vp],
             "n2v_hs_grads": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                              i32, vp, vp, vp, vp, vp, vp, i32, vp],
             "n2v_cbow_grads": [vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, f32, i32,
@@ -148,6 +151,12 @@ def lib() -> ctypes.CDLL:
             "n2v_fused_adagrad": [vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32, f32, vp,
                                   vp, vp],
             "n2v_alias_draw": [vp, vp, vp, vp, vp, vp, vp, i64, vp, vp],
+            "n2v_col_pair_logits": [vp, vp, i32, vp, vp, vp, i32, i32, i32, i32, vp, vp, vp,
+                                    i32, vp],
+            "n2v_col_pair_grads": [vp, vp, i32, vp, vp, vp, vp, vp, i32, i32, i32, i32, f32,
+                                   vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, vp],
+            "n2v_adagrad_accumulate_squares": [vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64,
+                                               i32, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(handle, name)
@@ -157,6 +166,9 @@ def lib() -> ctypes.CDLL:
         handle.n2v_sgns_grads_smem.restype = ctypes.c_size_t
         handle.n2v_sgns_pair_grads_smem.argtypes = [i32, i32, i32, i32]
         handle.n2v_sgns_pair_grads_smem.restype = ctypes.c_size_t
+        for name in ("n2v_col_pair_logits_smem", "n2v_col_pair_grads_smem"):
+            getattr(handle, name).argtypes = [i32, i32, i32, i32]
+            getattr(handle, name).restype = ctypes.c_size_t
         handle.n2v_hs_grads_smem.argtypes = [i32, i32, i32, i32, i32]
         handle.n2v_hs_grads_smem.restype = ctypes.c_size_t
         handle.n2v_cbow_grads_smem.argtypes = [i32, i32, i32]

@@ -1,5 +1,5 @@
 """Top-level pipeline (port of ``node2vec_tpu/api.py``): preprocess ->
-random_walk -> fit -> embedding on one device.
+random_walk -> fit -> embedding, on one device or over a mesh.
 
 ``Node2Vec`` runs on the card by default (``device="cuda"``) and raises when
 CUDA is missing unless the caller passes ``device="cpu"``, which runs every
@@ -10,8 +10,12 @@ slabs with ``host_corpus=True``, and every stage resumes from
 ``checkpoint_dir``.  A trained model is kept with ``save_model`` and read
 back with ``load_model`` (the JAX package's file; either package loads the
 other's).  The functional forms ``trim_index`` and ``random_walk`` return
-DataFrames, as the JAX package's do.  The mesh and graph-sharded branches
-of the JAX pipeline are not ported yet and raise ``NotImplementedError``.
+DataFrames, as the JAX package's do.  With ``mesh=`` (``parallel.make_mesh``,
+called on every rank) the walks shard their walkers over the mesh's data
+axis and ``fit`` trains with the tables' columns sharded over its model
+axis (``Word2VecTorch.fit_sharded``).  The graph-sharded walks and the
+row-sharded trainers of the JAX pipeline are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,17 +79,33 @@ class Node2Vec:
         and False walk without them (auto uses only a prebuilt table, which
         the pipeline never passes).
 
-        ``table_sharding`` ("column", the default, or "row") picks the
-        mesh trainer's table layout in the JAX package; it is validated as
-        there, with or without a mesh, and one device reads no more of it."""
+        ``mesh`` (``parallel.make_mesh``): walks shard their walkers over
+        the mesh's data axis, and ``fit`` trains over the mesh
+        (``Word2VecTorch.fit_sharded``); every rank runs the pipeline and
+        ends with the whole model.  ``table_sharding`` picks the mesh
+        trainer's table layout: "column" (the default) shards the tables'
+        columns over the model axis; "row" (the row-sharded trainers) is
+        not ported yet and raises ``NotImplementedError`` when training
+        starts.  It is validated as in the JAX package, with or without a
+        mesh.  ``graph_sharded=True`` (the edge-partitioned walks) raises
+        ``NotImplementedError`` with a mesh, and ``ValueError`` without one
+        when the walks start, as the JAX engine does."""
         if table_sharding not in ("column", "row"):
             raise ValueError(
                 f"table_sharding must be 'column' or 'row', got {table_sharding!r}"
             )
-        if mesh is not None or graph_sharded:
-            raise NotImplementedError(
-                "mesh and graph-sharded runs are not ported yet (ROADMAP Queue A item 12)"
+        if host_corpus and mesh is not None:
+            raise ValueError(
+                "host_corpus is the single-device trainer path; on a mesh "
+                "use table_sharding='row' (+ streaming) instead"
             )
+        if graph_sharded and mesh is not None:
+            raise NotImplementedError(
+                "graph_sharded=True (the edge-partitioned walks) is not ported yet "
+                "(ROADMAP Queue A item 12)"
+            )
+        self.mesh = mesh
+        self.graph_sharded = graph_sharded
         self.checkpoint_dir = checkpoint_dir
         self.host_corpus = host_corpus
         self.device = resolve_device(device)
@@ -139,8 +159,8 @@ class Node2Vec:
         """Build once, reuse: the packed tables are p/q/seed independent."""
         if self._engine is None:
             self._engine = WalkEngine(
-                self.graph, self.n2v_params, device=self.device,
-                shared_lists=self.shared_lists,
+                self.graph, self.n2v_params, mesh=self.mesh, graph_sharded=self.graph_sharded,
+                shared_lists=self.shared_lists, device=self.device,
             )
         return self._engine
 
@@ -212,8 +232,9 @@ class Node2Vec:
             seed=self.random_seed, start_vertices=self.walk_seed_vertices
         )
         if streaming is None:
-            streaming = n_chunks > 1
-        if streaming:
+            # a mesh streams only with the row layout (the JAX package's rule)
+            streaming = n_chunks > 1 and (self.mesh is None or self.table_sharding == "row")
+        if streaming and self.mesh is None:
             self.backend.model.fit_streaming(
                 source, n_chunks, n_v, verbose=verbose,
                 checkpoint_dir=self.checkpoint_dir,
@@ -221,9 +242,26 @@ class Node2Vec:
             )
             self.walks = None  # virtual corpus: regenerate with random_walk()
             return self.backend.model
+        if streaming:
+            self.backend.model.fit_streaming_sharded(
+                source, n_chunks, self.mesh, n_v, table_sharding=self.table_sharding,
+                verbose=verbose, checkpoint_dir=self.checkpoint_dir,
+                source_token=self._stream_source_token(engine),
+            )
+            self.walks = None
+            return self.backend.model
         walks_dev = engine.run_device(
             seed=self.random_seed, start_vertices=self.walk_seed_vertices
         )
+        if self.mesh is not None:
+            # the mesh trainer takes a host corpus (it shards the rows itself)
+            self.walks = walks_dev.cpu().numpy()
+            del walks_dev
+            self.backend.model.fit_sharded(
+                self.walks, self.mesh, n_vertices=n_v, verbose=verbose,
+                table_sharding=self.table_sharding, checkpoint_dir=self.checkpoint_dir,
+            )
+            return self.backend.model
         self.backend.model.fit(
             walks_dev, n_vertices=n_v, verbose=verbose, checkpoint_dir=self.checkpoint_dir,
         )
@@ -231,17 +269,23 @@ class Node2Vec:
         return self.backend.model
 
     def fit(self, verbose: bool = False) -> Word2VecTorch:
-        """Train embeddings over the walks (``fit_host`` with
-        ``host_corpus=True``)."""
+        """Train embeddings over the walks (``fit_sharded`` with a mesh,
+        ``fit_host`` with ``host_corpus=True``)."""
         if self.walks is None:
             raise RuntimeError("call random_walk() first")
         self.backend = self._new_backend(self.walks)
         # vocabulary covers every graph vertex even if rare ones fall below
         # min_count (they are masked, not renumbered)
         n_v = self.graph.n_vertices if self.graph else None
-        trainer = self.backend.model.fit_host if self.host_corpus else self.backend.model.fit
+        model = self.backend.model
+        if self.mesh is not None:
+            model.fit_sharded(self.walks, self.mesh, n_vertices=n_v, verbose=verbose,
+                              table_sharding=self.table_sharding,
+                              checkpoint_dir=self.checkpoint_dir)
+            return model
+        trainer = model.fit_host if self.host_corpus else model.fit
         trainer(self.walks, n_vertices=n_v, verbose=verbose, checkpoint_dir=self.checkpoint_dir)
-        return self.backend.model
+        return model
 
     def embedding(self, as_frame: bool = True):
         """Vectors mapped back to original names (see

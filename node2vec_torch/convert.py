@@ -7,6 +7,9 @@ packed dim-64 device layout, and the port works on that layout throughout.
 state into the other's, so both trainers can start from the same tables;
 ``from_reference_fused`` and ``to_reference_fused`` do the same for the
 fused-table step's [V, D+1] tables (the accumulator in column D).
+``from_reference_sharded_state`` gives a mesh rank its column slices of
+JAX's full tables (the column-sharded trainer's state), and
+``to_reference_sharded_state`` gathers them back.
 ``blocked_graph_from_arrays`` takes the blocked walk engine's tables, which
 have one layout in both packages, so both walk kernels can run on the very
 tables one package packed.  Like every entry point of the port, each puts
@@ -53,6 +56,27 @@ def to_reference_state(
     """The port's state tensors -> host float32 numpy arrays, logical layout."""
     return tuple(t.detach().to("cpu", torch.float32).numpy().copy()
                  for t in (emb_in, emb_out, acc_in, acc_out))
+
+
+def from_reference_sharded_state(mesh, emb_in, emb_out, acc_in, acc_out, device="cuda"):
+    """This rank's ``ShardedSGNSState`` from full (emb_in [V, D], emb_out
+    [V, D], acc_in [V], acc_out [V]) arrays, e.g. ``np.asarray`` of a JAX
+    ``ShardedSGNSState``'s global arrays: its model coordinate's columns of
+    the tables and the whole accumulators."""
+    from node2vec_torch.parallel.sharded_sgns import ShardedSGNSState, shard_columns
+
+    e_in, e_out, a_in, a_out = from_reference_state(emb_in, emb_out, acc_in, acc_out, device)
+    return ShardedSGNSState(shard_columns(mesh, e_in), shard_columns(mesh, e_out), a_in, a_out)
+
+
+def to_reference_sharded_state(mesh, state) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                                     np.ndarray]:
+    """The full tables of a ``ShardedSGNSState`` as host float32 arrays,
+    gathered over the model axis (a collective: every rank calls it)."""
+    from node2vec_torch.parallel.sharded_sgns import gather_columns
+
+    return to_reference_state(gather_columns(mesh, state.emb_in),
+                              gather_columns(mesh, state.emb_out), state.acc_in, state.acc_out)
 
 
 def from_reference_fused(tab_in, tab_out, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:

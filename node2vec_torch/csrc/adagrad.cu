@@ -17,6 +17,15 @@
 // the pre-aggregated d_head.  HS's head and tail rows are disjoint (BFS
 // numbering), so the JAX order (head, emb_in, tail) equals one pass.
 //
+// K3 has a second mode, "squares given", for the column-sharded step
+// (node2vec_tpu/parallel/sharded_sgns.py:106-116, col_sgns.cu): each row's
+// square arrives already summed over the model group's column slices, and
+//   acc_in[rows_in]     += sq_in / D
+//   acc_out[rows_out]   += sq_out / D
+//   acc_out[rows_extra] += sq_extra / D
+// with D the full width, one thread a row, rows < 0 skipped (the JAX step
+// multiplies their squares by a zero validity weight).
+//
 // They are two launches on purpose: every occurrence's square has to land
 // in the accumulator before any row reads it back, and two lists share
 // acc_out.  Fusing them into one pass that reads partial accumulators would
@@ -114,6 +123,18 @@ adagrad_apply_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
   for (int k = lane; k < dim; k += 32) atomicAdd(t + k, (-lr * g[k]) * scale);
 }
 
+__global__ void __launch_bounds__(kThreads)
+adagrad_accumulate_squares_kernel(float* __restrict__ acc_in, float* __restrict__ acc_out,
+                                  RowLists l, float div) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const float* sq;
+  int v;
+  bool first;
+  // each list's "gradient row" is one float: locate at width 1
+  if (!locate(l, r, 1, sq, v, first) || v < 0) return;
+  atomicAdd((first ? acc_in : acc_out) + v, *sq / div);
+}
+
 RowLists make_lists(const float* g_in, const int32_t* rows_in, int64_t n_in,
                     const float* g_out, const int32_t* rows_out, int64_t n_out,
                     const float* g_extra, const int32_t* rows_extra, int64_t n_extra) {
@@ -153,5 +174,23 @@ extern "C" int n2v_adagrad_apply(float* emb_in, float* emb_out, const float* acc
   if (n_blocks(l) == 0) return 0;
   adagrad_apply_kernel<<<n_blocks(l), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       emb_in, emb_out, acc_in, acc_out, l, dim, lr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3's squares mode: three (squares [n], rows [n]) lists, D the full width.
+extern "C" int n2v_adagrad_accumulate_squares(float* acc_in, float* acc_out,
+                                              const float* sq_in, const int32_t* rows_in,
+                                              int64_t n_in, const float* sq_out,
+                                              const int32_t* rows_out, int64_t n_out,
+                                              const float* sq_extra,
+                                              const int32_t* rows_extra, int64_t n_extra,
+                                              int dim, void* stream) {
+  const RowLists l = make_lists(sq_in, rows_in, n_in, sq_out, rows_out, n_out, sq_extra,
+                                rows_extra, n_extra);
+  const int64_t n = n_in + n_out + n_extra;
+  if (n == 0) return 0;
+  adagrad_accumulate_squares_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                                      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      acc_in, acc_out, l, static_cast<float>(dim));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // Where the walk-at-a-time step kernels (K2 sgns.cu, K8 hs.cu, K9 cbow.cu,
-// K10 cbow_hs.cu, K13 sgns_pairs.cu) stage a walk's arrays.
+// K10 cbow_hs.cu, K13 sgns_pairs.cu, K16 and K17 col_sgns.cu) stage a walk's
+// arrays.
 //
 // Each of those kernels carves every array it keeps for a walk from one
 // base pointer.  In shared mode the base is the block's dynamic shared

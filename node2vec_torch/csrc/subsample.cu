@@ -4,10 +4,13 @@
 // entry v >= 0 of an int32 [N, L+1] corpus survives when u < keep_prob[v]
 // and otherwise becomes -1; entries < 0 stay.  The JAX version draws an
 // [N, L+1] uniform tensor from jax.random; here u is the counter hash of
-// hashrng.cuh keyed on (seed, flat position, stream tag), so no uniform
-// tensor is written or read, and the plain PyTorch version
-// (models/vocab.py: subsample_walks_plain) draws the same bits.  An index
-// >= V reads keep_prob[V - 1], as the JAX gather clamps it.
+// hashrng.cuh keyed on (seed, base + flat position, stream tag), so no
+// uniform tensor is written or read, and the plain PyTorch version
+// (models/vocab.py: subsample_walks_plain) draws the same bits.  ``base`` is
+// the flat position of the tensor's first entry in the corpus it is a slice
+// of: a data shard of a corpus passes its first row times L+1 and draws what
+// the whole corpus would draw there (the one-device trainers pass 0).  An
+// index >= V reads keep_prob[V - 1], as the JAX gather clamps it.
 //
 // Design: a grid-stride loop, 16 bytes (four entries) per thread and load,
 // one 4-byte keep_prob gather per live entry (the [V] table stays in L2),
@@ -37,7 +40,8 @@ __device__ __forceinline__ int32_t keep_or_drop(int32_t v, uint32_t pos, uint32_
 
 __global__ void __launch_bounds__(kThreads)
 subsample_kernel(const int32_t* walks, int64_t n, const float* __restrict__ keep,
-                 int32_t n_vertices, uint32_t seed, uint32_t tag, int32_t* out) {
+                 int32_t n_vertices, uint32_t seed, uint32_t tag, uint32_t base,
+                 int32_t* out) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t n4 = n / 4;
@@ -45,7 +49,7 @@ subsample_kernel(const int32_t* walks, int64_t n, const float* __restrict__ keep
   int4* out4 = reinterpret_cast<int4*>(out);
   for (int64_t i = tid; i < n4; i += stride) {
     int4 q = walks4[i];
-    const uint32_t pos = static_cast<uint32_t>(4 * i);
+    const uint32_t pos = base + static_cast<uint32_t>(4 * i);
     q.x = keep_or_drop(q.x, pos, seed, tag, keep, n_vertices);
     q.y = keep_or_drop(q.y, pos + 1, seed, tag, keep, n_vertices);
     q.z = keep_or_drop(q.z, pos + 2, seed, tag, keep, n_vertices);
@@ -53,15 +57,16 @@ subsample_kernel(const int32_t* walks, int64_t n, const float* __restrict__ keep
     out4[i] = q;
   }
   for (int64_t i = 4 * n4 + tid; i < n; i += stride)
-    out[i] = keep_or_drop(walks[i], static_cast<uint32_t>(i), seed, tag, keep, n_vertices);
+    out[i] = keep_or_drop(walks[i], base + static_cast<uint32_t>(i), seed, tag, keep,
+                          n_vertices);
 }
 
 }  // namespace
 
 extern "C" int n2v_subsample_walks(const int32_t* walks, int64_t n, const float* keep,
                                    int32_t n_vertices, uint32_t seed, uint32_t tag,
-                                   int32_t* out, void* stream) {
-  if (n < 0 || n > (int64_t{1} << 32) || n_vertices < 0 ||
+                                   int64_t base, int32_t* out, void* stream) {
+  if (n < 0 || base < 0 || n + base > (int64_t{1} << 32) || n_vertices < 0 ||
       reinterpret_cast<uintptr_t>(walks) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
@@ -73,6 +78,6 @@ extern "C" int n2v_subsample_walks(const int32_t* walks, int64_t n, const float*
   const int64_t blocks = want < 1 ? 1 : (want < 16LL * sms ? want : 16LL * sms);
   subsample_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(walks, n, keep, n_vertices, seed, tag,
-                                                          out);
+                                                          static_cast<uint32_t>(base), out);
   return static_cast<int>(cudaGetLastError());
 }

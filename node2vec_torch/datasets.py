@@ -151,62 +151,68 @@ def label_cosine_gap(
 
 
 def _walk_engine(graph: Graph, n2v_params, device, blocked_widths=None,
-                 shared_lists: bool = False):
-    """WalkEngine over ``graph``; with ``blocked_widths = (P, C)`` on the
-    blocked engine, its tables built at those widths (with the shared-list
-    sampler's lists when ``shared_lists``)."""
+                 shared_lists: bool = False, mesh=None):
+    """WalkEngine over ``graph`` (on ``mesh`` when given); with
+    ``blocked_widths = (P, C)`` on the blocked engine, its tables built at
+    those widths (with the shared-list sampler's lists when
+    ``shared_lists``)."""
     from node2vec_torch.walk import WalkEngine
     from node2vec_torch.walk.blocked import build_blocked_graph
 
     if blocked_widths is None:
-        return WalkEngine(graph, n2v_params, device=device, shared_lists=shared_lists)
+        return WalkEngine(graph, n2v_params, device=device, shared_lists=shared_lists,
+                          mesh=mesh)
     bg = build_blocked_graph(graph.indptr, graph.indices, graph.weights,
                              *blocked_widths, shared_lists=shared_lists, device=device)
     return WalkEngine(graph, n2v_params, strategy="blocked", device=device, blocked_graph=bg,
-                      shared_lists=shared_lists)
+                      shared_lists=shared_lists, mesh=mesh)
 
 
 TRAINERS = ("fit", "run_pipeline", "host_corpus")
 
 
 def _train(graph: Graph, n2v, w2v, seed: int, device, blocked_widths, trainer: str,
-           shared_lists: bool = False):
+           shared_lists: bool = False, mesh=None):
     """Walk ``graph`` and train; returns (model, walk strategy).  ``trainer``
-    is "fit" (walks to the host, then ``Word2VecTorch.fit``),
-    "run_pipeline" (``Node2Vec.run_pipeline()`` with its defaults: it
-    streams when the corpus spans several walker chunks) or "host_corpus"
+    is "fit" (walks to the host, then ``Word2VecTorch.fit``, or
+    ``fit_sharded`` on ``mesh``), "run_pipeline" (``Node2Vec.run_pipeline()``
+    with its defaults: it streams when the corpus spans several walker
+    chunks; on ``mesh`` it trains ``fit_sharded``) or "host_corpus"
     (``Node2Vec(host_corpus=True).run_pipeline()``, i.e. ``fit_host``)."""
     from node2vec_torch.models.word2vec import Word2VecTorch
 
     if trainer not in TRAINERS:
         raise ValueError(f"trainer must be one of {TRAINERS}, got {trainer!r}")
-    engine = _walk_engine(graph, n2v, device, blocked_widths, shared_lists)
+    engine = _walk_engine(graph, n2v, device, blocked_widths, shared_lists, mesh)
     if trainer == "fit":
         walks = engine.run(seed=seed)
-        return Word2VecTorch(w2v, device=device).fit(walks, n_vertices=graph.n_vertices), \
-            engine.strategy
+        model = Word2VecTorch(w2v, device=device)
+        if mesh is not None:
+            return model.fit_sharded(walks, mesh, n_vertices=graph.n_vertices), engine.strategy
+        return model.fit(walks, n_vertices=graph.n_vertices), engine.strategy
     from node2vec_torch.api import Node2Vec
 
     pipe = Node2Vec(n2v, w2v, random_seed=seed, device=device,
-                    host_corpus=trainer == "host_corpus")
+                    host_corpus=trainer == "host_corpus", mesh=mesh)
     pipe.graph, pipe._engine = graph, engine
     return pipe.run_pipeline(), engine.strategy
 
 
 def train_embeddings(graph: Graph, n2v_params=None, w2v_params=None, seed: int = 0,
                      device="cuda", blocked_widths=None,
-                     trainer: str = "fit", shared_lists: bool = False) -> Tuple[np.ndarray, str]:
+                     trainer: str = "fit", shared_lists: bool = False,
+                     mesh=None) -> Tuple[np.ndarray, str]:
     """Walks -> SGNS on the full graph, as ``run_quality`` trains:
     returns (input vectors [V, D], walk strategy).  ``blocked_widths =
     (light_width, block_width)`` walks on the blocked engine at those
     widths whatever the graph's degrees, with the shared-list sampler when
-    ``shared_lists``; ``trainer`` as in ``_train``."""
+    ``shared_lists``; ``trainer`` and ``mesh`` as in ``_train``."""
     from node2vec_torch.constants import Node2VecParams, Word2VecParams
 
     n2v = n2v_params or Node2VecParams(num_walks=10, walk_length=80)
     w2v = w2v_params or Word2VecParams(min_count=1, max_iter=5)
     model, strategy = _train(graph, n2v, w2v, seed, device, blocked_widths, trainer,
-                             shared_lists)
+                             shared_lists, mesh)
     return model.vectors, strategy
 
 
@@ -247,10 +253,11 @@ def holdout_link_prediction(
     blocked_widths=None,
     trainer: str = "fit",
     shared_lists: bool = False,
+    mesh=None,
 ) -> Dict[str, float]:
     """Honest link-prediction AUC: hold out edges BEFORE walk generation,
     embed on the rest, score held-out edges vs sampled non-edges.
-    ``blocked_widths``, ``trainer`` and ``shared_lists`` as in
+    ``blocked_widths``, ``trainer``, ``shared_lists`` and ``mesh`` as in
     ``train_embeddings``."""
     from node2vec_torch.constants import Node2VecParams, Word2VecParams
     from node2vec_torch.eval import link_prediction_auc
@@ -259,7 +266,7 @@ def holdout_link_prediction(
     g_train = from_edge_arrays(*kept, n_vertices=graph.n_vertices, directed=True)
     model, _ = _train(g_train, n2v_params or Node2VecParams(),
                       w2v_params or Word2VecParams(min_count=1, max_iter=5), seed, device,
-                      blocked_widths, trainer, shared_lists)
+                      blocked_widths, trainer, shared_lists, mesh)
     emb = model.vectors
     emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
     return {"holdout_link_auc": link_prediction_auc(emb, pos, neg)}

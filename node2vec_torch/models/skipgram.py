@@ -307,6 +307,34 @@ def adagrad_apply(emb_in, emb_out, acc_in, acc_out, g_in, rows_in, g_out, rows_o
     _build.launches["adagrad_apply"] += 1
 
 
+def adagrad_accumulate_squares_plain(acc_in, acc_out, sq_in, rows_in, sq_out, rows_out,
+                                     sq_extra, rows_extra, dim: int):
+    """K3's squares mode in plain PyTorch (sharded_sgns.py:106-116): each
+    row's square is given, summed over the model group's column slices;
+    acc[rows] += sq / dim (``dim`` the full D), rows < 0 skipped."""
+    for acc, sq, rows in _row_lists(acc_in, acc_out, sq_in, rows_in, sq_out, rows_out,
+                                    sq_extra, rows_extra):
+        safe = torch.where(rows >= 0, rows, 0).long()
+        acc.index_add_(0, safe, sq / dim * (rows >= 0).to(torch.float32))
+
+
+def adagrad_accumulate_squares(acc_in, acc_out, sq_in, rows_in, sq_out, rows_out, sq_extra,
+                               rows_extra, dim: int):
+    """K3's squares mode for CUDA tensors, the plain version for CPU tensors."""
+    args = (sq_in, rows_in, sq_out, rows_out, sq_extra, rows_extra)
+    if not acc_in.is_cuda:
+        return adagrad_accumulate_squares_plain(acc_in, acc_out, *args, dim)
+    _build.require_cuda("adagrad_accumulate_squares", acc_in, acc_out, *args)
+    _check_adagrad_args((acc_in, acc_out), *(t[:, None] if k % 2 == 0 else t
+                                             for k, t in enumerate(args)))
+    rc = _build.lib().n2v_adagrad_accumulate_squares(
+        _build.ptr(acc_in), _build.ptr(acc_out), *_list_ptrs(*args), int(dim),
+        _build.stream_of(acc_in),
+    )
+    _build.check(rc, "adagrad_accumulate_squares")
+    _build.launches["adagrad_accumulate_squares"] += 1
+
+
 def _list_ptrs(g_in, rows_in, g_out, rows_out, g_extra, rows_extra):
     out = []
     for g, rows in ((g_in, rows_in), (g_out, rows_out), (g_extra, rows_extra)):

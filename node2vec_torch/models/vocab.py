@@ -150,14 +150,14 @@ def vertex_counts(
     return counts
 
 
-def _check_subsample_args(walks, keep_prob, tag, u=None):
+def _check_subsample_args(walks, keep_prob, tag, u=None, base=0):
     if walks.dtype != torch.int32 or keep_prob.dtype != torch.float32:
         raise TypeError("subsample_walks takes an int32 corpus and a float32 keep_prob")
     if keep_prob.dim() != 1 or keep_prob.shape[0] == 0:
         raise ValueError("keep_prob must be a non-empty [V] table")
-    if walks.numel() > 1 << 32:
+    if base < 0 or walks.numel() + base > 1 << 32:
         raise ValueError("subsample_walks keys its draws on 32-bit positions: "
-                         f"{walks.numel()} entries is too many for one call")
+                         f"{walks.numel()} entries from position {base} is too many")
     if not 0 <= int(tag) < 1 << 32:
         raise ValueError(f"stream tag {tag} is not a uint32")
     if u is not None and u.shape != walks.shape:
@@ -166,18 +166,19 @@ def _check_subsample_args(walks, keep_prob, tag, u=None):
 
 def subsample_walks_plain(
     walks: torch.Tensor, keep_prob: torch.Tensor, seed: int, tag: int,
-    u: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None, base: int = 0,
 ) -> torch.Tensor:
     """``_subsample_walks`` (word2vec.py:37-48) in plain PyTorch: entries
     v >= 0 survive when u < keep_prob[v], others become -1.  ``u`` defaults
-    to K7's draws, ``hash_uniform(seed, flat position, tag)``; a test may
-    pass JAX's uniforms instead.  With ``out`` the result is written there
-    (it may be ``walks`` itself)."""
+    to K7's draws, ``hash_uniform(seed, base + flat position, tag)``; a test
+    may pass JAX's uniforms instead.  With ``out`` the result is written
+    there (it may be ``walks`` itself)."""
     from node2vec_torch.ops.hashrng import hash_uniform
 
-    _check_subsample_args(walks, keep_prob, tag, u)
+    base = int(base)
+    _check_subsample_args(walks, keep_prob, tag, u, base)
     if u is None:
-        pos = torch.arange(walks.numel(), dtype=torch.int64, device=walks.device)
+        pos = torch.arange(base, base + walks.numel(), dtype=torch.int64, device=walks.device)
         u = hash_uniform(seed, pos.reshape(walks.shape), tag)
     safe = torch.where(walks >= 0, walks, 0).long().clamp(max=keep_prob.shape[0] - 1)
     keep = (walks < 0) | (u < keep_prob[safe])
@@ -187,17 +188,21 @@ def subsample_walks_plain(
 
 def subsample_walks(
     walks: torch.Tensor, keep_prob: torch.Tensor, seed: int, tag: int,
-    out: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None, base: int = 0,
 ) -> torch.Tensor:
     """Frequent-vertex subsampling of an int32 corpus (gensim ``sample``),
-    one draw per entry keyed on (seed, flat position, stream tag).  Returns
-    a new tensor, or writes ``out`` (which may be ``walks``).
+    one draw per entry keyed on (seed, base + flat position, stream tag).
+    ``base``: the flat position of ``walks``' first entry in the corpus it
+    is a slice of, so a data shard draws what the whole corpus draws there
+    (0, the one-device trainers' value, keeps their draws).  Returns a new
+    tensor, or writes ``out`` (which may be ``walks``).
 
     CPU tensors take the plain version; CUDA tensors launch K7 or raise.
     """
+    base = int(base)
     if not walks.is_cuda:
-        return subsample_walks_plain(walks, keep_prob, seed, tag, out=out)
-    _check_subsample_args(walks, keep_prob, tag)
+        return subsample_walks_plain(walks, keep_prob, seed, tag, out=out, base=base)
+    _check_subsample_args(walks, keep_prob, tag, base=base)
     if out is None:
         out = torch.empty_like(walks, memory_format=torch.contiguous_format)
     _build.require_cuda("subsample_walks", walks, keep_prob, out)
@@ -208,7 +213,7 @@ def subsample_walks(
                          "corpus and out must be 16-byte aligned")
     rc = _build.lib().n2v_subsample_walks(
         _build.ptr(walks), walks.numel(), _build.ptr(keep_prob), keep_prob.shape[0],
-        int(seed) & 0xFFFFFFFF, int(tag), _build.ptr(out), _build.stream_of(walks),
+        int(seed) & 0xFFFFFFFF, int(tag), base, _build.ptr(out), _build.stream_of(walks),
     )
     _build.check(rc, "subsample_walks")
     _build.launches["subsample_walks"] += 1

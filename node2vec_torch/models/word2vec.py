@@ -49,10 +49,15 @@ softmax and CBOW train row-wise Adagrad whatever it says.  SGNS with
 and ``sgd_apply``; one slot map [V] a fit, never saved); its checkpoints
 still carry the accumulators, unchanged, as the JAX package's do.
 
+``fit_sharded`` trains SGNS over a (data × model) mesh with the tables'
+columns sharded over the model axis (``parallel.sharded_sgns``); the
+row-sharded trainers (``table_sharding="row"``, hierarchical softmax on a
+mesh, ``fit_streaming_sharded``) are not ported yet and raise
+``NotImplementedError``.
+
 ``emb_in``, ``emb_out`` and ``vectors`` read a table back from the device
 once and cache it until training or an assignment writes it; assigning a
-numpy array or a tensor puts it on the model's device.  Not ported yet, and
-raising ``NotImplementedError``: ``fit_sharded``.
+numpy array or a tensor puts it on the model's device.
 """
 
 from __future__ import annotations
@@ -95,6 +100,8 @@ from node2vec_torch.utils.metrics import measure
 logger = logging.getLogger(__name__)
 
 _MASK64 = (1 << 64) - 1
+_ROW_NOT_PORTED = ("the row-sharded trainers (table_sharding='row') are not ported yet "
+                   "(ROADMAP Queue A item 12)")
 
 
 def _splitmix64(x: int) -> int:
@@ -104,10 +111,13 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def _tag_seed(seed: int, tag: int) -> int:
+def _tag_seed(seed: int, tag: int, fold: Optional[int] = None) -> int:
     """63-bit generator seed for the draw site ``tag`` of a run seeded with
-    ``seed`` (splitmix64 of both)."""
-    return _splitmix64(_splitmix64(seed & _MASK64) ^ (tag & _MASK64)) >> 1
+    ``seed`` (splitmix64 of both), and of data shard ``fold`` when given."""
+    x = _splitmix64(_splitmix64(seed & _MASK64) ^ (tag & _MASK64))
+    if fold is not None:
+        x = _splitmix64(x ^ _splitmix64((fold + 1) & _MASK64))
+    return x >> 1
 
 
 class Draws:
@@ -115,15 +125,20 @@ class Draws:
 
     The trainers reach randomness only through these methods, so a test
     can hand a trainer JAX's draws instead (``Word2VecTorch._new_draws``).
+    ``data_index``: the mesh trainer's data coordinate, folded into every
+    site's key (its model ranks draw alike, its data shards differently).
     """
 
-    def __init__(self, params: Word2VecParams, shared_negatives: int, device):
+    def __init__(self, params: Word2VecParams, shared_negatives: int, device,
+                 data_index: Optional[int] = None):
         self.params = params
         self.shared_negatives = shared_negatives
         self.device = device
+        self.data_index = data_index
 
     def generator(self, tag: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(_tag_seed(self.params.seed, tag))
+        seed = _tag_seed(self.params.seed, tag, self.data_index)
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     def init(self, n_vertices: int, dim: int):
         """(emb_in, emb_out, acc_in, acc_out), word2vec's init."""
@@ -145,10 +160,12 @@ class Draws:
         return draw_step(self.generator(gstep), n_walks, length, p.window_size, 0,
                          p.shrink_window, self.device)[0]
 
-    def subsample(self, walks: torch.Tensor, keep_prob: torch.Tensor, tag: int) -> torch.Tensor:
-        """K7 in place on a corpus the trainer owns (a shuffled copy or an
-        uploaded slab)."""
-        return subsample_walks(walks, keep_prob, self.params.seed, tag, out=walks)
+    def subsample(self, walks: torch.Tensor, keep_prob: torch.Tensor, tag: int,
+                  base: int = 0) -> torch.Tensor:
+        """K7 in place on a corpus the trainer owns (a shuffled copy, an
+        uploaded slab, a data shard's copy of its rows from flat position
+        ``base`` of the corpus)."""
+        return subsample_walks(walks, keep_prob, self.params.seed, tag, out=walks, base=base)
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -705,8 +722,141 @@ class Word2VecTorch:
                 snapshot(epoch + 1, 0, [])
         return self._finish(state)
 
-    def fit_sharded(self, *args, **kwargs):
-        raise NotImplementedError("fit_sharded is not ported yet (ROADMAP Queue A item 12)")
+    def fit_sharded(
+        self,
+        walks,
+        mesh,
+        n_vertices: Optional[int] = None,
+        verbose: bool = False,
+        table_sharding: str = "column",
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 1,
+    ) -> "Word2VecTorch":
+        """Training over a (data × model) mesh (``parallel.make_mesh``),
+        called on every rank with the whole corpus [N, L+1] (numpy or a
+        tensor).
+
+        ``table_sharding="column"``: each rank holds its model coordinate's
+        columns of both tables and trains its data coordinate's rows of each
+        batch (``parallel.sharded_sgns``).  As in the JAX package the batch
+        is rounded to whole data shards, the corpus padded to whole batches
+        and permuted once on the host (``default_rng(seed)``), and each data
+        shard reshuffles its rows every epoch on the device; the draws are
+        keyed on (seed, tag, step) and the data coordinate.  With ``sample >
+        0`` each shard subsamples its rows as the whole corpus would be
+        (K7 from the shard's flat position).  Checkpoints are the JAX
+        package's file: every rank reads it, rank 0 writes the full tables.
+        Afterwards ``emb_in``, ``emb_out`` and ``vectors`` are the full
+        tables on every rank.  The row-sharded trainers
+        (``table_sharding="row"``, and hierarchical softmax, which needs
+        them) raise ``NotImplementedError``.
+        """
+        from node2vec_torch.parallel.sharded_sgns import (
+            ShardedSGNSState,
+            col_sgns_epoch,
+            gather_columns,
+            init_sharded_state,
+            shard_columns,
+        )
+
+        p = self.params
+        if p.sg == 0:
+            raise ValueError(
+                "CBOW (sg=0) is supported on the single-device and streaming trainers "
+                "(fit/fit_streaming); the sharded trainers are skip-gram only — set sg=1 "
+                "or train unsharded"
+            )
+        if p.negative == 0:
+            if table_sharding != "row":
+                raise ValueError(
+                    "hierarchical softmax (negative=0) requires table_sharding='row' in the "
+                    "sharded trainer (the inner-node table is row-sharded like the embeddings)"
+                )
+            raise NotImplementedError(_ROW_NOT_PORTED)
+        if table_sharding == "row":
+            raise NotImplementedError(_ROW_NOT_PORTED)
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh runs on {mesh.device}, the model on {self.device}")
+        self._begin()
+        if isinstance(walks, torch.Tensor):
+            walks = walks.cpu().numpy()
+        walks = np.ascontiguousarray(walks, dtype=np.int32)
+        self.vocab = build_vocab(
+            walks, n_vertices, min_count=p.min_count, ns_exponent=p.ns_exponent
+        )
+        self._require_vocab()
+        n_v = self.vocab.n_vertices
+        n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+        if p.vector_size % n_model:
+            raise ValueError(
+                f"vector_size {p.vector_size} not divisible by model axis {n_model}"
+            )
+        d_idx = mesh.coords["data"]
+        draws = Draws(p, self.shared_negatives, self.device, data_index=d_idx)
+        state = init_sharded_state(mesh, n_v, p.vector_size, seed=p.seed, device=self.device)
+        start_epoch = 0
+        ckpt = load_train_state(checkpoint_dir)
+        if ckpt is not None:
+            start_epoch = ckpt[0]
+            e_in, e_out, a_in, a_out = self._restored(ckpt[1:])
+            state = ShardedSGNSState(shard_columns(mesh, e_in), shard_columns(mesh, e_out),
+                                     a_in, a_out)
+            del e_in, e_out
+            logger.info("resuming sharded training from epoch %d", start_epoch)
+        ns_alias, ns_prob, mask = self._objective()
+
+        n_walks, length = walks.shape
+        batch = _effective_batch(p.batch_walks, n_walks)
+        batch -= batch % n_data
+        batch = max(batch, n_data)
+        batch_local = batch // n_data
+        n_batches = -(-n_walks // batch)
+        total_steps = max(p.max_iter * n_batches, 1)
+        lr_slope = float(np.float32(p.step_size / total_steps))
+        # the corpus padded to whole sharded batches and permuted once on
+        # the host, so the data shards hold stratified rows (each epoch then
+        # reshuffles within the shard)
+        n_used = n_batches * batch
+        corpus_host = np.full((n_used, length), -1, dtype=np.int32)
+        corpus_host[: min(n_walks, n_used)] = walks[:n_used]
+        corpus_host = corpus_host[np.random.default_rng(p.seed).permutation(n_used)]
+        n_local = n_used // n_data
+        row0 = d_idx * n_local
+        corpus = torch.from_numpy(corpus_host[row0: row0 + n_local]).to(self.device)
+        del corpus_host
+        keep = self._keep_table()
+        step = functools.partial(draws.step, n_walks=batch_local, length=length)
+
+        self._losses = []
+        for epoch in range(start_epoch, p.max_iter):
+            ep_corpus = corpus
+            if keep is not None:  # the shard's rows, drawn as in the whole corpus
+                ep_corpus = draws.subsample(corpus.clone(), keep, 2_500_000 + epoch,
+                                            base=row0 * length)
+            losses = col_sgns_epoch(
+                mesh, state, ep_corpus, draws.permutation(5_000_000 + epoch, n_local), step,
+                epoch * n_batches, p.step_size, lr_slope, ns_alias, ns_prob, mask,
+                batch_local=batch_local, n_batches=n_batches, window=p.window_size,
+                negatives=p.negative, min_lr=p.min_step_size,
+            )
+            self._losses.append(float(losses.mean()))
+            if verbose:
+                logger.info("sharded epoch %d/%d loss=%.4f", epoch + 1, p.max_iter,
+                            self._losses[-1])
+            if checkpoint_dir and (epoch + 1) % checkpoint_every == 0:
+                full = (gather_columns(mesh, state.emb_in), gather_columns(mesh, state.emb_out),
+                        state.acc_in, state.acc_out)
+                if mesh.rank == 0:
+                    save_train_state(checkpoint_dir, epoch + 1, *self._to_host(full))
+                mesh.barrier()  # no rank reads the file before it is whole
+        return self._finish((gather_columns(mesh, state.emb_in),
+                             gather_columns(mesh, state.emb_out), state.acc_in, state.acc_out))
+
+    def fit_streaming_sharded(self, *args, **kwargs):
+        raise NotImplementedError(
+            "fit_streaming_sharded feeds the row-sharded trainers, which are not ported yet "
+            "(ROADMAP Queue A item 12)"
+        )
 
     @property
     def losses(self) -> list:

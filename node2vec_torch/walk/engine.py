@@ -16,9 +16,13 @@ skips them), ``run_device`` keeps it on the device, and ``chunk_source``
 regenerates any chunk on demand for the streaming trainer.
 
 The blocked engine runs the shared-list 3-atom sampler as the JAX engine
-does (``shared_lists``).  The edge-partitioned engine and mesh sharding
-(``mesh``, ``graph_sharded``, ``partitioned_graph``) raise
-``NotImplementedError`` naming their ROADMAP item.
+does (``shared_lists``).  With a ``mesh`` (``parallel.make_mesh``) every
+chunk is walked with its walkers sharded over the data axis
+(``parallel.sharded_walk``) and gathered back, so ``run``, ``run_device``
+and ``chunk_source`` give every rank the whole corpus, bit-equal to the
+engine without a mesh.  The edge-partitioned engine (``graph_sharded``,
+``partitioned_graph``, ``strategy="ep_blocked"``) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ from node2vec_torch.walk.dense import build_padded_adjacency, dense_walk_chunk
 _NOT_PORTED = {
     "ep_blocked": "the edge-partitioned walk engine is not ported yet (ROADMAP Queue A item 12)",
 }
-_MESH_NOT_PORTED = "mesh-sharded walks are not ported yet (ROADMAP Queue A item 12)"
+_GRAPH_SHARDED_NOT_PORTED = ("graph_sharded=True (the edge-partitioned walks) is not ported "
+                             "yet (ROADMAP Queue A item 12)")
 
 
 class WalkEngine:
@@ -60,7 +65,8 @@ class WalkEngine:
     takes).  ``blocked_graph``: prebuilt blocked tables to reuse across
     engines over the same graph (host packing and upload of a
     multi-million-edge graph take seconds; p, q and the trial cap live in
-    the kernel, not the tables).  ``shared_lists``: the blocked engine's
+    the kernel, not the tables).  ``mesh``: walk every chunk sharded over
+    its data axis; the engine's device is the mesh's.  ``shared_lists``: the blocked engine's
     exact 3-atom sampler, as in the JAX engine.  True builds the per-edge
     lists and uses them; "auto" (the default) uses only a prebuilt table
     (``blocked_graph=``) whose overflow weight fraction is <= 0.15, and never
@@ -84,9 +90,12 @@ class WalkEngine:
     ):
         if graph_sharded and mesh is None:
             raise ValueError("graph_sharded=True requires a mesh")
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
+        if graph_sharded:
+            raise NotImplementedError(_GRAPH_SHARDED_NOT_PORTED)
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh runs on {mesh.device}, the engine on {self.device}")
+        self.mesh = mesh
         self.params = params
         self.n_vertices = int(graph.n_vertices)
         if isinstance(graph, Graph):
@@ -211,6 +220,8 @@ class WalkEngine:
     def _run_chunk(
         self, chunk_starts: np.ndarray, gid_base: int = 0, seed: int = 0
     ) -> torch.Tensor:
+        if self.mesh is not None:
+            return self._run_chunk_sharded(chunk_starts, gid_base, seed)
         p = self.params
         starts = torch.from_numpy(chunk_starts).to(self.device)
         kw = dict(walk_length=p.walk_length, return_param=float(p.return_param),
@@ -233,6 +244,44 @@ class WalkEngine:
         self._fb_parts.append(n_fb)  # device scalars, drained lazily
         self._att_parts.append(n_att)
         return paths
+
+    def _run_chunk_sharded(
+        self, chunk_starts: np.ndarray, gid_base: int, seed: int
+    ) -> torch.Tensor:
+        """The chunk's walkers sharded over the mesh's data axis (the graph
+        replicated), padded with dead lanes to a multiple of it; the rows
+        gathered back over the data axis (node2vec_tpu/walk/engine.py:586)."""
+        from node2vec_torch.parallel import sharded_walk
+
+        mesh, p = self.mesh, self.params
+        n = len(chunk_starts)
+        n_pad = -(-n // mesh.shape["data"]) * mesh.shape["data"]
+        padded = np.full(n_pad, -1, dtype=np.int32)
+        padded[:n] = chunk_starts
+        starts = torch.from_numpy(padded).to(self.device)
+        kw = dict(walk_length=p.walk_length, return_param=float(p.return_param),
+                  inout_param=float(p.inout_param))
+        if self.strategy == "dense":
+            local = sharded_walk.sharded_dense_walk_chunk(
+                mesh, self.packed_adj, starts, gid_base, seed & 0xFFFFFFFF, **kw)
+        elif self.strategy == "csr":
+            g = self.dgraph
+            local = sharded_walk.sharded_walk_chunk(
+                mesh, g.indptr, g.indices, g.weights, g.alias, g.prob, g.wtot, starts, gid_base,
+                seed & 0xFFFFFFFF, max_trials=p.max_rejection_trials,
+                search_iters=self.search_iters, **kw)
+        else:
+            bg = self.bgraph
+            use_sl, sl_ex = self._sl_flags()
+            local, n_fb, n_att = sharded_walk.sharded_blocked_walk_chunk(
+                mesh, bg.light, bg.biw, bg.bids, bg.brp, slq_or_dummy(bg), starts, gid_base,
+                seed & 0xFFFFFFFF, max_trials=p.max_rejection_trials,
+                light_width=bg.light_width, block_width=bg.block_width,
+                has_heavy=bg.has_heavy, shared_lists=use_sl, sl_exhaustive=sl_ex, **kw)
+            counts = mesh.all_reduce_sum(torch.stack([n_fb, n_att]), "data")
+            self._fb_parts.append(counts[0])  # summed over the data shards
+            self._att_parts.append(counts[1])
+        return mesh.all_gather(local, "data")[:n]
 
     def _starts_one(self, start_vertices: Optional[np.ndarray]) -> np.ndarray:
         """The start vertices, one walk each."""
@@ -295,9 +344,12 @@ class WalkEngine:
         out = np.empty((n_total, p.walk_length + 1), dtype=np.int32)
         fetch = _ChunkFetcher(self.device, (chunk, p.walk_length + 1))
 
+        # with a mesh every rank holds the corpus; rank 0 alone writes it
+        writer = self.mesh is None or self.mesh.rank == 0
+
         def persist(fetched) -> None:
             for c_idx, lo, hi in fetched:
-                if checkpoint_dir:
+                if checkpoint_dir and writer:
                     save_walk_chunk(checkpoint_dir, c_idx, out[lo:hi], fingerprint=fp)
 
         for c_idx, lo in enumerate(range(0, n_total, chunk)):

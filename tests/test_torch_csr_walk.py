@@ -218,8 +218,11 @@ def test_walk_engine_takes_the_jax_signature():
     assert eng.strategy == "dense"
     with pytest.raises(ValueError, match="requires a mesh"):
         WalkEngine(g, Node2VecParams(), graph_sharded=True, device="cpu")
+    from node2vec_torch.parallel import make_mesh
+
     with pytest.raises(NotImplementedError, match="item 12"):
-        WalkEngine(g, Node2VecParams(), mesh=object(), graph_sharded=True, device="cpu")
+        WalkEngine(g, Node2VecParams(), mesh=make_mesh(device="cpu"), graph_sharded=True,
+                   device="cpu")
     kw = dict(num_walks=2, walk_length=7, return_param=0.25, inout_param=4.0)
     dg = g.to_device("cpu")
     for strategy in ("csr", "dense", "blocked"):

@@ -1,5 +1,6 @@
-"""The port and chip_smoke.py import neither jax nor the JAX package, and
-need neither pandas nor sklearn (the GPU machine has no sklearn)."""
+"""The port, chip_smoke.py and the mesh tests' rank programs import neither
+jax nor the JAX package, and need neither pandas nor sklearn (the GPU
+machine has no sklearn)."""
 
 import os
 import subprocess
@@ -18,7 +19,11 @@ import node2vec_torch.walk.blocked, node2vec_torch.walk.csr, node2vec_torch.mode
 import node2vec_torch.models.hsoftmax, node2vec_torch.models.cbow, node2vec_torch.native
 import node2vec_torch.utils.checkpoint, node2vec_torch.utils.metrics, node2vec_torch.utils
 import node2vec_torch.ops.alias, node2vec_torch.models, node2vec_torch.graph.indexer
+import node2vec_torch.parallel, node2vec_torch.parallel.launch, node2vec_torch.parallel.mesh
+import node2vec_torch.parallel.sharded_walk, node2vec_torch.parallel.sharded_sgns
 import chip_smoke
+sys.path.insert(0, "tests")
+import torch_mesh_ranks  # the mesh tests' rank programs
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "node2vec_tpu", "pandas", "sklearn"))
 assert not bad, bad

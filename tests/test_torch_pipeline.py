@@ -148,20 +148,47 @@ def test_no_silent_cpu_run(karate_edges):
         node2vec_torch.Word2VecTorch()
 
 
-def test_unported_pipeline_options_raise():
-    for kw in ({"mesh": object()}, {"graph_sharded": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Node2Vec(device="cpu", **kw)
+def test_unported_pipeline_options_raise(karate_edges):
+    """On a mesh the graph-sharded walks raise naming ROADMAP item 12;
+    without one, graph_sharded=True is the JAX engine's ValueError when the
+    walks start; host_corpus with a mesh is JAX's ValueError; a mesh with
+    the default column layout now walks and trains (a world of one)."""
+    from node2vec_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
+        Node2Vec(mesh=mesh, graph_sharded=True, device="cpu")
+    no_mesh = Node2Vec(graph_sharded=True, device="cpu")
+    no_mesh.preprocess_input_graph(karate_edges, directed=False)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        no_mesh.random_walk()
+    with pytest.raises(ValueError, match="host_corpus"):
+        Node2Vec(mesh=mesh, host_corpus=True, device="cpu")
+    port = Node2Vec(n2v_params=N2V, w2v_params=W2V, random_seed=3, mesh=mesh, device="cpu")
+    port.preprocess_input_graph(karate_edges, directed=False)
+    one = Node2Vec(n2v_params=N2V, w2v_params=W2V, random_seed=3, device="cpu")
+    one.preprocess_input_graph(karate_edges, directed=False)
+    np.testing.assert_array_equal(port.random_walk(), one.random_walk())
+    assert len(port.fit().losses) == W2V["max_iter"]
+    assert np.isfinite(port.embedding(as_frame=False)[1]).all()
 
 
-def test_table_sharding_is_validated_as_in_jax():
+def test_table_sharding_is_validated_as_in_jax(karate_edges):
     """Node2Vec takes the JAX default table_sharding="column" and "row",
     and refuses anything else with or without a mesh (ROADMAP Queue C 2;
     node2vec_tpu/api.py:84-87)."""
     for layout in ("column", "row"):
         assert Node2Vec(table_sharding=layout, device="cpu").table_sharding == layout
-    for kw in ({}, {"mesh": object()}):
+    from node2vec_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    for kw in ({}, {"mesh": mesh}):
         with pytest.raises(ValueError, match="table_sharding"):
             Node2Vec(table_sharding="diagonal", device="cpu", **kw)
+    # "row" on a mesh: the row-sharded trainers are still to port
+    row = Node2Vec(n2v_params=N2V, w2v_params=W2V, table_sharding="row", mesh=mesh,
+                   device="cpu")
+    row.preprocess_input_graph(karate_edges, directed=False)
+    row.random_walk()
     with pytest.raises(NotImplementedError, match="item 12"):
-        Node2Vec(table_sharding="row", mesh=object(), device="cpu")
+        row.fit()

@@ -144,7 +144,7 @@ def test_fit_runs_and_is_deterministic(karate_edges):
 def test_unported_trainer_options_raise(override, karate_edges):
     """SGNS with optimizer="sgd" trains through the three trainers (finite
     tables, a falling loss, accumulators untouched; tests/test_skipgram.py:69
-    on the port); fit_sharded raises."""
+    on the port); fit_sharded's row layout (item 12) still raises."""
     from node2vec_torch.constants import Node2VecParams
     from node2vec_torch.graph import from_edge_arrays
     from node2vec_torch.walk import random_walks
@@ -158,8 +158,11 @@ def test_unported_trainer_options_raise(override, karate_edges):
         model = fit(Word2VecTorch(params, device="cpu"))
         assert np.isfinite(model.vectors).all() and model.losses[-1] < model.losses[0]
         assert not model.acc_in.any() and not model.acc_out.any()
-    with pytest.raises(NotImplementedError):
-        Word2VecTorch(params, device="cpu").fit_sharded()
+    from node2vec_torch.parallel import make_mesh
+
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Word2VecTorch(params, device="cpu").fit_sharded(walks, make_mesh(device="cpu"),
+                                                        table_sharding="row")
 
 
 def test_sample_fits(karate_edges):

@@ -90,14 +90,23 @@ def test_walk_transition_pvalue_general_weights(p, q):
 
 
 def test_unported_strategies_raise():
-    """ep_blocked and mesh raise naming their ROADMAP item; "csr" builds
-    (its DeviceGraph uploaded at the first chunk); "blocked" and a graph
-    above dense_max_degree select the blocked engine."""
+    """ep_blocked and the graph-sharded walks on a mesh raise naming their
+    ROADMAP item, and a real mesh now walks (a world of one: the
+    single-device corpus); "csr" builds (its DeviceGraph uploaded at the
+    first chunk); "blocked" and a graph above dense_max_degree select the
+    blocked engine."""
+    from node2vec_torch.parallel import make_mesh
+
     g = _dyadic_graph()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         WalkEngine(g, Node2VecParams(), strategy="ep_blocked", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WalkEngine(g, Node2VecParams(), mesh=object(), device="cpu")
+    mesh = make_mesh(device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        WalkEngine(g, Node2VecParams(), mesh=mesh, graph_sharded=True, device="cpu")
+    params = Node2VecParams(num_walks=2, walk_length=6, return_param=0.25, inout_param=4.0)
+    np.testing.assert_array_equal(
+        WalkEngine(g, params, mesh=mesh, device="cpu").run(seed=5),
+        WalkEngine(g, params, device="cpu").run(seed=5))
     csr = WalkEngine(g, Node2VecParams(), strategy="csr", device="cpu")
     assert csr.strategy == "csr" and csr._dgraph is None
     assert csr.packed_adj is None and csr.bgraph is None
