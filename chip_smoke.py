@@ -52,9 +52,9 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    the data axis (K1 10 times through sharded_dense_walk_chunk, bit-equal
    to 5.'s) and ``fit_sharded`` with the column layout (K13's pair lists,
    K16 col_pair_logits, K17 col_pair_grads, K3's squares mode and K4 512
-   times each, K2 never), its rates beside 5.'s, the collectives' share of
-   a second fit with every collective synchronised and timed, the profiled
-   fit; then ``random_walk()`` on the RMAT at 1 x 1 (K5 through
+   times each, K2 never), its rates beside 5.'s, the profiled fit with the
+   collectives' host and device shares of it, from its trace; then
+   ``random_walk()`` on the RMAT at 1 x 1 (K5 through
    sharded_blocked_walk_chunk) bit-equal to 6.'s walks;
 6b. ``mesh_ranks``: two ranks sharing the card over gloo
    (``parallel.launch.spawn``; every collective copied through host
@@ -63,7 +63,12 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    at the main path's batch against ``sharded_sgns_step_plain`` (its wall
    and collective time), the dense delta all-reduce at 2 x 1 timed, and the
    quality gate of 10. through ``Node2Vec(mesh=).run_pipeline()`` at the
-   SGNS limits;
+   SGNS limits; at 2 x 1 also the row layout (``_row_rank_checks``): one
+   routed SGNS step and one HS step at the main path's batch against the
+   same steps through the plain versions, a step whose capacity drops rows
+   (the dropped counts equal), the routed step's wall and collective time,
+   and the quality gates through ``Node2Vec(mesh=,
+   table_sharding="row").run_pipeline()`` for SGNS and HS at their limits;
 7. the streaming main path: the same Node2Vec on the same RMAT through
    ``run_pipeline()`` with no argument, which streams over its 40 walker
    chunks (max_iter cut to 1): K5 40 times for the counting pass and 40
@@ -107,6 +112,16 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    K1 and K5 never; walk steps/s, DeviceGraph bytes), then
    ``Word2VecTorch.fit`` for one epoch on that corpus; each followed by its
    ``breakdown`` line;
+9a'. the row-sharded main paths, ``main_path_mesh_row`` and
+   ``main_path_mesh_row_hs``: ``Node2Vec(mesh=make_mesh(1, 1),
+   table_sharding="row")`` over NCCL through ``run_pipeline()`` on the
+   dense graph of 5. (max_iter cut to 1), which streams over its 10 chunks
+   into ``fit_streaming_sharded``: per step K18 route_plan, K19's gather
+   and pack twice each, K2's routed mode (K8's with negative=0, its 9 head
+   levels all-gathered), K3's squares mode and K4 once (K3 once for HS's
+   head rows), K2 and K8 direct never, no row dropped; rates beside
+   ``main_path``'s, ``main_path_streaming``'s and ``main_path_hs``'s, peak
+   memory, and the profiled fit with the collectives' share of it (as 6a.);
 9c. ``surface`` (right after 5., on its model): ``save_model`` ->
    ``load_model`` into a new ``Node2Vec(device="cuda")`` (tables, counts,
    mask and names bit-equal), ``save_vectors`` -> ``load_vectors``, the
@@ -153,7 +168,8 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    8 steps of ``sgns_train_step`` at dim 256 (every K2, K8, K9, K10, K13
    launch staged in global memory, losses and tables finite);
 11. the ``kernels`` line (times, bounds, launches, errors; K16, K17 and K3's
-   squares mode from 6a.; K6 once for each
+   squares mode from 6a.; K18, K19's gather and pack and K2's routed mode
+   from 9a'., K8's routed mode from its HS run; K6 once for each
    JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists,
    once for CBOW-HS's and once for the pair step's, K2 once more at row
    stride D + 1, K5 once for each shared-list mode, and K2, K8, K9, K10 and
@@ -215,10 +231,17 @@ walks on the dense graph's tree.  They hold K16 col_pair_logits, K17
 col_pair_grads and K3's squares mode against their plain versions on the
 same batch at Dm = 128 (one model rank) and Dm = 64 (two, their all-reduce
 summed in the check), K16 then K17 against K13 at Dm = 128, and the whole
-column step on the 1 x 1 NCCL mesh against its plain version.
+column step on the 1 x 1 NCCL mesh against its plain version.  ``check_route``
+holds K18 route_plan bit-equal to its plain version on the row main path's
+batch (2,570 walks of the dense graph's first chunk and 64 negatives) at N
+= 1, 2, 4, 8 and at a capacity that drops rows, K19's gather bit-equal and
+its pack, K2's routed mode and K8's (on the dense graph's tree, its head of
+9 levels) to their plain versions, and at N = 1 the routed modes to K2 and
+K8 direct (K2's routed mode also at N = 2 with rows and negatives dropped).
 
-``--quick`` runs 2-4 at small shapes (with K16, K17, K3's squares mode and
-``mesh_ranks`` on a 4,096-vertex graph, without the gate) (K5, its shared-list modes and K12 on
+``--quick`` runs 2-4 at small shapes (with K16, K17, K3's squares mode,
+``check_route`` and ``mesh_ranks`` on a 4,096-vertex graph, without the
+gates) (K5, its shared-list modes and K12 on
 the RMAT at scale 12,
 K6 and its streaming form on its walks, K7 on them, K8, K9 and K10 on a
 4,096-vertex tree, K11 and sgd_apply on 64 walks, check_wide at its own
@@ -266,6 +289,8 @@ from node2vec_torch.models.vocab import (
 from node2vec_torch.models.word2vec import Word2VecTorch, _effective_batch, _streaming_counts
 from node2vec_torch.ops import alias as alias_mod
 from node2vec_torch.parallel import launch, make_mesh
+from node2vec_torch.parallel import rowsharded_hs as rh
+from node2vec_torch.parallel import rowsharded_sgns as rs
 from node2vec_torch.parallel import sharded_sgns as col
 from node2vec_torch.utils import StepTimer
 from node2vec_torch.utils.checkpoint import load_stream_state, save_stream_state, stream_fingerprint
@@ -335,6 +360,14 @@ SOURCES = {
                        "node2vec_tpu/parallel/sharded_sgns.py:97"),
     "adagrad_accumulate_squares": ("node2vec_torch/csrc/adagrad.cu",
                                    "node2vec_tpu/parallel/sharded_sgns.py:112"),
+    # the row-sharded steps' routing (parallel/rowsharded_sgns.py, rowsharded_hs.py)
+    "route_plan": ("node2vec_torch/csrc/route.cu", "node2vec_tpu/parallel/rowsharded_sgns.py:170"),
+    "route_gather": ("node2vec_torch/csrc/route.cu",
+                     "node2vec_tpu/parallel/rowsharded_sgns.py:206"),
+    "route_pack": ("node2vec_torch/csrc/route.cu", "node2vec_tpu/parallel/rowsharded_sgns.py:233"),
+    "sgns_grads_routed": ("node2vec_torch/csrc/sgns.cu",
+                          "node2vec_tpu/parallel/rowsharded_sgns.py:270"),
+    "hs_grads_routed": ("node2vec_torch/csrc/hs.cu", "node2vec_tpu/parallel/rowsharded_hs.py:156"),
 }
 # the walk-at-a-time step kernels staging in global memory (csrc/staging.cuh)
 for _k in ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads", "sgns_pair_grads",
@@ -375,7 +408,12 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("cbow_hs_grads_global", "cbow_hs_grads_global", "main_path_wide"),
         ("col_pair_logits", "col_pair_logits", "main_path_mesh"),
         ("col_pair_grads", "col_pair_grads", "main_path_mesh"),
-        ("adagrad_accumulate_squares", "adagrad_accumulate_squares", "main_path_mesh"))
+        ("adagrad_accumulate_squares", "adagrad_accumulate_squares", "main_path_mesh"),
+        ("route_plan", "route_plan", "main_path_mesh_row"),
+        ("route_gather", "route_gather", "main_path_mesh_row"),
+        ("route_pack", "route_pack", "main_path_mesh_row"),
+        ("sgns_grads_routed", "sgns_grads_routed", "main_path_mesh_row"),
+        ("hs_grads_routed", "hs_grads_routed", "main_path_mesh_row_hs"))
 GRADS = ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads")  # one per objective
 ADAGRAD = ("adagrad_accumulate", "adagrad_apply")
 SGD = ("preagg_rows", "sgd_apply")  # SGNS with optimizer="sgd"
@@ -3556,7 +3594,8 @@ def collective_timing(mesh):
     before and after it; yields a one-entry list that sums their wall
     times."""
     total = [0.0]
-    saved = {name: getattr(mesh, name) for name in ("all_reduce_sum", "all_gather")}
+    saved = {name: getattr(mesh, name) for name in ("all_reduce_sum", "all_gather",
+                                                    "all_to_all")}
 
     def timed(fn):
         def run(*args, **kwargs):
@@ -3598,11 +3637,11 @@ def main_path_mesh(mesh, src, dst, main_line: dict, main_walks: np.ndarray, rmat
     walks shard over the data axis (K1 through sharded_dense_walk_chunk,
     10 chunks) and ``fit_sharded`` trains the column layout (K13's pair
     lists, K16, K17, K3's squares mode and K4 512 times each, K2 never).
-    Its walks equal main_path's; its rates stand beside main_path's.  Then a
-    second fit with the mesh's collective timing on (each collective
-    synchronised) for the collectives' share of the fit's wall time, the
-    profiled fit, and ``random_walk()`` on the RMAT at 1 x 1 (K5 through
-    sharded_blocked_walk_chunk) against main_path_blocked's walks."""
+    Its walks equal main_path's; its rates stand beside main_path's.  Then
+    the profiled fit (``breakdown``), whose trace gives the collectives'
+    share of its wall time, and ``random_walk()`` on the RMAT at 1 x 1
+    (K5 through sharded_blocked_walk_chunk) against main_path_blocked's
+    walks."""
     n2v = Node2Vec(n2v_params=N2V_MAIN, w2v_params={**W2V_MAIN, "max_iter": max_iter},
                    random_seed=0, mesh=mesh, device="cuda")
     _fresh_run()
@@ -3647,12 +3686,9 @@ def main_path_mesh(mesh, src, dst, main_line: dict, main_walks: np.ndarray, rmat
     n_batches = -(-n_walks // batch)
     pairs = sg.pairs_per_batch(batch, length - 1, p.window_size) * n_batches * max_iter
     n_chunks = engine.chunk_source(seed=0)[0]
-    # the collectives' share: the same fit again, every collective synchronised and timed
-    with collective_timing(mesh) as coll_s:
-        ts = time.perf_counter()
-        model.fit_sharded(walks, mesh, n_vertices=graph.n_vertices)
-        torch.cuda.synchronize()
-        timed_fit_s = time.perf_counter() - ts
+    # the profiled fit, whose trace gives the collectives' share of it
+    prof = breakdown((("fit_sharded (1 x 1)",
+                       lambda: model.fit_sharded(walks, mesh, n_vertices=graph.n_vertices)),))[0]
     out = {
         "phase": "main_path_mesh", "mesh": mesh.shape, "backend": mesh.backend,
         "table_sharding": n2v.table_sharding, "max_iter_cut_to": max_iter,
@@ -3664,9 +3700,8 @@ def main_path_mesh(mesh, src, dst, main_line: dict, main_walks: np.ndarray, rmat
         "sgns_pair_updates_per_s": pairs / fit_s[0],
         "main_path_walk_steps_per_s": main_line["walk_steps_per_s"],
         "main_path_sgns_pair_updates_per_s": main_line["sgns_pair_updates_per_s"],
-        "collectives": collectives,
-        "timed_fit_s": timed_fit_s, "collective_s": coll_s[0],
-        "collective_share_of_fit": coll_s[0] / timed_fit_s,
+        "collectives": collectives, "profiled_fit_s": prof["wall_ms"] / 1e3,
+        **{k: prof[k] for k in ("collective_host_share", "collective_device_share")},
         "epoch_losses": model.losses, "peak_device_memory_bytes": int(peak),
         "launches": launches, "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
     }
@@ -3682,8 +3717,6 @@ def main_path_mesh(mesh, src, dst, main_line: dict, main_walks: np.ndarray, rmat
         require(launches[k] == n_batches * max_iter, f"main_path_mesh launched {k} {launches[k]}")
     for k in ("sgns_grads", "sgns_pair_grads", "adagrad_accumulate"):
         require(launches[k] == 0, f"main_path_mesh launched {k} {launches[k]} times")
-    breakdown((("fit_sharded (1 x 1)",
-                lambda: model.fit_sharded(walks, mesh, n_vertices=graph.n_vertices)),))
 
     _fresh_run()
     rmat = Node2Vec(n2v_params=N2V_MAIN, w2v_params=W2V_MAIN, max_out_degree=10_000,
@@ -3704,7 +3737,402 @@ def main_path_mesh(mesh, src, dst, main_line: dict, main_walks: np.ndarray, rmat
     return out
 
 
-MESH_GATE = dict(auc_min=0.60, gap_min=0.05)  # the SGNS limits (PERF.md section 2)
+# the SGNS and HS limits (PERF.md section 2); the JAX row trainers clear them by the
+# margins of the single-device SGNS and HS gates (experiments/port_gate_reference.py)
+MESH_GATE = dict(auc_min=0.60, gap_min=0.05)
+
+
+def _recv_rows(table: torch.Tensor, plan) -> torch.Tensor:
+    """The [N * cap, D] rows that ``plan``'s owners send back when every
+    owner holds the whole ``table`` (one card standing for N ranks): row
+    (j, c) is table[send_ids[j, c]], zeros where -1."""
+    return rs.route_gather_plain(table, plan.send_ids, 1)
+
+
+def _plans_equal(name: str, got, want) -> None:
+    for field in rs.RoutePlan._fields:
+        require(torch.equal(getattr(got, field), getattr(want, field)),
+                f"{name}: {field} differs from the plain version")
+
+
+def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, record: bool,
+                results: dict, case: str, dim: int = 128, window: int = 5,
+                n_neg: int = 64) -> None:
+    """K18 route_plan, K19's gather and pack, and K2's and K8's routed modes
+    against their plain versions on one batch ``walks_np`` (the row main
+    path's: 2,570 walks of the dense graph's first chunk, shuffled), its
+    vocabulary, draws and random tables.  K18 at N = 1, 2, 4, 8 (planning
+    is local, so one card checks every N) and at a capacity that drops, on
+    SGNS's output requests (the positions, -1 read as 0, and the S shared
+    negatives): every field bit-equal.  K19's gather bit-equal (copies);
+    its pack, K2's and K8's routed modes at the tolerances of check_sgns and
+    check_hs (sums over many rows to rtol of their largest entry).  At N =
+    1 the routed modes against K2 and K8 direct on the same draws, and K2's
+    routed mode at N = 2 (rank 0's view, the owners' rows taken from the
+    whole table) with a capacity that drops rows and negatives.  Times and
+    bounds at N = 1, the main path's geometry."""
+    before = _build.launches.copy()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    walks = torch.from_numpy(np.ascontiguousarray(walks_np)).to(dev)
+    n_walks, length = walks.shape
+    flat = walks.reshape(-1)
+    rows = torch.where(flat >= 0, flat, 0)
+    n = rows.shape[0]
+    vocab = build_vocab(walks, n_vertices, min_count=1)
+    noise = [torch.from_numpy(a).to(dev) for a in (vocab.ns_alias, vocab.ns_prob)]
+    mask = torch.from_numpy(vocab.mask).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b_sh, r1, r2 = sg.draw_step(gen, n_walks, length, window, n_neg, True, dev)
+    neg = sg.negative_ids(r1, r2, *noise)
+    ids_out = torch.cat([rows, neg])
+    r = ids_out.shape[0]
+
+    def table(n_rows):
+        return torch.from_numpy(rng.normal(0, 0.1, (n_rows, dim)).astype(np.float32)).to(dev)
+
+    emb_in, emb_out, theta = table(n_vertices), table(n_vertices), table(tree.n_inner)
+
+    # K18 at every N, and a capacity that drops
+    dropping = r // 64
+    for n_dev, cap in [(k, rs.row_cap(r, k)) for k in (1, 2, 4, 8)] + [(8, dropping)]:
+        got = rs.plan_routes(ids_out, n_dev, cap)
+        _plans_equal(f"route_plan[N={n_dev}, cap={cap}]", got,
+                     rs.plan_routes_plain(ids_out, n_dev, cap))
+        emit({"phase": "check", "kernel": "route_plan", "case": case, "N": n_dev, "cap": cap,
+              "R": r, "n_uniq": int(got.n_uniq), "n_dropped": int(got.n_dropped),
+              "bit_equal": True})
+        if cap == dropping:
+            require(int(got.n_dropped) > 0, "the dropping capacity dropped nothing")
+    cap = rs.row_cap(r, 1)
+    plan_in, plan_out = rs.plan_routes(rows, 1, cap), rs.plan_routes(ids_out, 1, cap)
+    k18_ms = time_ms(lambda: rs.plan_routes(ids_out, 1, cap))
+    k18_plain = time_ms(lambda: rs.plan_routes_plain(ids_out, 1, cap), reps=3, warmup=1)
+    u_out = int(plan_out.n_uniq)
+    k18_bytes = r * 4 + r * (6 * 4 + 2) + cap * 4 + 8
+
+    # K19's gather: at N = 1 the all_to_all is the identity, recv_ids = send_ids
+    x_in = rs.route_gather(emb_in, plan_in.send_ids, 1)
+    x_out = rs.route_gather(emb_out, plan_out.send_ids, 1)
+    for name, got, tab, plan in (("x_in", x_in, emb_in, plan_in), ("x_out", x_out, emb_out,
+                                                                     plan_out)):
+        require(torch.equal(got, rs.route_gather_plain(tab, plan.send_ids, 1)),
+                f"route_gather[{name}] differs from the plain version")
+    gather_ms = time_ms(lambda: rs.route_gather(emb_out, plan_out.send_ids, 1))
+    gather_plain = time_ms(lambda: rs.route_gather_plain(emb_out, plan_out.send_ids, 1))
+    gather_bytes = cap * 4 + u_out * dim * 4 + cap * dim * 4
+
+    # K2's routed mode: the plain version, K2 direct, and N = 2 with drops
+    kw = dict(window=window, negatives=5)
+    args = (x_in, plan_in.slot, x_out, plan_out.slot[:n], plan_out.slot[n:], walks, mask, b_sh)
+    got = rs.sgns_grads_routed(*args, **kw)
+    want = rs.sgns_grads_routed_plain(*args, **kw)
+    errs = [_close("sgns_grads_routed[g_in]", got[0], want[0]),
+            _close("sgns_grads_routed[g_out]", got[1], want[1]),
+            _close_to_largest("sgns_grads_routed[d_no]", got[2], want[2]),
+            _close_to_largest("sgns_grads_routed[parts]", got[3], want[3])]
+    direct = sg.sgns_grads(emb_in, emb_out, walks, mask, b_sh, neg, **kw)
+    loss = -(got[3][0] + 5 / n_neg * got[3][1]) / torch.clamp(got[3][2], min=1.0)
+    direct_err = max(_close("sgns_grads_routed vs sgns_grads[g_in]", got[0], direct[0]),
+                     _close("sgns_grads_routed vs sgns_grads[g_out]", got[1], direct[1]),
+                     _close_to_largest("sgns_grads_routed vs sgns_grads[d_no]", got[2], direct[2]),
+                     _close("sgns_grads_routed vs sgns_grads[loss]", loss, direct[3]))
+    require(float(got[3][2]) == float(direct[4]), "routed and direct pair counts differ")
+    small = r // 8
+    p_in2, p_out2 = rs.plan_routes(rows, 2, small), rs.plan_routes(ids_out, 2, small)
+    args2 = (_recv_rows(emb_in, p_in2), p_in2.slot, _recv_rows(emb_out, p_out2),
+             p_out2.slot[:n], p_out2.slot[n:], walks, mask, b_sh)
+    got2 = rs.sgns_grads_routed(*args2, **kw)
+    want2 = rs.sgns_grads_routed_plain(*args2, **kw)
+    errs += [_close("sgns_grads_routed[N=2, drops, g_in]", got2[0], want2[0]),
+             _close("sgns_grads_routed[N=2, drops, g_out]", got2[1], want2[1]),
+             _close_to_largest("sgns_grads_routed[N=2, drops, d_no]", got2[2], want2[2]),
+             _close_to_largest("sgns_grads_routed[N=2, drops, parts]", got2[3], want2[3])]
+    neg_dropped = bool((p_out2.slot[n:] < 0).any())
+    emit({"phase": "check", "kernel": "sgns_grads_routed", "case": case + ", N = 2 (rank 0)",
+          "cap": small, "dropped": int(p_in2.n_dropped) + int(p_out2.n_dropped),
+          "negatives_dropped": neg_dropped, "max_abs_err": max(errs[4:])})
+    emit({"phase": "check", "kernel": "sgns_grads_routed vs sgns_grads (N = 1)", "case": case,
+          "max_abs_err": direct_err})
+    k2r_ms = time_ms(lambda: rs.sgns_grads_routed(*args, **kw))
+    k2r_plain = time_ms(lambda: rs.sgns_grads_routed_plain(*args, **kw), reps=3, warmup=1)
+    k2_ms = time_ms(lambda: sg.sgns_grads(emb_in, emb_out, walks, mask, b_sh, neg, **kw))
+    emit({"phase": "check", "kernel": "sgns_grads (direct mode, beside its routed mode)",
+          "case": case, "B": n_walks, "ms": k2_ms, "routed_ms": k2r_ms})
+    grads_bytes = (2 * n + n_neg) * dim * 4
+    k2r_bytes = 2 * n * dim * 4 + n_neg * dim * 4 + (4 * n + n_neg) * 4 + grads_bytes
+    k2r_ops = 6 * n * dim * (n_neg + 2 * window)
+
+    # K19's pack of the routed gradients, against its plain version
+    g_in, g_out, d_no = got[:3]
+    send_out = rs.route_pack(plan_out, 1, cap, g_out, flat, d_no, None)
+    pack_err = max(
+        _close_to_largest("route_pack[out]", send_out,
+                          rs.route_pack_plain(plan_out, 1, cap, g_out, flat, d_no, None)),
+        _close_to_largest("route_pack[in]", rs.route_pack(plan_in, 1, cap, g_in, flat),
+                          rs.route_pack_plain(plan_in, 1, cap, g_in, flat)))
+    pack_ms = time_ms(lambda: rs.route_pack(plan_out, 1, cap, g_out, flat, d_no, None))
+    pack_plain = time_ms(lambda: rs.route_pack_plain(plan_out, 1, cap, g_out, flat, d_no, None))
+    live = torch.cat([(flat >= 0).float(), torch.ones(n_neg, device=dev)])
+    g_all = torch.cat([g_out, d_no])
+    rows_plus = torch.cat([g_all, (g_all * g_all).mean(-1, keepdim=True)], dim=1) * live[:, None]
+    slots = plan_out.slot.long()
+    keep = slots >= 0
+    lib_send = torch.zeros_like(send_out)
+    pack_lib = time_ms(lambda: lib_send.index_add_(0, slots[keep], rows_plus[keep]))
+    n_live = int(live.sum())
+    pack_bytes = n_live * dim * 4 + r * 12 + u_out * 9 + cap * (dim + 1) * 4
+
+    # K8's routed mode at N = 1: the plain version and K8 direct
+    tables = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (tree.points, tree.codes, tree.lengths)]
+    cl = tree.points.shape[1]
+    n_head, k_rows = hs.head_split(head_offsets, cl)
+    clt = cl - n_head
+    cap_in, cap_th = rh.hs_caps(n_walks, length, cl, head_offsets, 1)
+    p_hin = rs.plan_routes(rows, 1, cap_in)
+    p_th = rs.plan_routes(tables[0][rows.long()][:, n_head:].reshape(-1).contiguous(), 1, cap_th)
+    hargs = (rs.route_gather(emb_in, p_hin.send_ids, 1), p_hin.slot,
+             rs.route_gather(theta, p_th.send_ids, 1), p_th.slot, theta[:k_rows].contiguous(),
+             walks, mask, b_sh, *tables)
+    hkw = dict(window=window, head_offsets=head_offsets)
+    got = rh.hs_grads_routed(*hargs, **hkw)
+    want = rh.hs_grads_routed_plain(*hargs, **hkw)
+    require(torch.equal(got[2], want[2]), "hs_grads_routed: tail rows differ")
+    herrs = [_close("hs_grads_routed[g_in]", got[0], want[0]),
+             _close("hs_grads_routed[g_tail]", got[1], want[1]),
+             _close_to_largest("hs_grads_routed[d_head]", got[3], want[3]),
+             _close_to_largest("hs_grads_routed[parts]", got[4], want[4])]
+    direct = hs.hs_grads(emb_in, theta, walks, mask, b_sh, *tables, **hkw)
+    require(torch.equal(got[2], direct[2]), "hs_grads_routed vs hs_grads: tail rows differ")
+    hloss = -got[4][0] / torch.clamp(got[4][1], min=1.0)
+    hdirect_err = max(_close("hs_grads_routed vs hs_grads[g_in]", got[0], direct[0]),
+                      _close("hs_grads_routed vs hs_grads[g_tail]", got[1], direct[1]),
+                      _close_to_largest("hs_grads_routed vs hs_grads[d_head]", got[3],
+                                        direct[3]),
+                      _close("hs_grads_routed vs hs_grads[loss]", hloss, direct[4]))
+    emit({"phase": "check", "kernel": "hs_grads_routed vs hs_grads (N = 1)", "case": case,
+          "head_levels": n_head, "head_rows": k_rows, "max_abs_err": hdirect_err})
+    k8r_ms = time_ms(lambda: rh.hs_grads_routed(*hargs, **hkw))
+    k8r_plain = time_ms(lambda: rh.hs_grads_routed_plain(*hargs, **hkw), reps=2, warmup=1)
+    k8_ms = time_ms(lambda: hs.hs_grads(emb_in, theta, walks, mask, b_sh, *tables, **hkw))
+    emit({"phase": "check", "kernel": "hs_grads (direct mode, beside its routed mode)",
+          "case": case, "B": n_walks, "ms": k8_ms, "routed_ms": k8r_ms})
+    _, entries = _hs_live_entries(walks, mask, b_sh, tables[2], window)
+    live_tail = int((got[2] >= 0).sum())
+    k8r_bytes = (n * 8 + n * (1 + clt) * 4 + int(p_hin.n_uniq) * (dim * 4 + cl * 5 + 5)
+                 + int(p_th.n_uniq) * dim * 4 + 2 * k_rows * dim * 4 + n * dim * 4
+                 + live_tail * (dim * 4 + 4))
+    rec = {"route_plan": (0.0, k18_ms, k18_plain, bound_ms(k18_bytes, 0), None),
+           "route_gather": (0.0, gather_ms, gather_plain, bound_ms(gather_bytes, 0), None),
+           "route_pack": (pack_err, pack_ms, pack_plain,
+                          bound_ms(pack_bytes, 3 * dim * n_live), pack_lib),
+           "sgns_grads_routed": (max(errs), k2r_ms, k2r_plain, bound_ms(k2r_bytes, k2r_ops),
+                                 None),
+           "hs_grads_routed": (max(herrs), k8r_ms, k8r_plain,
+                               bound_ms(k8r_bytes, 6 * dim * entries), None)}
+    _emit_rows(rec, record, results, before, case=case, B=n_walks, L1=length, D=dim, S=n_neg,
+               V=n_vertices, R=r, n_uniq=u_out, cap=cap, R_th=int(p_th.uniq.numel()),
+               cap_th=cap_th)
+
+
+def main_path_mesh_row(mesh, src, dst, max_iter: int, hs_objective: bool, beside: dict) -> dict:
+    """``Node2Vec(mesh=make_mesh(1, 1), table_sharding="row")`` over NCCL
+    through ``run_pipeline()`` on the dense graph at main_path's parameters:
+    10 walker chunks, so it streams into ``fit_streaming_sharded`` (K1
+    through sharded_dense_walk_chunk for counting and training, K6's
+    streaming form), every step routed at N = 1: K18 and K19's two launches
+    twice (two plans), K2's routed mode (K8's with ``hs_objective``:
+    negative=0, its head of 9 levels all-gathered), K3's squares mode and
+    K4 once (and K3 once for HS's head rows); K2 and K8 direct never.  No
+    row dropped.  Its rates stand beside ``beside``'s (main_path_streaming
+    and main_path_hs); then the profiled fit (``breakdown``), whose trace
+    gives the collectives' share of its wall time."""
+    phase = "main_path_mesh_row" + ("_hs" if hs_objective else "")
+    w2v = {**W2V_MAIN, "max_iter": max_iter, **({"negative": 0} if hs_objective else {})}
+    n2v = Node2Vec(n2v_params=N2V_MAIN, w2v_params=w2v, random_seed=0, mesh=mesh,
+                   table_sharding="row", device="cuda")
+    _fresh_run()
+    mesh.collectives.clear()
+    t0 = time.perf_counter()
+    graph = n2v.preprocess_input_graph((src, dst), indexed=True, directed=False)
+    t1 = time.perf_counter()
+    engine = n2v._walk_engine()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    walk_events = []
+    run_chunk = engine._run_chunk
+
+    def timed_chunk(*args, **kwargs):  # device time of every regenerated chunk
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_chunk(*args, **kwargs)
+        end.record()
+        walk_events.append((start, end))
+        return out
+
+    engine._run_chunk = timed_chunk
+    model = n2v.run_pipeline()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del engine._run_chunk
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    collectives = {f"{op}:{'x'.join(axis) if isinstance(axis, tuple) else axis}": k
+                   for (op, axis), k in mesh.collectives.items()}
+    names, vectors = n2v.embedding(as_frame=False)
+
+    n_chunks, chunk, source = engine.chunk_source(seed=0)
+    p = model.params
+    batch = _effective_batch(p.batch_walks, chunk, floor=1, target_updates=max(512 // n_chunks, 1))
+    n_batches = chunk // batch
+    steps = n_batches * n_chunks * max_iter
+    walk_s = sum(a.elapsed_time(b) for a, b in walk_events) / 1e3
+    pipeline_s = t3 - t2
+    pairs = sg.pairs_per_batch(batch, N2V_MAIN["walk_length"], p.window_size) * steps
+    # the profiled fit, whose trace gives the collectives' share of it
+    label = "HS" if hs_objective else "SGNS"
+    prof = breakdown(((f"fit_streaming_sharded ({label}, row, 1 x 1)",
+                       lambda: Word2VecTorch(p, device="cuda").fit_streaming_sharded(
+                           source, n_chunks, mesh, graph.n_vertices)),))[0]
+    key = "hs_pair_updates_per_fit_s" if hs_objective else "sgns_pair_updates_per_fit_s"
+    out = {
+        "phase": phase, "mesh": mesh.shape, "backend": mesh.backend,
+        "table_sharding": "row", "cuts": {"max_iter": f"10 -> {max_iter}"},
+        "objective": "hierarchical softmax (negative=0)" if hs_objective else "SGNS",
+        **({"tree": _tree_line(model)} if model.tree is not None else {}),
+        "n_vertices": graph.n_vertices, "walker_chunk": chunk, "n_chunks": n_chunks,
+        "batch_walks": batch, "n_batches_per_chunk": n_batches, "preprocess_s": t1 - t0,
+        "pipeline_s": pipeline_s, "walk_regeneration_device_s": walk_s,
+        "fit_s": pipeline_s - walk_s, key: pairs / (pipeline_s - walk_s),
+        "beside": beside, "dropped_rows": model.dropped_rows,
+        "collectives": collectives, "profiled_fit_s": prof["wall_ms"] / 1e3,
+        **{k: prof[k] for k in ("collective_host_share", "collective_device_share")},
+        "epoch_losses": model.losses, "peak_device_memory_bytes": int(peak),
+        "launches": launches, "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+    }
+    emit(out)
+    n_out = model.tree.n_inner if model.tree is not None else graph.n_vertices
+    require(n2v.walks is None, "run_pipeline() did not stream")
+    require(n_chunks == 10 and n_batches == 51, f"{n_chunks} chunks of {n_batches} batches")
+    require(model.dropped_rows == 0, f"{phase} dropped {model.dropped_rows} rows")
+    require(vectors.shape == (graph.n_vertices, 128) and bool(np.isfinite(vectors).all()),
+            f"{phase}: bad vectors")
+    require(model.emb_out.shape == (n_out, 128) and bool(np.isfinite(model.emb_out).all()),
+            f"{phase}: bad output table")
+    require(len(model.losses) == max_iter and all(np.isfinite(x) for x in model.losses),
+            f"losses {model.losses}")
+    require(launches["dense_walk"] == launches["dense_walk_sharded"] == n_chunks * (1 + max_iter),
+            f"{phase}: dense walks {launches}")
+    grads = "hs_grads_routed" if hs_objective else "sgns_grads_routed"
+    want = {"route_plan": 2 * steps, "route_gather": 2 * steps, "route_pack": 2 * steps,
+            grads: steps, "adagrad_accumulate_squares": steps, "adagrad_apply": steps,
+            "adagrad_accumulate": steps if hs_objective else 0, "vertex_counts": n_chunks}
+    for k, v in want.items():
+        require(launches[k] == v, f"{phase} launched {k} {launches[k]} times, not {v}")
+    for k in ("sgns_grads", "hs_grads", "sgns_grads_routed" if hs_objective else "hs_grads_routed",
+              "pair_lists", "col_pair_logits", "col_pair_grads"):
+        require(launches[k] == 0, f"{phase} launched {k} {launches[k]} times")
+    return out
+
+
+def _row_rank_checks(mesh, n_v: int, quick: bool) -> dict:
+    """The row layout on a rank of the 2 x 1 gloo mesh: one routed SGNS step
+    and one HS step at the main path's batch (2,560 walks split over the
+    ranks) against the same steps through the plain versions, one SGNS step
+    whose capacity drops rows (the dropped counts equal), the routed step's
+    wall and collective time, and (not with ``quick``) the quality gates
+    through ``Node2Vec(mesh=, table_sharding="row").run_pipeline()``."""
+    out = {}
+    dim, n_walks, length, window = 128, 2560, 21, 5
+    rng = np.random.default_rng(6)
+    full = [torch.from_numpy(rng.normal(0, 0.1, (n_v, dim)).astype(np.float32)).cuda()
+            for _ in range(2)]
+    accs = [torch.from_numpy(rng.random(n_v).astype(np.float32)).cuda() for _ in range(2)]
+    walks = torch.from_numpy(_pair_walks(n_v, n_walks, length, 8)).cuda()
+    vocab = build_vocab(walks, n_v, min_count=1)
+    noise = [torch.from_numpy(a).cuda() for a in (vocab.ns_alias, vocab.ns_prob, vocab.mask)]
+    b_local = n_walks // mesh.n_devices
+    local = walks[mesh.rank * b_local:(mesh.rank + 1) * b_local].contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(2000 + mesh.rank)  # the rank's draws
+    draws = sg.draw_step(gen, b_local, length, window, 64, True, "cuda")
+    kw = dict(window=window, negatives=5)
+
+    def state():
+        return rs.RowShardedState(*(rs.shard_rows(mesh, t.clone()) for t in (*full, *accs)),
+                                  n_v)
+
+    errs = {}
+    for name, cap in (("normal", rs.row_cap(b_local * length + 64, 2)), ("overflow", 1024)):
+        k_state, p_state = state(), state()
+        loss_k, drop_k = rs.row_sgns_step(mesh, k_state, local, *draws, 0.05, *noise, cap=cap,
+                                          **kw)
+        loss_p, drop_p = rs.row_sgns_step_plain(mesh, p_state, local, *draws, 0.05, *noise,
+                                                cap=cap, **kw)
+        require(float(drop_k) == float(drop_p), f"row step {name}: dropped {drop_k} vs {drop_p}")
+        require((float(drop_k) > 0) == (name == "overflow"), f"row step {name}: dropped {drop_k}")
+        errs[name] = max(_close(f"row step {name}[{k}]", a, b) for k, a, b in zip(
+            ("emb_in", "emb_out", "acc_in", "acc_out", "loss"), (*k_state[:4], loss_k),
+            (*p_state[:4], loss_p)))
+        out[f"sgns_step_{name}"] = {"cap": cap, "dropped": float(drop_k),
+                                    "vs_plain_max_abs_err": errs[name]}
+    # the routed step's wall time and its collectives' (each synchronised)
+    k_state = state()
+    rs.row_sgns_step(mesh, k_state, local, *draws, 0.05, *noise,
+                     cap=rs.row_cap(b_local * length + 64, 2), **kw)
+    torch.cuda.synchronize()
+    with collective_timing(mesh) as coll_s:
+        ts = time.perf_counter()
+        rs.row_sgns_step(mesh, k_state, local, *draws, 0.05, *noise,
+                         cap=rs.row_cap(b_local * length + 64, 2), **kw)
+        torch.cuda.synchronize()
+        out["row_step_s"], out["row_step_collective_s"] = time.perf_counter() - ts, coll_s[0]
+    # one HS step, the head all-gathered over the two ranks
+    counts = np.bincount(walks[walks >= 0].cpu().numpy(), minlength=n_v)
+    tree = hs.cap_code_length(hs.build_huffman(counts), counts)
+    head = hs.head_level_offsets(tree, table_rows=-(-tree.n_inner // 2))
+    tabs = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (tree.points, tree.codes, tree.lengths)]
+    theta = torch.from_numpy(rng.normal(0, 0.1, (tree.n_inner, dim)).astype(np.float32)).cuda()
+    acc_th = torch.from_numpy(rng.random(tree.n_inner).astype(np.float32)).cuda()
+    caps = rh.hs_caps(b_local, length, tree.points.shape[1], head, 2)
+    states = [rh.RowHSState(*(rs.shard_rows(mesh, t.clone()) for t in (full[0], theta, accs[0],
+                                                                        acc_th)),
+                            n_v, tree.n_inner) for _ in range(2)]
+    hkw = dict(cap_in=caps[0], cap_th=caps[1], window=window, head_offsets=head)
+    loss_k, drop_k = rh.row_hs_step(mesh, states[0], local, draws[0], 0.05, *tabs, noise[2], **hkw)
+    loss_p, drop_p = rh.row_hs_step_plain(mesh, states[1], local, draws[0], 0.05, *tabs, noise[2],
+                                          **hkw)
+    require(float(drop_k) == float(drop_p) == 0, f"row HS step dropped {drop_k} / {drop_p}")
+    out["hs_step"] = {"head_levels": len(head) - 1, "vs_plain_max_abs_err": max(
+        _close("row HS step[emb_in]", states[0].emb_in, states[1].emb_in),
+        _close_to_largest("row HS step[theta]", states[0].theta, states[1].theta),
+        _close("row HS step[acc_in]", states[0].acc_in, states[1].acc_in),
+        _close_to_largest("row HS step[acc_theta]", states[0].acc_theta, states[1].acc_theta),
+        _close("row HS step[loss]", loss_k, loss_p))}
+    del full, accs, states
+    if not quick:
+        gq, labels = synthetic_multilabel(2000, seed=0)
+        for objective in ("sgns", "hs"):
+            n2v = Node2VecParams(num_walks=8, walk_length=40, walker_chunk=2048)
+            w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128,
+                                 negative=0 if objective == "hs" else 5)
+            ts = time.perf_counter()
+            auc = holdout_link_prediction(gq, n2v_params=n2v, w2v_params=w2v, seed=0,
+                                          device="cuda", trainer="run_pipeline", mesh=mesh,
+                                          table_sharding="row")["holdout_link_auc"]
+            emb, _ = train_embeddings(gq, n2v, w2v, seed=0, device="cuda",
+                                      trainer="run_pipeline", mesh=mesh, table_sharding="row")
+            gap = label_cosine_gap(emb, labels, n_pairs=200_000, seed=0)
+            out["quality_row_" + objective] = {
+                "trainer": "Node2Vec(mesh=, table_sharding='row').run_pipeline() -> "
+                           "fit_streaming_sharded", "holdout_link_auc": auc,
+                "label_cosine_gap": gap, **MESH_GATE, "quality_s": time.perf_counter() - ts}
+            require(auc >= MESH_GATE["auc_min"], f"row {objective}: AUC {auc}")
+            require(gap >= MESH_GATE["gap_min"], f"row {objective}: gap {gap}")
+    return out
+
 
 
 def _mesh_rank(quick: bool) -> list:
@@ -3713,7 +4141,8 @@ def _mesh_rank(quick: bool) -> list:
     graph, blocked on an RMAT) against the single-device engine, one column
     step against ``sharded_sgns_step_plain``, the dense delta all-reduce
     timed, and (not with ``quick``) the quality gate through
-    ``Node2Vec(mesh=).run_pipeline()``."""
+    ``Node2Vec(mesh=).run_pipeline()``; at 2 x 1 the row layout's checks
+    (``_row_rank_checks``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     n_v = 4096 if quick else 131072
     g = build_graph(smoke_edges(n_v, 16 * n_v), directed=False)
@@ -3796,6 +4225,8 @@ def _mesh_rank(quick: bool) -> list:
                          "quality_s": time.perf_counter() - ts})
             require(auc >= MESH_GATE["auc_min"], f"mesh {shape}: AUC {auc}")
             require(gap >= MESH_GATE["gap_min"], f"mesh {shape}: gap {gap}")
+        if shape == (2, 1):  # the row layout over the flattened 2 x 1 mesh
+            line["row"] = _row_rank_checks(mesh, n_v, quick)
         lines.append(line)
     return lines
 
@@ -3813,12 +4244,59 @@ def mesh_ranks(quick: bool = False) -> None:
             emit({**line, "spawn_s": time.perf_counter() - t0})
 
 
-def breakdown(stages) -> None:
+def profile_sums(prof) -> dict:
+    """Sums by name over a finished ``torch.profiler`` run, read from its raw
+    events, which ``key_averages()`` would turn into event objects for tens
+    of seconds on a fit of ~10^5 ops: "device" ms of kernels and copies,
+    "ranges" ms of the GPU-side ranges of annotations (``nccl:all_to_all``:
+    they overlap the work they span, which key_averages() counts twice),
+    "host" self ms (an event's span less its direct children's on its
+    thread, nested as torch nests them) and "host_total" ms."""
+    from torch.autograd.profiler_util import _filter_name
+
+    sums = {"device": {}, "ranges": {}, "host": {}, "host_total": {}}
+    threads = {}
+
+    def add(kind, name, ns):
+        sums[kind][name] = sums[kind].get(name, 0.0) + ns / 1e6
+
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if _filter_name(name) or getattr(ev, "is_hidden_event", lambda: False)():
+            continue
+        if ev.device_type() != torch.autograd.DeviceType.CPU:
+            annotation = (name.startswith("nccl:") or getattr(ev, "activity_type", str)()
+                          == "gpu_user_annotation")
+            add("ranges" if annotation else "device", name, ev.duration_ns())
+        elif not ev.is_async() and ev.start_thread_id() == ev.end_thread_id():
+            add("host_total", name, ev.duration_ns())
+            threads.setdefault(ev.start_thread_id(), []).append(
+                (ev.start_ns(), -ev.end_ns(), name))
+    for events in threads.values():
+        events.sort()  # by start, the longer (enclosing) event first
+        stack = []  # the open events, nested: [end, name, self ns]
+        for start, neg_end, name in events:
+            end = -neg_end
+            while stack and (start >= stack[-1][0] or end > stack[-1][0]):
+                add("host", *stack.pop()[1:])
+            if stack:
+                stack[-1][2] -= end - start
+            stack.append([end, name, end - start])
+        for entry in stack:
+            add("host", *entry[1:])
+    return sums
+
+
+def breakdown(stages) -> list:
     """Device time by kernel and the idle share of each (name, fn) stage,
     from torch.profiler over a second run of it (launch counts of the main
-    path were read before)."""
+    path were read before).  Where the stage calls collectives, the line
+    adds their host time (the ``c10d::`` calls, children included) and
+    their device time (NCCL's GPU-side ranges), each with its share of the
+    wall time.  Returns the lines."""
     from torch.profiler import ProfilerActivity, profile
 
+    lines = []
     for stage, fn in stages:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3826,22 +4304,25 @@ def breakdown(stages) -> None:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name, host = {}, {}
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0)
-            if dev_us > 0 and getattr(ev, "device_type", None) != torch.autograd.DeviceType.CPU:
-                by_name[ev.key[:80]] = dev_us / 1e3
-            elif ev.self_cpu_time_total > 0:
-                host[ev.key[:80]] = ev.self_cpu_time_total / 1e3
-        busy = sum(by_name.values())
-        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
-        emit({"phase": "breakdown", "stage": stage, "wall_ms": wall_ms,
-              "device_busy_ms": busy if busy > 0 else None,
-              "idle_share": 1 - busy / wall_ms if busy > 0 else None,
-              "top_device_ms": top,
-              "top_host_self_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:6])})
+        sums = profile_sums(prof)
+        device, host = sums["device"], sums["host"]
+        busy = sum(device.values())
+        top = {k[:80]: v for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:8]}
+        line = {"phase": "breakdown", "stage": stage, "wall_ms": wall_ms,
+                "device_busy_ms": busy if busy > 0 else None,
+                "idle_share": 1 - busy / wall_ms if busy > 0 else None,
+                "top_device_ms": top,
+                "top_host_self_ms": {k[:80]: v for k, v in sorted(
+                    host.items(), key=lambda kv: -kv[1])[:6] if v > 0}}
+        coll_host = sum(v for k, v in sums["host_total"].items() if k.startswith("c10d::"))
+        coll_device = sum(v for k, v in sums["ranges"].items() if k.startswith("nccl:"))
+        if coll_host or coll_device:
+            line.update({"collective_host_ms": coll_host, "collective_device_ms": coll_device,
+                         "collective_host_share": coll_host / wall_ms,
+                         "collective_device_share": coll_device / wall_ms})
+        emit(line)
+        lines.append(line)
+    return lines
 
 
 def quality_gates(blocked_widths=None, trainer: str = "fit", walker_chunk=None,
@@ -3960,6 +4441,7 @@ def main() -> int:
         mesh = make_mesh(1, 1, device="cuda")  # a world of one, over NCCL
         check_col_sgns(mesh, 4096, 64, 21, 128, 5, True, results, "quick")
         check_col_sgns(mesh, 512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
+        check_route(tree, head, walks_q.cpu().numpy()[:64], g.n_vertices, True, results, "quick")
         mesh_ranks(quick=True)
         edge_cases()
         edge_cases_blocked()
@@ -4019,6 +4501,10 @@ def main() -> int:
                    "main_path_pairs batch 0", batch=first)
     check_col_sgns(mesh, 131072, main_batch, 21, 128, 5, False, results,
                    "random walks, dead tails")
+    # K18, K19 and the routed modes on main_path_mesh_row's batch (2,570 walks
+    # of the first chunk, shuffled), the HS ones on the dense graph's tree
+    check_route(tree, head, hs_walks[:hs_batch], 131072, True, results,
+                "main_path_mesh_row batch")
     check_fused(131072, main_batch, 21, 128, 5, False, results, "random walks, dead tails")
     del first
     check_sgns(131072, main_batch, 21, 64, 5, 64, False, results)
@@ -4056,6 +4542,14 @@ def main() -> int:
     del walks
     paths["main_path_hs"] = main_path_streamed(src, dst, 1, "main_path_hs", {"negative": 0},
                                                "hs_grads")
+    paths["main_path_mesh_row"] = main_path_mesh_row(
+        mesh, src, dst, 1, False, beside={
+            "main_path_sgns_pair_updates_per_s": paths["main_path"]["sgns_pair_updates_per_s"],
+            "main_path_streaming_sgns_pair_updates_per_s":
+                paths["main_path_streaming"]["sgns_pair_updates_per_s"]})
+    paths["main_path_mesh_row_hs"] = main_path_mesh_row(
+        mesh, src, dst, 1, True, beside={"main_path_hs_pair_updates_per_fit_s":
+                                         paths["main_path_hs"]["hs_pair_updates_per_fit_s"]})
     paths["main_path_cbow"] = main_path_streamed(src, dst, 1, "main_path_cbow", {"sg": 0},
                                                  "cbow_grads")
     paths["main_path_cbow_hs"] = main_path_host(src, dst, 1, "main_path_cbow_hs",

@@ -2,7 +2,7 @@
 on the CPU (and, with --port, from the PyTorch port's plain path).
 
     JAX_PLATFORMS=cpu python experiments/port_gate_reference.py [--port] [--hs] [--cbow]
-        [--sgd] [--mesh N_DATA,N_MODEL] [--trainers fit run_pipeline host_corpus]
+        [--sgd] [--mesh N_DATA,N_MODEL[,row]] [--trainers fit run_pipeline host_corpus]
         [--seeds 0 1]
 
 The gates train on ``synthetic_multilabel(2000, seed=0)`` with num_walks 8,
@@ -20,8 +20,10 @@ SGNS with ``optimizer="sgd"`` at ``step_size=0.025`` (the reference
 trainers' update rule).  ``--mesh 2,1`` runs the JAX package on a (data ×
 model) mesh of virtual CPU devices: "fit" trains ``fit_sharded`` and
 "run_pipeline" ``Node2Vec(mesh=).run_pipeline()``, both the column-sharded
-trainer (``--port`` does not run with it: the port's mesh runs in ranks of
-their own, ``chip_smoke.py``'s ``mesh_ranks``).  Prints one JSON line per
+trainer, or with ``--mesh 2,1,row`` the row-sharded ones (``fit_sharded``
+with ``table_sharding="row"``, and ``run_pipeline`` streaming into
+``fit_streaming_sharded``) (``--port`` does not run with it: the port's mesh
+runs in ranks of their own, ``chip_smoke.py``'s ``mesh_ranks``).  Prints one JSON line per
 (package, objective, trainer, seed).
 """
 
@@ -67,17 +69,20 @@ TRAINERS = {
 }
 
 
-def jax_vectors(indptr, indices, weights, n_vertices, n2v, w2v, seed, trainer, mesh=None):
+def jax_vectors(indptr, indices, weights, n_vertices, n2v, w2v, seed, trainer, mesh=None,
+                table_sharding="column"):
     src = np.repeat(np.arange(n_vertices), np.diff(indptr)).astype(np.int32)
     g = ref_from_edge_arrays(src, indices, weights, n_vertices=n_vertices, directed=True)
     if trainer == "fit":
         walks = ref_random_walks(g, n2v, seed=seed)
         model = Word2VecTPU(w2v)
         if mesh is not None:
-            return np.asarray(model.fit_sharded(walks, mesh, n_vertices=n_vertices).vectors)
+            return np.asarray(model.fit_sharded(walks, mesh, n_vertices=n_vertices,
+                                                table_sharding=table_sharding).vectors)
         return np.asarray(model.fit(walks, n_vertices=n_vertices).vectors)
     pipe = node2vec_tpu.Node2Vec(n2v, w2v, random_seed=seed,
-                                 host_corpus=trainer == "host_corpus", mesh=mesh)
+                                 host_corpus=trainer == "host_corpus", mesh=mesh,
+                                 table_sharding=table_sharding)
     pipe.graph = g
     model = pipe.run_pipeline()
     if trainer == "run_pipeline" and mesh is None:
@@ -96,15 +101,18 @@ def main() -> None:
     ap.add_argument("--sgd", action="store_true",
                     help='SGNS with optimizer="sgd", step_size=0.025 instead of Adagrad')
     ap.add_argument("--mesh", default=None,
-                    help="N_DATA,N_MODEL: the JAX package's column-sharded trainer on a mesh")
+                    help="N_DATA,N_MODEL[,row]: the JAX package's column-sharded (or, with "
+                         "',row', row-sharded) trainer on a mesh")
     args = ap.parse_args()
-    mesh = None
+    mesh, layout = None, "column"
     if args.mesh:
         from node2vec_tpu.parallel import make_mesh
 
         if args.port:
             ap.error("--port does not run with --mesh")
-        n_data, n_model = (int(x) for x in args.mesh.split(","))
+        fields = args.mesh.split(",")
+        n_data, n_model = int(fields[0]), int(fields[1])
+        layout = fields[2] if len(fields) > 2 else "column"
         mesh = make_mesh(n_data, n_model, devices=jax.devices()[: n_data * n_model])
     g, labels = synthetic_multilabel(2000, seed=0)
     for trainer in args.trainers:
@@ -122,14 +130,14 @@ def main() -> None:
         if args.sgd:
             objective += "_sgd"
         if mesh is not None:
-            objective += f"_mesh{args.mesh.replace(',', 'x')}"
+            objective += f"_mesh{n_data}x{n_model}" + ("_row" if layout == "row" else "")
         for seed in args.seeds:
             kept, pos, neg = holdout_split(g, 0.2, seed)
             emb = jax_vectors(*_csr(kept, g.n_vertices), g.n_vertices, RefN2V(**n2v_kw),
-                              RefW2V(**w2v_kw), seed, trainer, mesh)
+                              RefW2V(**w2v_kw), seed, trainer, mesh, layout)
             emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
             full = jax_vectors(g.indptr, g.indices, g.weights, g.n_vertices,
-                               RefN2V(**n2v_kw), RefW2V(**w2v_kw), seed, trainer, mesh)
+                               RefN2V(**n2v_kw), RefW2V(**w2v_kw), seed, trainer, mesh, layout)
             print(json.dumps({"package": "node2vec_tpu (CPU)", "objective": objective,
                               "trainer": trainer, "seed": seed,
                               "holdout_link_auc": link_prediction_auc(emb, pos, neg),

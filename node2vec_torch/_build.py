@@ -13,6 +13,8 @@ those in a kernel's shared-list or global-staging mode).  Each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels.  ``staging`` picks where the
 walk-at-a-time step kernels (K2, K8, K9, K10, K13, K16, K17) stage a walk.
+K2's and K8's routed modes (the row-sharded steps) count under their own
+names, ``sgns_grads_routed`` and ``hs_grads_routed``, not under K2's and K8's.
 """
 
 from __future__ import annotations
@@ -35,13 +37,15 @@ KERNELS = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply",
            "blocked_walk", "vertex_counts", "subsample_walks", "hs_grads", "cbow_grads",
            "cbow_hs_grads", "preagg_rows", "sgd_apply", "csr_walk", "pair_lists",
            "sgns_pair_grads", "fused_adagrad", "alias_draw", "col_pair_logits",
-           "col_pair_grads", "adagrad_accumulate_squares")
+           "col_pair_grads", "adagrad_accumulate_squares", "route_plan", "route_gather",
+           "route_pack", "sgns_grads_routed", "hs_grads_routed")
 # launches of a kernel in one of its modes, counted beside the kernel's own;
 # "*_sharded": a walk kernel launched for one data shard of a mesh
 MODE_COUNTS = ("blocked_walk_sl_mixed", "blocked_walk_sl_exhaustive", "sgns_grads_global",
                "hs_grads_global", "cbow_grads_global", "cbow_hs_grads_global",
                "sgns_pair_grads_global", "col_pair_logits_global", "col_pair_grads_global",
-               "dense_walk_sharded", "blocked_walk_sharded", "csr_walk_sharded")
+               "dense_walk_sharded", "blocked_walk_sharded", "csr_walk_sharded",
+               "sgns_grads_routed_global", "hs_grads_routed_global")
 
 launches: collections.Counter = collections.Counter()
 STAGING_BLOCKS_PER_SM = 4  # global staging's grid: a small multiple of the SMs
@@ -157,6 +161,15 @@ def lib() -> ctypes.CDLL:
                                    vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, vp],
             "n2v_adagrad_accumulate_squares": [vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64,
                                                i32, vp],
+            "n2v_route_plan": [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                               vp, vp, vp],
+            "n2v_route_gather": [vp, i32, vp, i64, i32, vp, vp],
+            "n2v_route_pack": [vp, vp, i64, vp, vp, i32, vp, vp, vp, vp, vp, i64, i32, vp, vp],
+            "n2v_route_tile": [],
+            "n2v_sgns_grads_routed": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                      f32, vp, vp, vp, vp, vp, i32, vp],
+            "n2v_hs_grads_routed": [vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
+                                    i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, i32, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(handle, name)

@@ -13,9 +13,10 @@ other's).  The functional forms ``trim_index`` and ``random_walk`` return
 DataFrames, as the JAX package's do.  With ``mesh=`` (``parallel.make_mesh``,
 called on every rank) the walks shard their walkers over the mesh's data
 axis and ``fit`` trains with the tables' columns sharded over its model
-axis (``Word2VecTorch.fit_sharded``).  The graph-sharded walks and the
-row-sharded trainers of the JAX pipeline are not ported yet and raise
-``NotImplementedError``.
+axis, or with ``table_sharding="row"`` their rows over every rank
+(``Word2VecTorch.fit_sharded``; ``run_pipeline`` then streams into
+``fit_streaming_sharded``).  The graph-sharded walks of the JAX pipeline
+are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -84,9 +85,10 @@ class Node2Vec:
         (``Word2VecTorch.fit_sharded``); every rank runs the pipeline and
         ends with the whole model.  ``table_sharding`` picks the mesh
         trainer's table layout: "column" (the default) shards the tables'
-        columns over the model axis; "row" (the row-sharded trainers) is
-        not ported yet and raises ``NotImplementedError`` when training
-        starts.  It is validated as in the JAX package, with or without a
+        columns over the model axis; "row" shards their rows over every
+        rank and routes them each step (SGNS, and hierarchical softmax,
+        which a mesh trains only in this layout), and streams over a
+        virtual corpus in ``run_pipeline``.  It is validated as in the JAX package, with or without a
         mesh.  ``graph_sharded=True`` (the edge-partitioned walks) raises
         ``NotImplementedError`` with a mesh, and ``ValueError`` without one
         when the walks start, as the JAX engine does."""

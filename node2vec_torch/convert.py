@@ -9,7 +9,9 @@ state into the other's, so both trainers can start from the same tables;
 fused-table step's [V, D+1] tables (the accumulator in column D).
 ``from_reference_sharded_state`` gives a mesh rank its column slices of
 JAX's full tables (the column-sharded trainer's state), and
-``to_reference_sharded_state`` gathers them back.
+``to_reference_sharded_state`` gathers them back;
+``from_reference_row_state`` and ``from_reference_hs_row_state`` give it its
+rows ``rank::N`` of the row-sharded trainers' full tables.
 ``blocked_graph_from_arrays`` takes the blocked walk engine's tables, which
 have one layout in both packages, so both walk kernels can run on the very
 tables one package packed.  Like every entry point of the port, each puts
@@ -77,6 +79,25 @@ def to_reference_sharded_state(mesh, state) -> Tuple[np.ndarray, np.ndarray, np.
 
     return to_reference_state(gather_columns(mesh, state.emb_in),
                               gather_columns(mesh, state.emb_out), state.acc_in, state.acc_out)
+
+
+def from_reference_row_state(mesh, emb_in, emb_out, acc_in, acc_out, device="cuda"):
+    """This rank's ``RowShardedState`` from full logical (emb_in [V, D],
+    emb_out [V, D], acc_in [V] or [V, 1], acc_out) arrays, e.g. JAX's
+    ``init_row_state`` un-interleaved (``row_state_to_host``): its rows
+    ``rank::N``, padded to whole ranks."""
+    from node2vec_torch.parallel.rowsharded_sgns import row_state_from_host
+
+    return row_state_from_host(mesh, emb_in, emb_out, acc_in, acc_out, device=device)
+
+
+def from_reference_hs_row_state(mesh, emb_in, theta, acc_in, acc_theta, device="cuda"):
+    """This rank's ``RowHSState`` from full logical (emb_in [V, D], theta
+    [n_inner, D], acc_in, acc_theta) arrays, e.g. JAX's
+    ``init_hs_row_state`` through ``hs_state_to_host``."""
+    from node2vec_torch.parallel.rowsharded_hs import hs_state_from_host
+
+    return hs_state_from_host(mesh, emb_in, theta, acc_in, acc_theta, device=device)
 
 
 def from_reference_fused(tab_in, tab_out, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:

@@ -33,6 +33,18 @@
 // take global atomics, one per (position, column) of the walk.  Loss parts
 // go to loss_parts[block] (the log-sigmoid sum and the pair count).
 //
+// Routed mode (the row-sharded step, node2vec_tpu/parallel/rowsharded_hs.py
+// :156-298): the body is the same; only where a row comes from changes.
+// emb_in is then the [N * cap_in, D] buffer of centers the owners sent back
+// and theta the [N * cap_th, D] buffer of tail path rows: the center of walk
+// position p is emb_in[slot_in[p]], and the level-c (c >= H) theta row of
+// context position p is theta[slot_th[p * CLT + c - H]] (K18's request
+// slots, -1 where dropped on overflow).  Head levels (c < H) read the
+// all-gathered head table head [K, D] at their inner-node id.  A position
+// is valid only where its center slot is live (plan_in.ok), and a tail path
+// entry is masked where its slot is -1 (plan_th.ok): no loss, no gradient,
+// and tail_rows -1.  The same shared and global staging, the same outputs.
+//
 // Staging: a walk whose arrays exceed the card's shared memory per block
 // stages them in a per-block slice of a global workspace instead, with the
 // same body (staging.cuh); the wrapper picks the mode from the shape.
@@ -75,8 +87,15 @@ __host__ __device__ __forceinline__ int shared_head_rows(int k_rows) {
   return k_rows < kSharedHeadRows ? k_rows : kSharedHeadRows;
 }
 
+// Routed mode's request slots and head table (null in the direct mode)
+struct Routes {
+  const int32_t *in, *th;
+  const float* head;
+};
+
 // One block's work, every array of a walk carved from sm: the dynamic shared
 // memory, or the block's slice of a global workspace (staging.cuh).
+template <bool kRouted>
 __device__ __forceinline__ void
 hs_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restrict__ theta,
                int dim, const int32_t* __restrict__ walks,
@@ -85,7 +104,7 @@ hs_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restr
                const int32_t* __restrict__ lengths, int cl, int n_walks, int length, int window,
                int n_head, int k_rows, float* __restrict__ g_in, float* __restrict__ g_tail,
                int32_t* __restrict__ tail_rows, float* __restrict__ d_head,
-               float* __restrict__ loss_parts) {
+               float* __restrict__ loss_parts, Routes rt) {
   const int L = length, D = dim, W2 = 2 * window, CLT = cl - n_head;
   const int KS = shared_head_rows(k_rows);
   float* xin = sm;              // [L, D] emb_in rows of the walk
@@ -111,7 +130,7 @@ hs_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restr
       const int v = walks[base + i];
       const int safe = v >= 0 ? v : 0;
       walk[i] = v;
-      vpos[i] = v >= 0 && vocab_mask[safe];
+      vpos[i] = v >= 0 && vocab_mask[safe] && (!kRouted || rt.in[base + i] >= 0);
       plen[i] = lengths[safe];
       bsh[i] = b_sh[base + i];
     }
@@ -124,7 +143,12 @@ hs_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restr
     }
     for (int e = tid; e < L * D; e += kThreads) {
       const int i = e / D;
-      xin[e] = emb_in[static_cast<int64_t>(walk[i] >= 0 ? walk[i] : 0) * D + e % D];
+      if (kRouted) {
+        const int si = rt.in[base + i];
+        xin[e] = si >= 0 ? emb_in[static_cast<int64_t>(si) * D + e % D] : 0.f;
+      } else {
+        xin[e] = emb_in[static_cast<int64_t>(walk[i] >= 0 ? walk[i] : 0) * D + e % D];
+      }
       gin[e] = 0.f;
     }
     for (int i = tid; i < L; i += kThreads) {  // valid pairs with center i
@@ -138,15 +162,27 @@ hs_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restr
     __syncthreads();
     for (int e = tid; e < L * CLT; e += kThreads) {  // tail rows of the walk
       const int i = e / CLT, c = n_head + e % CLT;
-      tail_rows[base * CLT + e] = (walk[i] >= 0 && c < plen[i]) ? pts[i * cl + c] : -1;
+      tail_rows[base * CLT + e] =
+          (walk[i] >= 0 && c < plen[i] && (!kRouted || rt.th[base * CLT + e] >= 0))
+              ? pts[i * cl + c]
+              : -1;
     }
 
     for (int c = 0; c < cl; ++c) {
       for (int e = tid; e < L * D; e += kThreads) {
         const int j = e / D;
-        thc[e] = (vpos[j] && c < plen[j])
-                     ? theta[static_cast<int64_t>(pts[j * cl + c]) * D + e % D]
-                     : 0.f;
+        float t = 0.f;
+        if (vpos[j] && c < plen[j]) {
+          if (!kRouted) {
+            t = theta[static_cast<int64_t>(pts[j * cl + c]) * D + e % D];
+          } else if (c < n_head) {
+            t = rt.head[static_cast<int64_t>(pts[j * cl + c]) * D + e % D];
+          } else {
+            const int st = rt.th[(base + j) * CLT + (c - n_head)];
+            t = st >= 0 ? theta[static_cast<int64_t>(st) * D + e % D] : 0.f;
+          }
+        }
+        thc[e] = t;
       }
       __syncthreads();
 
@@ -155,7 +191,8 @@ hs_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restr
         const int i = p / W2, o = p % W2;
         const int d = offset_of(o, window), j = i + d;
         const bool live = vpos[i] && j >= 0 && j < L && vpos[j] && abs(d) <= bsh[i] &&
-                          c < plen[j];
+                          c < plen[j] &&
+                          (!kRouted || c < n_head || rt.th[(base + j) * CLT + (c - n_head)] >= 0);
         float g = 0.f;
         if (live) {
           float acc = 0.f;
@@ -214,6 +251,7 @@ hs_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restr
   }
 }
 
+template <bool kRouted>
 __global__ void __launch_bounds__(kThreads)
 hs_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ theta, int dim,
                 const int32_t* __restrict__ walks, const uint8_t* __restrict__ vocab_mask,
@@ -222,13 +260,14 @@ hs_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ thet
                 int n_walks, int length, int window, int n_head, int k_rows,
                 float* __restrict__ g_in, float* __restrict__ g_tail,
                 int32_t* __restrict__ tail_rows, float* __restrict__ d_head,
-                float* __restrict__ loss_parts) {
+                float* __restrict__ loss_parts, Routes rt) {
   extern __shared__ float sm[];
-  hs_grads_block(sm, emb_in, theta, dim, walks, vocab_mask, b_sh, points, codes, lengths, cl,
-                 n_walks, length, window, n_head, k_rows, g_in, g_tail, tail_rows, d_head,
-                 loss_parts);
+  hs_grads_block<kRouted>(sm, emb_in, theta, dim, walks, vocab_mask, b_sh, points, codes,
+                          lengths, cl, n_walks, length, window, n_head, k_rows, g_in, g_tail,
+                          tail_rows, d_head, loss_parts, rt);
 }
 
+template <bool kRouted>
 __global__ void __launch_bounds__(kThreads)
 hs_grads_kernel_staged(const float* __restrict__ emb_in, const float* __restrict__ theta,
                        int dim, const int32_t* __restrict__ walks,
@@ -237,11 +276,12 @@ hs_grads_kernel_staged(const float* __restrict__ emb_in, const float* __restrict
                        const int32_t* __restrict__ lengths, int cl, int n_walks, int length,
                        int window, int n_head, int k_rows, float* __restrict__ g_in,
                        float* __restrict__ g_tail, int32_t* __restrict__ tail_rows,
-                       float* __restrict__ d_head, float* __restrict__ loss_parts,
+                       float* __restrict__ d_head, float* __restrict__ loss_parts, Routes rt,
                        float* __restrict__ ws, int64_t ws_stride) {
-  hs_grads_block(ws + static_cast<int64_t>(blockIdx.x) * ws_stride, emb_in, theta, dim, walks,
-                 vocab_mask, b_sh, points, codes, lengths, cl, n_walks, length, window, n_head,
-                 k_rows, g_in, g_tail, tail_rows, d_head, loss_parts);
+  hs_grads_block<kRouted>(ws + static_cast<int64_t>(blockIdx.x) * ws_stride, emb_in, theta,
+                          dim, walks, vocab_mask, b_sh, points, codes, lengths, cl, n_walks,
+                          length, window, n_head, k_rows, g_in, g_tail, tail_rows, d_head,
+                          loss_parts, rt);
 }
 
 size_t smem_bytes(int length, int dim, int cl, int window, int k_rows) {
@@ -272,9 +312,32 @@ extern "C" int n2v_hs_grads(const float* emb_in, const float* theta, int dim,
                             void* stream) {
   if (n_walks == 0) return 0;
   return n2v::launch_staged(
-      hs_grads_kernel, hs_grads_kernel_staged, kThreads,
+      hs_grads_kernel<false>, hs_grads_kernel_staged<false>, kThreads,
       smem_bytes(length, dim, cl, window, k_rows), n_walks, ws, ws_blocks,
       static_cast<cudaStream_t>(stream), emb_in, theta, dim, walks, vocab_mask, b_sh, points,
       codes, lengths, cl, n_walks, length, window, n_head, k_rows, g_in, g_tail, tail_rows,
-      d_head, loss_parts);
+      d_head, loss_parts, Routes{nullptr, nullptr, nullptr});
+}
+
+// Routed mode: x_in [N * cap_in, dim] and th [N * cap_th, dim] the buffers
+// the owners sent back, slot_in [n_walks * length] and slot_th [n_walks *
+// length * (cl - n_head)] the requests' rows in them (-1: dropped), head
+// [k_rows, dim] the all-gathered head rows.  The shared memory is the direct
+// mode's (n2v_hs_grads_smem); the outputs are n2v_hs_grads's.
+extern "C" int n2v_hs_grads_routed(const float* x_in, const float* th, const float* head,
+                                   int dim, const int32_t* walks, const uint8_t* vocab_mask,
+                                   const int32_t* b_sh, const int32_t* points,
+                                   const int8_t* codes, const int32_t* lengths,
+                                   const int32_t* slot_in, const int32_t* slot_th, int cl,
+                                   int n_walks, int length, int window, int n_head, int k_rows,
+                                   float* g_in, float* g_tail, int32_t* tail_rows,
+                                   float* d_head, float* loss_parts, float* ws, int ws_blocks,
+                                   void* stream) {
+  if (n_walks == 0) return 0;
+  return n2v::launch_staged(
+      hs_grads_kernel<true>, hs_grads_kernel_staged<true>, kThreads,
+      smem_bytes(length, dim, cl, window, k_rows), n_walks, ws, ws_blocks,
+      static_cast<cudaStream_t>(stream), x_in, th, dim, walks, vocab_mask, b_sh, points,
+      codes, lengths, cl, n_walks, length, window, n_head, k_rows, g_in, g_tail, tail_rows,
+      d_head, loss_parts, Routes{slot_in, slot_th, head});
 }

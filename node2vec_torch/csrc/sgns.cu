@@ -27,6 +27,18 @@
 // g_neg^T . x_in) on the fp32 CUDA cores, against 2 * B * L1 * D * 4 bytes of
 // row reads and the same again of grads written.
 //
+// Routed mode (the row-sharded step, node2vec_tpu/parallel/rowsharded_sgns.py
+// :270-344): the body is the same; only where a row comes from changes.
+// emb_in and emb_out are then the [N * cap, D] buffers the owners sent back
+// (K19's gather between two all_to_alls), the row of walk position p is
+// emb_in[slot_in[p]] and emb_out[slot_out[p]], negative s is
+// emb_out[slot_neg[s]] (K18's request slots: owner * cap + rank, -1 where
+// the row was dropped on overflow, which reads as zeros), a position is valid
+// only where both its slots are live (ok_in & ok_out), and when any negative
+// was dropped every negative term of the step is masked (the JAX step's
+// ok_neg.all(), :337), which each block checks from slot_neg itself.  The
+// same shared and global staging, the same outputs.
+//
 // ld is the tables' row stride in floats: D for the [V, D] tables of every
 // trainer, D + 1 for the fused [V, D+1] tables of sgns_walk_step_fused
 // (skipgram.py:541-596 compute the same gradients from the first D columns;
@@ -65,6 +77,12 @@ __device__ __forceinline__ int offset_of(int o, int window) {
 
 // One block's work, every array of a walk carved from sm: the dynamic shared
 // memory, or the block's slice of a global workspace (staging.cuh).
+// Routed mode's request slots (null in the direct mode)
+struct Slots {
+  const int32_t *in, *out, *neg;
+};
+
+template <bool kRouted>
 __device__ __forceinline__ void
 sgns_grads_block(float* sm, const float* __restrict__ emb_in, const float* __restrict__ emb_out,
                  int dim, int ld, const int32_t* __restrict__ walks,
@@ -72,7 +90,7 @@ sgns_grads_block(float* sm, const float* __restrict__ emb_in, const float* __res
                  const int32_t* __restrict__ neg_ids, int n_walks, int length, int window,
                  int n_neg, float neg_scale, float* __restrict__ g_in,
                  float* __restrict__ g_out, float* __restrict__ d_no,
-                 float* __restrict__ loss_parts) {
+                 float* __restrict__ loss_parts, Slots sl) {
   const int L = length, D = dim, S = n_neg, W2 = 2 * window;
   float* xin = sm;              // [L, D]
   float* xout = xin + L * D;    // [L, D]
@@ -87,9 +105,19 @@ sgns_grads_block(float* sm, const float* __restrict__ emb_in, const float* __res
   int* bsh = vpos + L;                                   // [L]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float neg_live = 1.f;  // routed: 0 when any negative was dropped
   for (int i = tid; i < S * D; i += kThreads) {
-    no[i] = emb_out[static_cast<int64_t>(neg_ids[i / D]) * ld + i % D];
+    if (kRouted) {
+      const int sn = sl.neg[i / D];
+      no[i] = sn >= 0 ? emb_out[static_cast<int64_t>(sn) * ld + i % D] : 0.f;
+    } else {
+      no[i] = emb_out[static_cast<int64_t>(neg_ids[i / D]) * ld + i % D];
+    }
     dno[i] = 0.f;
+  }
+  if (kRouted) {
+    for (int s = 0; s < S; ++s)
+      if (sl.neg[s] < 0) neg_live = 0.f;
   }
   float pos_acc = 0.f, neg_acc = 0.f, mult_acc = 0.f;
 
@@ -99,14 +127,21 @@ sgns_grads_block(float* sm, const float* __restrict__ emb_in, const float* __res
       const int v = walks[base + i];
       const int safe = v >= 0 ? v : 0;
       rows[i] = safe;
-      vpos[i] = v >= 0 && vocab_mask[safe];
+      vpos[i] = v >= 0 && vocab_mask[safe] &&
+                (!kRouted || (sl.in[base + i] >= 0 && sl.out[base + i] >= 0));
       bsh[i] = b_sh[base + i];
     }
     __syncthreads();
     for (int i = tid; i < L * D; i += kThreads) {
-      const int64_t r = static_cast<int64_t>(rows[i / D]) * ld + i % D;
-      xin[i] = emb_in[r];
-      xout[i] = emb_out[r];
+      if (kRouted) {
+        const int si = sl.in[base + i / D], so = sl.out[base + i / D];
+        xin[i] = si >= 0 ? emb_in[static_cast<int64_t>(si) * ld + i % D] : 0.f;
+        xout[i] = so >= 0 ? emb_out[static_cast<int64_t>(so) * ld + i % D] : 0.f;
+      } else {
+        const int64_t r = static_cast<int64_t>(rows[i / D]) * ld + i % D;
+        xin[i] = emb_in[r];
+        xout[i] = emb_out[r];
+      }
     }
     for (int i = tid; i < L; i += kThreads) {  // valid pairs per center
       float m = 0.f;
@@ -143,8 +178,9 @@ sgns_grads_block(float* sm, const float* __restrict__ emb_in, const float* __res
       for (int k = lane; k < D; k += 32) acc += xin[i * D + k] * no[s * D + k];
       const float nl = warp_sum(acc);
       if (lane == 0) {
-        gneg[p] = sigmoid(nl) * mult[i] * neg_scale;
-        neg_acc += log_sigmoid(-nl) * mult[i];
+        const float m = mult[i] * neg_live;
+        gneg[p] = sigmoid(nl) * m * neg_scale;
+        neg_acc += log_sigmoid(-nl) * m;
       }
     }
     __syncthreads();
@@ -191,6 +227,7 @@ sgns_grads_block(float* sm, const float* __restrict__ emb_in, const float* __res
   }
 }
 
+template <bool kRouted>
 __global__ void __launch_bounds__(kThreads)
 sgns_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ emb_out, int dim,
                   int ld, const int32_t* __restrict__ walks,
@@ -198,12 +235,14 @@ sgns_grads_kernel(const float* __restrict__ emb_in, const float* __restrict__ em
                   const int32_t* __restrict__ neg_ids, int n_walks, int length, int window,
                   int n_neg, float neg_scale, float* __restrict__ g_in,
                   float* __restrict__ g_out, float* __restrict__ d_no,
-                  float* __restrict__ loss_parts) {
+                  float* __restrict__ loss_parts, Slots sl) {
   extern __shared__ float sm[];
-  sgns_grads_block(sm, emb_in, emb_out, dim, ld, walks, vocab_mask, b_sh, neg_ids, n_walks,
-                   length, window, n_neg, neg_scale, g_in, g_out, d_no, loss_parts);
+  sgns_grads_block<kRouted>(sm, emb_in, emb_out, dim, ld, walks, vocab_mask, b_sh, neg_ids,
+                            n_walks, length, window, n_neg, neg_scale, g_in, g_out, d_no,
+                            loss_parts, sl);
 }
 
+template <bool kRouted>
 __global__ void __launch_bounds__(kThreads)
 sgns_grads_kernel_staged(const float* __restrict__ emb_in, const float* __restrict__ emb_out,
                          int dim, int ld, const int32_t* __restrict__ walks,
@@ -211,11 +250,12 @@ sgns_grads_kernel_staged(const float* __restrict__ emb_in, const float* __restri
                          const int32_t* __restrict__ b_sh, const int32_t* __restrict__ neg_ids,
                          int n_walks, int length, int window, int n_neg, float neg_scale,
                          float* __restrict__ g_in, float* __restrict__ g_out,
-                         float* __restrict__ d_no, float* __restrict__ loss_parts,
+                         float* __restrict__ d_no, float* __restrict__ loss_parts, Slots sl,
                          float* __restrict__ ws, int64_t ws_stride) {
-  sgns_grads_block(ws + static_cast<int64_t>(blockIdx.x) * ws_stride, emb_in, emb_out, dim, ld,
-                   walks, vocab_mask, b_sh, neg_ids, n_walks, length, window, n_neg, neg_scale,
-                   g_in, g_out, d_no, loss_parts);
+  sgns_grads_block<kRouted>(ws + static_cast<int64_t>(blockIdx.x) * ws_stride, emb_in,
+                            emb_out, dim, ld, walks, vocab_mask, b_sh, neg_ids, n_walks,
+                            length, window, n_neg, neg_scale, g_in, g_out, d_no, loss_parts,
+                            sl);
 }
 
 size_t smem_bytes(int length, int dim, int n_neg, int window) {
@@ -246,8 +286,30 @@ extern "C" int n2v_sgns_grads(const float* emb_in, const float* emb_out, int dim
                               void* stream) {
   if (n_walks == 0) return 0;
   return n2v::launch_staged(
-      sgns_grads_kernel, sgns_grads_kernel_staged, kThreads,
+      sgns_grads_kernel<false>, sgns_grads_kernel_staged<false>, kThreads,
       smem_bytes(length, dim, n_neg, window), n_walks, ws, ws_blocks,
       static_cast<cudaStream_t>(stream), emb_in, emb_out, dim, ld, walks, vocab_mask, b_sh,
-      neg_ids, n_walks, length, window, n_neg, neg_scale, g_in, g_out, d_no, loss_parts);
+      neg_ids, n_walks, length, window, n_neg, neg_scale, g_in, g_out, d_no, loss_parts,
+      Slots{nullptr, nullptr, nullptr});
+}
+
+// Routed mode: x_in and x_out are the [N * cap, dim] buffers the owners sent
+// back (row stride dim); slot_in, slot_out [n_walks * length] and slot_neg
+// [n_neg] the requests' rows in them (-1: dropped).  The shared memory is the
+// direct mode's (n2v_sgns_grads_smem); the other arguments are n2v_sgns_grads's.
+extern "C" int n2v_sgns_grads_routed(const float* x_in, const float* x_out, int dim,
+                                     const int32_t* walks, const uint8_t* vocab_mask,
+                                     const int32_t* b_sh, const int32_t* slot_in,
+                                     const int32_t* slot_out, const int32_t* slot_neg,
+                                     int n_walks, int length, int window, int n_neg,
+                                     float neg_scale, float* g_in, float* g_out, float* d_no,
+                                     float* loss_parts, float* ws, int ws_blocks,
+                                     void* stream) {
+  if (n_walks == 0) return 0;
+  return n2v::launch_staged(
+      sgns_grads_kernel<true>, sgns_grads_kernel_staged<true>, kThreads,
+      smem_bytes(length, dim, n_neg, window), n_walks, ws, ws_blocks,
+      static_cast<cudaStream_t>(stream), x_in, x_out, dim, dim, walks, vocab_mask, b_sh,
+      static_cast<const int32_t*>(nullptr), n_walks, length, window, n_neg, neg_scale, g_in,
+      g_out, d_no, loss_parts, Slots{slot_in, slot_out, slot_neg});
 }

@@ -172,13 +172,15 @@ TRAINERS = ("fit", "run_pipeline", "host_corpus")
 
 
 def _train(graph: Graph, n2v, w2v, seed: int, device, blocked_widths, trainer: str,
-           shared_lists: bool = False, mesh=None):
+           shared_lists: bool = False, mesh=None, table_sharding: str = "column"):
     """Walk ``graph`` and train; returns (model, walk strategy).  ``trainer``
     is "fit" (walks to the host, then ``Word2VecTorch.fit``, or
     ``fit_sharded`` on ``mesh``), "run_pipeline" (``Node2Vec.run_pipeline()``
     with its defaults: it streams when the corpus spans several walker
-    chunks; on ``mesh`` it trains ``fit_sharded``) or "host_corpus"
-    (``Node2Vec(host_corpus=True).run_pipeline()``, i.e. ``fit_host``)."""
+    chunks; on ``mesh`` it trains ``fit_sharded``, or with
+    ``table_sharding="row"`` streams into ``fit_streaming_sharded``) or
+    "host_corpus" (``Node2Vec(host_corpus=True).run_pipeline()``, i.e.
+    ``fit_host``)."""
     from node2vec_torch.models.word2vec import Word2VecTorch
 
     if trainer not in TRAINERS:
@@ -188,12 +190,14 @@ def _train(graph: Graph, n2v, w2v, seed: int, device, blocked_widths, trainer: s
         walks = engine.run(seed=seed)
         model = Word2VecTorch(w2v, device=device)
         if mesh is not None:
-            return model.fit_sharded(walks, mesh, n_vertices=graph.n_vertices), engine.strategy
+            return (model.fit_sharded(walks, mesh, n_vertices=graph.n_vertices,
+                                      table_sharding=table_sharding), engine.strategy)
         return model.fit(walks, n_vertices=graph.n_vertices), engine.strategy
     from node2vec_torch.api import Node2Vec
 
     pipe = Node2Vec(n2v, w2v, random_seed=seed, device=device,
-                    host_corpus=trainer == "host_corpus", mesh=mesh)
+                    host_corpus=trainer == "host_corpus", mesh=mesh,
+                    table_sharding=table_sharding)
     pipe.graph, pipe._engine = graph, engine
     return pipe.run_pipeline(), engine.strategy
 
@@ -201,18 +205,19 @@ def _train(graph: Graph, n2v, w2v, seed: int, device, blocked_widths, trainer: s
 def train_embeddings(graph: Graph, n2v_params=None, w2v_params=None, seed: int = 0,
                      device="cuda", blocked_widths=None,
                      trainer: str = "fit", shared_lists: bool = False,
-                     mesh=None) -> Tuple[np.ndarray, str]:
+                     mesh=None, table_sharding: str = "column") -> Tuple[np.ndarray, str]:
     """Walks -> SGNS on the full graph, as ``run_quality`` trains:
     returns (input vectors [V, D], walk strategy).  ``blocked_widths =
     (light_width, block_width)`` walks on the blocked engine at those
     widths whatever the graph's degrees, with the shared-list sampler when
-    ``shared_lists``; ``trainer`` and ``mesh`` as in ``_train``."""
+    ``shared_lists``; ``trainer``, ``mesh`` and ``table_sharding`` as in
+    ``_train``."""
     from node2vec_torch.constants import Node2VecParams, Word2VecParams
 
     n2v = n2v_params or Node2VecParams(num_walks=10, walk_length=80)
     w2v = w2v_params or Word2VecParams(min_count=1, max_iter=5)
     model, strategy = _train(graph, n2v, w2v, seed, device, blocked_widths, trainer,
-                             shared_lists, mesh)
+                             shared_lists, mesh, table_sharding)
     return model.vectors, strategy
 
 
@@ -254,11 +259,12 @@ def holdout_link_prediction(
     trainer: str = "fit",
     shared_lists: bool = False,
     mesh=None,
+    table_sharding: str = "column",
 ) -> Dict[str, float]:
     """Honest link-prediction AUC: hold out edges BEFORE walk generation,
     embed on the rest, score held-out edges vs sampled non-edges.
-    ``blocked_widths``, ``trainer``, ``shared_lists`` and ``mesh`` as in
-    ``train_embeddings``."""
+    ``blocked_widths``, ``trainer``, ``shared_lists``, ``mesh`` and
+    ``table_sharding`` as in ``train_embeddings``."""
     from node2vec_torch.constants import Node2VecParams, Word2VecParams
     from node2vec_torch.eval import link_prediction_auc
 
@@ -266,7 +272,7 @@ def holdout_link_prediction(
     g_train = from_edge_arrays(*kept, n_vertices=graph.n_vertices, directed=True)
     model, _ = _train(g_train, n2v_params or Node2VecParams(),
                       w2v_params or Word2VecParams(min_count=1, max_iter=5), seed, device,
-                      blocked_widths, trainer, shared_lists, mesh)
+                      blocked_widths, trainer, shared_lists, mesh, table_sharding)
     emb = model.vectors
     emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
     return {"holdout_link_auc": link_prediction_auc(emb, pos, neg)}

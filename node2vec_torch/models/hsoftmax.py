@@ -218,24 +218,32 @@ def hs_grads_plain(emb_in, theta, walks, vocab_mask, b_sh, points, codes, length
     with it; tail_rows is that entry's theta row, or -1 where the position is
     dead or the entry lies beyond its code.  d_head sums the head entries'
     gradients at their rows."""
-    n_walks, length = walks.shape
-    dim = emb_in.shape[1]
     cl = points.shape[1]
     n_head, k_rows = head_split(head_offsets, cl)
-    dev = walks.device
     walks_safe = torch.where(walks >= 0, walks, 0).long()
     valid_pos = (walks >= 0) & vocab_mask[walks_safe]
-    x_in = emb_in[walks_safe]  # [B, L1, D]
     pts = points[walks_safe].long()  # [B, L1, CL]: the path of each position's vertex
     sgn = 1.0 - 2.0 * codes[walks_safe].to(torch.float32)
     plen = lengths[walks_safe]
-    pmask = (torch.arange(cl, device=dev)[None, None, :] < plen[..., None]).to(torch.float32)
-    th = theta[pts]  # [B, L1, CL, D]
+    pmask = (torch.arange(cl, device=walks.device)[None, None, :] < plen[..., None]).to(
+        torch.float32)
+    g_in, g_ctx, loss, n_pairs = hs_terms(emb_in[walks_safe], theta[pts], valid_pos, sgn,
+                                          pmask, b_sh, window)
+    loss = loss / torch.clamp(n_pairs, min=1.0)
+    return hs_outputs(g_in, g_ctx, pts, walks, pmask, n_head, k_rows) + (loss,)
 
+
+def hs_terms(x_in, th, valid_pos, sgn, pmask, b_sh, window: int):
+    """The body of K8's plain versions (hsoftmax.py:255-380) on gathered
+    rows: x_in [B, L1, D], th [B, L1, CL, D] each position's path rows, its
+    branch signs sgn and path mask pmask [B, L1, CL].  Returns (g_in [B, L1,
+    D], g_ctx [B, L1, CL, D] each path entry's gradient at its context
+    position, the loss summed over the valid pairs' path entries, the
+    valid-pair count)."""
     g_in = torch.zeros_like(x_in)
     g_ctx = torch.zeros_like(th)  # each path entry's gradient, at its context position
-    loss = torch.zeros((), dtype=torch.float32, device=dev)
-    n_pairs = torch.zeros((), dtype=torch.float32, device=dev)
+    loss = torch.zeros((), dtype=torch.float32, device=x_in.device)
+    n_pairs = torch.zeros((), dtype=torch.float32, device=x_in.device)
     for d in [d for d in range(-window, window + 1) if d != 0]:
         th_c = window_shift(th, d)  # the context's path rows at the center
         pv = (valid_pos & window_shift(valid_pos, d) & (abs(d) <= b_sh)).to(torch.float32)
@@ -248,16 +256,21 @@ def hs_grads_plain(emb_in, theta, walks, vocab_mask, b_sh, points, codes, length
         g = (torch.sigmoid(logit) - (1.0 + sgn_c) / 2.0) * m
         g_in = g_in + (g[..., None] * th_c).sum(2)
         g_ctx = g_ctx + window_shift(g[..., None] * x_in[:, :, None, :], -d)
-    loss = loss / torch.clamp(n_pairs, min=1.0)
+    return g_in, g_ctx, loss, n_pairs
 
-    d_head = torch.zeros((k_rows, dim), dtype=torch.float32, device=dev)
+
+def hs_outputs(g_in, g_ctx, pts, walks, pmask, n_head: int, k_rows: int):
+    """K8's outputs from ``hs_terms``'s: (g_in [B*L1, D], g_tail [B*L1*CLT,
+    D], tail_rows [B*L1*CLT] int32, d_head [K, D]); the tail rows are -1
+    where the position is dead or its entry masked."""
+    dim = g_in.shape[-1]
+    d_head = torch.zeros((k_rows, dim), dtype=torch.float32, device=g_in.device)
     if n_head:
         d_head.index_add_(0, pts[:, :, :n_head].reshape(-1),
                           g_ctx[:, :, :n_head].reshape(-1, dim))
     live = (walks >= 0)[..., None] & (pmask[:, :, n_head:] > 0)
     tail_rows = torch.where(live, pts[:, :, n_head:], -1).reshape(-1).to(torch.int32)
-    return (g_in.reshape(-1, dim), g_ctx[:, :, n_head:].reshape(-1, dim), tail_rows,
-            d_head, loss)
+    return g_in.reshape(-1, dim), g_ctx[:, :, n_head:].reshape(-1, dim), tail_rows, d_head
 
 
 def hs_grads(emb_in, theta, walks, vocab_mask, b_sh, points, codes, lengths, *,

@@ -138,17 +138,28 @@ def sgns_grads_plain(
     fused [V, D+1] tables, :541-596); None reads every column."""
     if dim is not None:
         emb_in, emb_out = emb_in[:, :dim], emb_out[:, :dim]
-    n_walks, length = walks.shape
-    dim = emb_in.shape[1]
     walks_safe = torch.where(walks >= 0, walks, 0).long()
     valid_pos = (walks >= 0) & vocab_mask[walks_safe]
-    x_in = emb_in[walks_safe]  # [B, L1, D]
-    x_out = emb_out[walks_safe]
+    g_in, g_out, d_no, pos_loss, neg_sum, pairs = sgns_terms(
+        emb_in[walks_safe], emb_out[walks_safe], emb_out[neg_ids.long()], valid_pos, b_sh,
+        window, negatives)
+    neg_loss = (negatives / neg_ids.shape[0]) * neg_sum
+    loss = -(pos_loss + neg_loss) / torch.clamp(pairs, min=1.0)
+    return g_in, g_out, d_no, loss, pairs
 
+
+def sgns_terms(x_in, x_out, no, valid_pos, b_sh, window: int, negatives: int, neg_live=None):
+    """The body of K2's plain versions (skipgram.py:344-398) on gathered
+    rows x_in, x_out [B, L1, D] and the negatives' rows no [S, D]: (g_in
+    [B*L1, D], g_out [B*L1, D], d_no [S, D], the sum of log sigmoid over the
+    valid pairs' logits, the negative terms' sum before the K/S factor, the
+    valid-pair count).  ``neg_live`` (the routed step's ``ok_neg.all()``)
+    scales every negative term; None leaves them whole."""
+    n_walks, length, dim = x_in.shape
     g_in = torch.zeros_like(x_in)
     g_out = torch.zeros_like(x_out)
-    pos_loss = torch.zeros((), dtype=torch.float32, device=walks.device)
-    mult = torch.zeros((n_walks, length), dtype=torch.float32, device=walks.device)
+    pos_loss = torch.zeros((), dtype=torch.float32, device=x_in.device)
+    mult = torch.zeros((n_walks, length), dtype=torch.float32, device=x_in.device)
     for d in [d for d in range(-window, window + 1) if d != 0]:
         xo = window_shift(x_out, d)
         pv = (valid_pos & window_shift(valid_pos, d) & (abs(d) <= b_sh)).to(torch.float32)
@@ -159,19 +170,17 @@ def sgns_grads_plain(
         pos_loss = pos_loss + torch.sum(F.logsigmoid(logit) * pv)
         mult = mult + pv
 
-    s = neg_ids.shape[0]
-    no = emb_out[neg_ids.long()]  # [S, D]
     x_in_flat = x_in.reshape(-1, dim)
     m_flat = mult.reshape(-1)
-    neg_scale = negatives / s
+    if neg_live is not None:
+        m_flat = m_flat * neg_live
+    neg_scale = negatives / no.shape[0]
     nl = x_in_flat @ no.T  # [B*L1, S]
     g_neg = torch.sigmoid(nl) * m_flat[:, None] * neg_scale
-    neg_loss = neg_scale * torch.sum(F.logsigmoid(-nl) * m_flat[:, None])
+    neg_sum = torch.sum(F.logsigmoid(-nl) * m_flat[:, None])
     g_in_flat = g_in.reshape(-1, dim) + g_neg @ no
     d_no = g_neg.T @ x_in_flat
-    pairs = torch.sum(mult)
-    loss = -(pos_loss + neg_loss) / torch.clamp(pairs, min=1.0)
-    return g_in_flat, g_out.reshape(-1, dim), d_no, loss, pairs
+    return g_in_flat, g_out.reshape(-1, dim), d_no, pos_loss, neg_sum, torch.sum(mult)
 
 
 def sgns_grads(

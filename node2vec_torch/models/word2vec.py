@@ -49,11 +49,17 @@ softmax and CBOW train row-wise Adagrad whatever it says.  SGNS with
 and ``sgd_apply``; one slot map [V] a fit, never saved); its checkpoints
 still carry the accumulators, unchanged, as the JAX package's do.
 
-``fit_sharded`` trains SGNS over a (data × model) mesh with the tables'
-columns sharded over the model axis (``parallel.sharded_sgns``); the
-row-sharded trainers (``table_sharding="row"``, hierarchical softmax on a
-mesh, ``fit_streaming_sharded``) are not ported yet and raise
-``NotImplementedError``.
+``fit_sharded`` trains over a (data × model) mesh: SGNS with the tables'
+columns sharded over the model axis (``parallel.sharded_sgns``), or, with
+``table_sharding="row"``, SGNS or hierarchical softmax with the tables' rows
+sharded over every rank and routed each step (``parallel.rowsharded_sgns``,
+``parallel.rowsharded_hs``); ``fit_streaming_sharded`` streams a virtual
+corpus into the row layout.  The mesh trainers draw per data coordinate
+(column) or per flat rank (row), under the JAX package's keys: the row
+trainers key an epoch's (fit) or a chunk's (streaming: 9,000,000+epoch*
+n_chunks+i) draws on that number, a rank's shuffle on tag 0x5F5E1 and a
+step's on its global step, and subsample with the tags 3,000,000+epoch and
+10,000,000+epoch*n_chunks+i from the rank's position in the corpus.
 
 ``emb_in``, ``emb_out`` and ``vectors`` read a table back from the device
 once and cache it until training or an assignment writes it; assigning a
@@ -100,8 +106,6 @@ from node2vec_torch.utils.metrics import measure
 logger = logging.getLogger(__name__)
 
 _MASK64 = (1 << 64) - 1
-_ROW_NOT_PORTED = ("the row-sharded trainers (table_sharding='row') are not ported yet "
-                   "(ROADMAP Queue A item 12)")
 
 
 def _splitmix64(x: int) -> int:
@@ -125,19 +129,24 @@ class Draws:
 
     The trainers reach randomness only through these methods, so a test
     can hand a trainer JAX's draws instead (``Word2VecTorch._new_draws``).
-    ``data_index``: the mesh trainer's data coordinate, folded into every
-    site's key (its model ranks draw alike, its data shards differently).
+    ``data_index``: the mesh trainer's data coordinate (the column layout)
+    or flat rank (the row layout), folded into every site's key (its model
+    ranks draw alike, its data shards differently).  ``key``: a further
+    number every site's key is folded with (the row trainers' epoch or
+    chunk, as the JAX package folds its root key with it first).
     """
 
     def __init__(self, params: Word2VecParams, shared_negatives: int, device,
-                 data_index: Optional[int] = None):
+                 data_index: Optional[int] = None, key: Optional[int] = None):
         self.params = params
         self.shared_negatives = shared_negatives
         self.device = device
         self.data_index = data_index
+        self.key = key
 
     def generator(self, tag: int) -> torch.Generator:
-        seed = _tag_seed(self.params.seed, tag, self.data_index)
+        seed = self.params.seed if self.key is None else _tag_seed(self.params.seed, self.key)
+        seed = _tag_seed(seed, tag, self.data_index)
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def init(self, n_vertices: int, dim: int):
@@ -300,6 +309,7 @@ class Word2VecTorch:
         self._h2d_events: list = []
         self._host: dict = {}  # cached host copies of the tables ("in", "out")
         self._slot: Optional[torch.Tensor] = None  # K11's slot map (SGD), scratch
+        self.dropped_rows = 0  # the row-sharded trainers' rows dropped to capacity, last fit
 
     def _begin(self) -> None:
         """Every trainer's entry: the tables are about to be written, so the
@@ -747,9 +757,12 @@ class Word2VecTorch:
         (K7 from the shard's flat position).  Checkpoints are the JAX
         package's file: every rank reads it, rank 0 writes the full tables.
         Afterwards ``emb_in``, ``emb_out`` and ``vectors`` are the full
-        tables on every rank.  The row-sharded trainers
-        (``table_sharding="row"``, and hierarchical softmax, which needs
-        them) raise ``NotImplementedError``.
+        tables on every rank.
+
+        ``table_sharding="row"`` (``_fit_row_sharded``): SGNS, or hierarchical
+        softmax (``negative=0``, which needs this layout), with each rank
+        owning the rows ``v ≡ rank (mod N)`` of both tables; the batch is
+        rounded to whole ranks and the corpus cut to whole batches.
         """
         from node2vec_torch.parallel.sharded_sgns import (
             ShardedSGNSState,
@@ -772,11 +785,11 @@ class Word2VecTorch:
                     "hierarchical softmax (negative=0) requires table_sharding='row' in the "
                     "sharded trainer (the inner-node table is row-sharded like the embeddings)"
                 )
-            raise NotImplementedError(_ROW_NOT_PORTED)
-        if table_sharding == "row":
-            raise NotImplementedError(_ROW_NOT_PORTED)
         if mesh.device.type != self.device.type:
             raise ValueError(f"the mesh runs on {mesh.device}, the model on {self.device}")
+        if table_sharding == "row":
+            return self._fit_row_sharded(walks, mesh, n_vertices, verbose, checkpoint_dir,
+                                         checkpoint_every)
         self._begin()
         if isinstance(walks, torch.Tensor):
             walks = walks.cpu().numpy()
@@ -852,11 +865,307 @@ class Word2VecTorch:
         return self._finish((gather_columns(mesh, state.emb_in),
                              gather_columns(mesh, state.emb_out), state.acc_in, state.acc_out))
 
-    def fit_streaming_sharded(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fit_streaming_sharded feeds the row-sharded trainers, which are not ported yet "
-            "(ROADMAP Queue A item 12)"
+    # -- the row-sharded trainers ------------------------------------------ #
+
+    def _row_objective(self, mesh):
+        """The step's device tables (``_objective``), and for hierarchical
+        softmax the head split over the sharded theta: the JAX package's
+        ``head_level_offsets(tree, table_rows=ceil(n_inner / N))``."""
+        tables = self._objective()
+        if self.tree is not None:
+            self.head_offsets = head_level_offsets(
+                self.tree, table_rows=-(-self.tree.n_inner // mesh.n_devices))
+        return tables
+
+    def _row_state(self, mesh, host=None):
+        """This rank's row state: word2vec's init, or from full host tables
+        (a checkpoint's) with their output rows checked."""
+        from node2vec_torch.parallel import rowsharded_hs as rh
+        from node2vec_torch.parallel import rowsharded_sgns as rs
+
+        p = self.params
+        n_v = self.vocab.n_vertices
+        if host is not None:
+            n_out = n_v if self.tree is None else self.tree.n_inner
+            if host[1].shape[0] != n_out or np.asarray(host[3]).shape[0] != n_out:
+                raise ValueError(
+                    f"checkpoint output table has {host[1].shape[0]} rows, this objective "
+                    f"needs {n_out} (negative={p.negative})"
+                )
+            if self.tree is None:
+                return rs.row_state_from_host(mesh, *host, device=self.device)
+            return rh.hs_state_from_host(mesh, *host, device=self.device)
+        if self.tree is None:
+            return rs.init_row_state(mesh, n_v, p.vector_size, seed=p.seed, device=self.device)
+        return rh.init_hs_row_state(mesh, n_v, self.tree.n_inner, p.vector_size, seed=p.seed,
+                                    device=self.device)
+
+    def _row_to_host(self, mesh, state) -> Tuple[np.ndarray, ...]:
+        """The full logical tables and accumulators, on every rank (a
+        collective)."""
+        from node2vec_torch.parallel import rowsharded_hs as rh
+        from node2vec_torch.parallel import rowsharded_sgns as rs
+
+        if self.tree is None:
+            return rs.row_state_to_host(mesh, state)
+        return rh.hs_state_to_host(mesh, state)
+
+    def _row_epoch(self, mesh, state, corpus, draws: Draws, step0: int, lr_slope: float,
+                   batch_local: int, n_batches: int, tables):
+        """One row-sharded epoch over this rank's rows, shuffled by the
+        rank's draws (tag 0x5F5E1): (losses, dropped) on the device."""
+        from node2vec_torch.parallel.rowsharded_hs import row_hs_epoch
+        from node2vec_torch.parallel.rowsharded_sgns import row_sgns_epoch
+
+        p = self.params
+        length = corpus.shape[1]
+        perm = draws.permutation(0x5F5E1, corpus.shape[0])
+        kw = dict(batch_local=batch_local, n_batches=n_batches, window=p.window_size,
+                  min_lr=p.min_step_size)
+        if self.tree is not None:
+            shrink = functools.partial(draws.window_shrink, n_walks=batch_local, length=length)
+            return row_hs_epoch(mesh, state, corpus, perm, shrink, step0, p.step_size, lr_slope,
+                                *tables, head_offsets=self.head_offsets, **kw)
+        step = functools.partial(draws.step, n_walks=batch_local, length=length)
+        return row_sgns_epoch(mesh, state, corpus, perm, step, step0, p.step_size, lr_slope,
+                              *tables, negatives=p.negative,
+                              shared_negatives=self.shared_negatives, **kw)
+
+    def _row_finish(self, mesh, state, dropped) -> "Word2VecTorch":
+        """Warn of rows dropped to capacity, as the JAX trainers do (and keep
+        their count in ``dropped_rows``), and keep the full tables on every
+        rank."""
+        total = self.dropped_rows = int(round(float(dropped)))
+        if total:
+            logger.warning(
+                "row-sharded training dropped %d routed rows to capacity overflow (raise "
+                "cap_slack or batch size)", total,
+            )
+        return self._finish(self._to_device(self._row_to_host(mesh, state)))
+
+    def _row_draws(self, mesh, key: int) -> Draws:
+        return Draws(self.params, self.shared_negatives, self.device, data_index=mesh.rank,
+                     key=key)
+
+    def _fit_row_sharded(self, walks, mesh, n_vertices, verbose: bool,
+                         checkpoint_dir: Optional[str], checkpoint_every: int
+                         ) -> "Word2VecTorch":
+        """The row-sharded trainers, SGNS and HS (word2vec.py:1517-1772):
+        the batch rounded to whole ranks, the corpus cut to whole batches
+        (floor: the tail is dropped), padded with -1 rows, permuted once by
+        ``default_rng(seed)`` and split into contiguous blocks over the flat
+        ranks; each epoch every rank reshuffles its block on the device.
+        ``sample > 0``: each rank subsamples its rows with K7 from their
+        position in the corpus."""
+        p = self.params
+        self._begin()
+        if isinstance(walks, torch.Tensor):
+            walks = walks.cpu().numpy()
+        walks = np.ascontiguousarray(walks, dtype=np.int32)
+        self.vocab = build_vocab(
+            walks, n_vertices, min_count=p.min_count, ns_exponent=p.ns_exponent
         )
+        self._require_vocab()
+        n_dev = mesh.n_devices
+        tables = self._row_objective(mesh)
+        ckpt = load_train_state(checkpoint_dir)
+        start_epoch = 0 if ckpt is None else ckpt[0]
+        state = self._row_state(mesh, None if ckpt is None else ckpt[1:])
+        if ckpt is not None:
+            logger.info("resuming row-sharded training from epoch %d", start_epoch)
+
+        n_walks, length = walks.shape
+        batch = max(_effective_batch(p.batch_walks, n_walks, floor=n_dev) // n_dev, 1) * n_dev
+        batch_local = batch // n_dev
+        n_batches = max(n_walks // batch, 1)
+        n_used = n_batches * batch
+        corpus_host = np.full((n_used, length), -1, dtype=np.int32)
+        corpus_host[: min(n_walks, n_used)] = walks[:n_used]
+        corpus_host = corpus_host[np.random.default_rng(p.seed).permutation(n_used)]
+        n_local = n_used // n_dev
+        row0 = mesh.rank * n_local
+        corpus = torch.from_numpy(corpus_host[row0: row0 + n_local]).to(self.device)
+        del corpus_host
+        total_steps = max(p.max_iter * n_batches, 1)
+        lr_slope = float(np.float32(p.step_size / total_steps))
+        keep = self._keep_table()
+
+        self._losses = []
+        dropped = torch.zeros((), dtype=torch.float32, device=self.device)
+        for epoch in range(start_epoch, p.max_iter):
+            draws = self._row_draws(mesh, epoch)
+            ep_corpus = corpus
+            if keep is not None:  # the rank's rows, drawn as in the whole corpus
+                ep_corpus = draws.subsample(corpus.clone(), keep, 3_000_000 + epoch,
+                                            base=row0 * length)
+            losses, d = self._row_epoch(mesh, state, ep_corpus, draws, epoch * n_batches,
+                                        lr_slope, batch_local, n_batches, tables)
+            dropped = dropped + d
+            self._losses.append(float(losses.mean()))
+            if verbose:
+                logger.info("row-sharded epoch %d/%d loss=%.4f", epoch + 1, p.max_iter,
+                            self._losses[-1])
+            if checkpoint_dir and (epoch + 1) % checkpoint_every == 0:
+                host = self._row_to_host(mesh, state)
+                if mesh.rank == 0:
+                    save_train_state(checkpoint_dir, epoch + 1, *host)
+                mesh.barrier()  # no rank reads the file before it is whole
+        return self._row_finish(mesh, state, dropped)
+
+    def fit_streaming_sharded(
+        self,
+        walk_source: Callable[[int], torch.Tensor],
+        n_chunks: int,
+        mesh,
+        n_vertices: int,
+        table_sharding: str = "row",
+        verbose: bool = False,
+        timer=None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every_chunks: int = 0,
+        source_token: str = "",
+    ) -> "Word2VecTorch":
+        """A virtual corpus into the row-sharded tables (word2vec.py:
+        1045-1344), SGNS or hierarchical softmax, called on every rank with
+        ``walk_source(i)`` giving every rank chunk i whole
+        (``WalkEngine.chunk_source``, with or without a mesh).
+
+        A first pass counts the vertices (``_streaming_counts``).  Each
+        epoch visits the chunks in ``default_rng(seed)``'s order; a chunk is
+        padded with -1 rows to whole ranks and stride-interleaved, rank r
+        taking rows r, r + N, ... (a walk chunk is a contiguous vertex
+        range, and the ranks' shuffles never cross ranks).  Each rank
+        shuffles its rows, subsamples them with K7 from their position in
+        the interleaved chunk when ``sample > 0``, and trains its whole
+        batches.  Snapshots and resume are ``fit_streaming``'s (the JAX
+        stream-state file), the source token marked ``"|row-sharded"``; a
+        resumed run replays the uninterrupted one.  ``timer`` records each
+        chunk's training as "stream_chunk".
+        """
+        p = self.params
+        if p.sg == 0:
+            raise ValueError(
+                "CBOW (sg=0) is supported on the single-device and streaming trainers "
+                "(fit/fit_streaming); the sharded trainers are skip-gram only — set sg=1 "
+                "or train unsharded"
+            )
+        if table_sharding != "row":
+            raise ValueError(
+                "streaming sharded training requires table_sharding='row' (column mode "
+                "replicates the full table per data shard — materialize the corpus and use "
+                "fit_sharded instead)"
+            )
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh runs on {mesh.device}, the model on {self.device}")
+        self._begin()
+        dev = self.device
+        n_dev, rank = mesh.n_devices, mesh.rank
+        fp = stream_fingerprint(p, n_chunks, n_vertices, token=source_token + "|row-sharded")
+        resume = load_stream_state(checkpoint_dir, fp)
+        chunk_walks = None
+        cur_losses = np.zeros(0, np.float32)
+        prev_losses = np.zeros(0, np.float32)
+        start_epoch = start_chunk = 0
+        host = None
+        if resume is not None:
+            (start_epoch, start_chunk, e_in, e_out, a_in, a_out,
+             prev_losses, cur_losses, counts_host, chunk_walks) = resume
+            host = (e_in, e_out, a_in, a_out)
+            logger.info("resuming row-sharded streaming training at epoch %d chunk %d",
+                        start_epoch, start_chunk)
+        else:
+            counts_host, _ = _streaming_counts(walk_source, n_chunks, n_vertices)
+        self.vocab = build_vocab_from_counts(
+            counts_host, min_count=p.min_count, ns_exponent=p.ns_exponent
+        )
+        self._require_vocab()
+        tables = self._row_objective(mesh)
+        keep = self._keep_table()
+        state = self._row_state(mesh, host)
+        del host
+        rng = np.random.default_rng(p.seed)
+        orders = [rng.permutation(n_chunks) for _ in range(p.max_iter)]
+
+        self._losses = [float(x) for x in prev_losses]
+        batch_local = n_batches = lr_slope = None
+        step0 = 0
+
+        def geometry(walks_per_chunk: int):
+            b = max(_effective_batch(p.batch_walks, walks_per_chunk, floor=n_dev,
+                                     target_updates=max(512 // n_chunks, 1)) // n_dev, 1)
+            nb = max((walks_per_chunk // n_dev) // b, 1)
+            slope = float(np.float32(p.step_size / max(p.max_iter * n_chunks * nb, 1)))
+            return b, nb, slope
+
+        if chunk_walks is not None:  # resume: geometry known from the snapshot
+            batch_local, n_batches, lr_slope = geometry(chunk_walks)
+            step0 = (start_epoch * n_chunks + start_chunk) * n_batches
+
+        def snapshot(epoch_next: int, chunk_next: int, epoch_losses) -> None:
+            cur = (torch.cat(epoch_losses).cpu().numpy() if epoch_losses
+                   else np.zeros(0, np.float32))
+            full = self._row_to_host(mesh, state)  # a collective: every rank
+            if rank == 0:
+                save_stream_state(
+                    checkpoint_dir, fp, epoch_next, chunk_next, *full,
+                    np.asarray(self._losses, np.float32), cur,
+                    counts=counts_host, chunk_walks=chunk_walks or 0,
+                )
+            mesh.barrier()
+
+        dropped = torch.zeros((), dtype=torch.float32, device=dev)
+        for epoch in range(start_epoch, p.max_iter):
+            order = orders[epoch]
+            skip = start_chunk if epoch == start_epoch else 0
+            if skip >= n_chunks:
+                continue  # epoch-end snapshots normalize to (epoch + 1, 0)
+            epoch_losses = []
+            if epoch == start_epoch and len(cur_losses):
+                epoch_losses.append(torch.from_numpy(np.asarray(cur_losses, np.float32)).to(dev))
+            pending = walk_source(int(order[skip]))
+            for i in range(skip, n_chunks):
+                # prefetch: chunk i+1's walk is enqueued before chunk i trains
+                nxt = walk_source(int(order[i + 1])) if i + 1 < n_chunks else None
+                chunk = pending.to(device=dev, dtype=torch.int32)
+                if chunk.shape[0] % n_dev:  # dead rows to whole ranks
+                    pad = torch.full((n_dev - chunk.shape[0] % n_dev, chunk.shape[1]), -1,
+                                     dtype=torch.int32, device=dev)
+                    chunk = torch.cat([chunk, pad])
+                n_walks_c, length = chunk.shape
+                if chunk_walks is None:
+                    chunk_walks = n_walks_c
+                    batch_local, n_batches, lr_slope = geometry(n_walks_c)
+                elif n_walks_c != chunk_walks:
+                    raise ValueError(
+                        f"walk_source chunk {int(order[i])} has {n_walks_c} walks, "
+                        f"expected {chunk_walks}: streaming requires constant chunk shapes "
+                        "(WalkEngine.chunk_source pads every chunk)"
+                    )
+                n_local = n_walks_c // n_dev
+                local = chunk[rank::n_dev].contiguous()  # the stride-interleaved block
+                draws = self._row_draws(mesh, 9_000_000 + epoch * n_chunks + i)
+                if keep is not None:
+                    local = draws.subsample(local, keep, 10_000_000 + epoch * n_chunks + i,
+                                            base=rank * n_local * length)
+                with measure(timer, "stream_chunk"):
+                    losses, d = self._row_epoch(mesh, state, local, draws, step0, lr_slope,
+                                                batch_local, n_batches, tables)
+                dropped = dropped + d
+                step0 += n_batches
+                epoch_losses.append(losses)
+                pending = nxt
+                if (i + 1) % 4 == 0:
+                    _sync(losses)  # at most ~4 chunks of walk + train work queued
+                if (checkpoint_dir and checkpoint_every_chunks > 0 and i + 1 < n_chunks
+                        and (i + 1) % checkpoint_every_chunks == 0):
+                    snapshot(epoch, i + 1, epoch_losses)
+            self._losses.append(float(torch.cat(epoch_losses).mean()))
+            if verbose:
+                logger.info("streaming row-sharded epoch %d/%d loss=%.4f", epoch + 1,
+                            p.max_iter, self._losses[-1])
+            if checkpoint_dir:
+                snapshot(epoch + 1, 0, [])
+        return self._row_finish(mesh, state, dropped)
 
     @property
     def losses(self) -> list:

@@ -15,8 +15,12 @@ becomes which slice a rank holds:
 Rank ``r`` sits at ``(r // n_model, r % n_model)``, JAX's device grid
 ``devices.reshape(n_data, n_model)``.  A ``psum`` over an axis becomes
 ``Mesh.all_reduce_sum`` on that axis's process group: the group of the
-ranks that differ from this one only in that coordinate.  The mesh's
-helpers are the only place the port calls a collective.
+ranks that differ from this one only in that coordinate.  The flattened
+mesh, JAX's ``("data", "model")`` axis tuple (``Mesh.world``, the mesh's two
+axis names together), is every rank in flat order ``d * n_model + m``; its
+collectives (the row-sharded trainers' ``all_to_all``, ``psum`` and
+``all_gather``) run over the whole process group.  The mesh's helpers are
+the only place the port calls a collective.
 
 The backend is the caller's (``initialize_distributed``, or the process
 group already initialised).  NCCL carries CUDA tensors as they are.  Gloo
@@ -93,6 +97,8 @@ class Mesh:
 
     ``shape``: {"data": n_data, "model": n_model}, read as the JAX mesh's;
     ``coords``: this rank's {"data": d, "model": m}; ``device``, ``backend``.
+    An axis is one of the two names, or ``world`` (both names as a tuple,
+    the flattened mesh; the rank's flat index there is ``rank``).
     ``collectives`` counts the calls by (op, axis).
     """
 
@@ -119,17 +125,39 @@ class Mesh:
             axis_names[1]: groups[(axis_names[1], self.coords[axis_names[0]])],
         }
 
+    @property
+    def world(self) -> Tuple[str, str]:
+        """The flattened mesh's axis: JAX's ``("data", "model")``."""
+        return self.axis_names
+
+    @property
+    def n_devices(self) -> int:
+        return self.shape[self.axis_names[0]] * self.shape[self.axis_names[1]]
+
+    def size(self, axis) -> int:
+        """The number of ranks along ``axis`` (a name, or ``world``)."""
+        return self.n_devices if self._is_world(axis) else self.shape[axis]
+
+    def _is_world(self, axis) -> bool:
+        return not isinstance(axis, str) and tuple(axis) == self.axis_names
+
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, coords={self.coords}, backend={self.backend!r}, "
                 f"device={self.device})")
 
-    def _group(self, op: str, axis: str):
-        if axis not in self._groups:
-            raise ValueError(f"unknown mesh axis {axis!r}; the axes are {self.axis_names}")
+    def _group(self, op: str, axis):
+        if self._is_world(axis):
+            axis = self.axis_names
+            group = None  # every rank is in the mesh: the default group
+        elif isinstance(axis, str) and axis in self._groups:
+            group = self._groups[axis]
+        else:
+            raise ValueError(f"unknown mesh axis {axis!r}; the axes are {self.axis_names} "
+                             f"and {self.axis_names} together")
         self.collectives[(op, axis)] = self.collectives.get((op, axis), 0) + 1
-        return self._groups[axis]
+        return group
 
-    def all_reduce_sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+    def all_reduce_sum(self, t: torch.Tensor, axis) -> torch.Tensor:
         """``psum(t, axis)`` in place on ``t``; returns ``t``."""
         group = self._group("all_reduce", axis)
         if self.host_staged and t.is_cuda:
@@ -140,16 +168,36 @@ class Mesh:
             dist.all_reduce(t, group=group)
         return t
 
-    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
         """The axis's ranks' tensors of ``t``'s shape, concatenated along
         ``dim`` in coordinate order (a ``P(axis)`` array read back whole)."""
         group = self._group("all_gather", axis)
         src = t.contiguous()
         if self.host_staged and src.is_cuda:
             src = src.cpu()
-        parts = [torch.empty_like(src) for _ in range(self.shape[axis])]
+        parts = [torch.empty_like(src) for _ in range(self.size(axis))]
         dist.all_gather(parts, src, group=group)
         return torch.cat(parts, dim=dim).to(t.device)
+
+    def all_to_all(self, t: torch.Tensor, axis=None) -> torch.Tensor:
+        """``lax.all_to_all(t, axis, split_axis=0, concat_axis=0,
+        tiled=True)``: ``t``'s first dim in ``size(axis)`` equal blocks,
+        block j sent to the axis's rank j; returns the blocks received, in
+        rank order (block j from rank j).  ``axis`` defaults to ``world``."""
+        axis = self.world if axis is None else axis
+        group = self._group("all_to_all", axis)
+        if t.shape[0] % self.size(axis):
+            raise ValueError(f"all_to_all: dim 0 ({t.shape[0]}) not divisible by "
+                             f"{self.size(axis)} ranks")
+        src = t.contiguous()
+        if self.host_staged and src.is_cuda:
+            host = src.cpu()
+            out = torch.empty_like(host)
+            dist.all_to_all_single(out, host, group=group)
+            return out.to(t.device)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=group)
+        return out
 
     def barrier(self) -> None:
         dist.barrier()

@@ -21,9 +21,10 @@ import node2vec_torch.utils.checkpoint, node2vec_torch.utils.metrics, node2vec_t
 import node2vec_torch.ops.alias, node2vec_torch.models, node2vec_torch.graph.indexer
 import node2vec_torch.parallel, node2vec_torch.parallel.launch, node2vec_torch.parallel.mesh
 import node2vec_torch.parallel.sharded_walk, node2vec_torch.parallel.sharded_sgns
+import node2vec_torch.parallel.rowsharded_sgns, node2vec_torch.parallel.rowsharded_hs
 import chip_smoke
 sys.path.insert(0, "tests")
-import torch_mesh_ranks  # the mesh tests' rank programs
+import torch_mesh_ranks, torch_row_ranks  # the mesh tests' rank programs
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "node2vec_tpu", "pandas", "sklearn"))
 assert not bad, bad

@@ -298,7 +298,8 @@ def test_fit_sharded_keeps_the_jax_guards(runs):
         guards = runs["fit"][0][_tag(shape)]["guards"]
         assert "skip-gram only" in guards["cbow"]
         assert "requires table_sharding='row'" in guards["hs_column"]
-        assert "item 12" in guards["hs_row"] and "item 12" in guards["row"]
+        for name in ("hs_row", "row"):  # the row layout trains (SGNS and HS)
+            assert len(guards[name]) == W2V["max_iter"] and all(np.isfinite(guards[name]))
         if shape[1] > 1:
             assert "not divisible by model axis 2" in guards["dim"]
 

@@ -144,7 +144,8 @@ def test_fit_runs_and_is_deterministic(karate_edges):
 def test_unported_trainer_options_raise(override, karate_edges):
     """SGNS with optimizer="sgd" trains through the three trainers (finite
     tables, a falling loss, accumulators untouched; tests/test_skipgram.py:69
-    on the port); fit_sharded's row layout (item 12) still raises."""
+    on the port); fit_sharded's row layout, ported since, trains too (with
+    row-wise Adagrad whatever ``optimizer`` says, as the JAX row trainer)."""
     from node2vec_torch.constants import Node2VecParams
     from node2vec_torch.graph import from_edge_arrays
     from node2vec_torch.walk import random_walks
@@ -160,9 +161,10 @@ def test_unported_trainer_options_raise(override, karate_edges):
         assert not model.acc_in.any() and not model.acc_out.any()
     from node2vec_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Word2VecTorch(params, device="cpu").fit_sharded(walks, make_mesh(device="cpu"),
-                                                        table_sharding="row")
+    row = Word2VecTorch(params, device="cpu").fit_sharded(walks, make_mesh(device="cpu"),
+                                                          table_sharding="row")
+    assert np.isfinite(row.vectors).all() and row.losses[-1] < row.losses[0]
+    assert row.acc_in.any()  # Adagrad's accumulators
 
 
 def test_sample_fits(karate_edges):

@@ -213,10 +213,9 @@ def fit_sharded_checks(path: str) -> dict:
             m = Word2VecTorch(Word2VecParams(**{**w2v, **kw}), device="cpu")
             guards[name] = _raises(lambda: m.fit_sharded(walks, mesh, table_sharding=layout),
                                    ValueError)
-        for name, kw in (("hs_row", {"negative": 0}), ("row", {})):
+        for name, kw in (("hs_row", {"negative": 0}), ("row", {})):  # the row layout trains
             m = Word2VecTorch(Word2VecParams(**{**w2v, **kw}), device="cpu")
-            guards[name] = _raises(lambda: m.fit_sharded(walks, mesh, table_sharding="row"),
-                                   NotImplementedError)
+            guards[name] = m.fit_sharded(walks, mesh, table_sharding="row").losses
         if shape[1] > 1:
             m = Word2VecTorch(Word2VecParams(**{**w2v, "vector_size": 33}), device="cpu")
             guards["dim"] = _raises(lambda: m.fit_sharded(walks, mesh), ValueError)
@@ -271,16 +270,19 @@ def pipeline(path: str) -> dict:
                  mesh=mesh, device="cpu")
     q.graph = g
     out["quality"] = q.run_pipeline().vectors.copy()
-    # what still raises (ROADMAP item 12), and the host-corpus guard
+    # the row layout trains (fit_sharded "row", and run_pipeline streaming
+    # into fit_streaming_sharded); what still raises (ROADMAP item 12), and
+    # the host-corpus guard
     row = Node2Vec(n2v_params=case["n2v"], w2v_params=case["w2v"], mesh=mesh,
                    table_sharding="row", device="cpu")
     row.preprocess_input_graph((src, dst), indexed=True, directed=False)
     row.random_walk()
-    out["row_fit"] = _raises(row.fit, NotImplementedError)
+    out["row_fit"] = row.fit().losses
     streamed = Node2Vec(n2v_params={**case["n2v"], "walker_chunk": 16}, w2v_params=case["w2v"],
                         mesh=mesh, table_sharding="row", device="cpu")
     streamed.preprocess_input_graph((src, dst), indexed=True, directed=False)
-    out["row_streaming"] = _raises(streamed.run_pipeline, NotImplementedError)
+    model = streamed.run_pipeline()
+    out["row_streaming"] = (model.losses, model.vectors.copy(), streamed.walks)
     out["graph_sharded"] = _raises(
         lambda: Node2Vec(mesh=mesh, graph_sharded=True, device="cpu"), NotImplementedError)
     out["host_corpus"] = _raises(
