@@ -26,6 +26,12 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
      (0.25, 4, 2): unit weights, so paths, fallbacks and attempts must be
      bit-equal; its bound counts each table byte the run reads once
      (distinct rows and sectors, from the plain run);
+   - K20 ep_bucket, K21 ep_propose, K22 ep_member and K23 ep_advance (the
+     graph-sharded walk's superstep) at main_path_ep's first chunk (the
+     RMAT on the 1 x 1 mesh's one shard, 131,072 walkers x 20 at (0.25, 4)):
+     every superstep holds each kernel to its plain version, bit-equal,
+     at the full capacity and at 1/8 of it (lanes defer; slack 16), and
+     both walks equal K5's on the same walkers (``check_ep_walk``);
 4. edge cases the main paths do not reach (K1 at P = 8 .. 256 with sinks,
    dead lanes and general weights; the SGNS step at other shapes; K5 with
    sinks and dead lanes, at P = 8 / C = 64, on a hub of degree 20,000
@@ -68,7 +74,19 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    same steps through the plain versions, a step whose capacity drops rows
    (the dropped counts equal), the routed step's wall and collective time,
    and the quality gates through ``Node2Vec(mesh=,
-   table_sharding="row").run_pipeline()`` for SGNS and HS at their limits;
+   table_sharding="row").run_pipeline()`` for SGNS and HS at their limits,
+   and the graph-sharded walks (``_ep_rank_checks``): the engine on an
+   RMAT bit-equal to one device's, a deferring capacity bit-equal to K5,
+   and slack 0, which truncates, equal to the plain versions on CPU
+   tensors;
+6c. the graph-sharded main path, ``main_path_ep``: ``Node2Vec(mesh=
+   make_mesh(1, 1), graph_sharded=True)`` over NCCL through
+   ``run_pipeline()`` on the RMAT of 3. with N2V_MAIN (max_iter cut to 1,
+   the column trainer): 40 chunks walked in supersteps (K20 twice, K21,
+   K22 and K23 once a superstep, K5 never), walks bit-equal to 6.'s, none
+   unfinished; partition seconds, shard bytes, supersteps a chunk, walk
+   steps/s beside 6.'s, peak memory, and the profiled walk of 4 chunks
+   (idle share, the collectives' host share);
 7. the streaming main path: the same Node2Vec on the same RMAT through
    ``run_pipeline()`` with no argument, which streams over its 40 walker
    chunks (max_iter cut to 1): K5 40 times for the counting pass and 40
@@ -168,7 +186,8 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    8 steps of ``sgns_train_step`` at dim 256 (every K2, K8, K9, K10, K13
    launch staged in global memory, losses and tables finite);
 11. the ``kernels`` line (times, bounds, launches, errors; K16, K17 and K3's
-   squares mode from 6a.; K18, K19's gather and pack and K2's routed mode
+   squares mode from 6a.; K20-K23 from 6c. (K20's time and bound are its
+   two launches of a superstep, phases A and B); K18, K19's gather and pack and K2's routed mode
    from 9a'., K8's routed mode from its HS run; K6 once for each
    JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists,
    once for CBOW-HS's and once for the pair step's, K2 once more at row
@@ -288,6 +307,7 @@ from node2vec_torch.models.vocab import (
 )
 from node2vec_torch.models.word2vec import Word2VecTorch, _effective_batch, _streaming_counts
 from node2vec_torch.ops import alias as alias_mod
+from node2vec_torch.parallel import edge_partitioned_blocked as ep
 from node2vec_torch.parallel import launch, make_mesh
 from node2vec_torch.parallel import rowsharded_hs as rh
 from node2vec_torch.parallel import rowsharded_sgns as rs
@@ -368,6 +388,15 @@ SOURCES = {
     "sgns_grads_routed": ("node2vec_torch/csrc/sgns.cu",
                           "node2vec_tpu/parallel/rowsharded_sgns.py:270"),
     "hs_grads_routed": ("node2vec_torch/csrc/hs.cu", "node2vec_tpu/parallel/rowsharded_hs.py:156"),
+    # the graph-sharded walk's superstep (parallel/edge_partitioned_blocked.py:347 shard_fn)
+    "ep_bucket": ("node2vec_torch/csrc/ep_walk.cu",
+                  "node2vec_tpu/parallel/edge_partitioned_blocked.py:297"),
+    "ep_propose": ("node2vec_torch/csrc/ep_walk.cu",
+                   "node2vec_tpu/parallel/edge_partitioned_blocked.py:401"),
+    "ep_member": ("node2vec_torch/csrc/ep_walk.cu",
+                  "node2vec_tpu/parallel/edge_partitioned_blocked.py:527"),
+    "ep_advance": ("node2vec_torch/csrc/ep_walk.cu",
+                   "node2vec_tpu/parallel/edge_partitioned_blocked.py:554"),
 }
 # the walk-at-a-time step kernels staging in global memory (csrc/staging.cuh)
 for _k in ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads", "sgns_pair_grads",
@@ -413,7 +442,11 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("route_gather", "route_gather", "main_path_mesh_row"),
         ("route_pack", "route_pack", "main_path_mesh_row"),
         ("sgns_grads_routed", "sgns_grads_routed", "main_path_mesh_row"),
-        ("hs_grads_routed", "hs_grads_routed", "main_path_mesh_row_hs"))
+        ("hs_grads_routed", "hs_grads_routed", "main_path_mesh_row_hs"),
+        ("ep_bucket", "ep_bucket", "main_path_ep"),
+        ("ep_propose", "ep_propose", "main_path_ep"),
+        ("ep_member", "ep_member", "main_path_ep"),
+        ("ep_advance", "ep_advance", "main_path_ep"))
 GRADS = ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads")  # one per objective
 ADAGRAD = ("adagrad_accumulate", "adagrad_apply")
 SGD = ("preagg_rows", "sgd_apply")  # SGNS with optimizer="sgd"
@@ -450,23 +483,40 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def time_ms(fn, reps: int = 10, warmup: int = 2, before=None) -> float:
     """Mean device time of fn() over ``reps`` calls (CUDA events).  A spin
     kernel holds the stream while the calls are enqueued, so a kernel shorter
     than its host-side launch cost is timed on the device, not at the rate
-    the host launches it."""
+    the host launches it.  ``before()``, when given, is enqueued ahead of
+    each call outside the timed span (then each call is a span of its own,
+    with a short spin ahead of it)."""
     for _ in range(warmup):
+        if before is not None:
+            before()
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
+    if before is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    spans = []
     for _ in range(reps):
+        before()
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
+        end.record()
+        spans.append((start, end))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(a.elapsed_time(b) for a, b in spans) / reps
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -4037,6 +4087,391 @@ def main_path_mesh_row(mesh, src, dst, max_iter: int, hs_objective: bool, beside
     return out
 
 
+# --------------------------------------------------------------------------- #
+# the graph-sharded (edge-partitioned) walks: K20-K23
+# --------------------------------------------------------------------------- #
+
+EP_PQ = (0.25, 4.0)  # N2V_MAIN's p, q
+EP_KERNELS = ("ep_bucket", "ep_propose", "ep_member", "ep_advance")
+
+
+def _max_diff(got, want) -> int:
+    """Largest absolute difference of two int32 tensors (0 when bit-equal)."""
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def _ep_bounds(carry, after, cap: int, slot_a, slot_b, send_a, send_b, st_prop: dict,
+               st_mem: dict, c: int, walk_length: int) -> dict:
+    """Least bytes each of K20-K23 must move in one superstep of these inputs
+    (``carry`` the state before it, ``after`` after it; each byte read or
+    written once, and only where this superstep's data needs it).  A lane
+    that is not active costs the words that say so (ALIVE; a finished one
+    also T); an empty request slot costs its field 0, written by the sender
+    and read by the owner.  K20's phase A reads T, ALIVE and CUR of the
+    active lanes and PREV, W_BACK_ENC, BACK_PFX and ATT of those that send,
+    and writes the requests and every slot; its phase B reads every slot,
+    T and the response's cand and take_back of each lane that sent, PREV of
+    each lane that asks for membership, and writes the requests and every
+    slot.  K21 reads the valid requests (six fields), the distinct light rows
+    (512 B), blocks' weights (C * 4 B) and 32-byte id and pair sectors, and
+    writes its responses; K22 reads the valid requests and the distinct
+    light and bids rows, and writes its answers; K23 reads the state (40 B)
+    and both slots of each active lane and the responses of the lanes that
+    sent, and writes the state of each lane that changed (40 B) and the
+    steps taken."""
+    n = carry.shape[1]
+    n_req = cap
+    alive = carry[ep.ALIVE] != 0
+    running = alive & (carry[ep.T] < walk_length)
+    active = int(running.sum())
+    skip = (n - active) * 4 + int((alive & ~running).sum()) * 4
+    sent_a = int((slot_a < n_req).sum())
+    sent_b = int((slot_b < n_req).sum())
+    valid_a = int((send_a[:, 0] >= 0).sum())
+    valid_b = int((send_b[:, 0] >= 0).sum())
+    changed = int((after != carry).any(0).sum())
+    steps = int((after[ep.T] > carry[ep.T]).sum())
+
+    def n_of(st, key):
+        return int(st[key].sum()) if key in st else 0
+
+    def requests(valid, fields):  # filled slots whole, empty ones their field 0
+        return valid * fields * 4 + (n_req - valid) * 4
+
+    bucket = (skip + active * 12 + sent_a * 16 + requests(sent_a, ep.PROPOSE_FIELDS) + n * 4
+              + n * 4 + sent_a * 12 + sent_b * 4 + requests(sent_b, ep.MEMBER_FIELDS) + n * 4)
+    propose = (requests(valid_a, 6) + n_of(st_prop, "light_rows") * 512
+               + n_of(st_prop, "biw_rows") * c * 4
+               + (n_of(st_prop, "biw_id_sectors") + n_of(st_prop, "brp_sectors")) * 32
+               + requests(valid_a, ep.RESPONSE_FIELDS))
+    member = (requests(valid_b, ep.MEMBER_FIELDS) + n_of(st_mem, "light_rows") * 512
+              + n_of(st_mem, "bids_rows") * c * 4 + n_req * 4)
+    advance = (skip + active * 48 + sent_a * ep.RESPONSE_FIELDS * 4 + sent_b * 4
+               + changed * 40 + steps * 4)
+    return {"ep_bucket": bucket, "ep_propose": propose, "ep_member": member, "ep_advance": advance}
+
+
+class _CheckedOps:
+    """``ep.superstep``'s ops for ``check_ep_walk``: each runs the kernel and
+    its plain version on the same inputs, keeps the largest difference in
+    ``diff`` and returns the kernel's result.  While ``timing`` is a dict,
+    each kernel and plain version is also timed on these inputs (K20's two
+    launches a superstep summed), and ``seen`` keeps what the bounds count."""
+
+    def __init__(self):
+        self.diff: dict = {}
+        self.timing = None
+        self.seen: dict = {}
+
+    def _check(self, name, got, want, kernel, plain, before=None) -> None:
+        err = max(_max_diff(g, w) for g, w in zip(got, want))
+        self.diff[name] = max(self.diff.get(name, 0), err)
+        if self.timing is not None:
+            row = self.timing.setdefault(name, {"ms": 0.0, "plain_ms": 0.0})
+            row["ms"] += time_ms(kernel, reps=20, before=before)
+            row["plain_ms"] += time_ms(plain, reps=1, warmup=0)
+
+    def bucket(self, carry, seed, gid_base, **kw):
+        def kernel():
+            return ep.ep_bucket(carry, seed, gid_base, **kw)
+
+        def plain():
+            return ep.ep_bucket_plain(carry, seed, gid_base, **kw)
+
+        got = kernel()
+        self._check("ep_bucket", got, plain(), kernel, plain)
+        self.seen["b" if kw.get("slot_a") is not None else "a"] = got
+        return got
+
+    def propose(self, recv, *tables, **kw):
+        def kernel():
+            return ep.ep_propose(recv, *tables, **kw)
+
+        def plain():
+            return ep.ep_propose_plain(recv, *tables, **kw)
+
+        got = kernel()
+        st = self.seen["propose"] = {}
+        want = ep.ep_propose_plain(recv, *tables, stats=st if self.timing is not None else None,
+                                   **kw)
+        self._check("ep_propose", (got,), (want,), kernel, plain)
+        return got
+
+    def member(self, recv, *tables, **kw):
+        def kernel():
+            return ep.ep_member(recv, *tables, **kw)
+
+        def plain():
+            return ep.ep_member_plain(recv, *tables, **kw)
+
+        got = kernel()
+        st = self.seen["member"] = {}
+        want = ep.ep_member_plain(recv, *tables, stats=st if self.timing is not None else None,
+                                  **kw)
+        self._check("ep_member", (got,), (want,), kernel, plain)
+        return got
+
+    def advance(self, carry, paths, n_fb, *args, **kw):
+        saved = [t.clone() for t in (carry, paths, n_fb)]
+        scratch = [t.clone() for t in saved]
+
+        def restore():  # K23 advances its state in place: each timed call starts afresh
+            for dst, src in zip(scratch, saved):
+                dst.copy_(src)
+
+        def kernel():
+            return ep.ep_advance(*scratch, *args, **kw)
+
+        def plain():
+            return ep.ep_advance_plain(*[t.clone() for t in saved], *args, **kw)
+
+        plain_state = [t.clone() for t in saved]
+        want = ep.ep_advance_plain(*plain_state, *args, **kw)
+        pending = ep.ep_advance(carry, paths, n_fb, *args, **kw)
+        self._check("ep_advance", (carry, paths, n_fb, pending), (*plain_state, want), kernel,
+                    plain, restore)
+        self.seen["carry"] = (saved[0], carry.clone())
+        return pending
+
+
+def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) -> None:
+    """K20-K23 against their plain versions at main_path_ep's first chunk:
+    the RMAT partitioned over the 1 x 1 mesh (one shard, so the superstep's
+    exchanges are the identity), ``n_walkers`` walkers x ``walk_length`` at
+    (p, q) = (0.25, 4).  Every superstep is the engine's ``ep.superstep``
+    through ``_CheckedOps``, which holds each kernel against its plain
+    version on the same inputs, bit-equal (unit weights make K21's sums
+    exact); first at the full capacity (timed and bounded at the second
+    superstep, where nearly every walker proposes and asks for membership),
+    then at a capacity of 1/8 of the lanes, which defers, with slack 16
+    (1,296 supersteps at most).  Both walks must equal K5's on the same
+    walkers and the one ``edge_partitioned_blocked_walk`` gives through the
+    mesh."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    pg = ep.partition_blocked_graph(graph.indptr, graph.indices, graph.weights, 1, mesh=mesh)
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    tables = ep.local_tables(pg, 0)
+    starts = torch.arange(n_walkers, dtype=torch.int32, device=dev) % graph.n_vertices
+    own = dict(my_shard=0, rows_per_shard=pg.rows_per_shard, light_width=pg.light_width,
+               block_width=pg.block_width)
+    walk_kw = dict(walk_length=walk_length, return_param=EP_PQ[0], inout_param=EP_PQ[1],
+                   max_trials=64)
+    k5, k5_fb, _ = blocked.blocked_walk_chunk(*tables, starts, 0, 0, light_width=pg.light_width,
+                                              block_width=pg.block_width, has_heavy=True,
+                                              **walk_kw)
+    for cap, slack in ((n_walkers, 4), (n_walkers // 8, 16)):
+        bound = ep.max_supersteps(walk_length, EP_PQ[1], slack)
+        carry = ep.init_carry(starts)
+        paths = torch.full((n_walkers, walk_length + 1), -1, dtype=torch.int32, device=dev)
+        paths[:, 0] = starts
+        n_fb = torch.zeros(1, dtype=torch.int32, device=dev)
+        ops = _CheckedOps()
+        diff = ops.diff
+        timing = None
+        deferred = int((starts >= 0).sum()) - min(cap, n_walkers)
+        it = 0
+        while it < bound:
+            # the second superstep at full capacity is timed: nearly every
+            # walker proposes and asks for membership there
+            ops.timing = {} if cap == n_walkers and it == 1 else None
+            pending = ep.superstep(ops, None, "data", tables, carry, paths, n_fb, 0, 0,
+                                   n_shards=1, capacity=cap, **own, **walk_kw)
+            if ops.timing is not None:
+                timing, seen = ops.timing, ops.seen
+                (send_a, slot_a), (send_b, slot_b) = seen["a"], seen["b"]
+                bounds = _ep_bounds(*seen["carry"], cap, slot_a, slot_b, send_a, send_b,
+                                    seen["propose"], seen["member"], pg.block_width,
+                                    walk_length)
+                for name in EP_KERNELS:
+                    b_ms, b_by = bound_ms(bounds[name], 0)
+                    timing[name].update(bound_bytes=bounds[name], bound_ms=b_ms, bound_by=b_by)
+                before = seen["carry"][0]
+                timing["lanes"] = {
+                    "active": int(((before[ep.ALIVE] != 0) & (before[ep.T] < walk_length)).sum()),
+                    "proposal_requests": int((send_a[:, 0] >= 0).sum()),
+                    "membership_requests": int((send_b[:, 0] >= 0).sum())}
+            it += 1
+            if int(pending) == 0:
+                break
+        unfinished = int(((carry[ep.ALIVE] != 0) & (carry[ep.T] < walk_length)).sum())
+        via_mesh, m_unfin, m_fb = ep.edge_partitioned_blocked_walk(
+            mesh, pg, starts, 0, 0, capacity=cap, slack=slack, **walk_kw)
+        torch.cuda.synchronize()
+        line = {"phase": "check", "kernel": "ep_walk", "capacity": cap, "slack": slack,
+                "walkers": n_walkers,
+                "walk_length": walk_length, "p": EP_PQ[0], "q": EP_PQ[1],
+                "lanes_deferred_at_superstep_0": deferred, "supersteps": it,
+                "max_abs_err": diff, "bit_equal": all(v == 0 for v in diff.values()),
+                "unfinished": unfinished, "fallbacks": int(n_fb),
+                "bit_equal_to_k5": bool(torch.equal(paths, k5)) and int(n_fb) == int(k5_fb),
+                "bit_equal_through_mesh": bool(torch.equal(via_mesh, paths))
+                and (int(m_unfin), int(m_fb)) == (unfinished, int(n_fb)),
+                "partition_s": part_s, "tables_bytes": int(sum(t.numel() * 4 for t in tables))}
+        if timing is not None:
+            line["second_superstep"] = timing
+        emit(line)
+        require(line["bit_equal"], f"K20-K23 differ from their plain versions at capacity {cap}: "
+                                   f"{diff}")
+        require(line["bit_equal_to_k5"], f"the ep walk at capacity {cap} differs from K5's")
+        require(line["bit_equal_through_mesh"], f"the ep walk through the mesh differs ({cap})")
+        require(unfinished == 0, f"{unfinished} walkers unfinished at capacity {cap}")
+        if cap < n_walkers:
+            require(deferred > 0, "the small capacity deferred no lane")
+        else:
+            for name in EP_KERNELS:
+                results[name] = {"max_abs_err": diff[name], "library_ms": None,
+                                 **{k: timing[name][k] for k in (
+                                     "ms", "plain_ms", "bound_ms", "bound_by")}}
+    del pg, tables
+
+
+def main_path_ep(mesh, rmat_src, rmat_dst, blocked_line: dict, blocked_walks: torch.Tensor,
+                 max_iter: int) -> dict:
+    """``Node2Vec(mesh=make_mesh(1, 1), graph_sharded=True)`` over NCCL at
+    N2V_MAIN on the RMAT through ``run_pipeline()`` (max_iter cut, the
+    column trainer): the blocked tables partitioned over the data axis, 40
+    chunks walked by supersteps (K20 twice, K21, K22, K23 once a superstep,
+    K5 never), then ``fit_sharded``.  Its walks must equal
+    main_path_blocked's, none unfinished; its walk rate stands beside
+    main_path_blocked's; then the profiled walk of 4 chunks, whose trace
+    gives the idle share and the collectives' host share."""
+    n2v = Node2Vec(n2v_params=N2V_MAIN, w2v_params={**W2V_MAIN, "max_iter": max_iter},
+                   max_out_degree=10_000, random_seed=0, mesh=mesh, graph_sharded=True,
+                   device="cuda")
+    _fresh_run()
+    mesh.collectives.clear()
+    t0 = time.perf_counter()
+    graph = n2v.preprocess_input_graph((rmat_src, rmat_dst), indexed=True, directed=False)
+    t1 = time.perf_counter()
+    engine = n2v._walk_engine()  # partitions the blocked tables onto the card
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    walk_s, fit_s = [], []
+    run_device = engine.run_device
+
+    def timed_walk(*args, **kwargs):
+        ts = time.perf_counter()
+        out = run_device(*args, **kwargs)
+        torch.cuda.synchronize()
+        walk_s.append(time.perf_counter() - ts)
+        return out
+
+    new_backend = n2v._new_backend
+
+    def timed_backend(*args, **kwargs):
+        backend = new_backend(*args, **kwargs)
+        _timed_fit(backend.model, fit_s)
+        return backend
+
+    engine.run_device = timed_walk
+    n2v._new_backend = timed_backend
+    model = n2v.run_pipeline()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del engine.run_device, n2v._new_backend, model.fit_sharded
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    collectives = {f"{op}:{axis}": k for (op, axis), k in mesh.collectives.items()}
+    names, vectors = n2v.embedding(as_frame=False)
+    walks = n2v.walks
+    steps = int((walks[:, 1:] >= 0).sum())
+    supersteps = list(engine.superstep_counts)
+    n_chunks, _, source = engine.chunk_source(seed=0)
+    prof = breakdown((("ep walk, 4 of the chunks (1 x 1)",
+                       lambda: [source(i) for i in range(4)]),))[0]
+    pg = engine.pgraph
+    out = {
+        "phase": "main_path_ep", "mesh": mesh.shape, "backend": mesh.backend,
+        "strategy": engine.strategy, "token": engine._strategy_token(),
+        "table_sharding": n2v.table_sharding, "max_iter_cut_to": max_iter,
+        "n_vertices": graph.n_vertices, "walks": list(walks.shape), "walk_steps": steps,
+        "walk_chunks": n_chunks, "supersteps_per_chunk": supersteps,
+        "preprocess_s": t1 - t0, "partition_s": t2 - t1,
+        "shard_bytes": {k: int(getattr(pg, k).numel() * 4) for k in ("light", "biw", "bids", "brp")},
+        "walk_s": walk_s[0], "fit_s": fit_s[0], "pipeline_s": t3 - t2,
+        "walk_steps_per_s": steps / walk_s[0],
+        "main_path_blocked_walk_steps_per_s": blocked_line["walk_steps_per_s"],
+        "unfinished_count": engine.unfinished_count, "fallback_count": engine.fallback_count,
+        "collectives": collectives, "profiled_walk_s": prof["wall_ms"] / 1e3,
+        "idle_share": prof["idle_share"],
+        **{k: prof.get(k) for k in ("collective_host_share", "collective_device_share")},
+        "epoch_losses": model.losses, "peak_device_memory_bytes": int(peak),
+        "launches": launches, "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+    }
+    emit(out)
+    equal = bool(np.array_equal(walks, blocked_walks.cpu().numpy()))
+    emit({"phase": "main_path_ep", "bit_equal_to_main_path_blocked": equal})
+    require(engine.strategy == "ep_blocked", f"strategy {engine.strategy}")
+    require(equal, "main_path_ep's walks differ from main_path_blocked's")
+    require(engine.unfinished_count == 0, f"{engine.unfinished_count} walkers unfinished")
+    require(vectors.shape == (graph.n_vertices, 128) and bool(np.isfinite(vectors).all()),
+            "main_path_ep: bad vectors")
+    require(all(np.isfinite(x) for x in model.losses), "main_path_ep: non-finite loss")
+    n_steps = sum(supersteps)
+    require(len(supersteps) == n_chunks, f"{len(supersteps)} chunks walked of {n_chunks}")
+    require(launches["ep_bucket"] == 2 * n_steps, f"ep_bucket launched {launches['ep_bucket']}")
+    for k in ("ep_propose", "ep_member", "ep_advance"):
+        require(launches[k] == n_steps, f"{k} launched {launches[k]} times, {n_steps} supersteps")
+    require(launches["blocked_walk"] == 0, "main_path_ep launched K5")
+    return out
+
+
+def _ep_rank_checks(mesh, graph, quick: bool) -> dict:
+    """The graph-sharded walks on a rank of the 2 x 1 gloo mesh, on the
+    RMAT: ``WalkEngine(mesh=, graph_sharded=True)`` bit-equal to the
+    single-device blocked engine, none unfinished; a chunk at a capacity
+    that defers (each rank sends each owner at most 1/16 of the chunk a
+    round; slack 16), bit-equal to K5 on the same walkers; and a slack of 0 (16
+    supersteps), which truncates: paths, unfinished and fallback counts
+    equal to the plain versions' run by the same ranks on CPU tensors."""
+    params = Node2VecParams(**N2V_MAIN)
+    _build.reset_launches()
+    ts = time.perf_counter()
+    sharded = WalkEngine(graph, params, mesh=mesh, graph_sharded=True, device="cuda")
+    got = sharded.run_device(seed=0)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - ts
+    one = WalkEngine(graph, params, strategy="blocked", device="cuda")
+    out = {"walks_bit_equal": bool(torch.equal(got, one.run_device(seed=0))),
+           "unfinished": sharded.unfinished_count, "supersteps": sharded.superstep_counts,
+           "engine_s": walk_s}
+    require(out["walks_bit_equal"], "ep walks at 2 x 1 differ from the single-device engine's")
+    require(out["unfinished"] == 0, f"{out['unfinished']} ep walkers unfinished at 2 x 1")
+    n = 2048 if quick else 8192
+    starts = torch.arange(n, dtype=torch.int32, device="cuda") % graph.n_vertices
+    kw = dict(walk_length=N2V_MAIN["walk_length"], return_param=EP_PQ[0],
+              inout_param=EP_PQ[1], max_trials=64)
+    bg = one.bgraph
+    want, want_fb, _ = blocked.blocked_walk_chunk(
+        *bg[:4], starts, 0, 0, light_width=bg.light_width, block_width=bg.block_width,
+        has_heavy=bg.has_heavy, **kw)
+    local, unfin, fb = ep.edge_partitioned_blocked_walk(mesh, sharded.pgraph, starts, 0, 0,
+                                                        capacity=n // 16, slack=16, **kw)
+    counts = mesh.all_reduce_sum(torch.stack([unfin, fb]), "data")
+    out["deferring_capacity"] = n // 16
+    out["deferring_bit_equal_to_k5"] = (bool(torch.equal(mesh.all_gather(local, "data"), want))
+                                        and int(counts[1]) == int(want_fb)
+                                        and int(counts[0]) == 0)
+    require(out["deferring_bit_equal_to_k5"], "the deferring ep walk differs from K5's")
+    pg = sharded.pgraph
+    cpu = pg._replace(**{k: getattr(pg, k).cpu() for k in ("light", "biw", "bids", "brp")})
+    k_paths, k_unfin, k_fb = ep.edge_partitioned_blocked_walk(mesh, pg, starts, 0, 0, slack=0,
+                                                              **kw)
+    p_paths, p_unfin, p_fb = ep.edge_partitioned_blocked_walk_plain(mesh, cpu, starts.cpu(), 0, 0,
+                                                                    slack=0, **kw)
+    out["truncated"] = {"unfinished": int(k_unfin), "fallbacks": int(k_fb),
+                        "bit_equal_to_plain_on_cpu": bool(torch.equal(k_paths.cpu(), p_paths))
+                        and (int(k_unfin), int(k_fb)) == (int(p_unfin), int(p_fb))}
+    require(int(k_unfin) > 0, "slack 0 truncated no walker")
+    require(out["truncated"]["bit_equal_to_plain_on_cpu"],
+            "the truncated ep walk differs from the plain versions'")
+    out["launches"] = {k: int(_build.launches[k]) for k in EP_KERNELS}
+    require(all(v > 0 for v in out["launches"].values()), f"ep launches {out['launches']}")
+    return out
+
+
 def _row_rank_checks(mesh, n_v: int, quick: bool) -> dict:
     """The row layout on a rank of the 2 x 1 gloo mesh: one routed SGNS step
     and one HS step at the main path's batch (2,560 walks split over the
@@ -4227,6 +4662,7 @@ def _mesh_rank(quick: bool) -> list:
             require(gap >= MESH_GATE["gap_min"], f"mesh {shape}: gap {gap}")
         if shape == (2, 1):  # the row layout over the flattened 2 x 1 mesh
             line["row"] = _row_rank_checks(mesh, n_v, quick)
+            line["ep"] = _ep_rank_checks(mesh, g_rmat, quick)
         lines.append(line)
     return lines
 
@@ -4439,6 +4875,7 @@ def main() -> int:
         check_fused(512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
         check_alias_draw(g, True, results, "quick, dense ER 4,096 vertices")
         mesh = make_mesh(1, 1, device="cuda")  # a world of one, over NCCL
+        check_ep_walk(mesh, g_rmat, 4096, 20, results)
         check_col_sgns(mesh, 4096, 64, 21, 128, 5, True, results, "quick")
         check_col_sgns(mesh, 512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
         check_route(tree, head, walks_q.cpu().numpy()[:64], g.n_vertices, True, results, "quick")
@@ -4511,6 +4948,7 @@ def main() -> int:
     check_alias_draw(g, True, results, "dense ER, a walker at every vertex")
     rmat_src, rmat_dst, g_rmat = rmat_graph(19)
     check_blocked_walk(g_rmat, 131072, 20, results)
+    check_ep_walk(mesh, g_rmat, 131072, 20, results)
     check_blocked_walk_sl(g_rmat, "RMAT scale 19", 131072, 20, results)
     check_blocked_walk_sl(g, "dense ER", 131072, 20, results)
     check_wide(g, tree, tree_counts, results)
@@ -4530,6 +4968,8 @@ def main() -> int:
     check_vertex_counts(walks_dev, n_v, results)
     paths["main_path_mesh"] = main_path_mesh(mesh, src, dst, paths["main_path"], main_walks,
                                              rmat_src, rmat_dst, walks_dev, max_iter=1)
+    paths["main_path_ep"] = main_path_ep(mesh, rmat_src, rmat_dst, paths["main_path_blocked"],
+                                         walks_dev, max_iter=1)
     del walks_dev, main_walks
     mesh_ranks()
     paths["main_path_streaming"], engine, n_v = main_path_streaming(rmat_src, rmat_dst, max_iter=1)

@@ -15,8 +15,10 @@ called on every rank) the walks shard their walkers over the mesh's data
 axis and ``fit`` trains with the tables' columns sharded over its model
 axis, or with ``table_sharding="row"`` their rows over every rank
 (``Word2VecTorch.fit_sharded``; ``run_pipeline`` then streams into
-``fit_streaming_sharded``).  The graph-sharded walks of the JAX pipeline
-are not ported yet and raise ``NotImplementedError``.
+``fit_streaming_sharded``).  ``graph_sharded=True`` with a mesh walks
+graph-sharded: the blocked tables are partitioned over the data axis and
+every chunk runs through the superstep exchanges (``WalkEngine``'s
+"ep_blocked" strategy), its walks equal to the replicated engine's.
 """
 
 from __future__ import annotations
@@ -89,9 +91,10 @@ class Node2Vec:
         rank and routes them each step (SGNS, and hierarchical softmax,
         which a mesh trains only in this layout), and streams over a
         virtual corpus in ``run_pipeline``.  It is validated as in the JAX package, with or without a
-        mesh.  ``graph_sharded=True`` (the edge-partitioned walks) raises
-        ``NotImplementedError`` with a mesh, and ``ValueError`` without one
-        when the walks start, as the JAX engine does."""
+        mesh.  ``graph_sharded=True`` partitions the graph's blocked tables
+        over the mesh's data axis (the edge-partitioned walks, with either
+        table layout); without a mesh it raises ``ValueError`` when the
+        walks start, as the JAX engine does."""
         if table_sharding not in ("column", "row"):
             raise ValueError(
                 f"table_sharding must be 'column' or 'row', got {table_sharding!r}"
@@ -100,11 +103,6 @@ class Node2Vec:
             raise ValueError(
                 "host_corpus is the single-device trainer path; on a mesh "
                 "use table_sharding='row' (+ streaming) instead"
-            )
-        if graph_sharded and mesh is not None:
-            raise NotImplementedError(
-                "graph_sharded=True (the edge-partitioned walks) is not ported yet "
-                "(ROADMAP Queue A item 12)"
             )
         self.mesh = mesh
         self.graph_sharded = graph_sharded

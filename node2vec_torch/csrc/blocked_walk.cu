@@ -42,6 +42,11 @@
 // reverse-edge id after a return hop.  Draws stay keyed on att * 4, so a
 // lane that consumes no u_acc keeps every later draw where it was.
 //
+// The light-row scan, the header's block pick, the block scan, the brp pair
+// load and the N(prev) membership test are blocked_common.cuh's device
+// functions, which the graph-sharded walk's owner kernels (ep_walk.cu) call
+// too.
+//
 // Rounding: every float op is a _rn intrinsic so nvcc cannot contract it
 // into an FMA, and the operands are those of the plain version; where every
 // partial sum is exact (dyadic weights, p and q powers of two) the paths and
@@ -62,29 +67,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "blocked_common.cuh"
 #include "hashrng.cuh"
 
 namespace {
 
-constexpr int32_t kPadId = 0x7FFFFFFF;
+using n2v::kPadId;
+using n2v::warp_incl_scan;
+using n2v::warp_sum;
 constexpr int kWarps = 8;   // walkers per block
-constexpr int kRow = 128;   // light-row lanes (P <= 32)
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ float warp_incl_scan(float v, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(kFull, v, off);
-    if (lane >= off) v = __fadd_rn(v, u);
-  }
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
+constexpr int kRow = n2v::kLightRow;  // light-row lanes staged (P <= 32)
+constexpr unsigned kFull = n2v::kFullMask;
 
 constexpr int kSlK = 8;         // shared-list entries an edge
 constexpr int kSlLanes = 16;    // int32 lanes of an edge's slq entry
@@ -155,10 +148,8 @@ blocked_walk_kernel(const int32_t* __restrict__ light, int row_width,
       // --- entry: (re)gather the frontier vertex's row -----------------------
       if (need_entry) {
         need_entry = false;
-        __syncwarp();  // every lane is done with the buffer overwritten here
         const int32_t* row_g = light + static_cast<int64_t>(cur) * row_width;
-        reinterpret_cast<int4*>(cur_row)[lane] = __ldg(reinterpret_cast<const int4*>(row_g) + lane);
-        __syncwarp();
+        n2v::load_row(cur_row, row_g, lane);
         if (kSl) {
           ebase_cur = 4 * p_l < kRow ? cur_row[4 * p_l] : __ldg(row_g + 4 * p_l);
           if (aedge >= 0) {  // one slq entry per accepted step: the arrival edge's
@@ -182,15 +173,14 @@ blocked_walk_kernel(const int32_t* __restrict__ light, int row_width,
           h_nb = cur_row[2];
           wtot = __int_as_float(cur_row[3]);
           degree = cur_row[4];
-          cum0 = lane < maxb ? __int_as_float(cur_row[5 + maxb + lane]) : 0.f;
-          cum1 = lane + 32 < maxb ? __int_as_float(cur_row[5 + maxb + lane + 32]) : 0.f;
+          n2v::header_cum(cur_row, lane, maxb, &cum0, &cum1);
         } else {
-          my_id = lane < p_l ? cur_row[lane] : kPadId;
-          my_w = lane < p_l ? __int_as_float(cur_row[p_l + lane]) : 0.f;
-          const bool real = lane < p_l && my_id != kPadId && (!has_heavy || my_id >= 0);
-          degree = __popc(__ballot_sync(kFull, real));
-          wtot = warp_sum(my_w);
-          my_cdf = warp_incl_scan(my_w, lane);
+          const n2v::LightCols lc = n2v::light_cols(cur_row, lane, p_l, has_heavy);
+          my_id = lc.id;
+          my_w = lc.w;
+          my_cdf = lc.cdf;
+          degree = lc.degree;
+          wtot = lc.wtot;
         }
         if (degree == 0) {  // sink death, before the draw
           alive = false;
@@ -238,7 +228,7 @@ blocked_walk_kernel(const int32_t* __restrict__ light, int row_width,
       float w_cand, ppfx, pfx_c = 0.f;
       int row_slot;  // the proposal's slot within N(cur)
       if (!is_heavy) {
-        const int below = __popc(__ballot_sync(kFull, lane < p_l && my_cdf < target));
+        const int below = n2v::light_below(my_cdf, target, lane, p_l);
         const int slot = take_sh ? sh_slot : min(below, max(degree - 1, 0));
         row_slot = slot;
         cand = __shfl_sync(kFull, my_id, slot);
@@ -250,8 +240,7 @@ blocked_walk_kernel(const int32_t* __restrict__ light, int row_width,
           pfx_c = __int_as_float(cur_row[3 * p_l + slot]);
         }
       } else {
-        const int nb_below = __popc(__ballot_sync(kFull, lane < maxb && cum0 < target)) +
-                             __popc(__ballot_sync(kFull, lane + 32 < maxb && cum1 < target));
+        const int nb_below = n2v::header_below(cum0, cum1, target, lane, maxb);
         // a shared pick forces its block before the block's weights are read
         const int blk = take_sh ? sh_slot / c : min(nb_below, max(h_nb - 1, 0));
         const float base = blk > 0 ? __int_as_float(cur_row[5 + maxb + blk - 1]) : 0.f;
@@ -259,35 +248,17 @@ blocked_walk_kernel(const int32_t* __restrict__ light, int row_width,
         const int64_t brow = static_cast<int64_t>(h_bs) + blk;
         const int32_t* ids_row = biw + brow * 2 * c;
         const int32_t* w_row = ids_row + c;
-        float lsum = 0.f;
-        for (int m = 0; m < k; ++m) lsum = __fadd_rn(lsum, __int_as_float(__ldg(w_row + col0 + m)));
-        float excl = __shfl_up_sync(kFull, warp_incl_scan(lsum, lane), 1);
-        if (lane == 0) excl = 0.f;
-        float run = excl;
-        int below = 0;
-        for (int m = 0; m < k; ++m) {
-          run = __fadd_rn(run, __int_as_float(__ldg(w_row + col0 + m)));
-          below += run < resid;
-        }
-        below = __reduce_add_sync(kFull, below);
+        float excl;
+        const int below = n2v::block_below(w_row, col0, k, resid, lane, &excl);
         const int nvalid = min(c, degree - blk * c);
         const int slot = take_sh ? sh_slot % c : min(below, max(nvalid - 1, 0));
         row_slot = blk * c + slot;
-        float pc = 0.f;
-        if (slot > 0) {  // cdf[slot - 1], recomputed by the lane that owns it
-          const int j = slot - 1;
-          const int owner = j / k;
-          if (lane == owner) {
-            pc = excl;
-            for (int m = col0; m <= j; ++m) pc = __fadd_rn(pc, __int_as_float(__ldg(w_row + m)));
-          }
-          pc = __shfl_sync(kFull, pc, owner);
-        }
+        const float pc = n2v::block_prefix_before(w_row, col0, k, excl, slot, lane);
         ppfx = __fadd_rn(base, pc);
         cand = __ldg(ids_row + slot);
         w_cand = __int_as_float(__ldg(w_row + slot));
-        if (mode != 0) {  // brp's flat index of slot gslot's (rev, pfx) is 2*gslot
-          const int2 pair = __ldg(reinterpret_cast<const int2*>(brp) + (brow * c + slot));
+        if (mode != 0) {
+          const int2 pair = n2v::brp_pair(brp, brow * c + slot);
           rev_enc = pair.x;
           pfx_c = __int_as_float(pair.y);
         }
@@ -307,20 +278,7 @@ blocked_walk_kernel(const int32_t* __restrict__ light, int row_width,
             __any_sync(kFull, lane < kSlK && sl_slot != kSlPadSlot && sl_slot == row_slot);
         accept = (mode == 4 && first_order) || take_back || take_sh || (cand != prev && !hit);
       } else {
-        bool shared;
-        if (has_heavy && prev_row[0] < -1) {
-          const int32_t p_bs = prev_row[1];
-          const int32_t p_nb = prev_row[2];
-          int jm = __popc(__ballot_sync(kFull, lane < maxb && prev_row[5 + lane] <= cand)) +
-                   __popc(__ballot_sync(kFull, lane + 32 < maxb && prev_row[5 + lane + 32] <= cand)) - 1;
-          jm = min(max(jm, 0), max(p_nb - 1, 0));
-          const int32_t* mrow = bids + (static_cast<int64_t>(p_bs) + jm) * c;
-          bool hit = false;
-          for (int i = lane; i < c; i += 32) hit |= __ldg(mrow + i) == cand;
-          shared = __any_sync(kFull, hit);
-        } else {
-          shared = __any_sync(kFull, lane < p_l && prev_row[lane] == cand);
-        }
+        const bool shared = n2v::prev_member(prev_row, bids, cand, lane, p_l, c, has_heavy);
         const float bias2 = shared ? 1.f : inv_q;
         accept = take_back || first_order || (cand != prev && __fmul_rn(u_acc, alpha2) <= bias2);
       }

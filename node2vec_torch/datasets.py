@@ -285,10 +285,15 @@ def run_quality(
     w2v_params=None,
     train_ratios: Sequence[float] = (0.1, 0.5, 0.9),
     seed: int = 0,
+    mesh=None,
     device="cuda",
 ) -> Dict[str, object]:
-    """Full quality protocol: walks -> SGNS -> multi-label F1 per train ratio."""
-    emb, strategy = train_embeddings(graph, n2v_params, w2v_params, seed, device)
+    """Full quality protocol: walks -> SGNS -> multi-label F1 per train ratio.
+
+    With ``mesh`` the walks run on it and the tables train row-sharded
+    (``fit_sharded(..., table_sharding="row")``), as in the JAX package."""
+    emb, strategy = train_embeddings(graph, n2v_params, w2v_params, seed, device, mesh=mesh,
+                                     table_sharding="row")
     out: Dict[str, object] = {
         "n_vertices": graph.n_vertices,
         "n_edges": graph.n_edges,

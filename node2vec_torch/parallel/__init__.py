@@ -2,12 +2,15 @@
 ``node2vec_tpu/parallel``): one process a rank over ``torch.distributed``.
 
 Ported: the mesh (``make_mesh``, ``initialize_distributed``), a local
-launcher (``launch.spawn``), the walker-sharded walks on K1, K5 and K12, and
+launcher (``launch.spawn``), the walker-sharded walks on K1, K5 and K12,
 the column-sharded SGNS step and epoch (K13's pair lists, K16, K17, K3's
-squares mode, K4), and the row-sharded SGNS and HS steps and epochs (K18
-route_plan, K19 route_rows, K2's and K8's routed modes, K3, K4).  The
-edge-partitioned walks raise ``NotImplementedError`` naming their ROADMAP
-item.
+squares mode, K4), the row-sharded SGNS and HS steps and epochs (K18
+route_plan, K19 route_rows, K2's and K8's routed modes, K3, K4), and the
+graph-sharded blocked walks (``edge_partitioned_blocked``: K20 ep_bucket,
+K21 ep_propose, K22 ep_member, K23 ep_advance).  The round-1 dense
+edge-partitioned walk (``edge_partitioned_walk``,
+``partition_packed_adjacency``) raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from node2vec_torch.parallel.mesh import Mesh, MeshConfig, initialize_distributed, make_mesh
@@ -36,13 +39,21 @@ from node2vec_torch.parallel.rowsharded_sgns import (
     row_state_from_host,
     row_state_to_host,
 )
+from node2vec_torch.parallel.edge_partitioned_blocked import (
+    PartitionedBlockedGraph,
+    edge_partitioned_blocked_walk,
+    load_partitioned_graph,
+    partition_blocked_graph,
+    save_partitioned_graph,
+)
 from node2vec_torch.parallel.sharded_walk import (
     sharded_blocked_walk_chunk,
     sharded_dense_walk_chunk,
     sharded_walk_chunk,
 )
 
-_EP_NOT_PORTED = "the edge-partitioned walks are not ported yet (ROADMAP Queue A item 12)"
+_EP_NOT_PORTED = ("the round-1 dense edge-partitioned walk is not ported yet (ROADMAP Queue A "
+                  "item 12); the graph-sharded blocked walk is edge_partitioned_blocked_walk")
 
 
 def edge_partitioned_walk(*args, **kwargs):
@@ -80,6 +91,11 @@ __all__ = [
     "hs_state_to_host",
     "hs_state_from_host",
     "unshard_hs_rows",
+    "PartitionedBlockedGraph",
+    "partition_blocked_graph",
+    "save_partitioned_graph",
+    "load_partitioned_graph",
+    "edge_partitioned_blocked_walk",
     "edge_partitioned_walk",
     "partition_packed_adjacency",
 ]

@@ -44,8 +44,10 @@ in plain PyTorch, for CPU tensors.  The plain version runs the whole chunk
 in one loop: the JAX package's tail-compaction cascade only regroups live
 walkers and leaves every walk bit-identical.
 
-Not ported: the range-exchange and partitioned table packing (ROADMAP
-Queue A item 12).
+``_edge_metadata_ranged`` computes the same per-edge metadata one vertex
+range at a time (the range-exchange pass behind the graph-sharded engine's
+``ranged_metadata=True``, ``parallel/edge_partitioned_blocked.py``), numpy
+on the host as in the JAX package.
 """
 
 from __future__ import annotations
@@ -177,6 +179,277 @@ def _edge_metadata(
     return rev_enc, pfx.astype(np.float32)
 
 
+def _concat_rows(
+    indptr_local: np.ndarray, indices: np.ndarray, u_local: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(lens, elems): concatenated CSR rows of ``u_local`` (local vertex
+    indices) — vectorized variable-length gather, no per-row python loop."""
+    lens = (indptr_local[u_local + 1] - indptr_local[u_local]).astype(np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return lens, np.zeros(0, np.int64)
+    starts = indptr_local[u_local].astype(np.int64)
+    off = np.concatenate([[0], np.cumsum(lens)])
+    idx = (
+        np.repeat(starts, lens)
+        + np.arange(total, dtype=np.int64)
+        - np.repeat(off[:-1], lens)
+    )
+    return lens, indices[idx].astype(np.int64)
+
+
+def _membership_encode(
+    qu: np.ndarray,
+    qv: np.ndarray,
+    indptr_local: np.ndarray,
+    indices_local: np.ndarray,
+    lo: int,
+) -> np.ndarray:
+    """Encode membership queries for one peer as a flat int64 payload:
+    ``[n_q, n_rows, n_elems | (u, v) pairs | (u, deg_u) pairs | N(u) ids]``.
+    Each distinct querying vertex ships its (local, complete) row ONCE per
+    peer; the per-peer traffic is sum(min-side degrees) + query pairs."""
+    uu = np.unique(qu)
+    lens, elems = _concat_rows(
+        indptr_local, indices_local, (uu - lo).astype(np.int64)
+    )
+    parts = [np.array([len(qu), len(uu), len(elems)], np.int64)]
+    if len(qu):
+        parts.append(np.stack([qu, qv], axis=1).reshape(-1))
+        parts.append(np.stack([uu, lens], axis=1).reshape(-1))
+        parts.append(elems)
+    return np.concatenate(parts).reshape(-1, 1)
+
+
+def _membership_answer(
+    flat: np.ndarray, keys_local: np.ndarray, n_vertices: int
+) -> np.ndarray:
+    """Answer one peer's membership payload against this range's sorted edge
+    keys (``src * n_vertices + dst``): returns int64 [n_q, 3] rows
+    ``(u, v, bit)`` where bit = 1 iff any shipped ``w ∈ N(u)`` satisfies
+    ``(v -> w)`` locally — i.e. ``N(u) ∩ N(v) != ∅``, the exact reference
+    triangle test (randomwalk.py:226 semantics over full rows)."""
+    flat = np.asarray(flat, np.int64).reshape(-1)
+    n_q, n_rows, n_el = int(flat[0]), int(flat[1]), int(flat[2])
+    if n_q == 0:
+        return np.zeros((0, 3), np.int64)
+    qs = flat[3 : 3 + 2 * n_q].reshape(n_q, 2)
+    rows = flat[3 + 2 * n_q : 3 + 2 * n_q + 2 * n_rows].reshape(n_rows, 2)
+    elems = flat[3 + 2 * n_q + 2 * n_rows :]
+    ru, rl = rows[:, 0], rows[:, 1]
+    roff = np.concatenate([[0], np.cumsum(rl)])
+    qi = np.searchsorted(ru, qs[:, 0])  # exact: sender ships every queried u
+    rep = rl[qi]
+    tot = int(rep.sum())
+    qoff = np.concatenate([[0], np.cumsum(rep)])
+    bits = np.zeros(n_q, np.int64)
+    if tot and len(keys_local):
+        pos = (
+            np.repeat(roff[qi], rep)
+            + np.arange(tot, dtype=np.int64)
+            - np.repeat(qoff[:-1], rep)
+        )
+        w_el = elems[pos]
+        v_rep = np.repeat(qs[:, 1], rep)
+        tkeys = v_rep * n_vertices + w_el
+        p = np.searchsorted(keys_local, tkeys)
+        p_c = np.minimum(p, len(keys_local) - 1)
+        hit = ((p < len(keys_local)) & (keys_local[p_c] == tkeys)).astype(
+            np.int64
+        )
+        nz = rep > 0
+        if nz.any():
+            bits[nz] = np.maximum.reduceat(hit, qoff[:-1][nz])
+    return np.stack([qs[:, 0], qs[:, 1], bits], axis=1)
+
+
+def _propagate_dup_bits(keys: np.ndarray, upd: np.ndarray) -> np.ndarray:
+    """OR each bit across runs of equal (sorted) keys — parallel edges of a
+    directed multigraph share one (src, dst) key but searchsorted lands on
+    the first copy only."""
+    if len(keys) < 2:
+        return upd
+    dup = keys[1:] == keys[:-1]
+    if not dup.any():
+        return upd
+    gid = np.cumsum(np.concatenate([[True], ~dup])) - 1
+    gmax = np.zeros(int(gid[-1]) + 1, bool)
+    np.logical_or.at(gmax, gid, upd)
+    return gmax[gid]
+
+
+def _edge_metadata_ranged(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    weights: np.ndarray,
+    n_ranges: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-edge (rev_enc, pfx) via RANGE-EXCHANGE passes — the multi-host
+    metadata algorithm (ROADMAP item 5: distributed ``_edge_metadata``).
+
+    The global pass needs the whole CSR resident to find each edge's reverse.
+    This variant only ever holds one vertex-range's rows at a time plus the
+    record traffic between two ranges — exactly the shape of a multi-host
+    all-to-all over DCN:
+
+    * producer pass: the owner of vertex ``v`` derives, for each of ITS edges
+      ``(v -> u)``, the reverse metadata OF the mirrored edge ``(u -> v)``
+      — ``rev_w = w(v->u)``, ``pfx`` = weight-CDF prefix of ``u`` within
+      ``N(v)``, and ``deg(v)`` — from purely local rows, and emits a record
+      keyed by ``owner(u)``;
+    * consumer pass: the owner of ``u`` binary-searches each incoming
+      ``(u, v)`` record into its sorted rows and writes the fields;
+    * membership pass (round-4 VERDICT item 5 — previously conservative
+      all-ones): for each edge ``(u -> v)`` whose endpoint degrees put it on
+      the MIN side ((deg(u), u) < (deg(v), v); always when the reverse edge
+      is absent), the owner of ``u`` ships ``N(u)`` once per peer plus the
+      query pairs to ``owner(v)``, which tests ``N(u) ∩ N(v)`` against its
+      sorted keys — total traffic sum(min(deg(u), deg(v))) like the
+      single-host merge — and the answered bit is MIRRORED to the reverse
+      edge in one more record round.  Triangle bits are therefore EXACT:
+      graph-sharded biased walks pay 1/q (not max(1, 1/q)) on non-triangle
+      arrivals, matching the monolithic engine's attempts/step.
+    """
+    n_v = len(indptr) - 1
+    n_e = len(indices)
+    rev_w = np.zeros(n_e, np.float32)
+    pfx = np.zeros(n_e, np.float32)
+    if n_e == 0 or n_v == 0:
+        return rev_w.view(np.int32), pfx
+    v_p = -(-n_v // n_ranges)
+    big = np.int64(np.iinfo(np.int64).max)
+    deg_dst = np.full(n_e, big, np.int64)  # deg(v) of edge (u->v); big = no rev
+    has_bit = np.zeros(n_e, bool)
+
+    def bounds_of(r):
+        lo, hi = r * v_p, min((r + 1) * v_p, n_v)
+        return lo, hi, int(indptr[lo]), int(indptr[hi])
+
+    def local_keys(r):
+        lo, hi, e_lo, e_hi = bounds_of(r)
+        deg = np.diff(indptr[lo : hi + 1])
+        src_rep = np.repeat(np.arange(lo, hi, dtype=np.int64), deg)
+        return src_rep * n_v + indices[e_lo:e_hi]  # sorted (CSR row order)
+
+    # producer pass: per range, records (u, v, rev_w, pfx, deg_v) -> owner(u)
+    rec = [[] for _ in range(n_ranges)]
+    for r in range(n_ranges):
+        lo, hi, e_lo, e_hi = bounds_of(r)
+        if e_hi == e_lo:
+            continue
+        deg = np.diff(indptr[lo : hi + 1])
+        v_ids = np.repeat(np.arange(lo, hi, dtype=np.int64), deg)
+        deg_v = np.repeat(deg.astype(np.int64), deg)
+        u_ids = indices[e_lo:e_hi].astype(np.int64)
+        w_loc = weights[e_lo:e_hi]
+        cw = np.concatenate([[0.0], np.cumsum(w_loc, dtype=np.float64)])
+        row_base = cw[np.repeat(indptr[lo:hi] - e_lo, deg)]
+        pfx_loc = (cw[:-1] - row_base).astype(np.float32)
+        payload = np.stack(
+            [
+                u_ids,
+                v_ids,
+                w_loc.view(np.int32).astype(np.int64),
+                pfx_loc.view(np.int32).astype(np.int64),
+                deg_v,
+            ],
+            axis=1,
+        )
+        owner = np.minimum(u_ids // v_p, n_ranges - 1)
+        order = np.argsort(owner, kind="stable")
+        bnd = np.searchsorted(owner[order], np.arange(n_ranges + 1))
+        for t in range(n_ranges):
+            if bnd[t + 1] > bnd[t]:
+                rec[t].append(payload[order[bnd[t] : bnd[t + 1]]])
+
+    # consumer pass: owner of u matches records to its sorted (u, v) edges
+    for r in range(n_ranges):
+        if not rec[r]:
+            continue
+        rr = np.concatenate(rec[r])
+        lo, hi, e_lo, e_hi = bounds_of(r)
+        keys = local_keys(r)
+        rkeys = rr[:, 0] * n_v + rr[:, 1]
+        pos = np.searchsorted(keys, rkeys)
+        pos_c = np.minimum(pos, max(e_hi - e_lo - 1, 0))
+        found = (pos < e_hi - e_lo) & (keys[pos_c] == rkeys)
+        rev_w[e_lo + pos_c[found]] = (
+            rr[found, 2].astype(np.int32).view(np.float32)
+        )
+        pfx[e_lo + pos_c[found]] = (
+            rr[found, 3].astype(np.int32).view(np.float32)
+        )
+        deg_dst[e_lo + pos_c[found]] = rr[found, 4]
+
+    # membership pass: min-side owners query owner(v) with N(u) shipped once
+    # per peer; queries[r][t] = encoded payload from range r to range t
+    queries = [[None] * n_ranges for _ in range(n_ranges)]
+    for r in range(n_ranges):
+        lo, hi, e_lo, e_hi = bounds_of(r)
+        if e_hi == e_lo:
+            continue
+        deg = np.diff(indptr[lo : hi + 1]).astype(np.int64)
+        u_ids = np.repeat(np.arange(lo, hi, dtype=np.int64), deg)
+        v_ids = indices[e_lo:e_hi].astype(np.int64)
+        d_u = np.repeat(deg, deg)
+        d_v = deg_dst[e_lo:e_hi]
+        selfe = u_ids == v_ids
+        has_bit[e_lo:e_hi] |= selfe  # N(u) ∩ N(u) = N(u), nonempty (deg >= 1)
+        min_side = (d_u < d_v) | ((d_u == d_v) & (u_ids < v_ids))
+        qm = ~selfe & min_side
+        q_owner = np.minimum(v_ids // v_p, n_ranges - 1)
+        for t in range(n_ranges):
+            sel = qm & (q_owner == t)
+            queries[r][t] = _membership_encode(
+                u_ids[sel], v_ids[sel],
+                indptr[lo : hi + 1] - e_lo, indices[e_lo:e_hi], lo,
+            )
+
+    # answer pass + write-back + mirror records
+    mirror = [[] for _ in range(n_ranges)]
+    for t in range(n_ranges):
+        keys_t = local_keys(t)
+        for r in range(n_ranges):
+            if queries[r][t] is None:
+                continue
+            ans = _membership_answer(queries[r][t], keys_t, n_v)
+            if not len(ans):
+                continue
+            # write bits on the querying range's (u -> v) edges
+            lo, hi, e_lo, e_hi = bounds_of(r)
+            keys_r = local_keys(r)
+            akeys = ans[:, 0] * n_v + ans[:, 1]
+            pos = np.searchsorted(keys_r, akeys)  # exact: r owns these edges
+            upd = np.zeros(e_hi - e_lo, bool)
+            np.logical_or.at(upd, pos, ans[:, 2] != 0)
+            has_bit[e_lo:e_hi] |= _propagate_dup_bits(keys_r, upd)
+            # mirror to the reverse edge (v -> u) at owner(v)
+            m_owner = np.minimum(ans[:, 1] // v_p, n_ranges - 1)
+            order = np.argsort(m_owner, kind="stable")
+            bnd = np.searchsorted(m_owner[order], np.arange(n_ranges + 1))
+            for t2 in range(n_ranges):
+                if bnd[t2 + 1] > bnd[t2]:
+                    mirror[t2].append(ans[order[bnd[t2] : bnd[t2 + 1]]])
+
+    for r in range(n_ranges):
+        if not mirror[r]:
+            continue
+        mm = np.concatenate(mirror[r])
+        lo, hi, e_lo, e_hi = bounds_of(r)
+        keys = local_keys(r)
+        mkeys = mm[:, 1] * n_v + mm[:, 0]  # reverse edge (v -> u)
+        pos = np.searchsorted(keys, mkeys)
+        pos_c = np.minimum(pos, max(e_hi - e_lo - 1, 0))
+        found = (pos < e_hi - e_lo) & (keys[pos_c] == mkeys)
+        upd = np.zeros(e_hi - e_lo, bool)
+        np.logical_or.at(upd, pos_c[found], mm[found, 2] != 0)
+        has_bit[e_lo:e_hi] |= _propagate_dup_bits(keys, upd)
+
+    rev_bits = rev_w.view(np.int32)
+    rev_enc = np.where(has_bit, rev_bits | SIGN, rev_bits).astype(np.int32)
+    return rev_enc, pfx
+
+
 def _pack_range(
     indptr: np.ndarray,
     indices: np.ndarray,
@@ -286,6 +559,20 @@ def _pack_range(
     return light, biw, bids, brp
 
 
+def _table_widths(indptr: np.ndarray, light_width: int | None,
+                  block_width: int | None) -> Tuple[int, int]:
+    """(P, C): P defaults to 31, C to the smallest power of two >= 256 that
+    holds the max degree in MAXB blocks; the capacity is checked."""
+    deg = np.diff(indptr)
+    max_deg = int(deg.max()) if len(deg) else 0
+    p_l = 31 if light_width is None else light_width
+    if block_width is None:
+        need = -(-max_deg // _max_blocks(p_l)) if (deg > p_l).any() else 1
+        block_width = max(256, 1 << int(np.ceil(np.log2(max(need, 1)))))
+    _check_capacity(max_deg, p_l, block_width)
+    return p_l, block_width
+
+
 def _check_capacity(max_deg: int, p_l: int, c: int) -> None:
     maxb = _max_blocks(p_l)
     if c % QUADS_PER_ROW:
@@ -362,18 +649,9 @@ def build_blocked_graph(
     indices = np.asarray(indices, dtype=np.int32)
     weights = np.asarray(weights, dtype=np.float32)
     n_v = len(indptr) - 1
-    deg = np.diff(indptr)
-    max_deg = int(deg.max()) if n_v else 0
-
     rev_enc, pfx = _edge_metadata(indptr, indices, weights)
-    p_l = 31 if light_width is None else light_width
-    maxb = _max_blocks(p_l)
-    n_heavy = int((deg > p_l).sum())
-    if block_width is None:
-        need = -(-max_deg // maxb) if n_heavy else 1
-        block_width = max(256, 1 << int(np.ceil(np.log2(max(need, 1)))))
-    c = block_width
-    _check_capacity(max_deg, p_l, c)
+    p_l, c = _table_widths(indptr, light_width, block_width)
+    n_heavy = int((np.diff(indptr) > p_l).sum())
 
     tables = _pack_range(indptr, indices, weights, rev_enc, pfx, 0, n_v, p_l, c,
                          ebase=shared_lists)

@@ -20,13 +20,16 @@ does (``shared_lists``).  With a ``mesh`` (``parallel.make_mesh``) every
 chunk is walked with its walkers sharded over the data axis
 (``parallel.sharded_walk``) and gathered back, so ``run``, ``run_device``
 and ``chunk_source`` give every rank the whole corpus, bit-equal to the
-engine without a mesh.  The edge-partitioned engine (``graph_sharded``,
-``partitioned_graph``, ``strategy="ep_blocked"``) raises
-``NotImplementedError`` naming its ROADMAP item.
+engine without a mesh.  ``graph_sharded=True`` (strategy "ep_blocked")
+partitions the blocked tables themselves over the data axis, each rank
+holding its vertex range, and walks every chunk through the superstep
+exchanges of ``parallel.edge_partitioned_blocked`` (K20–K23); its walks
+equal the blocked engine's too.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -51,11 +54,7 @@ from node2vec_torch.walk.blocked import (
 from node2vec_torch.walk.csr import csr_walk_chunk, search_iters
 from node2vec_torch.walk.dense import build_padded_adjacency, dense_walk_chunk
 
-_NOT_PORTED = {
-    "ep_blocked": "the edge-partitioned walk engine is not ported yet (ROADMAP Queue A item 12)",
-}
-_GRAPH_SHARDED_NOT_PORTED = ("graph_sharded=True (the edge-partitioned walks) is not ported "
-                             "yet (ROADMAP Queue A item 12)")
+logger = logging.getLogger(__name__)
 
 
 class WalkEngine:
@@ -71,8 +70,13 @@ class WalkEngine:
     lists and uses them; "auto" (the default) uses only a prebuilt table
     (``blocked_graph=``) whose overflow weight fraction is <= 0.15, and never
     builds one; False never uses them.  ``graph_sharded=True`` needs a mesh, as
-    in the JAX package (``ValueError`` without one); ``partitioned_graph``
-    is read only by the graph-sharded engine.
+    in the JAX package (``ValueError`` without one), and selects the
+    graph-sharded engine (strategy "ep_blocked"): ``partitioned_graph`` is
+    its prebuilt tables (``partition_blocked_graph`` or
+    ``load_partitioned_graph`` with the mesh), else they are packed here.
+    ``unfinished_count`` sums its walkers stopped at the superstep bound
+    (a warning names each chunk that has some), ``superstep_counts`` its
+    supersteps a chunk.
     """
 
     def __init__(
@@ -88,10 +92,12 @@ class WalkEngine:
         shared_lists="auto",
         device="cuda",
     ):
-        if graph_sharded and mesh is None:
-            raise ValueError("graph_sharded=True requires a mesh")
         if graph_sharded:
-            raise NotImplementedError(_GRAPH_SHARDED_NOT_PORTED)
+            if mesh is None:
+                raise ValueError("graph_sharded=True requires a mesh")
+            strategy = "ep_blocked"
+        if strategy == "ep_blocked" and mesh is None:
+            raise ValueError("strategy 'ep_blocked' (the graph-sharded walks) requires a mesh")
         self.device = resolve_device(device)
         if mesh is not None and mesh.device.type != self.device.type:
             raise ValueError(f"the mesh runs on {mesh.device}, the engine on {self.device}")
@@ -111,9 +117,7 @@ class WalkEngine:
         self.search_iters = search_iters(max_deg)
         if strategy == "auto":
             strategy = "dense" if max_deg <= dense_max_degree else "blocked"
-        if strategy in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[strategy])
-        if strategy not in ("dense", "blocked", "csr"):
+        if strategy not in ("dense", "blocked", "csr", "ep_blocked"):
             raise ValueError(f"unknown walk strategy {strategy!r}")
         self.strategy = strategy
         # checkpoint fingerprints change when the edges change, not just V
@@ -121,6 +125,9 @@ class WalkEngine:
         self._sl_policy = shared_lists
         self.packed_adj = None
         self.bgraph = None
+        self.pgraph = None
+        self.unfinished_count = 0
+        self.superstep_counts: list = []
         # blocked engine: trial-capped accepts and sampling attempts, kept as
         # device scalars and read back only when the property is read
         self._fb_base = 0
@@ -134,6 +141,17 @@ class WalkEngine:
         elif strategy == "csr":
             if self._dgraph is not None:
                 self._check_device("graph", self._dgraph.indptr)
+        elif strategy == "ep_blocked":
+            from node2vec_torch.parallel.edge_partitioned_blocked import (
+                partition_blocked_graph,
+            )
+
+            if partitioned_graph is not None:
+                self._check_device("partitioned_graph", partitioned_graph.light)
+                self.pgraph = partitioned_graph
+            else:
+                self.pgraph = partition_blocked_graph(indptr, indices, weights,
+                                                      mesh.shape["data"], mesh=mesh)
         elif blocked_graph is not None:
             self._check_device("blocked_graph", blocked_graph.light)
             self.bgraph = blocked_graph
@@ -215,11 +233,13 @@ class WalkEngine:
             if self._sl_flags()[0]:
                 per_walker += 144
             return min(chunk, max(1024, (1 << 26) // per_walker))
-        return chunk  # csr: no cap, as in the JAX engine
+        return chunk  # csr and ep_blocked: no cap, as in the JAX engine
 
     def _run_chunk(
         self, chunk_starts: np.ndarray, gid_base: int = 0, seed: int = 0
     ) -> torch.Tensor:
+        if self.strategy == "ep_blocked":
+            return self._run_chunk_ep(chunk_starts, gid_base, seed)
         if self.mesh is not None:
             return self._run_chunk_sharded(chunk_starts, gid_base, seed)
         p = self.params
@@ -283,6 +303,36 @@ class WalkEngine:
             self._att_parts.append(counts[1])
         return mesh.all_gather(local, "data")[:n]
 
+    def _run_chunk_ep(self, chunk_starts: np.ndarray, gid_base: int, seed: int) -> torch.Tensor:
+        """Graph-sharded chunk (node2vec_tpu/walk/engine.py:545): padded with
+        dead lanes to the data axis, each rank walks its block through the
+        superstep exchanges, and the rows are gathered back over the data
+        axis; the unfinished and fallback counts are summed over it."""
+        from node2vec_torch.parallel.edge_partitioned_blocked import (
+            edge_partitioned_blocked_walk,
+        )
+
+        mesh, p = self.mesh, self.params
+        n = len(chunk_starts)
+        n_pad = -(-n // mesh.shape["data"]) * mesh.shape["data"]
+        padded = np.full(n_pad, -1, dtype=np.int32)
+        padded[:n] = chunk_starts
+        stats: dict = {}
+        local, unfin, n_fb = edge_partitioned_blocked_walk(
+            mesh, self.pgraph, torch.from_numpy(padded).to(self.device), gid_base,
+            seed & 0xFFFFFFFF, walk_length=p.walk_length, return_param=float(p.return_param),
+            inout_param=float(p.inout_param), max_trials=p.max_rejection_trials, stats=stats)
+        counts = mesh.all_reduce_sum(torch.stack([unfin, n_fb]), "data")
+        unfin = int(counts[0])
+        self.unfinished_count += unfin
+        self._fb_parts.append(counts[1])
+        self.superstep_counts.append(stats["supersteps"])
+        if unfin:
+            logger.warning("edge-partitioned walk: %d walkers unfinished at the superstep "
+                           "bound (paths truncated but contiguous); raise capacity or slack",
+                           unfin)
+        return mesh.all_gather(local, "data")[:n]
+
     def _starts_one(self, start_vertices: Optional[np.ndarray]) -> np.ndarray:
         """The start vertices, one walk each."""
         if start_vertices is None:
@@ -321,6 +371,7 @@ class WalkEngine:
         start_vertices: Optional[np.ndarray] = None,
         checkpoint_dir: Optional[str] = None,
         timer=None,
+        readback_threads: int = 16,
     ) -> np.ndarray:
         """All walks as a host array [num_starts * num_walks, walk_length+1].
 
@@ -331,7 +382,10 @@ class WalkEngine:
         disk.  On the card each chunk is copied to a pinned host buffer on
         a copy stream while the next chunk's kernel runs.  ``timer`` (a
         ``StepTimer``) records each walked chunk, with the fetch of the
-        chunk before it, as "walk_chunk".
+        chunk before it, as "walk_chunk".  ``readback_threads`` is taken
+        for the JAX signature and not read: the JAX package stripes each
+        fetch over that many streams, where one pinned copy stream already
+        hides the fetch here; the corpus does not depend on it.
         """
         p = self.params
         starts_one = self._starts_one(start_vertices)

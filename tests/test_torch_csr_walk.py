@@ -211,7 +211,8 @@ def test_edgeless_graph_walks_end_at_their_starts():
 
 def test_walk_engine_takes_the_jax_signature():
     """graph_sharded / partitioned_graph as the JAX engine takes them
-    (ROADMAP Queue C 2), and a DeviceGraph as the graph."""
+    (ROADMAP Queue C 2; with a mesh, the graph-sharded engine), and a
+    DeviceGraph as the graph."""
     g = _dyadic_graph()
     eng = WalkEngine(g, Node2VecParams(), graph_sharded=False, partitioned_graph=None,
                      device="cpu")
@@ -220,9 +221,9 @@ def test_walk_engine_takes_the_jax_signature():
         WalkEngine(g, Node2VecParams(), graph_sharded=True, device="cpu")
     from node2vec_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        WalkEngine(g, Node2VecParams(), mesh=make_mesh(device="cpu"), graph_sharded=True,
-                   device="cpu")
+    sharded = WalkEngine(g, Node2VecParams(), mesh=make_mesh(device="cpu"), graph_sharded=True,
+                         partitioned_graph=None, device="cpu")
+    assert sharded.strategy == "ep_blocked" and sharded.bgraph is None
     kw = dict(num_walks=2, walk_length=7, return_param=0.25, inout_param=4.0)
     dg = g.to_device("cpu")
     for strategy in ("csr", "dense", "blocked"):

@@ -323,14 +323,18 @@ def test_pipeline_quality_close_to_jax(ranks):
 def test_pipeline_mesh_cases_that_still_raise(ranks):
     """The row layout trains at 2 x 1 (fit with "row", run_pipeline
     streaming into fit_streaming_sharded: finite losses and vectors, the
-    same on both ranks); the graph-sharded walks still raise naming item
-    12; host_corpus with a mesh is JAX's ValueError."""
+    same on both ranks); the graph-sharded walks (strategy "ep_blocked")
+    give the walker-sharded blocked engine's corpus; the round-1 dense edge-partitioned walk still
+    raises naming item 12; host_corpus with a mesh is JAX's ValueError."""
     res = ranks["pipeline"][0]
     assert len(res["row_fit"]) == W2V["max_iter"] and all(np.isfinite(res["row_fit"]))
     losses, vectors, walks = res["row_streaming"]
     assert len(losses) == W2V["max_iter"] and all(np.isfinite(losses)) and walks is None
     assert vectors.shape == (34, 32) and np.isfinite(vectors).all()
     np.testing.assert_array_equal(ranks["pipeline"][1]["row_streaming"][1], vectors)
+    walks, strategy, replicated = res["graph_sharded_walks"]
+    assert strategy == "ep_blocked"
+    np.testing.assert_array_equal(walks, replicated)
     assert "item 12" in res["graph_sharded"]
     assert "edge-partitioned" in res["graph_sharded"]
     assert "host_corpus" in res["host_corpus"]

@@ -149,15 +149,20 @@ def test_no_silent_cpu_run(karate_edges):
 
 
 def test_unported_pipeline_options_raise(karate_edges):
-    """On a mesh the graph-sharded walks raise naming ROADMAP item 12;
-    without one, graph_sharded=True is the JAX engine's ValueError when the
-    walks start; host_corpus with a mesh is JAX's ValueError; a mesh with
-    the default column layout now walks and trains (a world of one)."""
+    """On a mesh the graph-sharded walks give the single-device blocked
+    engine's walks (a world of one); without one, graph_sharded=True is the JAX engine's
+    ValueError when the walks start; host_corpus with a mesh is JAX's
+    ValueError; a mesh with the default column layout now walks and trains
+    (a world of one)."""
     from node2vec_torch.parallel import make_mesh
 
     mesh = make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
-        Node2Vec(mesh=mesh, graph_sharded=True, device="cpu")
+    sharded = Node2Vec(mesh=mesh, graph_sharded=True, device="cpu")
+    sharded.preprocess_input_graph(karate_edges, directed=False)
+    want = node2vec_torch.WalkEngine(sharded.graph, sharded.n2v_params, strategy="blocked",
+                                     device="cpu").run(seed=sharded.random_seed)
+    np.testing.assert_array_equal(sharded.random_walk(), want)
+    assert sharded._walk_engine().strategy == "ep_blocked"
     no_mesh = Node2Vec(graph_sharded=True, device="cpu")
     no_mesh.preprocess_input_graph(karate_edges, directed=False)
     with pytest.raises(ValueError, match="requires a mesh"):

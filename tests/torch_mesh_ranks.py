@@ -26,6 +26,7 @@ from node2vec_torch.models.vocab import subsample_walks
 from node2vec_torch.models.word2vec import Word2VecTorch
 from node2vec_torch.parallel import (
     col_sgns_epoch,
+    edge_partitioned_walk,
     initialize_distributed,
     make_mesh,
     sharded_blocked_walk_chunk,
@@ -271,8 +272,9 @@ def pipeline(path: str) -> dict:
     q.graph = g
     out["quality"] = q.run_pipeline().vectors.copy()
     # the row layout trains (fit_sharded "row", and run_pipeline streaming
-    # into fit_streaming_sharded); what still raises (ROADMAP item 12), and
-    # the host-corpus guard
+    # into fit_streaming_sharded); the graph-sharded walks give the mesh's
+    # corpus; what still raises (the round-1 dense edge-partitioned walk,
+    # ROADMAP item 12), and the host-corpus guard
     row = Node2Vec(n2v_params=case["n2v"], w2v_params=case["w2v"], mesh=mesh,
                    table_sharding="row", device="cpu")
     row.preprocess_input_graph((src, dst), indexed=True, directed=False)
@@ -283,8 +285,14 @@ def pipeline(path: str) -> dict:
     streamed.preprocess_input_graph((src, dst), indexed=True, directed=False)
     model = streamed.run_pipeline()
     out["row_streaming"] = (model.losses, model.vectors.copy(), streamed.walks)
-    out["graph_sharded"] = _raises(
-        lambda: Node2Vec(mesh=mesh, graph_sharded=True, device="cpu"), NotImplementedError)
+    sharded = Node2Vec(n2v_params=case["n2v"], w2v_params=case["w2v"], random_seed=3,
+                       mesh=mesh, graph_sharded=True, device="cpu")
+    sharded.preprocess_input_graph((src, dst), indexed=True, directed=False)
+    replicated = WalkEngine(sharded.graph, sharded.n2v_params, strategy="blocked", mesh=mesh,
+                            device="cpu")
+    out["graph_sharded_walks"] = (sharded.random_walk().copy(), sharded._walk_engine().strategy,
+                                  replicated.run(seed=3))
+    out["graph_sharded"] = _raises(edge_partitioned_walk, NotImplementedError)
     out["host_corpus"] = _raises(
         lambda: Node2Vec(mesh=mesh, host_corpus=True, device="cpu"), ValueError)
     return out
