@@ -32,8 +32,17 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
      every superstep holds each kernel to its plain version, bit-equal,
      at the full capacity and at 1/8 of it (lanes defer; slack 16), and
      both walks equal K5's on the same walkers (``check_ep_walk``);
+   - K24 epd_bucket, K25 epd_serve and K26 epd_advance (the dense
+     graph-sharded walk's superstep) at main_path_epd's first chunk (the
+     dense graph's packed adjacency, P = 64, on the 1 x 1 mesh's one shard,
+     131,072 walkers x 20 at (0.25, 4), the same draws for both): every
+     superstep holds each kernel's whole buffers to its plain version's,
+     bit-equal, at the full capacity and at 1/8 of it (lanes defer and some
+     are unfinished at the bound), and both walks equal the mesh path's
+     (``check_ep_dense``);
 4. edge cases the main paths do not reach (K1 at P = 8 .. 256 with sinks,
-   dead lanes and general weights; the SGNS step at other shapes; K5 with
+   dead lanes and general weights; K1 and K25 at P = 48, a width that is
+   not a power of two; the SGNS step at other shapes; K5 with
    sinks and dead lanes, at P = 8 / C = 64, on a hub of degree 20,000
    (C = 512), and on general weights by chi-square with a heavy current
    vertex and a heavy previous vertex), and a small reference: the
@@ -78,7 +87,12 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    and the graph-sharded walks (``_ep_rank_checks``): the engine on an
    RMAT bit-equal to one device's, a deferring capacity bit-equal to K5,
    and slack 0, which truncates, equal to the plain versions on CPU
-   tensors;
+   tensors; the dense graph-sharded walk (``_epd_rank_checks``: a
+   4,096-vertex ER graph split over the two ranks, a deferring capacity,
+   the kernels against the plain versions on CPU tensors) and the
+   distributed build (``_build_rank_checks``: each rank's half of the
+   scale-14 RMAT's edge list through ``run_distributed``, its shard equal
+   to ``partition_blocked_graph``'s, the ep walk on it equal to K5's);
 6c. the graph-sharded main path, ``main_path_ep``: ``Node2Vec(mesh=
    make_mesh(1, 1), graph_sharded=True)`` over NCCL through
    ``run_pipeline()`` on the RMAT of 3. with N2V_MAIN (max_iter cut to 1,
@@ -87,6 +101,16 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    unfinished; partition seconds, shard bytes, supersteps a chunk, walk
    steps/s beside 6.'s, peak memory, and the profiled walk of 4 chunks
    (idle share, the collectives' host share);
+6d. the dense graph-sharded main path, ``main_path_epd``:
+   ``edge_partitioned_walk`` on ``make_mesh(1, 1)`` over NCCL on the dense
+   graph of 5. (P = 64), p = 0.25, q = 4, walk_length 20, 10 chunks of a
+   walker at every vertex (K24, K25 and K26 once a superstep, K1 never):
+   every hop of 2,000 walks an edge, none unfinished, a chi-square of the
+   second-order transition out of the vertex of largest degree (a chunk of
+   131,072 walkers started there); supersteps a chunk, walk steps/s beside
+   K1's on the same device-resident starts, host ms a superstep, the
+   profiled walk of 2 chunks (idle share, the collectives' share) and peak
+   memory;
 7. the streaming main path: the same Node2Vec on the same RMAT through
    ``run_pipeline()`` with no argument, which streams over its 40 walker
    chunks (max_iter cut to 1): K5 40 times for the counting pass and 40
@@ -184,10 +208,14 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    memory, SGNS and HS at dim 256 through fit at the SGNS and HS limits,
    CBOW-NS at dim 256 and CBOW-HS at dim 512 through fit for one epoch and
    8 steps of ``sgns_train_step`` at dim 256 (every K2, K8, K9, K10, K13
-   launch staged in global memory, losses and tables finite);
+   launch staged in global memory, losses and tables finite); before it,
+   the SGNS limits on walks by ``edge_partitioned_walk`` at 1 x 1 trained
+   by ``fit`` (``quality_epd``), and through the port's CLI, index -> walk
+   -> embed -> eval in subprocesses with ``--device cuda`` (``quality_cli``);
 11. the ``kernels`` line (times, bounds, launches, errors; K16, K17 and K3's
    squares mode from 6a.; K20-K23 from 6c. (K20's time and bound are its
-   two launches of a superstep, phases A and B); K18, K19's gather and pack and K2's routed mode
+   two launches of a superstep, phases A and B); K24-K26 from 6d. (K24's
+   two launches summed); K18, K19's gather and pack and K2's routed mode
    from 9a'., K8's routed mode from its HS run; K6 once for each
    JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists,
    once for CBOW-HS's and once for the pair step's, K2 once more at row
@@ -278,6 +306,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -287,11 +316,12 @@ from node2vec_torch import Node2Vec, _build, ops, random_walk, trim_index
 from node2vec_torch.constants import Node2VecParams, Word2VecParams
 from node2vec_torch.datasets import (
     holdout_link_prediction,
+    holdout_split,
     label_cosine_gap,
     synthetic_multilabel,
     train_embeddings,
 )
-from node2vec_torch.eval import walk_transition_pvalue
+from node2vec_torch.eval import link_prediction_auc, walk_transition_pvalue
 from node2vec_torch.graph import build_graph, from_edge_arrays
 from node2vec_torch.models import cbow
 from node2vec_torch.models import hsoftmax as hs
@@ -307,6 +337,8 @@ from node2vec_torch.models.vocab import (
 )
 from node2vec_torch.models.word2vec import Word2VecTorch, _effective_batch, _streaming_counts
 from node2vec_torch.ops import alias as alias_mod
+from node2vec_torch.parallel import distributed_build as dbuild
+from node2vec_torch.parallel import edge_partitioned as epd
 from node2vec_torch.parallel import edge_partitioned_blocked as ep
 from node2vec_torch.parallel import launch, make_mesh
 from node2vec_torch.parallel import rowsharded_hs as rh
@@ -397,6 +429,13 @@ SOURCES = {
                   "node2vec_tpu/parallel/edge_partitioned_blocked.py:527"),
     "ep_advance": ("node2vec_torch/csrc/ep_walk.cu",
                    "node2vec_tpu/parallel/edge_partitioned_blocked.py:554"),
+    # the dense graph-sharded walk's superstep (parallel/edge_partitioned.py:92 shard_fn)
+    "epd_bucket": ("node2vec_torch/csrc/epd_walk.cu",
+                   "node2vec_tpu/parallel/edge_partitioned.py:104"),
+    "epd_serve": ("node2vec_torch/csrc/epd_walk.cu",
+                  "node2vec_tpu/parallel/edge_partitioned.py:143"),
+    "epd_advance": ("node2vec_torch/csrc/epd_walk.cu",
+                    "node2vec_tpu/parallel/edge_partitioned.py:185"),
 }
 # the walk-at-a-time step kernels staging in global memory (csrc/staging.cuh)
 for _k in ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads", "sgns_pair_grads",
@@ -446,7 +485,10 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("ep_bucket", "ep_bucket", "main_path_ep"),
         ("ep_propose", "ep_propose", "main_path_ep"),
         ("ep_member", "ep_member", "main_path_ep"),
-        ("ep_advance", "ep_advance", "main_path_ep"))
+        ("ep_advance", "ep_advance", "main_path_ep"),
+        ("epd_bucket", "epd_bucket", "main_path_epd"),
+        ("epd_serve", "epd_serve", "main_path_epd"),
+        ("epd_advance", "epd_advance", "main_path_epd"))
 GRADS = ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads")  # one per objective
 ADAGRAD = ("adagrad_accumulate", "adagrad_apply")
 SGD = ("preagg_rows", "sgd_apply")  # SGNS with optimizer="sgd"
@@ -4418,6 +4460,495 @@ def main_path_ep(mesh, rmat_src, rmat_dst, blocked_line: dict, blocked_walks: to
     return out
 
 
+# --------------------------------------------------------------------------- #
+# the dense graph-sharded walk: K24-K26
+# --------------------------------------------------------------------------- #
+
+EPD_KERNELS = ("epd_bucket", "epd_serve", "epd_advance")
+
+
+def _epd_bounds(carry, after, slot, send, n_req: int, p_cols: int, walk_length: int,
+                uniform: bool) -> dict:
+    """(least bytes, compares) of each of K24-K26 in one superstep of these
+    inputs at one shard (the exchanges are the identity, so K25 serves
+    ``send``): ``carry`` the state before it, ``after`` after it; each byte
+    read or written once, and only where this superstep's data needs it.
+    K24 reads ALIVE of every lane, CURSOR of the alive, CUR of the active,
+    and PREV, the uniform and the carried row of each lane that sends, and
+    writes the filled slots whole, an empty slot its field 0 and every
+    lane's slot.  K25 reads the valid requests (an empty one its field 0)
+    and the distinct rows (2P * 4 B), writes the valid responses (an empty
+    one its field 0), and compares P^2 ids a biased request.  K26 reads
+    every slot and ALIVE, CURSOR of the alive lanes and the response's
+    field 0 of each lane that sent; a lane that steps reads CUR and its
+    response row and writes its path entry, CURSOR, PREV, CUR and its
+    carried row; a lane that dies writes ALIVE."""
+    n = carry.shape[1]
+    alive = carry[epd.ALIVE] != 0
+    active = alive & (carry[epd.CURSOR] < walk_length)
+    n_alive, n_active = int(alive.sum()), int(active.sum())
+    sent = int((slot < n_req).sum())
+    valid = send[:, 0] >= 0
+    n_valid = int(valid.sum())
+    rows = int(torch.unique(send[valid, 0]).numel())
+    biased = 0 if uniform else int((valid & (send[:, 1] >= 0)).sum())
+    stepped = int((after[epd.CURSOR] > carry[epd.CURSOR]).sum())
+    died = int((alive & (after[epd.ALIVE] == 0)).sum())
+    row = p_cols * 4
+    bucket = (n * 4 + n_alive * 4 + n_active * 4 + sent * (8 + row) + sent * (12 + row)
+              + (n_req - sent) * 4 + n * 4)
+    serve = (n_valid * (12 + row) + (n_req - n_valid) * 4 + rows * 2 * row
+             + n_valid * (4 + row) + (n_req - n_valid) * 4)
+    advance = n * 8 + n_alive * 4 + sent * 4 + stepped * (20 + 2 * row) + died * 4
+    return {"epd_bucket": (bucket, 0), "epd_serve": (serve, biased * p_cols * p_cols),
+            "epd_advance": (advance, 0)}
+
+
+class _EpdCheckedOps(_CheckedOps):
+    """``epd.superstep``'s ops for ``check_ep_dense``: each runs the kernel
+    and its plain version on the same inputs, keeps the largest difference
+    of their whole buffers in ``diff`` and returns the kernel's result;
+    while ``timing`` is a dict, each is also timed, and ``seen`` keeps
+    what the bounds count."""
+
+    def bucket(self, carry, prev_rows, u, **kw):
+        def kernel():
+            return epd.epd_bucket(carry, prev_rows, u, **kw)
+
+        def plain():
+            return epd.epd_bucket_plain(carry, prev_rows, u, **kw)
+
+        got = kernel()
+        self._check("epd_bucket", got, plain(), kernel, plain)
+        self.seen["bucket"] = got
+        return got
+
+    def serve(self, recv, local_adj, **kw):
+        def kernel():
+            return epd.epd_serve(recv, local_adj, **kw)
+
+        def plain():
+            return epd.epd_serve_plain(recv, local_adj, **kw)
+
+        got = kernel()
+        self._check("epd_serve", (got,), (plain(),), kernel, plain)
+        return got
+
+    def advance(self, carry, prev_rows, paths, slot, back, **kw):
+        saved = [t.clone() for t in (carry, prev_rows, paths)]
+        scratch = [t.clone() for t in saved]
+
+        def restore():  # K26 advances its state in place: each timed call starts afresh
+            for dst, src in zip(scratch, saved):
+                dst.copy_(src)
+
+        def kernel():
+            return epd.epd_advance(*scratch, slot, back, **kw)
+
+        def plain():
+            return epd.epd_advance_plain(*[t.clone() for t in saved], slot, back, **kw)
+
+        plain_state = [t.clone() for t in saved]
+        want = epd.epd_advance_plain(*plain_state, slot, back, **kw)
+        pending = epd.epd_advance(carry, prev_rows, paths, slot, back, **kw)
+        self._check("epd_advance", (carry, prev_rows, paths, pending), (*plain_state, want),
+                    kernel, plain, restore)
+        self.seen["carry"] = (saved[0], carry.clone())
+        return pending
+
+
+def check_ep_dense(mesh, graph, n_walkers: int, walk_length: int, results: dict) -> None:
+    """K24-K26 against their plain versions at main_path_epd's first chunk:
+    the dense graph's packed adjacency (P = 64) as the 1 x 1 mesh's one
+    shard, ``n_walkers`` walkers x ``walk_length`` at (p, q) = (0.25, 4),
+    the same uniforms (the default draws of seed 0) for both.  Every
+    superstep is the module's ``epd.superstep`` through ``_EpdCheckedOps``,
+    which holds each kernel's whole buffers (requests and slots; responses;
+    state, carried rows, paths and pending count) to its plain version's,
+    bit-equal (unit weights and powers of two make every sum exact); first
+    at the full capacity (timed and bounded at the second superstep), then
+    at 1/8 of it, which defers and leaves walkers unfinished at the bound.
+    Both walks must equal the one ``edge_partitioned_walk`` gives through
+    the mesh on the same draws."""
+    dev = torch.device("cuda")
+    p, q = EP_PQ
+    t0 = time.perf_counter()
+    packed = dense.build_padded_adjacency(graph.indptr, graph.indices, graph.weights)
+    padded, rps = epd.partition_packed_adjacency(packed, 1)
+    local = torch.from_numpy(padded).to(dev)
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    p_cols = local.shape[1] // 2
+    starts = torch.arange(n_walkers, dtype=torch.int32, device=dev) % graph.n_vertices
+    bound = epd.max_supersteps(walk_length)
+    draws = epd.default_draws(0, 0, n_walkers, dev)
+    us = [draws(t) for t in range(bound)]
+    kw = dict(n_shards=1, rows_per_shard=rps, my_shard=0, walk_length=walk_length,
+              return_param=p, inout_param=q)
+    for cap in (n_walkers, n_walkers // 8):
+        carry = epd.init_carry(starts)
+        prev_rows = torch.full((n_walkers, p_cols), int(dense.PAD_ID), dtype=torch.int32,
+                               device=dev)
+        paths = torch.full((n_walkers, walk_length + 1), -1, dtype=torch.int32, device=dev)
+        paths[:, 0] = starts
+        ops = _EpdCheckedOps()
+        timing = None
+        t = 0
+        while t < bound:
+            # the second superstep at full capacity is timed: every walker
+            # steps there, at second order
+            ops.timing = {} if cap == n_walkers and t == 1 else None
+            pending = epd.superstep(ops, None, "data", local, carry, prev_rows, paths, us[t],
+                                    capacity=cap, **kw)
+            if ops.timing is not None:
+                timing = ops.timing
+                send, slot = ops.seen["bucket"]
+                bounds = _epd_bounds(*ops.seen["carry"], slot, send, cap, p_cols, walk_length,
+                                     False)
+                for name in EPD_KERNELS:
+                    b_ms, b_by = bound_ms(*bounds[name])
+                    timing[name].update(bound_bytes=bounds[name][0], bound_ops=bounds[name][1],
+                                        bound_ms=b_ms, bound_by=b_by)
+            t += 1
+            if int(pending) == 0:
+                break
+        unfinished = int(pending)
+        diff = ops.diff
+        st: dict = {}
+        via_mesh = epd.edge_partitioned_walk(mesh, local, rps, starts, 0, capacity=cap,
+                                             walk_length=walk_length, return_param=p,
+                                             inout_param=q, draws=lambda i: us[i], stats=st)
+        torch.cuda.synchronize()
+        line = {"phase": "check", "kernel": "ep_dense_walk", "capacity": cap,
+                "walkers": n_walkers, "walk_length": walk_length, "p": p, "q": q, "P": p_cols,
+                "lanes_deferred_at_superstep_0": max(n_walkers - cap, 0), "supersteps": t,
+                "max_abs_err": diff, "bit_equal": all(v == 0 for v in diff.values()),
+                "unfinished": unfinished,
+                "bit_equal_through_mesh": bool(torch.equal(via_mesh, paths))
+                and st["unfinished"] == unfinished,
+                "partition_s": part_s, "shard_bytes": int(local.numel() * 4)}
+        if timing is not None:
+            line["second_superstep"] = timing
+        emit(line)
+        require(line["bit_equal"], f"K24-K26 differ from their plain versions at capacity {cap}: "
+                                   f"{diff}")
+        require(line["bit_equal_through_mesh"], f"the dense ep walk through the mesh differs ({cap})")
+        if cap < n_walkers:
+            require(t == bound and unfinished > 0, "the small capacity left no walker unfinished")
+        else:
+            require(unfinished == 0 and t == walk_length,
+                    f"{unfinished} walkers unfinished after {t} supersteps at full capacity")
+            for name in EPD_KERNELS:
+                results[name] = {"max_abs_err": diff[name], "library_ms": None,
+                                 **{k: timing[name][k] for k in (
+                                     "ms", "plain_ms", "bound_ms", "bound_by")}}
+    del local, us
+
+
+def edge_cases_wide_rows(mesh) -> None:
+    """K1 and K25 at P = 48, a row width that ``build_padded_adjacency``
+    never makes (it rounds P up to a power of two) but a caller's packed
+    adjacency may have: a lane then owns ceil(48 / 32) = 2 columns and
+    lanes 24-31 none.  Rows of up to 40 neighbours (a directed random graph
+    of 600 vertices, weights {0.5, 1, 2}, the last 20 sinks) packed at
+    P = 64 and cut to 48 columns of ids and weights; K1 against its plain
+    version, and the dense graph-sharded walk (K24-K26) against its plain
+    version on the same draws, at (0.25, 4) and (1, 1), bit-equal."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    n, max_deg = 600, 40
+    deg = rng.integers(1, max_deg + 1, n - 20)
+    deg[0] = max_deg
+    src = np.repeat(np.arange(n - 20), deg).astype(np.int32)
+    dst = rng.integers(0, n, len(src)).astype(np.int32)
+    w = rng.choice(np.float32([0.5, 1.0, 2.0]), len(src))
+    g = from_edge_arrays(src, dst, w, n_vertices=n, directed=True)
+    packed64 = dense.build_padded_adjacency(g.indptr, g.indices, g.weights)
+    require(packed64.shape[1] == 128, f"packed at P = {packed64.shape[1] // 2}")
+    packed = np.ascontiguousarray(np.concatenate([packed64[:, :48], packed64[:, 64:112]], 1))
+    adj = torch.from_numpy(packed).to(dev)
+    starts = torch.arange(n, dtype=torch.int32, device=dev).repeat(2)
+    starts[::13] = -1
+    us = [torch.rand(starts.shape[0], generator=torch.Generator(device=dev).manual_seed(t),
+                     device=dev) for t in range(epd.max_supersteps(12))]
+    line = {"phase": "edge_case", "kernel": "dense_walk, epd_serve", "P": 48,
+            "vertices_above_32_neighbours": int((np.diff(g.indptr) > 32).sum())}
+    for p, q in ((0.25, 4.0), (1.0, 1.0)):
+        kw = dict(walk_length=12, return_param=p, inout_param=q)
+        got = dense.dense_walk_chunk(adj, starts, 7, 5, **kw)
+        want = dense.dense_walk_chunk_plain(adj, starts, 7, 5, **kw)
+        require(torch.equal(got, want), f"dense_walk differs at P = 48, p={p} q={q}")
+        got = epd.edge_partitioned_walk(mesh, adj, n, starts, 0, draws=lambda t: us[t], **kw)
+        want = epd.edge_partitioned_walk_plain(mesh, adj, n, starts, 0, draws=lambda t: us[t],
+                                               **kw)
+        require(torch.equal(got, want), f"the dense ep walk differs at P = 48, p={p} q={q}")
+        line[f"steps_at_p{p}_q{q}"] = int((got[:, 1:] >= 0).sum())
+    line["bit_equal"] = True
+    emit(line)
+
+
+def main_path_epd(mesh, src, dst) -> dict:
+    """``edge_partitioned_walk`` on ``make_mesh(1, 1)`` over NCCL: the dense
+    graph of main_path (131,072 vertices, P = 64) partitioned over the data
+    axis, N2V_MAIN's p, q and walk_length, 10 chunks of a walker at every
+    vertex (seeds 0..9, the default draws): K24, K25 and K26 once a
+    superstep, K1 never.  Checks: every hop of 2,000 walks is an edge, none
+    unfinished, and the second-order transition from the vertex of largest
+    degree to its most visited neighbour, on a chunk of 131,072 walkers
+    started there, passes a chi-square against the analytic distribution.
+    Reports supersteps a chunk, walk steps/s beside K1's on the same
+    device-resident starts (``dense_walk_chunk``, the same 10 chunks, both
+    spans ending at a synchronize, no host copy), the host time a
+    superstep, the profiled walk of 2 chunks (idle share, the collectives'
+    host share) and peak memory."""
+    p, q = EP_PQ
+    length = N2V_MAIN["walk_length"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph = build_graph((src, dst), indexed=True, directed=False)
+    t1 = time.perf_counter()
+    packed = dense.build_padded_adjacency(graph.indptr, graph.indices, graph.weights)
+    padded, rps = epd.partition_packed_adjacency(packed, mesh.shape["data"])
+    d = mesh.coords["data"]
+    local = torch.from_numpy(padded[d * rps: (d + 1) * rps]).to(mesh.device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    starts = torch.arange(graph.n_vertices, dtype=torch.int32, device=mesh.device)
+    kw = dict(walk_length=length, return_param=p, inout_param=q)
+    n_chunks = N2V_MAIN["num_walks"]
+    _build.reset_launches()
+    mesh.collectives.clear()
+    chunks, supersteps, unfinished = [], [], 0
+    t3 = time.perf_counter()
+    for i in range(n_chunks):
+        st: dict = {}
+        chunks.append(epd.edge_partitioned_walk(mesh, local, rps, starts, i, stats=st, **kw))
+        supersteps.append(st["supersteps"])
+        unfinished += st["unfinished"]
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t3
+    launches = _launches()
+    collectives = {f"{op}:{axis}": k for (op, axis), k in mesh.collectives.items()}
+    walks = torch.cat(chunks).cpu().numpy()
+    del chunks
+    steps = int((walks[:, 1:] >= 0).sum())
+    peak = torch.cuda.max_memory_allocated()
+    packed_dev = torch.from_numpy(packed).to(mesh.device)
+    dense.dense_walk_chunk(packed_dev, starts, 0, 0, **kw)  # warm-up
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    k1_steps = sum((dense.dense_walk_chunk(packed_dev, starts, i * graph.n_vertices, i, **kw)
+                    [:, 1:] >= 0).sum() for i in range(n_chunks))
+    torch.cuda.synchronize()
+    k1_s = time.perf_counter() - t4
+    k1_steps = int(k1_steps)
+    del packed_dev
+    prof = breakdown((("dense ep walk, 2 of the chunks (1 x 1)",
+                       lambda: [epd.edge_partitioned_walk(mesh, local, rps, starts, i, **kw)
+                                for i in range(2)]),))[0]
+    v0 = int(np.argmax(np.diff(graph.indptr)))
+    from_v0 = epd.edge_partitioned_walk(mesh, local, rps, torch.full_like(starts, v0), n_chunks,
+                                        **kw).cpu().numpy()
+    cur = int(np.bincount(from_v0[:, 1]).argmax())
+    pvalue = walk_transition_pvalue(graph, from_v0, v0, cur, p, q)
+    out = {
+        "phase": "main_path_epd", "mesh": mesh.shape, "backend": mesh.backend,
+        "n_vertices": graph.n_vertices, "P": int(packed.shape[1] // 2), "p": p, "q": q,
+        "walks": list(walks.shape), "walk_steps": steps, "walk_chunks": n_chunks,
+        "supersteps_per_chunk": supersteps, "unfinished": unfinished,
+        "preprocess_s": t1 - t0, "partition_s": t2 - t1, "shard_bytes": int(local.numel() * 4),
+        "walk_s": walk_s, "walk_steps_per_s": steps / walk_s,
+        "k1_walk_s": k1_s, "k1_walk_steps_per_s": k1_steps / k1_s,
+        "host_ms_per_superstep": walk_s / sum(supersteps) * 1e3,
+        "collectives": collectives, "profiled_walk_s": prof["wall_ms"] / 1e3,
+        "idle_share": prof["idle_share"],
+        **{k: prof.get(k) for k in ("collective_host_share", "collective_device_share")},
+        "transition": {"prev": v0, "cur": cur, "pvalue": pvalue},
+        "peak_device_memory_bytes": int(peak), "launches": launches,
+    }
+    emit(out)
+    require(walks.shape == (n_chunks * graph.n_vertices, length + 1), f"walks {walks.shape}")
+    require(bool((walks[:, 0] >= 0).all()), "a start vertex is missing")
+    check_steps(graph, walks)
+    require(unfinished == 0, f"{unfinished} walkers unfinished")
+    require(pvalue is not None and pvalue > 1e-4, f"transition chi-square p-value {pvalue}")
+    n_steps = sum(supersteps)
+    for k in EPD_KERNELS:
+        require(launches[k] == n_steps, f"{k} launched {launches[k]} times, {n_steps} supersteps")
+    require(launches["dense_walk"] == 0, "main_path_epd launched K1")
+    del local
+    return out
+
+
+def _epd_embed(mesh, graph, n2v, w2v, seed: int) -> np.ndarray:
+    """``edge_partitioned_walk`` at 1 x 1 (num_walks walkers a vertex in one
+    chunk, the WalkEngine's row order), then ``Word2VecTorch.fit``."""
+    packed = dense.build_padded_adjacency(graph.indptr, graph.indices, graph.weights)
+    padded, rps = epd.partition_packed_adjacency(packed, 1)
+    starts = torch.arange(graph.n_vertices, dtype=torch.int32,
+                          device="cuda").repeat(n2v.num_walks)
+    walks = epd.edge_partitioned_walk(mesh, torch.from_numpy(padded).cuda(), rps, starts, seed,
+                                      walk_length=n2v.walk_length, return_param=n2v.return_param,
+                                      inout_param=n2v.inout_param)
+    return Word2VecTorch(w2v, device="cuda").fit(walks, n_vertices=graph.n_vertices).vectors
+
+
+def quality_epd(mesh) -> dict:
+    """The SGNS gates on synthetic_multilabel(2000, seed=0) walked by
+    ``edge_partitioned_walk`` at 1 x 1 and trained by ``fit``, with the
+    protocol of ``holdout_link_prediction`` (edges held out before the
+    walks) and ``label_cosine_gap`` (the full graph)."""
+    g, labels = synthetic_multilabel(2000, seed=0)
+    n2v = Node2VecParams(num_walks=8, walk_length=40)
+    w2v = Word2VecParams(min_count=1, max_iter=5, vector_size=128)
+    t0 = time.perf_counter()
+    kept, pos, neg = holdout_split(g, 0.2, 0)
+    g_train = from_edge_arrays(*kept, n_vertices=g.n_vertices, directed=True)
+    emb = _epd_embed(mesh, g_train, n2v, w2v, 0)
+    emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
+    auc = link_prediction_auc(emb, pos, neg)
+    gap = label_cosine_gap(_epd_embed(mesh, g, n2v, w2v, 0), labels, n_pairs=200_000, seed=0)
+    out = {"phase": "quality", "graph": "synthetic_multilabel(2000, seed=0)",
+           "trainer": "edge_partitioned_walk (1 x 1) -> fit", "objective": "sgns",
+           "holdout_link_auc": auc, "auc_min": 0.60, "label_cosine_gap": gap, "gap_min": 0.05,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    require(auc >= 0.60, f"dense ep walk: held-out link AUC {auc} < 0.60")
+    require(gap >= 0.05, f"dense ep walk: label cosine gap {gap} < 0.05")
+    return out
+
+
+def quality_cli() -> dict:
+    """The SGNS gates through the port's CLI: index -> walk -> embed -> eval
+    (``python -m node2vec_torch.cli``, ``--device cuda``, each stage a
+    subprocess, in a temporary work directory) on synthetic_multilabel(2000,
+    seed=0) at the gates' parameters: num_walks 8, walk_length 40, dim 128,
+    5 epochs, min_count 1 and ``--lr 0.2``, Word2VecParams' own step size
+    (the CLI's default, 0.025 as in the JAX package's CLI, is gensim's SGD
+    rate); eval's held-out AUC and the label gap of the saved model's
+    vectors."""
+    g, labels = synthetic_multilabel(2000, seed=0)
+    workdir = tempfile.mkdtemp(prefix="n2v_cli_")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
+    seconds = {}
+
+    def stage(name: str, *args: str) -> str:
+        ts = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "node2vec_torch.cli", name, *args],
+                             capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+        seconds[name] = time.perf_counter() - ts
+        require(out.returncode == 0, f"cli {name} failed:\n{out.stdout[-2000:]}"
+                                     f"{out.stderr[-4000:]}")
+        return out.stdout
+
+    try:
+        edges = os.path.join(workdir, "edges.npz")
+        np.savez(edges, src=np.repeat(np.arange(g.n_vertices), np.diff(g.indptr)),
+                 dst=g.indices, weight=g.weights)
+        run = os.path.join(workdir, "run")
+        stage("index", "--input", edges, "--workdir", run, "--indexed", "--undirected")
+        stage("walk", "--workdir", run, "--num-walks", "8", "--walk-length", "40",
+              "--device", "cuda")
+        stage("embed", "--workdir", run, "--dim", "128", "--epochs", "5", "--min-count", "1",
+              "--lr", "0.2", "--device", "cuda")
+        result = json.loads(stage("eval", "--workdir", run, "--device", "cuda")
+                            .strip().splitlines()[-1])
+        with np.load(os.path.join(run, "model.npz")) as z:
+            emb = z["emb_in"]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    auc = result["value"]
+    gap = label_cosine_gap(emb, labels, n_pairs=200_000, seed=0)
+    out = {"phase": "quality", "graph": "synthetic_multilabel(2000, seed=0)",
+           "trainer": "python -m node2vec_torch.cli index -> walk -> embed -> eval",
+           "objective": "sgns", "eval": result, "holdout_link_auc": auc, "auc_min": 0.60,
+           "label_cosine_gap": gap, "gap_min": 0.05, "stage_seconds": seconds}
+    emit(out)
+    require(result["metric"] == "holdout_link_auc", f"cli eval printed {result}")
+    require(auc >= 0.60, f"cli: held-out link AUC {auc} < 0.60")
+    require(gap >= 0.05, f"cli: label cosine gap {gap} < 0.05")
+    return out
+
+
+def _epd_rank_checks(mesh) -> dict:
+    """The dense graph-sharded walk on a rank of the 2 x 1 gloo mesh: a
+    unit-weight ER graph (4,096 vertices, 65,536 drawn edges) partitioned
+    over the two ranks, 8,192 walkers x 20 at (0.25, 4) and a capacity that
+    defers (each rank sends each owner at most a quarter of its walkers a
+    superstep), the kernels' walk on CUDA tensors against the plain
+    versions' on CPU tensors, on the same draws: gathered paths and counts
+    bit-equal."""
+    d, n = mesh.coords["data"], mesh.shape["data"]
+    g = build_graph(smoke_edges(4096, 65536), directed=False)
+    packed = dense.build_padded_adjacency(g.indptr, g.indices, g.weights)
+    padded, rps = epd.partition_packed_adjacency(packed, n)
+    local = torch.from_numpy(padded[d * rps: (d + 1) * rps])
+    w = 8192
+    starts = torch.arange(w, dtype=torch.int32) % g.n_vertices
+    length = N2V_MAIN["walk_length"]
+    draws = epd.default_draws(0, d, w // n, "cuda")
+    us = [draws(t) for t in range(epd.max_supersteps(length))]
+    us_cpu = [u.cpu() for u in us]
+    kw = dict(walk_length=length, return_param=EP_PQ[0], inout_param=EP_PQ[1],
+              capacity=w // n // 4)
+    _build.reset_launches()
+    st_k, st_p = {}, {}
+    got = epd.edge_partitioned_walk(mesh, local.cuda(), rps, starts.cuda(), 0,
+                                    draws=lambda t: us[t], stats=st_k, **kw)
+    want = epd.edge_partitioned_walk_plain(mesh, local, rps, starts, 0,
+                                           draws=lambda t: us_cpu[t], stats=st_p, **kw)
+    got, want = mesh.all_gather(got, "data").cpu(), mesh.all_gather(want, "data")
+    out = {"capacity": kw["capacity"], "supersteps": st_k["supersteps"],
+           "unfinished": st_k["unfinished"],
+           "bit_equal_to_plain": bool(torch.equal(got, want)) and st_k == st_p,
+           "launches": {k: int(_build.launches[k]) for k in EPD_KERNELS}}
+    require(out["bit_equal_to_plain"], "the dense ep walk at 2 x 1 differs from its plain version")
+    require(st_k["supersteps"] > length, "the deferring capacity deferred no lane")
+    require(all(v > 0 for v in out["launches"].values()), f"epd launches {out['launches']}")
+    return out
+
+
+def _build_rank_checks(mesh, rmat_src, rmat_dst, g_rmat) -> dict:
+    """The distributed build on a rank of the 2 x 1 gloo mesh: this rank's
+    half of the RMAT's edge list through ``run_distributed`` (indexed,
+    undirected, max_out_degree 10,000, seed 0); the assembled shard must
+    equal ``partition_blocked_graph``'s (ranged metadata) of the monolithic
+    build, and the graph-sharded blocked walk on it K5's on the monolithic
+    tables (8,192 walkers x 20 at (0.25, 4))."""
+    nparts, pid = mesh.n_devices, mesh.rank
+    cuts = np.linspace(0, len(rmat_src), nparts + 1).astype(np.int64)
+    part = slice(int(cuts[pid]), int(cuts[pid + 1]))
+    ts = time.perf_counter()
+    res = dbuild.run_distributed(dbuild.build_participant(
+        pid, nparts, rmat_src[part], rmat_dst[part], indexed=True, directed=False,
+        max_out_degree=10_000, random_seed=0), mesh)
+    build_s = time.perf_counter() - ts
+    assembled = dbuild.assemble_partitioned(res, mesh=mesh)
+    mono = ep.partition_blocked_graph(g_rmat.indptr, g_rmat.indices, g_rmat.weights, nparts,
+                                      mesh=mesh, ranged_metadata=True)
+    equal = all(torch.equal(getattr(assembled, k), getattr(mono, k))
+                for k in ("light", "biw", "bids", "brp")) and assembled[4:] == mono[4:]
+    starts = torch.arange(8192, dtype=torch.int32, device="cuda") % g_rmat.n_vertices
+    kw = dict(walk_length=N2V_MAIN["walk_length"], return_param=EP_PQ[0],
+              inout_param=EP_PQ[1], max_trials=64)
+    local, unfin, fb = ep.edge_partitioned_blocked_walk(mesh, assembled, starts, 0, 0, **kw)
+    counts = mesh.all_reduce_sum(torch.stack([unfin, fb]), "data")
+    bg = blocked.build_blocked_graph(g_rmat.indptr, g_rmat.indices, g_rmat.weights,
+                                     device="cuda")
+    want, want_fb, _ = blocked.blocked_walk_chunk(
+        *bg[:4], starts, 0, 0, light_width=bg.light_width, block_width=bg.block_width,
+        has_heavy=bg.has_heavy, **kw)
+    out = {"edges_in_this_shard": int(part.stop - part.start), "build_s": build_s,
+           "ranges": res.ranges, "meta": res.meta, "shards_equal_to_partition": equal,
+           "walk_bit_equal_to_k5": bool(torch.equal(mesh.all_gather(local, "data"), want))
+           and int(counts[0]) == 0 and int(counts[1]) == int(want_fb)}
+    require(equal, "the distributed build's shard differs from partition_blocked_graph's")
+    require(out["walk_bit_equal_to_k5"], "the walk on the assembled shards differs from K5's")
+    return out
+
+
 def _ep_rank_checks(mesh, graph, quick: bool) -> dict:
     """The graph-sharded walks on a rank of the 2 x 1 gloo mesh, on the
     RMAT: ``WalkEngine(mesh=, graph_sharded=True)`` bit-equal to the
@@ -4581,7 +5112,7 @@ def _mesh_rank(quick: bool) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
     n_v = 4096 if quick else 131072
     g = build_graph(smoke_edges(n_v, 16 * n_v), directed=False)
-    g_rmat = rmat_graph(12 if quick else 14)[2]
+    rmat_src, rmat_dst, g_rmat = rmat_graph(12 if quick else 14)
     lines = []
     for shape in ((2, 1), (1, 2)):
         mesh = make_mesh(*shape, device="cuda")
@@ -4663,6 +5194,8 @@ def _mesh_rank(quick: bool) -> list:
         if shape == (2, 1):  # the row layout over the flattened 2 x 1 mesh
             line["row"] = _row_rank_checks(mesh, n_v, quick)
             line["ep"] = _ep_rank_checks(mesh, g_rmat, quick)
+            line["epd"] = _epd_rank_checks(mesh)
+            line["build"] = _build_rank_checks(mesh, rmat_src, rmat_dst, g_rmat)
         lines.append(line)
     return lines
 
@@ -4876,6 +5409,8 @@ def main() -> int:
         check_alias_draw(g, True, results, "quick, dense ER 4,096 vertices")
         mesh = make_mesh(1, 1, device="cuda")  # a world of one, over NCCL
         check_ep_walk(mesh, g_rmat, 4096, 20, results)
+        check_ep_dense(mesh, g, 4096, 20, results)
+        edge_cases_wide_rows(mesh)
         check_col_sgns(mesh, 4096, 64, 21, 128, 5, True, results, "quick")
         check_col_sgns(mesh, 512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
         check_route(tree, head, walks_q.cpu().numpy()[:64], g.n_vertices, True, results, "quick")
@@ -4949,6 +5484,8 @@ def main() -> int:
     rmat_src, rmat_dst, g_rmat = rmat_graph(19)
     check_blocked_walk(g_rmat, 131072, 20, results)
     check_ep_walk(mesh, g_rmat, 131072, 20, results)
+    check_ep_dense(mesh, g, 131072, 20, results)
+    edge_cases_wide_rows(mesh)
     check_blocked_walk_sl(g_rmat, "RMAT scale 19", 131072, 20, results)
     check_blocked_walk_sl(g, "dense ER", 131072, 20, results)
     check_wide(g, tree, tree_counts, results)
@@ -4970,6 +5507,7 @@ def main() -> int:
                                              rmat_src, rmat_dst, walks_dev, max_iter=1)
     paths["main_path_ep"] = main_path_ep(mesh, rmat_src, rmat_dst, paths["main_path_blocked"],
                                          walks_dev, max_iter=1)
+    paths["main_path_epd"] = main_path_epd(mesh, src, dst)
     del walks_dev, main_walks
     mesh_ranks()
     paths["main_path_streaming"], engine, n_v = main_path_streaming(rmat_src, rmat_dst, max_iter=1)
@@ -5021,6 +5559,9 @@ def main() -> int:
     # the shared-list sampler on blocked tables at P = 8, C = 64, at q = 2
     # (the sampler is off at q == 1), held to the blocked SGNS limits
     quality_gates(blocked_widths=(8, 64), shared_lists=True, pq=(1.0, 2.0))
+    # the dense graph-sharded walk and the CLI, at the SGNS limits
+    quality_epd(mesh)
+    quality_cli()
     paths["main_path_wide"] = main_path_wide(g)
 
     kernels = []

@@ -1,0 +1,124 @@
+// The dense engine's step, shared by K1 (dense_walk.cu, one warp a walker
+// for a whole walk) and the dense graph-sharded walk's owner kernel K25
+// (epd_walk.cu, one warp a request), so that both make the same float
+// operations in the same order: for the same packed row, N(prev), prev and
+// uniform they pick the same neighbour, bit for bit.
+//
+// Layout: lane l owns the K = ceil(P/32) contiguous columns
+// [l*K, l*K+K) of the [2P] packed row (ids | f32 weight bits).  The row's
+// ids also go to a per-warp shared buffer, where the pick reads its
+// neighbour; N(prev) is another per-warp shared buffer of P ids, scanned
+// linearly for the shared-neighbour test (P compares per column).
+//
+// Rounding: every float op is a _rn intrinsic (nvcc cannot contract it
+// into an FMA), so the kernels round like the plain PyTorch versions, and
+// on dyadic weights (every partial sum exact) they agree bit for bit.
+// Every function is called by a whole warp with warp-uniform arguments.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace n2v {
+
+constexpr int32_t kDensePad = 0x7FFFFFFF;
+constexpr int kDenseMaxK = 8;  // columns per lane: P <= 256
+constexpr unsigned kDenseFull = 0xFFFFFFFFu;
+
+// Columns a lane owns: K = ceil(P / 32), so that every column of any P <=
+// 256 has a lane (at a power of two P >= 32, P / 32; below 32, one).
+__device__ __forceinline__ int dense_cols_per_lane(int p_cols) { return (p_cols + 31) >> 5; }
+
+// The lane's columns of a packed row: ids and weights (pads beyond P), the
+// ids also stored into the warp's shared ``rows`` buffer.
+__device__ __forceinline__ void dense_load_row(const int32_t* row, int p_cols,
+                                               int k, int col0, int32_t (&ids)[kDenseMaxK],
+                                               float (&bw)[kDenseMaxK], int32_t* rows) {
+#pragma unroll
+  for (int m = 0; m < kDenseMaxK; ++m) {
+    ids[m] = kDensePad;
+    bw[m] = 0.f;
+    const int c = col0 + m;
+    if (m < k && c < p_cols) {
+      ids[m] = row[c];
+      bw[m] = __int_as_float(row[p_cols + c]);
+      rows[c] = ids[m];
+    }
+  }
+}
+
+// The node2vec bias over a loaded row, in place on ``bw`` (1/p on the back
+// edge, 1 for a neighbour in N(prev) = ``prev_rows``, 1/q otherwise; none at
+// first order, prev < 0, or when p = q = 1), then the total as a separate
+// warp sum, as dense.py computes it.  Returns the total; ``lane_sum`` gets
+// the lane's own sum, where dense_pick's prefix starts.  Call after a
+// __syncwarp that follows the row's load.
+__device__ __forceinline__ float dense_bias_total(const int32_t (&ids)[kDenseMaxK],
+                                                  float (&bw)[kDenseMaxK],
+                                                  const int32_t* prev_rows, int32_t prev,
+                                                  int p_cols, int k, int col0, float inv_p,
+                                                  float inv_q, int uniform_bias,
+                                                  float& lane_sum) {
+  if (!uniform_bias && prev >= 0) {
+#pragma unroll
+    for (int m = 0; m < kDenseMaxK; ++m) {
+      if (m < k && col0 + m < p_cols) {
+        float bias;
+        if (ids[m] == prev) {
+          bias = inv_p;
+        } else {
+          bool shared = false;
+          for (int j = 0; j < p_cols; ++j) shared |= prev_rows[j] == ids[m];
+          bias = shared ? 1.f : inv_q;
+        }
+        bw[m] = __fmul_rn(bw[m], bias);
+      }
+    }
+  }
+  lane_sum = 0.f;
+#pragma unroll
+  for (int m = 0; m < kDenseMaxK; ++m) lane_sum = __fadd_rn(lane_sum, bw[m]);
+  float total = lane_sum;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    total = __fadd_rn(total, __shfl_xor_sync(kDenseFull, total, off));
+  return total;
+}
+
+// The inclusive prefix of the biased weights (a warp scan of the lane sums,
+// then the lane's columns) and the pick of ``uniform01() * total`` clamped
+// to degree - 1; ``uniform01`` is called once, after the scan.  Returns the
+// picked column.  Call only when total > 0: at total <= 0 (a sink, or
+// all-zero weights) the walker dies, and the caller says so.
+template <typename Uniform>
+__device__ __forceinline__ int dense_pick(const int32_t (&ids)[kDenseMaxK],
+                                          const float (&bw)[kDenseMaxK], float lane_sum,
+                                          float total, int p_cols, int k, int col0, int lane,
+                                          const Uniform& uniform01) {
+  float incl = lane_sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_up_sync(kDenseFull, incl, off);
+    if (lane >= off) incl = __fadd_rn(incl, v);
+  }
+  float run = __shfl_up_sync(kDenseFull, incl, 1);
+  if (lane == 0) run = 0.f;
+
+  const float u = __fmul_rn(uniform01(), total);
+  int below = 0, deg = 0;
+#pragma unroll
+  for (int m = 0; m < kDenseMaxK; ++m) {
+    if (m < k && col0 + m < p_cols) {
+      run = __fadd_rn(run, bw[m]);
+      below += run < u;
+      deg += ids[m] != kDensePad;
+    }
+  }
+  below = __reduce_add_sync(kDenseFull, below);
+  deg = __reduce_add_sync(kDenseFull, deg);
+  // clamp to degree-1: u can land in the ulp gap above cdf[degree-1],
+  // where every zero-weight pad column would count
+  return min(below, max(deg - 1, 0));
+}
+
+}  // namespace n2v

@@ -9,7 +9,7 @@
 // separate sum (not cdf[-1]), the pick is clamped to degree-1, `alive &=
 // total > 0` is sticky, and the carried previous row moves only while alive.
 //
-// Design: one warp per walker.  Lane l owns the K = max(1, P/32) contiguous
+// Design: one warp per walker.  Lane l owns the K = ceil(P/32) contiguous
 // columns [l*K, l*K+K) of the [2P] packed row (ids | f32 weight bits), so the
 // one row gather per step is a coalesced 2P*4-byte read.  The current and
 // previous rows' ids sit in two per-warp shared-memory buffers that swap
@@ -17,9 +17,11 @@
 // candidate in the previous row is a linear scan of that row (P compares,
 // broadcast shared-memory reads; P^2 per walker-step in all).  The prefix
 // sum is a per-lane sequential scan plus a warp shuffle scan; counts are
-// warp reductions.  Float multiplies and adds use the _rn intrinsics so the
-// compiler cannot contract them into FMAs: the kernel then rounds like the
-// plain PyTorch version, and on dyadic weights the two agree bit for bit.
+// warp reductions.  The step (row load, bias, total, prefix, pick) is
+// dense_common.cuh's, which K25 epd_serve calls too.  Float multiplies and
+// adds use the _rn intrinsics so the compiler cannot contract them into
+// FMAs: the kernel then rounds like the plain PyTorch version, and on
+// dyadic weights the two agree bit for bit.
 //
 // Bound on an H100: per live walker-step one 2P*4-byte row read from device
 // memory (the P^2 compares run from shared memory), so the kernel is bound
@@ -28,14 +30,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dense_common.cuh"
 #include "hashrng.cuh"
 
 namespace {
 
-constexpr int32_t kPadId = 0x7FFFFFFF;
 constexpr int kWarps = 8;  // walkers per block
-constexpr int kMaxK = 8;   // columns per lane: P <= 256
-constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMaxK = n2v::kDenseMaxK;
 
 __global__ void __launch_bounds__(kWarps * 32)
 dense_walk_kernel(const int32_t* __restrict__ adj, int p_cols,
@@ -49,7 +50,7 @@ dense_walk_kernel(const int32_t* __restrict__ adj, int p_cols,
   const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
   if (w >= n_walkers) return;  // warp-uniform: no block-level sync below
 
-  const int k = p_cols >= 32 ? p_cols / 32 : 1;
+  const int k = n2v::dense_cols_per_lane(p_cols);
   const int col0 = lane * k;
   int32_t* rows = smem + static_cast<int64_t>(warp) * 2 * p_cols;
   int32_t* prev_rows = rows + p_cols;
@@ -65,81 +66,25 @@ dense_walk_kernel(const int32_t* __restrict__ adj, int p_cols,
   int t_dead = 0;  // the step at which the walker died (or 0 for a dead lane)
   for (int t = 0; t < walk_length; ++t) {
     if (!alive) break;
-    const int32_t* row = adj + static_cast<int64_t>(cur) * 2 * p_cols;
     int32_t ids[kMaxK];
     float bw[kMaxK];
-#pragma unroll
-    for (int m = 0; m < kMaxK; ++m) {
-      ids[m] = kPadId;
-      bw[m] = 0.f;
-      const int c = col0 + m;
-      if (m < k && c < p_cols) {
-        ids[m] = row[c];
-        bw[m] = __int_as_float(row[p_cols + c]);
-        rows[c] = ids[m];
-      }
-    }
+    n2v::dense_load_row(adj + static_cast<int64_t>(cur) * 2 * p_cols, p_cols, k, col0, ids,
+                        bw, rows);
     __syncwarp();
-
-    // node2vec bias: 1/p back edge, 1 shared neighbour, 1/q otherwise;
-    // step 0 (prev < 0) is first-order, and p = q = 1 needs no bias at all
-    if (!uniform_bias && prev >= 0) {
-#pragma unroll
-      for (int m = 0; m < kMaxK; ++m) {
-        if (m < k && col0 + m < p_cols) {
-          float bias;
-          if (ids[m] == prev) {
-            bias = inv_p;
-          } else {
-            bool shared = false;
-            for (int j = 0; j < p_cols; ++j) shared |= prev_rows[j] == ids[m];
-            bias = shared ? 1.f : inv_q;
-          }
-          bw[m] = __fmul_rn(bw[m], bias);
-        }
-      }
-    }
-
-    // total: a separate warp sum, as dense.py computes it
-    float lane_sum = 0.f;
-#pragma unroll
-    for (int m = 0; m < kMaxK; ++m) lane_sum = __fadd_rn(lane_sum, bw[m]);
-    float total = lane_sum;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      total = __fadd_rn(total, __shfl_xor_sync(kFull, total, off));
-
+    // node2vec bias and separate total, then prefix and clamped pick
+    // (dense_common.cuh); step 0 (prev < 0) is first-order, and p = q = 1
+    // needs no bias at all
+    float lane_sum;
+    const float total = n2v::dense_bias_total(ids, bw, prev_rows, prev, p_cols, k, col0, inv_p,
+                                              inv_q, uniform_bias, lane_sum);
     if (!(total > 0.f)) {  // sink (or all-zero weights): the walker dies
       alive = false;
       t_dead = t;
       break;
     }
-
-    // inclusive prefix sums: warp scan of lane sums, then the lane's columns
-    float incl = lane_sum;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl = __fadd_rn(incl, v);
-    }
-    float run = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) run = 0.f;
-
-    const float u = __fmul_rn(n2v::hash_uniform(seed, gid, static_cast<uint32_t>(t)), total);
-    int below = 0, deg = 0;
-#pragma unroll
-    for (int m = 0; m < kMaxK; ++m) {
-      if (m < k && col0 + m < p_cols) {
-        run = __fadd_rn(run, bw[m]);
-        below += run < u;
-        deg += ids[m] != kPadId;
-      }
-    }
-    below = __reduce_add_sync(kFull, below);
-    deg = __reduce_add_sync(kFull, deg);
-    // clamp to degree-1: u can land in the ulp gap above cdf[degree-1],
-    // where every zero-weight pad column would count
-    const int idx = min(below, max(deg - 1, 0));
+    const int idx = n2v::dense_pick(
+        ids, bw, lane_sum, total, p_cols, k, col0, lane,
+        [&] { return n2v::hash_uniform(seed, gid, static_cast<uint32_t>(t)); });
     const int32_t nxt = rows[idx];
     if (lane == 0) out[t + 1] = nxt;
     prev = cur;

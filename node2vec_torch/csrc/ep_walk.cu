@@ -18,13 +18,11 @@
 // The carried state is one int32 [10, n] tensor (rows T, CUR, PREV, W_FWD,
 // FWD_PFX, W_BACK_ENC, BACK_PFX, ALIVE, TRIALS, ATT; floats as their bits).
 //
-// K20: two launches over tiles of 1,024 lanes.  The first counts each
-// tile's active lanes per destination (shared atomics) and fills the send
-// buffer with -1; the second adds the counts of earlier tiles (one thread a
-// destination), ranks each lane within its warp by __match_any_sync and
-// across the tile's warps by per-warp counts in shared memory, so a lane's
-// rank within its destination is stable in lane order, as JAX's one-hot
-// cumsum gives; a lane ranked below the capacity writes its request.
+// K20: two launches over tiles of 1,024 lanes, bucket_common.cuh's stable
+// ranking (shared with K24).  The first counts each tile's active lanes per
+// destination and fills the send buffer with -1; the second ranks each lane
+// within its destination, stable in lane order, as JAX's one-hot cumsum
+// gives; a lane ranked below the capacity writes its request.
 // K21, K22: one warp a request, the requested row staged in shared memory
 // (one int4 a lane) and sampled by blocked_common.cuh's device functions,
 // the ones K5 calls: the same float operations in the same order, so the
@@ -46,13 +44,13 @@
 #include <cuda_runtime.h>
 
 #include "blocked_common.cuh"
+#include "bucket_common.cuh"
 #include "hashrng.cuh"
 
 namespace {
 
 enum Row { kT = 0, kCur, kPrev, kWFwd, kFwdPfx, kWBackEnc, kBackPfx, kAlive, kTrials, kAtt };
-constexpr int kTile = 1024;       // K20 lanes a block
-constexpr int kTileWarps = kTile / 32;
+constexpr int kTile = n2v::kBucketTile;  // K20 lanes a block
 constexpr int kReqWarps = 8;      // K21, K22 requests a block
 constexpr int kAdvThreads = 256;  // K23 walkers a block
 constexpr int kPropose = 7, kMember = 2, kResp = 6;
@@ -98,16 +96,13 @@ ep_bucket_count(const int32_t* __restrict__ carry, int64_t n, const int32_t* __r
                 int64_t rows_per_shard, int walk_length, int member) {
   extern __shared__ int32_t cnt[];  // [n_shards]
   const int64_t n_req = n_shards * capacity;
-  for (int d = threadIdx.x; d < n_shards; d += kTile) cnt[d] = 0;
-  __syncthreads();
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-  int32_t dest;
-  if (bucket_lane(carry, n, i, slot_a, back, n_req, rows_per_shard, n_shards, walk_length,
-                  member, &dest))
-    atomicAdd(&cnt[dest], 1);
-  __syncthreads();
-  for (int d = threadIdx.x; d < n_shards; d += kTile)
-    tiles[static_cast<int64_t>(blockIdx.x) * n_shards + d] = cnt[d];
+  n2v::bucket_tile_count(
+      [&](int32_t* dest) {
+        return bucket_lane(carry, n, i, slot_a, back, n_req, rows_per_shard, n_shards,
+                           walk_length, member, dest);
+      },
+      n_shards, cnt, tiles);
   const int64_t total = n_req * (member ? kMember : kPropose);
   for (int64_t j = i; j < total; j += static_cast<int64_t>(gridDim.x) * kTile) send[j] = -1;
 }
@@ -119,35 +114,16 @@ ep_bucket_scatter(const int32_t* __restrict__ carry, int64_t n,
                   const int32_t* __restrict__ tiles, int n_shards, int64_t capacity,
                   int64_t rows_per_shard, int walk_length, int64_t gid_base, uint32_t seed,
                   int member) {
-  extern __shared__ int32_t sm[];  // base [n_shards], then per-warp counts [32][n_shards]
-  int32_t* base = sm;
-  int32_t* wcnt = sm + n_shards;
+  extern __shared__ int32_t sm[];  // n2v::bucket_rank_smem(n_shards) bytes
   const int64_t n_req = n_shards * capacity;
-  for (int d = threadIdx.x; d < n_shards; d += kTile) {
-    int32_t s = 0;
-    for (int tt = 0; tt < static_cast<int>(blockIdx.x); ++tt)
-      s += tiles[static_cast<int64_t>(tt) * n_shards + d];
-    base[d] = s;
-  }
-  for (int j = threadIdx.x; j < kTileWarps * n_shards; j += kTile) wcnt[j] = 0;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-  int32_t dest;
-  const bool active = bucket_lane(carry, n, i, slot_a, back, n_req, rows_per_shard, n_shards,
-                                  walk_length, member, &dest);
-  const unsigned peers = __match_any_sync(kFull, active ? dest : -1);
-  const int rank_w = __popc(peers & ((1u << lane) - 1u));
-  if (active && __ffs(peers) - 1 == lane) wcnt[warp * n_shards + dest] = __popc(peers);
-  __syncthreads();
+  const int64_t flat = n2v::bucket_tile_rank(
+      [&](int32_t* dest) {
+        return bucket_lane(carry, n, i, slot_a, back, n_req, rows_per_shard, n_shards,
+                           walk_length, member, dest);
+      },
+      n_shards, capacity, tiles, sm);
   if (i >= n) return;
-  int64_t flat = n_req;
-  if (active) {
-    int64_t off = base[dest] + rank_w;
-    for (int w = 0; w < warp; ++w) off += wcnt[w * n_shards + dest];
-    if (off < capacity) flat = dest * capacity + off;
-  }
   slot[i] = static_cast<int32_t>(flat);
   if (flat == n_req) return;
   if (!member) {
@@ -401,13 +377,14 @@ extern "C" int n2v_ep_bucket(const int32_t* carry, int64_t n, const int32_t* slo
   if (n == 0) return 0;
   const int64_t n_tiles = (n + kTile - 1) / kTile;
   auto s = static_cast<cudaStream_t>(stream);
-  ep_bucket_count<<<static_cast<unsigned>(n_tiles), kTile, n_shards * sizeof(int32_t), s>>>(
+  ep_bucket_count<<<static_cast<unsigned>(n_tiles), kTile, n2v::bucket_count_smem(n_shards),
+                    s>>>(
       carry, n, slot_a, back, send, tiles, n_shards, capacity, rows_per_shard, walk_length,
       member);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = (1 + kTileWarps) * n_shards * sizeof(int32_t);
-  ep_bucket_scatter<<<static_cast<unsigned>(n_tiles), kTile, smem, s>>>(
+  ep_bucket_scatter<<<static_cast<unsigned>(n_tiles), kTile, n2v::bucket_rank_smem(n_shards),
+                      s>>>(
       carry, n, slot_a, back, send, slot, tiles, n_shards, capacity, rows_per_shard,
       walk_length, gid_base, seed, member);
   return static_cast<int>(cudaGetLastError());

@@ -7,10 +7,10 @@ the column-sharded SGNS step and epoch (K13's pair lists, K16, K17, K3's
 squares mode, K4), the row-sharded SGNS and HS steps and epochs (K18
 route_plan, K19 route_rows, K2's and K8's routed modes, K3, K4), and the
 graph-sharded blocked walks (``edge_partitioned_blocked``: K20 ep_bucket,
-K21 ep_propose, K22 ep_member, K23 ep_advance).  The round-1 dense
-edge-partitioned walk (``edge_partitioned_walk``,
-``partition_packed_adjacency``) raises ``NotImplementedError`` naming its
-ROADMAP item.
+K21 ep_propose, K22 ep_member, K23 ep_advance), the round-1 dense
+graph-sharded walk (``edge_partitioned``: K24 epd_bucket, K25 epd_serve,
+K26 epd_advance) and the distributed host-side graph build
+(``distributed_build``, no device work).
 """
 
 from node2vec_torch.parallel.mesh import Mesh, MeshConfig, initialize_distributed, make_mesh
@@ -46,23 +46,16 @@ from node2vec_torch.parallel.edge_partitioned_blocked import (
     partition_blocked_graph,
     save_partitioned_graph,
 )
+from node2vec_torch.parallel.edge_partitioned import (
+    edge_partitioned_walk,
+    edge_partitioned_walk_plain,
+    partition_packed_adjacency,
+)
 from node2vec_torch.parallel.sharded_walk import (
     sharded_blocked_walk_chunk,
     sharded_dense_walk_chunk,
     sharded_walk_chunk,
 )
-
-_EP_NOT_PORTED = ("the round-1 dense edge-partitioned walk is not ported yet (ROADMAP Queue A "
-                  "item 12); the graph-sharded blocked walk is edge_partitioned_blocked_walk")
-
-
-def edge_partitioned_walk(*args, **kwargs):
-    raise NotImplementedError(_EP_NOT_PORTED)
-
-
-def partition_packed_adjacency(*args, **kwargs):
-    raise NotImplementedError(_EP_NOT_PORTED)
-
 
 __all__ = [
     "make_mesh",
@@ -97,5 +90,6 @@ __all__ = [
     "load_partitioned_graph",
     "edge_partitioned_blocked_walk",
     "edge_partitioned_walk",
+    "edge_partitioned_walk_plain",
     "partition_packed_adjacency",
 ]

@@ -49,7 +49,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,7 +81,8 @@ PROPOSE_FIELDS = 7  # cur, prev, w_back_enc, back_pfx, u_branch, u_prop, t
 MEMBER_FIELDS = 2  # prev, cand
 RESPONSE_FIELDS = 6  # cand, w, rev_enc, pfx, ppfx, take_back
 PENDING_CHECK_EVERY = 4
-KERNEL_MAX_SHARDS = 256  # K20's per-warp destination counts live in shared memory
+# K20's and K24's per-warp destination counts (bucket_common.cuh) live in shared memory
+KERNEL_MAX_SHARDS = 256
 _SIGN = -(1 << 31)
 
 
@@ -697,6 +698,22 @@ def superstep(ops, mesh, axis_name: str, tables, carry, paths, n_fb, seed: int,
                        return_param=return_param, inout_param=inout_param)
 
 
+def run_supersteps(step: Callable[[int], torch.Tensor], pending: torch.Tensor, bound: int,
+                   mesh, axis_name: str) -> int:
+    """The graph-sharded walks' host loop: ``step(t)`` runs superstep t and
+    returns this rank's pending count [1], from ``pending`` before the
+    first.  The all-reduced count is read every ``PENDING_CHECK_EVERY``
+    supersteps (a superstep with no pending walker changes nothing); the
+    loop stops when it is 0, and never runs past ``bound`` supersteps.
+    Returns the supersteps run."""
+    t = 0
+    while t < bound and int(mesh.all_reduce_sum(pending, axis_name)) > 0:
+        for _ in range(min(PENDING_CHECK_EVERY, bound - t)):
+            pending = step(t)
+            t += 1
+    return t
+
+
 def _walk(ops, mesh, graph: PartitionedBlockedGraph, starts, gid_base: int, seed: int, *,
           walk_length: int, return_param: float, inout_param: float, max_trials: int,
           capacity: int, slack: int, axis_name: str, stats: Optional[dict]):
@@ -720,12 +737,9 @@ def _walk(ops, mesh, graph: PartitionedBlockedGraph, starts, gid_base: int, seed
               walk_length=walk_length, return_param=return_param, inout_param=inout_param,
               max_trials=max_trials)
     pending = ((carry[ALIVE] != 0) & (carry[T] < walk_length)).sum().to(torch.int32).reshape(1)
-    it = 0
-    while it < bound and int(mesh.all_reduce_sum(pending, axis_name)) > 0:
-        for _ in range(min(PENDING_CHECK_EVERY, bound - it)):
-            pending = superstep(ops, mesh, axis_name, tables, carry, paths, n_fb, seed,
-                                gid_base + lo, **kw)
-            it += 1
+    it = run_supersteps(lambda _: superstep(ops, mesh, axis_name, tables, carry, paths, n_fb,
+                                            seed, gid_base + lo, **kw),
+                        pending, bound, mesh, axis_name)
     if stats is not None:
         stats["supersteps"] = stats.get("supersteps", 0) + it
     unfinished = ((carry[ALIVE] != 0) & (carry[T] < walk_length)).sum()

@@ -447,17 +447,25 @@ def test_bucket_matches_jax_bucket_by_dest():
 
 def test_graph_sharded_needs_a_mesh_and_the_dense_variant_raises():
     """graph_sharded=True and strategy "ep_blocked" without a mesh are
-    ValueErrors; the round-1 dense variant (ROADMAP A12.5) still raises
-    naming item 12."""
+    ValueErrors; the round-1 dense variant (ROADMAP A12.5) no longer raises:
+    ``partition_packed_adjacency`` pads the packed rows and
+    ``edge_partitioned_walk`` walks them on a gloo world of one."""
     from node2vec_torch.parallel import edge_partitioned_walk, partition_packed_adjacency
+    from node2vec_torch.walk.dense import build_padded_adjacency
 
     g = torch_ep_ranks.hub_graph()
     for kw in (dict(graph_sharded=True), dict(strategy="ep_blocked")):
         with pytest.raises(ValueError, match="requires a mesh"):
             WalkEngine(g, Node2VecParams(), device="cpu", **kw)
-    for fn in (edge_partitioned_walk, partition_packed_adjacency):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
+    packed = build_padded_adjacency(g.indptr, g.indices, g.weights)
+    padded, rps = partition_packed_adjacency(packed, 1)
+    np.testing.assert_array_equal(padded, packed)
+    starts = torch.arange(8, dtype=torch.int32)
+    paths = edge_partitioned_walk(make_mesh(device="cpu"), torch.from_numpy(padded), rps, starts,
+                                  0, walk_length=4, return_param=0.5, inout_param=2.0)
+    assert paths.shape == (8, 5) and (paths >= 0).all()
+    adj = {v: set(g.neighbors(v)[0].tolist()) for v in range(g.n_vertices)}
+    assert all(int(b) in adj[int(a)] for row in paths for a, b in zip(row[:-1], row[1:]))
 
 
 def test_run_quality_on_mesh_close_to_jax(runs):

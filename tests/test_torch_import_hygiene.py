@@ -22,11 +22,12 @@ import node2vec_torch.ops.alias, node2vec_torch.models, node2vec_torch.graph.ind
 import node2vec_torch.parallel, node2vec_torch.parallel.launch, node2vec_torch.parallel.mesh
 import node2vec_torch.parallel.sharded_walk, node2vec_torch.parallel.sharded_sgns
 import node2vec_torch.parallel.rowsharded_sgns, node2vec_torch.parallel.rowsharded_hs
-import node2vec_torch.parallel.edge_partitioned_blocked
+import node2vec_torch.parallel.edge_partitioned_blocked, node2vec_torch.parallel.edge_partitioned
+import node2vec_torch.parallel.distributed_build, node2vec_torch.cli
 from node2vec_torch.graph import index_graph_pandas  # exported; pandas stays inside it
 import chip_smoke
 sys.path.insert(0, "tests")
-import torch_mesh_ranks, torch_row_ranks, torch_ep_ranks  # the mesh tests' rank programs
+import torch_mesh_ranks, torch_row_ranks, torch_ep_ranks, torch_partition_ranks  # rank programs
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "node2vec_tpu", "pandas", "sklearn"))
 assert not bad, bad

@@ -30,6 +30,8 @@ from node2vec_tpu.constants import Node2VecParams as RefN2V
 from node2vec_tpu.constants import Word2VecParams as RefW2V
 from node2vec_tpu.graph import from_edge_arrays as ref_from_edge_arrays
 from node2vec_tpu.parallel import make_mesh as ref_make_mesh
+from node2vec_tpu.parallel.edge_partitioned import edge_partitioned_walk as ref_epd_walk
+from node2vec_tpu.parallel.edge_partitioned import partition_packed_adjacency as ref_partition
 from node2vec_tpu.parallel.sharded_walk import (
     sharded_blocked_walk_chunk as ref_sharded_blocked,
     sharded_dense_walk_chunk as ref_sharded_dense,
@@ -37,6 +39,7 @@ from node2vec_tpu.parallel.sharded_walk import (
 )
 from node2vec_tpu.walk import WalkEngine as RefWalkEngine
 from node2vec_tpu.walk import blocked as ref_blocked
+from node2vec_tpu.walk.dense import build_padded_adjacency as ref_packed
 from node2vec_torch.constants import Node2VecParams
 from node2vec_torch.datasets import multilabel_f1, synthetic_multilabel
 from node2vec_torch.graph import from_edge_arrays
@@ -53,6 +56,21 @@ N2V = {"num_walks": 4, "walk_length": 12, "return_param": 0.25, "inout_param": 4
 W2V = {"vector_size": 32, "max_iter": 2, "min_count": 1, "batch_walks": 64}
 QUALITY_N2V = dict(num_walks=6, walk_length=20)
 QUALITY_W2V = dict(min_count=1, max_iter=3, vector_size=32)
+EPD = dict(starts=(np.arange(64) % 34).astype(np.int32), seed=11, walk_length=8, p=0.5, q=2.0)
+
+
+def _epd_draws(n_data: int) -> list:
+    """JAX's edge_partitioned_walk uniforms of each data shard, in superstep
+    order (``fold_in`` with the shard, a ``split`` a superstep)."""
+    out = []
+    for s in range(n_data):
+        key = jax.random.fold_in(jax.random.PRNGKey(EPD["seed"]), s)
+        draws = []
+        for _ in range(4 * EPD["walk_length"] + 4):
+            key, k_u = jax.random.split(key)
+            draws.append(np.array(jax.random.uniform(k_u, (len(EPD["starts"]) // n_data,))))
+        out.append(draws)
+    return out
 
 
 def _graph(seed=0, n=300):
@@ -120,7 +138,7 @@ def ranks(tmp_path_factory, walk_graph):
     walk_path = _dump(tmp_path_factory, "walks", walk_case)
     pipe_path = _dump(tmp_path_factory, "pipeline", dict(
         shape=(2, 1), n2v=N2V, w2v=W2V, quality_n=600,
-        quality_n2v=QUALITY_N2V, quality_w2v=QUALITY_W2V))
+        quality_n2v=QUALITY_N2V, quality_w2v=QUALITY_W2V, epd=dict(EPD, draws=_epd_draws(2))))
     two = launch.spawn(torch_mesh_ranks.programs, 2, "gloo", "cpu",
                        [("mesh_and_walks", walk_path), ("pipeline", pipe_path)], timeout=600)
     four = launch.spawn(torch_mesh_ranks.programs, 4, "gloo", "cpu",
@@ -320,12 +338,13 @@ def test_pipeline_quality_close_to_jax(ranks):
     assert abs(got - want) <= 0.05, (got, want)
 
 
-def test_pipeline_mesh_cases_that_still_raise(ranks):
+def test_pipeline_mesh_cases_that_still_raise(ranks, karate_edges):
     """The row layout trains at 2 x 1 (fit with "row", run_pipeline
     streaming into fit_streaming_sharded: finite losses and vectors, the
     same on both ranks); the graph-sharded walks (strategy "ep_blocked")
-    give the walker-sharded blocked engine's corpus; the round-1 dense edge-partitioned walk still
-    raises naming item 12; host_corpus with a mesh is JAX's ValueError."""
+    give the walker-sharded blocked engine's corpus; the round-1 dense
+    edge-partitioned walk gives JAX's rows at 2 x 1 given its draws; what
+    still raises: host_corpus with a mesh, JAX's ValueError."""
     res = ranks["pipeline"][0]
     assert len(res["row_fit"]) == W2V["max_iter"] and all(np.isfinite(res["row_fit"]))
     losses, vectors, walks = res["row_streaming"]
@@ -335,6 +354,13 @@ def test_pipeline_mesh_cases_that_still_raise(ranks):
     walks, strategy, replicated = res["graph_sharded_walks"]
     assert strategy == "ep_blocked"
     np.testing.assert_array_equal(walks, replicated)
-    assert "item 12" in res["graph_sharded"]
-    assert "edge-partitioned" in res["graph_sharded"]
+    g = ref_from_edge_arrays(*karate_edges, directed=False)
+    mesh = ref_make_mesh(2, 1, devices=jax.devices()[:2])
+    padded, rps = ref_partition(np.asarray(ref_packed(g.indptr, g.indices, g.weights)), 2)
+    want = np.asarray(ref_epd_walk(mesh, jnp.asarray(padded), rps, jnp.asarray(EPD["starts"]),
+                                   jax.random.PRNGKey(EPD["seed"]),
+                                   walk_length=EPD["walk_length"], return_param=EPD["p"],
+                                   inout_param=EPD["q"]))
+    for rank in ranks["pipeline"]:
+        np.testing.assert_array_equal(rank["graph_sharded"], want)
     assert "host_corpus" in res["host_corpus"]

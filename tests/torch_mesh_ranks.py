@@ -29,6 +29,7 @@ from node2vec_torch.parallel import (
     edge_partitioned_walk,
     initialize_distributed,
     make_mesh,
+    partition_packed_adjacency,
     sharded_blocked_walk_chunk,
     sharded_dense_walk_chunk,
     sharded_sgns_step,
@@ -253,7 +254,8 @@ def fit_sharded_checks(path: str) -> dict:
 
 def pipeline(path: str) -> dict:
     """Node2Vec(mesh=) on karate (random_walk, fit, embedding, run_pipeline),
-    the quality graph's vectors, and the cases that still raise."""
+    the quality graph's vectors, the other layouts and walks on the mesh,
+    and the guard that still raises."""
     case = _load(path)
     mesh = make_mesh(*case["shape"], device="cpu")
     src, dst = karate()
@@ -273,8 +275,7 @@ def pipeline(path: str) -> dict:
     out["quality"] = q.run_pipeline().vectors.copy()
     # the row layout trains (fit_sharded "row", and run_pipeline streaming
     # into fit_streaming_sharded); the graph-sharded walks give the mesh's
-    # corpus; what still raises (the round-1 dense edge-partitioned walk,
-    # ROADMAP item 12), and the host-corpus guard
+    # corpus, and so does the round-1 dense one; the host-corpus guard
     row = Node2Vec(n2v_params=case["n2v"], w2v_params=case["w2v"], mesh=mesh,
                    table_sharding="row", device="cpu")
     row.preprocess_input_graph((src, dst), indexed=True, directed=False)
@@ -292,7 +293,19 @@ def pipeline(path: str) -> dict:
                             device="cpu")
     out["graph_sharded_walks"] = (sharded.random_walk().copy(), sharded._walk_engine().strategy,
                                   replicated.run(seed=3))
-    out["graph_sharded"] = _raises(edge_partitioned_walk, NotImplementedError)
+    # the round-1 dense graph-sharded walk at 2 x 1, given JAX's draws of
+    # each data shard: this rank's gathered rows
+    epd = case["epd"]
+    d, n_data = mesh.coords["data"], mesh.shape["data"]
+    kg = from_edge_arrays(src, dst, directed=False)
+    padded, rps = partition_packed_adjacency(
+        build_padded_adjacency(kg.indptr, kg.indices, kg.weights), n_data)
+    local = edge_partitioned_walk(
+        mesh, torch.from_numpy(padded[d * rps: (d + 1) * rps]), rps,
+        torch.from_numpy(epd["starts"]), epd["seed"], walk_length=epd["walk_length"],
+        return_param=epd["p"], inout_param=epd["q"],
+        draws=lambda t: torch.from_numpy(epd["draws"][d][t]))
+    out["graph_sharded"] = mesh.all_gather(local, "data").numpy()
     out["host_corpus"] = _raises(
         lambda: Node2Vec(mesh=mesh, host_corpus=True, device="cpu"), ValueError)
     return out
