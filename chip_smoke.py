@@ -8,6 +8,9 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build: every kernel in node2vec_torch/csrc with nvcc (sm_90a), timed;
+   then ``k2_build``: K2's kernels' registers and spills, the shared
+   memory a block takes at three shapes, and their tensor-core (HMMA)
+   instructions in ``cuobjdump -sass`` (fails without HMMA);
 3. kernel checks on the card, each kernel's wrapper against its plain
    PyTorch version on the same inputs:
    - K1 dense_walk on the smoke graph at (p, q) = (0.25, 4) and (1, 1),
@@ -18,7 +21,9 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
      batch and at B = 8192; rtol 1e-4, atol 1e-6, because fp32 atomics
      reorder the sums (a tensor whose entries sum many signed terms, as
      d_no, K11's sums, theta under a Huffman path's root and the CBOW
-     steps' tables, to rtol 1e-4 of its largest entry);
+     steps' tables, to rtol 1e-4 of its largest entry); beside K2's row,
+     ``neg_gemm_ms``, the negative half's three fp32 torch.matmul products
+     at the same shape (a partial yardstick the port never calls);
    - K5 blocked_walk on the heavy-tail RMAT (scale 19, 8 * 2^19 drawn
      edges, numpy seed 0, undirected, max_out_degree 10,000, self loops
      kept; the graph of bench.py:807-821), 131,072 walkers x 20 steps at
@@ -561,6 +566,79 @@ def time_ms(fn, reps: int = 10, warmup: int = 2, before=None) -> float:
     return sum(a.elapsed_time(b) for a, b in spans) / reps
 
 
+def neg_gemm_ms(n_rows: int, dim: int, n_neg: int) -> float:
+    """K2's partial yardstick, never called by the port: the negative
+    half's three products (nl = x_in . no^T, g_neg . no, g_neg^T . x_in) as
+    fp32 torch.matmul calls (allow_tf32 False) at K2's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((n_rows, dim), generator=gen, device="cuda")
+    no = torch.randn((n_neg, dim), generator=gen, device="cuda")
+    gn = torch.randn((n_rows, n_neg), generator=gen, device="cuda")
+    return time_ms(lambda: (x @ no.T, gn @ no, gn.T @ x))
+
+
+def mean_squares(g: torch.Tensor) -> torch.Tensor:
+    """Each row's mean square, by one reduction with no [n, D] temporary
+    (K3's library yardstick)."""
+    return torch.linalg.vector_norm(g, dim=-1).square_().div_(g.shape[-1])
+
+
+def sass_counts(lib_path: str, kernel_part: str, opcodes=("HMMA", "FFMA")) -> dict:
+    """For each kernel of the library at ``lib_path`` whose mangled name
+    contains ``kernel_part``: its instructions in ``cuobjdump -sass`` and how
+    many of them are each of ``opcodes`` (by prefix, predicates dropped)."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    dump = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            name = name if kernel_part in name else None
+            if name:
+                counts[name] = {"instructions": 0, **{op: 0 for op in opcodes}}
+            continue
+        ins = line.split("*/", 1)[1].strip() if name and "*/" in line else ""
+        if ins and not ins.startswith("/*"):
+            words = ins.split(" ")
+            op = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+            counts[name]["instructions"] += 1
+            for key in opcodes:
+                counts[name][key] += op.startswith(key)
+    return counts
+
+
+def ptxas_summary(report: str, kernel_part: str) -> dict:
+    """For each kernel in ``report`` (ptxas's ``-v`` output) whose mangled
+    name contains ``kernel_part``: its registers, shared memory and spills."""
+    lines = report.splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel_part in line:
+            out[line.split("'")[1]] = " | ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                if "Used" in x or "spill" in x)
+    return out
+
+
+def k2_build_report() -> None:
+    """K2's kernels in the built library: ptxas's registers and spills (when
+    this process built it), the dynamic shared memory a block takes at the
+    main path's, dim 64's and the wide shape, and the tensor-core (HMMA:
+    the 3xTF32 products) and FFMA instructions of each kernel in
+    ``cuobjdump -sass``.  Fails when a K2 kernel has no HMMA."""
+    ptxas = ptxas_summary(_build.ptxas_report, "sgns_grads_kernel")
+    sass = sass_counts(_build.build(), "sgns_grads_kernel")
+    lib = _build.lib()
+    shapes = {"main (L1 21, D 128, S 64, w 5)": (21, 128, 64, 5),
+              "dim 64": (21, 64, 64, 5), "wide (L1 81, D 256, w 10)": (81, 256, 64, 10)}
+    emit({"phase": "k2_build", "ptxas": ptxas, "sass": sass,
+          "smem_bytes": {k: int(lib.n2v_sgns_grads_smem(*v)) for k, v in shapes.items()}})
+    require(len(sass) == 4 and all(v["HMMA"] > 0 for v in sass.values()),
+            f"K2's kernels must run their products on the tensor cores: {sass}")
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -710,6 +788,7 @@ def check_sgns(n_vertices: int, n_walks: int, length: int, dim: int, window: int
     k2_ms = time_ms(lambda: sg.sgns_grads(emb_in, emb_out, walks, mask, b_sh, neg, **kw))
     k2_plain = time_ms(lambda: sg.sgns_grads_plain(emb_in, emb_out, walks, mask, b_sh, neg, **kw),
                        reps=3, warmup=1)
+    k2_neg_gemm = neg_gemm_ms(n_walks * length, dim, n_neg)
 
     # K3 on the plain K2 outputs
     a_in, a_out = acc_in.clone(), acc_out.clone()
@@ -743,19 +822,20 @@ def check_sgns(n_vertices: int, n_walks: int, length: int, dim: int, window: int
     emit({"phase": "check", "kernel": "sgns_walk_step (K2+K3+K4)", "B": n_walks,
           "max_abs_err": step_err, "rtol": RTOL, "atol": ATOL})
 
-    # library yardsticks: index_add_ of the same (precomputed) row updates —
-    # the scatter half of K3 and K4, timed, never used by the port
+    # library yardsticks, never used by the port, on the valid positions'
+    # rows alone (K3 and K4 skip the others), selected outside the timed
+    # window: K3's, the rows' mean squares and two index_add_ calls inside
+    # it; K4's, index_add_ of the precomputed row updates (its scatter half)
     rows = torch.where(walks_flat >= 0, walks_flat, 0).long()
-    valid = (walks_flat >= 0).float()
-    sq_in = (g_in * g_in).mean(-1) * valid
-    sq_out = torch.cat([(g_out * g_out).mean(-1) * valid, (d_no * d_no).mean(-1)])
-    rows_out = torch.cat([rows, neg.long()])
-    k3_lib = time_ms(lambda: (s_in.index_add_(0, rows, sq_in),
-                              s_out.index_add_(0, rows_out, sq_out)))
-    upd_in = -lr * g_in * torch.rsqrt(p_in[rows] + 1e-12)[:, None]
-    upd_out = torch.cat([-lr * g_out * torch.rsqrt(p_out[rows] + 1e-12)[:, None],
-                         -lr * d_no * torch.rsqrt(p_out[neg.long()] + 1e-12)[:, None]])
-    k4_lib = time_ms(lambda: (t_in.index_add_(0, rows, upd_in),
+    live = walks_flat >= 0
+    rows_live = walks_flat[live].long()
+    rows_out = torch.cat([rows_live, neg.long()])
+    gi_live, go_live = g_in[live], torch.cat([g_out[live], d_no])
+    k3_lib = time_ms(lambda: (s_in.index_add_(0, rows_live, mean_squares(gi_live)),
+                              s_out.index_add_(0, rows_out, mean_squares(go_live))))
+    upd_in = -lr * gi_live * torch.rsqrt(p_in[rows_live] + 1e-12)[:, None]
+    upd_out = -lr * go_live * torch.rsqrt(p_out[rows_out] + 1e-12)[:, None]
+    k4_lib = time_ms(lambda: (t_in.index_add_(0, rows_live, upd_in),
                               t_out.index_add_(0, rows_out, upd_out)))
 
     # bounds, from this run's data
@@ -780,14 +860,15 @@ def check_sgns(n_vertices: int, n_walks: int, length: int, dim: int, window: int
                           bound_ms(k4_bytes, 3 * (2 * n_valid + n_neg) * dim), k4_lib),
     }
     for name, (err, ms, plain_ms, (b_ms, b_by), lib_ms) in rec.items():
+        extra = {"neg_gemm_ms": k2_neg_gemm} if name == "sgns_grads" else {}
         emit({"phase": "check", "kernel": name, "B": n_walks, "L1": length, "D": dim,
               "S": n_neg, "V": n_vertices, "max_abs_err": err, "rtol": RTOL, "atol": ATOL,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-              "library_ms": lib_ms})
+              "library_ms": lib_ms, **extra})
         if record:
             results[name] = _with_staging(name, {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_ms}, before)
+                "bound_by": b_by, "library_ms": lib_ms, **extra}, before)
 
 
 def edge_cases() -> None:
@@ -833,6 +914,23 @@ def edge_cases() -> None:
 
     for n_walks, length, dim, window in ((256, 81, 128, 5), (64, 21, 256, 10), (96, 11, 100, 5)):
         check_sgns(4096, n_walks, length, dim, window, 64, False, {})
+    # K2 at S not a multiple of 16 (pad rows of NO, pad columns of NL and
+    # d_no): in 64-column chunks, in 32-column chunks (S = 100 at D = 128
+    # does not fit 64) and staged in global memory (S = 90 at D = 256)
+    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", 232448)
+    for n_walks, length, dim, n_neg, staged in ((96, 11, 100, 5, "shared"),
+                                                (64, 21, 128, 100, "shared"),
+                                                (64, 21, 256, 90, "global")):
+        row: dict = {}
+        check_sgns(4096, n_walks, length, dim, 5, n_neg, True, row)
+        smem = int(_build.lib().n2v_sgns_grads_smem(length, dim, n_neg, 5))
+        emit({"phase": "edge_case", "kernel": "sgns_grads", "L1": length, "D": dim,
+              "S": n_neg, "smem_bytes": smem, "optin_bytes": limit,
+              "staging": row["sgns_grads"]["staging"],
+              "max_abs_err": row["sgns_grads"]["max_abs_err"]})
+        require(row["sgns_grads"]["staging"] == staged,
+                f"sgns_grads at L1={length} D={dim} S={n_neg} staged in "
+                f"{row['sgns_grads']['staging']}, expected {staged}")
 
 
 BLOCKED_SETTINGS = ((0.25, 4.0, 64), (1.0, 1.0, 64), (1.0, 4.0, 64), (0.25, 4.0, 2))
@@ -1525,16 +1623,19 @@ def check_hs(tree, counts, n_walks: int, length: int, dim: int, window: int, hea
     k4_ms = time_ms(lambda: sg.adagrad_apply(t_in, t_th, p_in, p_th, *lists, lr))
     k4_plain = time_ms(lambda: sg.adagrad_apply_plain(q_in, q_th, p_in, p_th, *lists, lr))
 
-    # library yardsticks: index_add_ of the same precomputed rows, never used by the port
+    # library yardsticks, never used by the port, on the live rows alone
+    # (K3 and K4 skip the others), selected outside the timed window: K3's,
+    # the rows' mean squares and two index_add_ calls inside it; K4's,
+    # index_add_ of the precomputed row updates
     live_in = walks_flat >= 0
     live_tail = tail_rows >= 0
     rows_in = walks_flat[live_in].long()
     rows_th = torch.cat([tail_rows[live_tail].long(), head_rows.long()])
+    gi_live = g_in[live_in]
     g_th = torch.cat([g_tail[live_tail], d_head])
-    sq_in, sq_th = (g_in[live_in] ** 2).mean(-1), (g_th ** 2).mean(-1)
-    k3_lib = time_ms(lambda: (s_in.index_add_(0, rows_in, sq_in),
-                              s_th.index_add_(0, rows_th, sq_th)))
-    upd_in = -lr * g_in[live_in] * torch.rsqrt(p_in[rows_in] + 1e-12)[:, None]
+    k3_lib = time_ms(lambda: (s_in.index_add_(0, rows_in, mean_squares(gi_live)),
+                              s_th.index_add_(0, rows_th, mean_squares(g_th))))
+    upd_in = -lr * gi_live * torch.rsqrt(p_in[rows_in] + 1e-12)[:, None]
     upd_th = -lr * g_th * torch.rsqrt(p_th[rows_th] + 1e-12)[:, None]
     k4_lib = time_ms(lambda: (t_in.index_add_(0, rows_in, upd_in),
                               t_th.index_add_(0, rows_th, upd_th)))
@@ -1765,16 +1866,19 @@ def check_cbow(tree, counts, n_walks: int, length: int, dim: int, window: int,
     k4_ms = time_ms(lambda: sg.adagrad_apply(t_in, t_th, p_in, p_th, *lists, lr))
     k4_plain = time_ms(lambda: sg.adagrad_apply_plain(t_in, t_th, p_in, p_th, *lists, lr))
 
-    # library yardsticks: index_add_ of the same precomputed rows, never used by the port
+    # library yardsticks, never used by the port, on the live rows alone
+    # (K3 and K4 skip the others), selected outside the timed window: K3's,
+    # the rows' mean squares and two index_add_ calls inside it; K4's,
+    # index_add_ of the precomputed row updates
     live_in = walks_flat >= 0
     live_th = theta_rows >= 0
     rows_in = walks_flat[live_in].long()
     rows_th = theta_rows[live_th].long()
+    gi_live = g_in[live_in]
     g_th = g_theta[live_th]
-    sq_in, sq_th = (g_in[live_in] ** 2).mean(-1), (g_th ** 2).mean(-1)
-    k3_lib = time_ms(lambda: (a_in.index_add_(0, rows_in, sq_in),
-                              a_th.index_add_(0, rows_th, sq_th)))
-    upd_in = -lr * g_in[live_in] * torch.rsqrt(p_in[rows_in] + 1e-12)[:, None]
+    k3_lib = time_ms(lambda: (a_in.index_add_(0, rows_in, mean_squares(gi_live)),
+                              a_th.index_add_(0, rows_th, mean_squares(g_th))))
+    upd_in = -lr * gi_live * torch.rsqrt(p_in[rows_in] + 1e-12)[:, None]
     upd_th = -lr * g_th * torch.rsqrt(p_th[rows_th] + 1e-12)[:, None]
     k4_lib = time_ms(lambda: (t_in.index_add_(0, rows_in, upd_in),
                               t_th.index_add_(0, rows_th, upd_th)))
@@ -2195,14 +2299,17 @@ def _pair_walks(n_vertices: int, n_walks: int, length: int, seed: int) -> np.nda
     return walks
 
 
-def _emit_rows(rec: dict, record: bool, results: dict, before: dict, **line) -> None:
+def _emit_rows(rec: dict, record: bool, results: dict, before: dict, extra=None,
+               **line) -> None:
     """One check line per kernel of ``rec`` (name: (err, ms, plain ms, (bound ms, bound by),
     library ms)), kept in ``results`` for the kernels line when ``record``;
-    ``before`` as _with_staging takes it."""
+    ``before`` as _with_staging takes it; ``extra`` (name: dict) adds keys
+    to a kernel's row."""
     for name, (err, ms, plain_ms, bound, lib_ms) in rec.items():
         row = _with_staging(name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                    "bound_ms": bound[0], "bound_by": bound[1],
-                                   "library_ms": lib_ms}, before)
+                                   "library_ms": lib_ms, **(extra or {}).get(name, {})},
+                            before)
         emit({"phase": "check", "kernel": name, **line, **row})
         if record:
             results[name] = row
@@ -2282,17 +2389,18 @@ def check_pairs(n_vertices: int, n_walks: int, length: int, dim: int, window: in
     k4_ms = time_ms(lambda: sg.adagrad_apply(t_in, t_out, p_in, p_out, *lists, lr))
     k4_plain = time_ms(lambda: sg.adagrad_apply_plain(q_in, q_out, p_in, p_out, *lists, lr),
                        reps=3)
-    # library yardsticks (never used by the port): index_add_ of the valid
-    # lanes' precomputed squares (K3) and updates (K4)
+    # library yardsticks (never used by the port), on the valid lanes alone
+    # (K3 and K4 skip the others), selected outside the timed window: K3's,
+    # the rows' mean squares and two index_add_ calls inside it; K4's,
+    # index_add_ of the precomputed updates
     ok = pc >= 0
     rows_c, rows_x, negl = pc[ok].long(), px[ok].long(), neg.long()
-    sq_c = (d_ci[ok] * d_ci[ok]).mean(-1)
-    sq_x = torch.cat([(d_co[ok] * d_co[ok]).mean(-1), (d_no * d_no).mean(-1)])
     rows_out = torch.cat([rows_x, negl])
-    k3_lib = time_ms(lambda: (a_in.index_add_(0, rows_c, sq_c), a_out.index_add_(0, rows_out, sq_x)))
-    upd_in = -lr * d_ci[ok] * torch.rsqrt(p_in[rows_c] + 1e-12)[:, None]
-    upd_out = torch.cat([-lr * d_co[ok] * torch.rsqrt(p_out[rows_x] + 1e-12)[:, None],
-                         -lr * d_no * torch.rsqrt(p_out[negl] + 1e-12)[:, None]])
+    ci_live, co_live = d_ci[ok], torch.cat([d_co[ok], d_no])
+    k3_lib = time_ms(lambda: (a_in.index_add_(0, rows_c, mean_squares(ci_live)),
+                              a_out.index_add_(0, rows_out, mean_squares(co_live))))
+    upd_in = -lr * ci_live * torch.rsqrt(p_in[rows_c] + 1e-12)[:, None]
+    upd_out = -lr * co_live * torch.rsqrt(p_out[rows_out] + 1e-12)[:, None]
     k4_lib = time_ms(lambda: (t_in.index_add_(0, rows_c, upd_in),
                               t_out.index_add_(0, rows_out, upd_out)))
 
@@ -2437,7 +2545,8 @@ def check_fused(n_vertices: int, n_walks: int, length: int, dim: int, window: in
         "fused_adagrad": (k14_err, k14_ms, k14_plain,
                           bound_ms(k14_bytes, 4 * (2 * n_live + n_neg) * dim), k14_lib),
     }, record, results, before, case=case, B=n_walks, L1=length, D=dim, S=n_neg,
-       V=n_vertices)
+       V=n_vertices, extra={"sgns_grads_fused": {
+           "neg_gemm_ms": neg_gemm_ms(n_walks * length, dim, n_neg)}})
     emit({"phase": "check", "kernel": "sgns_grads at two row strides", "case": case,
           "ms_ld_d_plus_1": k2_ms, "ms_ld_d": k2_ms_ld_d, "ratio": k2_ms / k2_ms_ld_d})
     if record:
@@ -3941,9 +4050,23 @@ def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, recor
              _close_to_largest("sgns_grads_routed[N=2, drops, d_no]", got2[2], want2[2]),
              _close_to_largest("sgns_grads_routed[N=2, drops, parts]", got2[3], want2[3])]
     neg_dropped = bool((p_out2.slot[n:] < 0).any())
+    # one negative dropped: every negative term of the step masked (neg_live)
+    slot_neg1 = plan_out.slot[n:].clone()
+    slot_neg1[n_neg // 2] = -1
+    args3 = (*args[:4], slot_neg1, *args[5:])
+    got3 = rs.sgns_grads_routed(*args3, **kw)
+    want3 = rs.sgns_grads_routed_plain(*args3, **kw)
+    errs += [_close("sgns_grads_routed[a negative dropped, g_in]", got3[0], want3[0]),
+             _close("sgns_grads_routed[a negative dropped, g_out]", got3[1], want3[1]),
+             _close_to_largest("sgns_grads_routed[a negative dropped, parts]", got3[3],
+                               want3[3])]
+    require(float(got3[2].abs().max()) == 0.0 and float(got3[3][1]) == 0.0,
+            "sgns_grads_routed: a dropped negative left a negative term")
     emit({"phase": "check", "kernel": "sgns_grads_routed", "case": case + ", N = 2 (rank 0)",
           "cap": small, "dropped": int(p_in2.n_dropped) + int(p_out2.n_dropped),
-          "negatives_dropped": neg_dropped, "max_abs_err": max(errs[4:])})
+          "negatives_dropped": neg_dropped, "max_abs_err": max(errs[4:8])})
+    emit({"phase": "check", "kernel": "sgns_grads_routed", "case": case + ", a negative dropped",
+          "max_abs_err": max(errs[8:])})
     emit({"phase": "check", "kernel": "sgns_grads_routed vs sgns_grads (N = 1)", "case": case,
           "max_abs_err": direct_err})
     k2r_ms = time_ms(lambda: rs.sgns_grads_routed(*args, **kw))
@@ -4025,7 +4148,8 @@ def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, recor
                                bound_ms(k8r_bytes, 6 * dim * entries), None)}
     _emit_rows(rec, record, results, before, case=case, B=n_walks, L1=length, D=dim, S=n_neg,
                V=n_vertices, R=r, n_uniq=u_out, cap=cap, R_th=int(p_th.uniq.numel()),
-               cap_th=cap_th)
+               cap_th=cap_th,
+               extra={"sgns_grads_routed": {"neg_gemm_ms": neg_gemm_ms(n, dim, n_neg)}})
 
 
 def main_path_mesh_row(mesh, src, dst, max_iter: int, hs_objective: bool, beside: dict) -> dict:
@@ -5369,6 +5493,7 @@ def main() -> int:
           "ptxas": [ln.strip()[:160] for ln in _build.ptxas_report.splitlines()
                     if "registers" in ln or "spill" in ln or ln.startswith("==")
                     or "Compiling entry function" in ln]})
+    k2_build_report()
 
     results: dict = {}
     if args.quick:
@@ -5573,7 +5698,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        **{k: r[k] for k in ("staging", "mode") if k in r}})
+                        **{k: r[k] for k in ("staging", "mode", "neg_gemm_ms") if k in r}})
     emit({"kernels": kernels})
     torch.distributed.destroy_process_group()  # the 1 x 1 mesh's world of one
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,8 +11,8 @@ may have no ``nvcc``.
 ``launches`` counts kernel launches by name (and, under ``MODE_COUNTS``,
 those in a kernel's shared-list or global-staging mode).  Each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show that
-its main path went through the kernels.  ``staging`` picks where the
-walk-at-a-time step kernels (K2, K8, K9, K10, K13, K16, K17) stage a walk.
+its main path went through the kernels.  ``staging`` picks where the step
+kernels (K2, K8, K9, K10, K13, K16, K17) stage their arrays.
 K2's and K8's routed modes (the row-sharded steps) count under their own
 names, ``sgns_grads_routed`` and ``hs_grads_routed``, not under K2's and K8's.
 """

@@ -1,9 +1,9 @@
-// Where the walk-at-a-time step kernels (K2 sgns.cu, K8 hs.cu, K9 cbow.cu,
-// K10 cbow_hs.cu, K13 sgns_pairs.cu, K16 and K17 col_sgns.cu) stage a walk's
-// arrays.
+// Where the step kernels (K2 sgns.cu, K8 hs.cu, K9 cbow.cu, K10 cbow_hs.cu,
+// K13 sgns_pairs.cu, K16 and K17 col_sgns.cu) stage their arrays: a walk's,
+// or for K2 a group of walks' chunks and the block's negatives.
 //
-// Each of those kernels carves every array it keeps for a walk from one
-// base pointer.  In shared mode the base is the block's dynamic shared
+// Each of those kernels carves every array it keeps from one base
+// pointer.  In shared mode the base is the block's dynamic shared
 // memory, as large as the card allows a block (232,448 B on an H100).  A
 // shape that needs more (dim 256 at walk length 80, the node2vec paper's
 // settings) runs in global mode: the base is the block's slice of a
@@ -34,9 +34,10 @@ inline int64_t staging_stride(size_t smem_bytes) {
 }
 
 // Launches shared_kernel(args...) with `smem` bytes of dynamic shared memory
-// on as many blocks as fit on the card (at most one a walk) when ws is null;
-// otherwise staged_kernel(args..., ws, stride) on min(n_walks, ws_blocks)
-// blocks.  Returns the launch's cudaError_t.
+// on as many blocks as fit on the card (at most one a unit of work: a walk,
+// or K2's group of walks, counted by n_walks) when ws is null; otherwise
+// staged_kernel(args..., ws, stride) on min(n_walks, ws_blocks) blocks.
+// Returns the launch's cudaError_t.
 template <typename... SharedParams, typename... StagedParams, typename... Args>
 int launch_staged(void (*shared_kernel)(SharedParams...),
                   void (*staged_kernel)(StagedParams...),
