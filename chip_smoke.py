@@ -639,6 +639,32 @@ def k2_build_report() -> None:
             f"K2's kernels must run their products on the tensor cores: {sass}")
 
 
+def k8_build_report() -> None:
+    """K8's kernels in the built library: ptxas's registers and spills (when
+    this process built it), and the dynamic shared memory a block takes (or
+    the global workspace it stages in) at the main path's shape, the routed
+    step's (main_path_mesh_row_hs: the same walk, width and tree, so the same
+    carve), the wide shape (L1 81, D 256, w 10) and rows past 512 columns
+    (D 768, in chunks).  Fails when the main shape does not fit the card's
+    shared memory."""
+    ptxas = {k: v for k, v in ptxas_summary(_build.ptxas_report, "hs_grads_kernel").items()
+             if "cbow" not in k}  # not K10's cbow_hs_grads_kernel
+    lib = _build.lib()
+    limit = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin",
+                    232448)
+    shapes = {"main (L1 21, D 128, CL 18, w 5, K 511)": (21, 128, 18, 5, 511),
+              "routed (main_path_mesh_row_hs)": (21, 128, 18, 5, 511),
+              "wide (L1 81, D 256, CL 18, w 10, K 511)": (81, 256, 18, 10, 511),
+              "chunked rows (L1 21, D 768, CL 18, w 5, K 511)": (21, 768, 18, 5, 511)}
+    smem = {k: int(lib.n2v_hs_grads_smem(*v)) for k, v in shapes.items()}
+    emit({"phase": "k8_build", "ptxas": ptxas, "smem_bytes": smem, "optin_bytes": limit,
+          "staging": {k: _build.staging_mode(v, limit) for k, v in smem.items()}})
+    require(len(ptxas) in (0, 16),
+            f"K8 has 16 kernels (3 widths and chunked rows x 2 modes x 2 stagings): {ptxas}")
+    require(smem["main (L1 21, D 128, CL 18, w 5, K 511)"] <= limit,
+            "K8 at the main shape must stage in shared memory")
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -1703,9 +1729,151 @@ def edge_cases_hs(tree, counts) -> None:
              ("walk_length_80", tree, counts, 64, 81, 128, 5,
               hs.head_level_offsets(tree, table_rows=tree.n_inner)),
              ("dim_100_window_10", tree, counts, 96, 11, 100, 10,
+              hs.head_level_offsets(tree, table_rows=tree.n_inner)),
+             # L1 > 64: one walk a group, 18 strips (a warp takes two) or, at
+             # L1 = 101, D = 64, staged in a global workspace; D = 300: a
+             # position a strip, 8 float4s a lane
+             ("walk_length_70_dim_32", tree, counts, 48, 70, 32, 2,
+              hs.head_level_offsets(tree, table_rows=tree.n_inner)),
+             ("walk_length_101_dim_64", tree, counts, 32, 101, 64, 5,
+              hs.head_level_offsets(tree, table_rows=tree.n_inner)),
+             ("dim_300_window_3", tree, counts, 48, 21, 300, 3,
+              hs.head_level_offsets(tree, table_rows=tree.n_inner)),
+             # past 512 columns, in chunks of 512: staged in a global
+             # workspace (D = 600; D = 1030, not a multiple of 4, through the
+             # 4-byte copies and stores), and a walk short enough for shared
+             # memory at D = 1024
+             ("dim_600_window_5", tree, counts, 48, 21, 600, 5,
+              hs.head_level_offsets(tree, table_rows=tree.n_inner)),
+             ("dim_1030_window_3", tree, counts, 16, 21, 1030, 3,
+              hs.head_level_offsets(tree, table_rows=tree.n_inner)),
+             ("dim_1024_walk_length_9", tree, counts, 64, 9, 1024, 2,
               hs.head_level_offsets(tree, table_rows=tree.n_inner)))
     for case, t, c, n_walks, length, dim, window, head in cases:
         check_hs(t, c, n_walks, length, dim, window, head, False, False, {}, case=case)
+    _hs_routed_wide(tree, counts, 48, 21, 768, 5,
+                    hs.head_level_offsets(tree, table_rows=tree.n_inner))
+
+
+def _hs_routed_wide(tree, counts, n_walks: int, length: int, dim: int, window: int,
+                    head_offsets) -> None:
+    """K8's routed mode past 512 columns at N = 1 (centers and tail rows
+    through K18's slots and K19's gather, the head all-gathered) against its
+    plain version and against K8 direct, at check_route's tolerances."""
+    (emb_in, theta, *_), walks, mask, b_sh, tables = _hs_inputs(
+        tree, counts, n_walks, length, dim, window, seed=7)
+    flat = walks.reshape(-1)
+    rows = torch.where(flat >= 0, flat, 0)
+    cl = tree.points.shape[1]
+    n_head, k_rows = hs.head_split(head_offsets, cl)
+    cap_in, cap_th = rh.hs_caps(n_walks, length, cl, head_offsets, 1)
+    p_in = rs.plan_routes(rows, 1, cap_in)
+    p_th = rs.plan_routes(tables[0][rows.long()][:, n_head:].reshape(-1).contiguous(), 1, cap_th)
+    hargs = (rs.route_gather(emb_in, p_in.send_ids, 1), p_in.slot,
+             rs.route_gather(theta, p_th.send_ids, 1), p_th.slot, theta[:k_rows].contiguous(),
+             walks, mask, b_sh, *tables)
+    kw = dict(window=window, head_offsets=head_offsets)
+    got = rh.hs_grads_routed(*hargs, **kw)
+    want = rh.hs_grads_routed_plain(*hargs, **kw)
+    direct = hs.hs_grads(emb_in, theta, walks, mask, b_sh, *tables, **kw)
+    require(torch.equal(got[2], want[2]) and torch.equal(got[2], direct[2]),
+            f"hs_grads_routed (D = {dim}): tail rows differ")
+    hloss = -got[4][0] / torch.clamp(got[4][1], min=1.0)
+    err = max(_close(f"hs_grads_routed[g_in] (D = {dim})", got[0], want[0]),
+              _close(f"hs_grads_routed[g_tail] (D = {dim})", got[1], want[1]),
+              _close_to_largest(f"hs_grads_routed[d_head] (D = {dim})", got[3], want[3]),
+              _close_to_largest(f"hs_grads_routed[parts] (D = {dim})", got[4], want[4]),
+              _close(f"hs_grads_routed vs hs_grads[g_in] (D = {dim})", got[0], direct[0]),
+              _close(f"hs_grads_routed vs hs_grads[g_tail] (D = {dim})", got[1], direct[1]),
+              _close_to_largest(f"hs_grads_routed vs hs_grads[d_head] (D = {dim})", got[3],
+                                direct[3]),
+              _close(f"hs_grads_routed vs hs_grads[loss] (D = {dim})", hloss, direct[4]))
+    emit({"phase": "edge_case", "kernel": "hs_grads_routed", "case": f"dim_{dim}, N = 1",
+          "B": n_walks, "L1": length, "D": dim, "window": window, "max_abs_err": err,
+          "rtol": RTOL, "atol": ATOL})
+
+
+def edge_cases_k3() -> None:
+    """K3 (and its squares mode) where the main paths do not go, against
+    its plain version on the same inputs (rtol 1e-4, atol 1e-6: sums of
+    squares reordered by the block tables and the atomics): every id equal
+    (the worst contention, 1,000,064 rows on one accumulator entry, timed
+    beside the library yardstick): id 3, below K3's hot-id bound of 512
+    (the block arrays), and id 100,000 above it (a lane group's equal ids
+    combined in registers, then global atomics: the path of skewed SGNS
+    lists' hubs); every id dead, empty lists, D = 50 (the
+    4-byte path) and D = 100, lists sliced at a 4-byte offset (the 4-byte
+    path at D = 128), ids below and far above K3's hot-id bound of 512 (up
+    to 4,194,303; the block arrays sum the ones below it), and a list of 64
+    ids 4,096 apart."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    n_acc = 1 << 22
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def grads(n, dim, offset=False):
+        g = rng.normal(0, 0.3, n * dim + 1).astype(np.float32)
+        if offset:  # a view 4 bytes past a 16-byte boundary
+            return t(g)[1:].view(n, dim)
+        return t(g[: n * dim].reshape(n, dim))
+
+    def ids(kind, n):
+        if kind == "all_equal":
+            return np.full(n, 3)
+        if kind == "all_equal_cold":
+            return np.full(n, 100_000)
+        if kind == "all_dead":
+            return np.full(n, -1)
+        if kind == "spread":
+            return np.where(rng.random(n) < 0.5, rng.integers(0, 4096, n),
+                            rng.integers(0, n_acc, n))
+        if kind == "stride":
+            return rng.integers(0, 64, n) * 4096
+        return rng.integers(-1, 50_000, n)  # "random"
+
+    cases = (("all_equal", 200_000, 800_000, 64, 128, False),
+             ("all_equal_cold", 200_000, 800_000, 64, 128, False),
+             ("all_dead", 5_000, 20_000, 64, 128, False),
+             ("empty", 0, 0, 0, 128, False),
+             ("random", 5_000, 20_000, 64, 50, False),
+             ("random", 5_000, 20_000, 64, 100, False),
+             ("random", 5_000, 20_000, 64, 128, True),
+             ("spread", 50_000, 200_000, 64, 128, False),
+             ("stride", 5_000, 20_000, 64, 128, False))
+    for kind, n_in, n_out, n_x, dim, offset in cases:
+        lists = []
+        for n in (n_in, n_out, n_x):
+            lists += [grads(n, dim, offset), t(ids(kind, n).astype(np.int32))]
+        acc = [t(rng.random(n_acc).astype(np.float32)) for _ in range(2)]
+        got = [a.clone() for a in acc]
+        want = [a.clone() for a in acc]
+        sg.adagrad_accumulate(*got, *lists)
+        sg.adagrad_accumulate_plain(*want, *lists)
+        err = max(_close(f"adagrad_accumulate[{kind}, D={dim}, acc_in]", got[0], want[0]),
+                  _close(f"adagrad_accumulate[{kind}, D={dim}, acc_out]", got[1], want[1]))
+        line = {"phase": "edge_case", "kernel": "adagrad_accumulate", "case": kind, "D": dim,
+                "rows": [n_in, n_out, n_x], "offset_4_bytes": offset, "max_abs_err": err,
+                "rtol": RTOL, "atol": ATOL}
+        if kind.startswith("all_equal"):  # every row on one entry: kernel beside the library
+            live = [(lists[2 * k], lists[2 * k + 1].long()) for k in range(3)]
+            line["ms"] = time_ms(lambda: sg.adagrad_accumulate(*got, *lists))
+            line["library_ms"] = time_ms(lambda: [a.index_add_(0, r, mean_squares(g)) for a, (g, r)
+                                                  in zip((got[0], got[1], got[1]), live)])
+        emit(line)
+        # the squares mode on the same ids, each row's square given
+        sq = [(lists[2 * k] * lists[2 * k]).sum(1) if lists[2 * k].numel() else
+              torch.zeros(0, device=dev) for k in range(3)]
+        sq_lists = [x for k in range(3) for x in (sq[k].contiguous(), lists[2 * k + 1])]
+        got = [a.clone() for a in acc]
+        want = [a.clone() for a in acc]
+        sg.adagrad_accumulate_squares(*got, *sq_lists, dim)
+        sg.adagrad_accumulate_squares_plain(*want, *sq_lists, dim)
+        err = max(_close(f"adagrad_accumulate_squares[{kind}, acc_in]", got[0], want[0]),
+                  _close(f"adagrad_accumulate_squares[{kind}, acc_out]", got[1], want[1]))
+        emit({"phase": "edge_case", "kernel": "adagrad_accumulate_squares", "case": kind,
+              "D": dim, "rows": [n_in, n_out, n_x], "max_abs_err": err})
 
 
 # --------------------------------------------------------------------------- #
@@ -5494,6 +5662,7 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln or ln.startswith("==")
                     or "Compiling entry function" in ln]})
     k2_build_report()
+    k8_build_report()
 
     results: dict = {}
     if args.quick:
@@ -5516,6 +5685,7 @@ def main() -> int:
         head = hs.head_level_offsets(tree, table_rows=tree.n_inner)
         check_hs(tree, tree_counts, 64, 21, 128, 5, head, True, True, results)
         edge_cases_hs(tree, tree_counts)
+        edge_cases_k3()
         check_cbow(tree, tree_counts, 64, 21, 128, 5, True, True, True, results)
         check_cbow(tree, tree_counts, 64, 21, 128, 5, False, False, False, results,
                    case="cbow_mean=False")
@@ -5567,6 +5737,7 @@ def main() -> int:
     check_hs(tree, tree_counts, 8192, 21, 128, 5, head, True, False, results, case="B=8192",
              walks=hs_walks)
     edge_cases_hs(tree, tree_counts)
+    edge_cases_k3()
     # K9 and K10 on the same walks (main_path_cbow trains at main_path_hs's batch)
     check_cbow(tree, tree_counts, hs_batch, 21, 128, 5, True, True, True, results, walks=hs_walks)
     check_cbow(tree, tree_counts, hs_batch, 21, 128, 5, False, False, False, results,

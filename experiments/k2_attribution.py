@@ -38,11 +38,10 @@ variant, phase profile and mma setting, then the card's name and power limit.
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(ROOT, "node2vec_torch", "csrc")
+from _variants import CSRC, ROOT, build, card, patched
+
 OUT = os.path.join(ROOT, "build", "k2_attribution")
 
 VARIANTS = {
@@ -110,14 +109,6 @@ extern "C" int run(int chains, float* out, int blocks, int threads, int iters) {
 """
 
 
-def patched(src: str, pairs) -> str:
-    for old, new in pairs:
-        if src.count(old) != 1:
-            raise SystemExit(f"patch does not apply once: {old[:60]!r}")
-        src = src.replace(old, new)
-    return src
-
-
 def phase_probes():
     """(anchor, replacement) pairs for the phase profile's probes."""
     p = [PROBE % k for k in range(len(PHASES))]
@@ -151,40 +142,13 @@ def phase_probes():
 
 
 def sources() -> dict:
-    """Each library's name and CUDA source; raises when a patch does not apply."""
+    """Each library's name, CUDA source and extra nvcc flags; exits when a
+    patch does not apply."""
     src = open(os.path.join(CSRC, "sgns.cu")).read()
-    out = {name: patched(src, pairs) for name, pairs in VARIANTS.items()}
-    out["phases"] = patched(src, phase_probes()) + PHASE_READ
-    out["mma"] = MMA_SOURCE
+    out = {name: (patched(src, pairs), []) for name, pairs in VARIANTS.items()}
+    out["phases"] = (patched(src, phase_probes()) + PHASE_READ, [])
+    out["mma"] = (MMA_SOURCE, [])
     return out
-
-
-def build(srcs: dict) -> dict:
-    """Each library's path, built by one nvcc a source, all started together;
-    prints ptxas's registers and spills of each."""
-    import chip_smoke
-
-    os.makedirs(OUT, exist_ok=True)
-    subprocess.run(["cp", os.path.join(CSRC, "staging.cuh"), OUT], check=True)
-    nvcc = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "nvcc")
-    procs = {}
-    for i, (name, text) in enumerate(srcs.items()):
-        path, lib = os.path.join(OUT, f"src_{i}.cu"), os.path.join(OUT, f"lib_{i}.so")
-        open(path, "w").write(text)
-        procs[name] = (lib, subprocess.Popen(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", path, "-o", lib],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        _, err = proc.communicate(timeout=900)
-        if proc.returncode != 0:
-            raise SystemExit(err)
-        kernels = "mma_chains" if name == "mma" else "sgns_grads_kernel"
-        print(json.dumps({"build": name, "ptxas": chip_smoke.ptxas_summary(err, kernels)}),
-              flush=True)
-        libs[name] = ctypes.CDLL(lib)
-    return libs
 
 
 def main() -> int:
@@ -198,7 +162,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke
 
-    libs = build(srcs)
+    libs = build(srcs, OUT, lambda name: "mma_chains" if name == "mma" else "sgns_grads_kernel")
     dev = torch.device("cuda")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -286,8 +250,7 @@ def main() -> int:
             print(json.dumps({"phases": {"D": d, "warp": warp}, "kclk_a_block_a_launch": kclk,
                               "total_kclk": sum(kclk.values()),
                               "kernel_ms": start.elapsed_time(end) / reps}), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip())
+    print(card())
     return 0
 
 

@@ -29,13 +29,33 @@
 // They are two launches on purpose: every occurrence's square has to land
 // in the accumulator before any row reads it back, and two lists share
 // acc_out.  Fusing them into one pass that reads partial accumulators would
-// change the update.  Duplicate rows accumulate through fp32 atomics (in
-// another order than the JAX scatter, hence a tolerance in the
-// comparisons).
+// change the update.
 //
-// Design: one warp per gradient row of the three lists laid end to end;
-// the row's squares are a warp reduction, and its update is one coalesced
-// pass of atomics over the table row.
+// K3's design (Hopper): a block of 8 warps takes a run of rows of the lists
+// laid end to end (32 at D = 128), each warp kUnroll rows a lane group, as
+// many blocks as runs: every row's loads are in flight at once, as in K3's
+// first design (a warp a row), with 4 rows a warp.  Each row is read by T
+// lanes (T the power of two that covers the row's float4s, at most 32;
+// 32 / T rows side by side), 16 bytes a lane where D % 4 == 0 and the
+// lists' bases are 16-byte aligned, 4 bytes otherwise (the host picks; both
+// are this kernel).  Duplicate row ids are combined before the global
+// atomics, twice: equal ids among a lane group's kUnroll rows are summed in
+// registers (a pair list's center recurs 2w times in a row), and the mean
+// square of a row whose id is below kHot goes into the block's shared array
+// for its accumulator, each nonzero entry of which is added to the
+// accumulator with one fp32 atomic when the block ends (a block with no hot
+// id, found by one barrier, skips its arrays); any other id takes its
+// global atomic at once.  No atomic waits on its result.  With the
+// Huffman trees' BFS numbering the hot ids are the top 9 levels of HS's and
+// CBOW-HS's theta rows (the root alone is on every path: about 54k
+// occurrences a step), so a block's occurrences of a top node cost one
+// atomic, not one each; any list, one id repeated everywhere included,
+// gives the plain version's sums up to fp32 order (the JAX scatter sums in
+// yet another order, hence a tolerance in the comparisons).
+//
+// K4 keeps the first design: one warp per gradient row of the three lists
+// laid end to end; the row's update is one coalesced pass of atomics over
+// the table row.  K3's squares mode is one thread a row.
 //
 // Bound on an H100: memory — reading the grads once and a read-modify-write
 // of each touched accumulator entry (K3) or table row (K4).
@@ -55,18 +75,6 @@ struct RowLists {
   const int32_t *rows_in, *rows_out, *rows_extra;
   int64_t n_in, n_out, n_extra;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float row_mean_sq(const float* g, int dim, int lane) {
-  float acc = 0.f;
-  for (int k = lane; k < dim; k += 32) acc += g[k] * g[k];
-  return warp_sum(acc) / static_cast<float>(dim);
-}
 
 // The r-th row of the lists laid end to end: its gradient row, its table
 // row v (< 0: skip) and whether it belongs to the input table (list 0).
@@ -94,17 +102,136 @@ __device__ __forceinline__ bool locate(const RowLists& l, int64_t r, int dim,
   return false;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---- K3 -------------------------------------------------------------------
+
+constexpr int kHot = 512;        // ids below it are summed in the block's shared arrays
+constexpr int kUnroll = 4;       // rows a group of lanes loads at once
+constexpr int kK3Threads = 256;
+constexpr int kK3Warps = kK3Threads / 32;
+
+// Sum of squares of n floats (kVec: n / 4 float4s) from g, lanes sub, sub +
+// kT, ... of a group of kT lanes; each of kUnroll rows' loads issued before
+// any is used.
+template <bool kVec, int kT>
+__device__ __forceinline__ void row_squares(const float* const (&g)[kUnroll], int dim, int sub,
+                                            float (&acc)[kUnroll]) {
+  const int n = kVec ? dim / 4 : dim;
+  for (int c = sub; c < n; c += kT) {
+    float v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (kVec) {
+        const float4 x = g[u] != nullptr ? __ldg(reinterpret_cast<const float4*>(g[u]) + c)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[u] = x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
+      } else {
+        const float x = g[u] != nullptr ? __ldg(g[u] + c) : 0.f;
+        v[u] = x * x;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc[u] += v[u];
+  }
+}
+
+// A block's run of rows: kK3Warps * (32 / kT) * kUnroll rows of the lists
+// laid end to end, kUnroll a group of kT lanes.
+template <bool kVec, int kT>
+__device__ __forceinline__ void accumulate_rows(float* acc_in, float* acc_out,
+                                                const RowLists& l, int dim, float* hot) {
+  constexpr int kSides = 32 / kT;  // rows side by side in a warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane & (kT - 1), side = lane / kT;
+  const int64_t n = l.n_in + l.n_out + l.n_extra;
+  const float inv_dim = 1.f / static_cast<float>(dim);
+  const int64_t base = (static_cast<int64_t>(blockIdx.x) * kK3Warps + warp) * kSides * kUnroll;
+  const float* g[kUnroll];
+  int id[kUnroll];
+  bool first[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int64_t r = base + u * kSides + side;
+    g[u] = nullptr;
+    id[u] = -1;
+    first[u] = false;
+    if (r < n) locate(l, r, dim, g[u], id[u], first[u]);
+    if (id[u] < 0) g[u] = nullptr;
+  }
+  float acc[kUnroll] = {};
+  row_squares<kVec, kT>(g, dim, sub, acc);
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+    for (int off = kT / 2; off > 0; off >>= 1) acc[u] += __shfl_xor_sync(kFull, acc[u], off);
+  // equal rows of the lane group summed first (a pair list's center recurs
+  // 2w times in a row)
+#pragma unroll
+  for (int u = 1; u < kUnroll; ++u)
+#pragma unroll
+    for (int u2 = 0; u2 < u; ++u2)
+      if (id[u] >= 0 && id[u2] == id[u] && first[u2] == first[u]) {
+        acc[u2] += acc[u];
+        id[u] = -1;
+      }
+  // the block's hot arrays, only where one of its rows has a hot id (the
+  // barrier after every row's loads have come back)
+  bool mine = false;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) mine |= id[u] >= 0 && id[u] < kHot;
+  const bool hot_block = __syncthreads_or(mine) != 0;
+  if (hot_block) {
+    for (int e = threadIdx.x; e < 2 * kHot; e += kK3Threads) hot[e] = 0.f;
+    __syncthreads();
+  }
+  // the group's lanes take a row each: a hot id into the block's array, any
+  // other straight to its accumulator (no atomic waits on a result)
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    if (sub != u % kT || id[u] < 0) continue;
+    const float v = acc[u] * inv_dim;
+    if (id[u] < kHot) {
+      atomicAdd(hot + (first[u] ? 0 : kHot) + id[u], v);
+    } else {
+      atomicAdd((first[u] ? acc_in : acc_out) + id[u], v);
+    }
+  }
+  if (!hot_block) return;
+  __syncthreads();  // the block's rows are in its arrays
+  for (int e = threadIdx.x; e < 2 * kHot; e += kK3Threads) {
+    const float v = hot[e];
+    if (v != 0.f) atomicAdd((e < kHot ? acc_in : acc_out) + (e & (kHot - 1)), v);
+  }
+}
+
+template <bool kVec, int kT>
+__global__ void __launch_bounds__(kK3Threads)
 adagrad_accumulate_kernel(float* __restrict__ acc_in, float* __restrict__ acc_out,
                           RowLists l, int dim) {
-  const int lane = threadIdx.x & 31;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  const float* g;
-  int v;
-  bool first;
-  if (!locate(l, r, dim, g, v, first) || v < 0) return;
-  const float sq = row_mean_sq(g, dim, lane);
-  if (lane == 0) atomicAdd((first ? acc_in : acc_out) + v, sq);
+  __shared__ float hot[2 * kHot];  // [acc_in's, acc_out's]
+  accumulate_rows<kVec, kT>(acc_in, acc_out, l, dim, hot);
+}
+
+template <bool kVec, int kT>
+int launch_accumulate(float* acc_in, float* acc_out, const RowLists& l, int64_t n, int dim,
+                      cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(kK3Warps) * (32 / kT) * kUnroll;  // a block's
+  adagrad_accumulate_kernel<kVec, kT>
+      <<<static_cast<unsigned>((n + rows - 1) / rows), kK3Threads, 0, stream>>>(acc_in, acc_out,
+                                                                                l, dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec>
+int launch_accumulate(float* acc_in, float* acc_out, const RowLists& l, int64_t n, int dim,
+                      int t, cudaStream_t stream) {
+  switch (t) {
+    case 32: return launch_accumulate<kVec, 32>(acc_in, acc_out, l, n, dim, stream);
+    case 16: return launch_accumulate<kVec, 16>(acc_in, acc_out, l, n, dim, stream);
+    case 8: return launch_accumulate<kVec, 8>(acc_in, acc_out, l, n, dim, stream);
+    case 4: return launch_accumulate<kVec, 4>(acc_in, acc_out, l, n, dim, stream);
+    case 2: return launch_accumulate<kVec, 2>(acc_in, acc_out, l, n, dim, stream);
+    default: return launch_accumulate<kVec, 1>(acc_in, acc_out, l, n, dim, stream);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -147,6 +274,10 @@ unsigned n_blocks(const RowLists& l) {
 
 }  // namespace
 
+// K3.  Rows go 16 bytes a lane where dim % 4 == 0 and every list's base is
+// 16-byte aligned, else 4; T lanes a row, T the least power of two >= the
+// row's pieces, at most 32.  A block a run of kK3Warps * (32 / T) * kUnroll
+// rows.
 extern "C" int n2v_adagrad_accumulate(float* acc_in, float* acc_out,
                                       const float* g_in, const int32_t* rows_in,
                                       int64_t n_in, const float* g_out,
@@ -156,10 +287,19 @@ extern "C" int n2v_adagrad_accumulate(float* acc_in, float* acc_out,
                                       int dim, void* stream) {
   const RowLists l = make_lists(g_in, rows_in, n_in, g_out, rows_out, n_out, g_extra,
                                 rows_extra, n_extra);
-  if (n_blocks(l) == 0) return 0;
-  adagrad_accumulate_kernel<<<n_blocks(l), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(acc_in, acc_out, l, dim);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t n = n_in + n_out + n_extra;
+  if (n == 0 || dim <= 0) return 0;
+  auto aligned = [](const float* p, int64_t rows) {
+    return rows == 0 || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = dim % 4 == 0 && aligned(g_in, n_in) && aligned(g_out, n_out) &&
+                   aligned(g_extra, n_extra);
+  const int pieces = vec ? dim / 4 : dim;
+  int t = 1;
+  while (t < pieces && t < 32) t *= 2;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return vec ? launch_accumulate<true>(acc_in, acc_out, l, n, dim, t, st)
+             : launch_accumulate<false>(acc_in, acc_out, l, n, dim, t, st);
 }
 
 extern "C" int n2v_adagrad_apply(float* emb_in, float* emb_out, const float* acc_in,

@@ -273,6 +273,15 @@ def hs_outputs(g_in, g_ctx, pts, walks, pmask, n_head: int, k_rows: int):
     return g_in.reshape(-1, dim), g_ctx[:, :, n_head:].reshape(-1, dim), tail_rows, d_head
 
 
+def check_hs_kernel_shape(dim: int, code_len: int) -> None:
+    """K8 (both modes) takes any dim >= 1 (past 512 columns in chunks) and a
+    code length >= 1 (every Huffman tree has one)."""
+    if dim < 1:
+        raise ValueError(f"hs_grads takes dim >= 1, got {dim}")
+    if code_len < 1:
+        raise ValueError("hs_grads takes a code length >= 1")
+
+
 def hs_grads(emb_in, theta, walks, vocab_mask, b_sh, points, codes, lengths, *,
              window: int, head_offsets):
     """K8 for CUDA tensors, the plain version for CPU tensors."""
@@ -299,6 +308,7 @@ def hs_grads(emb_in, theta, walks, vocab_mask, b_sh, points, codes, lengths, *,
     n_walks, length = walks.shape
     dim = emb_in.shape[1]
     cl = points.shape[1]
+    check_hs_kernel_shape(dim, cl)
     n_head, k_rows = head_split(head_offsets, cl)
     clt = cl - n_head
     lib = _build.lib()

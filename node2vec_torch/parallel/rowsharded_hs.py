@@ -157,6 +157,7 @@ def hs_grads_routed(x_in, slot_in, th, slot_th, head, walks, vocab_mask, b_sh, p
     n_walks, length = walks.shape
     dim = x_in.shape[1]
     cl = points.shape[1]
+    hs.check_hs_kernel_shape(dim, cl)
     n_head, k_rows = hs.head_split(head_offsets, cl)
     clt = cl - n_head
     if b_sh.shape != walks.shape or slot_in.shape != (n_walks * length,) or \
