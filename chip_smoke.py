@@ -8,9 +8,11 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build: every kernel in node2vec_torch/csrc with nvcc (sm_90a), timed;
-   then ``k2_build``: K2's kernels' registers and spills, the shared
-   memory a block takes at three shapes, and their tensor-core (HMMA)
-   instructions in ``cuobjdump -sass`` (fails without HMMA);
+   then ``k2_build``, ``k9_build`` and ``k13_build``: the kernels of K2,
+   K9 and K13 (walk groups on the tensor cores, csrc/tf32_tiles.cuh):
+   registers and spills, the shared memory a block takes at three shapes,
+   and their tensor-core (HMMA) instructions in ``cuobjdump -sass`` (fails
+   without HMMA); then ``k8_build``;
 3. kernel checks on the card, each kernel's wrapper against its plain
    PyTorch version on the same inputs:
    - K1 dense_walk on the smoke graph at (p, q) = (0.25, 4) and (1, 1),
@@ -243,7 +245,9 @@ way, on main_path_hs's first chunk at its batch (cbow_mean True and False)
 and at B = 8192; edge cases add dead lanes with 20% of the vertices out of
 the vocabulary, all-dead walks, centers with no context, window >= L1,
 walk length 81, D = 100 at window 10, and 2-position walks, where K9's
-loss equals K2's under the same draws.  They hold K11 preagg_rows,
+loss equals K2's under the same draws; K9 alone at the cases its walk
+groups make risky (a ragged last group with an all-dead walk, L1 = 64
+and 65, D = 100, 256, 600 and 50, both cbow_mean settings).  They hold K11 preagg_rows,
 sgd_apply and K3/K4 over the de-duplicated lists, and both pre-aggregated
 steps (optimizer="sgd"; preagg=True with Adagrad), against their plain
 versions on main_path_sgd's batch (2,570 walks of its first chunk,
@@ -257,7 +261,9 @@ dense graph and the RMAT (131,072 walkers x 20) at (p, q) = (0.25, 4),
 sinks and dead lanes, the forced back edge at a degree-1 vertex, and a
 chi-square on general weights.  They hold K13 (pair lists bit-equal,
 per-lane gradients elementwise) and K3/K4 over its pair lists, with and
-without the shrink and with 40% of the vertices out of the vocabulary, K2
+without the shrink and with 40% of the vertices out of the vocabulary
+(edge_cases_pairs adds a ragged last group with an all-dead walk, L1 =
+64 and 65, D = 100, 256, 600 and 50, window 1 and an all-dead batch), K2
 at row stride D + 1 against its plain version and against K2 at stride D
 (both timed), K14 with repeated rows, dead rows and a negative that is
 also a center, and K15 bit-equal on the dense graph's CSR alias tables and
@@ -622,21 +628,41 @@ def ptxas_summary(report: str, kernel_part: str) -> dict:
     return out
 
 
-def k2_build_report() -> None:
-    """K2's kernels in the built library: ptxas's registers and spills (when
-    this process built it), the dynamic shared memory a block takes at the
-    main path's, dim 64's and the wide shape, and the tensor-core (HMMA:
-    the 3xTF32 products) and FFMA instructions of each kernel in
-    ``cuobjdump -sass``.  Fails when a K2 kernel has no HMMA."""
-    ptxas = ptxas_summary(_build.ptxas_report, "sgns_grads_kernel")
-    sass = sass_counts(_build.build(), "sgns_grads_kernel")
+def tc_build_report(phase: str, kernel_part: str, n_kernels: int, smem, shapes: dict) -> None:
+    """The build line of a step kernel on the tensor cores (``k2_build``,
+    ``k9_build``, ``k13_build``): its kernels' registers and spills from
+    ptxas (when this process built the library), their tensor-core (HMMA:
+    the 3xTF32 products) and FFMA instructions in ``cuobjdump -sass``, and
+    the dynamic shared memory a block takes (or the workspace it stages in)
+    at each of ``shapes`` (name: ``smem``'s arguments).  Fails unless the
+    library has ``n_kernels`` such kernels, each with HMMA."""
+    ptxas = ptxas_summary(_build.ptxas_report, kernel_part)
+    sass = sass_counts(_build.build(), kernel_part)
+    limit = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin",
+                    232448)
+    smem_bytes = {k: int(smem(*v)) for k, v in shapes.items()}
+    emit({"phase": phase, "ptxas": ptxas, "sass": sass, "smem_bytes": smem_bytes,
+          "staging": {k: _build.staging_mode(v, limit) for k, v in smem_bytes.items()}})
+    require(len(sass) == n_kernels and all(v["HMMA"] > 0 for v in sass.values()),
+            f"{kernel_part}: {n_kernels} kernels, each with its products on the tensor cores: "
+            f"{sass}")
+
+
+def build_reports() -> None:
+    """k2_build, k9_build and k13_build (tc_build_report), then k8_build."""
     lib = _build.lib()
-    shapes = {"main (L1 21, D 128, S 64, w 5)": (21, 128, 64, 5),
-              "dim 64": (21, 64, 64, 5), "wide (L1 81, D 256, w 10)": (81, 256, 64, 10)}
-    emit({"phase": "k2_build", "ptxas": ptxas, "sass": sass,
-          "smem_bytes": {k: int(lib.n2v_sgns_grads_smem(*v)) for k, v in shapes.items()}})
-    require(len(sass) == 4 and all(v["HMMA"] > 0 for v in sass.values()),
-            f"K2's kernels must run their products on the tensor cores: {sass}")
+    tc_build_report("k2_build", "sgns_grads_kernel", 4, lib.n2v_sgns_grads_smem,
+                    {"main (L1 21, D 128, S 64, w 5)": (21, 128, 64, 5),
+                     "dim 64": (21, 64, 64, 5), "wide (L1 81, D 256, w 10)": (81, 256, 64, 10)})
+    tc_build_report("k9_build", "cbow_grads_kernel", 2, lib.n2v_cbow_grads_smem,
+                    {"main (L1 21, D 128, S 64)": (21, 128, 64),
+                     "one walk a group (L1 65, D 128)": (65, 128, 64),
+                     "wide (L1 81, D 256)": (81, 256, 64)})
+    tc_build_report("k13_build", "sgns_pair_grads_kernel", 2, lib.n2v_sgns_pair_grads_smem,
+                    {"main (L1 21, D 128, S 64, w 5)": (21, 128, 64, 5),
+                     "one walk a group (L1 65, D 128, w 5)": (65, 128, 64, 5),
+                     "wide (L1 81, D 256, w 10)": (81, 256, 64, 10)})
+    k8_build_report()
 
 
 def k8_build_report() -> None:
@@ -1907,6 +1933,23 @@ def _cbow_inputs(tree, counts, n_walks: int, length: int, dim: int, window: int,
                 noise=noise, r=(r1, r2), neg=sg.negative_ids(r1, r2, *noise), window=window)
 
 
+def _verify_k9(inp, cbow_mean: bool, case: str):
+    """K9 against its plain version on the same inputs: g_in, d_out and the
+    loss elementwise, d_no to rtol of its largest entry.  Returns (the
+    largest error, the plain outputs)."""
+    args = (*inp["ns"][:2], inp["walks"], inp["mask"], inp["b_sh"], inp["neg"])
+    kw = dict(window=inp["window"], negatives=5, cbow_mean=cbow_mean)
+    tag = f"({case}, cbow_mean={cbow_mean})"
+    got = cbow.cbow_grads(*args, **kw)
+    want = cbow.cbow_grads_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = [_close(f"cbow_grads[{k}] {tag}", g, x) for k, g, x in
+            zip(("g_in", "d_out", "loss"), (got[0], got[1], got[3]),
+                (want[0], want[1], want[3]))]
+    errs.append(_close_to_largest(f"cbow_grads[d_no] {tag}", got[2], want[2]))
+    return max(errs), want
+
+
 def _verify_cbow(inp, cbow_mean: bool, case: str) -> dict:
     """K9, K10 and K3/K4 over CBOW-HS's lists, then both whole steps, each
     against its plain version on the same inputs (check_sgns's
@@ -1920,17 +1963,7 @@ def _verify_cbow(inp, cbow_mean: bool, case: str) -> dict:
     hs_args = (*inp["hs"][:2], inp["walks"], inp["mask"], inp["b_sh"], *inp["tables"])
     tag = f"({case}, cbow_mean={cbow_mean})"
 
-    got = cbow.cbow_grads(*ns_args, **ns_kw)
-    want9 = cbow.cbow_grads_plain(*ns_args, **ns_kw)
-    torch.cuda.synchronize()
-    errs9 = [_close(f"cbow_grads[{k}] {tag}", g, x) for k, g, x in
-             zip(("g_in", "d_out", "loss"), (got[0], got[1], got[3]),
-                 (want9[0], want9[1], want9[3]))]
-    d_no_err = float((got[2] - want9[2]).abs().max())
-    d_no_scale = float(want9[2].abs().max())
-    require(d_no_err <= RTOL * d_no_scale,
-            f"cbow_grads[d_no] {tag}: max abs err {d_no_err} > rtol {RTOL} * {d_no_scale}")
-    errs9.append(d_no_err)
+    err9, want9 = _verify_k9(inp, cbow_mean, case)
 
     got = cbow.cbow_hs_grads(*hs_args, **hs_kw)
     want10 = cbow.cbow_hs_grads_plain(*hs_args, **hs_kw)
@@ -1972,7 +2005,7 @@ def _verify_cbow(inp, cbow_mean: bool, case: str) -> dict:
                                        for k, a, b in zip(("acc_in", "acc_out", "loss"),
                                                           (*k_state[2:], loss_k),
                                                           (*p_state[2:], loss_p))])
-    return {"errs": {"cbow_grads": max(errs9), "cbow_hs_grads": max(errs10),
+    return {"errs": {"cbow_grads": err9, "cbow_hs_grads": max(errs10),
                      "accumulate_cbow_hs": k3_err, "apply_cbow_hs": k4_err,
                      "ns_step": steps["ns"], "hs_step": steps["hs"]},
             "want9": want9, "want10": want10, "lists": lists, "acc": (p_in, p_th)}
@@ -2147,6 +2180,30 @@ def edge_cases_cbow(tree, counts) -> None:
             f"2-position walks: CBOW-NS loss {loss9} != SGNS loss {loss2}")
     emit({"phase": "edge_case", "kernel": "cbow_grads vs sgns_grads", "case": "two_token",
           "B": 512, "cbow_loss": loss9, "sgns_loss": loss2, "rtol": RTOL})
+
+    # K9's walk-group tiling (csrc/cbow.cu): a ragged last group with an
+    # all-dead walk inside the batch (100 walks of 21 in groups of 3), one
+    # walk a group at L1 = 64 and 65 (M-tiles of 64 and 80 rows; at 65 H is
+    # remade in pass 2), D past a whole number of column chunks (100 in
+    # shared memory, 600 in global staging), D = 256 (chunks of 32, H
+    # remade, in shared memory), D = 50 (no 16-byte rows: 4-byte copies and
+    # stores)
+    walks = rng.integers(0, n_v, (100, 21)).astype(np.int32)
+    walks[50] = -1
+    for case, n_walks, length, dim, window, walks_c in (
+            ("ragged_group_dead_walk", 100, 21, 128, 5, walks),
+            ("walk_length_64", 40, 64, 128, 5, None), ("walk_length_65", 40, 65, 128, 5, None),
+            ("dim_100", 100, 21, 100, 5, None),
+            ("dim_600", 24, 21, 600, 5, None), ("dim_256", 48, 21, 256, 5, None),
+            ("dim_50", 64, 21, 50, 3, None)):
+        for cbow_mean in (True, False):
+            inp = _cbow_inputs(tree, counts, n_walks, length, dim, window, seed=13,
+                               walks=walks_c, oov=0.1)
+            err, _ = _verify_k9(inp, cbow_mean, case)
+            emit({"phase": "edge_case", "kernel": "cbow_grads", "case": case,
+                  "cbow_mean": cbow_mean, "B": n_walks, "L1": length, "D": dim, "window": window,
+                  "smem_bytes": int(_build.lib().n2v_cbow_grads_smem(length, dim, 64)),
+                  "max_abs_err": err, "rtol": RTOL, "atol": ATOL})
 
 
 def _preagg_inputs(n_vertices: int, walks_np: np.ndarray, dim: int, window: int, seed: int,
@@ -2495,6 +2552,62 @@ def _batch_inputs(n_vertices, n_walks, length, dim, window, seed, oov, batch):
     return inp
 
 
+def _verify_k13(inp, b_sh, window: int, case: str):
+    """K13's two launches against their plain versions on the same inputs
+    (_batch_inputs): the pair lists bit-equal; d_ci, d_co and the loss
+    elementwise, d_no to rtol of its largest entry, the valid-lane count
+    exact.  Returns (entries of the lists that differ, the gradients'
+    largest error, the plain lists, the plain gradients)."""
+    walks, mask, neg = inp["walks"], inp["mask"], inp["neg"]
+    emb_in, emb_out = inp["state"][:2]
+    kw = dict(window=window, negatives=5)
+    centers, contexts = sg.pair_lists(walks, b_sh, mask, window)
+    pc, px = sg.pair_lists_plain(walks, b_sh, mask, window)
+    n_diff = int((centers != pc).sum()) + int((contexts != px).sum())
+    require(n_diff == 0, f"pair_lists differs from its plain version in {n_diff} entries ({case})")
+    got = sg.sgns_pair_grads(emb_in, emb_out, walks, pc, px, neg, **kw)
+    want = sg.sgns_pair_grads_plain(emb_in, emb_out, walks, pc, px, neg, **kw)
+    err = max(_close(f"sgns_pair_grads[d_ci] ({case})", got[0], want[0]),
+              _close(f"sgns_pair_grads[d_co] ({case})", got[1], want[1]),
+              _close_to_largest(f"sgns_pair_grads[d_no] ({case})", got[2], want[2]),
+              _close(f"sgns_pair_grads[loss] ({case})", got[3], want[3]))
+    n_valid = int((pc >= 0).sum())
+    require(int(got[4]) == int(want[4]) == n_valid,
+            f"sgns_pair_grads counts {float(got[4])} valid lanes, not {n_valid} ({case})")
+    return n_diff, err, (pc, px), want
+
+
+def edge_cases_pairs() -> None:
+    """K13's two launches where its walk-group tiling (csrc/sgns_pairs.cu)
+    could go wrong, against their plain versions (_verify_k13): a ragged
+    last group with an all-dead walk inside the batch (100 walks of 21 in
+    groups of 3), one walk a group at L1 = 64 and 65, D past a whole number
+    of column chunks (100 in shared memory, 600 in global staging), D = 256
+    (chunks of 32), D = 50 (4-byte copies and stores), window 1, and a batch
+    of dead walks only."""
+    lib = _build.lib()
+    for case, n_walks, length, dim, window in (
+            ("ragged_group_dead_walk", 100, 21, 128, 5), ("walk_length_64", 40, 64, 128, 5),
+            ("walk_length_65", 40, 65, 128, 5), ("dim_100", 100, 21, 100, 5),
+            ("dim_600", 24, 21, 600, 5), ("dim_256", 48, 21, 256, 5), ("dim_50", 64, 21, 50, 3),
+            ("window_1", 64, 21, 128, 1),
+            ("all_dead", 32, 21, 128, 5)):
+        walks = _pair_walks(4096, n_walks, length, seed=17)
+        if case == "ragged_group_dead_walk":
+            walks[50] = -1
+        if case == "all_dead":
+            walks[:] = -1
+        inp = _preagg_inputs(4096, walks, dim, window, 18, oov=0.1)
+        _, err, (pc, _), want = _verify_k13(inp, inp["b_sh"], window, case)
+        emit({"phase": "edge_case", "kernel": "pair_lists, sgns_pair_grads", "case": case,
+              "B": n_walks, "L1": length, "D": dim, "window": window,
+              "valid_lanes": int((pc >= 0).sum()),
+              "smem_bytes": int(lib.n2v_sgns_pair_grads_smem(length, dim, 64, window)),
+              "max_abs_err": err, "rtol": RTOL, "atol": ATOL})
+        if case == "all_dead":
+            require(float(want[3]) == 0 and int((pc >= 0).sum()) == 0, "all_dead: a valid lane")
+
+
 def check_pairs(n_vertices: int, n_walks: int, length: int, dim: int, window: int,
                 record: bool, results: dict, case: str, shrink: bool = True,
                 oov: float = 0.1, batch=None) -> None:
@@ -2513,19 +2626,7 @@ def check_pairs(n_vertices: int, n_walks: int, length: int, dim: int, window: in
     kw = dict(window=window, negatives=5)
     lr = 0.05
 
-    centers, contexts = sg.pair_lists(walks, b_sh, mask, window)
-    pc, px = sg.pair_lists_plain(walks, b_sh, mask, window)
-    n_diff = int((centers != pc).sum()) + int((contexts != px).sum())
-    require(n_diff == 0, f"pair_lists differs from its plain version in {n_diff} entries ({case})")
-    got = sg.sgns_pair_grads(emb_in, emb_out, walks, pc, px, neg, **kw)
-    want = sg.sgns_pair_grads_plain(emb_in, emb_out, walks, pc, px, neg, **kw)
-    k13_err = max(_close("sgns_pair_grads[d_ci]", got[0], want[0]),
-                  _close("sgns_pair_grads[d_co]", got[1], want[1]),
-                  _close_to_largest("sgns_pair_grads[d_no]", got[2], want[2]),
-                  _close("sgns_pair_grads[loss]", got[3], want[3]))
-    n_lanes_valid = int((pc >= 0).sum())
-    require(int(got[4]) == int(want[4]) == n_lanes_valid,
-            f"sgns_pair_grads counts {float(got[4])} valid lanes, not {n_lanes_valid} ({case})")
+    n_diff, k13_err, (pc, px), want = _verify_k13(inp, b_sh, window, case)
     d_ci, d_co, d_no = want[:3]
     lists = (d_ci, pc, d_co, px, d_no, neg)  # the pair step's three row lists
     a_in, a_out = acc_in.clone(), acc_out.clone()
@@ -5661,8 +5762,7 @@ def main() -> int:
           "ptxas": [ln.strip()[:160] for ln in _build.ptxas_report.splitlines()
                     if "registers" in ln or "spill" in ln or ln.startswith("==")
                     or "Compiling entry function" in ln]})
-    k2_build_report()
-    k8_build_report()
+    build_reports()
 
     results: dict = {}
     if args.quick:
@@ -5699,6 +5799,7 @@ def main() -> int:
         check_pairs(4096, 64, 21, 128, 5, True, results, "quick")
         check_pairs(4096, 64, 21, 128, 5, False, results, "quick, no shrink", shrink=False)
         check_pairs(512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
+        edge_cases_pairs()
         check_fused(4096, 64, 21, 128, 5, True, results, "quick")
         check_fused(512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
         check_alias_draw(g, True, results, "quick, dense ER 4,096 vertices")
@@ -5762,6 +5863,7 @@ def main() -> int:
     check_pairs(131072, main_batch, 21, 128, 5, False, results, "no shrink", shrink=False)
     check_pairs(4096, 64, 21, 128, 5, False, results, "V = 4,096, 40% out of vocabulary",
                 oov=0.4)
+    edge_cases_pairs()
     check_fused(131072, main_batch, 21, 128, 5, True, results, "main_path_fused batch 0",
                 batch=first)
     mesh = make_mesh(1, 1, device="cuda")  # a world of one, over NCCL

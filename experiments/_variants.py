@@ -1,6 +1,7 @@
 """Patched copies of a kernel source, built side by side on one card: the
 common part of ``k2_attribution.py`` and ``hs_attribution.py``.
 
+``source`` reads a kernel source with its shared headers written in;
 ``patched`` applies text patches, each of which must match the source
 exactly once, so a patch that no longer follows its kernel fails loudly.
 ``build`` compiles each source into a shared library of its own with nvcc
@@ -11,11 +12,23 @@ registers and spills of the kernels named.  Neither is imported by the port.
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "node2vec_torch", "csrc")
+
+
+def source(name: str) -> str:
+    """The text of ``csrc/<name>`` with each local header it includes, other
+    than ``staging.cuh``, written out in place, so that a patch can reach
+    the code a kernel shares with others (``tf32_tiles.cuh``)."""
+    text = open(os.path.join(CSRC, name)).read()
+    for header in re.findall(r'#include "(\w+\.cuh)"', text):
+        if header != "staging.cuh":
+            text = text.replace(f'#include "{header}"', source(header), 1)
+    return text
 
 
 def patched(src: str, pairs) -> str:

@@ -40,7 +40,7 @@ import json
 import os
 import sys
 
-from _variants import CSRC, ROOT, build, card, patched
+from _variants import ROOT, build, card, patched, source
 
 OUT = os.path.join(ROOT, "build", "k2_attribution")
 
@@ -113,16 +113,17 @@ def phase_probes():
     """(anchor, replacement) pairs for the phase profile's probes."""
     p = [PROBE % k for k in range(len(PHASES))]
     return [
-        ("namespace {\n\nconstexpr int kThreads",
-         "__device__ unsigned long long k2_phase_clk[32];\nnamespace {\n\nconstexpr int kThreads"),
+        ("namespace {\n\nusing namespace tiles;",
+         "__device__ unsigned long long k2_phase_clk[32];\nnamespace {\n\nusing namespace tiles;"),
         ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n  const int L = g.L,",
          "  long long _t = clock64();\n  const int tid = threadIdx.x, lane = tid & 31, "
          "warp = tid >> 5;\n  const int L = g.L,"),
         ("  for (int t = 0; t < n_items; ++t) {\n", f"  {p[0]}\n  for (int t = 0; t < n_items; ++t) {{\n"),
         ("    __syncthreads();  // item t landed; item t - 1's stage is free\n",
          f"    __syncthreads();  // item t landed; item t - 1's stage is free\n    {p[1]}\n"),
-        ("                      smem_addr(mbars + (t + 1) % kStages));\n    cp_commit();\n",
-         f"                      smem_addr(mbars + (t + 1) % kStages));\n    cp_commit();\n    {p[2]}\n"),
+        ("                      t + 1, vec, smem_addr(mbars + (t + 1) % kStages));\n    cp_commit();\n",
+         "                      t + 1, vec, smem_addr(mbars + (t + 1) % kStages));\n    cp_commit();\n"
+         f"    {p[2]}\n"),
         ("      if (first) {\n        for (int r = tid; r < Mt; r += kThreads)",
          f"      {p[3]}\n      if (first) {{\n        for (int r = tid; r < Mt; r += kThreads)"),
         ("          store_row(tn, Mt, r, r < kThreads ? nx : load_row<kRouted>(a, nq, r));\n"
@@ -136,15 +137,15 @@ def phase_probes():
         ("        store_grads(acc, a.g_out, it.row0, D, it.rows, m0, c0 + n0);\n      }\n    }\n  }\n",
          "        store_grads(acc, a.g_out, it.row0, D, it.rows, m0, c0 + n0);\n      }\n    }\n"
          f"    {p[7]}\n  }}\n"),
-        ("    a.loss_parts[3 * blockIdx.x + tid] = t;\n  }\n}",
-         f"    a.loss_parts[3 * blockIdx.x + tid] = t;\n  }}\n  {p[8]}\n}}"),
+        ("  flush_block(dno, g, a.d_no, red, pos_acc, neg_acc, mult_acc, a.loss_parts);\n}",
+         f"  flush_block(dno, g, a.d_no, red, pos_acc, neg_acc, mult_acc, a.loss_parts);\n  {p[8]}\n}}"),
     ]
 
 
 def sources() -> dict:
     """Each library's name, CUDA source and extra nvcc flags; exits when a
     patch does not apply."""
-    src = open(os.path.join(CSRC, "sgns.cu")).read()
+    src = source("sgns.cu")
     out = {name: (patched(src, pairs), []) for name, pairs in VARIANTS.items()}
     out["phases"] = (patched(src, phase_probes()) + PHASE_READ, [])
     out["mma"] = (MMA_SOURCE, [])

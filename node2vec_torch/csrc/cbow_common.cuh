@@ -1,12 +1,12 @@
-// Shared pieces of the two CBOW kernels, K9 cbow_grads (cbow.cu) and K10
-// cbow_hs_grads (cbow_hs.cu): the context window of a center, the hidden
-// vector h (node2vec_tpu/models/cbow.py:60 _context_mean) and the scatter
-// of its gradient back onto the contexts (:94 _scatter_context_grads).
+// Pieces of K10 cbow_hs_grads (cbow_hs.cu): the context window of a
+// center, the hidden vector h (node2vec_tpu/models/cbow.py:60
+// _context_mean) and the scatter of its gradient back onto the contexts
+// (:94 _scatter_context_grads).
 //
-// Both kernels hold one walk at a time in shared memory (or their global
-// staging slice, staging.cuh): vpos[L] (position
-// valid and in the vocabulary), bsh[L] (its shrunk half-window) and cnt[L]
-// (its context count), beside [L, D] rows.
+// K10 holds one walk at a time in shared memory (or its global staging
+// slice, staging.cuh): vpos[L] (position valid and in the vocabulary),
+// bsh[L] (its shrunk half-window) and cnt[L] (its context count), beside
+// [L, D] rows.
 
 #pragma once
 

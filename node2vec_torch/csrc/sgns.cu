@@ -60,6 +60,10 @@
 // stages them in a per-block slice of a global workspace instead, with the
 // same body (staging.cuh); there the gathers are plain copies.
 //
+// The walk groups, the 3xTF32 products, the gather ring and the group loop
+// live in tf32_tiles.cuh, which K9 (cbow.cu) and K13 (sgns_pairs.cu) build
+// on as well; this file keeps K2's row tables, elementwise phase and pass 2.
+//
 // Routed mode (the row-sharded step, node2vec_tpu/parallel/rowsharded_sgns.py
 // :270-344): the body is the same; only where a row comes from changes.
 // emb_in and emb_out are then the [N * cap, D] buffers the owners sent back
@@ -79,87 +83,21 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "staging.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 2;       // the ring of gathered chunks
-constexpr int kGroupRows = 64;   // rows of the M-tile a group of walks fills
-constexpr size_t kSmemOptin = 232448;  // an H100's shared memory per block
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// sigmoid(x) and log(1 + exp(-|x|)) from one exp: log(sigmoid(x)) =
-// min(x, 0) - that, the overflow-safe form.  The exp, log and division are
-// the fast intrinsics (a few ulp, or 2^-21 absolute for the log on (1, 2];
-// e is in (0, 1], so none meets its argument limits).
-__device__ __forceinline__ float sigmoid_log1pe(float x, float& log1pe) {
-  const float e = __expf(-fabsf(x));
-  log1pe = __logf(1.f + e);
-  const float inv = __fdividef(1.f, 1.f + e);
-  return x >= 0.f ? inv : e * inv;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-__host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
-
-// the least stride >= n that is 8 mod 32 floats
-__host__ __device__ inline int stride8(int n) { return n + ((40 - n % 32) % 32); }
-
-// A launch's geometry, computed alike on the host and in the kernel.
-struct Geo {
-  int L, D, S, W;  // walk length, dim, shared negatives, window
-  int G;           // walks a group
-  int Mt;          // a group's rows: G * L rounded up to 16
-  int Sp;          // S rounded up to 16
-  int KC, Dp, nc;  // columns a chunk, D rounded up to KC, chunks a pass
-  int ldn;         // row stride of NO and the d_no partial (Dp + 4)
-  int ldx;         // row stride of a gathered chunk (KC + 4)
-  int ldg, ldb;    // row strides of NL / Gneg and PL / Band (8 mod 32)
-};
-
-Geo make_geo(int length, int dim, int n_neg, int window, int kc) {
-  Geo g;
-  g.L = length;
-  g.D = dim;
-  g.S = n_neg;
-  g.W = window;
-  g.G = length >= kGroupRows ? 1 : kGroupRows / length;
-  g.Mt = round_up(g.G * length, 16);
-  g.Sp = round_up(n_neg, 16);
-  g.KC = kc;
-  g.Dp = round_up(dim, kc);
-  g.nc = g.Dp / kc;
-  g.ldn = g.Dp + 4;
-  g.ldx = kc + 4;
-  g.ldg = stride8(g.Sp);
-  g.ldb = stride8(g.Mt);
-  return g;
-}
+using namespace tiles;
 
 size_t smem_bytes(const Geo& g) {
-  const size_t floats = 2 * static_cast<size_t>(g.Sp) * g.ldn +        // NO, d_no partial
-                        static_cast<size_t>(kStages) * 2 * g.Mt * g.ldx +  // the ring
+  const size_t floats = common_floats(g) +                              // NO, d_no, ring
                         static_cast<size_t>(g.Mt) * (g.ldg + g.ldb) +    // NL / Gneg, PL / Band
-                        11 * static_cast<size_t>(g.Mt) +  // two groups' tables; mult
-                        3 * kWarps +                                     // loss reduction
-                        4;  // the ring's two mbarriers
+                        11 * static_cast<size_t>(g.Mt);  // two groups' tables; mult
   return floats * sizeof(float);
 }
 
-// chunks of 64 columns where they fit the card's shared memory, else 32
 Geo pick_geo(int length, int dim, int n_neg, int window) {
-  if (dim > 32) {
-    const Geo g = make_geo(length, dim, n_neg, window, 64);
-    if (smem_bytes(g) <= kSmemOptin) return g;
-  }
-  return make_geo(length, dim, n_neg, window, 32);
+  return tiles::pick_geo(length, dim, n_neg, window, [](const Geo& g) { return smem_bytes(g); });
 }
 
 // Routed mode's request slots (null in the direct mode)
@@ -183,172 +121,6 @@ struct K2Args {
   float* loss_parts;
   Slots sl;
 };
-
-// ---- TF32 tensor-core products at fp32 accuracy ---------------------------
-
-// x = hi + lo: hi rounded to TF32; lo = x - hi exactly, handed over as it
-// is (the tensor cores read a TF32 operand's top 19 bits, so lo is
-// truncated there: |error| < 2^-21 |x|, about what rounding it would keep)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[j] (the 16 x 8 tiles at rows m0.., columns n0 + 8j.., j < NT, those
-// below n_end) += A[m0:m0+16, k0:k1] . B[k0:k1, n0 + 8j:...], k0 and k1
-// multiples of 8.  A(m, k) is A[k * lda + m] when kAK (stored k-major), else
-// A[m * lda + k]; B(k, n) is B[k * ldb + n] when kBK, else B[n * ldb + k].
-// kPerm: fragment slots t and t + 4 hold k = 2t and 2t + 1 (then a
-// row-major A's pair is one 8-byte load).
-template <int NT, bool kAK, bool kBK, bool kPerm>
-__device__ __forceinline__ void mma_tile(float (&acc)[NT][4], const float* A, int lda,
-                                         const float* B, int ldb, int m0, int n0, int n_end,
-                                         int k0, int k1) {
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-  const int ka = kPerm ? 2 * tq : tq, kb = kPerm ? 2 * tq + 1 : tq + 4;
-  float small[NT][4] = {};  // the lo terms: chains of their own, added at the end
-  for (int k = k0; k < k1; k += 8) {
-    float av[4];
-    if (kAK) {
-      av[0] = A[(k + ka) * lda + m0 + gq];
-      av[1] = A[(k + ka) * lda + m0 + gq + 8];
-      av[2] = A[(k + kb) * lda + m0 + gq];
-      av[3] = A[(k + kb) * lda + m0 + gq + 8];
-    } else if (kPerm) {
-      const float2 x = *reinterpret_cast<const float2*>(A + (m0 + gq) * lda + k + ka);
-      const float2 y = *reinterpret_cast<const float2*>(A + (m0 + gq + 8) * lda + k + ka);
-      av[0] = x.x;
-      av[2] = x.y;
-      av[1] = y.x;
-      av[3] = y.y;
-    } else {
-      av[0] = A[(m0 + gq) * lda + k + ka];
-      av[1] = A[(m0 + gq + 8) * lda + k + ka];
-      av[2] = A[(m0 + gq) * lda + k + kb];
-      av[3] = A[(m0 + gq + 8) * lda + k + kb];
-    }
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], al[i]);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = n0 + 8 * j;
-      if (n >= n_end) break;
-      float b0, b1;
-      if (kBK) {
-        b0 = B[(k + ka) * ldb + n + gq];
-        b1 = B[(k + kb) * ldb + n + gq];
-      } else {
-        b0 = B[(n + gq) * ldb + k + ka];
-        b1 = B[(n + gq) * ldb + k + kb];
-      }
-      uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(b0, bh0, bl0);
-      split_tf32(b1, bh1, bl1);
-      mma_tf32(small[j], al, bh0, bh1);
-      mma_tf32(acc[j], ah, bh0, bh1);
-      mma_tf32(small[j], ah, bl0, bl1);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] += small[j][i];
-}
-
-// the accumulator fragments of a 16 x 8NT tile from / to a row-major array
-template <int NT>
-__device__ __forceinline__ void load_acc(float (&acc)[NT][4], const float* C, int ldc, int m0,
-                                         int n0, int n_end) {
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (n0 + 8 * j >= n_end) break;
-    const int col = n0 + 8 * j + 2 * tq;
-    const float2 x = *reinterpret_cast<const float2*>(C + (m0 + gq) * ldc + col);
-    const float2 y = *reinterpret_cast<const float2*>(C + (m0 + gq + 8) * ldc + col);
-    acc[j][0] = x.x;
-    acc[j][1] = x.y;
-    acc[j][2] = y.x;
-    acc[j][3] = y.y;
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void store_acc(const float (&acc)[NT][4], float* C, int ldc, int m0,
-                                          int n0, int n_end) {
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (n0 + 8 * j >= n_end) break;
-    const int col = n0 + 8 * j + 2 * tq;
-    *reinterpret_cast<float2*>(C + (m0 + gq) * ldc + col) = make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(C + (m0 + gq + 8) * ldc + col) = make_float2(acc[j][2], acc[j][3]);
-  }
-}
-
-// a 16 x 8NT tile of g_in or g_out: the group's rows below `rows`, columns
-// col0.. below D, rows of D floats from out + row0 * D
-template <int NT>
-__device__ __forceinline__ void store_grads(const float (&acc)[NT][4], float* __restrict__ out,
-                                            int64_t row0, int dim, int rows, int m0, int col0) {
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = m0 + gq + 8 * h;
-    if (r >= rows) continue;
-    float* dst = out + (row0 + r) * dim;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = col0 + 8 * j + 2 * tq;
-      if (dim % 2 == 0 && col + 1 < dim) {  // an 8-byte aligned pair
-        *reinterpret_cast<float2*>(dst + col) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-        continue;
-      }
-      if (col < dim) dst[col] = acc[j][2 * h];
-      if (col + 1 < dim) dst[col + 1] = acc[j][2 * h + 1];
-    }
-  }
-}
-
-// ---- the gathers ----------------------------------------------------------
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Which group, pass and chunk the block's item t is.
-struct Item {
-  int q, pass, chunk;  // q: the block's group index
-  int rows;            // the group's positions (G * L1, less in a ragged last group)
-  int64_t row0;        // the group's first position
-};
-
-__device__ __forceinline__ Item group_of(const Geo& g, int n_walks, int q) {
-  Item it;
-  it.q = q;
-  it.pass = it.chunk = 0;
-  const int w0 = (blockIdx.x + q * gridDim.x) * g.G;
-  it.rows = min(g.G, n_walks - w0) * g.L;
-  it.row0 = static_cast<int64_t>(w0) * g.L;
-  return it;
-}
-
-__device__ __forceinline__ Item item_of(const Geo& g, int n_walks, int t) {
-  Item it = group_of(g, n_walks, t / (2 * g.nc));
-  it.pass = (t / g.nc) % 2;
-  it.chunk = t % g.nc;
-  return it;
-}
 
 // A group's row table (in shared memory, one a group parity):
 //   tab [2][Mt]  the rows of X_in and X_out in the tables, -1 where the
@@ -399,108 +171,8 @@ __device__ __forceinline__ void store_row(const Table& t, int mt, int r, const R
   t.bsh[r] = x.bsh;
 }
 
-// Copy `n` floats of the row at src (null: zeros) from column c0 into dst,
-// `piece` the caller's 16 B (vec) or 4 B piece of it: cp.async into shared
-// memory, plain copies into a global workspace.
-template <bool kShared>
-__device__ __forceinline__ void copy_piece(float* dst, const float* src, int c0, int dim,
-                                           int piece, bool vec) {
-  if (vec) {
-    const int col = c0 + 4 * piece;
-    float* d = dst + 4 * piece;
-    if (src != nullptr && col < dim) {
-      if (kShared) {
-        const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(d));
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + col));
-      } else {
-        *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(src + col);
-      }
-    } else {
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {
-    const int col = c0 + piece;
-    float* d = dst + piece;
-    if (src != nullptr && col < dim) {
-      if (kShared) {
-        const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(d));
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src + col));
-      } else {
-        *d = src[col];
-      }
-    } else {
-      *d = 0.f;
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Wait until the mbarrier at `mbar` has completed the phase of the given
-// parity.
-__device__ __forceinline__ void mbar_wait(uint32_t mbar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(mbar), "r"(parity)
-        : "memory");
-  }
-}
-
-// Gather item t's [Mt, KC] chunks of X_in and X_out into `stage`; tab is the
-// item's group's row table.  Rows 16-byte aligned in shared memory (`bulk`):
-// one bulk copy a row (cp.async.bulk, the copy engine's 1-D form: the
-// issuing thread does not wait), completing on the stage's mbarrier, whose
-// phase counts one arrival a row; otherwise cp.async (4 B at row stride
-// D + 1) or plain copies into a global workspace.
-template <bool kShared>
-__device__ __forceinline__ void gather(float* stage, const Geo& g, const K2Args& a, int t,
-                                       const int* tab, int ld, bool vec, uint32_t mbar) {
-  const int c0 = (t % g.nc) * g.KC;
-  if (kShared && vec) {
-    // a copy's issue waits for the copy engine to take it, so every warp
-    // issues a few rows rather than four warps all of them
-    const int n = 4 * min(g.KC, g.D - c0);  // bytes a live row brings
-    const int per_warp = (2 * g.Mt + kWarps - 1) / kWarps;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    for (int i = lane; i < per_warp; i += 32) {
-      const int rr = warp * per_warp + i;
-      if (rr >= 2 * g.Mt) break;
-      const int row = tab[rr];
-      const int bytes = row < 0 ? 0 : n;
-      float* dst = stage + rr * g.ldx;
-      for (int c = bytes / 4; c < g.KC; c += 4)  // dead rows; columns past D
-        *reinterpret_cast<float4*>(dst + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mbar),
-                   "r"(bytes)
-                   : "memory");
-      if (bytes > 0) {
-        const float* table = rr < g.Mt ? a.emb_in : a.emb_out;
-        const float* src = table + static_cast<int64_t>(row) * ld + c0;
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-            "[%3];\n" ::"r"(smem_addr(dst)),
-            "l"(src), "r"(bytes), "r"(mbar)
-            : "memory");
-      }
-    }
-    return;
-  }
-  const int per_row = vec ? g.KC / 4 : g.KC;  // copies a row
-  const int piece = threadIdx.x % per_row;
-  for (int rr = threadIdx.x / per_row; rr < 2 * g.Mt; rr += kThreads / per_row) {
-    const int row = tab[rr];
-    const float* table = rr < g.Mt ? a.emb_in : a.emb_out;
-    copy_piece<kShared>(stage + rr * g.ldx,
-                        row < 0 ? nullptr : table + static_cast<int64_t>(row) * ld, c0, g.D,
-                        piece, vec);
-  }
+__device__ __forceinline__ Rows rows_of(const K2Args& a, int ld, const int* tab, int mt) {
+  return Rows{a.emb_in, a.emb_out, ld, tab, tab + mt};
 }
 
 // ---- one block's work -----------------------------------------------------
@@ -521,10 +193,8 @@ __device__ __forceinline__ void sgns_grads_block(float* sm, const Geo& g, const 
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int L = g.L, D = g.D, S = g.S, W = g.W, Mt = g.Mt, Sp = g.Sp, KC = g.KC;
-  const int n_groups = (a.n_walks + g.G - 1) / g.G;
-  const int my_groups =
-      n_groups > static_cast<int>(blockIdx.x) ? (n_groups - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  const int n_items = my_groups * 2 * g.nc;
+  const int n_mine = my_groups(g, a.n_walks);
+  const int n_items = n_mine * 2 * g.nc;
   const int ld = kRouted ? D : a.ld;
   const bool vec = ld % 4 == 0 && D % 4 == 0 &&
                    (reinterpret_cast<uintptr_t>(a.emb_in) % 16 == 0) &&
@@ -537,27 +207,10 @@ __device__ __forceinline__ void sgns_grads_block(float* sm, const Geo& g, const 
     const Table t0 = table_of(tabs, Mt, 0);
     for (int r = tid; r < Mt; r += kThreads) store_row(t0, Mt, r, load_row<kRouted>(a, g0, r));
   }
-  if (bulk && tid == 0) {
-    for (int st = 0; st < kStages; ++st)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(mbars + st)),
-                   "r"(2 * Mt)
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (bulk) init_ring(mbars, Mt);
   __syncthreads();
-  {
-    const int per_row = vec ? g.Dp / 4 : g.Dp;
-    for (int i = tid; i < Sp * per_row; i += kThreads) {
-      const int s = i / per_row;
-      int row = -1;
-      if (s < S) row = kRouted ? a.sl.neg[s] : a.neg_ids[s];
-      copy_piece<kShared>(no + s * g.ldn,
-                          row < 0 ? nullptr : a.emb_out + static_cast<int64_t>(row) * ld, 0, D,
-                          i % per_row, vec);
-    }
-    for (int i = tid; i < Sp * g.ldn; i += kThreads) dno[i] = 0.f;
-  }
-  if (n_items > 0) gather<kShared>(ring, g, a, 0, tabs, ld, vec, smem_addr(mbars));
+  load_negatives<kShared>(no, dno, g, a.emb_out, ld, kRouted ? a.sl.neg : a.neg_ids, vec);
+  if (n_items > 0) gather<kShared>(ring, g, rows_of(a, ld, tabs, Mt), 0, vec, smem_addr(mbars));
   cp_commit();
   float neg_live = 1.f;  // routed: 0 when any negative was dropped
   if (kRouted) {
@@ -567,8 +220,6 @@ __device__ __forceinline__ void sgns_grads_block(float* sm, const Geo& g, const 
   float pos_acc = 0.f, neg_acc = 0.f, mult_acc = 0.f;
 
   const int mt16 = Mt / 16, sp16 = Sp / 16;
-  const int n_nl = mt16 * sp16;
-  const int pl_slots = 2 + 2 * ((W + 7) / 8);  // 8-column tiles a row tile's band meets, at most
   // pass 2's warp tiles: 16 x 32 (4 mma tiles) in shared memory; 16 x 16 in
   // a global workspace, where the wider tile's registers cost more than its
   // reuse gains
@@ -581,9 +232,9 @@ __device__ __forceinline__ void sgns_grads_block(float* sm, const Geo& g, const 
     cp_wait_all();
     __syncthreads();  // item t landed; item t - 1's stage is free
     if (t + 1 < n_items)
-      gather<kShared>(ring + ((t + 1) % kStages) * 2 * Mt * g.ldx, g, a, t + 1,
-                      table_of(tabs, Mt, ((t + 1) / (2 * g.nc)) & 1).tab, ld, vec,
-                      smem_addr(mbars + (t + 1) % kStages));
+      gather<kShared>(ring + ((t + 1) % kStages) * 2 * Mt * g.ldx, g,
+                      rows_of(a, ld, table_of(tabs, Mt, ((t + 1) / (2 * g.nc)) & 1).tab, Mt),
+                      t + 1, vec, smem_addr(mbars + (t + 1) % kStages));
     cp_commit();
 
     const Item it = item_of(g, a.n_walks, t);
@@ -599,43 +250,15 @@ __device__ __forceinline__ void sgns_grads_block(float* sm, const Geo& g, const 
       // loads' latency.  Read from the next item on, after a barrier (the
       // next group's first gather is issued at the top of this group's last
       // item, the second at the earliest).
-      const bool first = it.chunk == 0, ahead = first && it.q + 1 < my_groups;
+      const bool first = it.chunk == 0, ahead = first && it.q + 1 < n_mine;
       int ok = 0;
       RowIds nx{-1, -1, -1, 0};
       if (first && tid < Mt) ok = tb.tab[tid] >= 0 && a.vocab_mask[tb.wid[tid]];
       if (ahead && tid < Mt) nx = load_row<kRouted>(a, group_of(g, a.n_walks, it.q + 1), tid);
 
       // pass 1: NL += X_in . NO^T in 16 x 16 tiles and, in the band's 16 x 8
-      // tiles, PL += X_in . X_out^T (a warp takes one of each, most often)
-      for (int w = warp; w < n_nl + mt16 * pl_slots; w += kWarps) {
-        int m0, n0, n_end, ldc, ldbb;
-        float* C;
-        const float* B;
-        if (w < n_nl) {
-          m0 = (w / sp16) * 16;
-          n0 = (w % sp16) * 16;
-          n_end = n0 + 16;
-          C = nlg;
-          ldc = g.ldg;
-          B = no + c0;
-          ldbb = g.ldn;
-        } else {
-          const int j = w - n_nl;
-          m0 = (j / pl_slots) * 16;
-          const int j0 = max(0, m0 - W) / 8, j1 = min(Mt - 1, m0 + 15 + W) / 8;
-          n0 = (j0 + j % pl_slots) * 8;
-          if (n0 > 8 * j1) continue;
-          n_end = n0 + 8;
-          C = plb;
-          ldc = g.ldb;
-          B = xout;
-          ldbb = g.ldx;
-        }
-        float acc[2][4] = {};
-        if (it.chunk > 0) load_acc(acc, C, ldc, m0, n0, n_end);
-        mma_tile<2, false, false, false>(acc, xin, g.ldx, B, ldbb, m0, n0, n_end, 0, KC);
-        store_acc(acc, C, ldc, m0, n0, n_end);
-      }
+      // tiles, PL += X_in . X_out^T
+      pass1_products(g, it.chunk, xin, g.ldx, no + c0, nlg, xout, plb);
 
       if (first) {
         for (int r = tid; r < Mt; r += kThreads)  // rows past the threads (L1 > kThreads)
@@ -718,10 +341,7 @@ __device__ __forceinline__ void sgns_grads_block(float* sm, const Geo& g, const 
       } else if (w < n_gi + n_dno) {  // the d_no partial += Gneg^T . X_in
         const int j = w - n_gi, s0 = (j / kc2) * 16, n0 = (j % kc2) * 8 * kP2Tiles;
         if (s0 >= S) continue;
-        float* C = dno + c0;
-        load_acc(acc, C, g.ldn, s0, n0, KC);
-        mma_tile<kP2Tiles, true, true, true>(acc, nlg, g.ldg, xin, g.ldx, s0, n0, KC, 0, k_live);
-        store_acc(acc, C, g.ldn, s0, n0, KC);
+        accumulate_dno<kP2Tiles>(dno + c0, g, nlg, xin, g.ldx, s0, n0, k_live);
       } else if (w >= go0) {  // g_out = Band^T . X_in
         const int j = w - go0, m0 = (j / kc2) * 16, n0 = (j % kc2) * 8 * kP2Tiles;
         if (m0 >= it.rows) continue;
@@ -733,30 +353,7 @@ __device__ __forceinline__ void sgns_grads_block(float* sm, const Geo& g, const 
   }
   cp_wait_all();
   __syncthreads();
-
-  if (D % 4 == 0 && reinterpret_cast<uintptr_t>(a.d_no) % 16 == 0) {  // 16-byte atomics
-    for (int i = 4 * tid; i < S * D; i += 4 * kThreads) {
-      const float* p = dno + (i / D) * g.ldn + i % D;
-      atomicAdd(reinterpret_cast<float4*>(a.d_no + i), make_float4(p[0], p[1], p[2], p[3]));
-    }
-  } else {
-    for (int i = tid; i < S * D; i += kThreads)
-      atomicAdd(a.d_no + i, dno[(i / D) * g.ldn + i % D]);
-  }
-  pos_acc = warp_sum(pos_acc);
-  neg_acc = warp_sum(neg_acc);
-  mult_acc = warp_sum(mult_acc);
-  if (lane == 0) {
-    red[warp] = pos_acc;
-    red[kWarps + warp] = neg_acc;
-    red[2 * kWarps + warp] = mult_acc;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    float t = 0.f;
-    for (int w = 0; w < kWarps; ++w) t += red[tid * kWarps + w];
-    a.loss_parts[3 * blockIdx.x + tid] = t;
-  }
+  flush_block(dno, g, a.d_no, red, pos_acc, neg_acc, mult_acc, a.loss_parts);
 }
 
 template <bool kRouted>
