@@ -29,16 +29,21 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    - K5 blocked_walk on the heavy-tail RMAT (scale 19, 8 * 2^19 drawn
      edges, numpy seed 0, undirected, max_out_degree 10,000, self loops
      kept; the graph of bench.py:807-821), 131,072 walkers x 20 steps at
-     (p, q, max_trials) = (0.25, 4, 64), (1, 1, 64), (1, 4, 64) and
-     (0.25, 4, 2): unit weights, so paths, fallbacks and attempts must be
-     bit-equal; its bound counts each table byte the run reads once
-     (distinct rows and sectors, from the plain run);
+     (p, q, max_trials) = (0.25, 4, 64), (1, 1, 64), (1, 4, 64),
+     (0.25, 4, 2) and (0.25, 1, 64) (K5's modes 2, 0, 2, 2 and 1): unit
+     weights, so paths, fallbacks and attempts must be bit-equal; its bound
+     counts each table byte the run reads once (distinct rows and sectors,
+     from the plain run); each line gives the
+     design's registers and spills (ptxas), its walkers resident an SM and
+     persistent grid, and the heavy attempts that read their block whole;
    - K20 ep_bucket, K21 ep_propose, K22 ep_member and K23 ep_advance (the
      graph-sharded walk's superstep) at main_path_ep's first chunk (the
      RMAT on the 1 x 1 mesh's one shard, 131,072 walkers x 20 at (0.25, 4)):
      every superstep holds each kernel to its plain version, bit-equal,
      at the full capacity and at 1/8 of it (lanes defer; slack 16), and
-     both walks equal K5's on the same walkers (``check_ep_walk``);
+     both walks equal K5's on the same walkers; then the RMAT with general
+     weights drawn from a seed, the walk through the mesh equal to K5's
+     (``check_ep_walk``);
    - K24 epd_bucket, K25 epd_serve and K26 epd_advance (the dense
      graph-sharded walk's superstep) at main_path_epd's first chunk (the
      dense graph's packed adjacency, P = 64, on the 1 x 1 mesh's one shard,
@@ -66,8 +71,11 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    through preprocess_input_graph -> run_pipeline(streaming=False) ->
    embedding on the RMAT graph of 3., same parameters (max_iter cut to 1,
    streaming forced off: the in-memory trainer on the RMAT); K5, K6 and
-   K2-K4 must have run the expected number of times; then K6 against its
-   plain version and torch.bincount on that run's corpus;
+   K2-K4 must have run the expected number of times; the walk corpus's
+   sha256 (``walk_corpus_sha256``: 7. and 9d. print theirs too, their
+   chunks walked again after the run, so that runs of two trees show the
+   same walks); then K6 against its plain version and torch.bincount on
+   that run's corpus;
 6a. the mesh main path, ``main_path_mesh``: ``Node2Vec(mesh=make_mesh(1,
    1))``, a world of one over NCCL, through ``run_pipeline()`` on the dense
    graph of 5. with its parameters (max_iter cut to 1): walks sharded over
@@ -311,6 +319,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import importlib.util
 import json
 import os
@@ -985,7 +994,10 @@ def edge_cases() -> None:
                 f"{row['sgns_grads']['staging']}, expected {staged}")
 
 
-BLOCKED_SETTINGS = ((0.25, 4.0, 64), (1.0, 1.0, 64), (1.0, 4.0, 64), (0.25, 4.0, 2))
+# K5's modes 2 (the main path's), 0, 2 again at p = 1, 2 at a trial cap of 2 (counted
+# fallbacks) and 1 (q = 1: the return edge alone biased)
+BLOCKED_SETTINGS = ((0.25, 4.0, 64), (1.0, 1.0, 64), (1.0, 4.0, 64), (0.25, 4.0, 2),
+                    (0.25, 1.0, 64))
 
 
 def blocked_bytes(paths: torch.Tensor, stats: dict, row_bytes: int, c: int) -> int:
@@ -1014,6 +1026,30 @@ def blocked_access_bytes(paths: torch.Tensor, stats: dict, row_bytes: int, c: in
             + stats.get("heavy_prev_probes", 0) * 32 + paths.shape[0] * 4 + paths.numel() * 4)
 
 
+def k5_design(block_width: int, mode: int, n_walkers: int, kernel_counts: dict) -> dict:
+    """What a check line says of K5's design at this launch: each
+    instantiation's registers and spills (ptxas, when this process built the
+    library; keyed by its shared-list template flag), the launch's shared
+    memory, walkers resident an SM and persistent grid, and the heavy
+    attempts that read their block whole."""
+    ptxas = {}
+    for name, summary in ptxas_summary(_build.ptxas_report, "blocked_walk_kernel").items():
+        ptxas["sl=" + name.split("blocked_walk_kernelILb", 1)[1][0]] = summary
+    geo = blocked.blocked_walk_geometry(block_width, mode, n_walkers, "cuda")
+    return {"ptxas": ptxas, **geo,
+            "whole_block_reads": int(kernel_counts["whole_block_reads"])}
+
+
+def corpus_digest(chunks) -> str:
+    """sha256 of a walk corpus's int32 paths, chunk after chunk in walker
+    order: equal digests, equal walks (a run of one tree against another's)."""
+    h = hashlib.sha256()
+    for c in chunks:
+        c = c.cpu().numpy() if torch.is_tensor(c) else c
+        h.update(np.ascontiguousarray(c, dtype=np.int32).tobytes())
+    return h.hexdigest()
+
+
 def check_blocked_walk(graph, n_walkers: int, walk_length: int, results: dict) -> None:
     """K5 against its plain version on the RMAT graph: bit-equal paths,
     fallbacks and attempts at every setting of BLOCKED_SETTINGS."""
@@ -1034,7 +1070,8 @@ def check_blocked_walk(graph, n_walkers: int, walk_length: int, results: dict) -
     for p, q, trials in BLOCKED_SETTINGS:
         kw = dict(walk_length=walk_length, return_param=p, inout_param=q, max_trials=trials,
                   **shapes)
-        got = blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, **kw)
+        kc: dict = {}
+        got = blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, kernel_counts=kc, **kw)
         stats: dict = {}
         want = blocked.blocked_walk_chunk_plain(*bg[:4], starts, 0, 0, stats=stats, **kw)
         torch.cuda.synchronize()
@@ -1062,7 +1099,9 @@ def check_blocked_walk(graph, n_walkers: int, walk_length: int, results: dict) -
                   "light_rows", "biw_rows", "biw_id_sectors", "bids_rows", "brp_sectors")},
               "ms": ms, "plain_ms": plain_ms, "walk_steps_per_s": steps / (ms / 1e3),
               "bound_bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
-              "access_bytes": access_bytes, "access_ms_at_hbm_rate": access_bytes / HBM_BYTES_PER_S * 1e3})
+              "access_bytes": access_bytes, "access_ms_at_hbm_rate": access_bytes / HBM_BYTES_PER_S * 1e3,
+              "design": k5_design(bg.block_width, blocked.blocked_walk_mode(p, q), n_walkers,
+                                  kc)})
         require(n_diff == 0, f"blocked_walk differs from its plain version at p={p} q={q} "
                              f"max_trials={trials}")
         require(counters == counters_plain,
@@ -1203,7 +1242,8 @@ def check_blocked_walk_sl(graph, name: str, n_walkers: int, walk_length: int,
     for p, q, trials in SL_SETTINGS:
         kw = dict(walk_length=walk_length, return_param=p, inout_param=q, max_trials=trials,
                   **shapes)
-        got = blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, **kw, **sl)
+        kc: dict = {}
+        got = blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, kernel_counts=kc, **kw, **sl)
         off = blocked.blocked_walk_chunk(*bg[:4], starts, 0, 0, **kw)  # the same, no lists
         stats: dict = {}
         want = blocked.blocked_walk_chunk_plain(*bg[:4], starts, 0, 0, stats=stats, **kw, **sl)
@@ -1235,7 +1275,9 @@ def check_blocked_walk_sl(graph, name: str, n_walkers: int, walk_length: int,
               "ms": ms, "ms_without_lists": ms_off, "plain_ms": plain_ms,
               "walk_steps_per_s": steps / (ms / 1e3),
               "walk_steps_per_s_without_lists": steps_off / (ms_off / 1e3),
-              "bound_bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by})
+              "bound_bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
+              "design": k5_design(bg.block_width, blocked.blocked_walk_mode(
+                  p, q, True, bg.sl_exhaustive), n_walkers, kc)})
         require(n_diff == 0, f"blocked_walk ({mode}) differs from its plain version on {name} "
                              f"at p={p} q={q}")
         require(counters == counters_plain,
@@ -3079,6 +3121,7 @@ def main_path_blocked(src, dst, max_iter: int):
         "peak_device_memory_bytes": int(peak),
         "launches": launches,
         "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+        "walk_corpus_sha256": corpus_digest([walks]),
     }
     emit(out)
     require(engine.strategy == "blocked", f"strategy {engine.strategy}")
@@ -3148,7 +3191,8 @@ def main_path_streaming(src, dst, max_iter: int):
     launches = _launches()
     peak = torch.cuda.max_memory_allocated()
 
-    n_chunks, chunk, _ = engine.chunk_source(seed=0)
+    n_chunks, chunk, source = engine.chunk_source(seed=0)
+    digest = corpus_digest(source(i) for i in range(n_chunks))  # the chunks walked again
     p = model.params
     batch = _effective_batch(p.batch_walks, chunk, target_updates=max(512 // n_chunks, 1))
     n_batches = chunk // batch
@@ -3167,6 +3211,7 @@ def main_path_streaming(src, dst, max_iter: int):
         "epoch_losses": model.losses, "vocab_kept": model.vocab.n_kept,
         "peak_device_memory_bytes": int(peak), "launches": launches,
         "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+        "walk_corpus_sha256": digest,
     }
     emit(out)
     require(engine.strategy == "blocked", f"strategy {engine.strategy}")
@@ -3772,9 +3817,11 @@ def main_path_shared_lists(src, dst, max_iter: int):
     batch = _effective_batch(p.batch_walks, chunk, target_updates=max(512 // n_chunks, 1))
     n_batches = chunk // batch
     walk_s = sum(a.elapsed_time(b) for a, b in walk_events) / 1e3
-    chunk0 = source(0)
-    steps = sum(int((source(i)[:, 1:] >= 0).sum()) for i in range(1, n_chunks)) + int(
-        (chunk0[:, 1:] >= 0).sum())
+    chunks = [source(i).cpu() for i in range(n_chunks)]  # walked again, off the clock
+    chunk0 = chunks[0]
+    steps = sum(int((c[:, 1:] >= 0).sum()) for c in chunks)
+    digest = corpus_digest(chunks)
+    del chunks
     bg = engine.bgraph
     out = {
         "phase": "main_path_shared_lists", "cuts": {"max_iter": f"10 -> {max_iter}"},
@@ -3790,6 +3837,7 @@ def main_path_shared_lists(src, dst, max_iter: int):
         "fallback_count": fallbacks, "fit_s": t3 - t2 - walk_s, "embedding_s": t4 - t3,
         "epoch_losses": model.losses, "peak_device_memory_bytes": int(peak),
         "launches": launches, "n_vectors": len(names), "vector_dim": int(vectors.shape[1]),
+        "walk_corpus_sha256": digest,
     }
     emit(out)
     require(engine.strategy == "blocked", f"strategy {engine.strategy}")
@@ -3856,7 +3904,7 @@ def main_path_shared_lists_er(graph, max_iter: int) -> dict:
         "n_chunks": n_chunks, "walk_s": t2 - t1, "walk_steps_per_s": steps / (t2 - t1),
         "attempts_per_step": engine.attempt_count / max(steps, 1), "fit_s": t3 - t2,
         "epoch_losses": model.losses, "peak_device_memory_bytes": int(peak),
-        "launches": launches,
+        "launches": launches, "walk_corpus_sha256": corpus_digest([walks]),
     }
     emit(out)
     require(engine._strategy_token() == "blocked+slx", f"token {engine._strategy_token()}")
@@ -4681,7 +4729,8 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
     then at a capacity of 1/8 of the lanes, which defers, with slack 16
     (1,296 supersteps at most).  Both walks must equal K5's on the same
     walkers and the one ``edge_partitioned_blocked_walk`` gives through the
-    mesh."""
+    mesh.  Last, the RMAT with general weights drawn from a seed: the walk
+    through the mesh (no plain checks) equal to K5's."""
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     pg = ep.partition_blocked_graph(graph.indptr, graph.indices, graph.weights, 1, mesh=mesh)
@@ -4759,6 +4808,25 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
                 results[name] = {"max_abs_err": diff[name], "library_ms": None,
                                  **{k: timing[name][k] for k in (
                                      "ms", "plain_ms", "bound_ms", "bound_by")}}
+    del pg, tables
+    # general weights drawn from a seed, where no plain version's sums are
+    # exact: the walk through the mesh equals K5's only because K21 and K22
+    # make blocked_common.cuh's float operations in K5's order
+    w_gen = np.random.default_rng(7).uniform(0.5, 2.0, graph.n_edges).astype(np.float32)
+    pg = ep.partition_blocked_graph(graph.indptr, graph.indices, w_gen, 1, mesh=mesh)
+    tables = ep.local_tables(pg, 0)
+    k5, k5_fb, _ = blocked.blocked_walk_chunk(*tables, starts, 0, 0, light_width=pg.light_width,
+                                              block_width=pg.block_width, has_heavy=True,
+                                              **walk_kw)
+    via_mesh, m_unfin, m_fb = ep.edge_partitioned_blocked_walk(mesh, pg, starts, 0, 0,
+                                                               **walk_kw)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(via_mesh, k5)) and (int(m_unfin), int(m_fb)) == (0, int(k5_fb))
+    emit({"phase": "check", "kernel": "ep_walk", "case": "general weights (uniform 0.5-2, "
+          "seed 7)", "walkers": n_walkers, "walk_length": walk_length, "p": EP_PQ[0],
+          "q": EP_PQ[1], "bit_equal_to_k5": equal, "unfinished": int(m_unfin),
+          "entries_differing": int((via_mesh != k5).sum())})
+    require(equal, "the ep walk on general weights differs from K5's")
     del pg, tables
 
 

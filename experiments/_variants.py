@@ -20,14 +20,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "node2vec_torch", "csrc")
 
 
-def source(name: str) -> str:
+def source(name: str, csrc: str = CSRC) -> str:
     """The text of ``csrc/<name>`` with each local header it includes, other
     than ``staging.cuh``, written out in place, so that a patch can reach
-    the code a kernel shares with others (``tf32_tiles.cuh``)."""
-    text = open(os.path.join(CSRC, name)).read()
+    the code a kernel shares with others (``tf32_tiles.cuh``).  ``csrc`` is
+    the kernel directory of this tree, or of another checkout's."""
+    text = open(os.path.join(csrc, name)).read()
     for header in re.findall(r'#include "(\w+\.cuh)"', text):
         if header != "staging.cuh":
-            text = text.replace(f'#include "{header}"', source(header), 1)
+            text = text.replace(f'#include "{header}"', source(header, csrc), 1)
     return text
 
 

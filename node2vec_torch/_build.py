@@ -136,8 +136,9 @@ def lib() -> ctypes.CDLL:
                                        vp],
             "n2v_adagrad_apply": [vp, vp, vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32,
                                   f32, vp],
-            "n2v_blocked_walk": [vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i64, u32, f32,
-                                 f32, f32, i32, i32, i32, i32, i32, vp],
+            "n2v_blocked_walk": [vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i64, u32,
+                                 f32, f32, f32, i32, i32, i32, i32, i32, vp],
+            "n2v_blocked_walk_geometry": [i32, i32, vp],
             "n2v_vertex_counts": [vp, i64, vp, i32, vp],
             "n2v_subsample_walks": [vp, i64, vp, i32, u32, u32, i64, vp, vp],
             "n2v_hs_grads": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,

@@ -23,10 +23,12 @@
 // destination and fills the send buffer with -1; the second ranks each lane
 // within its destination, stable in lane order, as JAX's one-hot cumsum
 // gives; a lane ranked below the capacity writes its request.
-// K21, K22: one warp a request, the requested row staged in shared memory
-// (one int4 a lane) and sampled by blocked_common.cuh's device functions,
-// the ones K5 calls: the same float operations in the same order, so the
-// proposals equal K5's bit for bit on the same tables and draws.  An empty
+// K21, K22: an 8-lane group a request, four a warp, as K5 groups its
+// walkers: the requested row staged in shared memory and sampled by
+// blocked_common.cuh's device functions, the ones K5 calls (a heavy block
+// and a bids row read from global memory in the lane order K5 stages them
+// in): the same float operations in the same order, so the proposals equal
+// K5's bit for bit on the same tables and draws.  An empty
 // slot (cur < 0) is skipped at once: the buffers hold the full capacity and
 // late supersteps are mostly empty.  K23: one thread a walker; the fallback
 // and pending counts are block counts (__syncthreads_count) added atomically.
@@ -51,10 +53,10 @@ namespace {
 
 enum Row { kT = 0, kCur, kPrev, kWFwd, kFwdPfx, kWBackEnc, kBackPfx, kAlive, kTrials, kAtt };
 constexpr int kTile = n2v::kBucketTile;  // K20 lanes a block
-constexpr int kReqWarps = 8;      // K21, K22 requests a block
+constexpr int kReqWarps = 8;      // K21, K22 warps a block
+constexpr int kReqs = kReqWarps * 32 / n2v::kGroup;  // K21, K22 requests a block
 constexpr int kAdvThreads = 256;  // K23 walkers a block
 constexpr int kPropose = 7, kMember = 2, kResp = 6;
-constexpr unsigned kFull = n2v::kFullMask;
 
 __device__ __forceinline__ int32_t owner_of(int32_t v, int64_t rows_per_shard, int n_shards) {
   const int64_t o = static_cast<int64_t>(v < 0 ? 0 : v) / rows_per_shard;
@@ -145,25 +147,26 @@ ep_bucket_scatter(const int32_t* __restrict__ carry, int64_t n,
 }
 
 // mode: 0 = p = q = 1 (target u_prop * wtot, no return branch), else the
-// return branch m1 / (m1 + m2) and the prev-excluded target.
+// return branch m1 / (m1 + m2) and the prev-excluded target.  An 8-lane
+// group a request, four a warp; every group runs every phase (blocked_common.cuh),
+// a group without a request masked by `on`.
 __global__ void __launch_bounds__(kReqWarps * 32)
 ep_propose_kernel(const int32_t* __restrict__ recv, int64_t n_req,
                   const int32_t* __restrict__ light, int64_t n_rows,
                   const int32_t* __restrict__ biw, const int32_t* __restrict__ brp,
                   int32_t* __restrict__ resp, int64_t row_base, float inv_p, float inv_q,
                   float alpha_hi, int mode, int p_l, int c) {
-  __shared__ __align__(16) int32_t rows[kReqWarps][n2v::kLightRow];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kReqWarps + warp;
-  if (r >= n_req) return;  // warp-uniform; no block barrier below
-  const int32_t* rq = recv + r * kPropose;
+  __shared__ __align__(16) int32_t rows[kReqs][n2v::kLightRow];
+  const int gl = threadIdx.x & (n2v::kGroup - 1);  // lane within the request's group
+  const int g = threadIdx.x / n2v::kGroup;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kReqs + g;
+  const bool have = r < n_req;
+  const int32_t* rq = recv + (have ? r : 0) * kPropose;
   int32_t* out = resp + r * kResp;
-  const int32_t cur = rq[0];
-  if (cur < 0) {
-    if (lane < kResp) out[lane] = -1;
-    return;
-  }
+  const int32_t cur = have ? rq[0] : -1;
+  const bool on = cur >= 0;
+  if (have && !on && gl < kResp) out[gl] = -1;
+  if (!__any_sync(n2v::kFullMask, on)) return;  // warp-uniform; no block barrier below
   const int32_t wb_enc = rq[2];
   const float wb = __int_as_float(wb_enc & 0x7FFFFFFF);
   const float bpfx = __int_as_float(rq[3]);
@@ -172,23 +175,15 @@ ep_propose_kernel(const int32_t* __restrict__ recv, int64_t n_req,
   const bool first = rq[6] == 0;
   int64_t lv = static_cast<int64_t>(cur) - row_base;
   lv = lv < 0 ? 0 : (lv >= n_rows ? n_rows - 1 : lv);
-  int32_t* row = rows[warp];
-  n2v::load_row(row, light + lv * n2v::kLightRow, lane);
+  int32_t* row = rows[g];
+  n2v::row_issue(row, light + lv * n2v::kLightRow, gl, on);
+  n2v::copies_wait();
 
   const int maxb = (4 * p_l - 5) / 2;
   const bool is_heavy = row[0] < -1;
-  int degree;
-  float wtot, cum0 = 0.f, cum1 = 0.f;
-  n2v::LightCols lc{};
-  if (is_heavy) {
-    wtot = __int_as_float(row[3]);
-    degree = row[4];
-    n2v::header_cum(row, lane, maxb, &cum0, &cum1);
-  } else {
-    lc = n2v::light_cols(row, lane, p_l, true);
-    degree = lc.degree;
-    wtot = lc.wtot;
-  }
+  const n2v::LightCols lc = n2v::light_cols(row, gl, p_l, true);
+  const int degree = is_heavy ? row[4] : lc.degree;
+  const float wtot = is_heavy ? __int_as_float(row[3]) : lc.wtot;
 
   bool take_back = false;
   float target;
@@ -204,39 +199,40 @@ ep_propose_kernel(const int32_t* __restrict__ recv, int64_t n_req,
     target = u2 < bpfx ? u2 : __fadd_rn(u2, wb);
   }
 
-  int32_t cand, wbits, rev, pfx;
-  float ppfx;
-  if (!is_heavy) {
-    const int below = n2v::light_below(lc.cdf, target, lane, p_l);
-    const int slot = min(below, max(degree - 1, 0));
-    cand = __shfl_sync(kFull, lc.id, slot);
-    const float pc = __shfl_sync(kFull, lc.cdf, max(slot - 1, 0));
-    ppfx = slot > 0 ? pc : 0.f;
-    wbits = row[p_l + slot];
-    rev = row[2 * p_l + slot];
-    pfx = row[3 * p_l + slot];
-  } else {
-    const int nb_below = n2v::header_below(cum0, cum1, target, lane, maxb);
-    const int blk = min(nb_below, max(row[2] - 1, 0));
+  // light: every group computes it (shared memory only); a heavy one discards it
+  const int below_l = n2v::light_below(lc.cdf, target, gl, p_l);
+  const int slot_l = min(below_l, max(degree - 1, 0));
+  const int ls = min(slot_l, n2v::kLightRow / 4 - 1);
+  const float pc_l = n2v::light_cdf_at(lc.cdf, max(ls - 1, 0));
+  float ppfx = ls > 0 ? pc_l : 0.f;
+  int32_t cand = row[ls], wbits = row[p_l + ls], rev = row[2 * p_l + ls],
+          pfx = row[3 * p_l + ls];
+  if (__any_sync(n2v::kFullMask, on && is_heavy)) {
+    const bool hv = on && is_heavy;
+    const int nb_below = n2v::header_below(row, target, gl, maxb);
+    const int blk = min(min(nb_below, max(row[2] - 1, 0)), maxb);
     const float base = blk > 0 ? __int_as_float(row[5 + maxb + blk - 1]) : 0.f;
     const float resid = __fsub_rn(target, base);
     const int64_t brow = static_cast<int64_t>(row[1]) + blk;
-    const int32_t* ids_row = biw + brow * 2 * c;
+    const int32_t* ids_row = biw + (hv ? brow : 0) * 2 * c;
     const int32_t* w_row = ids_row + c;
-    const int k = c / 32;
-    const int col0 = lane * k;
+    const int k4 = c / (4 * n2v::kGroup);
+    const n2v::GlobalCols cols = n2v::global_cols(w_row, k4, gl);
     float excl;
-    const int below = n2v::block_below(w_row, col0, k, resid, lane, &excl);
+    const int below = n2v::block_below(cols, k4, resid, gl, hv, &excl);
     const int nvalid = min(c, degree - blk * c);
     const int slot = min(below, max(nvalid - 1, 0));
-    ppfx = __fadd_rn(base, n2v::block_prefix_before(w_row, col0, k, excl, slot, lane));
-    cand = __ldg(ids_row + slot);
-    wbits = __ldg(w_row + slot);
-    const int2 pair = n2v::brp_pair(brp, brow * c + slot);
-    rev = pair.x;
-    pfx = pair.y;
+    const float pc = n2v::block_prefix_before(cols, k4, excl, slot, gl, hv);
+    if (hv) {
+      ppfx = __fadd_rn(base, pc);
+      cand = __ldg(ids_row + slot);
+      wbits = __ldg(w_row + slot);
+      const int2 pair = n2v::brp_pair(brp, brow * c + slot);
+      rev = pair.x;
+      pfx = pair.y;
+    }
   }
-  if (lane == 0) {
+  if (on && gl == 0) {
     out[0] = degree == 0 ? -1 : cand;
     out[1] = wbits;
     out[2] = rev;
@@ -251,23 +247,24 @@ ep_member_kernel(const int32_t* __restrict__ recv, int64_t n_req,
                  const int32_t* __restrict__ light, int64_t n_rows,
                  const int32_t* __restrict__ bids, int32_t* __restrict__ out, int64_t row_base,
                  int p_l, int c) {
-  __shared__ __align__(16) int32_t rows[kReqWarps][n2v::kLightRow];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kReqWarps + warp;
-  if (r >= n_req) return;
-  const int32_t prev = recv[r * kMember];
-  if (prev < 0) {
-    if (lane == 0) out[r] = 0;
-    return;
-  }
-  const int32_t cand = recv[r * kMember + 1];
+  __shared__ __align__(16) int32_t rows[kReqs][n2v::kLightRow];
+  const int gl = threadIdx.x & (n2v::kGroup - 1);  // lane within the request's group
+  const int g = threadIdx.x / n2v::kGroup;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kReqs + g;
+  const bool have = r < n_req;
+  const int32_t prev = have ? recv[r * kMember] : -1;
+  const bool on = prev >= 0;
+  if (have && !on && gl == 0) out[r] = 0;
+  if (!__any_sync(n2v::kFullMask, on)) return;
+  const int32_t cand = on ? recv[r * kMember + 1] : 0;
   int64_t lv = static_cast<int64_t>(prev) - row_base;
   lv = lv < 0 ? 0 : (lv >= n_rows ? n_rows - 1 : lv);
-  int32_t* row = rows[warp];
-  n2v::load_row(row, light + lv * n2v::kLightRow, lane);
-  const bool shared = n2v::prev_member(row, bids, cand, lane, p_l, c, true);
-  if (lane == 0) out[r] = shared ? 1 : 0;
+  int32_t* row = rows[g];
+  n2v::row_issue(row, light + lv * n2v::kLightRow, gl, on);
+  n2v::copies_wait();
+  const int32_t* mrow = n2v::member_row(row, bids, cand, gl, p_l, c, true);
+  const bool shared = n2v::prev_member(row, mrow, c, cand, gl, p_l, on);
+  if (on && gl == 0) out[r] = shared ? 1 : 0;
 }
 
 // mode: 0 = p = q = 1, 1 = q == 1, 2 = q != 1 (slot_b, resp_b given).
@@ -397,10 +394,11 @@ extern "C" int n2v_ep_propose(const int32_t* recv, int64_t n_req, const int32_t*
                               void* stream) {
   if (light_width < 1 || light_width > 32 || block_width < 64 || block_width % 64 ||
       block_width > 2048 || n_rows < 1 || mode < 0 || mode > 2 ||
-      reinterpret_cast<uintptr_t>(light) % 16 || reinterpret_cast<uintptr_t>(brp) % 8)
+      reinterpret_cast<uintptr_t>(light) % 16 || reinterpret_cast<uintptr_t>(biw) % 16 ||
+      reinterpret_cast<uintptr_t>(brp) % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_req == 0) return 0;
-  const int64_t blocks = (n_req + kReqWarps - 1) / kReqWarps;
+  const int64_t blocks = (n_req + kReqs - 1) / kReqs;
   ep_propose_kernel<<<static_cast<unsigned>(blocks), kReqWarps * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       recv, n_req, light, n_rows, biw, brp, resp, row_base, inv_p, inv_q, alpha_hi, mode,
@@ -412,10 +410,11 @@ extern "C" int n2v_ep_member(const int32_t* recv, int64_t n_req, const int32_t* 
                              int64_t n_rows, const int32_t* bids, int32_t* out, int64_t row_base,
                              int light_width, int block_width, void* stream) {
   if (light_width < 1 || light_width > 32 || block_width < 64 || block_width % 64 ||
-      block_width > 2048 || n_rows < 1 || reinterpret_cast<uintptr_t>(light) % 16)
+      block_width > 2048 || n_rows < 1 || reinterpret_cast<uintptr_t>(light) % 16 ||
+      reinterpret_cast<uintptr_t>(bids) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_req == 0) return 0;
-  const int64_t blocks = (n_req + kReqWarps - 1) / kReqWarps;
+  const int64_t blocks = (n_req + kReqs - 1) / kReqs;
   ep_member_kernel<<<static_cast<unsigned>(blocks), kReqWarps * 32, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       recv, n_req, light, n_rows, bids, out, row_base, light_width, block_width);

@@ -52,6 +52,7 @@ on the host as in the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -66,8 +67,15 @@ PAD_ID = np.int32(np.iinfo(np.int32).max)  # sorts above any real id
 SIGN = np.int32(-(1 << 31))  # triangle flag bit in rev_enc
 MAG = np.int32(0x7FFFFFFF)
 QUADS_PER_ROW = 64  # (rev, pfx) pairs per 128-lane brp row
-KERNEL_MAX_P = 32  # K5 holds one light column per lane: 4P <= 128 data lanes
+KERNEL_MAX_P = 32  # K5 holds four light columns a group lane: 4P <= 128 data lanes
 KERNEL_MAX_C = 2048
+# K5's launch (csrc/blocked_walk.cu): 8-lane groups, 32 walkers a block; in
+# shared memory a group's row buffers of 136 ints (one, or two where N(prev)
+# is kept) and a lane buffer of C/4 ints; a table of 8 (float, float) lane
+# sums a heavy block
+K5_WALKERS_PER_BLOCK = 32
+K5_ROW_STRIDE = 136
+K5_LANE_SUMS = 16
 _PAD, _MAG = int(PAD_ID), int(MAG)  # as Python ints for torch expressions
 
 # shared-list (slq) table: per edge 16 int32 lanes, 8 edges per 128-lane row
@@ -1021,6 +1029,7 @@ def blocked_walk_chunk(
     slq: Optional[torch.Tensor] = None,  # [*, 128] int32 shared lists
     shared_lists: bool = False,
     sl_exhaustive: bool = False,
+    kernel_counts: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Async blocked walks: (paths [W, L+1] int32, n_fallback, n_attempts),
     the two counts as int64 scalars on the tables' device.
@@ -1031,6 +1040,10 @@ def blocked_walk_chunk(
     and walks are bit-identical with or without the table.
 
     CPU tensors take the plain version; CUDA tensors launch K5 or raise.
+    ``kernel_counts``, when given, gains K5's "whole_block_reads" (an int64
+    tensor on the card: heavy attempts that read their block whole, the
+    block's lane sums not yet in the launch's table); the plain version adds
+    nothing.
     """
     tables = (light, biw, bids, brp, starts)
     if any(x.dtype != torch.int32 for x in tables):
@@ -1068,18 +1081,15 @@ def blocked_walk_chunk(
     _build.require_cuda("blocked_walk", *tables, *((slq,) if use_sl else ()))
     n_w = starts.shape[0]
     paths = torch.empty((n_w, walk_length + 1), dtype=torch.int32, device=starts.device)
-    counters = torch.zeros(2, dtype=torch.int64, device=starts.device)
-    if use_sl:
-        mode = 4 if sl_exhaustive else 3  # the 3-atom sampler; 3 keeps N(prev) probes
-    elif inout_param != 1.0:
-        mode = 2  # membership against N(prev)
-    elif return_param != 1.0:
-        mode = 1  # q == 1: only the return edge is biased
-    else:
-        mode = 0  # uniform bias: every proposal is accepted
+    # fallbacks, attempts, walkers taken by the persistent grid, heavy attempts
+    # that read their block whole
+    counters = torch.zeros(4, dtype=torch.int64, device=starts.device)
+    lane_sums = torch.full((biw.shape[0], K5_LANE_SUMS), float("nan"), device=starts.device)
+    mode = blocked_walk_mode(return_param, inout_param, use_sl, sl_exhaustive)
     rc = _build.lib().n2v_blocked_walk(
         _build.ptr(light), light.shape[1], _build.ptr(biw), _build.ptr(bids), _build.ptr(brp),
-        _build.ptr_or_null(slq if use_sl else None), _build.ptr(starts), _build.ptr(paths),
+        _build.ptr_or_null(slq if use_sl else None), _build.ptr(lane_sums), _build.ptr(starts),
+        _build.ptr(paths),
         _build.ptr(counters),
         n_w, walk_length, int(gid_base), seed & 0xFFFFFFFF,
         float(np.float32(1.0 / return_param)), float(np.float32(1.0 / inout_param)),
@@ -1090,4 +1100,45 @@ def blocked_walk_chunk(
     _build.launches["blocked_walk"] += 1
     if use_sl:
         _build.launches["blocked_walk_sl_exhaustive" if mode == 4 else "blocked_walk_sl_mixed"] += 1
+    if kernel_counts is not None:
+        kernel_counts["whole_block_reads"] = counters[3]
     return paths, counters[0], counters[1]
+
+
+def blocked_walk_mode(return_param: float, inout_param: float, shared_lists: bool = False,
+                      sl_exhaustive: bool = False) -> int:
+    """K5's mode: 0 p = q = 1, 1 q == 1, 2 membership against N(prev), 3 and 4
+    the shared-list sampler (3 keeps N(prev) probes for overflowed edges)."""
+    if shared_lists and inout_param != 1.0:
+        return 4 if sl_exhaustive else 3
+    if inout_param != 1.0:
+        return 2
+    return 1 if return_param != 1.0 else 0
+
+
+def blocked_walk_geometry(block_width: int, mode: int, n_walkers: Optional[int] = None,
+                          device=None) -> dict:
+    """K5's launch at ``block_width`` and ``mode``: the dynamic shared memory a
+    block takes and the walkers a block holds.  On a CUDA ``device`` also the
+    card's answer: blocks and walkers resident an SM, SMs, and for
+    ``n_walkers`` the persistent grid (blocks launched, walkers in flight at
+    once)."""
+    if block_width < 64 or block_width % 64 or block_width > KERNEL_MAX_C or not 0 <= mode <= 4:
+        raise ValueError(f"no K5 launch at block_width={block_width}, mode={mode}")
+    rows = 2 if mode in (2, 3) else 1
+    geo = {"walkers_per_block": K5_WALKERS_PER_BLOCK,
+           "smem_bytes": 4 * K5_WALKERS_PER_BLOCK * (rows * K5_ROW_STRIDE + block_width // 4)}
+    if device is None or torch.device(device).type != "cuda":
+        return geo
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(torch.device(device)):
+        _build.check(_build.lib().n2v_blocked_walk_geometry(block_width, mode, out),
+                     "blocked_walk")
+    if out[3] != geo["smem_bytes"] or out[1] != K5_WALKERS_PER_BLOCK:
+        raise RuntimeError(f"K5's launch {list(out)} disagrees with {geo}")
+    geo.update(blocks_per_sm=out[0], walkers_per_sm=out[0] * out[1], sms=out[2])
+    if n_walkers is not None:
+        grid = min(-(-int(n_walkers) // K5_WALKERS_PER_BLOCK), out[0] * out[2])
+        geo.update(grid_blocks=grid, walkers_in_flight=min(int(n_walkers),
+                                                           grid * K5_WALKERS_PER_BLOCK))
+    return geo
