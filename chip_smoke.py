@@ -159,8 +159,8 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    10 x 51, K2, K8 and K10 never; trainable-center updates per training
    second), and ``main_path_cbow_hs``, sg=0 with negative=0 through
    ``host_corpus=True`` and sample=1e-3 (fit_host: K1, K7, K10
-   cbow_hs_grads and K3/K4, K2, K8 and K9 never; its tree and H2D
-   events), each followed by its ``breakdown`` line;
+   cbow_hs_grads, K3's squares mode and K4, K2, K8 and K9 never; its
+   tree and H2D events), each followed by its ``breakdown`` line;
 9b. ``main_path_sgd``: the dense graph of 5. with optimizer="sgd",
    step_size 0.025 through ``run_pipeline()`` with no argument (10 chunks:
    K1 20, K6 10, K2, K11 preagg_rows and sgd_apply 10 x 51, K3/K4 never),
@@ -222,8 +222,9 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    node2vec paper's walk_length 80 and window 10 at widths past shared
    memory, SGNS and HS at dim 256 through fit at the SGNS and HS limits,
    CBOW-NS at dim 256 and CBOW-HS at dim 512 through fit for one epoch and
-   8 steps of ``sgns_train_step`` at dim 256 (every K2, K8, K9, K10, K13
-   launch staged in global memory, losses and tables finite); before it,
+   8 steps of ``sgns_train_step`` at dim 256 (every K2, K8, K9, K13
+   launch staged in global memory, every K10 launch in shared memory,
+   losses and tables finite); before it,
    the SGNS limits on walks by ``edge_partitioned_walk`` at 1 x 1 trained
    by ``fit`` (``quality_epd``), and through the port's CLI, index -> walk
    -> embed -> eval in subprocesses with ``--device cuda`` (``quality_cli``);
@@ -233,10 +234,13 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    two launches summed); K18, K19's gather and pack and K2's routed mode
    from 9a'., K8's routed mode from its HS run; K6 once for each
    JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists,
-   once for CBOW-HS's and once for the pair step's, K2 once more at row
-   stride D + 1, K5 once for each shared-list mode, and K2, K8, K9, K10 and
-   K13 once more in global staging; the staging kernels' rows say their
-   mode), then the last line ``{"ok": true, "device": {...}}``.
+   once for CBOW-HS's (K3's squares mode and K4 over K10's lists, K4 again
+   over the per-occurrence lists K10 emitted before PR 17) and once for
+   the pair step's, the CBOW-HS step's kernels together (``cbow_hs_step``),
+   K2 once more at row stride D + 1, K5 once for each shared-list mode, K2,
+   K8, K9 and K13 once more in global staging and K10 once more at
+   main_path_wide's D = 512; the staging kernels' rows say their mode),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Kernel checks of 3. also hold K8 hs_grads and K3/K4 over HS's three row
 lists (emb_in rows, theta's tail rows, theta's head rows) against their
@@ -248,11 +252,15 @@ off, a code length capped at 8 (no tail), a one-vertex vocabulary, walk
 length 80, and D = 100 at window 10, with dead lanes and
 out-of-vocabulary positions in every case.  They hold K9 cbow_grads, K10
 cbow_hs_grads (on the same tree, without its head: CBOW-HS updates every
-path entry per occurrence) and K3/K4 over CBOW-HS's row lists the same
-way, on main_path_hs's first chunk at its batch (cbow_mean True and False)
-and at B = 8192; edge cases add dead lanes with 20% of the vertices out of
-the vocabulary, all-dead walks, centers with no context, window >= L1,
-walk length 81, D = 100 at window 10, and 2-position walks, where K9's
+path entry per occurrence; K10 sums its top levels per theta row, and its
+rows and squares are held to the plain version's layout, tail_rows
+exactly), K3's squares mode and K4 over K10's lists, K3 and K4 over the
+per-occurrence lists, and both steps the same way, on main_path_hs's first
+chunk at its batch (cbow_mean True and False) and at B = 8192; edge cases
+add dead lanes with 20% of the vertices out of the vocabulary, all-dead
+walks, centers with no context, window >= L1, walk length 81, D = 100 at
+window 10, D = 600, D = 8, tables 4 bytes off 16-byte alignment, and
+2-position walks, where K9's
 loss equals K2's under the same draws; K9 alone at the cases its walk
 groups make risky (a ragged last group with an all-dead walk, L1 = 64
 and 65, D = 100, 256, 600 and 50, both cbow_mean settings).  They hold K11 preagg_rows,
@@ -286,14 +294,16 @@ share (bound: check_blocked_walk's plus 64 B an slq entry fetched); edge
 cases for them (edge_cases_sl: P = 32's 256-lane rows, absent reverse
 edges, sinks and dead lanes, the exhaustive ring hub, the two-hub overflow
 edge with a chi-square, q == 1 with the table bit-equal to none); and
-check_wide: K2, K13, K9 and K8 at L1 = 81, D = 256, window 10, S = 64
-and K10 at D = 512, which stage in global memory, against their plain
-versions at their checks' tolerances, timed with their bounds, at the
-shapes main_path_wide launches (K2, K8, K9, K10: its fits' 64-walk batch
-of the quality graph's corpus, with that corpus's vocabulary and Huffman
-tree; K13: its B = 256 batch of the dense graph's walks), the kernels
-line's global-staging rows; then K2, K9, K8 and K10 at B = 256 random
-walks on the dense graph's tree.  They hold K16 col_pair_logits, K17
+check_wide: K2, K13, K9 and K8 at L1 = 81, D = 256, window 10, S = 64,
+which stage in global memory, and K10 at D = 512, which stages in shared
+memory since PR 17, against their plain versions at their checks'
+tolerances, timed with their bounds, at the shapes main_path_wide
+launches (K2, K8, K9, K10: its fits' 64-walk batch of the quality graph's
+corpus, with that corpus's vocabulary and Huffman tree; K13: its B = 256
+batch of the dense graph's walks), the kernels line's global-staging rows
+and K10's wide row; then K2, K9, K8 and K10 at B = 256 random walks on the
+dense graph's tree, and K10 in global staging (L1 = 121 at D = 512, and
+D = 768 on its generic path).  They hold K16 col_pair_logits, K17
 col_pair_grads and K3's squares mode against their plain versions on the
 same batch at Dm = 128 (one model rank) and Dm = 64 (two, their all-reduce
 summed in the check), K16 then K17 against K13 at Dm = 128, and the whole
@@ -397,11 +407,19 @@ SOURCES = {
                          "node2vec_tpu/models/hsoftmax.py:399"),
     "cbow_grads": ("node2vec_torch/csrc/cbow.cu", "node2vec_tpu/models/cbow.py:112"),
     "cbow_hs_grads": ("node2vec_torch/csrc/cbow_hs.cu", "node2vec_tpu/models/cbow.py:230"),
-    # K3 and K4 over CBOW-HS's row lists (emb_in, theta's path entries; no head)
+    # K3's squares mode and K4 over K10's lists (emb_in, theta's tail entries,
+    # the head rows summed); K4 also over the per-occurrence lists (K10's
+    # layout before PR 17), like for like with its earlier row
     "adagrad_accumulate_cbow_hs": ("node2vec_torch/csrc/adagrad.cu",
                                    "node2vec_tpu/models/cbow.py:306"),
     "adagrad_apply_cbow_hs": ("node2vec_torch/csrc/adagrad.cu",
                               "node2vec_tpu/models/cbow.py:314"),
+    "adagrad_apply_cbow_hs_occurrences": ("node2vec_torch/csrc/adagrad.cu",
+                                          "node2vec_tpu/models/cbow.py:314"),
+    # the CBOW-HS step's kernels together: K10, K3's squares mode, K4
+    "cbow_hs_step": ("node2vec_torch/csrc/cbow_hs.cu", "node2vec_tpu/models/cbow.py:230"),
+    # K10 at main_path_wide's D = 512, L1 = 81 (in shared memory since PR 17)
+    "cbow_hs_grads_wide": ("node2vec_torch/csrc/cbow_hs.cu", "node2vec_tpu/models/cbow.py:230"),
     "preagg_rows": ("node2vec_torch/csrc/preagg.cu", "node2vec_tpu/models/skipgram.py:405"),
     "sgd_apply": ("node2vec_torch/csrc/preagg.cu", "node2vec_tpu/models/skipgram.py:434"),
     "csr_walk": ("node2vec_torch/csrc/csr_walk.cu", "node2vec_tpu/walk/engine.py:66"),
@@ -458,8 +476,8 @@ SOURCES = {
                     "node2vec_tpu/parallel/edge_partitioned.py:185"),
 }
 # the walk-at-a-time step kernels staging in global memory (csrc/staging.cuh)
-for _k in ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads", "sgns_pair_grads",
-           "col_pair_logits", "col_pair_grads"):
+for _k in ("sgns_grads", "hs_grads", "cbow_grads", "sgns_pair_grads", "col_pair_logits",
+           "col_pair_grads"):
     SOURCES[_k + "_global"] = SOURCES[_k]
 # the kernels line: (row, launch counter, main path whose launches it reads)
 ROWS = (("dense_walk", "dense_walk", "main_path"),
@@ -475,8 +493,10 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("adagrad_apply_hs", "adagrad_apply", "main_path_hs"),
         ("cbow_grads", "cbow_grads", "main_path_cbow"),
         ("cbow_hs_grads", "cbow_hs_grads", "main_path_cbow_hs"),
-        ("adagrad_accumulate_cbow_hs", "adagrad_accumulate", "main_path_cbow_hs"),
+        ("adagrad_accumulate_cbow_hs", "adagrad_accumulate_squares", "main_path_cbow_hs"),
         ("adagrad_apply_cbow_hs", "adagrad_apply", "main_path_cbow_hs"),
+        ("adagrad_apply_cbow_hs_occurrences", "adagrad_apply", "main_path_cbow_hs"),
+        ("cbow_hs_step", "cbow_hs_grads", "main_path_cbow_hs"),
         ("preagg_rows", "preagg_rows", "main_path_sgd"),
         ("sgd_apply", "sgd_apply", "main_path_sgd"),
         ("csr_walk", "csr_walk", "main_path_csr"),
@@ -493,7 +513,7 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("sgns_pair_grads_global", "sgns_pair_grads_global", "main_path_wide"),
         ("cbow_grads_global", "cbow_grads_global", "main_path_wide"),
         ("hs_grads_global", "hs_grads_global", "main_path_wide"),
-        ("cbow_hs_grads_global", "cbow_hs_grads_global", "main_path_wide"),
+        ("cbow_hs_grads_wide", "cbow_hs_grads", "main_path_wide"),
         ("col_pair_logits", "col_pair_logits", "main_path_mesh"),
         ("col_pair_grads", "col_pair_grads", "main_path_mesh"),
         ("adagrad_accumulate_squares", "adagrad_accumulate_squares", "main_path_mesh"),
@@ -511,6 +531,7 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("epd_advance", "epd_advance", "main_path_epd"))
 GRADS = ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads")  # one per objective
 ADAGRAD = ("adagrad_accumulate", "adagrad_apply")
+CBOW_HS_UPDATE = ("adagrad_accumulate_squares", "adagrad_apply")  # over K10's squares
 SGD = ("preagg_rows", "sgd_apply")  # SGNS with optimizer="sgd"
 DENSE_PATH = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply")
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -783,7 +804,8 @@ def check_dense_walk(graph, n_walkers: int, walk_length: int, results: dict) -> 
 
 
 def _close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    err = float((got - want).abs().max())
+    require(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
     ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
     require(ok, f"{name}: max abs err {err} outside rtol {RTOL} atol {ATOL}")
     return err
@@ -1384,7 +1406,10 @@ def check_wide(graph, tree, counts, results: dict) -> None:
     _effective_batch: 64 walks) with that corpus's vocabulary and Huffman
     tree, at dim 256 (K10 512); K13 on the first B = 256 of ``graph``'s walks
     of 80, as main_path_wide steps it.  K2, K9, K8 and K10 then run at
-    B = 256 random walks on ``tree`` (lines only)."""
+    B = 256 random walks on ``tree`` (lines only).  K10 stages these walks in
+    shared memory (its ``cbow_hs_grads_wide`` row) since PR 17; its global
+    staging runs at L1 = 121, D = 512 and at D = 768 (the generic path),
+    lines only."""
     b, l1, d, w = WIDE["B"], WIDE["L1"], WIDE["D"], WIDE["window"]
     lib = _build.lib()
     w2v = Word2VecParams()
@@ -1407,9 +1432,14 @@ def check_wide(graph, tree, counts, results: dict) -> None:
                                int(t.points.shape[1]))[1]
         return lib.n2v_hs_grads_smem(l1, d, int(t.points.shape[1]), w, k_rows)
 
-    def cbow_run(t, c, n, dim, case, walks):
-        return lambda r: check_cbow(t, c, n, l1, dim, w, True, True, True, r, case=case,
+    def cbow_run(t, c, n, dim, case, walks, length=l1):
+        return lambda r: check_cbow(t, c, n, length, dim, w, True, True, True, r, case=case,
                                     walks=walks)
+
+    def k10_smem(t, length, dim):
+        n_head, k_rows = cbow.cbow_hs_head(length, dim, int(t.points.shape[1]), t.n_inner)
+        fast = int(dim % 4 == 0 and dim <= 512)
+        return lib.n2v_cbow_hs_grads_smem(length, dim, int(t.points.shape[1]), k_rows, fast)
 
     def hs_run(t, c, n, case, walks):
         head = hs.head_level_offsets(t, table_rows=t.n_inner)
@@ -1417,41 +1447,52 @@ def check_wide(graph, tree, counts, results: dict) -> None:
                                   walks=walks)
 
     main = f"main_path_wide: quality corpus, B = {q_b}"
-    runs = (  # (kernel, smem, check, case, recorded)
+    runs = (  # (kernel, smem, check, case, the results row or None, staging)
         ("sgns_grads", lib.n2v_sgns_grads_smem(l1, d, 64, w),
          lambda r: check_sgns(g_q.n_vertices, q_b, l1, d, w, 64, True, r, corpus=corpus),
-         main, True),
+         main, "sgns_grads_global", "global"),
         ("sgns_pair_grads", lib.n2v_sgns_pair_grads_smem(l1, d, 64, w),
          lambda r: check_pairs(graph.n_vertices, b, l1, d, w, True, r, "wide",
                                batch=pair_batch),
-         f"main_path_wide: sgns_train_step batch 0, B = {b}", True),
+         f"main_path_wide: sgns_train_step batch 0, B = {b}", "sgns_pair_grads_global",
+         "global"),
         ("cbow_grads", lib.n2v_cbow_grads_smem(l1, d, 64),
-         cbow_run(q_tree, q_counts, q_b, d, "wide", corpus), main, True),
+         cbow_run(q_tree, q_counts, q_b, d, "wide", corpus), main, "cbow_grads_global",
+         "global"),
         ("hs_grads", hs_smem(q_tree), hs_run(q_tree, q_counts, q_b, "wide", corpus), main,
-         True),
-        ("cbow_hs_grads", lib.n2v_cbow_hs_grads_smem(l1, 2 * d),
-         cbow_run(q_tree, q_counts, q_b, 2 * d, "wide, D = 512", corpus), main, True),
+         "hs_grads_global", "global"),
+        ("cbow_hs_grads", k10_smem(q_tree, l1, 2 * d),
+         cbow_run(q_tree, q_counts, q_b, 2 * d, "wide, D = 512", corpus), main,
+         "cbow_hs_grads_wide", "shared"),
         ("sgns_grads", lib.n2v_sgns_grads_smem(l1, d, 64, w),
-         lambda r: check_sgns(4096, b, l1, d, w, 64, True, r), "B = 256, random walks", False),
+         lambda r: check_sgns(4096, b, l1, d, w, 64, True, r), "B = 256, random walks", None,
+         "global"),
         ("cbow_grads", lib.n2v_cbow_grads_smem(l1, d, 64),
-         cbow_run(tree, counts, b, d, "wide, B = 256", None), "B = 256, random walks", False),
+         cbow_run(tree, counts, b, d, "wide, B = 256", None), "B = 256, random walks", None,
+         "global"),
         ("hs_grads", hs_smem(tree), hs_run(tree, counts, b, "wide, B = 256", None),
-         "B = 256, random walks", False),
-        ("cbow_hs_grads", lib.n2v_cbow_hs_grads_smem(l1, 2 * d),
+         "B = 256, random walks", None, "global"),
+        ("cbow_hs_grads", k10_smem(tree, l1, 2 * d),
          cbow_run(tree, counts, b, 2 * d, "wide, B = 256, D = 512", None),
-         "B = 256, random walks", False),
+         "B = 256, random walks", None, "shared"),
+        ("cbow_hs_grads", k10_smem(tree, 121, 2 * d),
+         cbow_run(tree, counts, 64, 2 * d, "wide, B = 64, L1 = 121, D = 512", None, 121),
+         "B = 64 random walks of 121", None, "global"),
+        ("cbow_hs_grads", k10_smem(tree, l1, 3 * d),
+         cbow_run(tree, counts, 64, 3 * d, "wide, B = 64, D = 768", None),
+         "B = 64 random walks, the generic path", None, "global"),
     )
     limit = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 232448)
-    for name, smem, run, case, recorded in runs:
+    for name, smem, run, case, recorded, staging in runs:
         tmp: dict = {}
         run(tmp)
         row = tmp[name]
         emit({"phase": "wide", "kernel": name, "case": case, "smem_bytes": int(smem),
               "shared_memory_per_block_optin": int(limit), **row})
-        require(row["staging"] == "global",
-                f"{name} at {smem} B ({case}) staged in {row['staging']} memory, not global")
+        require(row["staging"] == staging,
+                f"{name} at {smem} B ({case}) staged in {row['staging']} memory, not {staging}")
         if recorded:
-            results[name + "_global"] = row
+            results[recorded] = row
 
 
 def check_vertex_counts(walks: torch.Tensor, n_vertices: int, results: dict) -> None:
@@ -1992,44 +2033,79 @@ def _verify_k9(inp, cbow_mean: bool, case: str):
     return max(errs), want
 
 
+K10_OUTPUTS = ("g_in", "sq_in", "g_tail", "sq_tail", "tail_rows", "g_head", "sq_head", "loss")
+
+
 def _verify_cbow(inp, cbow_mean: bool, case: str) -> dict:
-    """K9, K10 and K3/K4 over CBOW-HS's lists, then both whole steps, each
-    against its plain version on the same inputs (check_sgns's
-    tolerances: grads, tables and losses elementwise, d_no to rtol of its
-    largest entry, theta_rows exact).  Returns the errors and the plain
-    outputs."""
+    """K9, K10, K3's squares mode and K4 over K10's lists, K3 and K4 over
+    the per-occurrence lists (``cbow_hs_occurrence_lists``), then both whole
+    steps, each against its plain version on the same inputs (check_sgns's
+    tolerances: grads, squares, tables and losses elementwise; d_no, the
+    head's sums and a theta table the head updates to rtol of its largest
+    entry; tail_rows exact).  Returns the errors, the plain outputs and
+    K10's row counts."""
     w = inp["window"]
     ns_kw = dict(window=w, negatives=5, cbow_mean=cbow_mean)
     hs_kw = dict(window=w, cbow_mean=cbow_mean)
-    ns_args = (*inp["ns"][:2], inp["walks"], inp["mask"], inp["b_sh"], inp["neg"])
     hs_args = (*inp["hs"][:2], inp["walks"], inp["mask"], inp["b_sh"], *inp["tables"])
     tag = f"({case}, cbow_mean={cbow_mean})"
 
     err9, want9 = _verify_k9(inp, cbow_mean, case)
 
+    before = _build.launches["cbow_hs_grads_global"]
     got = cbow.cbow_hs_grads(*hs_args, **hs_kw)
+    staging = "global" if _build.launches["cbow_hs_grads_global"] > before else "shared"
     want10 = cbow.cbow_hs_grads_plain(*hs_args, **hs_kw)
     torch.cuda.synchronize()
-    errs10 = [_close(f"cbow_hs_grads[{k}] {tag}", g, x) for k, g, x in
-              zip(("g_in", "g_theta", "loss"), (got[0], got[1], got[3]),
-                  (want10[0], want10[1], want10[3]))]
-    require(torch.equal(got[2], want10[2]), f"cbow_hs_grads[theta_rows] {tag} differ")
+    errs10 = [(_close_to_largest if k in ("g_head", "sq_head") else _close)(
+        f"cbow_hs_grads[{k}] {tag}", g, x) for k, g, x in zip(K10_OUTPUTS, got, want10)
+        if k != "tail_rows"]
+    require(torch.equal(got[4], want10[4]), f"cbow_hs_grads[tail_rows] {tag} differ")
+    tail_live = int((want10[4] >= 0).sum())
+    rows = {"combined": int(want10[5].shape[0]), "per_occurrence": tail_live,
+            "dead": int(want10[4].numel()) - tail_live, "staging": staging,
+            "head_levels": cbow.cbow_hs_head(inp["walks"].shape[1], inp["hs"][0].shape[1],
+                                             inp["tables"][0].shape[1],
+                                             inp["hs"][1].shape[0])[0]}
 
     emb_in, theta, acc_in, acc_th = inp["hs"]
-    lists = cbow.cbow_hs_lists(*want10[:3], inp["walks"])
-    a_in, a_th = acc_in.clone(), acc_th.clone()
-    sg.adagrad_accumulate(a_in, a_th, *lists)
-    p_in, p_th = acc_in.clone(), acc_th.clone()
-    sg.adagrad_accumulate_plain(p_in, p_th, *lists)
-    k3_err = max(_close(f"adagrad_accumulate_cbow_hs[acc_in] {tag}", a_in, p_in),
-                 _close(f"adagrad_accumulate_cbow_hs[acc_theta] {tag}", a_th, p_th))
     lr = 0.05
+    squares, lists = cbow.cbow_hs_lists(want10, inp["walks"])
+    dim = emb_in.shape[1]
+    a_in, a_th = acc_in.clone(), acc_th.clone()
+    sg.adagrad_accumulate_squares(a_in, a_th, *squares, dim)
+    p_in, p_th = acc_in.clone(), acc_th.clone()
+    sg.adagrad_accumulate_squares_plain(p_in, p_th, *squares, dim)
+    k3_err = max(_close(f"adagrad_accumulate_squares_cbow_hs[acc_in] {tag}", a_in, p_in),
+                 _close(f"adagrad_accumulate_squares_cbow_hs[acc_theta] {tag}", a_th, p_th))
     t_in, t_th = emb_in.clone(), theta.clone()
     sg.adagrad_apply(t_in, t_th, p_in, p_th, *lists, lr)
     q_in, q_th = emb_in.clone(), theta.clone()
     sg.adagrad_apply_plain(q_in, q_th, p_in, p_th, *lists, lr)
     k4_err = max(_close(f"adagrad_apply_cbow_hs[emb_in] {tag}", t_in, q_in),
                  _close_to_largest(f"adagrad_apply_cbow_hs[theta] {tag}", t_th, q_th))
+
+    # K3 and K4 on the per-occurrence lists (the layout K10 emitted before
+    # PR 17): like for like with their earlier rows
+    occ = cbow_hs_occurrence_lists(inp, cbow_mean)
+    a_in, a_th = acc_in.clone(), acc_th.clone()
+    sg.adagrad_accumulate(a_in, a_th, *occ)
+    o_in, o_th = acc_in.clone(), acc_th.clone()
+    sg.adagrad_accumulate_plain(o_in, o_th, *occ)
+    k3_occ_err = max(_close(f"adagrad_accumulate_cbow_hs_occurrences[acc_in] {tag}", a_in, o_in),
+                     _close(f"adagrad_accumulate_cbow_hs_occurrences[acc_theta] {tag}", a_th,
+                            o_th))
+    # the per-occurrence squares summed reach the accumulators K10's layout
+    # fills: every occurrence's own mean square, not the head sum's
+    acc_err = max(_close(f"cbow_hs accumulators, both layouts [acc_in] {tag}", o_in, p_in),
+                  _close(f"cbow_hs accumulators, both layouts [acc_theta] {tag}", o_th, p_th))
+    t_in, t_th = emb_in.clone(), theta.clone()
+    sg.adagrad_apply(t_in, t_th, o_in, o_th, *occ, lr)
+    q_in, q_th = emb_in.clone(), theta.clone()
+    sg.adagrad_apply_plain(q_in, q_th, o_in, o_th, *occ, lr)
+    k4_occ_err = max(_close(f"adagrad_apply_cbow_hs_occurrences[emb_in] {tag}", t_in, q_in),
+                     _close_to_largest(f"adagrad_apply_cbow_hs_occurrences[theta] {tag}", t_th,
+                                       q_th))
 
     steps = {}
     for name, state, fk, fp, extra, kw in (
@@ -2049,8 +2125,39 @@ def _verify_cbow(inp, cbow_mean: bool, case: str) -> dict:
                                                           (*p_state[2:], loss_p))])
     return {"errs": {"cbow_grads": err9, "cbow_hs_grads": max(errs10),
                      "accumulate_cbow_hs": k3_err, "apply_cbow_hs": k4_err,
+                     "accumulate_cbow_hs_occurrences": k3_occ_err,
+                     "apply_cbow_hs_occurrences": k4_occ_err, "accumulators_both_layouts": acc_err,
                      "ns_step": steps["ns"], "hs_step": steps["hs"]},
-            "want9": want9, "want10": want10, "lists": lists, "acc": (p_in, p_th)}
+            "want9": want9, "want10": want10, "squares": squares, "lists": lists,
+            "acc": (p_in, p_th), "occ": occ, "acc_occ": (o_in, o_th), "rows": rows}
+
+
+def cbow_hs_occurrence_lists(inp, cbow_mean: bool):
+    """K3/K4's CBOW-HS lists in the layout K10 emitted before it combined
+    the top levels (one gradient row per path occurrence), in plain PyTorch:
+    (g_in, walks, g_theta [B*L1*CL, D], theta_rows (-1 where masked), and an
+    empty third list).  K3's and K4's like-for-like rows run on these."""
+    emb_in, theta = inp["hs"][:2]
+    walks, points, codes, lengths = inp["walks"], *inp["tables"]
+    _, h, cnt, pv, w_c, _ = cbow._centers(emb_in, walks, inp["mask"], inp["b_sh"],
+                                          inp["window"], cbow_mean)
+    safe = torch.where(walks >= 0, walks, 0).long()
+    cl = points.shape[1]
+    pts = points[safe].long()
+    sgn = 1.0 - 2.0 * codes[safe].to(torch.float32)
+    pmask = (torch.arange(cl, device=walks.device)[None, None, :]
+             < lengths[safe][..., None]).to(torch.float32) * w_c[..., None]
+    th = theta[pts]
+    g = (torch.sigmoid((h[:, :, None, :] * th).sum(-1)) - (1.0 + sgn) / 2.0) * pmask
+    g_h = (g[..., None] * th).sum(2)
+    if cbow_mean:
+        g_h = g_h / torch.clamp(cnt, min=1.0)[..., None]
+    dim = emb_in.shape[1]
+    g_in = cbow.scatter_context_grads(g_h, pv).reshape(-1, dim)
+    g_th = (g[..., None] * h[:, :, None, :]).reshape(-1, dim)
+    rows = torch.where(pmask > 0, pts, -1).reshape(-1).to(torch.int32)
+    none = torch.empty((0,), dtype=torch.int32, device=walks.device)
+    return (g_in, walks.reshape(-1), g_th, rows, g_th[:0], none)
 
 
 def _cbow_live(inp):
@@ -2070,10 +2177,13 @@ def _cbow_live(inp):
 def check_cbow(tree, counts, n_walks: int, length: int, dim: int, window: int,
                cbow_mean: bool, timed: bool, record: bool, results: dict, case: str = "main",
                walks=None) -> None:
-    """K9 cbow_grads, K10 cbow_hs_grads and K3/K4 over CBOW-HS's row lists,
+    """K9 cbow_grads, K10 cbow_hs_grads, K3's squares mode and K4 over
+    K10's lists, K3 and K4 over the per-occurrence lists, and both steps,
     each against its plain version (``_verify_cbow``), on the tree's
-    vocabulary; timed at the main paths' shapes.  K10 runs on the tree
-    without its head: CBOW-HS updates every path entry per occurrence."""
+    vocabulary; timed at the main paths' shapes, with the CBOW-HS step's
+    kernels together (``cbow_hs_step``).  K10 runs on the tree without its
+    head: CBOW-HS updates every path entry per occurrence.  The line gives
+    the rows K10 emits (combined, per occurrence, dead) and its staging."""
     before = _build.launches.copy()
     inp = _cbow_inputs(tree, counts, n_walks, length, dim, window, seed=6, walks=walks)
     v = _verify_cbow(inp, cbow_mean, case)
@@ -2083,8 +2193,8 @@ def check_cbow(tree, counts, n_walks: int, length: int, dim: int, window: int,
     line = {"phase": "check" if timed else "edge_case", "kernel": "cbow_grads, cbow_hs_grads "
             "+ K3/K4 (CBOW-HS)", "case": case, "cbow_mean": cbow_mean, "B": n_walks,
             "L1": length, "D": dim, "window": window, "S": 64, "V": len(counts), "CL": cl,
-            "n_inner": tree.n_inner, "walks": walks_from, "max_abs_err": v["errs"],
-            "rtol": RTOL, "atol": ATOL}
+            "n_inner": tree.n_inner, "walks": walks_from, "cbow_hs_rows": v["rows"],
+            "max_abs_err": v["errs"], "rtol": RTOL, "atol": ATOL}
     if not timed:
         emit(line)
         return
@@ -2097,34 +2207,47 @@ def check_cbow(tree, counts, n_walks: int, length: int, dim: int, window: int,
     k9_plain = time_ms(lambda: cbow.cbow_grads_plain(*ns_args, **ns_kw), reps=3, warmup=1)
     k10_ms = time_ms(lambda: cbow.cbow_hs_grads(*hs_args, **hs_kw))
     k10_plain = time_ms(lambda: cbow.cbow_hs_grads_plain(*hs_args, **hs_kw), reps=2, warmup=1)
-    lists = v["lists"]
-    g_in, walks_flat, g_theta, theta_rows = lists[:4]
+    lr, D = 0.05, dim
     acc_in, acc_th = inp["hs"][2:]
-    p_in, p_th = v["acc"]
-    lr = 0.05
-    a_in, a_th = acc_in.clone(), acc_th.clone()
-    k3_ms = time_ms(lambda: sg.adagrad_accumulate(a_in, a_th, *lists))
-    k3_plain = time_ms(lambda: sg.adagrad_accumulate_plain(a_in, a_th, *lists))
-    t_in, t_th = inp["hs"][0].clone(), inp["hs"][1].clone()
-    k4_ms = time_ms(lambda: sg.adagrad_apply(t_in, t_th, p_in, p_th, *lists, lr))
-    k4_plain = time_ms(lambda: sg.adagrad_apply_plain(t_in, t_th, p_in, p_th, *lists, lr))
+    state = [x.clone() for x in inp["hs"]]
+    step_args = (inp["walks"], inp["b_sh"], lr, *inp["tables"], inp["mask"])
+    step_ms = time_ms(lambda: cbow.cbow_hs_step(*state, *step_args, **hs_kw))
+    state = [x.clone() for x in inp["hs"]]
+    step_plain = time_ms(lambda: cbow.cbow_hs_step_plain(*state, *step_args, **hs_kw), reps=2,
+                         warmup=1)
 
-    # library yardsticks, never used by the port, on the live rows alone
-    # (K3 and K4 skip the others), selected outside the timed window: K3's,
-    # the rows' mean squares and two index_add_ calls inside it; K4's,
-    # index_add_ of the precomputed row updates
-    live_in = walks_flat >= 0
-    live_th = theta_rows >= 0
-    rows_in = walks_flat[live_in].long()
-    rows_th = theta_rows[live_th].long()
-    gi_live = g_in[live_in]
-    g_th = g_theta[live_th]
-    k3_lib = time_ms(lambda: (a_in.index_add_(0, rows_in, mean_squares(gi_live)),
-                              a_th.index_add_(0, rows_th, mean_squares(g_th))))
-    upd_in = -lr * gi_live * torch.rsqrt(p_in[rows_in] + 1e-12)[:, None]
-    upd_th = -lr * g_th * torch.rsqrt(p_th[rows_th] + 1e-12)[:, None]
-    k4_lib = time_ms(lambda: (t_in.index_add_(0, rows_in, upd_in),
-                              t_th.index_add_(0, rows_th, upd_th)))
+    def adagrad_times(squares, lists, accumulate, accumulate_plain, acc, extra=()):
+        """K3's, K4's and their plain versions' times on one pair of lists,
+        with the library yardsticks (never used by the port) on the live rows
+        alone, selected outside the timed window: K3's, the rows' squares
+        and two index_add_ calls inside it; K4's, index_add_ of the
+        precomputed row updates."""
+        p_in, p_th = acc
+        a_in, a_th = acc_in.clone(), acc_th.clone()
+        k3 = time_ms(lambda: accumulate(a_in, a_th, *squares, *extra))
+        k3_plain = time_ms(lambda: accumulate_plain(a_in, a_th, *squares, *extra))
+        t_in, t_th = inp["hs"][0].clone(), inp["hs"][1].clone()
+        k4 = time_ms(lambda: sg.adagrad_apply(t_in, t_th, p_in, p_th, *lists, lr))
+        k4_plain = time_ms(lambda: sg.adagrad_apply_plain(t_in, t_th, p_in, p_th, *lists, lr))
+        live = [r >= 0 for r in lists[1::2]]
+        rows = [r[m].long() for r, m in zip(lists[1::2], live)]
+        sq = [x[m] for x, m in zip(squares[0::2], live)]
+        if not extra:  # K3's standard mode: the squares of the gradient rows
+            sq = [mean_squares(x) for x in sq]
+        tabs = ((a_in, p_in, t_in), (a_th, p_th, t_th), (a_th, p_th, t_th))
+        k3_lib = time_ms(lambda: [a.index_add_(0, r, x / (D if extra else 1))
+                                  for (a, _, _), r, x in zip(tabs, rows, sq)])
+        upd = [-lr * g[m] * torch.rsqrt(p[r] + 1e-12)[:, None]
+               for (_, p, _), g, m, r in zip(tabs, lists[0::2], live, rows)]
+        k4_lib = time_ms(lambda: [t.index_add_(0, r, u)
+                                  for (_, _, t), r, u in zip(tabs, rows, upd)])
+        return k3, k3_plain, k3_lib, k4, k4_plain, k4_lib
+
+    new_t = adagrad_times(v["squares"], v["lists"], sg.adagrad_accumulate_squares,
+                          sg.adagrad_accumulate_squares_plain, v["acc"], (D,))
+    occ = v["occ"]
+    occ_t = adagrad_times(occ, occ, sg.adagrad_accumulate, sg.adagrad_accumulate_plain,
+                          v["acc_occ"])
 
     # bounds, from this run's data.  K9 reads the batch's ids and shrinks,
     # each distinct vertex's emb_in and emb_out rows and mask byte once and
@@ -2134,37 +2257,65 @@ def check_cbow(tree, counts, n_walks: int, length: int, dim: int, window: int,
     # 2 D per valid (center, context) pair (h and the scatter).  K10 reads
     # the same ids, each distinct vertex's emb_in row, path, codes, length
     # and mask once and each distinct theta row on the trainable centers'
-    # paths once, and writes g_in of the live positions and g_theta with its
-    # row for the live path entries; 5 D flops per live entry (the dot,
-    # g_h, g_theta) and 2 D per pair.
+    # paths once, and writes g_in with its squares for the live positions,
+    # the head's K rows with their squares and the live tail entries' rows
+    # with their rows and squares (before PR 17: every live path entry's
+    # row); 5 D flops per live entry (the dot, g_h, g_theta) and 2 D per
+    # pair.  K3 and K4 read each live list row once (K3's squares mode: its
+    # square, 4 B) and the ids, and read and write each touched accumulator
+    # entry (K3) or table row and its scale (K4) once.  The step row's
+    # bound is the function's own work: the ids, each distinct vertex's
+    # path and emb_in row, each distinct theta row read once, both written
+    # once, each touched accumulator entry read and written once, at the
+    # flops of K10 plus 3 D a row update.
     n_rows = n_walks * length
     n_ctr, n_pairs, n_entries = _cbow_live(inp)
+    walks_flat = inp["walks"].reshape(-1)
+    live_in = walks_flat >= 0
     n_live = int(live_in.sum())
-    u_in = torch.unique(rows_in)
+    u_in = int(torch.unique(walks_flat[live_in]).numel())
+    occ_rows = occ[3]
+    u_th = int(torch.unique(occ_rows[occ_rows >= 0]).numel())
     s = inp["neg"].numel()
-    k9_bytes = (n_rows * 8 + u_in.numel() * (2 * dim * 4 + 1) + s * (dim * 4 + 4)
+    k9_bytes = (n_rows * 8 + u_in * (2 * dim * 4 + 1) + s * (dim * 4 + 4)
                 + 2 * n_live * dim * 4 + s * dim * 4)
     k9_ops = dim * (n_ctr * (6 * s + 7) + 2 * n_pairs)
-    u_th = int(torch.unique(rows_th).numel())
-    k10_bytes = (n_rows * 8 + u_in.numel() * (dim * 4 + cl * 5 + 5) + u_th * dim * 4
-                 + n_live * dim * 4 + n_entries * (dim * 4 + 4))
+    rows = v["rows"]
+    n_head, n_tail = rows["combined"], rows["per_occurrence"]
+    k10_bytes = (n_rows * 8 + u_in * (dim * 4 + cl * 5 + 5) + u_th * dim * 4
+                 + n_live * (dim * 4 + 4) + n_head * (dim * 4 + 4) + n_tail * (dim * 4 + 8))
     k10_ops = dim * (5 * n_entries + 2 * n_pairs)
-    n_grads = n_live + n_entries
-    ids = (n_rows + n_rows * cl) * 4
-    k3_bytes = n_grads * dim * 4 + ids + 8 * (u_in.numel() + u_th)
-    k4_bytes = n_grads * dim * 4 + ids + 4 * (u_in.numel() + u_th) + 8 * dim * (u_in.numel() + u_th)
+    n_new = n_live + n_head + n_tail
+    ids_new = (n_rows + n_head + rows["per_occurrence"] + rows["dead"]) * 4
+    k3_bytes = n_new * 4 + ids_new + 8 * (u_in + u_th)
+    k4_bytes = n_new * dim * 4 + ids_new + 4 * (u_in + u_th) + 8 * dim * (u_in + u_th)
+    n_occ = n_live + n_entries
+    ids_occ = (n_rows + n_rows * cl) * 4
+    k3_occ_bytes = n_occ * dim * 4 + ids_occ + 8 * (u_in + u_th)
+    k4_occ_bytes = (n_occ * dim * 4 + ids_occ + 4 * (u_in + u_th)
+                    + 8 * dim * (u_in + u_th))
+    step_bytes = n_rows * 8 + u_in * (2 * dim * 4 + cl * 5 + 5 + 8) + u_th * (2 * dim * 4 + 8)
+    step_ops = k10_ops + 3 * dim * (u_in + u_th)
     rec = {
         "cbow_grads": (v["errs"]["cbow_grads"], k9_ms, k9_plain, bound_ms(k9_bytes, k9_ops), None),
         "cbow_hs_grads": (v["errs"]["cbow_hs_grads"], k10_ms, k10_plain,
                           bound_ms(k10_bytes, k10_ops), None),
-        "adagrad_accumulate_cbow_hs": (v["errs"]["accumulate_cbow_hs"], k3_ms, k3_plain,
-                                       bound_ms(k3_bytes, 2 * dim * n_grads), k3_lib),
-        "adagrad_apply_cbow_hs": (v["errs"]["apply_cbow_hs"], k4_ms, k4_plain,
-                                  bound_ms(k4_bytes, 3 * dim * n_grads), k4_lib),
+        "adagrad_accumulate_cbow_hs": (v["errs"]["accumulate_cbow_hs"], new_t[0], new_t[1],
+                                       bound_ms(k3_bytes, n_new), new_t[2]),
+        "adagrad_apply_cbow_hs": (v["errs"]["apply_cbow_hs"], new_t[3], new_t[4],
+                                  bound_ms(k4_bytes, 3 * dim * n_new), new_t[5]),
+        "adagrad_accumulate_cbow_hs_occurrences": (
+            v["errs"]["accumulate_cbow_hs_occurrences"], occ_t[0], occ_t[1],
+            bound_ms(k3_occ_bytes, 2 * dim * n_occ), occ_t[2]),
+        "adagrad_apply_cbow_hs_occurrences": (
+            v["errs"]["apply_cbow_hs_occurrences"], occ_t[3], occ_t[4],
+            bound_ms(k4_occ_bytes, 3 * dim * n_occ), occ_t[5]),
+        "cbow_hs_step": (v["errs"]["hs_step"], step_ms, step_plain,
+                         bound_ms(step_bytes, step_ops), None),
     }
     line.update({"trainable_centers": n_ctr, "valid_pairs": n_pairs,
                  "live_path_entries": n_entries, "live_positions": n_live,
-                 "distinct_vertices": int(u_in.numel()), "distinct_theta_rows": u_th})
+                 "distinct_vertices": u_in, "distinct_theta_rows": u_th})
     emit(line)
     for name, (err, ms, plain_ms, (b_ms, b_by), lib_ms) in rec.items():
         emit({"phase": "check", "kernel": name, "case": case, "cbow_mean": cbow_mean,
@@ -2175,6 +2326,11 @@ def check_cbow(tree, counts, n_walks: int, length: int, dim: int, window: int,
             results[name] = _with_staging(name, {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": lib_ms}, before)
+    if record:
+        results["cbow_hs_step"]["staging"] = v["rows"]["staging"]
+        results["adagrad_apply_cbow_hs_occurrences"]["lists"] = "per occurrence (PR 16's layout)"
+        results["adagrad_accumulate_cbow_hs_occurrences"]["lists"] = (
+            "per occurrence (PR 16's layout)")
 
 
 def edge_cases_cbow(tree, counts) -> None:
@@ -2183,7 +2339,8 @@ def edge_cases_cbow(tree, counts) -> None:
     (``_verify_cbow``): dead lanes with 20% of the vertices out of the
     vocabulary, all-dead walks, live positions between dead ones at window
     1 (no center has a context), a window of 5 over 4-position walks, walk
-    length 81, and D = 100 at window 10; then 2-position walks, where the
+    length 81, D = 100 at window 10, D = 600 and tables 4 bytes off a
+    16-byte boundary (K10's generic path), D = 8; then 2-position walks, where the
     CBOW-NS loss (K9) equals the SGNS loss (K2) under the same draws
     (tests/test_cbow.py:43)."""
     n_v = len(counts)
@@ -2195,22 +2352,30 @@ def edge_cases_cbow(tree, counts) -> None:
              ("no_context", 128, 21, 128, 1, gaps, 0.0),
              ("window_ge_L1", 256, 4, 128, 5, None, 0.0),
              ("walk_length_81", 64, 81, 128, 5, None, 0.1),
-             ("dim_100_window_10", 96, 11, 100, 10, None, 0.1))
+             ("dim_100_window_10", 96, 11, 100, 10, None, 0.1),
+             ("dim_600", 24, 21, 600, 5, None, 0.1), ("dim_8", 64, 21, 8, 5, None, 0.1),
+             ("unaligned_tables", 128, 21, 128, 5, None, 0.1))
     for case, n_walks, length, dim, window, walks, oov in cases:
         for cbow_mean in (True, False):
             inp = _cbow_inputs(tree, counts, n_walks, length, dim, window, seed=11, walks=walks,
                                oov=oov)
+            if case == "unaligned_tables":  # 4 bytes past a 16-byte boundary: K10's generic path
+                for i in range(2):
+                    t = inp["hs"][i]
+                    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+                    inp["hs"][i] = buf[1:].view_as(t).copy_(t)
             v = _verify_cbow(inp, cbow_mean, case)
             n_ctr, n_pairs, n_entries = _cbow_live(inp)
             if case in ("all_dead", "no_context"):
                 require(n_ctr == 0, f"{case}: {n_ctr} trainable centers")
-                require(float(v["want9"][3]) == 0 and float(v["want10"][3]) == 0,
+                require(float(v["want9"][3]) == 0 and float(v["want10"][-1]) == 0,
                         f"{case}: nonzero loss")
             emit({"phase": "edge_case", "kernel": "cbow_grads, cbow_hs_grads + K3/K4 (CBOW-HS)",
                   "case": case, "cbow_mean": cbow_mean, "B": n_walks, "L1": length, "D": dim,
                   "window": window, "oov_share": oov, "trainable_centers": n_ctr,
                   "valid_pairs": n_pairs, "live_path_entries": n_entries,
-                  "max_abs_err": v["errs"], "rtol": RTOL, "atol": ATOL})
+                  "cbow_hs_rows": v["rows"], "max_abs_err": v["errs"], "rtol": RTOL,
+                  "atol": ATOL})
 
     inp = _cbow_inputs(tree, counts, 512, 2, 128, 5, seed=12, dead=False)
     inp["mask"] = torch.ones_like(inp["mask"])
@@ -3303,12 +3468,13 @@ def _tree_line(model) -> dict:
 
 
 def main_path_host(src, dst, max_iter: int, phase: str = "main_path_host", w2v=None,
-                   grads: str = "sgns_grads"):
+                   grads: str = "sgns_grads", update=ADAGRAD):
     """Node2Vec(host_corpus=True) on the dense graph with sample=1e-3: the
     walks go to host memory, the engine's tables are released, fit_host
     uploads slabs double-buffered and subsamples each on the card.  SGNS
     (``main_path_host``), or CBOW-HS with ``w2v={"sg": 0, "negative": 0}``
-    (``main_path_cbow_hs``: ``grads`` "cbow_hs_grads")."""
+    (``main_path_cbow_hs``: ``grads`` "cbow_hs_grads", ``update`` K3's
+    squares mode and K4)."""
     n2v = Node2Vec(n2v_params=N2V_MAIN,
                    w2v_params={**W2V_MAIN, "max_iter": max_iter, "sample": 1e-3, **(w2v or {})},
                    random_seed=0, device="cuda", host_corpus=True)
@@ -3387,12 +3553,12 @@ def main_path_host(src, dst, max_iter: int, phase: str = "main_path_host", w2v=N
             f"dense_walk launched {launches['dense_walk']} times")
     require(launches["subsample_walks"] == n_slabs * max_iter,
             f"subsample_walks launched {launches['subsample_walks']} times")
-    for k in (grads, "adagrad_accumulate", "adagrad_apply"):
+    for k in (grads, *update):
         require(launches[k] == n_slabs * slab_batches * max_iter,
                 f"{k} launched {launches[k]} times")
     require(all(launches[k] == 0 for k in GRADS if k != grads),
             f"another objective's kernel ran: {launches}")
-    path = ("dense_walk", "subsample_walks", grads, "adagrad_accumulate", "adagrad_apply")
+    path = ("dense_walk", "subsample_walks", grads, *update)
     require(all(launches[k] > 0 for k in path), f"a kernel never ran: {launches}")
     breakdown((("fit_host" if phase == "main_path_host" else f"fit_host ({phase})",
                 lambda: Word2VecTorch(p, device="cuda").fit_host(
@@ -3934,7 +4100,8 @@ def main_path_wide(graph) -> dict:
     at dim 256 and CBOW-HS (K10) at dim 512 through fit for one epoch; on
     ``graph`` (the dense graph of 5.: few repeated rows in a batch), 8
     steps of ``sgns_train_step`` (K13) at B = 256, dim 256; losses and
-    tables finite.  Every launch of the five stages in global memory."""
+    tables finite.  Every launch of the stages in global memory, but K10's
+    (in shared memory since PR 17)."""
     dev = torch.device("cuda")
     _fresh_run()
     t0 = time.perf_counter()
@@ -3974,7 +4141,8 @@ def main_path_wide(graph) -> dict:
            "launches": launches}
     emit(out)
     for k in ("sgns_grads", "hs_grads", "cbow_grads", "cbow_hs_grads", "sgns_pair_grads"):
-        require(launches[k] > 0 and launches[k + "_global"] == launches[k],
+        want = 0 if k == "cbow_hs_grads" else launches[k]
+        require(launches[k] > 0 and launches[k + "_global"] == want,
                 f"main_path_wide: {k} launched {launches[k]} times, "
                 f"{launches[k + '_global']} staged in global memory")
     require(all(np.isfinite(x) for x in cbow_ns.losses + cbow_hs.losses)
@@ -5997,7 +6165,8 @@ def main() -> int:
     paths["main_path_cbow"] = main_path_streamed(src, dst, 1, "main_path_cbow", {"sg": 0},
                                                  "cbow_grads")
     paths["main_path_cbow_hs"] = main_path_host(src, dst, 1, "main_path_cbow_hs",
-                                                {"sg": 0, "negative": 0}, "cbow_hs_grads")[0]
+                                                {"sg": 0, "negative": 0}, "cbow_hs_grads",
+                                                CBOW_HS_UPDATE)[0]
     paths["main_path_sgd"] = main_path_streamed(src, dst, 1, "main_path_sgd",
                                                 {"optimizer": "sgd", "step_size": 0.025},
                                                 "sgns_grads", SGD)
@@ -6039,7 +6208,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        **{k: r[k] for k in ("staging", "mode", "neg_gemm_ms") if k in r}})
+                        **{k: r[k] for k in ("staging", "mode", "neg_gemm_ms", "lists")
+                           if k in r}})
     emit({"kernels": kernels})
     torch.distributed.destroy_process_group()  # the 1 x 1 mesh's world of one
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -50,6 +50,7 @@ MODE_COUNTS = ("blocked_walk_sl_mixed", "blocked_walk_sl_exhaustive", "sgns_grad
 
 launches: collections.Counter = collections.Counter()
 STAGING_BLOCKS_PER_SM = 4  # global staging's grid: a small multiple of the SMs
+SMEM_OPTIN = 232448  # an H100's shared memory per block (where the card does not say)
 build_seconds: Optional[float] = None
 ptxas_report: str = ""
 
@@ -146,7 +147,8 @@ def lib() -> ctypes.CDLL:
             "n2v_cbow_grads": [vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, i32, f32, i32,
                                vp, vp, vp, vp, vp, i32, vp],
             "n2v_cbow_hs_grads": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                  i32, vp, vp, vp, vp, vp, i32, vp],
+                                  i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                  i32, vp],
             "n2v_preagg_rows": [vp, i64, vp, vp, i32, vp, vp, vp, vp, vp, vp],
             "n2v_sgd_apply": [vp, vp, i32, vp, vp, vp, vp, i64, vp, vp, i64, vp, f32, f32, vp],
             "n2v_csr_walk": [vp, vp, vp, vp, vp, vp, i64, vp, vp, i64, i32, i64, u32, f32, f32,
@@ -197,7 +199,7 @@ def lib() -> ctypes.CDLL:
         handle.n2v_hs_grads_smem.restype = ctypes.c_size_t
         handle.n2v_cbow_grads_smem.argtypes = [i32, i32, i32]
         handle.n2v_cbow_grads_smem.restype = ctypes.c_size_t
-        handle.n2v_cbow_hs_grads_smem.argtypes = [i32, i32]
+        handle.n2v_cbow_hs_grads_smem.argtypes = [i32, i32, i32, i32, i32]
         handle.n2v_cbow_hs_grads_smem.restype = ctypes.c_size_t
         handle.n2v_error_string.argtypes = [ctypes.c_int]
         handle.n2v_error_string.restype = ctypes.c_char_p
@@ -245,7 +247,7 @@ def staging(smem: int, n_walks: int, device):
     import torch
 
     props = torch.cuda.get_device_properties(device)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    limit = getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)
     if staging_mode(smem, limit) == "shared":
         return None, 0
     blocks = max(1, min(int(n_walks), STAGING_BLOCKS_PER_SM * props.multi_processor_count))

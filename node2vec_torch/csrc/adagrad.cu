@@ -1,8 +1,9 @@
 // K3 adagrad_accumulate and K4 adagrad_apply: row-wise Adagrad per
 // occurrence over three (grads, rows) lists.
 //
-// Replaces node2vec_tpu/models/skipgram.py:463-475 (SGNS) and
-// node2vec_tpu/models/hsoftmax.py:396-429 (HS):
+// Replaces node2vec_tpu/models/skipgram.py:463-475 (SGNS),
+// node2vec_tpu/models/hsoftmax.py:396-429 (HS) and models/cbow.py:306-322
+// (CBOW-HS):
 //   K3: acc_in[rows_in]     += mean(g_in^2)
 //       acc_out[rows_out]   += mean(g_out^2)
 //       acc_out[rows_extra] += mean(g_extra^2)
@@ -16,10 +17,15 @@
 // per-occurrence tail gradients, the extra list the head rows 0..K-1 with
 // the pre-aggregated d_head.  HS's head and tail rows are disjoint (BFS
 // numbering), so the JAX order (head, emb_in, tail) equals one pass.
+// CBOW-HS: K10's lists (cbow_hs.cu), the flat walks, the tail path
+// entries' theta rows and the head rows 0..K-1 with the head's gradients
+// summed per row, each with its own squares (below).
 //
 // K3 has a second mode, "squares given", for the column-sharded step
-// (node2vec_tpu/parallel/sharded_sgns.py:106-116, col_sgns.cu): each row's
-// square arrives already summed over the model group's column slices, and
+// (node2vec_tpu/parallel/sharded_sgns.py:106-116, col_sgns.cu), the row
+// layout's owners and the CBOW-HS step: each row's square arrives already
+// summed (over the model group's column slices; over a head row's path
+// occurrences, each occurrence's own square), and
 //   acc_in[rows_in]     += sq_in / D
 //   acc_out[rows_out]   += sq_out / D
 //   acc_out[rows_extra] += sq_extra / D
@@ -53,15 +59,28 @@
 // gives the plain version's sums up to fp32 order (the JAX scatter sums in
 // yet another order, hence a tolerance in the comparisons).
 //
-// K4 keeps the first design: one warp per gradient row of the three lists
-// laid end to end; the row's update is one coalesced pass of atomics over
-// the table row.  K3's squares mode is one thread a row.
+// K4's design (Hopper): the first one (PR 1) took a warp a row and one
+// 4-byte atomic an element (on CBOW-HS's per-occurrence lists 0.627 ms, of
+// which 0.045 was contention on the hot rows: the same lists with every
+// theta row made distinct took 0.582; experiments/k10_attribution.py).  So
+// the atomics themselves bound it, not their addresses.  Now a block takes
+// a run of rows as K3 does (T lanes a row, kUnroll rows a lane group, 16
+// bytes a lane where D % 4 == 0 and the lists' and tables' bases are
+// 16-byte aligned; a lane group's rows consecutive, so a pair list's run of
+// one center meets in one group at any D), reads every row's scale -lr * rsqrt(acc[v] + 1e-12)
+// before its loads, sums equal rows of a lane group in registers (a pair
+// list's center recurs 2w times in a row) and adds each remaining row with
+// one 16-byte atomic per 4 elements (sm_90's vector atomics), no atomic
+// waiting on its result.  A dead row issues no load and no atomic.  K4
+// reads the accumulators only, so every scale is read before any row is
+// written.  K3's squares mode is one thread a row.
 //
 // Bound on an H100: memory — reading the grads once and a read-modify-write
 // of each touched accumulator entry (K3) or table row (K4).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -100,6 +119,16 @@ __device__ __forceinline__ bool locate(const RowLists& l, int64_t r, int dim,
     return true;
   }
   return false;
+}
+
+__device__ __forceinline__ float plus(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 plus(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+// g * (-lr * scale): within an ulp of the plain version's (-lr * g) * scale
+__device__ __forceinline__ float times(float g, float s) { return g * s; }
+__device__ __forceinline__ float4 times(float4 g, float s) {
+  return make_float4(g.x * s, g.y * s, g.z * s, g.w * s);
 }
 
 // ---- K3 -------------------------------------------------------------------
@@ -234,20 +263,100 @@ int launch_accumulate(float* acc_in, float* acc_out, const RowLists& l, int64_t 
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---- K4 -------------------------------------------------------------------
+
+constexpr int kK4Threads = 256;
+constexpr int kK4Warps = kK4Threads / 32;
+
+__device__ __forceinline__ void atomic_add_piece(float* dst, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(dst), v);
+}
+__device__ __forceinline__ void atomic_add_piece(float* dst, float v) { atomicAdd(dst, v); }
+
+// A block's run of rows, kK4Warps * (32 / kT) * kUnroll rows of the lists
+// laid end to end, kUnroll consecutive rows a group of kT lanes: every
+// row's scale read and every load of a column step issued before any is
+// used; equal rows of the group summed in registers before their atomic.
+template <bool kVec, int kT>
+__global__ void __launch_bounds__(kK4Threads)
 adagrad_apply_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
-                     const float* __restrict__ acc_in,
-                     const float* __restrict__ acc_out, RowLists l, int dim,
-                     float lr) {
-  const int lane = threadIdx.x & 31;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  const float* g;
-  int v;
-  bool first;
-  if (!locate(l, r, dim, g, v, first) || v < 0) return;
-  const float scale = rsqrtf((first ? acc_in : acc_out)[v] + kEps);
-  float* t = (first ? emb_in : emb_out) + static_cast<int64_t>(v) * dim;
-  for (int k = lane; k < dim; k += 32) atomicAdd(t + k, (-lr * g[k]) * scale);
+                     const float* __restrict__ acc_in, const float* __restrict__ acc_out,
+                     RowLists l, int dim, float lr) {
+  using Piece = typename std::conditional<kVec, float4, float>::type;
+  constexpr int kSides = 32 / kT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane & (kT - 1), side = lane / kT;
+  const int64_t n = l.n_in + l.n_out + l.n_extra;
+  const int64_t base = (static_cast<int64_t>(blockIdx.x) * kK4Warps + warp) * kSides * kUnroll;
+  const Piece* g[kUnroll];
+  float* dst[kUnroll];
+  float scale[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int64_t r = base + side * kUnroll + u;
+    const float* gr = nullptr;
+    int id = -1;
+    bool first = false;
+    if (r < n) locate(l, r, dim, gr, id, first);
+    g[u] = id >= 0 ? reinterpret_cast<const Piece*>(gr) : nullptr;
+    dst[u] = id >= 0 ? (first ? emb_in : emb_out) + static_cast<int64_t>(id) * dim : nullptr;
+    scale[u] = id >= 0 ? -lr * rsqrtf((first ? acc_in : acc_out)[id] + kEps) : 0.f;
+  }
+  // a row equal to an earlier one of the group adds into it (same table
+  // row, same scale): one atomic for both
+  int into[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    into[u] = -1;
+#pragma unroll
+    for (int u2 = 0; u2 < u; ++u2)
+      if (into[u] < 0 && g[u] != nullptr && into[u2] < 0 && dst[u2] == dst[u]) into[u] = u2;
+  }
+  const int pieces = kVec ? dim / 4 : dim;
+  for (int c = sub; c < pieces; c += kT) {
+    Piece v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if constexpr (kVec) {
+        v[u] = g[u] != nullptr ? Piece(__ldg(reinterpret_cast<const float4*>(g[u]) + c))
+                               : Piece();
+      } else {
+        v[u] = g[u] != nullptr ? Piece(__ldg(reinterpret_cast<const float*>(g[u]) + c))
+                               : Piece();
+      }
+    }
+#pragma unroll
+    for (int u = 1; u < kUnroll; ++u)
+#pragma unroll
+      for (int u2 = 0; u2 < u; ++u2)
+        if (into[u] == u2) v[u2] = plus(v[u2], v[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (g[u] != nullptr && into[u] < 0)
+        atomic_add_piece(dst[u] + (kVec ? 4 : 1) * c, times(v[u], scale[u]));
+  }
+}
+
+template <bool kVec, int kT>
+int launch_apply(float* emb_in, float* emb_out, const float* acc_in, const float* acc_out,
+                 const RowLists& l, int64_t n, int dim, float lr, cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(kK4Warps) * (32 / kT) * kUnroll;  // a block's
+  adagrad_apply_kernel<kVec, kT><<<static_cast<unsigned>((n + rows - 1) / rows), kK4Threads, 0,
+                                   stream>>>(emb_in, emb_out, acc_in, acc_out, l, dim, lr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec>
+int launch_apply(float* emb_in, float* emb_out, const float* acc_in, const float* acc_out,
+                 const RowLists& l, int64_t n, int dim, float lr, int t, cudaStream_t stream) {
+  switch (t) {
+    case 32: return launch_apply<kVec, 32>(emb_in, emb_out, acc_in, acc_out, l, n, dim, lr, stream);
+    case 16: return launch_apply<kVec, 16>(emb_in, emb_out, acc_in, acc_out, l, n, dim, lr, stream);
+    case 8: return launch_apply<kVec, 8>(emb_in, emb_out, acc_in, acc_out, l, n, dim, lr, stream);
+    case 4: return launch_apply<kVec, 4>(emb_in, emb_out, acc_in, acc_out, l, n, dim, lr, stream);
+    case 2: return launch_apply<kVec, 2>(emb_in, emb_out, acc_in, acc_out, l, n, dim, lr, stream);
+    default: return launch_apply<kVec, 1>(emb_in, emb_out, acc_in, acc_out, l, n, dim, lr, stream);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -268,8 +377,16 @@ RowLists make_lists(const float* g_in, const int32_t* rows_in, int64_t n_in,
   return RowLists{g_in, g_out, g_extra, rows_in, rows_out, rows_extra, n_in, n_out, n_extra};
 }
 
-unsigned n_blocks(const RowLists& l) {
-  return static_cast<unsigned>((l.n_in + l.n_out + l.n_extra + kWarps - 1) / kWarps);
+// K4's pieces: 16 bytes where the row length and every base allow it
+bool aligned16(const void* p, int64_t rows) {
+  return rows == 0 || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// lanes a row: the least power of two >= the row's pieces, at most 32
+int lanes_a_row(int pieces) {
+  int t = 1;
+  while (t < pieces && t < 32) t *= 2;
+  return t;
 }
 
 }  // namespace
@@ -311,10 +428,15 @@ extern "C" int n2v_adagrad_apply(float* emb_in, float* emb_out, const float* acc
                                  float lr, void* stream) {
   const RowLists l = make_lists(g_in, rows_in, n_in, g_out, rows_out, n_out, g_extra,
                                 rows_extra, n_extra);
-  if (n_blocks(l) == 0) return 0;
-  adagrad_apply_kernel<<<n_blocks(l), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      emb_in, emb_out, acc_in, acc_out, l, dim, lr);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t n = n_in + n_out + n_extra;
+  if (n == 0 || dim <= 0) return 0;
+  const bool vec = dim % 4 == 0 && aligned16(g_in, n_in) && aligned16(g_out, n_out) &&
+                   aligned16(g_extra, n_extra) && aligned16(emb_in, 1) &&
+                   aligned16(emb_out, 1);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int t = lanes_a_row(vec ? dim / 4 : dim);
+  return vec ? launch_apply<true>(emb_in, emb_out, acc_in, acc_out, l, n, dim, lr, t, st)
+             : launch_apply<false>(emb_in, emb_out, acc_in, acc_out, l, n, dim, lr, t, st);
 }
 
 // K3's squares mode: three (squares [n], rows [n]) lists, D the full width.

@@ -1,6 +1,7 @@
 // Where the step kernels (K2 sgns.cu, K8 hs.cu, K9 cbow.cu, K10 cbow_hs.cu,
 // K13 sgns_pairs.cu, K16 and K17 col_sgns.cu) stage their arrays: a walk's,
-// or for K2, K9 and K13 (tf32_tiles.cuh) a group of walks' chunks and the
+// a group of walks' (K8; K10 with its block partial of the head rows), or
+// for K2, K9 and K13 (tf32_tiles.cuh) a group of walks' chunks and the
 // block's negatives.
 //
 // Each of those kernels carves every array it keeps from one base

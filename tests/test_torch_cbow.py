@@ -239,16 +239,31 @@ def test_cpu_grads_launch_no_kernel_and_shapes(step_inputs):
         *(_t(a) for a in inp["ns"][:2]), _t(inp["walks"]), _t(inp["mask"]), b_sh, neg,
         window=W, negatives=K, cbow_mean=True)
     assert g_in.shape == d_out.shape == (B * L1, D) and d_no.shape == (S, D)
-    g_in, g_theta, rows, _ = cbow.cbow_hs_grads(
+    g_in, sq_in, g_tail, sq_tail, rows, g_head, sq_head, _ = cbow.cbow_hs_grads(
         *(_t(a) for a in inp["hs"][:2]), _t(inp["walks"]), _t(inp["mask"]), b_sh,
         _t(tree.points), _t(tree.codes), _t(tree.lengths), window=W, cbow_mean=True)
     cl = tree.points.shape[1]
-    assert g_in.shape == (B * L1, D) and g_theta.shape == (B * L1 * cl, D)
-    rows = rows.numpy().reshape(B, L1, cl)
-    assert (rows[inp["walks"] < 0] == -1).all()
+    n_head, k_rows = cbow.cbow_hs_head(L1, D, cl, tree.n_inner)
+    # a tree this small fits the head whole: every level summed per theta row
+    assert (n_head, k_rows) == (cl, tree.n_inner)
+    clt = cl - n_head
+    assert g_in.shape == (B * L1, D) and sq_in.shape == (B * L1,)
+    assert g_tail.shape == (B * L1 * clt, D) and sq_tail.shape == rows.shape == (B * L1 * clt,)
+    assert g_head.shape == (k_rows, D) and sq_head.shape == (k_rows,)
+    np.testing.assert_allclose(sq_in.numpy(), (g_in.numpy() ** 2).sum(-1), rtol=1e-5)
+    dead_walks = inp["walks"] < 0
+    assert (g_in.numpy().reshape(B, L1, D)[dead_walks] == 0).all()
+    rows = rows.numpy().reshape(B, L1, clt)
+    assert (rows[dead_walks] == -1).all()
     assert (rows[-1, 0] == -1).all()  # a center with no context trains no path entry
-    dead = g_theta.numpy().reshape(B, L1, cl, D)[rows < 0]
-    assert (dead == 0).all()
+    assert (g_tail.numpy().reshape(B, L1, clt, D)[rows < 0] == 0).all()
+    assert (sq_tail.numpy().reshape(B, L1, clt)[rows < 0] == 0).all()
+    # head rows no path reached stay zero
+    touched = np.zeros(k_rows, bool)
+    live = (inp["walks"] >= 0) & inp["mask"][np.maximum(inp["walks"], 0)]
+    for v in np.unique(inp["walks"][live]):
+        touched[tree.points[v, :tree.lengths[v]]] = True
+    assert (g_head.numpy()[~touched] == 0).all() and (sq_head.numpy()[~touched] == 0).all()
     assert sum(_build.launches.values()) == 0
 
 

@@ -597,10 +597,14 @@ def test_k3_model_matches_plain(kind, dim, hot):
 
 @pytest.mark.parametrize("objective", ["hs", "cbow_hs"])
 def test_k3_model_step_matches_jax(jax_case, objective):
-    """K3's model in the HS and CBOW-HS steps (the plain grads and K4),
-    against JAX's accumulators and tables."""
-    grads = hs.hs_grads_plain if objective == "hs" else cbow.cbow_hs_grads_plain
-    got, loss = _port_step(jax_case, objective, grads, k3_model)
+    """K3's model in the HS step (the plain grads and K4), against JAX's
+    accumulators and tables; the CBOW-HS step, whose K10 emits each
+    gradient row's squares, through K3's squares mode instead."""
+    if objective == "hs":
+        got, loss = _port_step(jax_case, objective, hs.hs_grads_plain, k3_model)
+    else:
+        got, loss = _port_step(jax_case, objective, cbow.cbow_hs_grads_plain,
+                               sg.adagrad_accumulate_squares_plain)
     want = jax_case["hs" if objective == "hs" else "cbow"]
     np.testing.assert_allclose(loss, float(want[4]),
                                rtol=LOSS_RTOL if objective == "hs" else CBOW_HS_LOSS_RTOL)
