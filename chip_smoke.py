@@ -329,6 +329,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import hashlib
 import importlib.util
 import json
@@ -619,16 +620,21 @@ def mean_squares(g: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(g, dim=-1).square_().div_(g.shape[-1])
 
 
+@functools.lru_cache(maxsize=None)
+def _sass_dump(lib_path: str) -> str:
+    """``cuobjdump -sass`` of the library at ``lib_path``, once a process."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+
+
 def sass_counts(lib_path: str, kernel_part: str, opcodes=("HMMA", "FFMA")) -> dict:
     """For each kernel of the library at ``lib_path`` whose mangled name
     contains ``kernel_part``: its instructions in ``cuobjdump -sass`` and how
     many of them are each of ``opcodes`` (by prefix, predicates dropped)."""
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
-    dump = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
     counts, name = {}, None
-    for line in dump.splitlines():
+    for line in _sass_dump(lib_path).splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             name = name if kernel_part in name else None
@@ -679,7 +685,8 @@ def tc_build_report(phase: str, kernel_part: str, n_kernels: int, smem, shapes: 
 
 
 def build_reports() -> None:
-    """k2_build, k9_build and k13_build (tc_build_report), then k8_build."""
+    """k2_build, k9_build, k13_build and col_build (K16 and K17; tc_build_report),
+    then k8_build."""
     lib = _build.lib()
     tc_build_report("k2_build", "sgns_grads_kernel", 4, lib.n2v_sgns_grads_smem,
                     {"main (L1 21, D 128, S 64, w 5)": (21, 128, 64, 5),
@@ -692,7 +699,24 @@ def build_reports() -> None:
                     {"main (L1 21, D 128, S 64, w 5)": (21, 128, 64, 5),
                      "one walk a group (L1 65, D 128, w 5)": (65, 128, 64, 5),
                      "wide (L1 81, D 256, w 10)": (81, 256, 64, 10)})
+    col_build_report()
     k8_build_report()
+
+
+def col_build_report() -> None:
+    """col_build: K16's and K17's kernels (shared and global staging), as
+    tc_build_report gives them, at the shapes of check_col_sgns and
+    edge_cases_col_sgns and at Dm = 256."""
+    lib = _build.lib()
+    col_smem = {"K16": lib.n2v_col_pair_logits_smem, "K17": lib.n2v_col_pair_grads_smem}
+    tc_build_report("col_build", "col_pair_", 4, lambda k, *shape: col_smem[k](*shape),
+                    {f"{k} {name}": (k, *shape) for k in col_smem for name, shape in (
+                        ("main (L1 21, Dm 128, S 64, w 5)", (21, 128, 64, 5)),
+                        ("Dm 64", (21, 64, 64, 5)),
+                        ("one walk a group (L1 81, Dm 128, w 5)", (81, 128, 64, 5)),
+                        ("quick (L1 41, Dm 16)", (41, 16, 64, 5)),
+                        ("Dm 256", (21, 256, 64, 5)),
+                        ("wide (L1 81, Dm 256, w 10)", (81, 256, 64, 10)))})
 
 
 def k8_build_report() -> None:
@@ -4165,6 +4189,92 @@ def _col_slices(state, dm: int):
              state[1][:, m * dm:(m + 1) * dm].contiguous()) for m in range(dim // dm)]
 
 
+def _verify_col(slices, walks, pc, px, neg, window: int, label: str):
+    """K16 on every model coordinate's column slices and K17 on the first,
+    against their plain versions (logits, d_ci and d_co elementwise; d_no,
+    the squares and the loss partials to rtol of their largest entry), K17
+    given the plain logits summed over the slices (the model all-reduce).
+    Returns (K16's largest error, K17's, the summed logits, K17's outputs)."""
+    kw = dict(window=window, negatives=5)
+    lg_err, logits = 0.0, 0
+    for e_in, e_out in slices:
+        got = col.col_pair_logits(e_in, e_out, walks, pc, px, neg, window=window)
+        want = col.col_pair_logits_plain(e_in, e_out, walks, pc, px, neg, window=window)
+        lg_err = max(lg_err, _close(f"col_pair_logits[{label}]", got, want))
+        logits = logits + want  # the model all-reduce
+    e_in, e_out = slices[0]
+    got = col.col_pair_grads(e_in, e_out, walks, pc, px, neg, logits, **kw)
+    want = col.col_pair_grads_plain(e_in, e_out, walks, pc, px, neg, logits, **kw)
+    gr_err = max(_close(f"col_pair_grads[{label}, d_ci]", got[0], want[0]),
+                 _close(f"col_pair_grads[{label}, d_co]", got[1], want[1]),
+                 _close_to_largest(f"col_pair_grads[{label}, d_no]", got[2], want[2]),
+                 _close_to_largest(f"col_pair_grads[{label}, squares]", got[3], want[3]),
+                 _close_to_largest(f"col_pair_grads[{label}, loss parts]", got[4], want[4]))
+    return lg_err, gr_err, logits, got
+
+
+@contextlib.contextmanager
+def forced_global_staging():
+    """While active, every step kernel's wrapper stages in a global
+    workspace (``_build.staging`` given a shared-memory limit of 0), so the
+    staged kernels run at shapes that would fit shared memory."""
+    staging = _build.staging
+
+    def forced(smem, n_walks, device):
+        props = torch.cuda.get_device_properties(device)
+        blocks = max(1, min(int(n_walks),
+                            _build.STAGING_BLOCKS_PER_SM * props.multi_processor_count))
+        ws = torch.empty(blocks * _build.staging_stride(smem), dtype=torch.float32, device=device)
+        return ws, blocks
+
+    _build.staging = forced
+    try:
+        yield
+    finally:
+        _build.staging = staging
+
+
+def edge_cases_col_sgns() -> None:
+    """K16 and K17 where their walk-group tiling (csrc/col_sgns.cu) could go
+    wrong, against their plain versions at Dm = D and D / 2 (_verify_col):
+    one walk a group (L1 = 81), a ragged last group with an all-dead walk
+    (100 walks of 21 in groups of 3), Dm = 16 and 48 (chunks of 32 and 64
+    columns, neither filled), 4-byte copies and stores (Dm = 50 and 25),
+    the main shape forced into global staging, and batches with no valid
+    lane (every walk dead; every vertex out of the vocabulary)."""
+    for case, n_walks, length, dim, window, extra in (
+            ("walk_length_81", 24, 81, 128, 5, None),
+            ("ragged_group_dead_walk", 100, 21, 128, 5, "dead_walk"),
+            ("dm_16", 64, 21, 32, 5, None), ("dm_48", 64, 21, 96, 5, None),
+            ("dm_50", 64, 21, 100, 3, None), ("global_staging", 256, 21, 128, 5, "global"),
+            ("no_valid_lane_dead", 48, 21, 128, 5, "all_dead"),
+            ("no_valid_lane_vocabulary", 48, 21, 128, 5, "no_vocabulary")):
+        walks_np = _pair_walks(4096, n_walks, length, 13)
+        if extra == "dead_walk":
+            walks_np[n_walks - 2] = -1
+        elif extra == "all_dead":
+            walks_np[:] = -1
+        inp = _preagg_inputs(4096, walks_np, dim, window, 14, oov=0.1)
+        if extra == "no_vocabulary":
+            inp["mask"][:] = False
+        walks, neg = inp["walks"], inp["neg"]
+        pc, px = sg.pair_lists_plain(walks, inp["b_sh"], inp["mask"], window)
+        before = _build.launches.copy()
+        errs = {}
+        with forced_global_staging() if extra == "global" else contextlib.nullcontext():
+            for dm in (dim, dim // 2):
+                lg, gr, _, _ = _verify_col(_col_slices(inp["state"], dm), walks, pc, px, neg,
+                                           window, f"{case}, Dm={dm}")
+                errs[f"Dm={dm}"] = max(lg, gr)
+        staging = {k: "global" if _build.launches[f"{k}_global"] > before[f"{k}_global"]
+                   else "shared" for k in ("col_pair_logits", "col_pair_grads")}
+        if extra == "global":
+            require(set(staging.values()) == {"global"}, f"col_sgns {case}: staged {staging}")
+        emit({"phase": "edge_case", "kernel": "col_pair_logits, col_pair_grads", "case": case,
+              "B": n_walks, "L1": length, "D": dim, "window": window,
+              "valid_lanes": int((pc >= 0).sum()), "staging": staging, "max_abs_err": errs})
+
+
 def check_col_sgns(mesh, n_vertices: int, n_walks: int, length: int, dim: int, window: int,
                    record: bool, results: dict, case: str, batch=None) -> None:
     """K16 col_pair_logits, K17 col_pair_grads and K3's squares mode against
@@ -4192,20 +4302,8 @@ def check_col_sgns(mesh, n_vertices: int, n_walks: int, length: int, dim: int, w
     u_out = int(torch.unique(torch.cat([px[ok], neg])).numel())
     for dm in (dim, dim // 2):
         slices = _col_slices(inp["state"], dm)
-        lg_err, logits = 0.0, 0
-        for e_in, e_out in slices:
-            got = col.col_pair_logits(e_in, e_out, walks, pc, px, neg, window=window)
-            want = col.col_pair_logits_plain(e_in, e_out, walks, pc, px, neg, window=window)
-            lg_err = max(lg_err, _close(f"col_pair_logits[Dm={dm}]", got, want))
-            logits = logits + want  # the model all-reduce
+        lg_err, gr_err, logits, got = _verify_col(slices, walks, pc, px, neg, window, f"Dm={dm}")
         e_in, e_out = slices[0]
-        got = col.col_pair_grads(e_in, e_out, walks, pc, px, neg, logits, **kw)
-        want = col.col_pair_grads_plain(e_in, e_out, walks, pc, px, neg, logits, **kw)
-        gr_err = max(_close(f"col_pair_grads[Dm={dm}, d_ci]", got[0], want[0]),
-                     _close(f"col_pair_grads[Dm={dm}, d_co]", got[1], want[1]),
-                     _close_to_largest(f"col_pair_grads[Dm={dm}, d_no]", got[2], want[2]),
-                     _close_to_largest(f"col_pair_grads[Dm={dm}, squares]", got[3], want[3]),
-                     _close_to_largest(f"col_pair_grads[Dm={dm}, loss parts]", got[4], want[4]))
         sq = sum(col.col_pair_grads_plain(a, b, walks, pc, px, neg, logits, **kw)[3]
                  for a, b in slices)  # the model all-reduce of the squares
         sq_lists = (sq[:n], pc, sq[n:2 * n], px, sq[2 * n:], neg)
@@ -6045,6 +6143,7 @@ def main() -> int:
         edge_cases_wide_rows(mesh)
         check_col_sgns(mesh, 4096, 64, 21, 128, 5, True, results, "quick")
         check_col_sgns(mesh, 512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
+        edge_cases_col_sgns()
         check_route(tree, head, walks_q.cpu().numpy()[:64], g.n_vertices, True, results, "quick")
         mesh_ranks(quick=True)
         edge_cases()
@@ -6107,6 +6206,7 @@ def main() -> int:
                    "main_path_pairs batch 0", batch=first)
     check_col_sgns(mesh, 131072, main_batch, 21, 128, 5, False, results,
                    "random walks, dead tails")
+    edge_cases_col_sgns()
     # K18, K19 and the routed modes on main_path_mesh_row's batch (2,570 walks
     # of the first chunk, shuffled), the HS ones on the dense graph's tree
     check_route(tree, head, hs_walks[:hs_batch], 131072, True, results,
