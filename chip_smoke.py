@@ -329,6 +329,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import functools
 import hashlib
 import importlib.util
@@ -476,6 +477,9 @@ SOURCES = {
     "epd_advance": ("node2vec_torch/csrc/epd_walk.cu",
                     "node2vec_tpu/parallel/edge_partitioned.py:185"),
 }
+# K20 at a late superstep; K18 at HS's tail-entry plan
+SOURCES["ep_bucket_late"] = SOURCES["ep_bucket"]
+SOURCES["route_plan_th"] = SOURCES["route_plan"]
 # the walk-at-a-time step kernels staging in global memory (csrc/staging.cuh)
 for _k in ("sgns_grads", "hs_grads", "cbow_grads", "sgns_pair_grads", "col_pair_logits",
            "col_pair_grads"):
@@ -519,11 +523,13 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("col_pair_grads", "col_pair_grads", "main_path_mesh"),
         ("adagrad_accumulate_squares", "adagrad_accumulate_squares", "main_path_mesh"),
         ("route_plan", "route_plan", "main_path_mesh_row"),
+        ("route_plan_th", "route_plan", "main_path_mesh_row_hs"),
         ("route_gather", "route_gather", "main_path_mesh_row"),
         ("route_pack", "route_pack", "main_path_mesh_row"),
         ("sgns_grads_routed", "sgns_grads_routed", "main_path_mesh_row"),
         ("hs_grads_routed", "hs_grads_routed", "main_path_mesh_row_hs"),
         ("ep_bucket", "ep_bucket", "main_path_ep"),
+        ("ep_bucket_late", "ep_bucket", "main_path_ep"),
         ("ep_propose", "ep_propose", "main_path_ep"),
         ("ep_member", "ep_member", "main_path_ep"),
         ("ep_advance", "ep_advance", "main_path_ep"),
@@ -4533,6 +4539,27 @@ def _recv_rows(table: torch.Tensor, plan) -> torch.Tensor:
     return rs.route_gather_plain(table, plan.send_ids, 1)
 
 
+def plan_build_report(r: int, r_th: int) -> None:
+    """The ``plan_build`` line: ptxas's registers and spills of K20's
+    and K18's one-launch kernels (when this process built the library), and
+    each one's cooperative grid at the main paths' sizes: blocks resident an
+    SM, SMs, tiles a block and blocks, every block resident."""
+    lib = _build.lib()
+    geo = {}
+    for name, fn, sizes in (("ep_bucket", lib.n2v_ep_bucket_geometry, {"lanes 131,072": 131072}),
+                            ("route_plan", lib.n2v_route_plan_geometry,
+                             {f"R {r} (plan_out)": r, f"R {r_th} (plan_th)": r_th})):
+        for label, size in sizes.items():
+            out = (ctypes.c_int64 * 4)()
+            _build.check(fn(size, out), f"{name} geometry")
+            geo[f"{name}, {label}"] = {"resident_an_sm": out[0], "sms": out[1],
+                                       "tiles_a_block": out[2], "blocks": out[3]}
+            require(out[3] <= out[0] * out[1], f"{name}: a block of the grid is not resident")
+    emit({"phase": "plan_build", "cooperative_launch": True, "grid": geo,
+          "ptxas": {**ptxas_summary(_build.ptxas_report, "ep_bucket_kernel"),
+                    **ptxas_summary(_build.ptxas_report, "route_plan_kernel")}})
+
+
 def _plans_equal(name: str, got, want) -> None:
     for field in rs.RoutePlan._fields:
         require(torch.equal(getattr(got, field), getattr(want, field)),
@@ -4588,6 +4615,22 @@ def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, recor
               "bit_equal": True})
         if cap == dropping:
             require(int(got.n_dropped) > 0, "the dropping capacity dropped nothing")
+    # K18 at R under one tile, with one id across 90% of R (as HS's tail
+    # rows ask for row 0) and at the int32 extremes
+    erng = np.random.default_rng(19)
+    ext = np.array([-2 ** 31, -2 ** 31 + 1, -1, 0, 1, 2 ** 31 - 2, 2 ** 31 - 1], np.int32)
+    repeated = torch.where(torch.from_numpy(erng.random(r) < 0.9).to(dev), 0, ids_out)
+    for what, ids in (("R under one tile", ids_out[:300].contiguous()),
+                      ("one id across 90% of R", repeated.contiguous()),
+                      ("int32 extremes", torch.from_numpy(erng.choice(ext, 4099)).to(dev))):
+        for n_dev in (1, 4):
+            cap_e = rs.row_cap(ids.shape[0], n_dev)
+            got = rs.plan_routes(ids, n_dev, cap_e)
+            _plans_equal(f"route_plan[{what}, N={n_dev}]", got,
+                         rs.plan_routes_plain(ids, n_dev, cap_e))
+            emit({"phase": "edge_case", "kernel": "route_plan", "case": what, "N": n_dev,
+                  "cap": cap_e, "R": int(ids.shape[0]), "n_uniq": int(got.n_uniq),
+                  "bit_equal": True})
     cap = rs.row_cap(r, 1)
     plan_in, plan_out = rs.plan_routes(rows, 1, cap), rs.plan_routes(ids_out, 1, cap)
     k18_ms = time_ms(lambda: rs.plan_routes(ids_out, 1, cap))
@@ -4689,7 +4732,15 @@ def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, recor
     clt = cl - n_head
     cap_in, cap_th = rh.hs_caps(n_walks, length, cl, head_offsets, 1)
     p_hin = rs.plan_routes(rows, 1, cap_in)
-    p_th = rs.plan_routes(tables[0][rows.long()][:, n_head:].reshape(-1).contiguous(), 1, cap_th)
+    ids_th = tables[0][rows.long()][:, n_head:].reshape(-1).contiguous()
+    p_th = rs.plan_routes(ids_th, 1, cap_th)
+    # K18 at HS's tail-entry plan (plan_th): many times R, most entries row 0
+    _plans_equal("route_plan[plan_th]", p_th, rs.plan_routes_plain(ids_th, 1, cap_th))
+    r_th = int(ids_th.shape[0])
+    k18_th_ms = time_ms(lambda: rs.plan_routes(ids_th, 1, cap_th))
+    k18_th_plain = time_ms(lambda: rs.plan_routes_plain(ids_th, 1, cap_th), reps=3, warmup=1)
+    k18_th_bytes = r_th * 4 + r_th * (6 * 4 + 2) + cap_th * 4 + 8
+    plan_build_report(r, r_th)
     hargs = (rs.route_gather(emb_in, p_hin.send_ids, 1), p_hin.slot,
              rs.route_gather(theta, p_th.send_ids, 1), p_th.slot, theta[:k_rows].contiguous(),
              walks, mask, b_sh, *tables)
@@ -4722,6 +4773,7 @@ def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, recor
                  + int(p_th.n_uniq) * dim * 4 + 2 * k_rows * dim * 4 + n * dim * 4
                  + live_tail * (dim * 4 + 4))
     rec = {"route_plan": (0.0, k18_ms, k18_plain, bound_ms(k18_bytes, 0), None),
+           "route_plan_th": (0.0, k18_th_ms, k18_th_plain, bound_ms(k18_th_bytes, 0), None),
            "route_gather": (0.0, gather_ms, gather_plain, bound_ms(gather_bytes, 0), None),
            "route_pack": (pack_err, pack_ms, pack_plain,
                           bound_ms(pack_bytes, 3 * dim * n_live), pack_lib),
@@ -4730,8 +4782,8 @@ def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, recor
            "hs_grads_routed": (max(herrs), k8r_ms, k8r_plain,
                                bound_ms(k8r_bytes, 6 * dim * entries), None)}
     _emit_rows(rec, record, results, before, case=case, B=n_walks, L1=length, D=dim, S=n_neg,
-               V=n_vertices, R=r, n_uniq=u_out, cap=cap, R_th=int(p_th.uniq.numel()),
-               cap_th=cap_th,
+               V=n_vertices, R=r, n_uniq=u_out, cap=cap, R_th=r_th,
+               n_uniq_th=int(p_th.n_uniq), cap_th=cap_th,
                extra={"sgns_grads_routed": {"neg_gemm_ms": neg_gemm_ms(n, dim, n_neg)}})
 
 
@@ -4905,7 +4957,8 @@ class _CheckedOps:
     its plain version on the same inputs, keeps the largest difference in
     ``diff`` and returns the kernel's result.  While ``timing`` is a dict,
     each kernel and plain version is also timed on these inputs (K20's two
-    launches a superstep summed), and ``seen`` keeps what the bounds count."""
+    calls a superstep summed: phases A and B), and ``seen`` keeps what the
+    bounds count."""
 
     def __init__(self):
         self.diff: dict = {}
@@ -4983,6 +5036,60 @@ class _CheckedOps:
         return pending
 
 
+def edge_cases_ep_bucket(quick: bool) -> None:
+    """K20 against its plain version, both phases, on carries made from a
+    seed: 2, 3 and 256 shards, a capacity that defers, a ragged last
+    tile, no active lane and every lane active.  Phase B's responses are
+    drawn too (cand -1 where the walker dies, take_back 1 in 5).  Every
+    buffer bit-equal, the -1 rows included."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    n_full = 4096 if quick else 131072
+    v = 524178
+    for case, n, n_shards, cap, share in (
+            ("2 shards", n_full, 2, None, 0.9),
+            ("3 shards, capacity n / 8", n_full, 3, n_full // 8, 0.9),
+            ("256 shards, a ragged last tile", 20000 + 333, 256, None, 0.8),
+            ("256 shards, capacity that defers", n_full, 256, 8, 0.9),
+            ("one shard, a ragged last tile", n_full + 333, 1, None, 0.8),
+            ("no active lane", n_full, 2, None, 0.0),
+            ("every lane active, capacity n / 8", n_full, 1, n_full // 8, 1.0)):
+        cap = n if cap is None else cap
+        carry = np.zeros((ep.CARRY_ROWS, n), np.int32)
+        carry[ep.CUR] = rng.integers(0, v, n)
+        carry[ep.PREV] = rng.integers(-1, v, n)
+        carry[ep.W_BACK_ENC] = rng.integers(-2 ** 31, 2 ** 31 - 1, n)
+        carry[ep.BACK_PFX] = rng.integers(0, 2 ** 30, n)
+        carry[ep.ATT] = rng.integers(0, 40, n)
+        carry[ep.ALIVE] = rng.random(n) < share
+        done = rng.random(n) >= 0.9 if share < 1.0 else np.zeros(n, bool)
+        carry[ep.T] = np.where(done, 20, rng.integers(0, 20, n))
+        carry = torch.from_numpy(carry).to(dev)
+        n_req = n_shards * cap
+        kw = dict(n_shards=n_shards, capacity=cap, rows_per_shard=-(-v // n_shards),
+                  walk_length=20)
+        got_a = ep.ep_bucket(carry, 5, 77, **kw)
+        want_a = ep.ep_bucket_plain(carry, 5, 77, **kw)
+        back = torch.from_numpy(rng.integers(-1, v, (n_req, ep.RESPONSE_FIELDS)).astype(
+            np.int32)).to(dev)
+        back[:, 5] = torch.from_numpy((rng.random(n_req) < 0.2).astype(np.int32)).to(dev)
+        got_b = ep.ep_bucket(carry, 5, 77, slot_a=got_a[1], back=back, **kw)
+        want_b = ep.ep_bucket_plain(carry, 5, 77, slot_a=want_a[1], back=back, **kw)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, w) for g, w in zip((*got_a, *got_b), (*want_a, *want_b)))
+        active = int(((carry[ep.ALIVE] != 0) & (carry[ep.T] < 20)).sum())
+        sent_a = int((got_a[1] < n_req).sum())
+        emit({"phase": "edge_case", "kernel": "ep_bucket", "case": case, "n": n,
+              "n_shards": n_shards, "capacity": cap, "active_lanes": active, "sent_a": sent_a,
+              "sent_b": int((got_b[1] < n_req).sum()),
+              "unfilled_rows_a": int((got_a[0][:, 0] < 0).sum()), "bit_equal": equal})
+        require(equal, f"ep_bucket differs from its plain version: {case}")
+        if share == 0.0:
+            require(sent_a == 0, "ep_bucket sent a lane that is not active")
+        if "defer" in case or "n / 8" in case:
+            require(sent_a < active, f"{case}: no lane deferred")
+
+
 def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) -> None:
     """K20-K23 against their plain versions at main_path_ep's first chunk:
     the RMAT partitioned over the 1 x 1 mesh (one shard, so the superstep's
@@ -5011,8 +5118,10 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
     k5, k5_fb, _ = blocked.blocked_walk_chunk(*tables, starts, 0, 0, light_width=pg.light_width,
                                               block_width=pg.block_width, has_heavy=True,
                                               **walk_kw)
+    edge_cases_ep_bucket(n_walkers < 131072)
     for cap, slack in ((n_walkers, 4), (n_walkers // 8, 16)):
         bound = ep.max_supersteps(walk_length, EP_PQ[1], slack)
+        late = None  # the first superstep at full capacity with under 10% of lanes active
         carry = ep.init_carry(starts)
         paths = torch.full((n_walkers, walk_length + 1), -1, dtype=torch.int32, device=dev)
         paths[:, 0] = starts
@@ -5024,24 +5133,35 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
         it = 0
         while it < bound:
             # the second superstep at full capacity is timed: nearly every
-            # walker proposes and asks for membership there
-            ops.timing = {} if cap == n_walkers and it == 1 else None
+            # walker proposes and asks for membership there; and the first
+            # with under 10% of the lanes active, where K20 still reads every
+            # lane and fills the whole buffer
+            time_late = False
+            if cap == n_walkers and late is None and it > 1:
+                active_now = int(((carry[ep.ALIVE] != 0) & (carry[ep.T] < walk_length)).sum())
+                time_late = active_now < 0.1 * n_walkers
+            ops.timing = {} if cap == n_walkers and (it == 1 or time_late) else None
             pending = ep.superstep(ops, None, "data", tables, carry, paths, n_fb, 0, 0,
                                    n_shards=1, capacity=cap, **own, **walk_kw)
             if ops.timing is not None:
-                timing, seen = ops.timing, ops.seen
+                seen = ops.seen
                 (send_a, slot_a), (send_b, slot_b) = seen["a"], seen["b"]
                 bounds = _ep_bounds(*seen["carry"], cap, slot_a, slot_b, send_a, send_b,
                                     seen["propose"], seen["member"], pg.block_width,
                                     walk_length)
                 for name in EP_KERNELS:
                     b_ms, b_by = bound_ms(bounds[name], 0)
-                    timing[name].update(bound_bytes=bounds[name], bound_ms=b_ms, bound_by=b_by)
+                    ops.timing[name].update(bound_bytes=bounds[name], bound_ms=b_ms,
+                                            bound_by=b_by)
                 before = seen["carry"][0]
-                timing["lanes"] = {
+                ops.timing["lanes"] = {
                     "active": int(((before[ep.ALIVE] != 0) & (before[ep.T] < walk_length)).sum()),
                     "proposal_requests": int((send_a[:, 0] >= 0).sum()),
                     "membership_requests": int((send_b[:, 0] >= 0).sum())}
+                if time_late:
+                    late = {"superstep": it, **ops.timing}
+                else:
+                    timing = ops.timing
             it += 1
             if int(pending) == 0:
                 break
@@ -5061,6 +5181,8 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
                 "partition_s": part_s, "tables_bytes": int(sum(t.numel() * 4 for t in tables))}
         if timing is not None:
             line["second_superstep"] = timing
+        if late is not None:
+            line["late_superstep"] = late
         emit(line)
         require(line["bit_equal"], f"K20-K23 differ from their plain versions at capacity {cap}: "
                                    f"{diff}")
@@ -5074,6 +5196,11 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
                 results[name] = {"max_abs_err": diff[name], "library_ms": None,
                                  **{k: timing[name][k] for k in (
                                      "ms", "plain_ms", "bound_ms", "bound_by")}}
+            require(late is not None, "no superstep at full capacity had under 10% active")
+            results["ep_bucket_late"] = {
+                "max_abs_err": diff["ep_bucket"], "library_ms": None,
+                "superstep": late["superstep"], "active_lanes": late["lanes"]["active"],
+                **{k: late["ep_bucket"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
     del pg, tables
     # general weights drawn from a seed, where no plain version's sums are
     # exact: the walk through the mesh equals K5's only because K21 and K22

@@ -124,8 +124,8 @@ engine = WalkEngine(g_er, Node2VecParams(**cs.N2V_MAIN), strategy="blocked",
 corpora["main_path_shared_lists_er"] = digest([engine.run_device(seed=0)])
 
 ptxas = {}
-for part in ("dense_walk_kernel", "ep_bucket_count", "ep_bucket_scatter", "ep_propose_kernel",
-             "ep_member_kernel", "blocked_walk_kernel"):
+for part in ("dense_walk_kernel", "ep_bucket_count", "ep_bucket_scatter", "ep_bucket_kernel",
+             "ep_propose_kernel", "ep_member_kernel", "blocked_walk_kernel"):
     ptxas.update(cs.ptxas_summary(_build.ptxas_report, part))
 geometry = getattr(blocked, "blocked_walk_geometry", None)
 if geometry is not None:

@@ -169,11 +169,12 @@ def lib() -> ctypes.CDLL:
                                vp, vp, vp],
             "n2v_route_gather": [vp, i32, vp, i64, i32, vp, vp],
             "n2v_route_pack": [vp, vp, i64, vp, vp, i32, vp, vp, vp, vp, vp, i64, i32, vp, vp],
-            "n2v_route_tile": [],
             "n2v_sgns_grads_routed": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                       f32, vp, vp, vp, vp, vp, i32, vp],
             "n2v_hs_grads_routed": [vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
                                     i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, i32, vp],
+            "n2v_ep_bucket_geometry": [i64, vp],
+            "n2v_route_plan_geometry": [i64, vp],
             "n2v_ep_bucket": [vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32, i64, u32, i32, vp],
             "n2v_ep_propose": [vp, i64, vp, i64, vp, vp, vp, i64, f32, f32, f32, i32, i32, i32,
                                vp],
@@ -195,6 +196,8 @@ def lib() -> ctypes.CDLL:
         for name in ("n2v_col_pair_logits_smem", "n2v_col_pair_grads_smem"):
             getattr(handle, name).argtypes = [i32, i32, i32, i32]
             getattr(handle, name).restype = ctypes.c_size_t
+        handle.n2v_route_plan_ws.argtypes = [i64, i32]
+        handle.n2v_route_plan_ws.restype = ctypes.c_int64
         handle.n2v_hs_grads_smem.argtypes = [i32, i32, i32, i32, i32]
         handle.n2v_hs_grads_smem.restype = ctypes.c_size_t
         handle.n2v_cbow_grads_smem.argtypes = [i32, i32, i32]

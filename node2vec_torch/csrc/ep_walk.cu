@@ -18,11 +18,15 @@
 // The carried state is one int32 [10, n] tensor (rows T, CUR, PREV, W_FWD,
 // FWD_PFX, W_BACK_ENC, BACK_PFX, ALIVE, TRIALS, ATT; floats as their bits).
 //
-// K20: two launches over tiles of 1,024 lanes, bucket_common.cuh's stable
-// ranking (shared with K24).  The first counts each tile's active lanes per
-// destination and fills the send buffer with -1; the second ranks each lane
-// within its destination, stable in lane order, as JAX's one-hot cumsum
-// gives; a lane ranked below the capacity writes its request.
+// K20: one cooperative launch a call, on bucket_common.cuh's grid ranking:
+// a persistent grid of resident blocks, each over a run of tiles of 1,024
+// lanes.  A block reads its first tile's lanes and requests (every load at
+// once), ranks them within the tile and counts its lanes by destination;
+// after one grid barrier it sums the counts of the blocks before it
+// block-parallel, gives each lane its slot (stable in lane order, as JAX's
+// one-hot cumsum ranks it), stores the requests of the lanes ranked below
+// the capacity a warp's run at a time (staged in shared memory, so the
+// stores coalesce), and writes -1 only into the rows that no lane fills.
 // K21, K22: an 8-lane group a request, four a warp, as K5 groups its
 // walkers: the requested row staged in shared memory and sampled by
 // blocked_common.cuh's device functions, the ones K5 calls (a heavy block
@@ -42,6 +46,7 @@
 // The owner kernels are latency-bound at these sizes (one dependent row load
 // a request), as K5 is.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -52,7 +57,10 @@
 namespace {
 
 enum Row { kT = 0, kCur, kPrev, kWFwd, kFwdPfx, kWBackEnc, kBackPfx, kAlive, kTrials, kAtt };
-constexpr int kTile = n2v::kBucketTile;  // K20 lanes a block
+namespace cg = cooperative_groups;
+
+constexpr int kTile = 1024;       // K20 lanes a tile, threads a block
+constexpr int kMaxShards = 256;   // KERNEL_MAX_SHARDS: K20's per-warp counts in shared memory
 constexpr int kReqWarps = 8;      // K21, K22 warps a block
 constexpr int kReqs = kReqWarps * 32 / n2v::kGroup;  // K21, K22 requests a block
 constexpr int kAdvThreads = 256;  // K23 walkers a block
@@ -67,83 +75,144 @@ __device__ __forceinline__ int64_t clamp_slot(int32_t s, int64_t n) {
   return s < 0 ? 0 : (s >= n ? n - 1 : s);
 }
 
-// Is lane i active in this round, and to which owner does it send?
-__device__ __forceinline__ bool bucket_lane(const int32_t* carry, int64_t n, int64_t i,
-                                            const int32_t* slot_a, const int32_t* back,
-                                            int64_t n_req, int64_t rows_per_shard,
-                                            int n_shards, int walk_length, int member,
-                                            int32_t* dest) {
+struct BucketArgs {
+  const int32_t* carry;
+  int64_t n;
+  const int32_t* slot_a;
+  const int32_t* back;
+  int32_t* send;
+  int32_t* slot;
+  int32_t* blk;  // [grid, n_shards]: each block's lanes a destination
+  int n_shards;
+  int64_t capacity;
+  int64_t rows_per_shard;
+  int walk_length;
+  int64_t gid_base;
+  uint32_t seed;
+  int member;
+  int64_t n_tiles;
+  int64_t per_block;  // tiles a block
+};
+
+// K20's request of a lane: phase A's 7 fields (the hash uniforms at
+// 4 * att + 0, + 1), phase B's 2.
+struct Request {
+  int32_t f[kPropose];
+};
+
+// Is lane i active in this round, to which owner does it send, and what?
+// Every load is issued at once, a lane that is not active reading its rows
+// too (they share its warp's sectors), so the chain of dependent reads is
+// one trip (phase B: two, the response behind the slot).
+__device__ __forceinline__ bool lane_request(const BucketArgs& a, int64_t i, int64_t n_req,
+                                             int32_t* dest, Request& q) {
   *dest = 0;
-  if (i >= n) return false;
-  const int32_t t = carry[kT * n + i];
-  if (!member) {
-    if (carry[kAlive * n + i] == 0 || t >= walk_length) return false;
-    *dest = owner_of(carry[kCur * n + i], rows_per_shard, n_shards);
+  if (i >= a.n) return false;
+  const int64_t n = a.n;
+  const int32_t t = a.carry[kT * n + i];
+  if (!a.member) {
+    const int32_t alive = a.carry[kAlive * n + i];
+    const int32_t cur = a.carry[kCur * n + i];
+    const uint32_t ctr = static_cast<uint32_t>(a.carry[kAtt * n + i]) * 4u;
+    q.f[0] = cur;
+    q.f[1] = a.carry[kPrev * n + i];
+    q.f[2] = a.carry[kWBackEnc * n + i];
+    q.f[3] = a.carry[kBackPfx * n + i];
+    q.f[6] = t;
+    if (alive == 0 || t >= a.walk_length) return false;
+    const uint32_t gid = static_cast<uint32_t>(a.gid_base + i);
+    q.f[4] = __float_as_int(n2v::hash_uniform(a.seed, gid, ctr));
+    q.f[5] = __float_as_int(n2v::hash_uniform(a.seed, gid, ctr + 1u));
+    *dest = owner_of(cur, a.rows_per_shard, a.n_shards);
     return true;
   }
-  const int32_t sa = slot_a[i];
-  if (sa >= n_req) return false;
-  const int32_t* g = back + clamp_slot(sa, n_req) * kResp;
+  const int32_t sa = a.slot_a[i];
+  const int32_t prev = a.carry[kPrev * n + i];
+  const int32_t* g = a.back + clamp_slot(sa, n_req) * kResp;
+  const int32_t cand = g[0];
   const bool take = g[5] > 0;
-  if (g[0] < 0 && !take) return false;  // died
-  if (take || t == 0) return false;
-  *dest = owner_of(carry[kPrev * n + i], rows_per_shard, n_shards);
+  q.f[0] = prev;
+  q.f[1] = cand;
+  if (sa >= n_req || (cand < 0 && !take) || take || t == 0) return false;  // no request, died
+  *dest = owner_of(prev, a.rows_per_shard, a.n_shards);
   return true;
 }
 
-__global__ void __launch_bounds__(kTile)
-ep_bucket_count(const int32_t* __restrict__ carry, int64_t n, const int32_t* __restrict__ slot_a,
-                const int32_t* __restrict__ back, int32_t* __restrict__ send,
-                int32_t* __restrict__ tiles, int n_shards, int64_t capacity,
-                int64_t rows_per_shard, int walk_length, int member) {
-  extern __shared__ int32_t cnt[];  // [n_shards]
-  const int64_t n_req = n_shards * capacity;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-  n2v::bucket_tile_count(
-      [&](int32_t* dest) {
-        return bucket_lane(carry, n, i, slot_a, back, n_req, rows_per_shard, n_shards,
-                           walk_length, member, dest);
-      },
-      n_shards, cnt, tiles);
-  const int64_t total = n_req * (member ? kMember : kPropose);
-  for (int64_t j = i; j < total; j += static_cast<int64_t>(gridDim.x) * kTile) send[j] = -1;
+// The warp's requests, staged in shared memory and stored 32 ints at a time:
+// int k of the warp's F * 32 is field k % F of lane k / F's request, so lanes
+// ranked one after another (as a warp's lanes of one destination are) write
+// one contiguous run, and the stores coalesce.  Warp-wide; flat == n_req where
+// a lane sends nothing; stage: this warp's F * 32 + 32 ints.
+template <int F>
+__device__ __forceinline__ void store_requests(int32_t* send, int64_t flat, int64_t n_req,
+                                               const Request& q, int32_t* stage) {
+  const int lane = threadIdx.x & 31;
+  int32_t* rows = stage + F * 32;  // [32]: each lane's row (n_req <= INT32_MAX)
+#pragma unroll
+  for (int f = 0; f < F; ++f) stage[lane * F + f] = q.f[f];
+  rows[lane] = static_cast<int32_t>(flat);
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < F; ++j) {
+    const int k = j * 32 + lane;
+    const int src = k / F;
+    const int32_t row = rows[src];
+    if (row < n_req) send[static_cast<int64_t>(row) * F + (k - src * F)] = stage[k];
+  }
+  __syncwarp();
 }
 
-__global__ void __launch_bounds__(kTile)
-ep_bucket_scatter(const int32_t* __restrict__ carry, int64_t n,
-                  const int32_t* __restrict__ slot_a, const int32_t* __restrict__ back,
-                  int32_t* __restrict__ send, int32_t* __restrict__ slot,
-                  const int32_t* __restrict__ tiles, int n_shards, int64_t capacity,
-                  int64_t rows_per_shard, int walk_length, int64_t gid_base, uint32_t seed,
-                  int member) {
-  extern __shared__ int32_t sm[];  // n2v::bucket_rank_smem(n_shards) bytes
-  const int64_t n_req = n_shards * capacity;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-  const int64_t flat = n2v::bucket_tile_rank(
-      [&](int32_t* dest) {
-        return bucket_lane(carry, n, i, slot_a, back, n_req, rows_per_shard, n_shards,
-                           walk_length, member, dest);
-      },
-      n_shards, capacity, tiles, sm);
-  if (i >= n) return;
-  slot[i] = static_cast<int32_t>(flat);
-  if (flat == n_req) return;
-  if (!member) {
-    const uint32_t gid = static_cast<uint32_t>(gid_base + i);
-    const uint32_t ctr = static_cast<uint32_t>(carry[kAtt * n + i]) * 4u;
-    int32_t* out = send + flat * kPropose;
-    out[0] = carry[kCur * n + i];
-    out[1] = carry[kPrev * n + i];
-    out[2] = carry[kWBackEnc * n + i];
-    out[3] = carry[kBackPfx * n + i];
-    out[4] = __float_as_int(n2v::hash_uniform(seed, gid, ctr));
-    out[5] = __float_as_int(n2v::hash_uniform(seed, gid, ctr + 1u));
-    out[6] = carry[kT * n + i];
-  } else {
-    int32_t* out = send + flat * kMember;
-    out[0] = carry[kPrev * n + i];
-    out[1] = back[clamp_slot(slot_a[i], n_req) * kResp];
+// F: the request's fields, kPropose (phase A) or kMember (phase B).
+template <int F>
+__global__ void __launch_bounds__(kTile, 1) ep_bucket_kernel(const BucketArgs a) {
+  __shared__ int32_t wc[kMaxShards * kTile / 32];  // tile_offset's; then the warps' stages
+  __shared__ int32_t tt[kMaxShards], pre[kMaxShards], tot[kMaxShards], run[kMaxShards];
+  __shared__ int64_t ends[kMaxShards + 1];
+  static_assert(kMaxShards * kTile / 32 >= kTile / 32 * (kPropose + 1) * 32,
+                "a warp's stage fits in wc");
+  const int S = a.n_shards;
+  const int64_t n_req = S * a.capacity;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * a.per_block;
+  const int64_t t1 = t0 + a.per_block < a.n_tiles ? t0 + a.per_block : a.n_tiles;
+  int32_t* stage = wc + (threadIdx.x >> 5) * (F + 1) * 32;
+  auto emit = [&](int64_t i, bool active, int32_t dest, int64_t rank, const Request& q) {
+    const int64_t flat = active && rank < a.capacity ? dest * a.capacity + rank : n_req;
+    if (i < a.n) a.slot[i] = static_cast<int32_t>(flat);
+    __syncthreads();  // every warp is done with wc's ranks
+    store_requests<F>(a.send, flat, n_req, q, stage);
+  };
+
+  // the first tile ranked within itself and its requests read; the block's
+  // lanes counted by destination
+  int64_t i = t0 * kTile + threadIdx.x;
+  int32_t dest;
+  Request q = {};
+  bool active = lane_request(a, i, n_req, &dest, q);
+  const int off = n2v::tile_offset<kTile>(active, dest, S, wc, tt);
+  for (int d = threadIdx.x; d < S; d += kTile) run[d] = tt[d];
+  __syncthreads();
+  for (int64_t t = t0 + 1; t < t1; ++t) {
+    int32_t dt;
+    Request unused;
+    if (lane_request(a, t * kTile + threadIdx.x, n_req, &dt, unused)) atomicAdd(&run[dt], 1);
   }
+  __syncthreads();
+  for (int d = threadIdx.x; d < S; d += kTile)
+    a.blk[static_cast<int64_t>(blockIdx.x) * S + d] = run[d];
+  cg::this_grid().sync();
+
+  n2v::grid_bases<kTile>(a.blk, S, gridDim.x, blockIdx.x, S, pre, tot);
+  emit(i, active, dest, active ? pre[dest] + off : 0, q);
+  for (int d = threadIdx.x; d < S; d += kTile) run[d] = pre[d] + tt[d];
+  for (int64_t t = t0 + 1; t < t1; ++t) {
+    i = t * kTile + threadIdx.x;
+    active = lane_request(a, i, n_req, &dest, q);
+    const int o = n2v::tile_offset<kTile>(active, dest, S, wc, tt);
+    emit(i, active, dest, active ? run[dest] + o : 0, q);
+    __syncthreads();
+    for (int d = threadIdx.x; d < S; d += kTile) run[d] += tt[d];
+  }
+  n2v::grid_fill<kTile>(a.send, F, S, a.capacity, tot, ends, -1);
 }
 
 // mode: 0 = p = q = 1 (target u_prop * wtot, no return branch), else the
@@ -363,27 +432,43 @@ ep_advance_kernel(int32_t* __restrict__ carry, int64_t n, int32_t* __restrict__ 
 
 }  // namespace
 
+// K20's grid at n lanes: out[0] blocks resident an SM, [1] SMs, [2] tiles a
+// block, [3] blocks (all resident: a cooperative launch refuses more).
+extern "C" int n2v_ep_bucket_geometry(int64_t n, int64_t* out) {
+  const int64_t n_tiles = n > 0 ? (n + kTile - 1) / kTile : 1;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const void* kernel = reinterpret_cast<const void*>(ep_bucket_kernel<kPropose>);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTile, 0);
+  out[0] = per_sm;
+  out[1] = sms;
+  const cudaError_t err = n2v::grid_geometry(kernel, kTile, n_tiles, out + 2, out + 3);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// tiles: [ceil(n / 1,024) or 1, n_shards] ints of workspace.  send and slot
+// are written whole.
 extern "C" int n2v_ep_bucket(const int32_t* carry, int64_t n, const int32_t* slot_a,
                              const int32_t* back, int32_t* send, int32_t* slot, int32_t* tiles,
                              int n_shards, int64_t capacity, int64_t rows_per_shard,
                              int walk_length, int64_t gid_base, uint32_t seed, int member,
                              void* stream) {
-  if (n_shards < 1 || n_shards > 256 || capacity < 1 || rows_per_shard < 1 ||
+  if (n < 0 || n_shards < 1 || n_shards > kMaxShards || capacity < 1 || rows_per_shard < 1 ||
       n_shards * capacity > INT32_MAX || (member && (!slot_a || !back)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  const int64_t n_tiles = (n + kTile - 1) / kTile;
-  auto s = static_cast<cudaStream_t>(stream);
-  ep_bucket_count<<<static_cast<unsigned>(n_tiles), kTile, n2v::bucket_count_smem(n_shards),
-                    s>>>(
-      carry, n, slot_a, back, send, tiles, n_shards, capacity, rows_per_shard, walk_length,
-      member);
-  const cudaError_t err = cudaGetLastError();
+  BucketArgs a{carry, n, slot_a, back, send, slot, tiles, n_shards, capacity, rows_per_shard,
+               walk_length, gid_base, seed, member, (n + kTile - 1) / kTile, 1};
+  if (a.n_tiles < 1) a.n_tiles = 1;  // no lane: the send buffer is still filled
+  const void* kernel = member ? reinterpret_cast<const void*>(ep_bucket_kernel<kMember>)
+                              : reinterpret_cast<const void*>(ep_bucket_kernel<kPropose>);
+  int64_t grid = 0;
+  cudaError_t err = n2v::grid_geometry(kernel, kTile, a.n_tiles, &a.per_block, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ep_bucket_scatter<<<static_cast<unsigned>(n_tiles), kTile, n2v::bucket_rank_smem(n_shards),
-                      s>>>(
-      carry, n, slot_a, back, send, slot, tiles, n_shards, capacity, rows_per_shard,
-      walk_length, gid_base, seed, member);
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(grid)), dim3(kTile), args,
+                                    0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,24 +14,35 @@
 //   order [R]  the request positions in sorted (id, position) order, which
 //              K19's pack walks.
 //
-// Design.  The keys are (id, position) packed into one 64-bit word (the id
-// with its sign bit flipped in the high half), so all keys differ and every
-// sort order is total: no stability question arises, and ascending id order
-// is what makes the rows dropped on overflow the ones JAX drops (the
-// largest ids of an over-full bucket).  1. Tiles of 2,048 keys are sorted
-// in shared memory by cub::BlockRadixSort; the scans and reductions below
-// are cub::BlockScan and cub::BlockReduce (block-scope header templates of
-// the CUDA toolkit, like a warp shuffle; no device-wide CUB or Thrust
-// algorithm is used).  2. Runs are merged pairwise, one thread a key: its
-// place is its index in its run plus the number of keys of the partner run
-// below it (a binary search), log2(R / 2048) launches.  3. Scans over tiles
-// of 4,096, each block adding the totals of the tiles before it: the head
-// flags give each key its unique slot (uniq, inv, order, n_uniq); per-tile
-// counts by owner, then one block scan an owner, give each unique its rank
-// in its owner's bucket; then ok, send_ids, n_dropped (atomics of the
-// blocks' sums), the dead slots, and each request's slot.  The workspace is
-// two [R] arrays of 64-bit keys and [R / 4,096 * (N + 1)] ints: O(R), never
-// O(V), since the layout exists for V beyond one card.
+// Design.  The keys are (id, position) packed into one
+// 64-bit word, the id with its sign bit flipped in the high half, so
+// ascending keys are ascending ids, stable in position, and ascending id
+// order is what makes the rows dropped on overflow the ones JAX drops (the
+// largest ids of an over-full bucket).  One cooperative launch of a
+// persistent grid (every block resident, each over a run of tiles of 512
+// keys, bucket_common.cuh's grid ranking) runs the phases between grid
+// barriers:
+//   0. each block counts its keys' lowest digit (6 bits) and ORs and ANDs
+//      its flipped ids, so every block then knows the bits that vary;
+//   1. LSD radix passes over those bits only (17 bits at V = 131,072: three
+//      passes of 6, 6 and 5 bits; none when every id is equal): each block
+//      ranks its tiles' keys by digit, stable within a tile by
+//      __match_any_sync and across tiles by the counts of the blocks before
+//      it, and scatters them; each key also adds itself to the next pass's
+//      count of the block that will read it (warp-aggregated atomics, rows
+//      zeroed in phase 0), so a pass needs one barrier, not two;
+//   2. each block counts its heads (first keys of an id) and its heads by
+//      owner (id mod N, floor);
+//   3. each key's unique slot is the heads before it and its unique's rank
+//      in the owner's bucket the heads of that owner before it (the counts
+//      of earlier blocks, earlier tiles and the tile's own scan); a key
+//      whose head lies in an earlier tile takes the last rank before its
+//      tile.  Then uniq, inv, order, is_uniq, owner, rank, ok, send_ids,
+//      slot, the dead slots, n_uniq and n_dropped, and -1 into the send_ids
+//      rows that no unique fills.
+// Owners are ranked 256 at a time (one round when N <= 256).  The workspace
+// is two [R] arrays of 64-bit keys and [tiles * (6 * 64 + 3 + N)] ints:
+// O(R), never O(V), since the layout exists for V beyond one card.
 //
 // K19 route_rows, two launches:
 //   gather (owner side of _routed_gather, rowsharded_sgns.py:216-222):
@@ -57,23 +68,24 @@
 // per pass.  The gather reads the live requested rows and writes [N * cap,
 // D]; the pack reads the requests' gradient rows and writes [N * cap, D + 1].
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <cub/block/block_radix_sort.cuh>
-#include <cub/block/block_reduce.cuh>
-#include <cub/block/block_scan.cuh>
+
+#include "bucket_common.cuh"
 
 namespace {
 
 using u64 = unsigned long long;
 
-constexpr int kSortThreads = 256;
-constexpr int kSortItems = 8;
-constexpr int kTile = kSortThreads * kSortItems;  // keys a tile-sort block sorts
-constexpr int kMergeThreads = 256;
-constexpr int kScanThreads = 512;
-constexpr int kScanItems = 8;
-constexpr int kScanTile = kScanThreads * kScanItems;  // keys (or unique slots) a scan block takes
+namespace cg = cooperative_groups;
+
+constexpr int kPlanThreads = 512;  // K18 keys a tile, threads a block
+constexpr int kPlanWarps = kPlanThreads / 32;
+constexpr int kDigitBits = 6;  // a radix pass's digit, at most
+constexpr int kDigits = 1 << kDigitBits;
+constexpr int kMaxPasses = 6;  // 6 + 5 * 6 >= 32 bits
+constexpr int kOwnerRound = 256;  // owners ranked a round
 constexpr int kRowThreads = 256;
 constexpr int kRowWarps = kRowThreads / 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -105,187 +117,288 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 1. each block sorts one tile of (id, position) keys
-__global__ void __launch_bounds__(kSortThreads)
-tile_sort_kernel(const int32_t* __restrict__ ids, int64_t r, u64* __restrict__ out) {
-  using Sort = cub::BlockRadixSort<u64, kSortThreads, kSortItems>;
-  __shared__ typename Sort::TempStorage tmp;
-  u64 keys[kSortItems];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kSortItems;
-#pragma unroll
-  for (int k = 0; k < kSortItems; ++k) {
-    const int64_t i = base + k;
-    keys[k] = i < r ? pack_key(ids[i], i) : ~0ull;  // padding sorts last
-  }
-  Sort(tmp).Sort(keys);
-#pragma unroll
-  for (int k = 0; k < kSortItems; ++k) {
-    const int64_t i = base + k;
-    if (i < r) out[i] = keys[k];
-  }
-}
-
-// 2. merge sorted runs of width w pairwise (all keys are distinct)
-__global__ void __launch_bounds__(kMergeThreads)
-merge_kernel(const u64* __restrict__ in, u64* __restrict__ out, int64_t r, int64_t w) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kMergeThreads + threadIdx.x;
-  if (i >= r) return;
-  const int64_t run = i / w;
-  const int64_t start = run * w;
-  const int64_t pstart = (run ^ 1) * w;
-  const u64 key = in[i];
-  int64_t lo = pstart < r ? pstart : r;
-  int64_t hi = pstart + w < r ? pstart + w : r;
-  const int64_t first = lo;
-  while (lo < hi) {  // partner keys below key
-    const int64_t mid = (lo + hi) >> 1;
-    if (in[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  out[(run & ~static_cast<int64_t>(1)) * w + (i - start) + (lo - first)] = key;
-}
-
 struct PlanOut {
   int32_t *uniq, *inv, *owner, *rank, *send_ids, *n_out, *slot, *order;
   uint8_t *is_uniq, *ok;
 };
 
-__device__ __forceinline__ bool is_head(const u64* sorted, int64_t i) {
-  return i == 0 || key_id(sorted[i]) != key_id(sorted[i - 1]);
+struct PlanArgs {
+  const int32_t* ids;
+  int64_t r;
+  int n_dev;
+  int cap;
+  u64* ws_a;
+  u64* ws_b;
+  int32_t* ws;  // [kMaxPasses][grid][kDigits] digit counts, [grid][2] or / and,
+                // [grid][1 + N] heads, then heads by owner
+  PlanOut o;
+  int64_t n_tiles;
+  int64_t per_block;  // tiles a block
+};
+
+__device__ __forceinline__ uint32_t flipped(int32_t id) {
+  return static_cast<uint32_t>(id) ^ 0x80000000u;
 }
 
-// 3a. heads (first keys of an id) in each tile of sorted keys
-__global__ void __launch_bounds__(kScanThreads)
-head_count_kernel(const u64* __restrict__ sorted, int64_t r, int* __restrict__ tile_heads) {
-  using Reduce = cub::BlockReduce<int, kScanThreads>;
-  __shared__ typename Reduce::TempStorage tmp;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile + threadIdx.x * kScanItems;
-  int heads = 0;
-  for (int k = 0; k < kScanItems; ++k)
-    if (base + k < r) heads += is_head(sorted, base + k);
-  const int total = Reduce(tmp).Sum(heads);
-  if (threadIdx.x == 0) tile_heads[blockIdx.x] = total;
-}
-
-// the sum of v[0 .. n) over the block, on every thread
-__device__ __forceinline__ int block_prefix(const int* __restrict__ v, int n, int stride) {
-  using Reduce = cub::BlockReduce<int, kScanThreads>;
-  __shared__ typename Reduce::TempStorage tmp;
-  __shared__ int total;
-  int part = 0;
-  for (int b = threadIdx.x; b < n; b += kScanThreads) part += v[static_cast<int64_t>(b) * stride];
-  const int t = Reduce(tmp).Sum(part);
-  if (threadIdx.x == 0) total = t;
-  __syncthreads();
-  return total;
-}
-
-// 3b. each key's unique slot: uniq, inv, order; n_uniq (block 0)
-__global__ void __launch_bounds__(kScanThreads)
-slot_kernel(const u64* __restrict__ sorted, int64_t r, const int* __restrict__ tile_heads,
-            int n_tiles, PlanOut o) {
-  using Scan = cub::BlockScan<int, kScanThreads>;
-  __shared__ typename Scan::TempStorage tmp;
-  const int offset = block_prefix(tile_heads, blockIdx.x, 1);
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile + threadIdx.x * kScanItems;
-  int heads = 0;
-  for (int k = 0; k < kScanItems; ++k)
-    if (base + k < r) heads += is_head(sorted, base + k);
-  int before;
-  Scan(tmp).ExclusiveSum(heads, before);
-  int s = offset + before - 1;  // a thread that starts mid-run continues slot s
-  for (int k = 0; k < kScanItems; ++k) {
-    const int64_t i = base + k;
-    if (i >= r) break;
-    const u64 key = sorted[i];
-    if (is_head(sorted, i)) o.uniq[++s] = key_id(key);
-    o.inv[key_pos(key)] = s;
-    o.order[i] = key_pos(key);
+// the OR and AND of every thread's v and a, into s_or and s_and (set by the caller)
+__device__ __forceinline__ void block_or_and(uint32_t v, uint32_t a, uint32_t* s_or,
+                                             uint32_t* s_and) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v |= __shfl_xor_sync(kFull, v, o);
+    a &= __shfl_xor_sync(kFull, a, o);
   }
-  if (blockIdx.x == 0) {
-    const int n_uniq = block_prefix(tile_heads, n_tiles, 1);
-    if (threadIdx.x == 0) {
+  if ((threadIdx.x & 31) == 0) {
+    atomicOr(s_or, v);
+    atomicAnd(s_and, a);
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kPlanThreads, 2) route_plan_kernel(const PlanArgs a) {
+  __shared__ int32_t wc[kOwnerRound * kPlanWarps];
+  __shared__ int32_t tt[kOwnerRound], pre[kOwnerRound + 1], tot[kOwnerRound + 1];
+  __shared__ int32_t run[kOwnerRound];
+  __shared__ int32_t head_rank[kPlanThreads];
+  __shared__ int64_t ends[kOwnerRound + 1];
+  __shared__ uint32_t s_or, s_and;
+  __shared__ int32_t s_count;
+  constexpr int T = kPlanThreads;
+  cg::grid_group grid = cg::this_grid();
+  const int G = gridDim.x, b = blockIdx.x, tid = threadIdx.x, N = a.n_dev;
+  const int64_t r = a.r;
+  const int64_t t0 = b * a.per_block;
+  const int64_t t1 = t0 + a.per_block < a.n_tiles ? t0 + a.per_block : a.n_tiles;
+  int32_t* hist = a.ws;
+  uint32_t* orand = reinterpret_cast<uint32_t*>(hist + static_cast<int64_t>(kMaxPasses) * G *
+                                                           kDigits);
+  int32_t* hown = reinterpret_cast<int32_t*>(orand + 2 * G);  // row b: heads, heads by owner
+  const PlanOut& o = a.o;
+
+  // 0. digit 0's counts and the bits of the ids, a block's tiles; the later
+  // passes' counts zeroed
+  for (int64_t j = static_cast<int64_t>(b) * T + tid;
+       j < static_cast<int64_t>(kMaxPasses - 1) * G * kDigits; j += static_cast<int64_t>(G) * T)
+    hist[static_cast<int64_t>(G) * kDigits + j] = 0;
+  if (tid < kDigits) run[tid] = 0;
+  if (tid == 0) {
+    s_or = 0;
+    s_and = ~0u;
+  }
+  __syncthreads();
+  uint32_t v_or = 0, v_and = ~0u;
+  for (int64_t t = t0; t < t1; ++t) {
+    const int64_t i = t * T + tid;
+    if (i < r) {
+      const uint32_t f = flipped(a.ids[i]);
+      v_or |= f;
+      v_and &= f;
+      atomicAdd(&run[f & (kDigits - 1)], 1);
+    }
+  }
+  block_or_and(v_or, v_and, &s_or, &s_and);
+  if (tid < kDigits) hist[b * kDigits + tid] = run[tid];
+  if (tid == 0) {
+    orand[2 * b] = s_or;
+    orand[2 * b + 1] = s_and;
+  }
+  grid.sync();
+
+  // the radix passes over the bits that vary: digit 0 is bits [0, 6), the
+  // rest split evenly into digits of at most 6 bits.  The blocks' bits are
+  // read while digit 0's bases are summed.
+  v_or = 0;
+  v_and = ~0u;
+  for (int j = tid; j < G; j += T) {
+    v_or |= __ldcg(orand + 2 * j);
+    v_and &= __ldcg(orand + 2 * j + 1);
+  }
+  n2v::grid_bases<T>(hist, kDigits, G, b, kDigits, pre, tot);
+  if (tid == 0) {
+    s_or = 0;
+    s_and = ~0u;
+  }
+  __syncthreads();
+  block_or_and(v_or, v_and, &s_or, &s_and);
+  const uint32_t vary = s_or ^ s_and;
+  const int bits = vary ? 32 - __clz(vary) : 0;
+  const int rest = bits > kDigitBits ? bits - kDigitBits : 0;
+  const int n_rest = (rest + kDigitBits - 1) / kDigitBits;
+  const int w_rest = n_rest ? (rest + n_rest - 1) / n_rest : 0;
+  const int passes = bits ? 1 + n_rest : 0;
+  auto shift_of = [&](int p) { return p == 0 ? 0 : kDigitBits + (p - 1) * w_rest; };
+  auto width_of = [&](int p) {
+    return p == 0 ? kDigitBits : (w_rest < bits - shift_of(p) ? w_rest : bits - shift_of(p));
+  };
+  const u64* src = nullptr;
+  for (int p = 0; p < passes; ++p) {
+    u64* dst = (p & 1) ? a.ws_b : a.ws_a;
+    const int shift = shift_of(p), nd = 1 << width_of(p);
+    const bool last = p + 1 == passes;
+    const int next_shift = last ? 0 : shift_of(p + 1);
+    const uint32_t next_mask = last ? 0u : (1u << width_of(p + 1)) - 1u;
+    int32_t* next_hist = hist + static_cast<int64_t>(p + 1) * G * kDigits;
+    if (p > 0)
+      n2v::grid_bases<T>(hist + static_cast<int64_t>(p) * G * kDigits, kDigits, G, b, nd, pre,
+                         tot);
+    if (tid < 32) {  // pre[d] += the keys of the digits below d
+      int below = 0;
+      for (int d0 = 0; d0 < nd; d0 += 32) {
+        const int d = d0 + tid;
+        const int v = d < nd ? tot[d] : 0;
+        const int incl = n2v::warp_inclusive_sum(v);
+        if (d < nd) pre[d] += below + incl - v;
+        below += __shfl_sync(kFull, incl, 31);
+      }
+    }
+    if (tid < nd) run[tid] = 0;
+    for (int64_t t = t0; t < t1; ++t) {
+      const int64_t i = t * T + tid;
+      const bool valid = i < r;
+      u64 key = 0;
+      if (valid) key = p == 0 ? pack_key(a.ids[i], i) : __ldcg(src + i);
+      const uint32_t f = static_cast<uint32_t>(key >> 32);
+      const int digit = static_cast<int>((f >> shift) & static_cast<uint32_t>(nd - 1));
+      const int off = n2v::tile_offset<T>(valid, digit, nd, wc, tt);
+      int64_t pos = 0;
+      if (valid) {
+        pos = pre[digit] + run[digit] + off;
+        dst[pos] = key;
+      }
+      if (!last) {  // the next pass's count of the block that reads position pos
+        const int cell = valid ? static_cast<int>(pos / (T * a.per_block)) * kDigits +
+                                     static_cast<int>((f >> next_shift) & next_mask)
+                               : -1;
+        const unsigned peers = __match_any_sync(kFull, cell);
+        if (valid && __ffs(peers) - 1 == (tid & 31))
+          atomicAdd(&next_hist[cell], static_cast<int>(__popc(peers)));
+      }
+      __syncthreads();
+      if (tid < nd) run[tid] += tt[tid];
+    }
+    src = dst;
+    grid.sync();
+  }
+
+  // the sorted keys; a head is the first key of its id
+  auto key_at = [&](int64_t i) { return passes ? __ldcg(src + i) : pack_key(a.ids[i], i); };
+  auto is_head = [&](int64_t i, u64 key) {
+    return i == 0 || (key >> 32) != (key_at(i - 1) >> 32);
+  };
+  const int rounds = (N + kOwnerRound - 1) / kOwnerRound;
+
+  // 2. each block's heads, and its heads by owner
+  int32_t* own = hown + 1;
+  int n_heads = 0;
+  for (int c = 0; c < rounds; ++c) {
+    const int sc = N - c * kOwnerRound < kOwnerRound ? N - c * kOwnerRound : kOwnerRound;
+    __syncthreads();
+    if (tid < sc) run[tid] = 0;
+    __syncthreads();
+    for (int64_t t = t0; t < t1; ++t) {
+      const int64_t i = t * T + tid;
+      if (i >= r) continue;
+      const u64 key = key_at(i);
+      if (!is_head(i, key)) continue;
+      n_heads += c == 0;
+      const int q = floor_mod(key_id(key), N) - c * kOwnerRound;
+      if (q >= 0 && q < sc) atomicAdd(&run[q], 1);
+    }
+    __syncthreads();
+    if (tid < sc) own[static_cast<int64_t>(b) * (N + 1) + c * kOwnerRound + tid] = run[tid];
+  }
+  if (tid == 0) s_count = 0;
+  __syncthreads();
+  if (n_heads) atomicAdd(&s_count, n_heads);
+  __syncthreads();
+  if (tid == 0) hown[static_cast<int64_t>(b) * (N + 1)] = s_count;
+  grid.sync();
+
+  // 3. unique slots, owner ranks and the plan; round 0 sums the heads with
+  // its owners' (bucket 0), the others their owners' alone
+  int heads_before = 0, n_uniq = 0, dropped = 0;
+  for (int c = 0; c < rounds; ++c) {
+    const int sc = N - c * kOwnerRound < kOwnerRound ? N - c * kOwnerRound : kOwnerRound;
+    const int at = c == 0 ? 1 : 0;  // pre[at + q]: owner q's uniques before the block
+    n2v::grid_bases<T>(hown + (c == 0 ? 0 : 1 + c * kOwnerRound), N + 1, G, b, sc + at, pre,
+                       tot);
+    if (c == 0) {
+      heads_before = pre[0];
+      n_uniq = tot[0];
+    }
+    if (tid < sc) run[tid] = pre[at + tid];  // the owner's uniques before the tile
+    int h_run = heads_before;  // the uniques before the tile
+    for (int64_t t = t0; t < t1; ++t) {
+      const int64_t i = t * T + tid;
+      const bool valid = i < r;
+      u64 key = 0;
+      bool head = false;
+      if (valid) {
+        key = key_at(i);
+        head = is_head(i, key);
+      }
+      const int32_t id = key_id(key);
+      const int32_t pos = key_pos(key);
+      const int q = floor_mod(id, N);
+      const int qc = q - c * kOwnerRound;
+      const bool mine = valid && qc >= 0 && qc < sc;
+      const int h_off = n2v::tile_offset<T>(head, 0, 1, wc, tt);
+      const int tile_heads = tt[0];
+      const int o_off = n2v::tile_offset<T>(head && mine, mine ? qc : 0, sc, wc, tt);
+      const int u = h_run + h_off + (head ? 1 : 0) - 1;
+      int rk = 0;
+      if (head && mine) {
+        rk = run[qc] + o_off;
+        head_rank[h_off] = rk;
+      }
+      __syncthreads();
+      if (mine && !head) rk = h_off > 0 ? head_rank[h_off - 1] : run[qc] - 1;
+      if (valid && c == 0) {
+        o.order[i] = pos;
+        o.inv[pos] = u;
+        if (head) {
+          o.uniq[u] = id;
+          o.is_uniq[u] = 1;
+        }
+      }
+      if (mine) {
+        const bool fits = rk < a.cap;
+        o.slot[pos] = fits ? q * a.cap + rk : -1;
+        if (head) {
+          o.owner[u] = q;
+          o.rank[u] = rk;
+          o.ok[u] = fits;
+          if (fits) o.send_ids[static_cast<int64_t>(q) * a.cap + rk] = id;
+        }
+      }
+      __syncthreads();
+      if (tid < sc) run[tid] += tt[tid];
+      h_run += tile_heads;
+    }
+    n2v::grid_fill<T>(o.send_ids + static_cast<int64_t>(c) * kOwnerRound * a.cap, 1, sc, a.cap,
+                      tot + at, ends, -1);
+    if (b == 0 && tid < sc && tot[at + tid] > a.cap) dropped += tot[at + tid] - a.cap;
+  }
+  // the dead slots as JAX's argsort leaves them
+  for (int64_t u = n_uniq + static_cast<int64_t>(b) * T + tid; u < r;
+       u += static_cast<int64_t>(G) * T) {
+    o.uniq[u] = 0;
+    o.owner[u] = N;
+    o.rank[u] = static_cast<int32_t>(u - n_uniq);
+    o.is_uniq[u] = 0;
+    o.ok[u] = 0;
+  }
+  if (b == 0) {
+    __syncthreads();
+    if (tid == 0) s_count = 0;
+    __syncthreads();
+    if (dropped) atomicAdd(&s_count, dropped);
+    __syncthreads();
+    if (tid == 0) {
       o.n_out[0] = n_uniq;
-      o.n_out[1] = 0;
+      o.n_out[1] = s_count;
     }
   }
-}
-
-// 3c. each tile of unique slots' count a owner; send_ids to -1
-__global__ void __launch_bounds__(kScanThreads)
-owner_count_kernel(int64_t r, int n_dev, int cap, int* __restrict__ tile_cnt, PlanOut o) {
-  extern __shared__ int cnt[];  // [n_dev]
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kScanThreads + threadIdx.x;
-       i < static_cast<int64_t>(n_dev) * cap; i += static_cast<int64_t>(gridDim.x) * kScanThreads)
-    o.send_ids[i] = -1;
-  for (int q = threadIdx.x; q < n_dev; q += kScanThreads) cnt[q] = 0;
-  __syncthreads();
-  const int n_uniq = o.n_out[0];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile + threadIdx.x * kScanItems;
-  for (int k = 0; k < kScanItems; ++k)
-    if (base + k < n_uniq) atomicAdd(&cnt[floor_mod(o.uniq[base + k], n_dev)], 1);
-  __syncthreads();
-  for (int q = threadIdx.x; q < n_dev; q += kScanThreads)
-    tile_cnt[static_cast<int64_t>(blockIdx.x) * n_dev + q] = cnt[q];
-}
-
-// 3d. ranks in the owners' buckets (ascending id order), ok, send_ids,
-// n_dropped; the dead slots as JAX's argsort leaves them
-__global__ void __launch_bounds__(kScanThreads)
-rank_kernel(int64_t r, int n_dev, int cap, const int* __restrict__ tile_cnt, PlanOut o) {
-  using Scan = cub::BlockScan<int, kScanThreads>;
-  using Reduce = cub::BlockReduce<int, kScanThreads>;
-  __shared__ union {
-    typename Scan::TempStorage scan;
-    typename Reduce::TempStorage reduce;
-  } tmp;
-  const int n_uniq = o.n_out[0];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile + threadIdx.x * kScanItems;
-  int own[kScanItems], rk[kScanItems];
-  for (int k = 0; k < kScanItems; ++k)
-    own[k] = base + k < n_uniq ? floor_mod(o.uniq[base + k], n_dev) : -1;
-  for (int q = 0; q < n_dev; ++q) {
-    const int before_tiles = block_prefix(tile_cnt + q, blockIdx.x, n_dev);
-    int c = 0;
-    for (int k = 0; k < kScanItems; ++k) c += own[k] == q;
-    int before;
-    __syncthreads();  // the scan storage is reused
-    Scan(tmp.scan).ExclusiveSum(c, before);
-    int next = before_tiles + before;
-    for (int k = 0; k < kScanItems; ++k)
-      if (own[k] == q) rk[k] = next++;
-  }
-  int dropped = 0;
-  for (int k = 0; k < kScanItems; ++k) {
-    const int64_t u = base + k;
-    if (u >= r) break;
-    if (u < n_uniq) {
-      const bool fits = rk[k] < cap;
-      o.owner[u] = own[k];
-      o.rank[u] = rk[k];
-      o.is_uniq[u] = 1;
-      o.ok[u] = fits;
-      if (fits) o.send_ids[static_cast<int64_t>(own[k]) * cap + rk[k]] = o.uniq[u];
-      else ++dropped;
-    } else {
-      o.uniq[u] = 0;
-      o.owner[u] = n_dev;
-      o.rank[u] = static_cast<int32_t>(u - n_uniq);
-      o.is_uniq[u] = 0;
-      o.ok[u] = 0;
-    }
-  }
-  __syncthreads();
-  const int total = Reduce(tmp.reduce).Sum(dropped);
-  if (threadIdx.x == 0 && total) atomicAdd(&o.n_out[1], total);
-}
-
-// 3e. each request's row in the returned buffer
-__global__ void __launch_bounds__(kScanThreads)
-request_slot_kernel(int64_t r, int cap, PlanOut o) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kScanThreads + threadIdx.x;
-  if (p >= r) return;
-  const int u = o.inv[p];
-  o.slot[p] = o.ok[u] ? o.owner[u] * cap + o.rank[u] : -1;
 }
 
 __global__ void __launch_bounds__(kRowThreads)
@@ -402,11 +515,30 @@ pack_kernel(PackIn in, int dim, const int32_t* __restrict__ order,
 
 }  // namespace
 
-// ws_a and ws_b: two [r] 64-bit workspaces; ws_i: n_tiles * (n_dev + 1)
-// ints, n_tiles = ceil(r / n2v_route_tile()).  send_ids [n_dev * cap];
-// uniq, inv, owner, rank, slot, order [r] int32; is_uniq, ok [r] bytes;
-// n_out [2] = (n_uniq, n_dropped).  All are written whole.
-extern "C" int n2v_route_tile() { return kScanTile; }
+// ws_a and ws_b: two [r] 64-bit workspaces; ws_i: n2v_route_plan_ws(r, n_dev)
+// ints.  send_ids [n_dev * cap]; uniq, inv, owner, rank, slot, order [r]
+// int32; is_uniq, ok [r] bytes; n_out [2] = (n_uniq, n_dropped).  All are
+// written whole.
+extern "C" int64_t n2v_route_plan_ws(int64_t r, int n_dev) {
+  const int64_t tiles = r > 0 ? (r + kPlanThreads - 1) / kPlanThreads : 1;
+  return tiles * (kMaxPasses * kDigits + 3 + static_cast<int64_t>(n_dev));
+}
+
+// K18's grid at r keys: out[0] blocks resident an SM, [1] SMs, [2] tiles a
+// block, [3] blocks (all resident: a cooperative launch refuses more).
+extern "C" int n2v_route_plan_geometry(int64_t r, int64_t* out) {
+  const int64_t n_tiles = r > 0 ? (r + kPlanThreads - 1) / kPlanThreads : 1;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, reinterpret_cast<const void*>(route_plan_kernel), kPlanThreads, 0);
+  out[0] = per_sm;
+  out[1] = sms;
+  const cudaError_t err = n2v::grid_geometry(reinterpret_cast<const void*>(route_plan_kernel),
+                                             kPlanThreads, n_tiles, out + 2, out + 3);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
 
 extern "C" int n2v_route_plan(const int32_t* ids, int64_t r, int n_dev, int cap, u64* ws_a,
                               u64* ws_b, int* ws_i, int32_t* uniq, int32_t* inv,
@@ -415,32 +547,18 @@ extern "C" int n2v_route_plan(const int32_t* ids, int64_t r, int n_dev, int cap,
                               void* stream) {
   if (r <= 0 || n_dev < 1 || cap < 1 || r >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned sort_tiles = static_cast<unsigned>((r + kTile - 1) / kTile);
-  tile_sort_kernel<<<sort_tiles, kSortThreads, 0, s>>>(ids, r, ws_a);
-  cudaError_t err = cudaGetLastError();
+  PlanArgs a{ids, r, n_dev, cap, ws_a, ws_b, ws_i,
+             PlanOut{uniq, inv, owner, rank, send_ids, n_out, slot, order, is_uniq, ok},
+             (r + kPlanThreads - 1) / kPlanThreads, 1};
+  int64_t grid = 0;
+  cudaError_t err = n2v::grid_geometry(reinterpret_cast<const void*>(route_plan_kernel),
+                                       kPlanThreads, a.n_tiles, &a.per_block, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  u64* cur = ws_a;
-  u64* nxt = ws_b;
-  const unsigned blocks = static_cast<unsigned>((r + kMergeThreads - 1) / kMergeThreads);
-  for (int64_t w = kTile; w < r; w *= 2) {
-    merge_kernel<<<blocks, kMergeThreads, 0, s>>>(cur, nxt, r, w);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    u64* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  const int n_tiles = static_cast<int>((r + kScanTile - 1) / kScanTile);
-  int* tile_heads = ws_i;
-  int* tile_cnt = ws_i + n_tiles;
-  PlanOut o{uniq, inv, owner, rank, send_ids, n_out, slot, order, is_uniq, ok};
-  head_count_kernel<<<n_tiles, kScanThreads, 0, s>>>(cur, r, tile_heads);
-  slot_kernel<<<n_tiles, kScanThreads, 0, s>>>(cur, r, tile_heads, n_tiles, o);
-  owner_count_kernel<<<n_tiles, kScanThreads, n_dev * sizeof(int), s>>>(r, n_dev, cap, tile_cnt,
-                                                                      o);
-  rank_kernel<<<n_tiles, kScanThreads, 0, s>>>(r, n_dev, cap, tile_cnt, o);
-  request_slot_kernel<<<static_cast<unsigned>((r + kScanThreads - 1) / kScanThreads),
-                        kScanThreads, 0, s>>>(r, cap, o);
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(route_plan_kernel),
+                                    dim3(static_cast<unsigned>(grid)), dim3(kPlanThreads), args,
+                                    0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -183,7 +183,7 @@ def plan_routes(ids: torch.Tensor, n_dev: int, cap: int) -> RoutePlan:
     i32 = dict(dtype=torch.int32, device=dev)
     lib = _build.lib()
     ws = torch.empty((2, r), dtype=torch.int64, device=dev)
-    ws_i = torch.empty((-(-r // lib.n2v_route_tile()) * (n_dev + 1),), **i32)
+    ws_i = torch.empty((lib.n2v_route_plan_ws(r, int(n_dev)),), **i32)
     uniq, inv, owner, rank, slot, order = (torch.empty((r,), **i32) for _ in range(6))
     is_uniq = torch.empty((r,), dtype=torch.bool, device=dev)
     ok = torch.empty((r,), dtype=torch.bool, device=dev)
