@@ -273,9 +273,12 @@ lanes with 20% of the vertices out of the vocabulary, all-dead walks, a
 one-vertex batch and a 48-vertex batch whose repeated negatives are all
 heads.  They hold K12 csr_walk bit-equal to its plain version on the
 dense graph and the RMAT (131,072 walkers x 20) at (p, q) = (0.25, 4),
-(1, 1) and (1, 5) (K = 2 by Python's half-even rounding); edge cases add
-sinks and dead lanes, the forced back edge at a degree-1 vertex, and a
-chi-square on general weights.  They hold K13 (pair lists bit-equal,
+(1, 1) and (1, 5) (K = 2 by Python's half-even rounding), with the
+``csr_build`` line (registers, spills, one lane a walker, the grid against
+the resident blocks); edge cases add sinks and dead lanes, rows around
+the 8 entries a K12 search's last trip reads and of 300
+and 500 entries at the full and at truncated search_iters (6, 3, 1), the
+forced back edge at a degree-1 vertex, and a chi-square on general weights.  They hold K13 (pair lists bit-equal,
 per-lane gradients elementwise) and K3/K4 over its pair lists, with and
 without the shrink and with 40% of the vertices out of the vocabulary
 (edge_cases_pairs adds a ragged last group with an all-dead walk, L1 =
@@ -311,7 +314,8 @@ column step on the 1 x 1 NCCL mesh against its plain version.  ``check_route``
 holds K18 route_plan bit-equal to its plain version on the row main path's
 batch (2,570 walks of the dense graph's first chunk and 64 negatives) at N
 = 1, 2, 4, 8 and at a capacity that drops rows, K19's gather bit-equal and
-its pack, K2's routed mode and K8's (on the dense graph's tree, its head of
+its pack (at plan_out, plan_in and HS's plan_th, two calls giving equal
+buffers), K2's routed mode and K8's (on the dense graph's tree, its head of
 9 levels) to their plain versions, and at N = 1 the routed modes to K2 and
 K8 direct (K2's routed mode also at N = 2 with rows and negatives dropped).
 
@@ -480,6 +484,7 @@ SOURCES = {
 # K20 at a late superstep; K18 at HS's tail-entry plan
 SOURCES["ep_bucket_late"] = SOURCES["ep_bucket"]
 SOURCES["route_plan_th"] = SOURCES["route_plan"]
+SOURCES["route_pack_th"] = SOURCES["route_pack"]
 # the walk-at-a-time step kernels staging in global memory (csrc/staging.cuh)
 for _k in ("sgns_grads", "hs_grads", "cbow_grads", "sgns_pair_grads", "col_pair_logits",
            "col_pair_grads"):
@@ -526,6 +531,7 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("route_plan_th", "route_plan", "main_path_mesh_row_hs"),
         ("route_gather", "route_gather", "main_path_mesh_row"),
         ("route_pack", "route_pack", "main_path_mesh_row"),
+        ("route_pack_th", "route_pack", "main_path_mesh_row_hs"),
         ("sgns_grads_routed", "sgns_grads_routed", "main_path_mesh_row"),
         ("hs_grads_routed", "hs_grads_routed", "main_path_mesh_row_hs"),
         ("ep_bucket", "ep_bucket", "main_path_ep"),
@@ -2687,6 +2693,25 @@ def check_csr_walk(graph, name: str, n_walkers: int, walk_length: int, record: b
         if record and (p, q) == CSR_SETTINGS[0]:  # main_path_csr's graph and setting
             results["csr_walk"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if record:
+        csr_build_report(n_walkers, walk_length)
+
+
+def csr_build_report(n_walkers: int, walk_length: int) -> None:
+    """The ``csr_build`` line: ptxas's registers and spills of K12 (when this
+    process built the library) and its launch at ``n_walkers`` walkers of
+    ``walk_length``: one thread (lane) a walker, blocks resident an SM, the
+    grid against the resident blocks, shared memory a block."""
+    geo = (ctypes.c_int * 4)()
+    _build.check(_build.lib().n2v_csr_walk_geometry(geo), "csr_walk geometry")
+    per_sm, per_block, sms, smem = list(geo)
+    blocks = -(-n_walkers // per_block)
+    emit({"phase": "csr_build", "lanes_a_walker": 1, "walkers_a_block": per_block,
+          "blocks_resident_an_sm": per_sm, "sms": sms, "grid": blocks,
+          "resident_blocks": per_sm * sms, "one_wave": blocks <= per_sm * sms,
+          "smem_bytes_a_block": smem, "walk_length": walk_length,
+          "ptxas": ptxas_summary(_build.ptxas_report, "csr_walk_kernel")})
+    require(per_sm >= 1, "csr_walk: no block fits on an SM")
 
 
 def edge_cases_csr() -> None:
@@ -2718,6 +2743,41 @@ def edge_cases_csr() -> None:
     emit({"phase": "edge_case", "kernel": "csr_walk", "case": "sinks_dead_lanes",
           "walkers": int(starts.numel()), "sink_ended_walks": int((got[:, -1] < 0).sum()),
           "bit_equal": True})
+
+    # rows around the 8 entries a K12 search's last trip reads and long ones,
+    # at the full and at truncated search_iters (the fixed bisection's answer
+    # where it would not finish)
+    hubs = {0: 500, 1: 300, 2: 65, 3: 64, 4: 63, 5: 17, 6: 16, 7: 15, 8: 9, 9: 8, 10: 7}
+    hs_src = [rng.integers(0, n, 4000)]
+    hs_dst = [rng.integers(0, n, 4000)]
+    for hub, d in hubs.items():
+        nb = rng.choice(np.arange(11, n), d, replace=False)
+        hs_src += [np.full(d, hub), nb]
+        hs_dst += [nb, np.full(d, hub)]
+    hs_src, hs_dst = np.concatenate(hs_src).astype(np.int32), np.concatenate(hs_dst).astype(
+        np.int32)
+    keep = hs_src != hs_dst
+    g_hub = from_edge_arrays(hs_src[keep], hs_dst[keep],
+                             rng.choice(np.float32([0.5, 1.0, 2.0]), int(keep.sum())),
+                             n_vertices=n, directed=True)
+    dg_hub = g_hub.to_device(dev)
+    deg_hub = np.diff(g_hub.indptr)
+    full = csr.search_iters(int(deg_hub.max()))
+    starts = torch.arange(4 * n, dtype=torch.int32, device=dev) % n
+    for iters in (full, 6, 3, 1):
+        for p, q in ((0.25, 4.0), (4.0, 0.25)):
+            kw = dict(walk_length=30, return_param=p, inout_param=q, max_trials=64,
+                      search_iters=iters)
+            got = csr.csr_walk_chunk(*dg_hub, starts, 500, 3, **kw)
+            want = csr.csr_walk_chunk_plain(*dg_hub, starts, 500, 3, **kw)
+            require(bool(torch.equal(got, want)),
+                    f"csr_walk differs on the hub rows at search_iters={iters} p={p} q={q}")
+        emit({"phase": "edge_case", "kernel": "csr_walk",
+              "case": "rows around the scanned width" if iters == full
+              else "truncated search_iters", "search_iters": iters,
+              "degrees": sorted({int(deg_hub[h]) for h in hubs}),
+              "rows_past_the_bisection": int((deg_hub >= (1 << iters)).sum()),
+              "walkers": int(starts.numel()), "bit_equal": True})
 
     chain = from_edge_arrays(np.array([0, 1, 1, 2], np.int32), np.array([1, 0, 2, 1], np.int32),
                              directed=True)
@@ -4577,7 +4637,8 @@ def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, recor
     SGNS's output requests (the positions, -1 read as 0, and the S shared
     negatives): every field bit-equal.  K19's gather bit-equal (copies);
     its pack, K2's and K8's routed modes at the tolerances of check_sgns and
-    check_hs (sums over many rows to rtol of their largest entry).  At N =
+    check_hs (sums over many rows to rtol of their largest entry); the pack
+    also at HS's plan_th (K8 routed's tail rows), two calls equal.  At N =
     1 the routed modes against K2 and K8 direct on the same draws, and K2's
     routed mode at N = 2 (rank 0's view, the owners' rows taken from the
     whole table) with a capacity that drops rows and negatives.  Times and
@@ -4712,17 +4773,10 @@ def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, recor
                           rs.route_pack_plain(plan_out, 1, cap, g_out, flat, d_no, None)),
         _close_to_largest("route_pack[in]", rs.route_pack(plan_in, 1, cap, g_in, flat),
                           rs.route_pack_plain(plan_in, 1, cap, g_in, flat)))
-    pack_ms = time_ms(lambda: rs.route_pack(plan_out, 1, cap, g_out, flat, d_no, None))
-    pack_plain = time_ms(lambda: rs.route_pack_plain(plan_out, 1, cap, g_out, flat, d_no, None))
-    live = torch.cat([(flat >= 0).float(), torch.ones(n_neg, device=dev)])
-    g_all = torch.cat([g_out, d_no])
-    rows_plus = torch.cat([g_all, (g_all * g_all).mean(-1, keepdim=True)], dim=1) * live[:, None]
-    slots = plan_out.slot.long()
-    keep = slots >= 0
-    lib_send = torch.zeros_like(send_out)
-    pack_lib = time_ms(lambda: lib_send.index_add_(0, slots[keep], rows_plus[keep]))
-    n_live = int(live.sum())
-    pack_bytes = n_live * dim * 4 + r * 12 + u_out * 9 + cap * (dim + 1) * 4
+    require(torch.equal(send_out, rs.route_pack(plan_out, 1, cap, g_out, flat, d_no, None)),
+            "route_pack[out]: two calls give different buffers")
+    pack_ms, pack_plain, pack_lib, pack_bytes, n_live = _pack_times(
+        plan_out, cap, (g_out, flat, d_no, None), send_out)
 
     # K8's routed mode at N = 1: the plain version and K8 direct
     tables = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -4772,11 +4826,25 @@ def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, recor
     k8r_bytes = (n * 8 + n * (1 + clt) * 4 + int(p_hin.n_uniq) * (dim * 4 + cl * 5 + 5)
                  + int(p_th.n_uniq) * dim * 4 + 2 * k_rows * dim * 4 + n * dim * 4
                  + live_tail * (dim * 4 + 4))
+    # K19's pack of HS's tail rows at plan_th (most entries row 0, nearly all dead)
+    th_args = (got[1], got[2], None, None)
+    send_th = rs.route_pack(p_th, 1, cap_th, *th_args)
+    pack_th_err = _close_to_largest("route_pack[plan_th]", send_th,
+                                    rs.route_pack_plain(p_th, 1, cap_th, *th_args))
+    require(torch.equal(send_th, rs.route_pack(p_th, 1, cap_th, *th_args)),
+            "route_pack[plan_th]: two calls give different buffers")
+    pack_th_ms, pack_th_plain, pack_th_lib, pack_th_bytes, n_live_th = _pack_times(
+        p_th, cap_th, th_args, send_th)
+    emit({"phase": "check", "kernel": "route_pack (two calls)", "case": case,
+          "plans": ["plan_out", "plan_in", "plan_th"], "bit_equal": True,
+          "live_rows_th": n_live_th, "row_0_requests_th": int((ids_th == 0).sum())})
     rec = {"route_plan": (0.0, k18_ms, k18_plain, bound_ms(k18_bytes, 0), None),
            "route_plan_th": (0.0, k18_th_ms, k18_th_plain, bound_ms(k18_th_bytes, 0), None),
            "route_gather": (0.0, gather_ms, gather_plain, bound_ms(gather_bytes, 0), None),
            "route_pack": (pack_err, pack_ms, pack_plain,
                           bound_ms(pack_bytes, 3 * dim * n_live), pack_lib),
+           "route_pack_th": (pack_th_err, pack_th_ms, pack_th_plain,
+                             bound_ms(pack_th_bytes, 3 * dim * n_live_th), pack_th_lib),
            "sgns_grads_routed": (max(errs), k2r_ms, k2r_plain, bound_ms(k2r_bytes, k2r_ops),
                                  None),
            "hs_grads_routed": (max(herrs), k8r_ms, k8r_plain,
@@ -4785,6 +4853,35 @@ def check_route(tree, head_offsets, walks_np: np.ndarray, n_vertices: int, recor
                V=n_vertices, R=r, n_uniq=u_out, cap=cap, R_th=r_th,
                n_uniq_th=int(p_th.n_uniq), cap_th=cap_th,
                extra={"sgns_grads_routed": {"neg_gemm_ms": neg_gemm_ms(n, dim, n_neg)}})
+
+
+def _pack_times(plan, cap: int, args, send):
+    """K19's pack on ``plan`` and (g_a, live_a, g_b, live_b): its time, the
+    plain version's, and the library's like for like (an ``index_add_`` of the
+    live rows with their mean squares, selected outside the timed window,
+    into a buffer that ``torch.zeros`` makes inside it: each call writes the
+    whole [N * cap, D + 1] buffer, as the kernel does); the bytes of its
+    bound (the live rows read, the plan's R-long arrays and the uniques'
+    fields read, the buffer written once) and the live rows."""
+    g_a, live_a, g_b, live_b = args
+    dev, dim = g_a.device, g_a.shape[1]
+    pack_ms = time_ms(lambda: rs.route_pack(plan, 1, cap, *args))
+    pack_plain = time_ms(lambda: rs.route_pack_plain(plan, 1, cap, *args), reps=3, warmup=1)
+    live = (live_a >= 0).float() if live_a is not None else torch.ones(g_a.shape[0], device=dev)
+    g_all = g_a
+    if g_b is not None:
+        g_all = torch.cat([g_a, g_b])
+        live = torch.cat([live, (live_b >= 0).float() if live_b is not None
+                          else torch.ones(g_b.shape[0], device=dev)])
+    rows_plus = torch.cat([g_all, (g_all * g_all).mean(-1, keepdim=True)], dim=1) * live[:, None]
+    slots = plan.slot.long()
+    keep = (slots >= 0) & (live > 0)
+    sel_slots, sel_rows = slots[keep], rows_plus[keep]
+    pack_lib = time_ms(lambda: torch.zeros_like(send).index_add_(0, sel_slots, sel_rows))
+    n_live = int(live.sum())
+    r, u = int(plan.uniq.shape[0]), int(plan.n_uniq)
+    pack_bytes = n_live * dim * 4 + r * 12 + u * 9 + cap * (dim + 1) * 4
+    return pack_ms, pack_plain, pack_lib, pack_bytes, n_live
 
 
 def main_path_mesh_row(mesh, src, dst, max_iter: int, hs_objective: bool, beside: dict) -> dict:

@@ -168,7 +168,10 @@ def lib() -> ctypes.CDLL:
             "n2v_route_plan": [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                vp, vp, vp],
             "n2v_route_gather": [vp, i32, vp, i64, i32, vp, vp],
-            "n2v_route_pack": [vp, vp, i64, vp, vp, i32, vp, vp, vp, vp, vp, i64, i32, vp, vp],
+            "n2v_route_pack": [vp, vp, i64, vp, vp, i32, vp, vp, vp, vp, vp, vp, i64, i64, i32,
+                               vp, vp, vp, vp],
+            "n2v_route_pack_ws": [i32, vp],
+            "n2v_csr_walk_geometry": [vp],
             "n2v_sgns_grads_routed": [vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                       f32, vp, vp, vp, vp, vp, i32, vp],
             "n2v_hs_grads_routed": [vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,

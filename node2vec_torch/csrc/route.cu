@@ -51,22 +51,30 @@
 //   segment sums of the steps, :355-381 and rowsharded_hs.py:317-340): for
 //     each unique u with ok[u], row (owner, rank) of send [N * cap, D + 1]
 //     gets the sum of its live requests' gradient rows and, in column D, the
-//     sum of their mean squares; the rest of send stays as the caller zeroed
-//     it.  A request p reads row p of g_a (p < n_a) or row p - n_a of g_b; it
-//     is live where its live array holds a value >= 0 (the flat walks, HS's
-//     tail rows), or always where that array is null (SGNS's d_no rows).
-//   The gather takes one warp a row.  The pack takes one warp a chunk of 32
-//   requests in sorted order, so a unique's requests are consecutive: the
-//   warp sums each run in registers and stores it in the unique's row, or,
-//   for a unique whose requests continue into a neighbouring chunk, adds it
-//   with fp32 atomics.  A unique may have hundreds of thousands of requests
-//   (HS's tail entries past a code's length all ask for row 0), so no unique
-//   is left to one warp; the atomics make those rows' sums' order vary.
+//     sum of their mean squares; every other row of send gets zeros (the
+//     rows whose send_ids entry is -1).  A request p reads row p of g_a (p <
+//     n_a) or row p - n_a of g_b; it is live where its live array holds a
+//     value >= 0 (the flat walks, HS's tail rows), or always where that
+//     array is null (SGNS's d_no rows).
+//   The gather takes one warp a row.  The pack is one cooperative launch
+//   that writes every row of send once, with no float atomics: every warp
+//   sums a range of the
+//   sorted requests run by run, several rows in flight and the squares
+//   kept a lane, with one reduction a run, then zeroes a grid-stride share
+//   of the unfilled rows.  A run that crosses ranges is summed by the warp
+//   where it begins: its partial stays in registers over the grid barrier,
+//   the later ranges leave theirs in a workspace of one row a warp, and the
+//   beginning warp adds them in range order.  A unique may have hundreds of
+//   thousands of requests (HS's tail entries past a code's length all ask
+//   for row 0): its ranges' partials are read a 32-range window at a time,
+//   and those with no live request are skipped.  No float atomics, so two
+//   calls give the same bits.
 //
 // Bound on an H100: memory.  K18 reads the ids and writes the plan (a
 // handful of [R] int32 arrays and send_ids) once; its sort moves 8 B a key
 // per pass.  The gather reads the live requested rows and writes [N * cap,
-// D]; the pack reads the requests' gradient rows and writes [N * cap, D + 1].
+// D]; the pack reads the plan, the live requests' gradient rows and send_ids,
+// and writes [N * cap, D + 1] once.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -89,8 +97,6 @@ constexpr int kOwnerRound = 256;  // owners ranked a round
 constexpr int kRowThreads = 256;
 constexpr int kRowWarps = kRowThreads / 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kPackChunk = 32;  // sorted requests a pack warp takes: one a lane, so that
-                                // many warps hide the rows' load latency
 constexpr int kMaxColsPerLane = 32;  // dim <= 1024 (the trainers' vector_size limit)
 
 __device__ __forceinline__ u64 pack_key(int32_t id, int64_t pos) {
@@ -423,6 +429,19 @@ struct PackIn {
   int64_t n_a;
 };
 
+struct PackArgs {
+  PackIn in;
+  int dim;
+  const int32_t *order, *inv, *owner, *rank, *send_ids;
+  const uint8_t* ok;
+  int64_t r, n_rows;  // requests; rows of send (n_dev * cap)
+  int cap;
+  int64_t per_warp;   // sorted requests a warp's range holds (a multiple of 32)
+  float* lead;        // [warps][dim + 1]: a range's first run where it began before the range
+  int32_t* meta;      // [warps][2]: that run's live requests (-1: none), 1 if it passes through
+  float* send;
+};
+
 // request p's gradient row, or null where it is not live
 __device__ __forceinline__ const float* request_row(const PackIn& in, int32_t p, int dim) {
   if (p < in.n_a) {
@@ -434,83 +453,223 @@ __device__ __forceinline__ const float* request_row(const PackIn& in, int32_t p,
   return in.g_b + q * dim;
 }
 
-// a run's sums into the unique's packed row: a plain store when this warp
-// holds all of the unique's requests (the caller zeroed the row), fp32
-// atomics when a neighbouring chunk holds some too
+// live request rows a warp loads before it adds them, by the row's floats a lane
+__host__ __device__ constexpr int rows_in_flight(int cols) {
+  return cols <= 4 ? 4 : cols <= 8 ? 2 : 1;
+}
+
+// zeros into dst[0, n), by a warp: 16-byte stores where aligned
+__device__ __forceinline__ void zero_floats(float* dst, int64_t n, int lane) {
+  const int head = static_cast<int>((16 - reinterpret_cast<uintptr_t>(dst) % 16) % 16 / 4);
+  const int64_t lead_n = head < n ? head : n;
+  if (lane < lead_n) dst[lane] = 0.f;
+  float4* body = reinterpret_cast<float4*>(dst + lead_n);
+  const int64_t n4 = (n - lead_n) / 4;
+  for (int64_t i = lane; i < n4; i += 32) body[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int64_t i = lead_n + 4 * n4 + lane; i < n; i += 32) dst[i] = 0.f;
+}
+
+// A run's sums in the registers of a warp: lane l holds columns l + 32 c and
+// the sum of their squares; live: the run's live requests.
 template <int kCols>
-__device__ __forceinline__ void flush(float* __restrict__ send, const int32_t* __restrict__ owner,
-                                      const int32_t* __restrict__ rank, int u, bool shared,
-                                      int cap, int dim, const float (&acc)[kCols], float sq,
-                                      int lane) {
-  float* dst = send + (static_cast<int64_t>(owner[u]) * cap + rank[u]) * (dim + 1);
+struct Run {
+  int u = -1;
+  int32_t row = -1;  // its row of send, -1 where its unique is dropped
+  int live = 0;
+  float acc[kCols];
+  float sq = 0.f;
+  __device__ __forceinline__ void reset(int u_new, int32_t row_new) {
+    u = u_new;
+    row = row_new;
+    live = 0;
+    sq = 0.f;
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int k = lane + 32 * c;
-    if (k < dim) {
-      if (shared) atomicAdd(dst + k, acc[c]); else dst[k] = acc[c];
-    }
+    for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
   }
+  __device__ __forceinline__ void add(const float (&v)[kCols], int lane, int dim) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (lane + 32 * c < dim) {
+        acc[c] = __fadd_rn(acc[c], v[c]);
+        sq = __fmaf_rn(v[c], v[c], sq);
+      }
+    }
+    ++live;
+  }
+};
+
+// the unique's row of send (where ok): the run's sums and, in column dim,
+// its squares over dim (the sum of its requests' mean squares)
+template <int kCols>
+__device__ __forceinline__ void store_row(const PackArgs& a, const Run<kCols>& run, float sq,
+                                          int lane) {
+  if (run.row < 0) return;
+  float* dst = a.send + static_cast<int64_t>(run.row) * (a.dim + 1);
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+    if (lane + 32 * c < a.dim) dst[lane + 32 * c] = run.acc[c];
+  if (lane == 0) dst[a.dim] = __fdiv_rn(sq, static_cast<float>(a.dim));
+}
+
+// a range's lead to the workspace: its sums, squares, live requests and
+// whether it passes through the range
+template <int kCols>
+__device__ __forceinline__ void store_lead(const PackArgs& a, const Run<kCols>& run, int64_t warp,
+                                           bool through, int lane) {
+  float* dst = a.lead + warp * (a.dim + 1);
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+    if (lane + 32 * c < a.dim) dst[lane + 32 * c] = run.acc[c];
+  const float sq = warp_sum(run.sq);
   if (lane == 0) {
-    if (shared) atomicAdd(dst + dim, sq); else dst[dim] = sq;
+    dst[a.dim] = sq;
+    a.meta[2 * warp] = run.live;
+    a.meta[2 * warp + 1] = through;
   }
 }
 
-// kCols: the row's floats a lane, ceil(dim / 32)
-template <int kCols>
-__global__ void __launch_bounds__(kRowThreads)
-pack_kernel(PackIn in, int dim, const int32_t* __restrict__ order,
-            const int32_t* __restrict__ inv, const int32_t* __restrict__ owner,
-            const int32_t* __restrict__ rank, const uint8_t* __restrict__ ok, int64_t r,
-            int cap, float* __restrict__ send) {
-  const int lane = threadIdx.x & 31;
-  const int64_t j0 = (static_cast<int64_t>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5)) *
-                     kPackChunk;
-  if (j0 >= r) return;
-  const int64_t j1 = j0 + kPackChunk < r ? j0 + kPackChunk : r;
-  // the uniques that continue into the chunks before and after this one
-  const int u_before = j0 > 0 ? inv[order[j0 - 1]] : -1;
-  const int u_after = j1 < r ? inv[order[j1]] : -1;
-  float acc[kCols];
-  float sq = 0.f;
-  int cur = -1;
-  for (int64_t g = j0; g < j1; g += 32) {
-    const int64_t j = g + lane;
-    int p = 0, u = -1;
-    bool live = false;
-    if (j < j1) {
-      p = order[j];
-      u = inv[p];
-      live = ok[u] && request_row(in, p, dim) != nullptr;
-    }
-    // the group's keys are sorted: its live requests come unique by unique
-    for (unsigned m = __ballot_sync(kFull, live); m != 0; m &= m - 1) {
-      const int src = __ffs(m) - 1;
-      const int ps = __shfl_sync(kFull, p, src), us = __shfl_sync(kFull, u, src);
-      if (us != cur) {
-        if (cur >= 0)
-          flush<kCols>(send, owner, rank, cur, cur == u_before || cur == u_after, cap, dim, acc,
-                       sq, lane);
-        cur = us;
-        sq = 0.f;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-      }
-      const float* row = request_row(in, ps, dim);
-      float s2 = 0.f;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        if (lane + 32 * c < dim) {
-          const float v = row[lane + 32 * c];
-          acc[c] += v;
-          s2 += v * v;
-        }
-      }
-      sq += warp_sum(s2) / static_cast<float>(dim);
+// The rows of send that no unique fills (send_ids -1), a grid-stride share
+// of windows of 32 rows a warp (each run of such rows in a window is one
+// contiguous range of floats).
+__device__ __forceinline__ void zero_unfilled(const PackArgs& a, int64_t warp, int64_t n_warps,
+                                              int lane) {
+  for (int64_t j0 = warp * 32; j0 < a.n_rows; j0 += n_warps * 32) {
+    const int64_t j = j0 + lane;
+    for (unsigned m = __ballot_sync(kFull, j < a.n_rows && a.send_ids[j] < 0); m != 0;) {
+      const int s0 = __ffs(m) - 1;
+      const unsigned ones = ~(m >> s0);
+      const int len = ones ? __ffs(ones) - 1 : 32 - s0;
+      zero_floats(a.send + (j0 + s0) * (a.dim + 1), static_cast<int64_t>(len) * (a.dim + 1),
+                  lane);
+      m &= len + s0 >= 32 ? (1u << s0) - 1u : ~(((1u << len) - 1u) << s0);
     }
   }
-  if (cur >= 0)
-    flush<kCols>(send, owner, rank, cur, cur == u_before || cur == u_after, cap, dim, acc, sq,
-                 lane);
+}
+
+// K19's pack, one cooperative launch.  Phase 1, every warp: it sums a
+// range of the sorted requests run by run (a run: one unique's requests),
+// rows_in_flight live rows loaded at once, then zeroes a grid-stride share
+// of the rows that no unique fills (send_ids -1).  A run that begins and
+// ends in the range is stored; a run that began before the range is the
+// range's lead, stored to the workspace (it passes through when it also
+// continues past the range's end); a run that begins in the range and
+// continues past its end is the warp's tail, kept in registers.  After the grid barrier each warp with a tail adds the leads
+// of the ranges after it, in range order, up to the range where its run
+// ends, and stores the row.  Every row of send is written once, each sum
+// in one fixed order, so two calls give the same bits.
+template <int kCols>
+__global__ void __launch_bounds__(kRowThreads, kCols <= 4 ? 4 : kCols <= 8 ? 3 : 2)
+    pack_kernel(const PackArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * kRowWarps;
+  const int dim = a.dim;
+  constexpr int kIn = rows_in_flight(kCols);
+  if (lane == 0) {  // no lead unless one is stored
+    a.meta[2 * warp] = -1;
+    a.meta[2 * warp + 1] = 0;
+  }
+
+  // the warp's range of sorted requests
+  const int64_t lo = warp * a.per_warp;
+  const int64_t hi = lo + a.per_warp < a.r ? lo + a.per_warp : a.r;
+  Run<kCols> run;
+  run.reset(lo > 0 && lo < a.r ? a.inv[a.order[lo - 1]] : -1, -1);
+  const int u_after = hi < a.r ? a.inv[a.order[hi]] : -1;
+  bool lead = true;   // the current run began before the range
+  bool seen = false;  // the current run has requests in the range
+  auto flush = [&]() {
+    if (!seen) return;
+    if (lead) {
+      store_lead<kCols>(a, run, warp, false, lane);
+    } else {
+      store_row<kCols>(a, run, warp_sum(run.sq), lane);
+    }
+  };
+  for (int64_t base = lo; base < hi; base += 32) {
+    const int64_t j = base + lane;
+    int p = 0, u = -1;
+    int32_t row = -1;  // the unique's row of send, -1 where it is dropped
+    bool live = false;
+    if (j < hi) {
+      p = a.order[j];
+      u = a.inv[p];
+      const bool ok = a.ok[u];
+      const int32_t owner = a.owner[u], rank = a.rank[u];
+      live = ok && request_row(a.in, p, dim) != nullptr;
+      row = ok ? owner * a.cap + rank : -1;
+    }
+    const int u_prev = __shfl_up_sync(kFull, u, 1);
+    unsigned heads = __ballot_sync(kFull, j < hi && u != (lane == 0 ? run.u : u_prev));
+    unsigned lives = __ballot_sync(kFull, live);
+    if (!(heads & 1u)) seen = true;  // the window begins inside the current run
+    while (lives | heads) {
+      // the next kIn live requests (32: none), their rows loaded at once
+      int src[kIn];
+      float v[kIn][kCols];
+#pragma unroll
+      for (int i = 0; i < kIn; ++i) {
+        src[i] = lives ? __ffs(lives) - 1 : 32;
+        lives &= lives - 1;
+        const int ps = __shfl_sync(kFull, p, src[i] & 31);
+        const float* row = src[i] < 32 ? request_row(a.in, ps, dim) : nullptr;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          v[i][c] = row != nullptr && lane + 32 * c < dim ? row[lane + 32 * c] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kIn; ++i) {
+        // the heads up to this live request (none left: every head)
+        const unsigned upto = src[i] >= 31 ? ~0u : (2u << src[i]) - 1u;
+        for (unsigned h = heads & upto; h != 0; h &= h - 1) {
+          const int hl = __ffs(h) - 1;
+          const int hu = __shfl_sync(kFull, u, hl);
+          const int32_t hrow = __shfl_sync(kFull, row, hl);
+          flush();
+          run.reset(hu, hrow);
+          lead = false;
+          seen = true;
+        }
+        heads &= ~upto;
+        if (src[i] < 32) run.add(v[i], lane, dim);
+      }
+    }
+  }
+  if (seen && run.u == u_after) {  // the run continues past the range
+    if (lead) {                    // and passes through it
+      store_lead<kCols>(a, run, warp, true, lane);
+      seen = false;
+    }
+  } else {
+    flush();
+    seen = false;
+  }
+  zero_unfilled(a, warp, n_warps, lane);  // once the warp's sums are stored
+  cg::this_grid().sync();
+
+  // a tail: the leads of the ranges after this one, in range order, up to
+  // the range where the run ends (the first lead that does not pass through)
+  if (!seen) return;
+  float sq = warp_sum(run.sq);
+  for (int64_t g0 = warp + 1;; g0 += 32) {
+    const int64_t g = g0 + lane;
+    int live = -1, through = 0;
+    if (g < n_warps) {
+      live = __ldcg(a.meta + 2 * g);
+      through = __ldcg(a.meta + 2 * g + 1);
+    }
+    const unsigned ends = __ballot_sync(kFull, !through);
+    const unsigned upto = ends ? (2u << (__ffs(ends) - 1)) - 1u : ~0u;
+    for (unsigned m = __ballot_sync(kFull, live > 0) & upto; m != 0; m &= m - 1) {
+      const float* src = a.lead + (g0 + __ffs(m) - 1) * (dim + 1);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        if (lane + 32 * c < dim) run.acc[c] = __fadd_rn(run.acc[c], __ldcg(src + lane + 32 * c));
+      sq = __fadd_rn(sq, __ldcg(src + dim));
+    }
+    if (ends) break;
+  }
+  store_row<kCols>(a, run, sq, lane);
 }
 
 }  // namespace
@@ -572,32 +731,67 @@ extern "C" int n2v_route_gather(const float* table, int dim, const int32_t* recv
   return static_cast<int>(cudaGetLastError());
 }
 
-// send [n_dev * cap, dim + 1] must be zeroed; the plan's arrays as
-// n2v_route_plan wrote them (r requests = n_a + n_b).  live_a / live_b may
-// be null (every row live).  dim <= 1024.
+namespace {
+
+// K19's pack: its kernel at a row width and the blocks resident on the card
+// (all of them make the cooperative grid).
+struct PackLaunch {
+  const void* kernel;
+  int64_t blocks;
+};
+
+cudaError_t pack_launch(int dim, PackLaunch* l) {
+  l->kernel = dim <= 128   ? reinterpret_cast<const void*>(pack_kernel<4>)
+              : dim <= 256 ? reinterpret_cast<const void*>(pack_kernel<8>)
+              : dim <= 512 ? reinterpret_cast<const void*>(pack_kernel<16>)
+                           : reinterpret_cast<const void*>(pack_kernel<kMaxColsPerLane>);
+  return n2v::resident_blocks(l->kernel, kRowThreads, &l->blocks);
+}
+
+}  // namespace
+
+// K19 pack's workspace at row width dim: out[0] floats (a lead row a warp of
+// the grid), out[1] ints (two a warp), out[2] blocks, out[3] warps.
+extern "C" int n2v_route_pack_ws(int dim, int64_t* out) {
+  if (dim < 1 || dim > 32 * kMaxColsPerLane) return static_cast<int>(cudaErrorInvalidValue);
+  PackLaunch l{};
+  const cudaError_t err = pack_launch(dim, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t warps = l.blocks * kRowWarps;
+  out[0] = warps * (dim + 1);
+  out[1] = 2 * warps;
+  out[2] = l.blocks;
+  out[3] = warps;
+  return 0;
+}
+
+// send [n_rows = n_dev * cap, dim + 1] is written whole: each unique's row
+// where ok, zeros where send_ids [n_rows] is -1.  The plan's arrays as
+// n2v_route_plan wrote them (r requests = n_a + n_b); live_a / live_b may be
+// null (every row live); lead / meta: n2v_route_pack_ws(dim) floats and
+// ints.  dim <= 1024.
 extern "C" int n2v_route_pack(const float* g_a, const int32_t* live_a, int64_t n_a,
                               const float* g_b, const int32_t* live_b, int dim,
                               const int32_t* order, const int32_t* inv, const int32_t* owner,
-                              const int32_t* rank, const uint8_t* ok, int64_t r, int cap,
+                              const int32_t* rank, const uint8_t* ok, const int32_t* send_ids,
+                              int64_t r, int64_t n_rows, int cap, float* lead, int32_t* meta,
                               float* send, void* stream) {
-  if (r == 0) return 0;
-  if (dim < 1 || dim > 32 * kMaxColsPerLane) return static_cast<int>(cudaErrorInvalidValue);
-  const PackIn in{g_a, g_b, live_a, live_b, n_a};
-  const int64_t warps = (r + kPackChunk - 1) / kPackChunk;
-  const unsigned blocks = static_cast<unsigned>((warps + kRowWarps - 1) / kRowWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dim <= 128) {
-    pack_kernel<4><<<blocks, kRowThreads, 0, s>>>(in, dim, order, inv, owner, rank, ok, r, cap,
-                                                 send);
-  } else if (dim <= 256) {
-    pack_kernel<8><<<blocks, kRowThreads, 0, s>>>(in, dim, order, inv, owner, rank, ok, r, cap,
-                                                 send);
-  } else if (dim <= 512) {
-    pack_kernel<16><<<blocks, kRowThreads, 0, s>>>(in, dim, order, inv, owner, rank, ok, r, cap,
-                                                  send);
-  } else {
-    pack_kernel<kMaxColsPerLane><<<blocks, kRowThreads, 0, s>>>(in, dim, order, inv, owner, rank,
-                                                                ok, r, cap, send);
-  }
+  if (dim < 1 || dim > 32 * kMaxColsPerLane || r < 0 || r >= (1ll << 31) || n_rows < 0 ||
+      n_rows >= (1ll << 31) || cap < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows == 0) return 0;
+  PackLaunch l{};
+  cudaError_t err = pack_launch(dim, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t warps = l.blocks * kRowWarps;
+  const int64_t chunks = (r + 31) / 32;
+  PackArgs a{PackIn{g_a, g_b, live_a, live_b, n_a}, dim, order, inv, owner, rank, send_ids, ok,
+             r, n_rows, cap, 32 * ((chunks + warps - 1) / warps), lead, meta, send};
+  if (a.per_warp == 0) a.per_warp = 32;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(l.kernel, dim3(static_cast<unsigned>(l.blocks)),
+                                    dim3(kRowThreads), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,7 @@ tensors launch the kernels or raise.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -279,7 +280,7 @@ def route_pack(plan: RoutePlan, n_dev: int, cap: int, g_a, live_a, g_b=None,
     r = plan.uniq.shape[0]
     if n_a + n_b != r:
         raise ValueError(f"route_pack: {n_a} + {n_b} gradient rows for {r} requests")
-    tensors = [g_a, plan.order, plan.inv, plan.owner, plan.bucket_pos, plan.ok]
+    tensors = [g_a, plan.order, plan.inv, plan.owner, plan.bucket_pos, plan.ok, plan.send_ids]
     tensors += [t for t in (live_a, g_b, live_b) if t is not None]
     _build.require_cuda("route_pack", *tensors)
     if g_a.dtype != torch.float32 or (has_b and (g_b.dtype, g_b.shape[1]) != (torch.float32,
@@ -289,11 +290,21 @@ def route_pack(plan: RoutePlan, n_dev: int, cap: int, g_a, live_a, g_b=None,
         raise ValueError(f"route_pack takes rows of 1..1024 floats, not {dim}")
     if any(t is not None and t.dtype != torch.int32 for t in (live_a, live_b)):
         raise TypeError("route_pack takes int32 live arrays")
-    send = torch.zeros((n_dev * cap, dim + 1), dtype=torch.float32, device=g_a.device)
-    rc = _build.lib().n2v_route_pack(
+    if tuple(plan.send_ids.shape) != (n_dev, cap):
+        raise ValueError(f"route_pack: send_ids {tuple(plan.send_ids.shape)} for N = {n_dev}, "
+                         f"cap = {cap}")
+    lib = _build.lib()
+    ws = (ctypes.c_int64 * 4)()
+    _build.check(lib.n2v_route_pack_ws(dim, ws), "route_pack")
+    lead = torch.empty((ws[0],), dtype=torch.float32, device=g_a.device)
+    meta = torch.empty((ws[1],), dtype=torch.int32, device=g_a.device)
+    # the kernel writes every row: the unique's sums, or zeros
+    send = torch.empty((n_dev * cap, dim + 1), dtype=torch.float32, device=g_a.device)
+    rc = lib.n2v_route_pack(
         _build.ptr(g_a), _build.ptr_or_null(live_a), n_a, _build.ptr_or_null(g_b),
         _build.ptr_or_null(live_b), dim, _build.ptr(plan.order), _build.ptr(plan.inv),
-        _build.ptr(plan.owner), _build.ptr(plan.bucket_pos), _build.ptr(plan.ok), r, int(cap),
+        _build.ptr(plan.owner), _build.ptr(plan.bucket_pos), _build.ptr(plan.ok),
+        _build.ptr(plan.send_ids), r, n_dev * cap, int(cap), _build.ptr(lead), _build.ptr(meta),
         _build.ptr(send), _build.stream_of(g_a),
     )
     _build.check(rc, "route_pack")
