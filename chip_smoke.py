@@ -36,7 +36,8 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
      from the plain run); each line gives the
      design's registers and spills (ptxas), its walkers resident an SM and
      persistent grid, and the heavy attempts that read their block whole;
-   - K20 ep_bucket, K21 ep_propose, K22 ep_member and K23 ep_advance (the
+   - K20 ep_bucket, K21 ep_propose, K22 ep_member and the fused launch
+     ep_advance_bucket (K23 in the next superstep's K20 phase A; the
      graph-sharded walk's superstep) at main_path_ep's first chunk (the
      RMAT on the 1 x 1 mesh's one shard, 131,072 walkers x 20 at (0.25, 4)):
      every superstep holds each kernel to its plain version, bit-equal,
@@ -111,8 +112,9 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
 6c. the graph-sharded main path, ``main_path_ep``: ``Node2Vec(mesh=
    make_mesh(1, 1), graph_sharded=True)`` over NCCL through
    ``run_pipeline()`` on the RMAT of 3. with N2V_MAIN (max_iter cut to 1,
-   the column trainer): 40 chunks walked in supersteps (K20 twice, K21,
-   K22 and K23 once a superstep, K5 never), walks bit-equal to 6.'s, none
+   the column trainer): 40 chunks walked in supersteps (K20 once a chunk,
+   then K20 phase B, K21, K22 and the fused launch -- K23 in the next K20
+   phase A -- once a superstep, K5 never), walks bit-equal to 6.'s, none
    unfinished; partition seconds, shard bytes, supersteps a chunk, walk
    steps/s beside 6.'s, peak memory, and the profiled walk of 4 chunks
    (idle share, the collectives' host share);
@@ -230,7 +232,8 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    -> embed -> eval in subprocesses with ``--device cuda`` (``quality_cli``);
 11. the ``kernels`` line (times, bounds, launches, errors; K16, K17 and K3's
    squares mode from 6a.; K20-K23 from 6c. (K20's time and bound are its
-   two launches of a superstep, phases A and B); K24-K26 from 6d. (K24's
+   phase-B launch of a superstep; the fused launch's, K23 with the next
+   superstep's phase A); K24-K26 from 6d. (K24's
    two launches summed); K18, K19's gather and pack and K2's routed mode
    from 9a'., K8's routed mode from its HS run; K6 once for each
    JAX function it replaces, K3/K4 once for SGNS, once for HS's row lists,
@@ -471,8 +474,10 @@ SOURCES = {
                    "node2vec_tpu/parallel/edge_partitioned_blocked.py:401"),
     "ep_member": ("node2vec_torch/csrc/ep_walk.cu",
                   "node2vec_tpu/parallel/edge_partitioned_blocked.py:527"),
-    "ep_advance": ("node2vec_torch/csrc/ep_walk.cu",
-                   "node2vec_tpu/parallel/edge_partitioned_blocked.py:554"),
+    # K23 (home: accept, advance, pending) in the launch of the next superstep's
+    # K20 phase A
+    "ep_advance_bucket": ("node2vec_torch/csrc/ep_walk.cu",
+                          "node2vec_tpu/parallel/edge_partitioned_blocked.py:554"),
     # the dense graph-sharded walk's superstep (parallel/edge_partitioned.py:92 shard_fn)
     "epd_bucket": ("node2vec_torch/csrc/epd_walk.cu",
                    "node2vec_tpu/parallel/edge_partitioned.py:104"),
@@ -538,7 +543,7 @@ ROWS = (("dense_walk", "dense_walk", "main_path"),
         ("ep_bucket_late", "ep_bucket", "main_path_ep"),
         ("ep_propose", "ep_propose", "main_path_ep"),
         ("ep_member", "ep_member", "main_path_ep"),
-        ("ep_advance", "ep_advance", "main_path_ep"),
+        ("ep_advance_bucket", "ep_advance_bucket", "main_path_ep"),
         ("epd_bucket", "epd_bucket", "main_path_epd"),
         ("epd_serve", "epd_serve", "main_path_epd"),
         ("epd_advance", "epd_advance", "main_path_epd"))
@@ -3119,6 +3124,46 @@ def check_fused(n_vertices: int, n_walks: int, length: int, dim: int, window: in
         results["sgns_grads_fused"]["ms_ld_d"] = k2_ms_ld_d
 
 
+def edge_cases_fused_adagrad() -> None:
+    """K14 against ``fused_adagrad_plain`` at D = 128, 256 and 100 (a table
+    row's aligned run starting 0-3 floats in, so rows of every residue mod 4
+    realign the gradient), 512 and 1,024 (4 and 8 float4s a lane), and the
+    rows that take the scalar path: D = 50 (not a multiple of 4), 1,100
+    (past the registers) and a gradient list 4 bytes off 16-byte alignment.
+    Each list holds rows of every residue mod 4, rows < 0 and one row
+    repeated across a warp's run and across the lists.  ``_close_fused``'s
+    tolerances."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+    v = 4099
+    for dim, n_rows, offset in ((128, 3000, 0), (256, 2000, 0), (100, 2000, 0), (512, 700, 0),
+                                (1024, 300, 0), (50, 2000, 0), (1100, 200, 0), (128, 2000, 1)):
+        tab_in = torch.from_numpy(rng.normal(0, 0.3, (v, dim + 1)).astype(np.float32)).to(dev)
+        tab_out = torch.from_numpy(rng.normal(0, 0.3, (v, dim + 1)).astype(np.float32)).to(dev)
+        tab_in[:, dim].uniform_(0.0, 2.0)
+        tab_out[:, dim].uniform_(0.0, 2.0)
+        lists = []
+        for k, n in enumerate((n_rows, n_rows, 64)):
+            rows = rng.integers(0, v, n).astype(np.int32)
+            rows[rng.random(n) < 0.1] = -1
+            rows[5:40] = 7  # one row repeated across a warp's run
+            rows[:4] = np.arange(4) + 4 * k  # residues 0-3 of the table rows
+            flat = torch.from_numpy(rng.normal(0, 0.5, n * dim + offset).astype(np.float32))
+            g = flat.to(dev)[offset:].view(n, dim)
+            lists += [g, torch.from_numpy(rows).to(dev)]
+        lr = 0.05
+        want = [tab_in.clone(), tab_out.clone()]
+        sg.fused_adagrad_plain(*want, *lists, lr)
+        got = [tab_in.clone(), tab_out.clone()]
+        sg.fused_adagrad(*got, *lists, lr)
+        err = max(_close_fused(f"fused_adagrad D={dim}[tab_in]", got[0], want[0]),
+                  _close_fused(f"fused_adagrad D={dim}[tab_out]", got[1], want[1]))
+        emit({"phase": "edge_case", "kernel": "fused_adagrad", "D": dim, "rows": n_rows,
+              "grads_4_bytes_off_alignment": bool(offset),
+              "path": "float4" if dim % 4 == 0 and dim <= 1024 and not offset else "scalar",
+              "max_abs_err": err})
+
+
 def _alias_bound(start, degree, r1, r2, dg) -> tuple:
     """K15's bound: the per-walker inputs and output, and each prob /
     alias / indices entry the draws touch, read once."""
@@ -4606,7 +4651,11 @@ def plan_build_report(r: int, r_th: int) -> None:
     SM, SMs, tiles a block and blocks, every block resident."""
     lib = _build.lib()
     geo = {}
-    for name, fn, sizes in (("ep_bucket", lib.n2v_ep_bucket_geometry, {"lanes 131,072": 131072}),
+    for name, fn, sizes in (("ep_bucket", lambda n, out: lib.n2v_ep_bucket_geometry(n, 0, out),
+                             {"lanes 131,072": 131072}),
+                            ("ep_advance_bucket",
+                             lambda n, out: lib.n2v_ep_bucket_geometry(n, 1, out),
+                             {"lanes 131,072": 131072, "lanes 300,077": 300077}),
                             ("route_plan", lib.n2v_route_plan_geometry,
                              {f"R {r} (plan_out)": r, f"R {r_th} (plan_th)": r_th})):
         for label, size in sizes.items():
@@ -4990,7 +5039,7 @@ def main_path_mesh_row(mesh, src, dst, max_iter: int, hs_objective: bool, beside
 # --------------------------------------------------------------------------- #
 
 EP_PQ = (0.25, 4.0)  # N2V_MAIN's p, q
-EP_KERNELS = ("ep_bucket", "ep_propose", "ep_member", "ep_advance")
+EP_KERNELS = ("ep_bucket", "ep_propose", "ep_member", "ep_advance_bucket")
 
 
 def _max_diff(got, want) -> int:
@@ -4998,37 +5047,39 @@ def _max_diff(got, want) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
-def _ep_bounds(carry, after, cap: int, slot_a, slot_b, send_a, send_b, st_prop: dict,
+def _ep_bounds(carry, after, cap: int, slot_a, slot_b, send_a, send_b, nxt, st_prop: dict,
                st_mem: dict, c: int, walk_length: int) -> dict:
-    """Least bytes each of K20-K23 must move in one superstep of these inputs
-    (``carry`` the state before it, ``after`` after it; each byte read or
-    written once, and only where this superstep's data needs it).  A lane
-    that is not active costs the words that say so (ALIVE; a finished one
-    also T); an empty request slot costs its field 0, written by the sender
-    and read by the owner.  K20's phase A reads T, ALIVE and CUR of the
-    active lanes and PREV, W_BACK_ENC, BACK_PFX and ATT of those that send,
-    and writes the requests and every slot; its phase B reads every slot,
-    T and the response's cand and take_back of each lane that sent, PREV of
-    each lane that asks for membership, and writes the requests and every
-    slot.  K21 reads the valid requests (six fields), the distinct light rows
-    (512 B), blocks' weights (C * 4 B) and 32-byte id and pair sectors, and
+    """Least bytes each of the superstep's launches must move in one
+    superstep of these inputs (``carry`` the state before it, ``after``
+    after it; ``send_a``, ``slot_a`` its proposal round, ``send_b``,
+    ``slot_b`` its membership round, ``nxt`` the next superstep's (send,
+    slot); each byte read or written once, and only where this superstep's
+    data needs it).  An empty request slot costs its field 0, written by the
+    sender and read by the owner.  K20 (phase B) reads every slot_a, T and
+    the response's cand and take_back of each lane that sent, PREV of each
+    lane that asks for membership, and writes the requests and every slot.
+    K21 reads the valid requests (six fields), the distinct light rows (512
+    B), blocks' weights (C * 4 B) and 32-byte id and pair sectors, and
     writes its responses; K22 reads the valid requests and the distinct
-    light and bids rows, and writes its answers; K23 reads the state (40 B)
-    and both slots of each active lane and the responses of the lanes that
-    sent, and writes the state of each lane that changed (40 B) and the
-    steps taken."""
+    light and bids rows, and writes its answers.  The fused launch (K23 and
+    the next K20 phase A) reads every lane's slot_a, ALIVE and T; of a lane
+    that sent, the other eight rows, its response and, at q != 1, its
+    slot_b and answer; of a lane active after the advance that did not
+    send, CUR, PREV, W_BACK_ENC, BACK_PFX and ATT; it writes each state
+    entry that changed, each step's path entry, the next requests and every
+    slot."""
     n = carry.shape[1]
     n_req = cap
-    alive = carry[ep.ALIVE] != 0
-    running = alive & (carry[ep.T] < walk_length)
-    active = int(running.sum())
-    skip = (n - active) * 4 + int((alive & ~running).sum()) * 4
-    sent_a = int((slot_a < n_req).sum())
-    sent_b = int((slot_b < n_req).sum())
+    member = slot_b is not None
+    sent_a = slot_a < n_req
+    n_sent_a = int(sent_a.sum())
+    sent_b = int((slot_b < n_req).sum()) if member else 0
     valid_a = int((send_a[:, 0] >= 0).sum())
-    valid_b = int((send_b[:, 0] >= 0).sum())
-    changed = int((after != carry).any(0).sum())
+    valid_b = int((send_b[:, 0] >= 0).sum()) if member else 0
+    changed = int((after != carry).sum())
     steps = int((after[ep.T] > carry[ep.T]).sum())
+    active_next = (after[ep.ALIVE] != 0) & (after[ep.T] < walk_length)
+    valid_next = int((nxt[0][:, 0] >= 0).sum())
 
     def n_of(st, key):
         return int(st[key].sum()) if key in st else 0
@@ -5036,25 +5087,28 @@ def _ep_bounds(carry, after, cap: int, slot_a, slot_b, send_a, send_b, st_prop: 
     def requests(valid, fields):  # filled slots whole, empty ones their field 0
         return valid * fields * 4 + (n_req - valid) * 4
 
-    bucket = (skip + active * 12 + sent_a * 16 + requests(sent_a, ep.PROPOSE_FIELDS) + n * 4
-              + n * 4 + sent_a * 12 + sent_b * 4 + requests(sent_b, ep.MEMBER_FIELDS) + n * 4)
+    bucket = (n * 4 + n_sent_a * 12 + sent_b * 4 + requests(sent_b, ep.MEMBER_FIELDS) + n * 4
+              if member else 0)
     propose = (requests(valid_a, 6) + n_of(st_prop, "light_rows") * 512
                + n_of(st_prop, "biw_rows") * c * 4
                + (n_of(st_prop, "biw_id_sectors") + n_of(st_prop, "brp_sectors")) * 32
                + requests(valid_a, ep.RESPONSE_FIELDS))
-    member = (requests(valid_b, ep.MEMBER_FIELDS) + n_of(st_mem, "light_rows") * 512
-              + n_of(st_mem, "bids_rows") * c * 4 + n_req * 4)
-    advance = (skip + active * 48 + sent_a * ep.RESPONSE_FIELDS * 4 + sent_b * 4
-               + changed * 40 + steps * 4)
-    return {"ep_bucket": bucket, "ep_propose": propose, "ep_member": member, "ep_advance": advance}
+    member_b = (requests(valid_b, ep.MEMBER_FIELDS) + n_of(st_mem, "light_rows") * 512
+                + n_of(st_mem, "bids_rows") * c * 4 + n_req * 4)
+    fused = (n * 12 + n_sent_a * (8 * 4 + ep.RESPONSE_FIELDS * 4 + (8 if member else 0))
+             + int((active_next & ~sent_a).sum()) * 20 + changed * 4 + steps * 4
+             + requests(valid_next, ep.PROPOSE_FIELDS) + n * 4)
+    return {"ep_bucket": bucket, "ep_propose": propose, "ep_member": member_b,
+            "ep_advance_bucket": fused}
 
 
 class _CheckedOps:
     """``ep.superstep``'s ops for ``check_ep_walk``: each runs the kernel and
     its plain version on the same inputs, keeps the largest difference in
     ``diff`` and returns the kernel's result.  While ``timing`` is a dict,
-    each kernel and plain version is also timed on these inputs (K20's two
-    calls a superstep summed: phases A and B), and ``seen`` keeps what the
+    each kernel and plain version is also timed on these inputs (K20: its
+    call a superstep, phase B; the fused launch advances its state in place,
+    so each timed call starts from a copy), and ``seen`` keeps what the
     bounds count."""
 
     def __init__(self):
@@ -5079,7 +5133,8 @@ class _CheckedOps:
 
         got = kernel()
         self._check("ep_bucket", got, plain(), kernel, plain)
-        self.seen["b" if kw.get("slot_a") is not None else "a"] = got
+        if kw.get("slot_a") is not None:
+            self.seen["b"] = got
         return got
 
     def propose(self, recv, *tables, **kw):
@@ -5094,6 +5149,7 @@ class _CheckedOps:
         want = ep.ep_propose_plain(recv, *tables, stats=st if self.timing is not None else None,
                                    **kw)
         self._check("ep_propose", (got,), (want,), kernel, plain)
+        self.seen["send_a"] = recv
         return got
 
     def member(self, recv, *tables, **kw):
@@ -5110,27 +5166,29 @@ class _CheckedOps:
         self._check("ep_member", (got,), (want,), kernel, plain)
         return got
 
-    def advance(self, carry, paths, n_fb, *args, **kw):
+    def advance_bucket(self, carry, paths, n_fb, *args, **kw):
         saved = [t.clone() for t in (carry, paths, n_fb)]
         scratch = [t.clone() for t in saved]
 
-        def restore():  # K23 advances its state in place: each timed call starts afresh
+        def restore():  # the launch advances its state in place: each timed call starts afresh
             for dst, src in zip(scratch, saved):
                 dst.copy_(src)
 
         def kernel():
-            return ep.ep_advance(*scratch, *args, **kw)
+            return ep.ep_advance_bucket(*scratch, *args, **kw)
 
         def plain():
-            return ep.ep_advance_plain(*[t.clone() for t in saved], *args, **kw)
+            return ep.ep_advance_bucket_plain(*[t.clone() for t in saved], *args, **kw)
 
         plain_state = [t.clone() for t in saved]
-        want = ep.ep_advance_plain(*plain_state, *args, **kw)
-        pending = ep.ep_advance(carry, paths, n_fb, *args, **kw)
-        self._check("ep_advance", (carry, paths, n_fb, pending), (*plain_state, want), kernel,
-                    plain, restore)
+        want = ep.ep_advance_bucket_plain(*plain_state, *args, **kw)
+        got = ep.ep_advance_bucket(carry, paths, n_fb, *args, **kw)
+        self._check("ep_advance_bucket", (carry, paths, n_fb, *got), (*plain_state, *want),
+                    kernel, plain, restore)
         self.seen["carry"] = (saved[0], carry.clone())
-        return pending
+        self.seen["slot_a"] = args[0]
+        self.seen["next"] = got[:2]
+        return got
 
 
 def edge_cases_ep_bucket(quick: bool) -> None:
@@ -5187,14 +5245,95 @@ def edge_cases_ep_bucket(quick: bool) -> None:
             require(sent_a < active, f"{case}: no lane deferred")
 
 
+def edge_cases_ep_advance(quick: bool) -> None:
+    """The fused launch against ``ep_advance_plain`` then
+    ``ep_bucket_plain`` on states made from a seed: the round it advances is
+    ranked by the plain K20 from the state (so the lanes that sent are
+    active lanes), its responses drawn (cand -1 where the walker dies,
+    take_back 1 in 5, at q != 1 the membership round ranked and answered
+    0 / 1).  Cases: modes 0 (p = q = 1), 1 (q = 1) and 2, a ragged last
+    tile, several tiles a block (more lanes than the grid's resident
+    blocks hold), no lane sent, a capacity that defers (3 and 256 shards),
+    and a trial cap of 1 that forces fallbacks.  The state, paths,
+    fallback count, requests, slots and pending count bit-equal."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    n_full = 4096 if quick else 131072
+    v = 524178
+    for case, n, n_shards, cap, pq, trials, sent_share in (
+            ("mode 0 (p = q = 1)", n_full, 1, None, (1.0, 1.0), 64, 1.0),
+            ("mode 1 (q = 1)", n_full, 1, None, (0.25, 1.0), 64, 1.0),
+            ("mode 2, a ragged last tile", 20000 + 333, 2, None, (0.25, 4.0), 64, 1.0),
+            ("mode 2, several tiles a block", 300000 + 77, 1, None, (0.25, 4.0), 64, 1.0),
+            ("mode 2, no lane sent", n_full, 2, None, (0.25, 4.0), 64, 0.0),
+            ("mode 2, 3 shards, capacity n / 8 defers", n_full, 3, n_full // 8, (0.25, 4.0),
+             64, 1.0),
+            ("mode 1, 256 shards, capacity that defers", n_full, 256, 8, (4.0, 1.0), 64, 1.0),
+            ("mode 2, a trial cap of 1 forces fallbacks", n_full, 1, None, (0.25, 4.0), 1,
+             1.0)):
+        cap = n if cap is None else cap
+        n_req = n_shards * cap
+        carry = np.zeros((ep.CARRY_ROWS, n), np.int32)
+        carry[ep.CUR] = rng.integers(0, v, n)
+        carry[ep.PREV] = rng.integers(-1, v, n)
+        carry[ep.W_FWD] = rng.integers(0, 2 ** 30, n)
+        carry[ep.FWD_PFX] = rng.integers(0, 2 ** 30, n)
+        carry[ep.W_BACK_ENC] = rng.integers(-2 ** 31, 2 ** 31 - 1, n)
+        carry[ep.BACK_PFX] = rng.integers(0, 2 ** 30, n)
+        carry[ep.ATT] = rng.integers(0, 40, n)
+        carry[ep.TRIALS] = rng.integers(0, trials, n)
+        carry[ep.ALIVE] = rng.random(n) < 0.9
+        carry[ep.T] = np.where(rng.random(n) < 0.1, 20, rng.integers(0, 20, n))
+        carry = torch.from_numpy(carry).to(dev)
+        paths = torch.from_numpy(rng.integers(-1, v, (n, 21)).astype(np.int32)).to(dev)
+        geo = dict(n_shards=n_shards, capacity=cap, rows_per_shard=-(-v // n_shards),
+                   walk_length=20)
+        _, slot_a = ep.ep_bucket_plain(carry, 5, 77, **geo)
+        if sent_share == 0.0:
+            slot_a = torch.full_like(slot_a, n_req)
+        back = torch.from_numpy(rng.integers(-1, v, (n_req, ep.RESPONSE_FIELDS)).astype(
+            np.int32)).to(dev)
+        back[:, 5] = torch.from_numpy((rng.random(n_req) < 0.2).astype(np.int32)).to(dev)
+        slot_b = resp_b = None
+        if pq[1] != 1.0:
+            _, slot_b = ep.ep_bucket_plain(carry, 5, 77, slot_a=slot_a, back=back, **geo)
+            resp_b = torch.from_numpy(rng.integers(0, 2, (n_req, 1)).astype(np.int32)).to(dev)
+        kw = dict(max_trials=trials, return_param=pq[0], inout_param=pq[1], **geo)
+        n_fb = torch.full((1,), 3, dtype=torch.int32, device=dev)
+        got_state = [carry.clone(), paths.clone(), n_fb.clone()]
+        want_state = [carry.clone(), paths.clone(), n_fb.clone()]
+        got = ep.ep_advance_bucket(*got_state, slot_a, back, slot_b, resp_b, 5, 77, **kw)
+        want = ep.ep_advance_bucket_plain(*want_state, slot_a, back, slot_b, resp_b, 5, 77, **kw)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, w) for g, w in zip((*got_state, *got), (*want_state, *want)))
+        sent = int((slot_a < n_req).sum())
+        line = {"phase": "edge_case", "kernel": "ep_advance_bucket", "case": case, "n": n,
+                "n_shards": n_shards, "capacity": cap, "p": pq[0], "q": pq[1],
+                "max_trials": trials, "lanes_sent": sent,
+                "steps": int((got_state[0][ep.T] > carry[ep.T]).sum()),
+                "fallbacks": int(got_state[2]) - 3, "pending": int(got[2]),
+                "next_sent": int((got[1] < n_req).sum()), "bit_equal": equal}
+        emit(line)
+        require(equal, f"ep_advance_bucket differs from its plain versions: {case}")
+        if sent_share == 0.0:
+            require(sent == 0 and torch.equal(got_state[0], carry),
+                    "a launch with no lane sent changed the state")
+        if trials == 1:
+            require(line["fallbacks"] > 0, "a trial cap of 1 forced no fallback")
+        if "defers" in case:
+            require(line["next_sent"] < line["pending"], f"{case}: no lane deferred")
+
+
 def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) -> None:
-    """K20-K23 against their plain versions at main_path_ep's first chunk:
-    the RMAT partitioned over the 1 x 1 mesh (one shard, so the superstep's
-    exchanges are the identity), ``n_walkers`` walkers x ``walk_length`` at
-    (p, q) = (0.25, 4).  Every superstep is the engine's ``ep.superstep``
-    through ``_CheckedOps``, which holds each kernel against its plain
-    version on the same inputs, bit-equal (unit weights make K21's sums
-    exact); first at the full capacity (timed and bounded at the second
+    """K20, K21, K22 and the fused launch (K23 and the next superstep's K20
+    phase A, held to ``ep_advance_plain`` then ``ep_bucket_plain``) against
+    their plain versions at main_path_ep's first chunk: the RMAT partitioned
+    over the 1 x 1 mesh (one shard, so the superstep's exchanges are the
+    identity), ``n_walkers`` walkers x ``walk_length`` at (p, q) = (0.25,
+    4).  Every superstep is the engine's ``ep.superstep`` through
+    ``_CheckedOps``, which holds each kernel against its plain version on
+    the same inputs, bit-equal (unit weights make K21's sums exact), after
+    the chunk's first ranking (K20 phase A, checked too); first at the full capacity (timed and bounded at the second
     superstep, where nearly every walker proposes and asks for membership),
     then at a capacity of 1/8 of the lanes, which defers, with slack 16
     (1,296 supersteps at most).  Both walks must equal K5's on the same
@@ -5216,6 +5355,7 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
                                               block_width=pg.block_width, has_heavy=True,
                                               **walk_kw)
     edge_cases_ep_bucket(n_walkers < 131072)
+    edge_cases_ep_advance(n_walkers < 131072)
     for cap, slack in ((n_walkers, 4), (n_walkers // 8, 16)):
         bound = ep.max_supersteps(walk_length, EP_PQ[1], slack)
         late = None  # the first superstep at full capacity with under 10% of lanes active
@@ -5227,6 +5367,8 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
         diff = ops.diff
         timing = None
         deferred = int((starts >= 0).sum()) - min(cap, n_walkers)
+        ranked = ops.bucket(carry, 0, 0, n_shards=1, capacity=cap,
+                            rows_per_shard=pg.rows_per_shard, walk_length=walk_length)
         it = 0
         while it < bound:
             # the second superstep at full capacity is timed: nearly every
@@ -5238,14 +5380,15 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
                 active_now = int(((carry[ep.ALIVE] != 0) & (carry[ep.T] < walk_length)).sum())
                 time_late = active_now < 0.1 * n_walkers
             ops.timing = {} if cap == n_walkers and (it == 1 or time_late) else None
-            pending = ep.superstep(ops, None, "data", tables, carry, paths, n_fb, 0, 0,
-                                   n_shards=1, capacity=cap, **own, **walk_kw)
+            ranked, pending = ep.superstep(ops, None, "data", tables, carry, paths, n_fb,
+                                           ranked, 0, 0, n_shards=1, capacity=cap, **own,
+                                           **walk_kw)
             if ops.timing is not None:
                 seen = ops.seen
-                (send_a, slot_a), (send_b, slot_b) = seen["a"], seen["b"]
+                send_a, slot_a, (send_b, slot_b) = seen["send_a"], seen["slot_a"], seen["b"]
                 bounds = _ep_bounds(*seen["carry"], cap, slot_a, slot_b, send_a, send_b,
-                                    seen["propose"], seen["member"], pg.block_width,
-                                    walk_length)
+                                    seen["next"], seen["propose"], seen["member"],
+                                    pg.block_width, walk_length)
                 for name in EP_KERNELS:
                     b_ms, b_by = bound_ms(bounds[name], 0)
                     ops.timing[name].update(bound_bytes=bounds[name], bound_ms=b_ms,
@@ -5281,8 +5424,8 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
         if late is not None:
             line["late_superstep"] = late
         emit(line)
-        require(line["bit_equal"], f"K20-K23 differ from their plain versions at capacity {cap}: "
-                                   f"{diff}")
+        require(line["bit_equal"],
+                f"the ep kernels differ from their plain versions at capacity {cap}: {diff}")
         require(line["bit_equal_to_k5"], f"the ep walk at capacity {cap} differs from K5's")
         require(line["bit_equal_through_mesh"], f"the ep walk through the mesh differs ({cap})")
         require(unfinished == 0, f"{unfinished} walkers unfinished at capacity {cap}")
@@ -5325,8 +5468,9 @@ def main_path_ep(mesh, rmat_src, rmat_dst, blocked_line: dict, blocked_walks: to
     """``Node2Vec(mesh=make_mesh(1, 1), graph_sharded=True)`` over NCCL at
     N2V_MAIN on the RMAT through ``run_pipeline()`` (max_iter cut, the
     column trainer): the blocked tables partitioned over the data axis, 40
-    chunks walked by supersteps (K20 twice, K21, K22, K23 once a superstep,
-    K5 never), then ``fit_sharded``.  Its walks must equal
+    chunks walked by supersteps (K20 once a chunk for its first ranking;
+    K20 phase B, K21, K22 and the fused launch, K23 with the next K20 phase
+    A, once a superstep; K5 never), then ``fit_sharded``.  Its walks must equal
     main_path_blocked's, none unfinished; its walk rate stands beside
     main_path_blocked's; then the profiled walk of 4 chunks, whose trace
     gives the idle share and the collectives' host share."""
@@ -5404,8 +5548,10 @@ def main_path_ep(mesh, rmat_src, rmat_dst, blocked_line: dict, blocked_walks: to
     require(all(np.isfinite(x) for x in model.losses), "main_path_ep: non-finite loss")
     n_steps = sum(supersteps)
     require(len(supersteps) == n_chunks, f"{len(supersteps)} chunks walked of {n_chunks}")
-    require(launches["ep_bucket"] == 2 * n_steps, f"ep_bucket launched {launches['ep_bucket']}")
-    for k in ("ep_propose", "ep_member", "ep_advance"):
+    # a chunk's first ranking, then K20 phase B, K21, K22 and the fused launch a superstep
+    require(launches["ep_bucket"] == n_chunks + n_steps,
+            f"ep_bucket launched {launches['ep_bucket']}, {n_chunks} chunks, {n_steps} supersteps")
+    for k in ("ep_propose", "ep_member", "ep_advance_bucket"):
         require(launches[k] == n_steps, f"{k} launched {launches[k]} times, {n_steps} supersteps")
     require(launches["blocked_walk"] == 0, "main_path_ep launched K5")
     return out
@@ -6360,6 +6506,7 @@ def main() -> int:
         edge_cases_pairs()
         check_fused(4096, 64, 21, 128, 5, True, results, "quick")
         check_fused(512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
+        edge_cases_fused_adagrad()
         check_alias_draw(g, True, results, "quick, dense ER 4,096 vertices")
         mesh = make_mesh(1, 1, device="cuda")  # a world of one, over NCCL
         check_ep_walk(mesh, g_rmat, 4096, 20, results)
@@ -6425,6 +6572,7 @@ def main() -> int:
     edge_cases_pairs()
     check_fused(131072, main_batch, 21, 128, 5, True, results, "main_path_fused batch 0",
                 batch=first)
+    edge_cases_fused_adagrad()
     mesh = make_mesh(1, 1, device="cuda")  # a world of one, over NCCL
     check_col_sgns(mesh, 131072, main_batch, 21, 128, 5, True, results,
                    "main_path_pairs batch 0", batch=first)

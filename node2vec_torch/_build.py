@@ -39,7 +39,7 @@ KERNELS = ("dense_walk", "sgns_grads", "adagrad_accumulate", "adagrad_apply",
            "sgns_pair_grads", "fused_adagrad", "alias_draw", "col_pair_logits",
            "col_pair_grads", "adagrad_accumulate_squares", "route_plan", "route_gather",
            "route_pack", "sgns_grads_routed", "hs_grads_routed", "ep_bucket", "ep_propose",
-           "ep_member", "ep_advance", "epd_bucket", "epd_serve", "epd_advance")
+           "ep_member", "ep_advance_bucket", "epd_bucket", "epd_serve", "epd_advance")
 # launches of a kernel in one of its modes, counted beside the kernel's own;
 # "*_sharded": a walk kernel launched for one data shard of a mesh
 MODE_COUNTS = ("blocked_walk_sl_mixed", "blocked_walk_sl_exhaustive", "sgns_grads_global",
@@ -157,7 +157,7 @@ def lib() -> ctypes.CDLL:
             "n2v_sgns_pair_grads": [vp, vp, i32, vp, vp, vp, i32, i32, i32, i32, f32, vp, vp,
                                     vp, vp, vp, i32, vp],
             "n2v_fused_adagrad": [vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32, f32, vp,
-                                  vp, vp],
+                                  vp],
             "n2v_alias_draw": [vp, vp, vp, vp, vp, vp, vp, i64, vp, vp],
             "n2v_col_pair_logits": [vp, vp, i32, vp, vp, vp, i32, i32, i32, i32, vp, vp, vp,
                                     i32, vp],
@@ -176,14 +176,14 @@ def lib() -> ctypes.CDLL:
                                       f32, vp, vp, vp, vp, vp, i32, vp],
             "n2v_hs_grads_routed": [vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
                                     i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, i32, vp],
-            "n2v_ep_bucket_geometry": [i64, vp],
+            "n2v_ep_bucket_geometry": [i64, i32, vp],
             "n2v_route_plan_geometry": [i64, vp],
             "n2v_ep_bucket": [vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32, i64, u32, i32, vp],
             "n2v_ep_propose": [vp, i64, vp, i64, vp, vp, vp, i64, f32, f32, f32, i32, i32, i32,
                                vp],
             "n2v_ep_member": [vp, i64, vp, i64, vp, vp, i64, i32, i32, vp],
-            "n2v_ep_advance": [vp, i64, vp, vp, vp, vp, vp, i64, vp, vp, i64, i32, i32, i64, u32,
-                               f32, f32, i32, vp],
+            "n2v_ep_advance_bucket": [vp, i64, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32,
+                                      i64, i64, i32, i32, i64, u32, f32, f32, i32, vp],
             "n2v_epd_bucket": [vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32, i32, vp],
             "n2v_epd_serve": [vp, i64, vp, i64, vp, i64, i32, f32, f32, i32, vp],
             "n2v_epd_advance": [vp, i64, vp, vp, vp, vp, i64, i32, i32, vp, vp],

@@ -1,5 +1,6 @@
 // The graph-sharded (edge-partitioned) blocked walk's superstep: K20
-// ep_bucket, K21 ep_propose, K22 ep_member, K23 ep_advance.
+// ep_bucket, K21 ep_propose, K22 ep_member, and K23 ep_advance inside K20's
+// launch.
 //
 // Replace node2vec_tpu/parallel/edge_partitioned_blocked.py:347 shard_fn's
 // superstep (:367-610), one kernel per stage between its all_to_alls:
@@ -11,9 +12,12 @@
 //   K22 ep_member   owner(prev) answers the membership test (:527-553);
 //   K23 ep_advance  home: read the responses back by slot, accept, trial cap
 //                   and fallbacks, path write, carried state (:502-509,
-//                   :554-610), and the pending count of the loop condition.
+//                   :554-610), and the pending count of the loop condition:
+//                   in front of the next superstep's phase-A ranking, one
+//                   launch (ep_advance_bucket).
 // Each computes what its plain version in
-// parallel/edge_partitioned_blocked.py computes (ep_*_plain).
+// parallel/edge_partitioned_blocked.py computes (ep_*_plain; the fused
+// launch: ep_advance_plain, then ep_bucket_plain).
 //
 // The carried state is one int32 [10, n] tensor (rows T, CUR, PREV, W_FWD,
 // FWD_PFX, W_BACK_ENC, BACK_PFX, ALIVE, TRIALS, ATT; floats as their bits).
@@ -27,6 +31,14 @@
 // one-hot cumsum ranks it), stores the requests of the lanes ranked below
 // the capacity a warp's run at a time (staged in shared memory, so the
 // stores coalesce), and writes -1 only into the rows that no lane fills.
+// The fused launch is the same grid with the advance in each lane's first
+// read (lane_request<true>): a lane that sent a proposal takes its step in
+// registers and writes back the rows that changed and its path entry, a
+// lane that sent nothing reads only its slot and the rows of its request;
+// the pending count is the grid's total of active lanes after the barrier,
+// written by one thread (no atomic, no memset), the fallbacks a block count
+// added atomically.  The ranking consumes no draw and leaves the state as it
+// is, so the walks stay the superstep-by-superstep ones.
 // K21, K22: an 8-lane group a request, four a warp, as K5 groups its
 // walkers: the requested row staged in shared memory and sampled by
 // blocked_common.cuh's device functions, the ones K5 calls (a heavy block
@@ -34,15 +46,16 @@
 // in): the same float operations in the same order, so the proposals equal
 // K5's bit for bit on the same tables and draws.  An empty
 // slot (cur < 0) is skipped at once: the buffers hold the full capacity and
-// late supersteps are mostly empty.  K23: one thread a walker; the fallback
-// and pending counts are block counts (__syncthreads_count) added atomically.
+// late supersteps are mostly empty.
 //
 // Bound on an H100: bytes, per superstep.  K20 reads the carried state (and
 // phase B the responses by slot) and writes the requests and slots; K21
 // reads a request, one 512-byte light row and, at a heavy vertex, its
 // block's C weights, a 32-byte id sector and an 8-byte brp pair, and writes
 // a response; K22 reads a request and a light row (a heavy prev also its
-// bids row); K23 reads and writes the carried state and reads the responses.
+// bids row); the fused launch reads every lane's slot and activity, a sent
+// lane's state and responses, the request rows of an active lane, and
+// writes the changed state, the path entries, the requests and slots.
 // The owner kernels are latency-bound at these sizes (one dependent row load
 // a request), as K5 is.
 
@@ -63,7 +76,6 @@ constexpr int kTile = 1024;       // K20 lanes a tile, threads a block
 constexpr int kMaxShards = 256;   // KERNEL_MAX_SHARDS: K20's per-warp counts in shared memory
 constexpr int kReqWarps = 8;      // K21, K22 warps a block
 constexpr int kReqs = kReqWarps * 32 / n2v::kGroup;  // K21, K22 requests a block
-constexpr int kAdvThreads = 256;  // K23 walkers a block
 constexpr int kPropose = 7, kMember = 2, kResp = 6;
 
 __device__ __forceinline__ int32_t owner_of(int32_t v, int64_t rows_per_shard, int n_shards) {
@@ -76,10 +88,10 @@ __device__ __forceinline__ int64_t clamp_slot(int32_t s, int64_t n) {
 }
 
 struct BucketArgs {
-  const int32_t* carry;
+  int32_t* carry;  // the fused launch advances it in place; K20 alone only reads it
   int64_t n;
-  const int32_t* slot_a;
-  const int32_t* back;
+  const int32_t* slot_a;  // phase B and the fused launch: the proposal round's slots
+  const int32_t* back;    // and its responses
   int32_t* send;
   int32_t* slot;
   int32_t* blk;  // [grid, n_shards]: each block's lanes a destination
@@ -92,6 +104,15 @@ struct BucketArgs {
   int member;
   int64_t n_tiles;
   int64_t per_block;  // tiles a block
+  // the fused launch: the superstep that slot_a and back answer, advanced
+  const int32_t* slot_b;  // mode 2: the membership round's slots
+  const int32_t* resp_b;  // and its answers, n_shards * capacity of them
+  int32_t* paths;         // [n, walk_length + 1]
+  int32_t* n_fb;          // the fallback count, added to
+  int32_t* pending;       // written: the lanes alive with t < L after the advance
+  int max_trials;
+  float inv_q, alpha_hi;
+  int mode;  // 0 = p = q = 1, 1 = q == 1, 2 = q != 1
 };
 
 // K20's request of a lane: phase A's 7 fields (the hash uniforms at
@@ -104,37 +125,108 @@ struct Request {
 // Every load is issued at once, a lane that is not active reading its rows
 // too (they share its warp's sectors), so the chain of dependent reads is
 // one trip (phase B: two, the response behind the slot).
+//
+// kAdvance (the fused launch, phase A): the lane first takes the step of
+// the superstep that slot_a, back, slot_b and resp_b answer, as
+// ep_advance_plain does (JAX :502-509, :554-610), and its request is made
+// from the advanced state in registers.  A lane that sent nothing changes
+// nothing (it attempted nothing and cannot die), so it reads only its slot
+// and the rows of its activity and request; a lane that sent also reads
+// its response (at q != 1 its membership answer, behind the slot loaded
+// with the rows) and the rest of its state, and writes only the rows that
+// changed and its path entry.  *fb counts its trial-capped fallback.
+template <bool kAdvance>
 __device__ __forceinline__ bool lane_request(const BucketArgs& a, int64_t i, int64_t n_req,
-                                             int32_t* dest, Request& q) {
+                                             int32_t* dest, Request& q, int* fb) {
   *dest = 0;
   if (i >= a.n) return false;
   const int64_t n = a.n;
-  const int32_t t = a.carry[kT * n + i];
-  if (!a.member) {
-    const int32_t alive = a.carry[kAlive * n + i];
-    const int32_t cur = a.carry[kCur * n + i];
-    const uint32_t ctr = static_cast<uint32_t>(a.carry[kAtt * n + i]) * 4u;
-    q.f[0] = cur;
-    q.f[1] = a.carry[kPrev * n + i];
-    q.f[2] = a.carry[kWBackEnc * n + i];
-    q.f[3] = a.carry[kBackPfx * n + i];
-    q.f[6] = t;
-    if (alive == 0 || t >= a.walk_length) return false;
-    const uint32_t gid = static_cast<uint32_t>(a.gid_base + i);
-    q.f[4] = __float_as_int(n2v::hash_uniform(a.seed, gid, ctr));
-    q.f[5] = __float_as_int(n2v::hash_uniform(a.seed, gid, ctr + 1u));
-    *dest = owner_of(cur, a.rows_per_shard, a.n_shards);
+  int32_t* c = a.carry;
+  if (a.member) {
+    const int32_t t = c[kT * n + i];
+    const int32_t sa = a.slot_a[i];
+    const int32_t prev = c[kPrev * n + i];
+    const int32_t* g = a.back + clamp_slot(sa, n_req) * kResp;
+    const int32_t cand = g[0];
+    const bool take = g[5] > 0;
+    q.f[0] = prev;
+    q.f[1] = cand;
+    if (sa >= n_req || (cand < 0 && !take) || take || t == 0) return false;  // no request, died
+    *dest = owner_of(prev, a.rows_per_shard, a.n_shards);
     return true;
   }
-  const int32_t sa = a.slot_a[i];
-  const int32_t prev = a.carry[kPrev * n + i];
-  const int32_t* g = a.back + clamp_slot(sa, n_req) * kResp;
-  const int32_t cand = g[0];
-  const bool take = g[5] > 0;
-  q.f[0] = prev;
-  q.f[1] = cand;
-  if (sa >= n_req || (cand < 0 && !take) || take || t == 0) return false;  // no request, died
-  *dest = owner_of(prev, a.rows_per_shard, a.n_shards);
+  int32_t t = c[kT * n + i], alive = c[kAlive * n + i], cur = c[kCur * n + i];
+  int32_t prev = c[kPrev * n + i], wbe = c[kWBackEnc * n + i], bpfx = c[kBackPfx * n + i];
+  uint32_t att = static_cast<uint32_t>(c[kAtt * n + i]);
+  if (kAdvance) {
+    const int32_t sa = a.slot_a[i];
+    const int32_t sb = a.mode == 2 ? a.slot_b[i] : 0;
+    const bool sent = sa < n_req;
+    if (sent) {
+      const int32_t* g = a.back + static_cast<int64_t>(sa) * kResp;
+      const int32_t w_fwd = c[kWFwd * n + i], fwd_pfx = c[kFwdPfx * n + i];
+      const int32_t trials0 = c[kTrials * n + i];
+      const int32_t a_cand = g[0];
+      const bool a_take = g[5] > 0;
+      const bool shared = a.mode == 2 && a.resp_b[clamp_slot(sb, n_req)] > 0;
+      const bool died = a_cand < 0 && !a_take;
+      const bool first = t == 0;
+      // at q != 1 a lane that needed a membership answer and was not sent
+      // one defers its whole attempt
+      const bool attempted = a.mode != 2 || sb < n_req || died || a_take || first;
+      bool accept;
+      if (a.mode == 0) {
+        accept = attempted;
+      } else if (a.mode == 1) {
+        accept = attempted && (a_take || first || a_cand != prev);
+      } else {
+        const float u_acc = n2v::hash_uniform(a.seed, static_cast<uint32_t>(a.gid_base + i),
+                                              att * 4u + 2u);
+        const float alpha2 = wbe < 0 ? a.alpha_hi : a.inv_q;
+        const float bias2 = shared ? 1.f : a.inv_q;
+        accept = attempted &&
+                 (a_take || first || (a_cand != prev && __fmul_rn(u_acc, alpha2) <= bias2));
+      }
+      const bool lives = alive != 0 && !died;
+      int32_t trials = attempted ? (accept ? 0 : trials0 + 1) : trials0;
+      const bool force = attempted && lives && trials >= a.max_trials;
+      *fb += force && !accept;
+      if ((accept || force) && lives) {
+        const bool take = a_take && !force;
+        const int32_t nxt = take ? prev : a_cand;
+        a.paths[i * (a.walk_length + 1) + t + 1] = nxt;
+        // floats move as their bits: the weights and prefixes of the edge taken
+        const int32_t n_wbe =
+            take ? (w_fwd | (wbe < 0 ? static_cast<int32_t>(0x80000000u) : 0)) : g[2];
+        const int32_t n_bpfx = take ? fwd_pfx : g[3];
+        c[kWFwd * n + i] = take ? (wbe & 0x7FFFFFFF) : g[1];
+        c[kFwdPfx * n + i] = take ? bpfx : g[4];
+        if (n_wbe != wbe) c[kWBackEnc * n + i] = n_wbe;
+        if (n_bpfx != bpfx) c[kBackPfx * n + i] = n_bpfx;
+        wbe = n_wbe;
+        bpfx = n_bpfx;
+        c[kPrev * n + i] = prev = cur;
+        if (nxt != cur) c[kCur * n + i] = nxt;
+        cur = nxt;
+        c[kT * n + i] = ++t;
+        trials = 0;
+      }
+      if (trials != trials0) c[kTrials * n + i] = trials;
+      if (attempted && lives) c[kAtt * n + i] = static_cast<int32_t>(++att);
+      if (!lives && alive) c[kAlive * n + i] = 0;
+      alive = lives;
+    }
+  }
+  q.f[0] = cur;
+  q.f[1] = prev;
+  q.f[2] = wbe;
+  q.f[3] = bpfx;
+  q.f[6] = t;
+  if (alive == 0 || t >= a.walk_length) return false;
+  const uint32_t gid = static_cast<uint32_t>(a.gid_base + i);
+  q.f[4] = __float_as_int(n2v::hash_uniform(a.seed, gid, att * 4u));
+  q.f[5] = __float_as_int(n2v::hash_uniform(a.seed, gid, att * 4u + 1u));
+  *dest = owner_of(cur, a.rows_per_shard, a.n_shards);
   return true;
 }
 
@@ -163,11 +255,17 @@ __device__ __forceinline__ void store_requests(int32_t* send, int64_t flat, int6
 }
 
 // F: the request's fields, kPropose (phase A) or kMember (phase B).
-template <int F>
+// kAdvance: the fused launch (phase A), which advances each lane exactly once,
+// in its first read (the first tile before the ranking, a later tile in the
+// count pass), so the emit pass re-reads the advanced state; it adds the
+// block's fallbacks to n_fb and writes the pending count (every lane active
+// in the new ranking: the grid's totals after the barrier) from one thread.
+template <int F, bool kAdvance>
 __global__ void __launch_bounds__(kTile, 1) ep_bucket_kernel(const BucketArgs a) {
   __shared__ int32_t wc[kMaxShards * kTile / 32];  // tile_offset's; then the warps' stages
   __shared__ int32_t tt[kMaxShards], pre[kMaxShards], tot[kMaxShards], run[kMaxShards];
   __shared__ int64_t ends[kMaxShards + 1];
+  __shared__ int32_t fb_block;
   static_assert(kMaxShards * kTile / 32 >= kTile / 32 * (kPropose + 1) * 32,
                 "a warp's stage fits in wc");
   const int S = a.n_shards;
@@ -175,6 +273,7 @@ __global__ void __launch_bounds__(kTile, 1) ep_bucket_kernel(const BucketArgs a)
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * a.per_block;
   const int64_t t1 = t0 + a.per_block < a.n_tiles ? t0 + a.per_block : a.n_tiles;
   int32_t* stage = wc + (threadIdx.x >> 5) * (F + 1) * 32;
+  if (kAdvance && threadIdx.x == 0) fb_block = 0;
   auto emit = [&](int64_t i, bool active, int32_t dest, int64_t rank, const Request& q) {
     const int64_t flat = active && rank < a.capacity ? dest * a.capacity + rank : n_req;
     if (i < a.n) a.slot[i] = static_cast<int32_t>(flat);
@@ -187,26 +286,36 @@ __global__ void __launch_bounds__(kTile, 1) ep_bucket_kernel(const BucketArgs a)
   int64_t i = t0 * kTile + threadIdx.x;
   int32_t dest;
   Request q = {};
-  bool active = lane_request(a, i, n_req, &dest, q);
+  int fb = 0;
+  bool active = lane_request<kAdvance>(a, i, n_req, &dest, q, &fb);
   const int off = n2v::tile_offset<kTile>(active, dest, S, wc, tt);
   for (int d = threadIdx.x; d < S; d += kTile) run[d] = tt[d];
   __syncthreads();
   for (int64_t t = t0 + 1; t < t1; ++t) {
     int32_t dt;
     Request unused;
-    if (lane_request(a, t * kTile + threadIdx.x, n_req, &dt, unused)) atomicAdd(&run[dt], 1);
+    if (lane_request<kAdvance>(a, t * kTile + threadIdx.x, n_req, &dt, unused, &fb))
+      atomicAdd(&run[dt], 1);
   }
+  if (kAdvance && fb) atomicAdd(&fb_block, fb);
   __syncthreads();
   for (int d = threadIdx.x; d < S; d += kTile)
     a.blk[static_cast<int64_t>(blockIdx.x) * S + d] = run[d];
+  if (kAdvance && threadIdx.x == 0 && fb_block) atomicAdd(a.n_fb, fb_block);
   cg::this_grid().sync();
 
   n2v::grid_bases<kTile>(a.blk, S, gridDim.x, blockIdx.x, S, pre, tot);
+  if (kAdvance && blockIdx.x == 0 && threadIdx.x < 32) {
+    int p = 0;
+    for (int d = threadIdx.x; d < S; d += 32) p += tot[d];
+    p = n2v::warp_total(p);
+    if (threadIdx.x == 0) *a.pending = p;
+  }
   emit(i, active, dest, active ? pre[dest] + off : 0, q);
   for (int d = threadIdx.x; d < S; d += kTile) run[d] = pre[d] + tt[d];
   for (int64_t t = t0 + 1; t < t1; ++t) {
     i = t * kTile + threadIdx.x;
-    active = lane_request(a, i, n_req, &dest, q);
+    active = lane_request<false>(a, i, n_req, &dest, q, &fb);
     const int o = n2v::tile_offset<kTile>(active, dest, S, wc, tt);
     emit(i, active, dest, active ? run[dest] + o : 0, q);
     __syncthreads();
@@ -336,116 +445,41 @@ ep_member_kernel(const int32_t* __restrict__ recv, int64_t n_req,
   if (on && gl == 0) out[r] = shared ? 1 : 0;
 }
 
-// mode: 0 = p = q = 1, 1 = q == 1, 2 = q != 1 (slot_b, resp_b given).
-__global__ void __launch_bounds__(kAdvThreads)
-ep_advance_kernel(int32_t* __restrict__ carry, int64_t n, int32_t* __restrict__ paths,
-                  int32_t* __restrict__ n_fb, int32_t* __restrict__ pending,
-                  const int32_t* __restrict__ slot_a, const int32_t* __restrict__ back,
-                  int64_t n_req, const int32_t* __restrict__ slot_b,
-                  const int32_t* __restrict__ resp_b, int64_t n_req_b, int walk_length,
-                  int max_trials, int64_t gid_base, uint32_t seed, float inv_q, float alpha_hi,
-                  int mode) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kAdvThreads + threadIdx.x;
-  bool fb = false, still = false;
-  if (i < n) {
-    int32_t t = carry[kT * n + i], cur = carry[kCur * n + i], prev = carry[kPrev * n + i];
-    float w_fwd = __int_as_float(carry[kWFwd * n + i]);
-    float fwd_pfx = __int_as_float(carry[kFwdPfx * n + i]);
-    int32_t w_back_enc = carry[kWBackEnc * n + i];
-    float back_pfx = __int_as_float(carry[kBackPfx * n + i]);
-    bool alive = carry[kAlive * n + i] != 0;
-    int32_t trials = carry[kTrials * n + i];
-    uint32_t att = static_cast<uint32_t>(carry[kAtt * n + i]);
-    const float w_back = __int_as_float(w_back_enc & 0x7FFFFFFF);
-    const bool back_shared = w_back_enc < 0;
-    const bool first = t == 0;
-
-    const int32_t sa = slot_a[i];
-    const bool send_a = sa < n_req;
-    const int32_t* g = back + clamp_slot(sa, n_req) * kResp;
-    const int32_t a_cand = g[0];
-    const bool a_take = g[5] > 0;
-    const bool died = send_a && a_cand < 0 && !a_take;
-    bool attempted = send_a;
-    bool shared = false;
-    if (mode == 2) {
-      const bool need_b = send_a && !died && !a_take && !first;
-      const int32_t sb = slot_b[i];
-      shared = resp_b[clamp_slot(sb, n_req_b)] > 0;
-      attempted = send_a && (sb < n_req_b || !need_b);
-    }
-    bool accept;
-    if (mode == 0) {
-      accept = attempted;
-    } else if (mode == 1) {
-      accept = attempted && (a_take || first || a_cand != prev);
-    } else {
-      const float u_acc = n2v::hash_uniform(seed, static_cast<uint32_t>(gid_base + i),
-                                            att * 4u + 2u);
-      const float alpha2 = back_shared ? alpha_hi : inv_q;
-      const float bias2 = shared ? 1.f : inv_q;
-      accept = attempted && (a_take || first || (a_cand != prev && __fmul_rn(u_acc, alpha2) <= bias2));
-    }
-    alive = alive && !died;
-    if (attempted) trials = accept ? 0 : trials + 1;
-    const bool force = attempted && alive && trials >= max_trials;
-    fb = force && !accept;
-    if ((accept || force) && alive) {
-      const bool take = a_take && !force;
-      const int32_t nxt = take ? prev : a_cand;
-      paths[i * (walk_length + 1) + t + 1] = nxt;
-      const float nw_fwd = take ? w_back : __int_as_float(g[1]);
-      const float nf_pfx = take ? back_pfx : __int_as_float(g[4]);
-      const int32_t nw_back_enc =
-          take ? (__float_as_int(w_fwd) | (back_shared ? static_cast<int32_t>(0x80000000u) : 0))
-               : g[2];
-      const float nb_pfx = take ? fwd_pfx : __int_as_float(g[3]);
-      w_fwd = nw_fwd;
-      fwd_pfx = nf_pfx;
-      w_back_enc = nw_back_enc;
-      back_pfx = nb_pfx;
-      prev = cur;
-      cur = nxt;
-      ++t;
-      trials = 0;
-    }
-    if (attempted && alive) ++att;
-    carry[kT * n + i] = t;
-    carry[kCur * n + i] = cur;
-    carry[kPrev * n + i] = prev;
-    carry[kWFwd * n + i] = __float_as_int(w_fwd);
-    carry[kFwdPfx * n + i] = __float_as_int(fwd_pfx);
-    carry[kWBackEnc * n + i] = w_back_enc;
-    carry[kBackPfx * n + i] = __float_as_int(back_pfx);
-    carry[kAlive * n + i] = alive ? 1 : 0;
-    carry[kTrials * n + i] = trials;
-    carry[kAtt * n + i] = static_cast<int32_t>(att);
-    still = alive && t < walk_length;
-  }
-  const int n_fb_block = __syncthreads_count(fb);
-  const int n_still = __syncthreads_count(still);
-  if (threadIdx.x == 0) {
-    if (n_fb_block) atomicAdd(n_fb, n_fb_block);
-    if (n_still) atomicAdd(pending, n_still);
-  }
-}
-
 }  // namespace
 
-// K20's grid at n lanes: out[0] blocks resident an SM, [1] SMs, [2] tiles a
-// block, [3] blocks (all resident: a cooperative launch refuses more).
-extern "C" int n2v_ep_bucket_geometry(int64_t n, int64_t* out) {
+// K20's grid at n lanes (fused: the fused launch's): out[0] blocks resident
+// an SM, [1] SMs, [2] tiles a block, [3] blocks (all resident: a cooperative
+// launch refuses more).
+extern "C" int n2v_ep_bucket_geometry(int64_t n, int fused, int64_t* out) {
   const int64_t n_tiles = n > 0 ? (n + kTile - 1) / kTile : 1;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const void* kernel = reinterpret_cast<const void*>(ep_bucket_kernel<kPropose>);
+  const void* kernel = fused ? reinterpret_cast<const void*>(ep_bucket_kernel<kPropose, true>)
+                             : reinterpret_cast<const void*>(ep_bucket_kernel<kPropose, false>);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTile, 0);
   out[0] = per_sm;
   out[1] = sms;
   const cudaError_t err = n2v::grid_geometry(kernel, kTile, n_tiles, out + 2, out + 3);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
+
+namespace {
+
+int launch_bucket(const void* kernel, BucketArgs a, void* stream) {
+  a.n_tiles = (a.n + kTile - 1) / kTile;
+  if (a.n_tiles < 1) a.n_tiles = 1;  // no lane: the send buffer is still filled
+  int64_t grid = 0;
+  cudaError_t err = n2v::grid_geometry(kernel, kTile, a.n_tiles, &a.per_block, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(grid)), dim3(kTile), args,
+                                    0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 // tiles: [ceil(n / 1,024) or 1, n_shards] ints of workspace.  send and slot
 // are written whole.
@@ -457,19 +491,67 @@ extern "C" int n2v_ep_bucket(const int32_t* carry, int64_t n, const int32_t* slo
   if (n < 0 || n_shards < 1 || n_shards > kMaxShards || capacity < 1 || rows_per_shard < 1 ||
       n_shards * capacity > INT32_MAX || (member && (!slot_a || !back)))
     return static_cast<int>(cudaErrorInvalidValue);
-  BucketArgs a{carry, n, slot_a, back, send, slot, tiles, n_shards, capacity, rows_per_shard,
-               walk_length, gid_base, seed, member, (n + kTile - 1) / kTile, 1};
-  if (a.n_tiles < 1) a.n_tiles = 1;  // no lane: the send buffer is still filled
-  const void* kernel = member ? reinterpret_cast<const void*>(ep_bucket_kernel<kMember>)
-                              : reinterpret_cast<const void*>(ep_bucket_kernel<kPropose>);
-  int64_t grid = 0;
-  cudaError_t err = n2v::grid_geometry(kernel, kTile, a.n_tiles, &a.per_block, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(grid)), dim3(kTile), args,
-                                    0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  BucketArgs a{};
+  a.carry = const_cast<int32_t*>(carry);  // only read
+  a.n = n;
+  a.slot_a = slot_a;
+  a.back = back;
+  a.send = send;
+  a.slot = slot;
+  a.blk = tiles;
+  a.n_shards = n_shards;
+  a.capacity = capacity;
+  a.rows_per_shard = rows_per_shard;
+  a.walk_length = walk_length;
+  a.gid_base = gid_base;
+  a.seed = seed;
+  a.member = member;
+  return launch_bucket(member ? reinterpret_cast<const void*>(ep_bucket_kernel<kMember, false>)
+                              : reinterpret_cast<const void*>(ep_bucket_kernel<kPropose, false>),
+                       a, stream);
+}
+
+// The fused launch: K23 advances the superstep that slot_a and back (mode 2:
+// slot_b and resp_b) answer, in place on carry, paths and n_fb, and K20
+// ranks the next superstep's proposals into send and slot; pending gets the
+// lanes alive with t < L.  back: [n_shards * capacity, 6], resp_b:
+// [n_shards * capacity]; tiles as n2v_ep_bucket's.
+extern "C" int n2v_ep_advance_bucket(int32_t* carry, int64_t n, int32_t* paths, int32_t* n_fb,
+                                     int32_t* pending, const int32_t* slot_a, const int32_t* back,
+                                     const int32_t* slot_b, const int32_t* resp_b, int32_t* send,
+                                     int32_t* slot, int32_t* tiles, int n_shards,
+                                     int64_t capacity, int64_t rows_per_shard, int walk_length,
+                                     int max_trials, int64_t gid_base, uint32_t seed, float inv_q,
+                                     float alpha_hi, int mode, void* stream) {
+  if (n < 0 || n_shards < 1 || n_shards > kMaxShards || capacity < 1 || rows_per_shard < 1 ||
+      n_shards * capacity > INT32_MAX || mode < 0 || mode > 2 || max_trials < 1 || !slot_a ||
+      !back || (mode == 2 && (!slot_b || !resp_b)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BucketArgs a{};
+  a.carry = carry;
+  a.n = n;
+  a.slot_a = slot_a;
+  a.back = back;
+  a.send = send;
+  a.slot = slot;
+  a.blk = tiles;
+  a.n_shards = n_shards;
+  a.capacity = capacity;
+  a.rows_per_shard = rows_per_shard;
+  a.walk_length = walk_length;
+  a.gid_base = gid_base;
+  a.seed = seed;
+  a.slot_b = slot_b;
+  a.resp_b = resp_b;
+  a.paths = paths;
+  a.n_fb = n_fb;
+  a.pending = pending;
+  a.max_trials = max_trials;
+  a.inv_q = inv_q;
+  a.alpha_hi = alpha_hi;
+  a.mode = mode;
+  return launch_bucket(reinterpret_cast<const void*>(ep_bucket_kernel<kPropose, true>), a,
+                       stream);
 }
 
 extern "C" int n2v_ep_propose(const int32_t* recv, int64_t n_req, const int32_t* light,
@@ -503,23 +585,5 @@ extern "C" int n2v_ep_member(const int32_t* recv, int64_t n_req, const int32_t* 
   ep_member_kernel<<<static_cast<unsigned>(blocks), kReqWarps * 32, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       recv, n_req, light, n_rows, bids, out, row_base, light_width, block_width);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int n2v_ep_advance(int32_t* carry, int64_t n, int32_t* paths, int32_t* n_fb,
-                              int32_t* pending, const int32_t* slot_a, const int32_t* back,
-                              int64_t n_req, const int32_t* slot_b, const int32_t* resp_b,
-                              int64_t n_req_b, int walk_length, int max_trials, int64_t gid_base,
-                              uint32_t seed, float inv_q, float alpha_hi, int mode,
-                              void* stream) {
-  if (mode < 0 || mode > 2 || max_trials < 1 || n_req < 1 ||
-      (mode == 2 && (!slot_b || !resp_b || n_req_b < 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  const int64_t blocks = (n + kAdvThreads - 1) / kAdvThreads;
-  ep_advance_kernel<<<static_cast<unsigned>(blocks), kAdvThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      carry, n, paths, n_fb, pending, slot_a, back, n_req, slot_b, resp_b, n_req_b, walk_length,
-      max_trials, gid_base, seed, inv_q, alpha_hi, mode);
   return static_cast<int>(cudaGetLastError());
 }

@@ -836,7 +836,8 @@ def fused_adagrad_plain(tab_in, tab_out, g_in, rows_in, g_out, rows_out, d_no, n
 
 
 def fused_adagrad(tab_in, tab_out, g_in, rows_in, g_out, rows_out, d_no, neg_ids, lr: float):
-    """K14 for CUDA tensors, the plain version for CPU tensors."""
+    """K14 for CUDA tensors, the plain version for CPU tensors: one pass
+    over the gradient rows (16-byte atomics), then the accumulator column."""
     args = (g_in, rows_in, g_out, rows_out, d_no, neg_ids)
     if not tab_in.is_cuda:
         return fused_adagrad_plain(tab_in, tab_out, *args, lr)
@@ -846,11 +847,10 @@ def fused_adagrad(tab_in, tab_out, g_in, rows_in, g_out, rows_out, d_no, neg_ids
     if tab_in.dim() != 2 or tab_in.shape[1] != dim + 1 or tab_out.shape[1] != dim + 1:
         raise ValueError("fused tables must be [rows, D+1] with the grads' D")
     n = sum(r.shape[0] for r in (rows_in, rows_out, neg_ids))
-    scale = torch.empty((n,), dtype=torch.float32, device=tab_in.device)
-    sq = torch.empty_like(scale)
+    pend = torch.empty((n, 2), dtype=torch.int32, device=tab_in.device)  # (row, square)
     rc = _build.lib().n2v_fused_adagrad(
         _build.ptr(tab_in), _build.ptr(tab_out), *_list_ptrs(*args), dim,
-        float(np.float32(lr)), _build.ptr(scale), _build.ptr(sq), _build.stream_of(tab_in),
+        float(np.float32(lr)), _build.ptr(pend), _build.stream_of(tab_in),
     )
     _build.check(rc, "fused_adagrad")
     _build.launches["fused_adagrad"] += 1

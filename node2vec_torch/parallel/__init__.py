@@ -7,7 +7,7 @@ the column-sharded SGNS step and epoch (K13's pair lists, K16, K17, K3's
 squares mode, K4), the row-sharded SGNS and HS steps and epochs (K18
 route_plan, K19 route_rows, K2's and K8's routed modes, K3, K4), and the
 graph-sharded blocked walks (``edge_partitioned_blocked``: K20 ep_bucket,
-K21 ep_propose, K22 ep_member, K23 ep_advance), the round-1 dense
+K21 ep_propose, K22 ep_member, K23 in K20's launch), the round-1 dense
 graph-sharded walk (``edge_partitioned``: K24 epd_bucket, K25 epd_serve,
 K26 epd_advance) and the distributed host-side graph build
 (``distributed_build``, no device work).

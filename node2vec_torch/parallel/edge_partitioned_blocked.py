@@ -23,9 +23,13 @@ A superstep is two request/response rounds over the data axis
 3. **membership** (q != 1; K20 again for the 2-field request, then K22
    ``ep_member`` at owner(prev)): is the candidate in N(prev)?  A lane that
    cannot send here defers its whole attempt;
-4. **advance** (K23 ``ep_advance``, home): acceptance against the uniform
-   at 4·att + 2, the trial cap and its counted fallbacks, the path write,
-   the carried edge metadata, and the count of walkers still pending.
+4. **advance** (K23, home): acceptance against the uniform at 4·att + 2,
+   the trial cap and its counted fallbacks, the path write, the carried
+   edge metadata, and the count of walkers still pending.  It runs in one
+   launch with the next superstep's step 1 (``ep_advance_bucket``): a
+   chunk's first ranking is a prologue, and each superstep ends by
+   advancing and ranking the next (the ranking consumes no draw and leaves
+   the state as it is, so the walks are unchanged).
 
 Draws are keyed on (seed, global walker id, attempt), and a deferred
 attempt replays with the same counter, so the walks equal the
@@ -39,8 +43,8 @@ unfinished at that bound are returned as a count, never cut silently.
 Each rank keeps its data coordinate's shard (``partition_blocked_graph``
 and ``load_partitioned_graph`` with a mesh); ranks of one data coordinate
 hold the same shard, as JAX's ``P(axis, None)`` gives.  The ``.npz`` +
-``meta.json`` files are the JAX package's.  CPU tensors take the four
-kernels' plain versions; CUDA tensors launch the kernels or raise.
+``meta.json`` files are the JAX package's.  CPU tensors take the kernels'
+plain versions; CUDA tensors launch the kernels or raise.
 ``edge_partitioned_blocked_walk_plain`` runs the plain versions on any
 device.
 """
@@ -609,33 +613,63 @@ def ep_member(recv, light, bids, *, my_shard: int, rows_per_shard: int, light_wi
     return out
 
 
-def ep_advance(carry, paths, n_fb, slot_a, back, slot_b, resp_b, seed: int, gid_base: int, *,
-               walk_length: int, max_trials: int, return_param: float,
-               inout_param: float) -> torch.Tensor:
-    """K23: ``ep_advance_plain`` in place, one thread a walker; the pending
-    count lands in a device scalar."""
-    kw = dict(walk_length=walk_length, max_trials=max_trials, return_param=return_param,
+def ep_advance_bucket_plain(carry, paths, n_fb, slot_a, back, slot_b, resp_b, seed: int,
+                            gid_base: int, *, n_shards: int, capacity: int, rows_per_shard: int,
+                            walk_length: int, max_trials: int, return_param: float,
+                            inout_param: float):
+    """The fused launch's function: ``ep_advance_plain`` (the superstep that
+    ``slot_a``, ``back`` and at q != 1 ``slot_b``, ``resp_b`` answer, in
+    place), then ``ep_bucket_plain``'s phase A on the advanced state.
+    Returns (send, slot, pending): the next superstep's proposal round and
+    the walkers still pending [1]."""
+    pending = ep_advance_plain(carry, paths, n_fb, slot_a, back, slot_b, resp_b, seed,
+                               gid_base, walk_length=walk_length, max_trials=max_trials,
+                               return_param=return_param, inout_param=inout_param)
+    send, slot = ep_bucket_plain(carry, seed, gid_base, n_shards=n_shards, capacity=capacity,
+                                 rows_per_shard=rows_per_shard, walk_length=walk_length)
+    return send, slot, pending
+
+
+def ep_advance_bucket(carry, paths, n_fb, slot_a, back, slot_b, resp_b, seed: int,
+                      gid_base: int, *, n_shards: int, capacity: int, rows_per_shard: int,
+                      walk_length: int, max_trials: int, return_param: float,
+                      inout_param: float):
+    """K23 in K20's phase-A launch: ``ep_advance_bucket_plain``'s (send,
+    slot, pending), one cooperative launch; the pending count is written by
+    the kernel (no memset)."""
+    kw = dict(n_shards=n_shards, capacity=capacity, rows_per_shard=rows_per_shard,
+              walk_length=walk_length, max_trials=max_trials, return_param=return_param,
               inout_param=inout_param)
     if not carry.is_cuda:
-        return ep_advance_plain(carry, paths, n_fb, slot_a, back, slot_b, resp_b, seed,
-                                gid_base, **kw)
+        return ep_advance_bucket_plain(carry, paths, n_fb, slot_a, back, slot_b, resp_b, seed,
+                                       gid_base, **kw)
+    if n_shards > KERNEL_MAX_SHARDS:
+        raise ValueError(f"ep_advance_bucket kernel takes at most {KERNEL_MAX_SHARDS} shards")
     member = slot_b is not None
-    _build.require_cuda("ep_advance", carry, paths, n_fb, slot_a, back,
+    _build.require_cuda("ep_advance_bucket", carry, paths, n_fb, slot_a, back,
                         *((slot_b, resp_b) if member else ()))
-    if n_fb.dtype != torch.int32 or paths.shape != (carry.shape[1], walk_length + 1):
-        raise ValueError("ep_advance takes an int32 fallback count and paths [n, L+1]")
-    pending = torch.zeros(1, dtype=torch.int32, device=carry.device)
-    rc = _build.lib().n2v_ep_advance(
-        _build.ptr(carry), carry.shape[1], _build.ptr(paths), _build.ptr(n_fb),
-        _build.ptr(pending), _build.ptr(slot_a), _build.ptr(back), back.shape[0],
-        _build.ptr_or_null(slot_b), _build.ptr_or_null(resp_b),
-        resp_b.shape[0] if member else 0, walk_length, max_trials, int(gid_base),
+    n = carry.shape[1]
+    n_req = n_shards * capacity
+    if n_fb.dtype != torch.int32 or paths.shape != (n, walk_length + 1):
+        raise ValueError("ep_advance_bucket takes an int32 fallback count and paths [n, L+1]")
+    if back.shape[0] != n_req or (member and resp_b.shape[0] != n_req):
+        raise ValueError("ep_advance_bucket takes the responses of n_shards * capacity slots")
+    dev = carry.device
+    send = torch.empty((n_req, PROPOSE_FIELDS), dtype=torch.int32, device=dev)
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    pending = torch.empty(1, dtype=torch.int32, device=dev)
+    tiles = torch.empty((max(-(-n // 1024), 1), n_shards), dtype=torch.int32, device=dev)
+    rc = _build.lib().n2v_ep_advance_bucket(
+        _build.ptr(carry), n, _build.ptr(paths), _build.ptr(n_fb), _build.ptr(pending),
+        _build.ptr(slot_a), _build.ptr(back), _build.ptr_or_null(slot_b),
+        _build.ptr_or_null(resp_b), _build.ptr(send), _build.ptr(slot), _build.ptr(tiles),
+        n_shards, capacity, rows_per_shard, walk_length, max_trials, int(gid_base),
         seed & 0xFFFFFFFF, float(np.float32(1.0 / inout_param)),
         float(np.float32(max(1.0, 1.0 / inout_param))), _mode(return_param, inout_param),
         _build.stream_of(carry))
-    _build.check(rc, "ep_advance")
-    _build.launches["ep_advance"] += 1
-    return pending
+    _build.check(rc, "ep_advance_bucket")
+    _build.launches["ep_advance_bucket"] += 1
+    return send, slot, pending
 
 
 def _check_kernel_tables(name: str, light, light_width: int, block_width: int) -> None:
@@ -651,14 +685,14 @@ class _Plain:
     bucket = staticmethod(ep_bucket_plain)
     propose = staticmethod(ep_propose_plain)
     member = staticmethod(ep_member_plain)
-    advance = staticmethod(ep_advance_plain)
+    advance_bucket = staticmethod(ep_advance_bucket_plain)
 
 
 class _Kernels:
     bucket = staticmethod(ep_bucket)
     propose = staticmethod(ep_propose)
     member = staticmethod(ep_member)
-    advance = staticmethod(ep_advance)
+    advance_bucket = staticmethod(ep_advance_bucket)
 
 
 # --------------------------------------------------------------------------- #
@@ -670,13 +704,15 @@ def max_supersteps(walk_length: int, inout_param: float, slack: int = 4) -> int:
     return slack * walk_length * (1 if inout_param <= 1 else 4) + 16
 
 
-def superstep(ops, mesh, axis_name: str, tables, carry, paths, n_fb, seed: int,
+def superstep(ops, mesh, axis_name: str, tables, carry, paths, n_fb, ranked, seed: int,
               gid_base: int, *, n_shards: int, capacity: int, rows_per_shard: int,
               my_shard: int, light_width: int, block_width: int, walk_length: int,
-              return_param: float, inout_param: float, max_trials: int) -> torch.Tensor:
-    """One superstep through ``ops`` (the kernels or their plain versions);
-    returns this rank's pending count [1].  ``mesh`` None: a single shard,
-    whose exchanges are the identity."""
+              return_param: float, inout_param: float, max_trials: int):
+    """One superstep through ``ops`` (the kernels or their plain versions).
+    ``ranked``: its proposal round's (send, slot), which the previous
+    superstep's fused launch (or the chunk's first ``ops.bucket``) made.
+    Returns the next superstep's (send, slot) and this rank's pending count
+    [1].  ``mesh`` None: a single shard, whose exchanges are the identity."""
     light, biw, bids, brp = tables
 
     def exchange(buf):
@@ -686,16 +722,17 @@ def superstep(ops, mesh, axis_name: str, tables, carry, paths, n_fb, seed: int,
                walk_length=walk_length)
     own = dict(my_shard=my_shard, rows_per_shard=rows_per_shard, light_width=light_width,
                block_width=block_width)
-    send_a, slot_a = ops.bucket(carry, seed, gid_base, **geo)
+    send_a, slot_a = ranked
     back = exchange(ops.propose(exchange(send_a), light, biw, brp, return_param=return_param,
                                 inout_param=inout_param, **own))
     slot_b = resp_b = None
     if inout_param != 1.0:
         send_b, slot_b = ops.bucket(carry, seed, gid_base, slot_a=slot_a, back=back, **geo)
         resp_b = exchange(ops.member(exchange(send_b), light, bids, **own))
-    return ops.advance(carry, paths, n_fb, slot_a, back, slot_b, resp_b, seed, gid_base,
-                       walk_length=walk_length, max_trials=max_trials,
-                       return_param=return_param, inout_param=inout_param)
+    send, slot, pending = ops.advance_bucket(
+        carry, paths, n_fb, slot_a, back, slot_b, resp_b, seed, gid_base, max_trials=max_trials,
+        return_param=return_param, inout_param=inout_param, **geo)
+    return (send, slot), pending
 
 
 def run_supersteps(step: Callable[[int], torch.Tensor], pending: torch.Tensor, bound: int,
@@ -737,9 +774,16 @@ def _walk(ops, mesh, graph: PartitionedBlockedGraph, starts, gid_base: int, seed
               walk_length=walk_length, return_param=return_param, inout_param=inout_param,
               max_trials=max_trials)
     pending = ((carry[ALIVE] != 0) & (carry[T] < walk_length)).sum().to(torch.int32).reshape(1)
-    it = run_supersteps(lambda _: superstep(ops, mesh, axis_name, tables, carry, paths, n_fb,
-                                            seed, gid_base + lo, **kw),
-                        pending, bound, mesh, axis_name)
+    ranked = ops.bucket(carry, seed, gid_base + lo, n_shards=n_shards, capacity=capacity,
+                        rows_per_shard=graph.rows_per_shard, walk_length=walk_length)
+
+    def step(_):
+        nonlocal ranked
+        ranked, pend = superstep(ops, mesh, axis_name, tables, carry, paths, n_fb, ranked, seed,
+                                 gid_base + lo, **kw)
+        return pend
+
+    it = run_supersteps(step, pending, bound, mesh, axis_name)
     if stats is not None:
         stats["supersteps"] = stats.get("supersteps", 0) + it
     unfinished = ((carry[ALIVE] != 0) & (carry[T] < walk_length)).sum()
@@ -778,8 +822,8 @@ def edge_partitioned_blocked_walk_plain(
     walk_length: int, return_param: float, inout_param: float, max_trials: int = 64,
     capacity: int = 0, slack: int = 4, axis_name: str = "data", stats: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``edge_partitioned_blocked_walk`` through the four plain versions, on
-    the tensors' device."""
+    """``edge_partitioned_blocked_walk`` through the plain versions, on the
+    tensors' device."""
     return _walk(_Plain, mesh, graph, starts, gid_base, seed, walk_length=walk_length,
                  return_param=float(return_param), inout_param=float(inout_param),
                  max_trials=max_trials, capacity=capacity, slack=slack, axis_name=axis_name,
