@@ -42,9 +42,14 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
      RMAT on the 1 x 1 mesh's one shard, 131,072 walkers x 20 at (0.25, 4)):
      every superstep holds each kernel to its plain version, bit-equal,
      at the full capacity and at 1/8 of it (lanes defer; slack 16), and
-     both walks equal K5's on the same walkers; then the RMAT with general
-     weights drawn from a seed, the walk through the mesh equal to K5's
-     (``check_ep_walk``);
+     both walks equal K5's on the same walkers; K21's call at every
+     superstep of the full capacity timed by CUDA events, summed over the
+     chunk; then the RMAT with general weights drawn from a seed, the walk
+     through the mesh equal to K5's (``check_ep_walk``); K21's edge cases
+     on the scale-13 RMAT in two shards at three table widths (a warp's
+     four requests heavy, one heavy among three light, every slot empty,
+     empties in the middle of a source's block, mixed buffers;
+     ``edge_cases_ep_propose``);
    - K24 epd_bucket, K25 epd_serve and K26 epd_advance (the dense
      graph-sharded walk's superstep) at main_path_epd's first chunk (the
      dense graph's packed adjacency, P = 64, on the 1 x 1 mesh's one shard,
@@ -273,8 +278,9 @@ versions on main_path_sgd's batch (2,570 walks of its first chunk,
 shuffled) and at B = 8192 (sums to rtol 1e-4 of their largest entry,
 heads and counts exactly, the slot map back to empty); edge cases add dead
 lanes with 20% of the vertices out of the vocabulary, all-dead walks, a
-one-vertex batch and a 48-vertex batch whose repeated negatives are all
-heads.  They hold K12 csr_walk bit-equal to its plain version on the
+one-vertex batch (at D = 128 and 100), a 48-vertex batch whose repeated
+negatives are all heads, D = 100, 600 and 50 (K11's scalar rows), and K11
+on gradients 4 bytes off 16-byte alignment.  They hold K12 csr_walk bit-equal to its plain version on the
 dense graph and the RMAT (131,072 walkers x 20) at (p, q) = (0.25, 4),
 (1, 1) and (1, 5) (K = 2 by Python's half-even rounding), with the
 ``csr_build`` line (registers, spills, one lane a walker, the grid against
@@ -2630,17 +2636,21 @@ def edge_cases_preagg() -> None:
     dead = rng.integers(0, 4096, (256, 21)).astype(np.int32)
     dead[np.arange(21)[None, :] >= rng.integers(1, 22, 256)[:, None]] = -1
     small = rng.integers(0, 48, (96, 21)).astype(np.int32)
-    cases = (("dead_lanes_oov", 4096, dead, 0.2),
-             ("all_dead", 4096, np.full((64, 21), -1, np.int32), 0.0),
-             ("one_vertex", 4096, np.full((64, 21), 7, np.int32), 0.0),
-             ("negatives_are_heads", 48, small, 0.0))
-    for case, n_v, walks_np, oov in cases:
-        inp = _preagg_inputs(n_v, walks_np, 128, 5, seed=15, oov=oov)
+    cases = (("dead_lanes_oov", 4096, dead, 0.2, 128),
+             ("all_dead", 4096, np.full((64, 21), -1, np.int32), 0.0, 128),
+             ("one_vertex", 4096, np.full((64, 21), 7, np.int32), 0.0, 128),
+             ("negatives_are_heads", 48, small, 0.0, 128),
+             ("D = 100 (25 float4s a row)", 4096, dead, 0.2, 100),
+             ("D = 600 (5 float4s a lane)", 4096, dead, 0.0, 600),
+             ("D = 50 (scalar rows)", 4096, dead, 0.2, 50),
+             ("one_vertex, D = 100", 4096, np.full((64, 21), 7, np.int32), 0.0, 100))
+    for case, n_v, walks_np, oov, dim in cases:
+        inp = _preagg_inputs(n_v, walks_np, dim, 5, seed=15, oov=oov)
         v = _verify_preagg(inp, case)
         heads, cnt = v["want"][2], v["want"][3]
         neg = inp["neg"]
         emit({"phase": "edge_case", "kernel": "preagg_rows + sgd_apply + K3/K4 (preaggregated)",
-              "case": case, "B": walks_np.shape[0], "V": n_v, "oov_share": oov,
+              "case": case, "B": walks_np.shape[0], "V": n_v, "D": dim, "oov_share": oov,
               "heads": int((heads >= 0).sum()), "counted_rows": int(cnt.sum()),
               "distinct_negatives": int(torch.unique(neg).numel()),
               "negatives_among_heads": int(torch.isin(neg, heads).sum()),
@@ -2649,6 +2659,25 @@ def edge_cases_preagg() -> None:
         if case == "negatives_are_heads":
             require(bool(torch.isin(neg, heads).all()) and torch.unique(neg).numel() < 64,
                     f"{case}: the negatives do not repeat or are not all heads")
+    # gradients 4 bytes off 16-byte alignment: K11 takes its scalar rows
+    inp = _preagg_inputs(4096, dead, 128, 5, seed=16)
+    flat = inp["walks"].reshape(-1)
+    n = flat.numel()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    buf = torch.randn((2, n * 128 + 1), generator=gen, device="cuda")
+    g_in, g_out = (b[1:].view(n, 128) for b in buf)
+    slot = sg.new_slot_map(4096, flat.device)
+    got = sg.preagg_rows(flat, g_in, g_out, slot)
+    want = sg.preagg_rows_plain(flat, g_in, g_out)
+    torch.cuda.synchronize()
+    case = "gradients 4 bytes off alignment"
+    require(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
+            f"preagg_rows heads or counts ({case}) differ")
+    require(bool((slot == sg.SLOT_EMPTY).all()), f"preagg_rows ({case}) left the slot map dirty")
+    err = max(_close_to_largest(f"preagg_rows[{k}] ({case})", a, b)
+              for k, a, b in (("ga_in", got[0], want[0]), ("ga_out", got[1], want[1])))
+    emit({"phase": "edge_case", "kernel": "preagg_rows", "case": case, "rows": n, "D": 128,
+          "heads": int((got[2] >= 0).sum()), "max_abs_err": err, "rtol": RTOL})
 
 
 CSR_SETTINGS = ((0.25, 4.0), (1.0, 1.0), (1.0, 5.0))  # (1, 5): K = 2 by half-even rounding
@@ -5115,6 +5144,7 @@ class _CheckedOps:
         self.diff: dict = {}
         self.timing = None
         self.seen: dict = {}
+        self.propose_spans = None  # a list: K21's (start, end) events at each superstep
 
     def _check(self, name, got, want, kernel, plain, before=None) -> None:
         err = max(_max_diff(g, w) for g, w in zip(got, want))
@@ -5144,7 +5174,15 @@ class _CheckedOps:
         def plain():
             return ep.ep_propose_plain(recv, *tables, **kw)
 
-        got = kernel()
+        if self.propose_spans is not None:  # events around the call, a spin ahead of them
+            torch.cuda._sleep(1_000_000)
+            span = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            span[0].record()
+            got = kernel()
+            span[1].record()
+            self.propose_spans.append(span)
+        else:
+            got = kernel()
         st = self.seen["propose"] = {}
         want = ep.ep_propose_plain(recv, *tables, stats=st if self.timing is not None else None,
                                    **kw)
@@ -5324,6 +5362,85 @@ def edge_cases_ep_advance(quick: bool) -> None:
             require(line["next_sent"] < line["pending"], f"{case}: no lane deferred")
 
 
+def _propose_requests(graph, rows_per_shard: int, shard: int, p_l: int, kinds: str,
+                      rng) -> torch.Tensor:
+    """Proposal requests [len(kinds), 7] to ``shard``, one a letter: H a
+    heavy vertex (degree > P), L a light one, E an empty slot (-1 in every
+    field); a quarter first-order (t = 0); w_back and back_pfx dyadic, the
+    prev-shared bit random, the uniforms drawn."""
+    deg = np.diff(graph.indptr)
+    lo, hi = shard * rows_per_shard, min((shard + 1) * rows_per_shard, len(deg))
+    verts = np.arange(lo, hi)
+    pools = {"H": verts[deg[verts] > p_l], "L": verts[deg[verts] <= p_l]}
+    n = len(kinds)
+    recv = np.full((n, ep.PROPOSE_FIELDS), -1, np.int32)
+    for k, pool in pools.items():
+        at = np.array([i for i, ch in enumerate(kinds) if ch == k], np.int64)
+        if not len(at):
+            continue
+        recv[at, 0] = rng.choice(pool, len(at))
+        recv[at, 1] = rng.integers(-1, len(deg), len(at))
+        wb = rng.choice(np.array([0.5, 1.0, 2.0], np.float32), len(at)).view(np.int32)
+        recv[at, 2] = wb | np.where(rng.random(len(at)) < 0.5, np.int32(-2 ** 31), np.int32(0))
+        recv[at, 3] = (0.5 * rng.integers(0, 6, len(at))).astype(np.float32).view(np.int32)
+        recv[at, 4] = rng.random(len(at)).astype(np.float32).view(np.int32)
+        recv[at, 5] = rng.random(len(at)).astype(np.float32).view(np.int32)
+        recv[at, 6] = np.where(rng.random(len(at)) < 0.25, 0, rng.integers(1, 20, len(at)))
+    return torch.from_numpy(recv).cuda()
+
+
+def edge_cases_ep_propose() -> None:
+    """K21 against ``ep_propose_plain`` on request buffers made from a seed
+    over the scale-13 RMAT in two shards (shard 1's rows start past 0),
+    packed at three widths: P = 31 with the default C (256: heavy blocks
+    staged in shared memory), P = 16 with C = 64 (staged, two int4s a lane)
+    and P = 24 with C = 512 (blocks read from global memory).  Cases: every
+    request of a warp heavy; one heavy among three light; every slot empty;
+    empty slots in the middle of a source's block; a mixed buffer with
+    first-order requests in modes 0, 1 and 2.  Bit-equal, the -1 rows of the
+    empty slots included."""
+    _, _, g = rmat_graph(13)
+    rng = np.random.default_rng(23)
+    max_deg = int(np.diff(g.indptr).max())
+    small_c = 64 if max_deg <= blocked._max_blocks(16) * 64 else 128
+    cases = (("every request of a warp heavy", "HHHH" * 256, (0.25, 4.0)),
+             ("one heavy among three light", ("HLLL" + "LHLL" + "LLHL" + "LLLH") * 64,
+              (0.25, 1.0)),
+             ("every slot empty", "E" * 1024, (0.25, 4.0)),
+             ("empties in the middle of a source's block",
+              "HLHL" * 64 + "EEEE" * 16 + "HLEH" * 32 + "EELL" * 16 + "E" * 128, (1.0, 1.0)),
+             ("mixed, mode 2", "".join(rng.choice(list("HHHLE"), 1000)), (0.25, 4.0)),
+             ("mixed, mode 0", "".join(rng.choice(list("HHHLE"), 1000)), (1.0, 1.0)))
+    for p_l, c in ((None, None), (16, small_c), (24, 512)):
+        pg = ep.partition_blocked_graph(g.indptr, g.indices, g.weights, 2, light_width=p_l,
+                                        block_width=c)
+        for shard in (0, 1):
+            tables = [t.cuda() for t in ep.local_tables(pg, shard)]
+            own = dict(my_shard=shard, rows_per_shard=pg.rows_per_shard,
+                       light_width=pg.light_width, block_width=pg.block_width)
+            for case, kinds, (p, q) in cases if shard == 1 else cases[:1]:
+                recv = _propose_requests(g, pg.rows_per_shard, shard, pg.light_width, kinds, rng)
+                got = ep.ep_propose(recv, tables[0], tables[1], tables[3], return_param=p,
+                                    inout_param=q, **own)
+                want = ep.ep_propose_plain(recv, tables[0], tables[1], tables[3],
+                                           return_param=p, inout_param=q, **own)
+                torch.cuda.synchronize()
+                equal = bool(torch.equal(got, want))
+                lv = (recv[:, 0].long() - shard * pg.rows_per_shard).clamp(
+                    0, tables[0].shape[0] - 1)
+                valid = recv[:, 0] >= 0
+                emit({"phase": "edge_case", "kernel": "ep_propose", "case": case,
+                      "light_width": pg.light_width, "block_width": pg.block_width,
+                      "shard": shard, "p": p, "q": q, "slots": len(kinds),
+                      "valid": int(valid.sum()),
+                      "heavy": int((valid & (tables[0][lv, 0] < -1)).sum()),
+                      "first_order": int((valid & (recv[:, 6] == 0)).sum()),
+                      "staged": pg.block_width <= 256, "bit_equal": equal})
+                require(equal, f"ep_propose differs from its plain version: {case}, "
+                               f"P = {pg.light_width}, C = {pg.block_width}")
+        del pg
+
+
 def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) -> None:
     """K20, K21, K22 and the fused launch (K23 and the next superstep's K20
     phase A, held to ``ep_advance_plain`` then ``ep_bucket_plain``) against
@@ -5356,6 +5473,7 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
                                               **walk_kw)
     edge_cases_ep_bucket(n_walkers < 131072)
     edge_cases_ep_advance(n_walkers < 131072)
+    edge_cases_ep_propose()
     for cap, slack in ((n_walkers, 4), (n_walkers // 8, 16)):
         bound = ep.max_supersteps(walk_length, EP_PQ[1], slack)
         late = None  # the first superstep at full capacity with under 10% of lanes active
@@ -5364,6 +5482,8 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
         paths[:, 0] = starts
         n_fb = torch.zeros(1, dtype=torch.int32, device=dev)
         ops = _CheckedOps()
+        if cap == n_walkers:
+            ops.propose_spans = []
         diff = ops.diff
         timing = None
         deferred = int((starts >= 0).sum()) - min(cap, n_walkers)
@@ -5423,6 +5543,12 @@ def check_ep_walk(mesh, graph, n_walkers: int, walk_length: int, results: dict) 
             line["second_superstep"] = timing
         if late is not None:
             line["late_superstep"] = late
+        if ops.propose_spans is not None:
+            line["ep_propose_summed_over_the_chunk"] = {
+                "ms": sum(a.elapsed_time(b) for a, b in ops.propose_spans),
+                "supersteps": len(ops.propose_spans),
+                "second_superstep_ms": timing["ep_propose"]["ms"] if timing else None,
+                "late_superstep_ms": late["ep_propose"]["ms"] if late else None}
         emit(line)
         require(line["bit_equal"],
                 f"the ep kernels differ from their plain versions at capacity {cap}: {diff}")

@@ -42,11 +42,18 @@
 // K21, K22: an 8-lane group a request, four a warp, as K5 groups its
 // walkers: the requested row staged in shared memory and sampled by
 // blocked_common.cuh's device functions, the ones K5 calls (a heavy block
-// and a bids row read from global memory in the lane order K5 stages them
-// in): the same float operations in the same order, so the proposals equal
-// K5's bit for bit on the same tables and draws.  An empty
-// slot (cur < 0) is skipped at once: the buffers hold the full capacity and
-// late supersteps are mostly empty.
+// and a bids row in the lane order K5 stages them in): the same float
+// operations in the same order, so the proposals equal K5's bit for bit on
+// the same tables and draws.  An empty slot (cur < 0) is skipped at once:
+// the buffers hold the full capacity and late supersteps are mostly empty.
+// K21 stages a heavy block too (C <= 256): its weights are copied over the
+// group's light row by coalesced 16-byte cp.async, swizzled so that lane r
+// reads its own run of columns on its own bank quad, and scanned there.  Read
+// from global memory a run a lane (past 256 columns), every 16-byte load of a
+// warp touches 32 lines, three times over (the lane sums, the count below,
+// the prefix), and the L1 serialises them: 54% of a warp's cycles at the main
+// path's second superstep, where 87% of the requests are heavy
+// (experiments/propose_preagg_attribution.py).
 //
 // Bound on an H100: bytes, per superstep.  K20 reads the carried state (and
 // phase B the responses by slot) and writes the requests and slots; K21
@@ -324,17 +331,58 @@ __global__ void __launch_bounds__(kTile, 1) ep_bucket_kernel(const BucketArgs a)
   n2v::grid_fill<kTile>(a.send, F, S, a.capacity, tot, ends, -1);
 }
 
+// K21's staged heavy blocks (C <= kStageCols): a group's shared buffer holds
+// its light row, then its heavy block's C weights, lane r's k4 = C / 32 int4s
+// at r * k4 + (m ^ swz(r)): copied by coalesced 16-byte cp.async (the
+// group's 8 lanes a 128-byte run of the block), and read by lane r in its
+// column order with the eight lanes of a group on eight different bank
+// quads (k4 = 8: conflict-free).  The block's scans read shared memory, so
+// the block leaves the L2 once a request, in C / 128 coalesced trips.
+constexpr int kStageCols = 256;
+
+__device__ __forceinline__ int swz(int r, int k4) {
+  return (k4 & (k4 - 1)) == 0 ? (r & (k4 - 1)) : 0;  // a bijection of 0 .. k4 - 1
+}
+
+struct StagedCols {
+  const int4* buf;
+  int r, k4;
+  __device__ __forceinline__ int4 operator()(int m) const {
+    return buf[r * k4 + (m ^ swz(r, k4))];
+  }
+};
+
+// Start copying a block's C weights into a group's buffer (StagedCols'
+// layout); complete with copies_wait.
+__device__ __forceinline__ void block_issue(int32_t* buf, const int32_t* w_row, int gl, int k4,
+                                            bool on) {
+  if (!on) return;
+  for (int i = gl; i < n2v::kGroup * k4; i += n2v::kGroup) {
+    const int r = i / k4, m = i - r * k4;
+    n2v::cp_async16(buf + 4 * (r * k4 + (m ^ swz(r, k4))), w_row + 4 * i);
+  }
+}
+
+// The staged weight of column j.
+__device__ __forceinline__ int32_t staged_at(const int32_t* buf, int j, int k4) {
+  const int i = j >> 2, r = i / k4, m = i - r * k4;
+  return buf[4 * (r * k4 + (m ^ swz(r, k4))) + (j & 3)];
+}
+
 // mode: 0 = p = q = 1 (target u_prop * wtot, no return branch), else the
 // return branch m1 / (m1 + m2) and the prev-excluded target.  An 8-lane
 // group a request, four a warp; every group runs every phase (blocked_common.cuh),
-// a group without a request masked by `on`.
+// a group without a request masked by `on`.  kStaged: the heavy block is
+// scanned in shared memory (C <= kStageCols), else read from global memory
+// by each lane's run of int4s.
+template <bool kStaged>
 __global__ void __launch_bounds__(kReqWarps * 32)
 ep_propose_kernel(const int32_t* __restrict__ recv, int64_t n_req,
                   const int32_t* __restrict__ light, int64_t n_rows,
                   const int32_t* __restrict__ biw, const int32_t* __restrict__ brp,
                   int32_t* __restrict__ resp, int64_t row_base, float inv_p, float inv_q,
                   float alpha_hi, int mode, int p_l, int c) {
-  __shared__ __align__(16) int32_t rows[kReqs][n2v::kLightRow];
+  __shared__ __align__(16) int32_t rows[kReqs][kStaged ? kStageCols : n2v::kLightRow];
   const int gl = threadIdx.x & (n2v::kGroup - 1);  // lane within the request's group
   const int g = threadIdx.x / n2v::kGroup;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kReqs + g;
@@ -395,16 +443,27 @@ ep_propose_kernel(const int32_t* __restrict__ recv, int64_t n_req,
     const int32_t* ids_row = biw + (hv ? brow : 0) * 2 * c;
     const int32_t* w_row = ids_row + c;
     const int k4 = c / (4 * n2v::kGroup);
-    const n2v::GlobalCols cols = n2v::global_cols(w_row, k4, gl);
-    float excl;
-    const int below = n2v::block_below(cols, k4, resid, gl, hv, &excl);
     const int nvalid = min(c, degree - blk * c);
-    const int slot = min(below, max(nvalid - 1, 0));
-    const float pc = n2v::block_prefix_before(cols, k4, excl, slot, gl, hv);
+    float excl, pc;
+    int slot;
+    if (kStaged) {
+      __syncwarp();  // the group's reads of its light row are done: its buffer takes the block
+      block_issue(row, w_row, gl, k4, hv);
+      n2v::copies_wait();
+      const StagedCols cols{reinterpret_cast<const int4*>(row), gl, k4};
+      const int below = n2v::block_below(cols, k4, resid, gl, hv, &excl);
+      slot = min(below, max(nvalid - 1, 0));
+      pc = n2v::block_prefix_before(cols, k4, excl, slot, gl, hv);
+    } else {
+      const n2v::GlobalCols cols = n2v::global_cols(w_row, k4, gl);
+      const int below = n2v::block_below(cols, k4, resid, gl, hv, &excl);
+      slot = min(below, max(nvalid - 1, 0));
+      pc = n2v::block_prefix_before(cols, k4, excl, slot, gl, hv);
+    }
     if (hv) {
       ppfx = __fadd_rn(base, pc);
       cand = __ldg(ids_row + slot);
-      wbits = __ldg(w_row + slot);
+      wbits = kStaged ? staged_at(row, slot, k4) : __ldg(w_row + slot);
       const int2 pair = n2v::brp_pair(brp, brow * c + slot);
       rev = pair.x;
       pfx = pair.y;
@@ -566,8 +625,9 @@ extern "C" int n2v_ep_propose(const int32_t* recv, int64_t n_req, const int32_t*
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_req == 0) return 0;
   const int64_t blocks = (n_req + kReqs - 1) / kReqs;
-  ep_propose_kernel<<<static_cast<unsigned>(blocks), kReqWarps * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = block_width <= kStageCols ? ep_propose_kernel<true>
+                                                : ep_propose_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), kReqWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       recv, n_req, light, n_rows, biw, brp, resp, row_base, inv_p, inv_q, alpha_hi, mode,
       light_width, block_width);
   return static_cast<int>(cudaGetLastError());

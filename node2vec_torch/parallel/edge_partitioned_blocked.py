@@ -574,7 +574,8 @@ def ep_bucket(carry, seed: int, gid_base: int, *, n_shards: int, capacity: int,
 
 def ep_propose(recv, light, biw, brp, *, my_shard: int, rows_per_shard: int,
                light_width: int, block_width: int, return_param: float, inout_param: float):
-    """K21: ``ep_propose_plain``'s responses, one warp a request."""
+    """K21: ``ep_propose_plain``'s responses, an 8-lane group a request, a heavy
+    block scanned in shared memory (block_width <= 256)."""
     kw = dict(my_shard=my_shard, rows_per_shard=rows_per_shard, light_width=light_width,
               block_width=block_width)
     if not recv.is_cuda:
