@@ -2030,6 +2030,74 @@ def edge_cases_k3() -> None:
                   _close(f"adagrad_accumulate_squares[{kind}, acc_out]", got[1], want[1]))
         emit({"phase": "edge_case", "kernel": "adagrad_accumulate_squares", "case": kind,
               "D": dim, "rows": [n_in, n_out, n_x], "max_abs_err": err})
+    edge_cases_k3_squares(rng, n_acc)
+
+
+# adagrad.cu: acc_out rows below kSqHot are summed in a block's shared array
+SQ_HOT = 8192
+
+
+def edge_cases_k3_squares(rng, n_acc: int) -> None:
+    """K3's squares mode against its plain version (rtol 1e-4, atol 1e-6)
+    where ``edge_cases_k3``'s shared cases do not reach: each list alone
+    (the others empty), the same ids in both accumulators, ids at the hot
+    rows' bound (SQ_HOT - 8 .. SQ_HOT + 7, each 2,000 times, in both
+    accumulators: only acc_out's below the bound go through a block's
+    array), a CBOW-HS-like tail (BFS levels 8-16
+    of a tree, ids repeated 2 to 210 times, 10% dead) over 600,000 entries
+    (147 blocks), and lists whose ids and squares lie 4 bytes off a 16-byte
+    boundary (the 4-byte path).  Ids exact and no entry dropped: squares of
+    quarters into accumulators of quarters sum exactly in fp32, so there the
+    kernel must equal the plain version bit for bit."""
+    dev = torch.device("cuda")
+
+    def t(a, offset=False):
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if not offset:
+            return x
+        pad = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        pad[1:] = x
+        return pad[1:]  # 4 bytes past the allocation's 16-byte base
+
+    def quarters(n):
+        return (rng.integers(1, 64, n) / 4).astype(np.float32)
+
+    def tail_ids(n):
+        lvl = 8 + np.arange(n) % 9
+        ids = ((1 << lvl) - 1 + rng.integers(0, 1 << 30, n) % (1 << lvl)).astype(np.int64)
+        ids[rng.random(n) < 0.1] = -1
+        return ids.astype(np.int32)
+
+    edge = np.tile(np.arange(SQ_HOT - 8, SQ_HOT + 8), 2000)
+    cases = {
+        "in_alone": (rng.integers(-1, 50_000, 30_000), [], []),
+        "out_alone": ([], rng.integers(-1, 50_000, 30_000), []),
+        "extra_alone": ([], [], rng.integers(-1, 50_000, 30_000)),
+        "same_ids_both_accumulators": (np.arange(40_000) % 777, np.arange(40_000) % 777, []),
+        "hot_bound": (edge, edge[::-1], edge[:999]),
+        "cbow_hs_tail": (rng.integers(0, 131_072, 54_000), tail_ids(540_000), np.arange(255)),
+        "offset_4_bytes": (rng.integers(-1, 50_000, 30_001), rng.integers(-1, 5_000, 90_003),
+                           rng.integers(0, 64, 63)),
+    }
+    for kind, ids in cases.items():
+        offset = kind == "offset_4_bytes"
+        lists = []
+        for r in ids:
+            r = np.asarray(r, dtype=np.int32)
+            lists += [t(quarters(len(r)), offset), t(r, offset)]
+        acc = [t((rng.integers(0, 64, n_acc) / 4).astype(np.float32)) for _ in range(2)]
+        got = [a.clone() for a in acc]
+        want = [a.clone() for a in acc]
+        sg.adagrad_accumulate_squares(*got, *lists, 1)
+        sg.adagrad_accumulate_squares_plain(*want, *lists, 1)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(_close(f"adagrad_accumulate_squares[{kind}, acc_in]", got[0], want[0]),
+                  _close(f"adagrad_accumulate_squares[{kind}, acc_out]", got[1], want[1]))
+        require(exact, f"adagrad_accumulate_squares[{kind}] differs from an exact sum: {err}")
+        emit({"phase": "edge_case", "kernel": "adagrad_accumulate_squares", "case": kind,
+              "rows": [len(r) for r in ids], "offset_4_bytes": offset, "exact": exact,
+              "max_abs_err": err})
 
 
 # --------------------------------------------------------------------------- #
@@ -5732,7 +5800,14 @@ class _EpdCheckedOps(_CheckedOps):
     and its plain version on the same inputs, keeps the largest difference
     of their whole buffers in ``diff`` and returns the kernel's result;
     while ``timing`` is a dict, each is also timed, and ``seen`` keeps
-    what the bounds count."""
+    what the bounds count.  ``scans`` counts the requests K25 served by the
+    whole scan of an unsorted N(prev), ``unsorted`` those
+    ``epd.unsorted_requests`` finds."""
+
+    def __init__(self):
+        super().__init__()
+        self.scans = torch.zeros(1, dtype=torch.int32, device="cuda")
+        self.unsorted = 0
 
     def bucket(self, carry, prev_rows, u, **kw):
         def kernel():
@@ -5753,7 +5828,9 @@ class _EpdCheckedOps(_CheckedOps):
         def plain():
             return epd.epd_serve_plain(recv, local_adj, **kw)
 
-        got = kernel()
+        got = epd.epd_serve(recv, local_adj, scans=self.scans, **kw)
+        self.unsorted += epd.unsorted_requests(
+            recv, local_adj.shape[1] // 2, kw["return_param"] == 1.0 and kw["inout_param"] == 1.0)
         self._check("epd_serve", (got,), (plain(),), kernel, plain)
         return got
 
@@ -5849,6 +5926,7 @@ def check_ep_dense(mesh, graph, n_walkers: int, walk_length: int, results: dict)
                 "unfinished": unfinished,
                 "bit_equal_through_mesh": bool(torch.equal(via_mesh, paths))
                 and st["unfinished"] == unfinished,
+                "epd_serve_scans": int(ops.scans), "unsorted_requests": ops.unsorted,
                 "partition_s": part_s, "shard_bytes": int(local.numel() * 4)}
         if timing is not None:
             line["second_superstep"] = timing
@@ -5856,6 +5934,8 @@ def check_ep_dense(mesh, graph, n_walkers: int, walk_length: int, results: dict)
         require(line["bit_equal"], f"K24-K26 differ from their plain versions at capacity {cap}: "
                                    f"{diff}")
         require(line["bit_equal_through_mesh"], f"the dense ep walk through the mesh differs ({cap})")
+        require(line["epd_serve_scans"] == ops.unsorted,
+                f"K25 scanned {line['epd_serve_scans']} requests, {ops.unsorted} unsorted")
         if cap < n_walkers:
             require(t == bound and unfinished > 0, "the small capacity left no walker unfinished")
         else:
@@ -5908,6 +5988,85 @@ def edge_cases_wide_rows(mesh) -> None:
         line[f"steps_at_p{p}_q{q}"] = int((got[:, 1:] >= 0).sum())
     line["bit_equal"] = True
     emit(line)
+
+
+def _serve_requests(rng, adj: np.ndarray, n_req: int, kind: str) -> np.ndarray:
+    """K25's requests at one shard of ``adj`` (sorted rows): cur a vertex,
+    prev one of its in-neighbours, N(prev) prev's row ids, u dyadic; one
+    slot in 5 empty.  ``kind``: "sorted" (as the walk sends them),
+    "unsorted" (each N(prev) shuffled, pads and all, as an unsorted
+    adjacency would carry it), "duplicates" (N(prev) sorted with every id
+    twice over its first half), "first_order" (prev -1) or "all_empty"."""
+    n, p2 = adj.shape
+    p_cols = p2 // 2
+    recv = np.full((n_req, 3 + p_cols), -1, np.int32)
+    if kind == "all_empty":
+        return recv
+    live = np.arange(n_req) % 5 != 3
+    prev = rng.integers(0, n, n_req).astype(np.int32)
+    row = adj[prev, :p_cols]
+    deg = (row != int(dense.PAD_ID)).sum(1)
+    pick = np.minimum((rng.random(n_req) * np.maximum(deg, 1)).astype(np.int64), p_cols - 1)
+    cur = np.where(deg > 0, row[np.arange(n_req), pick], rng.integers(0, n, n_req)) % n
+    nprev = row.copy()
+    if kind == "unsorted":
+        nprev = rng.permuted(nprev, axis=1)
+    elif kind == "duplicates":
+        half = p_cols // 2
+        nprev[:, :2 * (half // 2)] = np.sort(np.repeat(nprev[:, :half // 2], 2, axis=1), axis=1)
+        nprev.sort(axis=1)
+    recv[live, 0] = cur[live]
+    recv[live, 1] = -1 if kind == "first_order" else prev[live]
+    recv[live, 2] = (rng.integers(0, 1024, int(live.sum())) / 1024.0).astype(np.float32).view(
+        np.int32)
+    recv[live, 3:] = nprev[live]
+    return recv
+
+
+def edge_cases_epd_serve() -> None:
+    """K25 against its plain version where ``check_ep_dense`` does not go:
+    P = 8, 48 and 256 (a random directed graph of 2,000 vertices, up to P
+    neighbours a row, some sinks, weights {0.5, 1, 2}, packed at the next
+    power of two and cut to 48 columns for P = 48), 20,000 requests a case,
+    so every warp of the persistent grid serves several: N(prev) sorted,
+    unsorted (K25 scans it whole, and its ``scans`` counter must equal
+    ``unsorted_requests``), sorted with repeated ids, first-order requests,
+    and every slot empty; at (0.25, 4) and (1, 1); whole buffers
+    bit-equal."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    n = 2000
+    for p_cols in (8, 48, 256):
+        top = min(p_cols, 200)
+        deg = rng.integers(1, top + 1, n)
+        deg[::17] = 0  # sinks
+        src = np.repeat(np.arange(n), deg).astype(np.int32)
+        dst = rng.integers(0, n, len(src)).astype(np.int32)
+        w = rng.choice(np.float32([0.5, 1.0, 2.0]), len(src))
+        g = from_edge_arrays(src, dst, w, n_vertices=n, directed=True)
+        packed = dense.build_padded_adjacency(g.indptr, g.indices, g.weights)
+        width = packed.shape[1] // 2
+        if width != p_cols:
+            packed = np.ascontiguousarray(np.concatenate(
+                [packed[:, :p_cols], packed[:, width:width + p_cols]], 1))
+        adj = torch.from_numpy(packed).to(dev)
+        line = {"phase": "edge_case", "kernel": "epd_serve", "P": p_cols, "requests": 20000,
+                "max_degree": int(np.diff(g.indptr).max())}
+        for kind in ("sorted", "unsorted", "duplicates", "first_order", "all_empty"):
+            recv = torch.from_numpy(_serve_requests(rng, packed, 20000, kind)).to(dev)
+            for p, q in ((0.25, 4.0), (1.0, 1.0)):
+                kw = dict(my_shard=0, rows_per_shard=n, return_param=p, inout_param=q)
+                scans = torch.zeros(1, dtype=torch.int32, device=dev)
+                got = epd.epd_serve(recv, adj, scans=scans, **kw)
+                want = epd.epd_serve_plain(recv, adj, **kw)
+                require(torch.equal(got, want), f"epd_serve differs at P = {p_cols}, {kind}, "
+                                                f"p={p} q={q}: {_max_diff(got, want)}")
+                expect = epd.unsorted_requests(recv, p_cols, p == 1.0 and q == 1.0)
+                require(int(scans) == expect, f"epd_serve scanned {int(scans)} requests, "
+                                              f"{expect} unsorted ({kind}, P = {p_cols})")
+                line[f"{kind}_scans_p{p}_q{q}"] = int(scans)
+        line["bit_equal"] = True
+        emit(line)
 
 
 def main_path_epd(mesh, src, dst) -> dict:
@@ -6638,6 +6797,7 @@ def main() -> int:
         check_ep_walk(mesh, g_rmat, 4096, 20, results)
         check_ep_dense(mesh, g, 4096, 20, results)
         edge_cases_wide_rows(mesh)
+        edge_cases_epd_serve()
         check_col_sgns(mesh, 4096, 64, 21, 128, 5, True, results, "quick")
         check_col_sgns(mesh, 512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
         edge_cases_col_sgns()
@@ -6718,6 +6878,7 @@ def main() -> int:
     check_ep_walk(mesh, g_rmat, 131072, 20, results)
     check_ep_dense(mesh, g, 131072, 20, results)
     edge_cases_wide_rows(mesh)
+    edge_cases_epd_serve()
     check_blocked_walk_sl(g_rmat, "RMAT scale 19", 131072, 20, results)
     check_blocked_walk_sl(g, "dense ER", 131072, 20, results)
     check_wide(g, tree, tree_counts, results)

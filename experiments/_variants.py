@@ -47,11 +47,14 @@ def patched(src: str, pairs) -> str:
     return src
 
 
+REPORTS = {}  # library name -> ptxas's report of its last build
+
+
 def build(srcs: dict, out_dir: str, kernels) -> dict:
     """Each library of ``srcs`` (name -> (CUDA source, extra nvcc flags)),
     built into ``out_dir`` beside a copy of ``staging.cuh``, as a loaded
     ``ctypes.CDLL`` by name.  ``kernels(name)`` is the part of the mangled
-    kernel names whose ptxas report is printed."""
+    kernel names whose ptxas report is printed (and kept in ``REPORTS``)."""
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     import chip_smoke
@@ -73,6 +76,7 @@ def build(srcs: dict, out_dir: str, kernels) -> dict:
         _, err = proc.communicate(timeout=900)
         if proc.returncode != 0:
             raise SystemExit(err)
+        REPORTS[name] = err
         print(json.dumps({"build": name,
                           "ptxas": chip_smoke.ptxas_summary(err, kernels(name))}), flush=True)
         libs[name] = ctypes.CDLL(lib)
@@ -151,7 +155,7 @@ def profile(lib, prefix: str, call, phases, reps: int = 10) -> dict:
     kclk = {p: clk[k] / warps / 1e3 for k, p in enumerate(phases)}
     total = sum(kclk.values())
     return {"warps_a_launch": warps / reps, "kclk_a_warp_a_launch": kclk, "total_kclk": total,
-            "share": {p: v / total for p, v in kclk.items()}}
+            "share": {p: v / total if total else 0.0 for p, v in kclk.items()}}
 
 
 # ---- A/B between source trees ---------------------------------------------

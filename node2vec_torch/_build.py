@@ -185,7 +185,7 @@ def lib() -> ctypes.CDLL:
             "n2v_ep_advance_bucket": [vp, i64, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                       i64, i64, i32, i32, i64, u32, f32, f32, i32, vp],
             "n2v_epd_bucket": [vp, i64, vp, vp, vp, vp, vp, i32, i64, i64, i32, i32, vp],
-            "n2v_epd_serve": [vp, i64, vp, i64, vp, i64, i32, f32, f32, i32, vp],
+            "n2v_epd_serve": [vp, i64, vp, i64, vp, i64, i32, f32, f32, i32, vp, vp],
             "n2v_epd_advance": [vp, i64, vp, vp, vp, vp, i64, i32, i32, vp, vp],
         }
         for name, argtypes in signatures.items():

@@ -29,8 +29,8 @@
 //   acc_in[rows_in]     += sq_in / D
 //   acc_out[rows_out]   += sq_out / D
 //   acc_out[rows_extra] += sq_extra / D
-// with D the full width, one thread a row, rows < 0 skipped (the JAX step
-// multiplies their squares by a zero validity weight).
+// with D the full width, rows < 0 skipped (the JAX step multiplies their
+// squares by a zero validity weight); its design is at its kernel below.
 //
 // They are two launches on purpose: every occurrence's square has to land
 // in the accumulator before any row reads it back, and two lists share
@@ -73,7 +73,7 @@
 // one 16-byte atomic per 4 elements (sm_90's vector atomics), no atomic
 // waiting on its result.  A dead row issues no load and no atomic.  K4
 // reads the accumulators only, so every scale is read before any row is
-// written.  K3's squares mode is one thread a row.
+// written.
 //
 // Bound on an H100: memory — reading the grads once and a read-modify-write
 // of each touched accumulator entry (K3) or table row (K4).
@@ -84,8 +84,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kEps = 1e-12f;
 
@@ -359,16 +357,144 @@ int launch_apply(float* emb_in, float* emb_out, const float* acc_in, const float
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---- K3's squares mode -------------------------------------------------------
+//
+// What held it back was not its bytes but the same-address atomics of the
+// hot accumulator rows: CBOW-HS's tail starts at level 8 of a BFS-numbered
+// Huffman tree, where each of 256 theta rows takes ~210 entries a step
+// (levels 9-12: 105, 53, 26, 13), and the fp32 atomics of one address run
+// one after another at the L2.  So blocks of kSqThreads stride over the
+// lists laid end to end in quads of 4 entries (a quad never crossing a
+// list's end), as many blocks as the card holds, a quad a thread a pass:
+// 16 bytes of ids and of squares a lane where every list's bases are
+// 16-byte aligned, 4 bytes an entry otherwise or where a quad runs past its
+// list's end.  A dead entry (id < 0) is dropped before any atomic.  An
+// acc_out row below kSqHot (BFS levels 0-12) is summed in the block's
+// shared array, flushed once, one global atomic a row the block touched,
+// each block starting at its own offset: a block of 2,048 entries holds a
+// hot row's entries ~1-8 times, and its chain of global atomics shortens by
+// as much.  A pass with fewer than kSqHotMin such entries (a pair list, the
+// row owners' distinct ids) sends them straight out, and a block that never
+// has more zeroes and flushes no array.  Any other row takes its global atomic at once; where two
+// adjacent lanes hold one key in the same slot (a row repeated through a
+// list), the warp first sums equal keys into the lowest lane
+// (__match_any_sync, then log steps), so one row everywhere costs an atomic
+// a warp, not one a lane.  No global atomic waits on its result.
+
+constexpr int kSqThreads = 512;
+constexpr int kSqHot = 8192;              // acc_out rows summed in a block's shared array
+constexpr int kSqHotMin = 256;            // hot entries a pass that put the array to use
+constexpr uint32_t kSqTag = 0x80000000u;  // acc_in's keys; acc_out's are its ids
+
+__device__ __forceinline__ void add_square(float* a, float x) { atomicAdd(a, x); }
+
+// The sum of x over the lanes of ``peers`` (this lane's group of equal
+// keys), in the group's lowest lane; log2(group size) steps.
+__device__ __forceinline__ float peers_sum(unsigned peers, float x, int lane) {
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & (0xFFFFFFFEu << lane);
+  while (__any_sync(kFull, above != 0)) {
+    const int next = __ffs(above);
+    const float t = __shfl_sync(kFull, x, next > 0 ? next - 1 : lane);
+    if (next > 0) x += t;
+    above &= ~__ballot_sync(kFull, rank & 1);
+    rank >>= 1;
+  }
+  return x;
+}
+
+// Quad g of the lists laid end to end: its ids (-1 dead or past its list),
+// squares over D and accumulator tag (kSqTag: acc_in).
+template <bool kVec>
+__device__ __forceinline__ uint32_t load_quad(const RowLists& l, int64_t q0, int64_t q1,
+                                              int64_t q2, float div, int64_t g, int32_t (&v)[4],
+                                              float (&x)[4]) {
+  const float* sq = nullptr;
+  const int32_t* ids = nullptr;
+  int64_t n = 0;
+  uint32_t tag = 0;
+  if (g < q0) {
+    sq = l.g_in; ids = l.rows_in; n = l.n_in; tag = kSqTag;
+  } else if ((g -= q0) < q1) {
+    sq = l.g_out; ids = l.rows_out; n = l.n_out;
+  } else if ((g -= q1) < q2) {
+    sq = l.g_extra; ids = l.rows_extra; n = l.n_extra;
+  }
+  const int64_t e = 4 * g;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = -1;
+  if (ids != nullptr) {
+    if (kVec && e + 4 <= n) {
+      const int4 iv = __ldg(reinterpret_cast<const int4*>(ids + e));
+      const float4 sv = __ldg(reinterpret_cast<const float4*>(sq + e));
+      v[0] = iv.x; v[1] = iv.y; v[2] = iv.z; v[3] = iv.w;
+      s[0] = sv.x; s[1] = sv.y; s[2] = sv.z; s[3] = sv.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (e + i < n) {
+          v[i] = __ldg(ids + e + i);
+          s[i] = __ldg(sq + e + i);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = s[i] / div;
+  return tag;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kSqThreads)
 adagrad_accumulate_squares_kernel(float* __restrict__ acc_in, float* __restrict__ acc_out,
-                                  RowLists l, float div) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const float* sq;
-  int v;
-  bool first;
-  // each list's "gradient row" is one float: locate at width 1
-  if (!locate(l, r, 1, sq, v, first) || v < 0) return;
-  atomicAdd((first ? acc_in : acc_out) + v, *sq / div);
+                                  RowLists l, int64_t q0, int64_t q1, int64_t q2, float div) {
+  __shared__ float hot[kSqHot];  // acc_out rows 0 .. kSqHot - 1 of the block's entries
+  const int lane = threadIdx.x & 31;
+  const int64_t quads = q0 + q1 + q2;
+  bool zeroed = false;  // block-uniform: the array is in use
+  // block-uniform passes: every lane of a warp reaches each shuffle below
+  for (int64_t g0 = static_cast<int64_t>(blockIdx.x) * kSqThreads; g0 < quads;
+       g0 += static_cast<int64_t>(gridDim.x) * kSqThreads) {
+    int32_t v[4];
+    float x[4];
+    const uint32_t tag = load_quad<kVec>(l, q0, q1, q2, div, g0 + threadIdx.x, v, x);
+    int n_hot = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) n_hot += tag == 0 && v[i] >= 0 && v[i] < kSqHot;
+    // the array pays for its zeros and its flush only where the pass holds
+    // enough hot entries (CBOW-HS's tail); elsewhere they go straight out
+    const bool use = __syncthreads_count(n_hot) >= kSqHotMin;
+    if (use && !zeroed) {
+      for (int i = threadIdx.x; i < kSqHot; i += kSqThreads) hot[i] = 0.f;
+      __syncthreads();
+      zeroed = true;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool in_hot = use && tag == 0 && v[i] >= 0 && v[i] < kSqHot;
+      if (in_hot) atomicAdd(hot + v[i], x[i]);
+      const bool cold = v[i] >= 0 && !in_hot;
+      // dead and hot lanes hold keys no row has
+      const uint32_t key = cold ? (static_cast<uint32_t>(v[i]) | tag) : (0xFFFFFFE0u | lane);
+      const uint32_t below = __shfl_up_sync(kFull, key, 1);  // every lane takes part
+      float sum = x[i];
+      bool lead = cold;
+      if (__any_sync(kFull, lane > 0 && below == key)) {
+        const unsigned peers = __match_any_sync(kFull, key);
+        sum = peers_sum(peers, sum, lane);
+        lead = cold && (__ffs(peers) - 1) == lane;
+      }
+      if (lead) add_square((tag ? acc_in : acc_out) + v[i], sum);
+    }
+  }
+  // the global atomics of the hot rows: one a row the block touched
+  if (!zeroed) return;
+  __syncthreads();
+  const int start = static_cast<int>((static_cast<int64_t>(blockIdx.x) * kSqHot / gridDim.x) & ~31);
+  for (int i = threadIdx.x; i < kSqHot; i += kSqThreads) {
+    const int r = (start + i) & (kSqHot - 1);
+    if (hot[r] != 0.f) add_square(acc_out + r, hot[r]);
+  }
 }
 
 RowLists make_lists(const float* g_in, const int32_t* rows_in, int64_t n_in,
@@ -449,10 +575,32 @@ extern "C" int n2v_adagrad_accumulate_squares(float* acc_in, float* acc_out,
                                               int dim, void* stream) {
   const RowLists l = make_lists(sq_in, rows_in, n_in, sq_out, rows_out, n_out, sq_extra,
                                 rows_extra, n_extra);
-  const int64_t n = n_in + n_out + n_extra;
-  if (n == 0) return 0;
-  adagrad_accumulate_squares_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                                      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      acc_in, acc_out, l, static_cast<float>(dim));
+  const int64_t q0 = (n_in + 3) / 4, q1 = (n_out + 3) / 4, q2 = (n_extra + 3) / 4;
+  const int64_t quads = q0 + q1 + q2;
+  if (quads == 0) return 0;
+  const bool vec = aligned16(sq_in, n_in) && aligned16(rows_in, n_in) &&
+                   aligned16(sq_out, n_out) && aligned16(rows_out, n_out) &&
+                   aligned16(sq_extra, n_extra) && aligned16(rows_extra, n_extra);
+  const int64_t need = (quads + kSqThreads - 1) / kSqThreads;
+  auto kernel = vec ? adagrad_accumulate_squares_kernel<true>
+                    : adagrad_accumulate_squares_kernel<false>;
+  // the grid: as many blocks as the card holds at once (cached a device and
+  // form), never more than the lists need
+  static int cached_dev[2] = {-1, -1}, cached_blocks[2] = {0, 0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev != cached_dev[vec]) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSqThreads, 0)) !=
+            cudaSuccess)
+      return static_cast<int>(err);
+    cached_dev[vec] = dev;
+    cached_blocks[vec] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int64_t blocks = need < cached_blocks[vec] ? need : cached_blocks[vec];
+  kernel<<<static_cast<unsigned>(blocks), kSqThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      acc_in, acc_out, l, q0, q1, q2, static_cast<float>(dim));
   return static_cast<int>(cudaGetLastError());
 }

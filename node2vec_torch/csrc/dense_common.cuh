@@ -1,8 +1,8 @@
 // The dense engine's step, shared by K1 (dense_walk.cu, one warp a walker
 // for a whole walk) and the dense graph-sharded walk's owner kernel K25
-// (epd_walk.cu, one warp a request), so that both make the same float
-// operations in the same order: for the same packed row, N(prev), prev and
-// uniform they pick the same neighbour, bit for bit.
+// (epd_walk.cu, a warp a request at a time), so that both make the same
+// float operations in the same order: for the same packed row, N(prev),
+// prev and uniform they pick the same neighbour, bit for bit.
 //
 // Layout: lane l owns the K = ceil(P/32) contiguous columns
 // [l*K, l*K+K) of the [2P] packed row (ids | f32 weight bits).  The row's
@@ -118,6 +118,133 @@ __device__ __forceinline__ int dense_pick(const int32_t (&ids)[kDenseMaxK],
   deg = __reduce_add_sync(kDenseFull, deg);
   // clamp to degree-1: u can land in the ulp gap above cdf[degree-1],
   // where every zero-weight pad column would count
+  return min(below, max(deg - 1, 0));
+}
+
+// ---- K25's step ----------------------------------------------------------------
+//
+// The same float operations in the same order as dense_bias_total and
+// dense_pick, for a lane's k = ceil(P / 32) columns held in arrays of kK >= k
+// (a power of two, so a narrow row keeps few registers), split so that K25 reads its row from
+// shared memory and tests membership in N(prev) by a bisection where N(prev)
+// is sorted (rows built from a CSR are: ascending ids, pads at the tail) and
+// by the whole scan where it is not; both give the same answer, so K25
+// picks what K1 picks.  K1 keeps dense_load_row, dense_bias_total and
+// dense_pick.
+
+// The lane's columns of a row staged in shared memory ([2P]: ids | weight
+// bits), pads beyond P.
+template <int kK>
+__device__ __forceinline__ void dense_row_from_shared(const int32_t* srow, int p_cols, int k,
+                                                      int col0, int32_t (&ids)[kK],
+                                                      float (&bw)[kK]) {
+#pragma unroll
+  for (int m = 0; m < kK; ++m) {
+    const bool on = m < k && col0 + m < p_cols;
+    ids[m] = on ? srow[col0 + m] : kDensePad;
+    bw[m] = on ? __int_as_float(srow[p_cols + col0 + m]) : 0.f;
+  }
+}
+
+// Is N(prev) (P ids in shared memory) non-decreasing?  One ballot over its
+// adjacent pairs.
+__device__ __forceinline__ bool dense_nprev_sorted(const int32_t* nprev, int p_cols, int lane) {
+  bool bad = false;
+  for (int c = lane; c + 1 < p_cols; c += 32) bad |= nprev[c] > nprev[c + 1];
+  return !__any_sync(kDenseFull, bad);
+}
+
+// Each of the lane's ids in a sorted N(prev): lower bounds by steps of top,
+// top / 2, ..., 1 (top the largest power of two <= P), the kK searches in
+// lockstep so their loads overlap, then one compare each; log2(P) + 1 loads
+// a column.
+template <int kK>
+__device__ __forceinline__ void dense_members_sorted(const int32_t* nprev, int p_cols, int top,
+                                                     const int32_t (&ids)[kK],
+                                                     bool (&found)[kK]) {
+  int pos[kK];  // the entries below ids[m] found so far
+#pragma unroll
+  for (int m = 0; m < kK; ++m) pos[m] = 0;
+  for (int step = top; step > 0; step >>= 1) {
+#pragma unroll
+    for (int m = 0; m < kK; ++m) {
+      const int s = pos[m] + step;
+      if (s <= p_cols && nprev[s - 1] < ids[m]) pos[m] = s;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kK; ++m) found[m] = pos[m] < p_cols && nprev[pos[m]] == ids[m];
+}
+
+// The same answers for any N(prev): the whole scan, as dense_bias_total
+// makes it.
+template <int kK>
+__device__ __forceinline__ void dense_members_scan(const int32_t* nprev, int p_cols,
+                                                   const int32_t (&ids)[kK], bool (&found)[kK]) {
+#pragma unroll
+  for (int m = 0; m < kK; ++m) found[m] = false;
+  for (int j = 0; j < p_cols; ++j) {
+    const int32_t v = nprev[j];
+#pragma unroll
+    for (int m = 0; m < kK; ++m) found[m] |= v == ids[m];
+  }
+}
+
+// dense_bias_total's bias, in place on ``bw``; call only at second order
+// with p, q not both 1.
+template <int kK>
+__device__ __forceinline__ void dense_bias(const int32_t (&ids)[kK], float (&bw)[kK],
+                                           const bool (&found)[kK], int32_t prev, int p_cols,
+                                           int k, int col0, float inv_p, float inv_q) {
+#pragma unroll
+  for (int m = 0; m < kK; ++m) {
+    if (m < k && col0 + m < p_cols) {
+      const float bias = ids[m] == prev ? inv_p : (found[m] ? 1.f : inv_q);
+      bw[m] = __fmul_rn(bw[m], bias);
+    }
+  }
+}
+
+// dense_bias_total's sums: the lane's own (``lane_sum``) and the total, a
+// separate xor-sum over the warp.
+template <int kK>
+__device__ __forceinline__ float dense_total(const float (&bw)[kK], float& lane_sum) {
+  lane_sum = 0.f;
+#pragma unroll
+  for (int m = 0; m < kK; ++m) lane_sum = __fadd_rn(lane_sum, bw[m]);
+  float total = lane_sum;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    total = __fadd_rn(total, __shfl_xor_sync(kDenseFull, total, off));
+  return total;
+}
+
+// dense_pick's operations for a lane's kK columns: the warp scan of the
+// lane sums, the lane's columns, the pick of u * total clamped to degree - 1.
+template <int kK>
+__device__ __forceinline__ int dense_pick_k(const int32_t (&ids)[kK], const float (&bw)[kK],
+                                            float lane_sum, float total, int p_cols, int k,
+                                            int col0, int lane, float u01) {
+  float incl = lane_sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_up_sync(kDenseFull, incl, off);
+    if (lane >= off) incl = __fadd_rn(incl, v);
+  }
+  float run = __shfl_up_sync(kDenseFull, incl, 1);
+  if (lane == 0) run = 0.f;
+  const float u = __fmul_rn(u01, total);
+  int below = 0, deg = 0;
+#pragma unroll
+  for (int m = 0; m < kK; ++m) {
+    if (m < k && col0 + m < p_cols) {
+      run = __fadd_rn(run, bw[m]);
+      below += run < u;
+      deg += ids[m] != kDensePad;
+    }
+  }
+  below = __reduce_add_sync(kDenseFull, below);
+  deg = __reduce_add_sync(kDenseFull, deg);
   return min(below, max(deg - 1, 0));
 }
 

@@ -214,22 +214,41 @@ def epd_bucket(carry, prev_rows, u, *, n_shards: int, capacity: int, rows_per_sh
     return send, slot
 
 
+def unsorted_requests(recv, p_cols: int, uniform: bool) -> int:
+    """The valid second-order requests whose N(prev) is not non-decreasing:
+    those K25 serves by the whole scan of N(prev), not by its bisection (0
+    when p = q = 1, where no request tests membership)."""
+    if uniform:
+        return 0
+    nprev = recv[:, REQUEST_HEAD:REQUEST_HEAD + p_cols]
+    biased = (recv[:, 0] >= 0) & (recv[:, 1] >= 0)
+    return int((biased & (nprev[:, 1:] < nprev[:, :-1]).any(1)).sum())
+
+
 def epd_serve(recv, local_adj, *, my_shard: int, rows_per_shard: int, return_param: float,
-              inout_param: float):
-    """K25: ``epd_serve_plain``'s responses, one warp a request."""
+              inout_param: float, scans: Optional[torch.Tensor] = None):
+    """K25: ``epd_serve_plain``'s responses, a warp a request at a time on a
+    persistent grid.  ``scans``, an int32 [1] tensor on the requests'
+    device, gains the requests served by the whole scan of an unsorted
+    N(prev) (``unsorted_requests``)."""
+    uniform = return_param == 1.0 and inout_param == 1.0
     if not recv.is_cuda:
+        if scans is not None:
+            scans += unsorted_requests(recv, local_adj.shape[1] // 2, uniform)
         return epd_serve_plain(recv, local_adj, my_shard=my_shard, rows_per_shard=rows_per_shard,
                                return_param=return_param, inout_param=inout_param)
     p_cols = local_adj.shape[1] // 2
     if p_cols > MAX_P or recv.shape[1] != REQUEST_HEAD + p_cols:
         raise ValueError(f"epd_serve kernel takes P <= {MAX_P} and requests [n, 3 + P]")
     _build.require_cuda("epd_serve", recv, local_adj)
+    if scans is not None and (scans.dtype != torch.int32 or scans.device != recv.device):
+        raise TypeError("scans must be an int32 tensor on the requests' device")
     resp = torch.empty((recv.shape[0], 1 + p_cols), dtype=torch.int32, device=recv.device)
     rc = _build.lib().n2v_epd_serve(
         _build.ptr(recv), recv.shape[0], _build.ptr(local_adj), local_adj.shape[0],
         _build.ptr(resp), int(my_shard) * rows_per_shard, p_cols,
         float(np.float32(1.0 / return_param)), float(np.float32(1.0 / inout_param)),
-        int(return_param == 1.0 and inout_param == 1.0), _build.stream_of(recv))
+        int(uniform), _build.ptr_or_null(scans), _build.stream_of(recv))
     _build.check(rc, "epd_serve")
     _build.launches["epd_serve"] += 1
     return resp
