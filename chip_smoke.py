@@ -17,7 +17,8 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
    PyTorch version on the same inputs:
    - K1 dense_walk on the smoke graph at (p, q) = (0.25, 4) and (1, 1),
      131,072 walkers: unit weights and power-of-two p, q make every partial
-     sum exact, so the paths must be bit-equal;
+     sum exact, so the paths must be bit-equal, and its ``scans`` counter
+     must equal the second-order steps from an unsorted N(prev) (0 here);
    - K2 sgns_grads, K3 adagrad_accumulate, K4 adagrad_apply: one step at
      V = 131,072, D = 128, S = 64, window 5, L1 = 21, at the main path's
      batch and at B = 8192; rtol 1e-4, atol 1e-6, because fp32 atomics
@@ -57,10 +58,15 @@ Phases, each printing JSON lines as it goes (a cut run keeps what it printed):
      superstep holds each kernel's whole buffers to its plain version's,
      bit-equal, at the full capacity and at 1/8 of it (lanes defer and some
      are unfinished at the bound), and both walks equal the mesh path's
-     (``check_ep_dense``);
+     (``check_ep_dense``); K24 alone on hand-made carried states at 1, 3
+     and 8 shards, 0 to 131,077 lanes, capacities that overflow
+     (``edge_cases_epd_bucket``);
 4. edge cases the main paths do not reach (K1 at P = 8 .. 256 with sinks,
-   dead lanes and general weights; K1 and K25 at P = 48, a width that is
-   not a power of two; the SGNS step at other shapes; K5 with
+   dead lanes and general weights; K1 on rows with permuted (id, weight)
+   columns and with repeated ids at P = 8, 48, 64 and 256, its ``scans``
+   counter held to the unsorted steps (``edge_cases_k1_orders``); K1 and
+   K25 at P = 48, a width that is not a power of two; the SGNS step at
+   other shapes; K5 with
    sinks and dead lanes, at P = 8 / C = 64, on a hub of degree 20,000
    (C = 512), and on general weights by chi-square with a heavy current
    vertex and a heavy previous vertex), and a small reference: the
@@ -826,11 +832,13 @@ def check_dense_walk(graph, n_walkers: int, walk_length: int, results: dict) -> 
     starts = (torch.arange(n_walkers, dtype=torch.int32, device=dev) % graph.n_vertices)
     for p, q in ((0.25, 4.0), (1.0, 1.0)):
         kw = dict(walk_length=walk_length, return_param=p, inout_param=q)
-        got = dense.dense_walk_chunk(packed, starts, 0, 0, **kw)
+        scans = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = dense.dense_walk_chunk(packed, starts, 0, 0, scans=scans, **kw)
         want = dense.dense_walk_chunk_plain(packed, starts, 0, 0, **kw)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         n_diff = int((got != want).sum())
+        unsorted = dense.unsorted_steps(packed, want, (p, q) == (1.0, 1.0))
         ms = time_ms(lambda: dense.dense_walk_chunk(packed, starts, 0, 0, **kw))
         plain_ms = time_ms(lambda: dense.dense_walk_chunk_plain(packed, starts, 0, 0, **kw),
                            reps=2, warmup=1)
@@ -842,9 +850,11 @@ def check_dense_walk(graph, n_walkers: int, walk_length: int, results: dict) -> 
         b_ms, b_by = bound_ms(n_bytes, biased * p_cols * p_cols)
         emit({"phase": "check", "kernel": "dense_walk", "p": p, "q": q,
               "walkers": n_walkers, "P": p_cols, "bit_equal": n_diff == 0,
-              "entries_differing": n_diff, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": b_ms, "bound_by": b_by})
+              "entries_differing": n_diff, "scans": int(scans), "unsorted_steps": unsorted,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
         require(n_diff == 0, f"dense_walk differs from its plain version at p={p} q={q}")
+        require(int(scans) == unsorted,
+                f"dense_walk scanned {int(scans)} steps, {unsorted} from unsorted rows")
         if (p, q) == (0.25, 4.0):  # the main path's setting
             results["dense_walk"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -1023,12 +1033,16 @@ def edge_cases() -> None:
         starts[::13] = -1
         for p, q in ((0.25, 4.0), (4.0, 0.25), (1.0, 1.0)):
             kw = dict(walk_length=30, return_param=p, inout_param=q)
-            got = dense.dense_walk_chunk(packed, starts, 1000, 99, **kw)
+            scans = torch.zeros(1, dtype=torch.int32, device=dev)
+            got = dense.dense_walk_chunk(packed, starts, 1000, 99, scans=scans, **kw)
             want = dense.dense_walk_chunk_plain(packed, starts, 1000, 99, **kw)
             n_diff = int((got != want).sum())
             require(n_diff == 0, f"dense_walk differs at P={packed.shape[1] // 2} p={p} q={q}")
+            require(int(scans) == dense.unsorted_steps(packed, want, (p, q) == (1.0, 1.0)),
+                    f"dense_walk's scans at P={packed.shape[1] // 2} p={p} q={q}")
         emit({"phase": "edge_case", "kernel": "dense_walk", "P": packed.shape[1] // 2,
-              "sink_ended_walks": int((got[:, -1] < 0).sum()), "bit_equal": True})
+              "sink_ended_walks": int((got[:, -1] < 0).sum()), "bit_equal": True,
+              "scans": int(scans)})
 
     src = np.array([0, 0, 1, 1, 1, 2, 2, 3], dtype=np.int32)
     dst = np.array([1, 2, 0, 2, 3, 0, 1, 1], dtype=np.int32)
@@ -1061,6 +1075,68 @@ def edge_cases() -> None:
         require(row["sgns_grads"]["staging"] == staged,
                 f"sgns_grads at L1={length} D={dim} S={n_neg} staged in "
                 f"{row['sgns_grads']['staging']}, expected {staged}")
+
+
+def _ordered_rows(rng, n: int, p_cols: int, kinds: str) -> np.ndarray:
+    """[n, 2P] packed rows, weights {0.5, 1, 2}, every 9th vertex a sink, a
+    vertex's row taken from ``kinds`` in turn: "s" sorted (ascending, pads
+    at the tail, as build_padded_adjacency packs it), "p" its live (id,
+    weight) columns permuted (pads still at the tail, where the pick's clamp
+    to degree - 1 needs them), "r" sorted with repeated ids."""
+    adj = np.full((n, 2 * p_cols), int(dense.PAD_ID), np.int32)
+    adj[:, p_cols:] = np.float32(0).view(np.int32)
+    for v in range(n):
+        if v % 9 == 4:
+            continue
+        d = int(rng.integers(1, min(p_cols, 200) + 1))
+        how = kinds[v % len(kinds)]
+        ids = (np.sort(rng.integers(0, max(d // 2, 1), d) * 5 % n) if how == "r"
+               else np.sort(rng.choice(n, d, replace=False)))
+        adj[v, :d] = ids
+        adj[v, p_cols:p_cols + d] = rng.choice(np.float32([0.5, 1.0, 2.0]), d).view(np.int32)
+        if how == "p":
+            perm = rng.permutation(d)
+            adj[v, :d] = adj[v, perm]
+            adj[v, p_cols:p_cols + d] = adj[v, p_cols + perm]
+    return adj
+
+
+def edge_cases_k1_orders() -> None:
+    """K1 on rows whose order is not build_padded_adjacency's, against its
+    plain version, bit-equal: rows with permuted (id, weight) columns mixed
+    with sorted ones, then rows with repeated ids alone, at P = 8, 48 (not
+    a power of two: lanes 24-31 own no column), 64 and 256, at (0.25, 4),
+    (4, 0.25) and (1, 1), with sinks and dead lanes; its ``scans`` counter
+    must equal the second-order steps from an unsorted N(prev)
+    (``dense.unsorted_steps``), which is > 0 on the mixed rows and 0 on
+    the sorted repeated ids (they are searched by the bisection)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    n = 700
+    for p_cols in (8, 48, 64, 256):
+        line = {"phase": "edge_case", "kernel": "dense_walk", "case": "row orders",
+                "P": p_cols}
+        for kinds in ("sp", "r"):
+            adj = torch.from_numpy(_ordered_rows(rng, n, p_cols, kinds)).to(dev)
+            starts = torch.arange(n, dtype=torch.int32, device=dev).repeat(2)
+            starts[::13] = -1
+            for p, q in ((0.25, 4.0), (4.0, 0.25), (1.0, 1.0)):
+                kw = dict(walk_length=25, return_param=p, inout_param=q)
+                scans = torch.zeros(1, dtype=torch.int32, device=dev)
+                got = dense.dense_walk_chunk(adj, starts, 3, 17, scans=scans, **kw)
+                want = dense.dense_walk_chunk_plain(adj, starts, 3, 17, **kw)
+                unsorted = dense.unsorted_steps(adj, want, (p, q) == (1.0, 1.0))
+                require(torch.equal(got, want),
+                        f"dense_walk differs on rows {kinds} at P = {p_cols}, p={p} q={q}")
+                require(int(scans) == unsorted,
+                        f"dense_walk scanned {int(scans)} steps of {unsorted} unsorted "
+                        f"(rows {kinds}, P = {p_cols}, p={p} q={q})")
+                require((unsorted > 0) == (kinds == "sp" and (p, q) != (1.0, 1.0)),
+                        f"{unsorted} unsorted steps on rows {kinds}, p={p} q={q}")
+                line[f"scans_{kinds}_p{p}_q{q}"] = int(scans)
+            line[f"sink_ended_walks_{kinds}"] = int((got[:, -1] < 0).sum())
+        line["bit_equal"] = True
+        emit(line)
 
 
 # K5's modes 2 (the main path's), 0, 2 again at p = 1, 2 at a trial cap of 2 (counted
@@ -6069,6 +6145,46 @@ def edge_cases_epd_serve() -> None:
         emit(line)
 
 
+def edge_cases_epd_bucket() -> None:
+    """K24 alone against its plain version on hand-made carried states, whole
+    buffers (send and slot) bit-equal: n = 0 (a rank with no walker: the
+    send buffer is still all -1), 1, 1,000 and 131,077 lanes (not a multiple
+    of the 256-lane tile), at 1, 3 and 8 shards (P = 64, 48 and 7: 16-byte
+    and 4-byte row copies), each at a capacity that holds every active lane
+    and at one that overflows (lanes deferred), with dead lanes, finished
+    lanes (cursor = L), first-order lanes (prev -1) and owners skewed toward
+    shard 0."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    n_v, walk_length = 200_000, 20
+    for n_shards, p_cols in ((1, 64), (3, 48), (8, 7)):
+        rps = -(-n_v // n_shards)
+        line = {"phase": "edge_case", "kernel": "epd_bucket", "n_shards": n_shards, "P": p_cols}
+        for n in (0, 1, 1000, 131077):
+            carry = np.zeros((4, n), np.int32)
+            skew = rng.random(n) < 0.4
+            carry[0] = np.where(skew, rng.integers(0, rps, n), rng.integers(0, n_v, n))
+            carry[1] = np.where(rng.random(n) < 0.2, -1, rng.integers(0, n_v, n))
+            carry[2] = rng.random(n) > 0.15
+            carry[3] = np.where(rng.random(n) < 0.2, walk_length, rng.integers(0, walk_length, n))
+            args = (torch.from_numpy(carry).to(dev),
+                    torch.from_numpy(rng.integers(0, n_v, (n, p_cols)).astype(np.int32)).to(dev),
+                    torch.rand(n, device=dev))
+            active = int(((carry[2] != 0) & (carry[3] < walk_length)).sum())
+            for cap in (max(n, 1), max(n // (4 * n_shards), 1)):
+                kw = dict(n_shards=n_shards, capacity=cap, rows_per_shard=rps,
+                          walk_length=walk_length)
+                got = epd.epd_bucket(*args, **kw)
+                want = epd.epd_bucket_plain(*args, **kw)
+                require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                        f"epd_bucket differs at n = {n}, {n_shards} shards, capacity {cap}: "
+                        f"{_max_diff(got[0], want[0])}, {_max_diff(got[1], want[1])}")
+                line[f"n{n}_cap{cap}_sent"] = int((want[1] < n_shards * cap).sum())
+            line[f"n{n}_active"] = active
+        line["bit_equal"] = True
+        emit(line)
+
+
 def main_path_epd(mesh, src, dst) -> dict:
     """``edge_partitioned_walk`` on ``make_mesh(1, 1)`` over NCCL: the dense
     graph of main_path (131,072 vertices, P = 64) partitioned over the data
@@ -6798,12 +6914,14 @@ def main() -> int:
         check_ep_dense(mesh, g, 4096, 20, results)
         edge_cases_wide_rows(mesh)
         edge_cases_epd_serve()
+        edge_cases_epd_bucket()
         check_col_sgns(mesh, 4096, 64, 21, 128, 5, True, results, "quick")
         check_col_sgns(mesh, 512, 16, 41, 32, 5, False, results, "quick, D = 32, L1 = 41")
         edge_cases_col_sgns()
         check_route(tree, head, walks_q.cpu().numpy()[:64], g.n_vertices, True, results, "quick")
         mesh_ranks(quick=True)
         edge_cases()
+        edge_cases_k1_orders()
         edge_cases_blocked()
         edge_cases_sl()
         check_wide(g, tree, tree_counts, results)
@@ -6879,6 +6997,7 @@ def main() -> int:
     check_ep_dense(mesh, g, 131072, 20, results)
     edge_cases_wide_rows(mesh)
     edge_cases_epd_serve()
+    edge_cases_epd_bucket()
     check_blocked_walk_sl(g_rmat, "RMAT scale 19", 131072, 20, results)
     check_blocked_walk_sl(g, "dense ER", 131072, 20, results)
     check_wide(g, tree, tree_counts, results)
@@ -6886,6 +7005,7 @@ def main() -> int:
     check_csr_walk(g_rmat, "RMAT scale 19", 131072, 20, True, results)
     edge_cases_csr()
     edge_cases()
+    edge_cases_k1_orders()
     edge_cases_blocked()
     edge_cases_sl()
     small_reference()

@@ -43,6 +43,9 @@ from _variants import (ROOT, build, card, patched, phase_read, probe_counters, p
 OUT = os.path.join(ROOT, "build", "plan_attribution")
 
 # ---- K20, two launches a call: probes in bucket_tile_rank ----
+# (the design of older trees, before K20 moved onto the grid ranking:
+# ``source`` writes in the given tree's own bucket_common.cuh, which still
+# has bucket_tile_rank)
 K20_PHASES_TWO = ["earlier tiles' counts (one thread's loop)", "lane state and warp ranks",
                   "offsets across the tile's warps"]
 

@@ -130,7 +130,7 @@ def lib() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         f32, u32 = ctypes.c_float, ctypes.c_uint32
         signatures = {
-            "n2v_dense_walk": [vp, i32, vp, vp, i64, i32, i64, u32, f32, f32, i32, vp],
+            "n2v_dense_walk": [vp, i32, vp, vp, i64, i32, i64, u32, f32, f32, i32, vp, vp],
             "n2v_sgns_grads": [vp, vp, i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, f32,
                                vp, vp, vp, vp, vp, i32, vp],
             "n2v_adagrad_accumulate": [vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, i32,

@@ -9,8 +9,8 @@ previous frontier) stays on their home rank.  A superstep is one
 request/response round over the data axis (two ``Mesh.all_to_all``s):
 
 1. **bucket** (K24 ``epd_bucket``, home): each active walker (alive,
-   cursor < L) is ranked within its owner(cur) in lane order, K20's
-   ranking; lanes past ``capacity`` defer to a later superstep.  The
+   cursor < L) is ranked within its owner(cur) in lane order, on K20's
+   grid ranking; lanes past ``capacity`` defer to a later superstep.  The
    request is ``[cur, prev, u bits, N(prev)[P]]``;
 2. **serve** (K25 ``epd_serve``, owner(cur)): the local row, the p/q bias
    against the carried N(prev), the exact inverse-CDF pick (K1's step);
@@ -58,6 +58,7 @@ from node2vec_torch.walk.dense import MAX_P, PAD_ID, shared_neighbor_mask
 CUR, PREV, ALIVE, CURSOR = range(4)
 CARRY_ROWS = 4
 REQUEST_HEAD = 3  # cur, prev, u bits; then N(prev)[P]
+BUCKET_TILE = 256  # K24's lanes a tile (csrc/epd_walk.cu kTile)
 
 
 def partition_packed_adjacency(packed_adj: np.ndarray, n_shards: int) -> Tuple[np.ndarray, int]:
@@ -189,7 +190,8 @@ def epd_advance_plain(carry, prev_rows, paths, slot, back, *, walk_length: int) 
 
 def epd_bucket(carry, prev_rows, u, *, n_shards: int, capacity: int, rows_per_shard: int,
                walk_length: int):
-    """K24: ``epd_bucket_plain``'s (send, slot), stable in lane order."""
+    """K24: ``epd_bucket_plain``'s (send, slot), stable in lane order, in
+    one cooperative launch that writes each slot once."""
     kw = dict(n_shards=n_shards, capacity=capacity, rows_per_shard=rows_per_shard,
               walk_length=walk_length)
     if not carry.is_cuda:
@@ -203,8 +205,8 @@ def epd_bucket(carry, prev_rows, u, *, n_shards: int, capacity: int, rows_per_sh
     n_req = n_shards * capacity
     send = torch.empty((n_req, REQUEST_HEAD + p_cols), dtype=torch.int32, device=carry.device)
     slot = torch.empty(n, dtype=torch.int32, device=carry.device)
-    tiles = torch.empty((max(-(-n // 1024), 1), n_shards), dtype=torch.int32,
-                        device=carry.device)
+    tiles = torch.empty((max(-(-n // BUCKET_TILE), 1), n_shards), dtype=torch.int32,
+                        device=carry.device)  # the blocks' counts (grid <= tiles)
     rc = _build.lib().n2v_epd_bucket(
         _build.ptr(carry), n, _build.ptr(prev_rows), _build.ptr(u), _build.ptr(send),
         _build.ptr(slot), _build.ptr(tiles), n_shards, capacity, rows_per_shard, walk_length,

@@ -15,6 +15,8 @@ for CPU tensors.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -120,6 +122,22 @@ def dense_walk_chunk_plain(
     return paths
 
 
+def unsorted_steps(packed_adj: torch.Tensor, paths: torch.Tensor, uniform: bool) -> int:
+    """The second-order steps of ``paths`` whose N(prev) (prev's row of ids)
+    is not non-decreasing: those K1 tests by the whole scan of N(prev), not
+    by its bisection (0 when p = q = 1, where no step tests membership).  A
+    step t >= 1 is taken by every walker alive at it (``paths[:, t] >= 0``),
+    a sink's included."""
+    if uniform or paths.shape[1] < 3:
+        return 0
+    p_cols = packed_adj.shape[1] // 2
+    ids = packed_adj[:, :p_cols]
+    unsorted = (ids[:, 1:] < ids[:, :-1]).any(1)
+    taken = paths[:, 1:-1] >= 0
+    prev = paths[:, :-2].clamp(min=0).long()
+    return int((taken & unsorted[prev]).sum())
+
+
 def dense_walk_chunk(
     packed_adj: torch.Tensor,  # [V, 2P] int32: sorted ids | bitcast f32 weights
     starts: torch.Tensor,  # [W] int32, negative = dead lane
@@ -129,35 +147,43 @@ def dense_walk_chunk(
     walk_length: int,
     return_param: float,
     inout_param: float,
+    scans: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Exact biased walks; returns [W, walk_length+1] int32 (-1 padded).
 
     Uniforms are keyed on (seed, global walker id, step) via the counter hash,
     so walk content is bit-invariant to walker_chunk and padding.  CPU tensors
-    take the plain version; CUDA tensors launch K1 or raise.
+    take the plain version; CUDA tensors launch K1 or raise.  ``scans``, an
+    int32 [1] tensor on the starts' device, gains the steps that tested
+    membership by the whole scan of an unsorted N(prev) (``unsorted_steps``).
     """
     if packed_adj.dtype != torch.int32 or starts.dtype != torch.int32:
         raise TypeError("dense_walk_chunk takes int32 packed_adj and starts")
     if packed_adj.dim() != 2 or packed_adj.shape[1] % 2 or starts.dim() != 1:
         raise ValueError("dense_walk_chunk takes packed_adj [V, 2P] and starts [W]")
+    uniform_bias = return_param == 1.0 and inout_param == 1.0
     if not packed_adj.is_cuda:
-        return dense_walk_chunk_plain(
+        paths = dense_walk_chunk_plain(
             packed_adj, starts, gid_base, seed, walk_length=walk_length,
             return_param=return_param, inout_param=inout_param,
         )
+        if scans is not None:
+            scans += unsorted_steps(packed_adj, paths, uniform_bias)
+        return paths
     p_cols = packed_adj.shape[1] // 2
     if p_cols > MAX_P:
         raise ValueError(f"dense_walk kernel takes P <= {MAX_P}, got {p_cols}")
     _build.require_cuda("dense_walk", packed_adj, starts)
+    if scans is not None and (scans.dtype != torch.int32 or scans.device != starts.device):
+        raise TypeError("scans must be an int32 tensor on the starts' device")
     n_walkers = starts.shape[0]
     paths = torch.empty((n_walkers, walk_length + 1), dtype=torch.int32, device=starts.device)
     lib = _build.lib()
-    uniform_bias = return_param == 1.0 and inout_param == 1.0
     rc = lib.n2v_dense_walk(
         _build.ptr(packed_adj), p_cols, _build.ptr(starts), _build.ptr(paths),
         n_walkers, walk_length, int(gid_base), seed & 0xFFFFFFFF,
         float(np.float32(1.0 / return_param)), float(np.float32(1.0 / inout_param)),
-        int(uniform_bias), _build.stream_of(starts),
+        int(uniform_bias), _build.ptr_or_null(scans), _build.stream_of(starts),
     )
     _build.check(rc, "dense_walk")
     _build.launches["dense_walk"] += 1
